@@ -1,0 +1,23 @@
+"""Request-path errors of the serving engine (the port's own copy of
+the three that `skypilot_tpu/robustness/errors.py` defines for the
+continuous-batching engine; the HTTP layer maps each to a status)."""
+
+
+class DeadlineExceededError(Exception):
+    """A request outlived its deadline: expired while queued, or
+    reaped mid-decode by the engine's deadline sweep (HTTP 504)."""
+
+
+class QueueSaturatedError(Exception):
+    """Admission control shed this request: the bounded queue is full
+    (HTTP 429 with a Retry-After hint)."""
+
+    def __init__(self, message: str, retry_after_s: float = 1.0
+                 ) -> None:
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
+class EngineDeadError(Exception):
+    """The engine's scheduler thread died; submit fails fast and
+    pending futures resolve with this (HTTP 503)."""

@@ -1,6 +1,7 @@
 """Request-path errors of the serving engine (the port's own copy of
-the three that `skypilot_tpu/robustness/errors.py` defines for the
-continuous-batching engine; the HTTP layer maps each to a status)."""
+the ones that `skypilot_tpu/robustness/errors.py` defines for the
+continuous-batching engine and the adapter registry; the HTTP layer
+maps each to a status)."""
 
 
 class DeadlineExceededError(Exception):
@@ -21,3 +22,15 @@ class QueueSaturatedError(Exception):
 class EngineDeadError(Exception):
     """The engine's scheduler thread died; submit fails fast and
     pending futures resolve with this (HTTP 503)."""
+
+
+class AdapterNotFoundError(Exception):
+    """The request named a model/adapter the serving process does not
+    have: not the base model and not in the adapter registry's
+    inventory (HTTP 404, OpenAI code `model_not_found`)."""
+
+
+class AdapterLoadError(Exception):
+    """A registered adapter failed to load onto the device (corrupt
+    artifact, shape/rank mismatch with the serving store). The request
+    fails 503; the engine and every other adapter keep serving."""

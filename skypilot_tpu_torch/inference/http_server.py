@@ -6,17 +6,23 @@ token-id endpoints):
   GET  /healthz            liveness
   GET  /readyz             readiness (503 while draining, engine dead
                            or queue saturated, with the reasons)
-  GET  /stats              slots, queue, KV pool, paged-attention
-                           kernel launches, request metrics (JSON)
+  GET  /stats              slots, queue, KV pool, kernel launches,
+                           adapters, request metrics (JSON)
+  GET  /v1/models          the base model plus the adapter inventory
   POST /generate           {"tokens": [[...]], "max_new_tokens": N,
                            "temperature", "top_k", "top_p",
-                           "stop_token_ids", "timeout"} ->
+                           "stop_token_ids", "timeout", "model"} ->
                            {"tokens": [[prompt ++ generated]]}
   POST /v1/completions     OpenAI completions with token prompts
                            ("prompt": [ids] or [[ids], ...]),
                            non-streaming; each choice carries the
                            generated ids in "tokens" ("text" is empty:
                            no tokenizer is loaded)
+
+The `model` field selects a LoRA adapter by name (the base model's name,
+'base', 'default' or no field = the base model); an unknown model is a
+404 with the OpenAI code `model_not_found`, an adapter that fails to
+load a 503.
 
 Streaming, text prompts, chat and /metrics are not ported yet and
 answer 400/404 saying so.
@@ -31,14 +37,12 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 
-from skypilot_tpu_torch.errors import (DeadlineExceededError,
+from skypilot_tpu_torch.errors import (AdapterLoadError,
+                                       AdapterNotFoundError,
+                                       DeadlineExceededError,
                                        EngineDeadError, QueueSaturatedError)
 from skypilot_tpu_torch.inference.runtime import InferenceRuntime
-from skypilot_tpu_torch.ops import paged_kernel
-
-
-class ModelNotFoundError(Exception):
-    """The request named a model this server does not serve (404)."""
+from skypilot_tpu_torch.ops import lora_kernel, paged_kernel
 
 
 def classify_error(e: Exception):
@@ -47,9 +51,9 @@ def classify_error(e: Exception):
         return 429, e.retry_after_s
     if isinstance(e, DeadlineExceededError):
         return 504, None
-    if isinstance(e, EngineDeadError):
+    if isinstance(e, (EngineDeadError, AdapterLoadError)):
         return 503, None
-    if isinstance(e, ModelNotFoundError):
+    if isinstance(e, AdapterNotFoundError):
         return 404, None
     return 400, None
 
@@ -69,7 +73,8 @@ class _FirstToken:
 
 def _run_rows(rt: InferenceRuntime, rows: List[List[int]], *,
               max_new: int, temperature: float, top_k: int, top_p: float,
-              stop_ids: List[int], deadline_s: float):
+              stop_ids: List[int], deadline_s: float,
+              adapter: Optional[str]):
     """Submit every row to the engine (cancelling the submitted ones if
     a later submission is shed) and wait for all. Returns (rows, ttft)."""
     limit = rt.limit_for()
@@ -84,7 +89,7 @@ def _run_rows(rt: InferenceRuntime, rows: List[List[int]], *,
             futs.append(rt.engine.submit(
                 row, max_new_tokens=max_new, temperature=temperature,
                 top_k=top_k, top_p=top_p, stop_token_ids=stop_ids,
-                on_token=latch, deadline_s=deadline_s))
+                on_token=latch, deadline_s=deadline_s, adapter=adapter))
     except Exception:
         if futs:
             rt.engine.cancel(futs)
@@ -132,9 +137,15 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
             headers = ({'Retry-After': str(max(1, int(retry_after)))}
                        if retry_after is not None else None)
             msg = f'{type(e).__name__}: {e}'
-            body = ({'error': {'message': msg, 'type': 'invalid_request_error'
-                               if code == 400 else 'server_error'}}
-                    if openai else {'error': msg})
+            if openai:
+                err = {'message': msg,
+                       'type': 'invalid_request_error'
+                       if code in (400, 404) else 'server_error'}
+                if code == 404:
+                    err['code'] = 'model_not_found'
+                body = {'error': err}
+            else:
+                body = {'error': msg}
             self._json(body, code, headers=headers)
 
         # -- GET ----------------------------------------------------------
@@ -154,6 +165,14 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                            200 if not reasons else 503)
             elif self.path in ('/stats', '/v1/stats'):
                 self._json(self._stats())
+            elif self.path == '/v1/models':
+                names = [rt.model_name]
+                if rt.adapters is not None:
+                    names += rt.adapters.inventory()
+                self._json({'object': 'list',
+                            'data': [{'id': name, 'object': 'model',
+                                      'owned_by': 'skypilot-tpu'}
+                                     for name in names]})
             elif self.path == '/':
                 self._json({'status': 'ok', 'model': rt.model_name,
                             'vocab_size': rt.vocab_size,
@@ -165,7 +184,7 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
         def _stats(self):
             eng = rt.engine
             cfg = eng.model.config
-            return {
+            body = {
                 'model': rt.model_name,
                 'device': str(eng.device),
                 'zone': rt.zone,
@@ -179,8 +198,13 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                 'paged_attention': {
                     'kernel_launches': paged_kernel.launches,
                     'plain_calls': paged_kernel.plain_calls},
+                'qkv_lora': {'kernel_launches': lora_kernel.launches,
+                             'plain_calls': lora_kernel.plain_calls},
                 'requests': rt.metrics.snapshot(),
             }
+            if rt.adapters is not None:
+                body['adapters'] = rt.adapters.stats()
+            return body
 
         # -- POST ---------------------------------------------------------
         def do_POST(self):  # noqa: N802
@@ -202,17 +226,10 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
             length = int(self.headers.get('Content-Length', 0))
             return json.loads(self.rfile.read(length))
 
-        def _check_model(self, req):
-            name = req.get('model')
-            if name not in (None, '', rt.model_name, 'base', 'default'):
-                raise ModelNotFoundError(
-                    f'model {name!r} does not exist (known models: '
-                    f'{[rt.model_name]})')
-
         def _generate(self):
             try:
                 req = self._read_body()
-                self._check_model(req)
+                adapter = rt.resolve_model(req.get('model'))
                 if req.get('stream'):
                     raise ValueError('stream=true is not supported by '
                                      'the PyTorch port yet')
@@ -226,7 +243,7 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                     top_p=float(req.get('top_p', 1.0)),
                     stop_ids=[int(t) for t in req.get('stop_token_ids',
                                                       [])],
-                    deadline_s=rt.deadline_for(req))
+                    deadline_s=rt.deadline_for(req), adapter=adapter)
                 rt.metrics.record(time.monotonic() - t0,
                                   sum(len(r) - len(p)
                                       for r, p in zip(rows, prompts)),
@@ -238,7 +255,7 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
         def _completions(self):
             try:
                 body = self._read_body()
-                self._check_model(body)
+                adapter = rt.resolve_model(body.get('model'))
                 if body.get('stream'):
                     raise ValueError('stream=true is not supported by '
                                      'the PyTorch port yet')
@@ -263,7 +280,8 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                     rt, fanned, max_new=max_new,
                     temperature=float(body.get('temperature', 1.0)),
                     top_k=0, top_p=float(body.get('top_p', 1.0)),
-                    stop_ids=[], deadline_s=rt.deadline_for(body))
+                    stop_ids=[], deadline_s=rt.deadline_for(body),
+                    adapter=adapter)
                 choices = []
                 n_gen = 0
                 for i, (ids, row) in enumerate(zip(fanned, rows)):

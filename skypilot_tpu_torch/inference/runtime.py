@@ -11,7 +11,9 @@ import threading
 from typing import Dict, List, Optional
 
 from skypilot_tpu_torch.device import resolve_device
+from skypilot_tpu_torch.errors import AdapterNotFoundError
 from skypilot_tpu_torch.inference import quant
+from skypilot_tpu_torch.inference.adapters import AdapterRegistry
 from skypilot_tpu_torch.models import convert, registry
 from skypilot_tpu_torch.models.batching import ContinuousBatchingEngine
 
@@ -63,12 +65,15 @@ class ServingMetrics:
 
 class InferenceRuntime:
     """Everything needed to execute generation requests: the model (on
-    its device), the continuous-batching engine, and request metrics."""
+    its device), the continuous-batching engine, the adapter registry
+    (None without --adapter-dir), and request metrics."""
 
     def __init__(self, *, engine: ContinuousBatchingEngine,
                  model_name: str, request_timeout: float = 600.0,
-                 zone: str = '') -> None:
+                 zone: str = '',
+                 adapters: Optional[AdapterRegistry] = None) -> None:
         self.engine = engine
+        self.adapters = adapters
         self.model = engine.model
         self.model_name = model_name
         self.vocab_size = engine.model.config.vocab_size
@@ -92,6 +97,24 @@ class InferenceRuntime:
             raise ValueError(f'timeout must be > 0, got {t}')
         return min(t, self.request_timeout)
 
+    def resolve_model(self, model_field) -> Optional[str]:
+        """Map a request's `model` field to an adapter name (None = the
+        base model: its name, 'base', 'default' or empty). Anything
+        else that is not a known adapter raises AdapterNotFoundError,
+        also when no adapters are configured."""
+        if model_field is None or model_field == '':
+            return None
+        name = str(model_field)
+        if name in (self.model_name, 'base', 'default'):
+            return None
+        if self.adapters is not None and self.adapters.exists(name):
+            return name
+        known = ([self.model_name] +
+                 (self.adapters.inventory()
+                  if self.adapters is not None else []))
+        raise AdapterNotFoundError(
+            f'model {name!r} does not exist (known models: {known})')
+
     def live_engines(self) -> List[ContinuousBatchingEngine]:
         return [self.engine]
 
@@ -103,7 +126,6 @@ class InferenceRuntime:
 #: that means "not asked for".
 _UNSUPPORTED_DEFAULTS = (
     ('hf', None), ('ckpt_dir', None), ('tensor', 1), ('stages', 1),
-    ('adapter_dir', None), ('max_adapters', 8), ('max_lora_rank', 0),
     ('speculative', 0), ('decode_chunk', 1), ('weight_dtype', 'bf16'),
     ('param_dtype', 'bf16'), ('role', ''), ('decode_peers', None),
     ('kv_spill_bytes', 0), ('kv_cold_dir', None), ('fault_plan', None),
@@ -128,7 +150,8 @@ def build_runtime(args, model=None) -> InferenceRuntime:
     config, the KV pool sized by --kv-dtype / --kv-pool-bytes, seeded
     weights initialized on the device (or `model`'s weight tensors,
     shared, when given: two runtimes that differ only in their KV pool
-    need one copy of the weights), and the continuous engine."""
+    need one copy of the weights), the adapter registry of
+    --adapter-dir, and the continuous engine."""
     bad = unsupported_flags(args)
     if bad:
         raise ValueError('not supported by the PyTorch port yet: '
@@ -152,13 +175,24 @@ def build_runtime(args, model=None) -> InferenceRuntime:
     print(f'kv cache: dtype={args.kv_dtype} pages={pages} '
           f'({quant.kv_page_bytes(cfg, args.kv_dtype)} bytes/page across '
           f'layers) on {device}', flush=True)
+    # Multi-LoRA adapter registry: scanned at startup, hot-loaded on
+    # demand.
+    adapters = None
+    if args.adapter_dir:
+        adapters = AdapterRegistry(args.adapter_dir, model,
+                                   max_adapters=args.max_adapters,
+                                   max_rank=args.max_lora_rank)
+        inv = adapters.inventory()
+        print(f'adapter registry: {len(inv)} adapters in '
+              f'{args.adapter_dir} (max {adapters.max_adapters} '
+              f'device-resident): {inv}', flush=True)
     engine = ContinuousBatchingEngine(
         model, num_slots=args.num_slots, max_total_len=args.max_total_len,
         prefix_caching=not args.no_prefix_caching,
         prefill_chunk=args.prefill_chunk,
         prefill_budget=args.prefill_budget,
         max_queue_requests=args.max_queue_requests,
-        max_queue_tokens=args.max_queue_tokens)
+        max_queue_tokens=args.max_queue_tokens, adapter_store=adapters)
     return InferenceRuntime(engine=engine, model_name=args.model,
                             request_timeout=args.request_timeout,
-                            zone=args.zone)
+                            zone=args.zone, adapters=adapters)

@@ -11,11 +11,12 @@ thread owns every device call and all slot state.
 
 Ported: `PrefixCache`, `submit`/`cancel`, deadlines, bounded-queue
 shedding, the scheduler thread and admission, chunked prefill, page
-growth with preemption, the plain decode step, and trash page 0. Not
-ported yet (the constructor raises when asked for them): pipelined,
-speculative and chunked decode, meshes and pipeline stages, LoRA,
-spill/cold tiers and chain export/import/evacuation, and the flight
-recorder and Prometheus metrics. Greedy outputs of the plain loop equal
+growth with preemption, the plain decode step, trash page 0, and
+multi-LoRA serving over an `adapter_store` (inference/adapters.py).
+Not ported yet (the constructor raises when asked for them): pipelined,
+speculative and chunked decode, meshes and pipeline stages, spill/cold
+tiers and chain export/import/evacuation, and the flight recorder and
+Prometheus metrics. Greedy outputs of the plain loop equal
 the pipelined loop's by the reference's own contract.
 
 The reference donated its cache to each jitted call; here the pool is
@@ -35,7 +36,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.errors import (DeadlineExceededError,
+from skypilot_tpu_torch.errors import (AdapterNotFoundError,
+                                       DeadlineExceededError,
                                        EngineDeadError, QueueSaturatedError)
 from skypilot_tpu_torch.models.generate import sample_tokens
 from skypilot_tpu_torch.models.llama import PagedKVCache
@@ -163,7 +165,6 @@ class ContinuousBatchingEngine:
             ('speculative_k', speculative_k), ('decode_chunk',
                                                decode_chunk > 1),
             ('pipeline_decode', pipeline_decode),
-            ('adapter_store', adapter_store is not None),
             ('kv_spill_bytes', kv_spill_bytes), ('kv_cold_dir', kv_cold_dir),
             ('mesh', mesh is not None)) if on]
         if asked:
@@ -188,6 +189,9 @@ class ContinuousBatchingEngine:
                 f'{max_total_len} sequence (page 0 is reserved)')
         self.model = model
         self.device = model.device
+        # Multi-LoRA serving (inference/adapters.py): each slot may carry
+        # an adapter id into the shared forward.
+        self.adapter_store = adapter_store
         self.num_slots = num_slots
         self.max_total_len = max_total_len
         self.temperature = temperature
@@ -227,6 +231,9 @@ class ContinuousBatchingEngine:
         self.on_tokens: List[Optional[Callable[[int], None]]] = \
             [None] * num_slots
         self.deadlines = np.zeros((num_slots,), np.float64)  # 0 = none
+        # Per-slot adapter: device-store row id (0 = base model) and name.
+        self.slot_adapter = np.zeros((num_slots,), np.int32)
+        self.slot_adapter_name: List[Optional[str]] = [None] * num_slots
         self._prefill_order: 'collections.deque' = collections.deque()
 
         self.decode_calls = 0
@@ -283,14 +290,20 @@ class ContinuousBatchingEngine:
                top_k: int = 0, top_p: float = 1.0,
                stop_token_ids: Optional[List[int]] = None,
                on_token: Optional[Callable[[int], None]] = None,
-               deadline_s: Optional[float] = None) -> 'Future':
+               deadline_s: Optional[float] = None,
+               adapter: Optional[str] = None) -> 'Future':
         """Queue a request; the Future resolves to prompt ++ generated
         tokens. `temperature` overrides the engine default (0 =
         greedy); `top_k`/`top_p` filter sampling (0 / 1.0 = off);
         `stop_token_ids` end this request on any listed token (kept in
         the output). `deadline_s` bounds the request's whole life from
         now (DeadlineExceededError). `on_token` is called once per
-        committed generated token, on the scheduler thread. Raises
+        committed generated token, on the scheduler thread. `adapter`
+        names a LoRA adapter of the engine's adapter store (None = the
+        base model): its factors join the shared forward, its KV pages
+        are keyed per adapter in the prefix cache, and it stays pinned
+        in the store while the request holds a slot. Raises
+        AdapterNotFoundError for an unknown adapter,
         QueueSaturatedError when the bounded queue is full and
         EngineDeadError when the scheduler thread died."""
         if self._dead.is_set():
@@ -303,6 +316,14 @@ class ContinuousBatchingEngine:
             raise ValueError(f'top_p must be in (0, 1], got {top_p}')
         if top_k < 0:
             raise ValueError(f'top_k must be >= 0, got {top_k}')
+        if adapter is not None:
+            if self.adapter_store is None:
+                raise AdapterNotFoundError(
+                    f'adapter {adapter!r} requested but this engine '
+                    f'has no adapter store (serve_lm --adapter-dir)')
+            # Inventory check only (404 fast); the load happens at
+            # admission on the scheduler thread.
+            self.adapter_store.resolve(adapter)
         with self._shed_lock:
             if self.max_queue_requests and \
                     self._queue.qsize() + len(self._ready) >= \
@@ -323,10 +344,12 @@ class ContinuousBatchingEngine:
         deadline = (time.monotonic() + float(deadline_s)
                     if deadline_s is not None else 0.0)
         fut: Future = Future()
+        # item[0] is the prompt, item[-2] the deadline, item[-1] the
+        # future: the rest of the scheduler relies on those positions.
         self._queue.put((list(prompt), int(max_new_tokens), float(temp),
                          int(top_k), float(top_p),
-                         frozenset(stop_token_ids or ()), on_token,
-                         deadline, fut))
+                         frozenset(stop_token_ids or ()), adapter,
+                         on_token, deadline, fut))
         return fut
 
     def cancel(self, futs) -> None:
@@ -450,6 +473,7 @@ class ContinuousBatchingEngine:
         traceback.print_exc()
         self.engine_restarts += 1
         for slot in range(self.num_slots):
+            self._release_adapter(slot)
             fut = self.futures[slot]
             self.futures[slot] = None
             self.active[slot] = False
@@ -521,6 +545,7 @@ class ContinuousBatchingEngine:
         self.active[slot] = False
         self.on_tokens[slot] = None
         self.deadlines[slot] = 0.0
+        self._release_adapter(slot)
         if self.prefilling[slot]:
             self.prefilling[slot] = False
             try:
@@ -571,8 +596,8 @@ class ContinuousBatchingEngine:
                 break
         while self._ready and not self._occupied().all():
             item = self._ready.popleft()
-            (prompt, max_new, temp, top_k, top_p, stops, on_token,
-             deadline, fut) = item
+            (prompt, max_new, temp, top_k, top_p, stops, adapter,
+             on_token, deadline, fut) = item
             self._queued_tokens_sub(len(prompt))
             if deadline and time.monotonic() > deadline:
                 self.deadline_exceeded += 1
@@ -583,11 +608,31 @@ class ContinuousBatchingEngine:
                 fut.set_result(list(prompt))
                 continue
             slot = int(np.argmin(self._occupied()))  # first free slot
+            # Adapter before page work: the store pins it for the slot's
+            # lifetime and the prefix-cache keys are salted with it.
+            aid = 0
+            salt = b''
+            if adapter is not None:
+                try:
+                    aid = self.adapter_store.acquire(adapter)
+                except Exception as e:  # pylint: disable=broad-except
+                    # Missing or unloadable artifact: fail THIS request
+                    # (404/503 at the HTTP layer); the engine keeps going.
+                    fut.set_exception(e)
+                    continue
+                if aid is None:
+                    # Every store slot is pinned by a running request:
+                    # back to the HEAD until one frees.
+                    self._queued_tokens_add(len(prompt))
+                    self._ready.appendleft(item)
+                    break
+                salt = self.adapter_store.cache_salt(adapter)
             plen = len(prompt)
             shared: List[int] = []
             keys: List[bytes] = []
             if self.prefix_cache is not None:
-                keys = PrefixCache.chain_keys(prompt, self.page_size)
+                keys = PrefixCache.chain_keys(prompt, self.page_size,
+                                              salt=salt)
                 shared = self.prefix_cache.lookup_acquire(keys)
                 # At least ONE token must prefill (the continuation
                 # samples from its logits).
@@ -604,6 +649,8 @@ class ContinuousBatchingEngine:
                 # Pool exhausted: back to the HEAD, stop admitting.
                 if self.prefix_cache is not None:
                     self.prefix_cache.release(shared)
+                if aid:
+                    self.adapter_store.release(aid)
                 self._queued_tokens_add(len(prompt))
                 self._ready.appendleft(item)
                 break
@@ -631,6 +678,8 @@ class ContinuousBatchingEngine:
             self.stop_ids[slot] = stops
             self.on_tokens[slot] = on_token
             self.deadlines[slot] = deadline
+            self.slot_adapter[slot] = aid
+            self.slot_adapter_name[slot] = adapter if aid else None
             self.prefilling[slot] = True
             self._prefill_order.append(slot)
             admitted = True
@@ -664,7 +713,8 @@ class ContinuousBatchingEngine:
                                  device=dev)[None]
         page_row = torch.from_numpy(self.page_table[slot:slot + 1]).to(dev)
         hidden = self.model.hidden(tokens, positions, self.cache, page_row,
-                                   prefill=offset == 0)
+                                   prefill=offset == 0,
+                                   **self._slot_lora_args(slot))
         self.prefill_chunks_run += 1
         return self.model.logits(hidden[0, n - 1])
 
@@ -756,11 +806,16 @@ class ContinuousBatchingEngine:
                 self.allocated_tokens[slot] += self.page_size
             if not exhausted:
                 continue
+            # The request keeps its adapter name; the store ref drops
+            # with the slot and is re-acquired (reloaded if evicted
+            # meanwhile) at re-admission.
             fut = self.futures[slot]
+            adapter_name = self.slot_adapter_name[slot]
             remaining = int(self.limits[slot]) - len(self.outputs[slot])
             self.futures[slot] = None
             self.active[slot] = False
             self.preemptions += 1
+            self._release_adapter(slot)
             self._release_slot_pages(slot, promote=False)
             if fut is not None:
                 preempted.append((list(self.outputs[slot]),
@@ -768,7 +823,7 @@ class ContinuousBatchingEngine:
                                   float(self.temps[slot]),
                                   int(self.top_ks[slot]),
                                   float(self.top_ps[slot]),
-                                  self.stop_ids[slot],
+                                  self.stop_ids[slot], adapter_name,
                                   self.on_tokens[slot],
                                   float(self.deadlines[slot]), fut))
                 self._queued_tokens_add(len(self.outputs[slot]))
@@ -804,6 +859,38 @@ class ContinuousBatchingEngine:
         self.page_table[slot, :] = 0
         self.allocated_tokens[slot] = 0
 
+    def _release_adapter(self, slot: int) -> None:
+        """Unpin the slot's adapter (if any) and account its committed
+        tokens. Idempotent: the slot's adapter id is cleared on the
+        first call."""
+        aid = int(self.slot_adapter[slot])
+        if not aid:
+            return
+        self.slot_adapter[slot] = 0
+        self.slot_adapter_name[slot] = None
+        n_gen = max(len(self.outputs[slot]) - int(self.prompt_len[slot]), 0)
+        self.adapter_store.release(aid, tokens=n_gen)
+
+    def _lora_args(self) -> Dict[str, object]:
+        """LoRA kwargs of a decode round: the stacked factors and one
+        adapter id per lane, where free and prefilling lanes carry 0.
+        {} while every decoding lane is the base model, so base-only
+        rounds run no LoRA code at all."""
+        ids = np.where(self.active, self.slot_adapter, 0).astype(np.int32)
+        if self.adapter_store is None or not ids.any():
+            return {}
+        return {'lora': self.adapter_store.model_lora(),
+                'adapter_ids': torch.from_numpy(ids).to(self.device)}
+
+    def _slot_lora_args(self, slot: int) -> Dict[str, object]:
+        """LoRA kwargs of a batch-1 prefill chunk of `slot`."""
+        aid = int(self.slot_adapter[slot])
+        if not aid:
+            return {}
+        return {'lora': self.adapter_store.model_lora(),
+                'adapter_ids': torch.tensor([aid], dtype=torch.int32,
+                                            device=self.device)}
+
     # -- decode -------------------------------------------------------------
     def _emit(self, slot: int, tok: int) -> None:
         """Streaming callback; a broken consumer is dropped, never
@@ -822,6 +909,7 @@ class ContinuousBatchingEngine:
         self.active[slot] = False
         self.on_tokens[slot] = None
         self.deadlines[slot] = 0.0
+        self._release_adapter(slot)
         was_prefilling = bool(self.prefilling[slot])
         if was_prefilling:
             # Cancelled mid-prefill: resolve with the prompt as-is.
@@ -865,7 +953,8 @@ class ContinuousBatchingEngine:
         cur = torch.from_numpy(self.cur_token).to(dev)[:, None]
         pos = torch.from_numpy(self.pos).to(dev)[:, None]
         table = torch.from_numpy(self.page_table).to(dev)
-        hidden = self.model.hidden(cur, pos, self.cache, table)
+        hidden = self.model.hidden(cur, pos, self.cache, table,
+                                   **self._lora_args())
         logits = self.model.logits(hidden[:, 0])
         if (self.temps > 0).any():
             out = sample_tokens(

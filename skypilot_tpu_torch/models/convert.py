@@ -4,7 +4,8 @@ init on the device.
 `params_from_jax` maps the tree that the reference's
 `model.init(...)['params']` gives (every leaf as a float32 numpy array;
 Dense kernels stored [in, out]) onto the port's modules, and raises on
-any leaf it did not consume. `init_params` is the seeded init the card
+any leaf it did not consume; `lora_from_jax` does the same for LoRA
+factor trees. `init_params` is the seeded init the card
 uses: normal(0, 0.02) for Dense kernels, the embedding and the head,
 ones for norms, zeros for biases. Nothing is downloaded.
 """
@@ -78,6 +79,36 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig,
     if flat:
         raise ValueError(f'param tree leaves not consumed: {sorted(flat)}')
     return assemble(cfg, state)
+
+
+def lora_from_jax(tree: Mapping[str, Any], scale: float = 1.0
+                  ) -> Dict[str, Any]:
+    """The port's `lora` structure ({'scale', 'layers': {'layer_i':
+    {target: {'a', 'b'}}}}, float32 numpy leaves) from a reference LoRA
+    pytree: raw per-layer factors (`scale` applies) or the model form
+    {'scale', 'layers'} (its own scale wins). Factors keep their
+    orientation (a [.., d_in, r], b [.., r, d_out]): unlike the base
+    kernels they are not transposed. Raises on any stray key or
+    leaf."""
+    from skypilot_tpu_torch.models.lora import ALL_TARGETS
+    if 'layers' in tree or 'scale' in tree:
+        stray = sorted(set(tree) - {'scale', 'layers'})
+        if stray:
+            raise ValueError(f'lora tree keys not consumed: {stray}')
+        scale, tree = float(np.asarray(tree['scale'])), tree['layers']
+    layers: Dict[str, Any] = {}
+    for lname, layer in tree.items():
+        if not lname.startswith('layer_') or not isinstance(layer, Mapping):
+            raise ValueError(f'lora tree leaf not consumed: {lname!r}')
+        out = layers[lname] = {}
+        for target, factors in layer.items():
+            if target not in ALL_TARGETS or not isinstance(
+                    factors, Mapping) or set(factors) != {'a', 'b'}:
+                raise ValueError(f'lora tree leaf not consumed: '
+                                 f'{lname}/{target}')
+            out[target] = {k: np.asarray(v, np.float32)
+                           for k, v in factors.items()}
+    return {'scale': float(scale), 'layers': layers}
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0,

@@ -14,6 +14,13 @@ Modes of `Llama.forward`:
   - paged, S > 1, prefill=False: the chunk attends the row's full
     history through the page table.
 The KV pool (`PagedKVCache`) is preallocated and updated in place.
+
+Multi-LoRA: `lora` = {'scale', 'layers': {'layer_i': {target: {'a': [N,
+d_in, r], 'b': [N, r, d_out]}}}} (models/lora.py) with `adapter_ids`
+[B] selecting each row's stacked factors. A projection's delta is
+added to its output (bias included) before the reshape and RoPE; when
+wq, wk and wv all carry factors, their three deltas come from one
+`fused_qkv_lora_delta` call. With no `lora`, nothing LoRA runs.
 """
 from __future__ import annotations
 
@@ -25,7 +32,9 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from skypilot_tpu_torch.models import lora as lora_lib
 from skypilot_tpu_torch.ops import attention as attention_ops
+from skypilot_tpu_torch.ops import lora_kernel
 from skypilot_tpu_torch.ops import paged_attention as paged_ops
 
 
@@ -169,6 +178,16 @@ class RMSNorm(nn.Module):
         return (x32 * torch.rsqrt(var + self.eps) * self.scale).to(self.dtype)
 
 
+def _lora(name: str, y: torch.Tensor, x: torch.Tensor,
+          lora: Optional[dict], adapter_ids: Optional[torch.Tensor],
+          scale: float) -> torch.Tensor:
+    """`y` plus projection `name`'s LoRA delta on input `x`; `y` itself
+    when this layer carries no factors for it."""
+    if lora is None or name not in lora:
+        return y
+    return lora_lib.apply_delta(y, x, lora[name], adapter_ids, scale)
+
+
 def _linear(d_in: int, d_out: int, dtype: torch.dtype,
             bias: bool = False) -> nn.Linear:
     layer = nn.Linear(d_in, d_out, bias=bias, dtype=dtype)
@@ -193,13 +212,26 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 kv: Optional[dict] = None,
                 page_indices: Optional[torch.Tensor] = None,
-                prefill: bool = False) -> torch.Tensor:
+                prefill: bool = False, lora: Optional[dict] = None,
+                adapter_ids: Optional[torch.Tensor] = None,
+                lora_scale: float = 1.0) -> torch.Tensor:
         cfg = self.config
         batch, seq, _ = x.shape
         hd = cfg.head_dim
-        q = self.wq(x).reshape(batch, seq, cfg.num_heads, hd)
-        k = self.wk(x).reshape(batch, seq, cfg.num_kv_heads, hd)
-        v = self.wv(x).reshape(batch, seq, cfg.num_kv_heads, hd)
+        q, k, v = self.wq(x), self.wk(x), self.wv(x)
+        if lora is not None and all(t in lora for t in ('wq', 'wk', 'wv')):
+            dq, dk, dv = lora_kernel.fused_qkv_lora_delta(
+                x, lora['wq'], lora['wk'], lora['wv'], adapter_ids)
+            q = q + (lora_scale * dq).to(q.dtype)
+            k = k + (lora_scale * dk).to(k.dtype)
+            v = v + (lora_scale * dv).to(v.dtype)
+        else:
+            q = _lora('wq', q, x, lora, adapter_ids, lora_scale)
+            k = _lora('wk', k, x, lora, adapter_ids, lora_scale)
+            v = _lora('wv', v, x, lora, adapter_ids, lora_scale)
+        q = q.reshape(batch, seq, cfg.num_heads, hd)
+        k = k.reshape(batch, seq, cfg.num_kv_heads, hd)
+        v = v.reshape(batch, seq, cfg.num_kv_heads, hd)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
 
@@ -239,7 +271,8 @@ class Attention(nn.Module):
                 lengths=positions[:, 0] + 1, page_indices=page_indices,
                 k_scales=kv.get('k_scales'), v_scales=kv.get('v_scales'))
             out = out[:, None].to(cfg.dtype)
-        return self.wo(out.reshape(batch, seq, cfg.num_heads * hd))
+        out = out.reshape(batch, seq, cfg.num_heads * hd)
+        return _lora('wo', self.wo(out), out, lora, adapter_ids, lora_scale)
 
 
 class FeedForward(nn.Module):
@@ -251,8 +284,15 @@ class FeedForward(nn.Module):
         self.w_up = _linear(cfg.embed_dim, cfg.mlp_dim, cfg.dtype)
         self.w_down = _linear(cfg.mlp_dim, cfg.embed_dim, cfg.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
+    def forward(self, x: torch.Tensor, lora: Optional[dict] = None,
+                adapter_ids: Optional[torch.Tensor] = None,
+                lora_scale: float = 1.0) -> torch.Tensor:
+        gate = _lora('w_gate', self.w_gate(x), x, lora, adapter_ids,
+                     lora_scale)
+        up = _lora('w_up', self.w_up(x), x, lora, adapter_ids, lora_scale)
+        h = F.silu(gate) * up
+        return _lora('w_down', self.w_down(h), h, lora, adapter_ids,
+                     lora_scale)
 
 
 class Block(nn.Module):
@@ -266,10 +306,11 @@ class Block(nn.Module):
         self.mlp = FeedForward(cfg)
 
     def forward(self, x, positions, kv=None, page_indices=None,
-                prefill=False):
+                prefill=False, lora=None, adapter_ids=None, lora_scale=1.0):
         x = x + self.attn(self.attn_norm(x), positions, kv, page_indices,
-                          prefill)
-        return x + self.mlp(self.mlp_norm(x))
+                          prefill, lora, adapter_ids, lora_scale)
+        return x + self.mlp(self.mlp_norm(x), lora, adapter_ids,
+                            lora_scale)
 
 
 class Llama(nn.Module):
@@ -305,8 +346,17 @@ class Llama(nn.Module):
                positions: Optional[torch.Tensor] = None,
                cache: Optional[PagedKVCache] = None,
                page_indices: Optional[torch.Tensor] = None,
-               prefill: bool = False) -> torch.Tensor:
+               prefill: bool = False, lora: Optional[dict] = None,
+               adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`lora` = {'scale', 'layers'} with stacked factors and
+        `adapter_ids` [B] picking each row's adapter (see module doc);
+        single-adapter (training) factors are not ported yet."""
         batch, seq = tokens.shape
+        if (lora is None) != (adapter_ids is None):
+            raise ValueError('pass lora and adapter_ids together (stacked '
+                             'factors; single-adapter mode is not ported)')
+        lora_scale = float(lora['scale']) if lora is not None else 1.0
+        lora_layers = lora['layers'] if lora is not None else {}
         if positions is None:
             positions = torch.arange(seq, dtype=torch.int32,
                                      device=tokens.device).expand(batch, seq)
@@ -317,7 +367,8 @@ class Llama(nn.Module):
         for i, block in enumerate(self.layers):
             x = block(x, positions,
                       cache.layers[i] if cache is not None else None,
-                      page_indices, prefill)
+                      page_indices, prefill, lora_layers.get(f'layer_{i}'),
+                      adapter_ids, lora_scale)
         return self.final_norm(x)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -327,6 +378,8 @@ class Llama(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[PagedKVCache] = None,
                 page_indices: Optional[torch.Tensor] = None,
-                prefill: bool = False) -> torch.Tensor:
+                prefill: bool = False, lora: Optional[dict] = None,
+                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.logits(self.hidden(tokens, positions, cache,
-                                       page_indices, prefill))
+                                       page_indices, prefill, lora,
+                                       adapter_ids))

@@ -64,13 +64,14 @@ def available() -> bool:
 
 def _validate(impl: str) -> None:
     if impl not in IMPLS:
-        raise ValueError(f'unknown paged-attention impl {impl!r} '
+        raise ValueError(f'unknown kernel impl {impl!r} '
                          f'(choices: {", ".join(IMPLS)})')
 
 
 @contextlib.contextmanager
 def impl_scope(impl: str):
-    """Route 'auto' calls to `impl` inside the block."""
+    """Route 'auto' calls of every kernel wrapper (this module's and
+    ops/lora_kernel.py's) to `impl` inside the block."""
     global _default_impl
     _validate(impl)
     prev = _default_impl

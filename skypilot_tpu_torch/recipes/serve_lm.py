@@ -12,6 +12,8 @@ without `--cpu` it exits with an error.
       --continuous-batching --kv-dtype int8 --kv-pool-bytes 8000000000
   python -m skypilot_tpu_torch.recipes.serve_lm --cpu --model llama-tiny \\
       --continuous-batching       # a local probe on the CPU
+  python -m skypilot_tpu_torch.recipes.serve_lm --model llama3-8b \\
+      --continuous-batching --adapter-dir adapters/ --max-adapters 4
 """
 from __future__ import annotations
 
@@ -63,6 +65,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help='shed once queued prompts hold T tokens')
     p.add_argument('--cpu', action='store_true',
                    help='run on the CPU (default: the GPU)')
+    p.add_argument('--adapter-dir', default=None, metavar='DIR',
+                   help='multi-LoRA serving: a local or gs:// '
+                        'directory of adapter artifacts '
+                        '(<name>/adapter_config.json + weights, '
+                        'the train_lm --lora output). The '
+                        '`model` field on /v1/* and /generate* '
+                        'selects an adapter by name; adapters '
+                        'hot-load on first use and LRU-evict '
+                        'under the --max-adapters device budget')
+    p.add_argument('--max-adapters', type=int, default=8, metavar='N',
+                   help='device-resident adapter slots in the '
+                        'stacked LoRA store (memory = N x '
+                        'per-adapter factor bytes; see '
+                        'docs/guides.md "Multi-LoRA serving")')
+    p.add_argument('--max-lora-rank', type=int, default=0, metavar='R',
+                   help='store rank ceiling (smaller-rank '
+                        'adapters zero-pad). 0 = the max rank '
+                        'seen in --adapter-dir at startup; set '
+                        'it explicitly if bigger-rank adapters '
+                        'will be hot-dropped in later')
     # The reference's flags for features this port does not have yet:
     # parsed so the command line stays the same, refused if used.
     p.add_argument('--hf', default=None, metavar='DIR')
@@ -71,9 +93,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--speculative', type=int, default=0, metavar='K')
     p.add_argument('--tensor', type=int, default=1)
     p.add_argument('--stages', type=int, default=1)
-    p.add_argument('--adapter-dir', default=None, metavar='DIR')
-    p.add_argument('--max-adapters', type=int, default=8, metavar='N')
-    p.add_argument('--max-lora-rank', type=int, default=0, metavar='R')
     p.add_argument('--weight-dtype', choices=['bf16', 'int8'],
                    default='bf16')
     p.add_argument('--param-dtype', choices=['bf16', 'f32'],

@@ -291,10 +291,14 @@ def lora_case(dtype, rank, batch, seq, ids, seed, n_adapters=4):
 def lora_bound_ms(c):
     """Larger of: bytes (x, the q/k/v factors of every distinct id in
     the batch, id 0 included, and the f32 outputs) over HBM, and
-    2*B*S*(3*d_in*r + r*sum(d_out)) flops over the f32 CUDA-core peak."""
+    2*B*S*(3*d_in*r + r*sum(d_out)) flops over the peak for the
+    factors' type: bf16 products are exact in f32, so bf16 tensor cores
+    accumulating in f32 compute the same function."""
     x = c['x']
     batch, seq, d_in = x.shape
     rank = c['f'][0]['a'].shape[2]
+    peak = F32_FLOPS if c['f'][0]['a'].dtype == torch.float32 \
+        else BF16_FLOPS
     distinct = len(set(c['ids'].tolist()))
     per_row = sum(f[k][0].numel() * f[k].element_size() for f in c['f']
                   for k in ('a', 'b'))
@@ -302,7 +306,7 @@ def lora_bound_ms(c):
     n_bytes = x.numel() * x.element_size() + distinct * per_row + outs \
         + 4 * batch
     flops = 2.0 * batch * seq * (3 * d_in * rank + rank * (D_Q + 2 * D_KV))
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                        else 'operations'), n_bytes
 

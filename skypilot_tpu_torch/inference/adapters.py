@@ -26,7 +26,7 @@ applies scale 1 and the stacks are byte-identical to the reference's.
 
 Not ported yet: the `adapters.load` fault point (with `--fault-plan`),
 Prometheus series (the counters are plain ints), tensor-parallel
-replication (`mesh=` is refused).
+replication (the registry takes no `mesh=`; the engine refuses one).
 """
 from __future__ import annotations
 
@@ -51,11 +51,7 @@ class AdapterRegistry:
     thread acquires/releases, HTTP threads read inventory/stats."""
 
     def __init__(self, adapter_dir: str, model, *,
-                 max_adapters: int = 8, max_rank: int = 0,
-                 mesh=None) -> None:
-        if mesh is not None:
-            raise ValueError('tensor-parallel adapter stores are not '
-                             'supported by the PyTorch port yet')
+                 max_adapters: int = 8, max_rank: int = 0) -> None:
         if max_adapters < 1:
             raise ValueError(
                 f'max_adapters must be >= 1, got {max_adapters}')

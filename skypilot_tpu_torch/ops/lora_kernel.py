@@ -47,7 +47,8 @@ def qkv_lora_dispatches_per_layer(impl: str) -> int:
     """Batched-LoRA dispatches for the three QKV projections of one
     layer on a resolved route: the kernel folds them into ONE call (of
     `DEVICE_LAUNCHES_PER_CALL` device launches); the plain version
-    runs one gather+matmul chain per projection."""
+    runs one gather+matmul chain per projection. profile_decode.py
+    holds a traced LoRA round's kernel launches to this count."""
     if impl not in IMPLS:
         raise ValueError(f'unknown impl {impl!r} (choices: '
                          f'{", ".join(IMPLS)})')

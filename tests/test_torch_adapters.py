@@ -274,7 +274,7 @@ def test_registry_lru_rank_ceiling_hot_load(adapter_dir):
     finally:
         shutil.rmtree(os.path.join(root, 'ad2'))
         shutil.rmtree(os.path.join(root, 'too-big'))
-    with pytest.raises(ValueError):
+    with pytest.raises(TypeError):     # no tensor-parallel store yet
         AdapterRegistry(root, port, mesh=object())
     assert classify_error(AdapterLoadError('x'))[0] == 503
     assert classify_error(AdapterNotFoundError('x'))[0] == 404

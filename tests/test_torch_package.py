@@ -1,6 +1,7 @@
 """Package rules of the PyTorch/CUDA port (skypilot_tpu_torch/):
 
-  - neither the package nor chip_smoke.py imports jax, flax, optax,
+  - neither the package nor chip_smoke.py / profile_decode.py imports
+    jax, flax, optax,
     ml_dtypes or skypilot_tpu (an AST scan), and serve_lm imports with
     JAX made unimportable;
   - entry points default to CUDA and raise without it unless the CPU
@@ -34,7 +35,7 @@ FORBIDDEN = ('jax', 'flax', 'optax', 'ml_dtypes', 'skypilot_tpu')
 
 def _sources():
     return sorted((ROOT / 'skypilot_tpu_torch').rglob('*.py')) + [
-        ROOT / 'chip_smoke.py']
+        ROOT / 'chip_smoke.py', ROOT / 'profile_decode.py']
 
 
 def _imported_roots(path: Path):

@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Drives the port's main paths (`serve_lm --continuous-batching` on a
-paged KV pool, base model and multi-LoRA) through the entry points a
-user calls, at the full width of Llama-3-8B with seeded random weights
-and adapters, and holds every CUDA kernel of those paths against its
-plain PyTorch version. Phases, one JSON line each; any failure exits
-non-zero before the result lines:
+paged KV pool, base model and multi-LoRA, whole-prompt long prefill;
+training through the trainer API and `train_lm --lora`) through the
+entry points a user calls, at the full width of Llama-3-8B with seeded
+random weights and adapters, and holds every CUDA kernel of those paths
+against its plain PyTorch version. Phases, one JSON line each; any
+failure exits non-zero before the result lines:
 
   device         card name and power limit, torch/CUDA versions
   build          nvcc build of every kernel from skypilot_tpu_torch/csrc
@@ -38,17 +39,46 @@ non-zero before the result lines:
                  prefix); then prefix hits only within a tenant, a 4th
                  adapter hot-loads with one eviction, an unknown model
                  is a 404; both kernels launched, no plain call
+  flash_kernels  the flash forward, dK/dV and dQ kernels vs their plain
+                 versions for {bf16, f32} x {B=1 S=2048 Hq=32 Hkv=8,
+                 B=2 S=1000 Hq=8 Hkv=2} (D=128), query row 0 (which sees
+                 only key 0) equal to v[0]; the perturbed control fails
+                 all three; L2-cold timings at the training shape (B=8
+                 S=2048 Hq=32 Hkv=8 bf16) vs the bound, the plain
+                 versions and scaled_dot_product_attention fwd / bwd
+  serve_long     serve_lm's flags with --prefill-chunk 0 --max-total-len
+                 4096: 3 prompts of 2048-2600 tokens prefill whole
+                 through the flash forward (32 launches each), 8 new
+                 tokens each
   greedy_parity  a 2-layer model at Llama-3-8B width (f32 weights and
                  pool): the engine's greedy tokens through the kernels
                  equal those through the plain versions (4 base and 2
-                 adapter requests x 16)
+                 adapter requests x 16; and 2 prompts of 2100 / 2600
+                 tokens prefilled whole, through the flash forward)
+  train_full     ShardedTrainer on Llama-3-8B width cut to 4 layers (f32
+                 params + Adam: 1.9e9 params, ~31 GB), B=8 S=2048:
+                 step-1 loss and grad norm through the kernels vs the
+                 plain route within 2e-2 (bf16 activations), then 4
+                 steps: flash launches = 4 layers x 4 steps per kernel;
+                 step time, tokens/s, MFU
+  train_lora     `train_lm --model llama3-8b --lora 16 --seq 2048
+                 --remat` at full depth: 4 steps with checkpoints every
+                 2, a relaunch to 6 resumes from step 4; forward launches
+                 = 32 x 6 x 2 (remat), backward 32 x 6 each; then
+                 serve_lm --adapter-dir answers a request with the
+                 trained adapter
 
-Then, as the last three lines: the card (`nvidia-smi
+The flash kernels' launch counts are those of the two training phases,
+each counted from zero. Then, as the last three lines: the card (`nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`), the kernels JSON
 line, and {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, without CUDA or outside a checkout of the repository.
 """
+import contextlib
+import dataclasses
+import io
 import json
+import math
 import os
 import shutil
 import sys
@@ -72,6 +102,17 @@ QKV_LORA_TPU = 'skypilot_tpu/ops/pallas_paged.py:386'
 # (bf16 or f32) inputs; only the order of the sums differs.
 LORA_TOL = 1e-5
 D_MODEL, D_Q, D_KV = 4096, 4096, 1024
+FLASH_TPU = 'jax/experimental/pallas/ops/tpu/flash_attention.py'
+FLASH_REPLACES = {'flash_fwd': f'{FLASH_TPU}:331',
+                  'flash_bwd_dkv': f'{FLASH_TPU}:796',
+                  'flash_bwd_dq': f'{FLASH_TPU}:1146'}
+# Flash tolerances, relative to max(1, max |plain|): f32 sums over up to
+# 2048 keys in another order; bf16 rounds P and dS to bf16 before their
+# products (as upstream does) and the outputs to bf16.
+FLASH_TOL = {'f32': 1e-4, 'bf16': 2e-2}
+# Step-1 loss and grad norm, kernel route vs plain route: bf16
+# activations everywhere; only attention's rounding differs.
+TRAIN_TOL = 2e-2
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
                     'chip_smoke')
 
@@ -401,6 +442,289 @@ def phase_lora_kernels(lk):
             'library_ms': main['library_ms']}
 
 
+# -- flash attention kernels ---------------------------------------------------
+def flash_inputs(dtype, batch, seq, hq, hkv, seed):
+    g = torch.Generator('cuda').manual_seed(seed)
+
+    def mk(heads):
+        return torch.randn((batch, seq, heads, D), generator=g,
+                           device='cuda').to(dtype)
+
+    return mk(hq), mk(hkv), mk(hkv), mk(hq)
+
+
+def flash_errors(fk, case, perturb=0.0):
+    """Each kernel vs its plain version on `case`: {kernel: (abs err,
+    err / max(1, max |plain|))}; the backward ones are fed the plain
+    forward's o and lse, so each kernel is held alone."""
+    q, k, v, do = case
+    scale = (1.0 + perturb) / math.sqrt(D)
+    o, _ = fk.flash_forward_kernel(q, k, v, scale=scale)
+    ro, rlse = fk.flash_forward_reference(q, k, v)
+    di = fk.attention_di(ro, do)
+    dk, dv = fk.flash_dkv_kernel(q, k, v, do, rlse, di, scale=scale)
+    dq = fk.flash_dq_kernel(q, k, v, do, rlse, di, scale=scale)
+    rq, rk, rv = fk.flash_backward_reference(q, k, v, do, rlse, di)
+    torch.cuda.synchronize()
+
+    def err(x, ref):
+        e = (x.float() - ref.float()).abs().max().item()
+        return e, e / max(1.0, ref.float().abs().max().item())
+
+    ek, ev = err(dk, rk), err(dv, rv)
+    first = (o[:, 0].float() - v[:, 0].float().repeat_interleave(
+        q.shape[2] // k.shape[2], dim=1)).abs().max().item()
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (o, dq, dk, dv))
+    return {'flash_fwd': err(o, ro), 'flash_bwd_dkv': max(ek, ev),
+            'flash_bwd_dq': err(dq, rq)}, first, finite
+
+
+def flash_bound_ms(batch, seq, hq, hkv, elt):
+    """Least time per kernel at a shape: the larger of the bytes each
+    must move (inputs read once, outputs written once) over HBM, and its
+    causal flops (4, 8 and 6 x D per visible (query, key) pair) over the
+    bf16 (or f32) peak."""
+    pairs = batch * hq * seq * (seq + 1) / 2
+    io_q, io_kv = batch * seq * hq * D * elt, batch * seq * hkv * D * elt
+    rows = batch * hq * seq * 4
+    work = {'flash_fwd': (4, 2 * io_q + 2 * io_kv + rows),
+            'flash_bwd_dkv': (8, 2 * io_q + 4 * io_kv + 2 * rows),
+            'flash_bwd_dq': (6, 3 * io_q + 2 * io_kv + 2 * rows)}
+    peak = BF16_FLOPS if elt == 2 else F32_FLOPS
+    out = {}
+    for name, (per_pair, n_bytes) in work.items():
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, per_pair * D * pairs / peak
+        out[name] = (1e3 * max(t_bytes, t_ops),
+                     'bytes' if t_bytes >= t_ops else 'operations', n_bytes)
+    return out
+
+
+def phase_flash_kernels(fk):
+    cases = []
+    worst = {name: 0.0 for name in FLASH_REPLACES}
+    for dtype, kind in ((torch.bfloat16, 'bf16'), (torch.float32, 'f32')):
+        for batch, seq, hq, hkv in ((1, 2048, 32, 8), (2, 1000, 8, 2)):
+            errs, first, finite = flash_errors(
+                fk, flash_inputs(dtype, batch, seq, hq, hkv,
+                                 seed=len(cases)))
+            case = {'dtype': kind, 'batch': batch, 'seq': seq, 'hq': hq,
+                    'hkv': hkv, 'tol': FLASH_TOL[kind], 'finite': finite,
+                    'first_row_err': first,
+                    **{n: {'max_abs_err': e, 'rel_err': r}
+                       for n, (e, r) in errs.items()}}
+            cases.append(case)
+            check(finite and first <= FLASH_TOL[kind]
+                  and all(r <= FLASH_TOL[kind] for _, r in errs.values()),
+                  f'flash kernels disagree with their plain versions: '
+                  f'{case}')
+            for n, (e, _) in errs.items():
+                worst[n] = max(worst[n], e)
+    bad, _, _ = flash_errors(fk, flash_inputs(torch.bfloat16, 1, 1000, 8, 2,
+                                              seed=99), perturb=0.5)
+    perturb = {n: r for n, (_, r) in bad.items()}
+    check(all(r > FLASH_TOL['bf16'] for r in perturb.values()),
+          f'a perturbed flash kernel passed the pin: {perturb}')
+
+    # Timings at the training shape (Llama-3-8B, B=8, S=2048, bf16).
+    import torch.nn.functional as F
+    batch, seq = 8, 2048
+    q, k, v, do = flash_inputs(torch.bfloat16, batch, seq, HQ, HKV, seed=7)
+    o, lse = fk.flash_forward_kernel(q, k, v)
+    di = fk.attention_di(o, do)
+    bounds = flash_bound_ms(batch, seq, HQ, HKV, 2)
+    ms = {'flash_fwd': time_cold_ms(lambda: fk.flash_forward_kernel(q, k, v),
+                                    iters=20),
+          'flash_bwd_dkv': time_cold_ms(
+              lambda: fk.flash_dkv_kernel(q, k, v, do, lse, di), iters=20),
+          'flash_bwd_dq': time_cold_ms(
+              lambda: fk.flash_dq_kernel(q, k, v, do, lse, di), iters=20)}
+    plain_fwd = time_cold_ms(lambda: fk.flash_forward_reference(q, k, v),
+                             iters=3, warmup=1)
+    plain_bwd = time_cold_ms(
+        lambda: fk.flash_backward_reference(q, k, v, do, lse, di),
+        iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa_fwd = time_cold_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    sdpa_bwd = time_cold_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters=20)
+    timings = {n: {'ms': ms[n], 'bound_ms': bounds[n][0],
+                   'bound_by': bounds[n][1], 'bytes': bounds[n][2]}
+               for n in FLASH_REPLACES}
+    emit('flash_kernels', cases=cases, perturb_rel_err=perturb,
+         perturb_fails=True, shape={'batch': batch, 'seq': seq, 'hq': HQ,
+                                    'hkv': HKV, 'd': D, 'dtype': 'bf16'},
+         timings=timings, plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
+         sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd)
+    rows = {}
+    for n in FLASH_REPLACES:
+        fwd = n == 'flash_fwd'
+        rows[n] = {
+            'name': n, 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/flash_attention.cu',
+            'replaces': FLASH_REPLACES[n], 'max_abs_err': worst[n],
+            'ms': ms[n], 'plain_ms': plain_fwd if fwd else plain_bwd,
+            'bound_ms': bounds[n][0], 'bound_by': bounds[n][1],
+            'library_ms': sdpa_fwd if fwd else sdpa_bwd,
+            'library': ('scaled_dot_product_attention' if fwd else
+                        'scaled_dot_product_attention backward (dQ, dK '
+                        'and dV together)'),
+            'plain': ('flash_forward_reference' if fwd else
+                      'flash_backward_reference (dQ, dK and dV together)')}
+    return rows
+
+
+def flash_counts(fk):
+    return {'flash_fwd': fk.fwd_launches, 'flash_bwd_dkv': fk.dkv_launches,
+            'flash_bwd_dq': fk.dq_launches}
+
+
+def zero_flash(fk):
+    fk.fwd_launches = fk.dkv_launches = fk.dq_launches = fk.plain_calls = 0
+
+
+# -- training -------------------------------------------------------------------
+def phase_train_full(fk, pk, card):
+    """The trainer API at Llama-3-8B width, 4 layers, B=8, S=2048."""
+    from skypilot_tpu_torch.models import convert, registry
+    from skypilot_tpu_torch.parallel import train
+    layers, steps, batch, seq = 4, 4, 8, 2048
+    cfg = dataclasses.replace(registry.train_config('llama3-8b', seq),
+                              num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    model = convert.init_params(cfg, seed=0, device='cuda')
+    trainer = train.ShardedTrainer(
+        model, tx=train.default_optimizer(warmup_steps=10, total_steps=20),
+        collect_grad_norm=True)
+    state = trainer.init()
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(0)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+            .cuda() for _ in range(steps)]
+
+    def loss_and_norm(impl):
+        with pk.impl_scope(impl):
+            loss = trainer._compute_loss(state.params, toks[0])
+            grads = torch.autograd.grad(loss, train.trainable_leaves(
+                state.params))
+            norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            return loss.item(), norm.item()
+
+    plain0 = fk.plain_calls
+    loss_plain, norm_plain = loss_and_norm('torch')
+    check(fk.plain_calls - plain0 == 2 * layers, 'plain route not taken')
+    loss_cuda, norm_cuda = loss_and_norm('cuda')
+    check(abs(loss_cuda - loss_plain) <= TRAIN_TOL * abs(loss_plain) and
+          abs(norm_cuda - norm_plain) <= TRAIN_TOL * abs(norm_plain),
+          f'step-1 loss/grad norm: kernels {loss_cuda}/{norm_cuda}, plain '
+          f'{loss_plain}/{norm_plain}')
+
+    zero_flash(fk)
+    step = trainer.make_train_step()
+    losses, times = [], []
+    for tokens in toks:
+        t0 = time.perf_counter()
+        state, (loss, gnorm) = step(state, tokens)
+        losses.append(loss.item())
+        times.append(time.perf_counter() - t0)
+    counts = flash_counts(fk)
+    check(all(c == layers * steps for c in counts.values())
+          and fk.plain_calls == 0, f'train_full launches {counts}')
+    check(all(np.isfinite(losses)), f'losses {losses}')
+    step_s = float(np.mean(times[1:]))
+    tps = batch * seq / step_s
+    emit('train_full', card=card, layers=layers, steps=steps, batch=batch,
+         seq=seq, params=n_params, loss_cuda=loss_cuda,
+         loss_plain=loss_plain, grad_norm_cuda=norm_cuda,
+         grad_norm_plain=norm_plain, tol=TRAIN_TOL, losses=losses,
+         step_times_s=times, step_s=step_s, tokens_per_s=tps,
+         mfu=6.0 * n_params * tps / BF16_FLOPS,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=counts)
+    return counts
+
+
+def run_train_lm(argv):
+    """`train_lm.main(argv)` in this process; its stdout, echoed."""
+    from skypilot_tpu_torch.recipes import train_lm
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_lm.main(argv)
+    print(buf.getvalue(), end='', flush=True)
+    return buf.getvalue()
+
+
+def phase_train_lora(fk, lk, card):
+    """`train_lm --lora` at full Llama-3-8B depth, a relaunch that
+    resumes, then the trained adapter served by serve_lm."""
+    from skypilot_tpu_torch.models import convert, registry
+    from skypilot_tpu_torch.observability.step_metrics import read_jsonl
+    root = os.path.join(WORK, 'train_lora')
+    shutil.rmtree(root, ignore_errors=True)
+    adapters = os.path.join(root, 'adapters')
+    metrics = os.path.join(root, 'metrics.jsonl')
+    argv = ['--model', 'llama3-8b', '--lora', '16', '--seq', '2048',
+            '--remat', '--ckpt-dir', os.path.join(root, 'ckpt'),
+            '--ckpt-every', '2', '--log-every', '1', '--metrics-file',
+            metrics, '--adapter-out', os.path.join(adapters, 'tuned')]
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash(fk)
+    t0 = time.perf_counter()
+    first = run_train_lm(argv + ['--steps', '4'])
+    t1 = time.perf_counter()
+    second = run_train_lm(argv + ['--steps', '6'])
+    t2 = time.perf_counter()
+    counts = flash_counts(fk)
+    check('step 4/4 loss=' in first and 'training done' in first,
+          'first train_lm run did not finish')
+    check('resumed from checkpoint step 4' in second
+          and 'step 6/6 loss=' in second and 'step 4/6' not in second,
+          'relaunch did not resume from step 4')
+    check(counts == {'flash_fwd': 32 * 6 * 2, 'flash_bwd_dkv': 32 * 6,
+                     'flash_bwd_dq': 32 * 6} and fk.plain_calls == 0,
+          f'train_lora launches {counts}')
+    records = read_jsonl(metrics)
+    check(len(records) == 6 and all(np.isfinite(r['loss'])
+                                    for r in records), 'metrics records')
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+
+    # The fine-tune-and-serve loop: serve the trained adapter.
+    model = convert.init_params(registry.model_config('llama3-8b', 1024),
+                                seed=0, device='cuda')
+    rt, server, thread, port, _ = serve_runtime(
+        model, 'bf16', ['--adapter-dir', adapters, '--max-adapters', '1'])
+    try:
+        lora0 = lk.launches
+        prompt = np.random.default_rng(3).integers(1, 128256, 300).tolist()
+        answer = post(port, '/generate', {'tokens': [prompt],
+                                          'max_new_tokens': 8,
+                                          'model': 'tuned'})['tokens'][0]
+        lora_launches = lk.launches - lora0
+    finally:
+        stop_runtime(rt, server, thread)
+    del model
+    torch.cuda.empty_cache()
+    check(len(answer) == 308 and answer[:300] == prompt,
+          'trained adapter: bad answer')
+    check(lora_launches > 0, 'the trained adapter ran no LoRA kernel')
+    emit('train_lora', card=card, layers=32, lora_rank=16, batch=8,
+         seq=2048, remat=True, first_run_s=t1 - t0, relaunch_s=t2 - t1,
+         steps=[r['step'] for r in records],
+         losses=[r['loss'] for r in records],
+         step_time_s=[r['step_time_s'] for r in records],
+         tokens_per_s=[r['tokens_per_sec'] for r in records],
+         mfu=[r['mfu'] for r in records], peak_mem_gb=peak,
+         launches=counts, served_tokens=answer[300:],
+         serve_lora_launches=lora_launches)
+    return counts
+
+
 # -- serving ---------------------------------------------------------------
 def prompts(seed=0, n=8, vocab=128256):
     rng = np.random.default_rng(seed)
@@ -607,7 +931,73 @@ def phase_serve_lora(model, pk, lk, card):
              'requests', 'bytes_per_adapter')})
 
 
-def phase_greedy_parity(pk, lk):
+def phase_serve_long(model, fk, pk, card):
+    """Whole-prompt prefill (--prefill-chunk 0) of 2048+ token prompts."""
+    from skypilot_tpu_torch.models import convert, registry
+    # The same weight tensors under the 4096-token config.
+    model = convert.assemble(registry.model_config('llama3-8b', 4096),
+                             model.state_dict())
+    rt, server, thread, port, setup_s = serve_runtime(
+        model, 'bf16', ['--max-total-len', '4096', '--prefill-chunk', '0'])
+    rng = np.random.default_rng(5)
+    ps = [rng.integers(1, 128256, n).tolist() for n in (2048, 2300, 2600)]
+    try:
+        # Warm up on a prompt that shares no prefix with the measured ones
+        # (a prefix hit would start their prefill past offset 0).
+        post(port, '/generate', {'tokens': [rng.integers(
+            1, 128256, 64).tolist()], 'max_new_tokens': 2})
+        zero_flash(fk)
+        pa0 = pk.launches
+        lat, outs = [], []
+        for p in ps:
+            t0 = time.perf_counter()
+            outs.append(post(port, '/generate', {
+                'tokens': [p], 'max_new_tokens': 8,
+                'temperature': 0.0})['tokens'][0])
+            lat.append(time.perf_counter() - t0)
+        counts, paged = flash_counts(fk), pk.launches - pa0
+    finally:
+        stop_runtime(rt, server, thread)
+    for p, o in zip(ps, outs):
+        check(len(o) == len(p) + 8 and o[:len(p)] == p, 'serve_long answer')
+    check(counts['flash_fwd'] == 32 * len(ps) and counts['flash_bwd_dkv']
+          == 0 and fk.plain_calls == 0, f'serve_long launches {counts}')
+    emit('serve_long', card=card, setup_s=setup_s,
+         prompt_tokens=[len(p) for p in ps], new_tokens=8, e2e_s=lat,
+         flash_launches=counts['flash_fwd'], paged_launches=paged)
+
+
+def long_parity(fk, pk):
+    """Greedy tokens of 2 whole-prompt prefills (2100 / 2600 tokens) on a
+    2-layer f32 model at Llama-3-8B width, kernel vs plain routes."""
+    from skypilot_tpu_torch.models import convert, registry
+    from skypilot_tpu_torch.models.batching import ContinuousBatchingEngine
+    cfg = dataclasses.replace(registry.model_config('llama3-8b', 4096),
+                              num_layers=2, dtype=torch.float32,
+                              kv_total_pages=2 * 256 + 1)
+    model = convert.init_params(cfg, seed=2, device='cuda')
+    rng = np.random.default_rng(6)
+    ps = [rng.integers(1, 128256, n).tolist() for n in (2100, 2600)]
+    outs = {}
+    for impl in ('cuda', 'torch'):
+        engine = ContinuousBatchingEngine(model, num_slots=2,
+                                          max_total_len=4096,
+                                          prefill_chunk=0)
+        zero_flash(fk)
+        try:
+            with pk.impl_scope(impl):
+                futs = [engine.submit(p, max_new_tokens=8) for p in ps]
+                outs[impl] = [f.result(timeout=600) for f in futs]
+        finally:
+            engine.stop()
+        routed = fk.fwd_launches if impl == 'cuda' else fk.plain_calls
+        check(routed == 2 * len(ps), f'long prefill {impl}: {routed} calls')
+    del model
+    torch.cuda.empty_cache()
+    return outs
+
+
+def phase_greedy_parity(pk, lk, fk):
     import dataclasses
     from skypilot_tpu_torch.inference.adapters import AdapterRegistry
     from skypilot_tpu_torch.models import convert, registry
@@ -641,11 +1031,21 @@ def phase_greedy_parity(pk, lk):
             routed = k.launches - l0 if impl == 'cuda' else k.plain_calls - p0
             check(routed > 0, f'impl {impl} of {k.__name__} was never taken')
     same = outs['cuda'] == outs['torch']
+    del model
+    torch.cuda.empty_cache()
+    long_outs = long_parity(fk, pk)
+    long_same = long_outs['cuda'] == long_outs['torch']
     emit('greedy_parity', requests=len(ps), new_tokens=16, layers=2,
          models=models, equal=same,
          tokens_cuda=[o[-16:] for o in outs['cuda']],
-         tokens_torch=[o[-16:] for o in outs['torch']])
+         tokens_torch=[o[-16:] for o in outs['torch']],
+         long_prompt_tokens=[len(o) - 8 for o in long_outs['cuda']],
+         long_equal=long_same,
+         long_tokens_cuda=[o[-8:] for o in long_outs['cuda']],
+         long_tokens_torch=[o[-8:] for o in long_outs['torch']])
     check(same, 'greedy tokens differ between the kernel and plain routes')
+    check(long_same, 'long-prefill greedy tokens differ between the '
+                     'kernel and plain routes')
     check(len({tuple(outs['cuda'][i][-16:]) for i in (0, 4, 5)}) == 3,
           'the adapters did not change the greedy tokens')
 
@@ -658,6 +1058,7 @@ def main() -> int:
     from skypilot_tpu_torch.device import card_description
     from skypilot_tpu_torch.models import convert, registry
     from skypilot_tpu_torch.ops import _build
+    from skypilot_tpu_torch.ops import flash_kernel as fk
     from skypilot_tpu_torch.ops import lora_kernel as lk
     from skypilot_tpu_torch.ops import paged_kernel as pk
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -678,6 +1079,7 @@ def main() -> int:
 
     kernel = phase_kernels(pk)
     lora_kernel = phase_lora_kernels(lk)
+    flash_rows = phase_flash_kernels(fk)
 
     # The main paths, each driven with the counts zeroed just before and
     # read just after: base serving (bf16 and int8 pools), then
@@ -699,15 +1101,24 @@ def main() -> int:
     lora_launches, lora_plain = lk.launches, lk.plain_calls
     check(lora_launches > 0 and lora_plain == 0 and pk.plain_calls == 0,
           f'LoRA path: {lora_launches} LoRA launches, {lora_plain} plain')
+    phase_serve_long(model, fk, pk, card)
     del model
     torch.cuda.empty_cache()
 
-    phase_greedy_parity(pk, lk)
+    phase_greedy_parity(pk, lk, fk)
+
+    # The training paths, each counted from zero.
+    full_counts = phase_train_full(fk, pk, card)
+    torch.cuda.empty_cache()
+    lora_counts = phase_train_lora(fk, lk, card)
 
     kernel['launches'] = launches
     lora_kernel['launches'] = lora_launches
+    for name, row in flash_rows.items():
+        row['launches'] = full_counts[name] + lora_counts[name]
     print(card, flush=True)
-    print(json.dumps({'kernels': [kernel, lora_kernel]}), flush=True)
+    print(json.dumps({'kernels': [kernel, lora_kernel,
+                                  *flash_rows.values()]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

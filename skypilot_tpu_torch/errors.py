@@ -1,7 +1,7 @@
-"""Request-path errors of the serving engine (the port's own copy of
-the ones that `skypilot_tpu/robustness/errors.py` defines for the
-continuous-batching engine and the adapter registry; the HTTP layer
-maps each to a status)."""
+"""Error types of the port: its own copies of the ones that
+`skypilot_tpu/robustness/errors.py` defines for the continuous-batching
+engine and the adapter registry (the HTTP layer maps each to a status)
+and for checkpoint restore (parallel/checkpoints.py)."""
 
 
 class DeadlineExceededError(Exception):
@@ -34,3 +34,16 @@ class AdapterLoadError(Exception):
     """A registered adapter failed to load onto the device (corrupt
     artifact, shape/rank mismatch with the serving store). The request
     fails 503; the engine and every other adapter keep serving."""
+
+
+class CheckpointNotFoundError(Exception):
+    """No checkpoint exists to restore (empty or absent directory, or
+    an explicitly requested step that was never written). Typed, so
+    the recovery path can tell "start fresh" from "data lost"."""
+
+
+class CheckpointCorruptionError(Exception):
+    """A checkpoint failed its sha256 manifest verification (torn
+    write, truncated upload, bit rot). Raised per step during restore;
+    the manager falls back to the newest step that does verify, and
+    raises this only when every candidate is corrupt."""

@@ -15,12 +15,20 @@ Modes of `Llama.forward`:
     history through the page table.
 The KV pool (`PagedKVCache`) is preallocated and updated in place.
 
-Multi-LoRA: `lora` = {'scale', 'layers': {'layer_i': {target: {'a': [N,
-d_in, r], 'b': [N, r, d_out]}}}} (models/lora.py) with `adapter_ids`
-[B] selecting each row's stacked factors. A projection's delta is
-added to its output (bias included) before the reshape and RoPE; when
-wq, wk and wv all carry factors, their three deltas come from one
-`fused_qkv_lora_delta` call. With no `lora`, nothing LoRA runs.
+LoRA: `lora` = {'scale', 'layers': {'layer_i': {target: {'a', 'b'}}}}
+(models/lora.py). Serving passes stacked factors `a [N, d_in, r]`,
+`b [N, r, d_out]` with `adapter_ids` [B] selecting each row's adapter;
+when wq, wk and wv all carry factors, their three deltas come from one
+`fused_qkv_lora_delta` call. Training passes one adapter's factors
+`a [d_in, r]`, `b [r, d_out]` and no `adapter_ids`. A projection's delta
+is added to its output (bias included) before the reshape and RoPE.
+With no `lora`, nothing LoRA runs.
+
+Training (`LlamaConfig.param_dtype=torch.float32`): every parameter is
+an f32 master, trainable, cast to `dtype` where it is used, as Flax
+`Dense(dtype=...)` does with its f32 params; `remat` recomputes each
+block in the backward. Serving keeps `param_dtype=None`: weights stored
+in `dtype`, frozen.
 """
 from __future__ import annotations
 
@@ -31,9 +39,11 @@ from typing import List, Optional
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils import checkpoint
 
 from skypilot_tpu_torch.models import lora as lora_lib
 from skypilot_tpu_torch.ops import attention as attention_ops
+from skypilot_tpu_torch.ops import fused_xent
 from skypilot_tpu_torch.ops import lora_kernel
 from skypilot_tpu_torch.ops import paged_attention as paged_ops
 
@@ -72,6 +82,19 @@ class LlamaConfig:
     kv_dtype: str = 'bf16'
     # Qwen2-family variant: biases on the q/k/v projections.
     qkv_bias: bool = False
+    # Storage dtype of the parameters. None is serving's layout:
+    # projections, biases and the embedding stored in `dtype`, norm
+    # scales in f32, the head in f32 holding `dtype`-rounded values, all
+    # frozen. Training sets torch.float32: every parameter is a
+    # trainable f32 master cast to `dtype` per use.
+    param_dtype: Optional[torch.dtype] = None
+    # Recompute each block's activations in the backward
+    # (torch.utils.checkpoint), as the reference's nn.remat(Block).
+    remat: bool = False
+
+    @property
+    def trainable(self) -> bool:
+        return self.param_dtype is not None
 
     @classmethod
     def llama3_8b(cls, **kw) -> 'LlamaConfig':
@@ -165,12 +188,13 @@ class PagedKVCache:
 
 class RMSNorm(nn.Module):
 
-    def __init__(self, dim: int, eps: float, dtype: torch.dtype) -> None:
+    def __init__(self, dim: int, eps: float, dtype: torch.dtype,
+                 trainable: bool = False) -> None:
         super().__init__()
         self.eps = eps
         self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(dim, dtype=torch.float32),
-                                  requires_grad=False)
+                                  requires_grad=trainable)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
@@ -188,11 +212,24 @@ def _lora(name: str, y: torch.Tensor, x: torch.Tensor,
     return lora_lib.apply_delta(y, x, lora[name], adapter_ids, scale)
 
 
-def _linear(d_in: int, d_out: int, dtype: torch.dtype,
-            bias: bool = False) -> nn.Linear:
-    layer = nn.Linear(d_in, d_out, bias=bias, dtype=dtype)
-    layer.requires_grad_(False)
-    return layer
+class Dense(nn.Linear):
+    """nn.Linear whose weight and bias are cast to the compute dtype
+    where they are used: a no-op for serving's storage, the Flax
+    `Dense(dtype=...)` cast for training's f32 masters."""
+
+    def __init__(self, d_in: int, d_out: int, config: LlamaConfig,
+                 bias: bool = False) -> None:
+        super().__init__(d_in, d_out, bias=bias,
+                         dtype=config.param_dtype or config.dtype)
+        self.compute_dtype = config.dtype
+        self.requires_grad_(config.trainable)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = self.weight, self.bias
+        if weight.dtype != self.compute_dtype:   # f32 masters only
+            weight = weight.to(self.compute_dtype)
+            bias = bias.to(self.compute_dtype) if bias is not None else None
+        return F.linear(x, weight, bias)
 
 
 class Attention(nn.Module):
@@ -201,13 +238,12 @@ class Attention(nn.Module):
         super().__init__()
         self.config = config
         cfg, hd = config, config.head_dim
-        self.wq = _linear(cfg.embed_dim, cfg.num_heads * hd, cfg.dtype,
-                          cfg.qkv_bias)
-        self.wk = _linear(cfg.embed_dim, cfg.num_kv_heads * hd, cfg.dtype,
-                          cfg.qkv_bias)
-        self.wv = _linear(cfg.embed_dim, cfg.num_kv_heads * hd, cfg.dtype,
-                          cfg.qkv_bias)
-        self.wo = _linear(cfg.num_heads * hd, cfg.embed_dim, cfg.dtype)
+        self.wq = Dense(cfg.embed_dim, cfg.num_heads * hd, cfg, cfg.qkv_bias)
+        self.wk = Dense(cfg.embed_dim, cfg.num_kv_heads * hd, cfg,
+                        cfg.qkv_bias)
+        self.wv = Dense(cfg.embed_dim, cfg.num_kv_heads * hd, cfg,
+                        cfg.qkv_bias)
+        self.wo = Dense(cfg.num_heads * hd, cfg.embed_dim, cfg)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 kv: Optional[dict] = None,
@@ -219,7 +255,8 @@ class Attention(nn.Module):
         batch, seq, _ = x.shape
         hd = cfg.head_dim
         q, k, v = self.wq(x), self.wk(x), self.wv(x)
-        if lora is not None and all(t in lora for t in ('wq', 'wk', 'wv')):
+        if adapter_ids is not None and lora is not None and all(
+                t in lora for t in ('wq', 'wk', 'wv')):
             dq, dk, dv = lora_kernel.fused_qkv_lora_delta(
                 x, lora['wq'], lora['wk'], lora['wv'], adapter_ids)
             q = q + (lora_scale * dq).to(q.dtype)
@@ -280,9 +317,9 @@ class FeedForward(nn.Module):
     def __init__(self, config: LlamaConfig) -> None:
         super().__init__()
         cfg = config
-        self.w_gate = _linear(cfg.embed_dim, cfg.mlp_dim, cfg.dtype)
-        self.w_up = _linear(cfg.embed_dim, cfg.mlp_dim, cfg.dtype)
-        self.w_down = _linear(cfg.mlp_dim, cfg.embed_dim, cfg.dtype)
+        self.w_gate = Dense(cfg.embed_dim, cfg.mlp_dim, cfg)
+        self.w_up = Dense(cfg.embed_dim, cfg.mlp_dim, cfg)
+        self.w_down = Dense(cfg.mlp_dim, cfg.embed_dim, cfg)
 
     def forward(self, x: torch.Tensor, lora: Optional[dict] = None,
                 adapter_ids: Optional[torch.Tensor] = None,
@@ -300,9 +337,11 @@ class Block(nn.Module):
     def __init__(self, config: LlamaConfig) -> None:
         super().__init__()
         cfg = config
-        self.attn_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, cfg.dtype)
+        self.attn_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, cfg.dtype,
+                                 cfg.trainable)
         self.attn = Attention(cfg)
-        self.mlp_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, cfg.dtype)
+        self.mlp_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, cfg.dtype,
+                                cfg.trainable)
         self.mlp = FeedForward(cfg)
 
     def forward(self, x, positions, kv=None, page_indices=None,
@@ -319,9 +358,11 @@ class Llama(nn.Module):
     them through the LM head (serving computes logits only for the rows
     it samples from).
 
-    Parameters: `tok_embed` [vocab, embed] in `dtype`; `lm_head`
-    [vocab, embed] in f32 holding bf16-rounded values (for a bf16
-    config), so the head's product is bf16 operands with an f32 result.
+    Parameters (serving's layout): `tok_embed` [vocab, embed] in
+    `dtype`; `lm_head` [vocab, embed] in f32 holding bf16-rounded values
+    (for a bf16 config), so the head's product is bf16 operands with an
+    f32 result. With `param_dtype` set (training) both are f32 masters
+    cast to `dtype` per use, which is the same product.
     """
 
     def __init__(self, config: LlamaConfig) -> None:
@@ -329,14 +370,16 @@ class Llama(nn.Module):
         cfg = config
         self.config = cfg
         self.tok_embed = nn.Parameter(
-            torch.empty(cfg.vocab_size, cfg.embed_dim, dtype=cfg.dtype),
-            requires_grad=False)
+            torch.empty(cfg.vocab_size, cfg.embed_dim,
+                        dtype=cfg.param_dtype or cfg.dtype),
+            requires_grad=cfg.trainable)
         self.layers = nn.ModuleList(Block(cfg)
                                     for _ in range(cfg.num_layers))
-        self.final_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, cfg.dtype)
+        self.final_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, cfg.dtype,
+                                  cfg.trainable)
         self.lm_head = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.embed_dim,
-                        dtype=torch.float32), requires_grad=False)
+                        dtype=torch.float32), requires_grad=cfg.trainable)
 
     @property
     def device(self) -> torch.device:
@@ -348,13 +391,15 @@ class Llama(nn.Module):
                page_indices: Optional[torch.Tensor] = None,
                prefill: bool = False, lora: Optional[dict] = None,
                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """`lora` = {'scale', 'layers'} with stacked factors and
-        `adapter_ids` [B] picking each row's adapter (see module doc);
-        single-adapter (training) factors are not ported yet."""
+        """Final-norm hidden states [B, S, embed] in `dtype`. `lora` =
+        {'scale', 'layers'}: stacked factors with `adapter_ids` [B]
+        picking each row's adapter, or one adapter's factors with no
+        `adapter_ids` (see module doc)."""
+        cfg = self.config
         batch, seq = tokens.shape
-        if (lora is None) != (adapter_ids is None):
-            raise ValueError('pass lora and adapter_ids together (stacked '
-                             'factors; single-adapter mode is not ported)')
+        if adapter_ids is not None and lora is None:
+            raise ValueError('adapter_ids select rows of stacked lora '
+                             'factors; pass lora too')
         lora_scale = float(lora['scale']) if lora is not None else 1.0
         lora_layers = lora['layers'] if lora is not None else {}
         if positions is None:
@@ -363,23 +408,37 @@ class Llama(nn.Module):
         if (cache is None) != (page_indices is None):
             raise ValueError('pass the paged cache and page_indices '
                              'together (or neither, for no-cache mode)')
-        x = self.tok_embed[tokens]
+        x = self.tok_embed[tokens].to(cfg.dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
-            x = block(x, positions,
-                      cache.layers[i] if cache is not None else None,
-                      page_indices, prefill, lora_layers.get(f'layer_{i}'),
-                      adapter_ids, lora_scale)
+            args = (x, positions,
+                    cache.layers[i] if cache is not None else None,
+                    page_indices, prefill, lora_layers.get(f'layer_{i}'),
+                    adapter_ids, lora_scale)
+            x = (checkpoint.checkpoint(block, *args, use_reentrant=False)
+                 if remat else block(*args))
         return self.final_norm(x)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.float(), self.lm_head)
+        """f32 logits of hidden states x [..., embed]: `dtype` operands,
+        f32 result."""
+        if not self.config.trainable:
+            return F.linear(x.float(), self.lm_head)
+        dt = self.config.dtype
+        flat = fused_xent.mm_f32(x.to(dt).reshape(-1, x.shape[-1]),
+                                 self.lm_head.to(dt).T)
+        return flat.reshape(*x.shape[:-1], -1)
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 cache: Optional[PagedKVCache] = None,
                 page_indices: Optional[torch.Tensor] = None,
                 prefill: bool = False, lora: Optional[dict] = None,
-                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.logits(self.hidden(tokens, positions, cache,
-                                       page_indices, prefill, lora,
-                                       adapter_ids))
+                adapter_ids: Optional[torch.Tensor] = None,
+                return_hidden: bool = False) -> torch.Tensor:
+        """f32 logits [B, S, vocab], or with `return_hidden` the
+        final-norm hidden states, which the trainer's fused loss
+        (ops/fused_xent.py) takes against `lm_head` directly."""
+        hidden = self.hidden(tokens, positions, cache, page_indices,
+                             prefill, lora, adapter_ids)
+        return hidden if return_hidden else self.logits(hidden)

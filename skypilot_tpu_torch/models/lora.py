@@ -1,6 +1,9 @@
 """LoRA (low-rank adaptation) for the port's Llama-family models (port of
-skypilot_tpu/models/lora.py, serving side).
+skypilot_tpu/models/lora.py).
 
+Training (`train_lm --lora`) trains ONE adapter's factors
+`a [d_in, r]`, `b [r, d_out]` (`init_lora_params`: a ~ N(0, 0.02),
+b = 0) applied to every row (`apply_delta` with no adapter ids).
 Serving keeps adapters device-resident as STACKED factors
 `a [N, d_in, r]`, `b [N, r, d_out]` (inference/adapters.py); every
 engine slot carries an adapter id, and the forward gathers each row's
@@ -16,12 +19,13 @@ transposed product.
 The artifact format (`adapter_config.json` + `adapter_weights.npz`,
 format `skypilot-tpu-lora-v1`) and everything here that needs no
 framework are copies of the reference, so an adapter the reference's
-`train_lm --lora` writes serves on the port unmodified. Training
-(`init_lora_params`, single-adapter mode) is not ported yet.
+`train_lm --lora` writes serves on the port unmodified, and one the
+port's writes serves on the reference.
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import os
 from typing import Any, Dict, List, Optional, Tuple
@@ -91,6 +95,23 @@ def projection_shapes(cfg) -> Dict[str, Tuple[int, int]]:
     }
 
 
+def supports(model) -> bool:
+    """True when `model` threads the `lora` argument through its
+    forward AND its config has the Llama-family projection geometry
+    (`projection_shapes`)."""
+    try:
+        sig = inspect.signature(type(model).forward)
+    except (TypeError, ValueError):
+        return False
+    if 'lora' not in sig.parameters:
+        return False
+    try:
+        projection_shapes(model.config)
+    except (AttributeError, TypeError, ZeroDivisionError):
+        return False
+    return True
+
+
 def adapter_num_bytes(cfg, rank: int, targets: Tuple[str, ...],
                       bytes_per_elem: int = 4) -> int:
     """Device bytes ONE adapter occupies in the stacked store."""
@@ -122,15 +143,51 @@ def random_adapter_params(seed: int, cfg, spec: LoraSpec
     return params
 
 
+def init_lora_params(cfg, spec: LoraSpec, seed: int = 0,
+                     device: Optional[torch.device] = None
+                     ) -> Dict[str, Any]:
+    """Fresh trainable factors: a ~ N(0, 0.02), b = 0 (step 0 is the
+    base model), f32, {'layer_i': {target: {'a': [d_in, r], 'b': [r,
+    d_out]}}}, drawn from one torch.Generator seeded with `seed` (the
+    reference's distributions, not its jax.random numbers)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = projection_shapes(cfg)
+    params: Dict[str, Any] = {}
+    for i in range(cfg.num_layers):
+        layer: Dict[str, Any] = {}
+        for t in spec.targets:
+            d_in, d_out = shapes[t]
+            a = torch.empty((d_in, spec.rank), dtype=torch.float32,
+                            device=device)
+            layer[t] = {
+                'a': a.normal_(0.0, 0.02, generator=gen),
+                'b': torch.zeros((spec.rank, d_out), dtype=torch.float32,
+                                 device=device),
+            }
+        params[f'layer_{i}'] = layer
+    return params
+
+
+def as_model_lora(lora_params, scale) -> Dict[str, Any]:
+    """Wrap raw per-layer factors into what the model forward takes:
+    {'scale': float, 'layers': {...}}."""
+    return {'scale': float(scale), 'layers': lora_params}
+
+
 def apply_delta(y: torch.Tensor, x: torch.Tensor, factors: Dict,
-                adapter_ids: torch.Tensor, scale) -> torch.Tensor:
+                adapter_ids: Optional[torch.Tensor], scale) -> torch.Tensor:
     """y + scale * ((x @ a) @ b), computed in f32 and cast to y's dtype
     before the add (the reference's order).
 
-    `a: [N, d_in, r]`, `b: [N, r, d_out]` are stacked per device
-    adapter slot; `adapter_ids: [batch]` gathers each row's factors
-    (row 0 is all zeros = the base model)."""
-    delta = lora_kernel.gathered_delta(x, factors, adapter_ids)
+    Single-adapter mode (`adapter_ids is None`, training): `a: [d_in,
+    r]`, `b: [r, d_out]` apply to every row. Batched mode: `a: [N,
+    d_in, r]`, `b: [N, r, d_out]` are stacked per device adapter slot;
+    `adapter_ids: [batch]` gathers each row's factors (row 0 is all
+    zeros = the base model)."""
+    if adapter_ids is None:
+        delta = (x.float() @ factors['a'].float()) @ factors['b'].float()
+    else:
+        delta = lora_kernel.gathered_delta(x, factors, adapter_ids)
     return y + (scale * delta).to(y.dtype)
 
 

@@ -4,9 +4,15 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from skypilot_tpu_torch.models.llama import LlamaConfig
 
 MODELS = ('llama3-8b', 'llama-tiny', 'qwen2-7b', 'qwen-tiny')
+#: The reference's train_lm names of the GPT, Mixtral and DeepSeek
+#: families, which wait for ROADMAP A12.
+OTHER_FAMILIES = ('gpt2-124m', 'tiny', 'mixtral-8x7b', 'mixtral-tiny',
+                  'deepseek-v2-lite', 'deepseek-tiny')
 
 
 def model_config(name: str, seq: int) -> LlamaConfig:
@@ -32,3 +38,14 @@ def model_config(name: str, seq: int) -> LlamaConfig:
         return LlamaConfig.tiny(qkv_bias=True)
     raise ValueError(f'unknown model {name!r} (this port serves: '
                      f'{", ".join(MODELS)})')
+
+
+def train_config(name: str, seq: int, remat: bool = False) -> LlamaConfig:
+    """The config `train_lm --model name --seq seq [--remat]` trains:
+    the serving config's geometry with f32 master parameters."""
+    if name in OTHER_FAMILIES:
+        raise ValueError(f'model {name!r}: its family (GPT, Mixtral, '
+                         f'DeepSeek) is not ported yet (ROADMAP A12); this '
+                         f'port trains: {", ".join(MODELS)}')
+    return dataclasses.replace(model_config(name, seq),
+                               param_dtype=torch.float32, remat=remat)

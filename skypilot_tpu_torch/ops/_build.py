@@ -22,7 +22,7 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
-SOURCES = ('paged_attention', 'qkv_lora')
+SOURCES = ('paged_attention', 'qkv_lora', 'flash_attention')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 

@@ -1,13 +1,13 @@
 """Package rules of the PyTorch/CUDA port (skypilot_tpu_torch/):
 
   - neither the package nor chip_smoke.py / profile_decode.py imports
-    jax, flax, optax,
-    ml_dtypes or skypilot_tpu (an AST scan), and serve_lm imports with
-    JAX made unimportable;
+    jax, flax, optax, orbax,
+    ml_dtypes or skypilot_tpu (an AST scan), and serve_lm and train_lm
+    import with those made unimportable;
   - entry points default to CUDA and raise without it unless the CPU
     was asked for; serve_lm without --cpu exits non-zero saying so;
   - impl='cuda' on CPU tensors raises; unsupported serve_lm flags exit
-    naming the flag;
+    naming the flag; train_lm without --cpu exits on a GPU-less box;
   - kv pool sizing by bytes matches the reference's arithmetic.
 """
 import ast
@@ -30,7 +30,7 @@ from skypilot_tpu_torch.ops import paged_kernel as pk
 from skypilot_tpu_torch.recipes import serve_lm
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ('jax', 'flax', 'optax', 'ml_dtypes', 'skypilot_tpu')
+FORBIDDEN = ('jax', 'flax', 'optax', 'orbax', 'ml_dtypes', 'skypilot_tpu')
 
 
 def _sources():
@@ -74,6 +74,31 @@ def test_serve_lm_imports_without_jax():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == 'ok'
+
+
+def test_train_lm_imports_without_jax():
+    code = ('import sys\n'
+            'for m in ("jax", "flax", "optax", "orbax", "ml_dtypes", '
+            '"skypilot_tpu"):\n'
+            '    sys.modules[m] = None\n'
+            'import skypilot_tpu_torch.recipes.train_lm\n'
+            'import skypilot_tpu_torch.parallel.train\n'
+            'import skypilot_tpu_torch.parallel.checkpoints\n'
+            'import skypilot_tpu_torch.data.token_loader\n'
+            'import skypilot_tpu_torch.observability.step_metrics\n'
+            'import skypilot_tpu_torch.ops.flash_kernel\n'
+            'import skypilot_tpu_torch.ops.fused_xent\n'
+            'print("ok")\n')
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == 'ok'
+
+
+def test_train_lm_without_cpu_flag_exits_on_gpu_less_box():
+    out = _run('from skypilot_tpu_torch.recipes import train_lm\n'
+               'train_lm.main(["--model", "llama-tiny", "--steps", "1"])\n')
+    assert out.returncode != 0
+    assert 'no CUDA device' in out.stderr
 
 
 def test_device_defaults_to_cuda(monkeypatch):

@@ -9,7 +9,9 @@ is valid JSONL up to the last completed window.
 
 MFU model: achieved = 6 * n_params * tokens/s (the dense-transformer
 train-FLOPs estimate, forward and backward) over the card's dense bf16
-peak, looked up from its name. Unknown hardware (the CPU) reports
+peak, looked up from its name. `matmul_params` gives the N to pass: the
+token-embedding table is a lookup and does no matmul work, so it is left
+out (the LM head stays in). Unknown hardware (the CPU) reports
 mfu = null rather than a made-up number.
 """
 from __future__ import annotations
@@ -17,7 +19,17 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+# Parameters 6N leaves out: looked up by row, not multiplied.
+_LOOKUP_PARAMS = ('tok_embed',)
+
+
+def matmul_params(named_parameters: Iterable[Tuple[str, Any]]) -> int:
+    """Elements of every parameter a forward multiplies by: all of them
+    but the token-embedding table."""
+    return sum(p.numel() for name, p in named_parameters
+               if name not in _LOOKUP_PARAMS)
 
 # Dense bf16 tensor-core peak per card (NVIDIA data sheets, SXM parts),
 # by substring of torch.cuda.get_device_name(), checked in order.

@@ -163,35 +163,21 @@ def default_optimizer(learning_rate: float = 3e-4,
                         grad_clip=grad_clip)
 
 
-def _supports_fused(model, loss_fn: Callable) -> bool:
-    """The model has a `return_hidden` forward and the loss is the stock
-    next-token CE (or flagged `fused_ok`)."""
-    import inspect
-    try:
-        sig = inspect.signature(type(model).forward)
-    except (TypeError, ValueError):
-        return False
-    if 'return_hidden' not in sig.parameters:
-        return False
-    return loss_fn is next_token_loss or bool(getattr(loss_fn, 'fused_ok',
-                                                      False))
-
-
 class ShardedTrainer:
     """Train and eval steps for a port LM on one device.
 
-    `fused_xent` (None = auto) routes the loss through the blockwise
-    LM-head cross-entropy (ops/fused_xent.py) whenever the model has a
-    `return_hidden` forward and the loss is the stock CE; False forces
-    the logits path. `collect_grad_norm` makes the step return (loss,
-    grad_norm). `lora` (models/lora.py LoraSpec) makes the run a LoRA
-    finetune: params become {'base', 'lora'}, the base is frozen and
-    only the factors train (and are what a checkpoint holds, with the
-    step and the moments; see parallel/checkpoints.py).
+    The loss is the next-token CE. `fused_xent` (None = auto, which is
+    on: the port's Llama has a `return_hidden` forward) routes it
+    through the blockwise LM-head cross-entropy (ops/fused_xent.py);
+    False takes `next_token_loss` over the full logits.
+    `collect_grad_norm` makes the step return (loss, grad_norm). `lora`
+    (models/lora.py LoraSpec) makes the run a LoRA finetune: params
+    become {'base', 'lora'}, the base is frozen and only the factors
+    train (and are what a checkpoint holds, with the step and the
+    moments; see parallel/checkpoints.py).
     """
 
     def __init__(self, model, tx: Optional[ClippedAdamW] = None,
-                 loss_fn: Callable = next_token_loss,
                  fused_xent: Optional[bool] = None,
                  collect_grad_norm: bool = False,
                  lora: Optional[lora_lib.LoraSpec] = None) -> None:
@@ -205,15 +191,8 @@ class ShardedTrainer:
         if lora is not None and not lora_lib.supports(model):
             raise ValueError(f'{type(model).__name__} has no LoRA forward '
                              f'path; --lora supports the Llama family')
-        self.loss_fn = loss_fn
         self.collect_grad_norm = collect_grad_norm
-        supported = _supports_fused(model, loss_fn)
-        if fused_xent and not supported:
-            raise ValueError(f'fused_xent=True but {type(model).__name__} '
-                             f'has no return_hidden forward or the loss_fn '
-                             f'is not fused-compatible')
-        self.fused_xent = supported if fused_xent is None else bool(
-            fused_xent)
+        self.fused_xent = fused_xent is not False
 
     # -- init ---------------------------------------------------------------
     def init(self, lora_params: Optional[Dict[str, Any]] = None,
@@ -251,7 +230,7 @@ class ShardedTrainer:
                 dict(self.model.named_parameters()))
             return fused_xent.fused_next_token_loss(
                 hidden, head, tokens, vocab_in_rows=vocab_in_rows)
-        return self.loss_fn(self.model(tokens, **extra), tokens)
+        return next_token_loss(self.model(tokens, **extra), tokens)
 
     def make_train_step(self) -> Callable:
         """`(state, tokens) -> (state, aux)`, aux the loss (a device

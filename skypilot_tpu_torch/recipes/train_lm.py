@@ -215,8 +215,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     emitter = None
     if args.metrics_file:
         from skypilot_tpu_torch.observability.step_metrics import (
-            StepMetrics, peak_flops_for)
-        n_params = sum(p.numel() for p in model.parameters())
+            StepMetrics, matmul_params, peak_flops_for)
+        n_params = matmul_params(model.named_parameters())
         if lora_spec is not None:
             n_params += sum(t.numel() for layer in state.params['lora']
                             .values() for f in layer.values()

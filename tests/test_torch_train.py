@@ -5,7 +5,8 @@ CPU, f32:
 
   - trainer parity on llama-tiny and qwen-tiny from the same params and
     tokens: step-1 loss within 1e-5 and grads within 1e-5 (f32 sums in
-    another order), the loss of each of 5 steps of
+    another order), through the fused LM-head loss and through the full
+    logits, the loss of each of 5 steps of
     default_optimizer(warmup 10) within 1e-5, params after 5 steps
     within 1e-5 for 99.9% of elements and within 5e-4 (5% of one
     step's lr) for all: Adam's update m / (sqrt(v) + eps) is a ratio,
@@ -24,7 +25,7 @@ CPU, f32:
   - `train_lm --cpu` runs, writes metrics, resumes; `--lora` writes an
     adapter the reference's lora.load_adapter reads and the port's
     AdapterRegistry serves; refused flags and model families exit
-    naming themselves;
+    naming themselves; MFU's N leaves the embedding table out;
   - serving's parameter storage is unchanged by the training layout;
   - whole-prompt prefill of a 2100-token prompt (prefill_chunk=0) on
     llama-tiny with its context grown gives the reference engine's
@@ -61,6 +62,7 @@ from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import llama as pt_llama
 from skypilot_tpu_torch.models import lora as pt_lora
 from skypilot_tpu_torch.models import registry
+from skypilot_tpu_torch.observability import step_metrics
 from skypilot_tpu_torch.ops import flash_kernel
 from skypilot_tpu_torch.parallel import checkpoints as pt_ckpt
 from skypilot_tpu_torch.parallel import ckpt_integrity
@@ -176,9 +178,11 @@ def full(request):
     return run_jax(request.param)
 
 
-def test_step1_loss_and_grads_match(full):
+@pytest.mark.parametrize('fused', [None, False], ids=['fused', 'logits'])
+def test_step1_loss_and_grads_match(full, fused):
     cfg, init, loss0, grads0, _, _ = full
-    model, trainer, state = port_trainer(cfg, init)
+    model, trainer, state = port_trainer(cfg, init, fused_xent=fused)
+    assert trainer.fused_xent is (fused is None)
     loss, grads = grads_as_jax(model, state, trainer, torch.from_numpy(
         tokens_for(0, cfg.vocab_size)).long())
     np.testing.assert_allclose(loss, loss0, atol=TOL, rtol=TOL)
@@ -409,6 +413,20 @@ def test_train_lm_runs_writes_metrics_and_resumes(tmp_path):
     assert again.returncode == 0, again.stderr
     assert 'resumed from checkpoint step 4' in again.stdout
     assert 'step 2/6' not in again.stdout and 'step 6/6' in again.stdout
+
+
+def test_mfu_leaves_the_embedding_lookup_out(tmp_path):
+    cfg = registry.train_config('llama-tiny', 64)
+    model = convert.init_params(cfg, seed=0, device='cpu')
+    total = sum(p.numel() for p in model.parameters())
+    n = step_metrics.matmul_params(model.named_parameters())
+    assert n == total - cfg.vocab_size * cfg.embed_dim
+    assert model.lm_head.numel() == cfg.vocab_size * cfg.embed_dim
+    metrics = step_metrics.StepMetrics(str(tmp_path / 'm.jsonl'), n_params=n,
+                                       peak_flops=1e12)
+    record = metrics.log(1, step_time_s=0.5, tokens=1000, loss=1.0)
+    metrics.close()
+    assert record['mfu'] == round(6.0 * n * 2000 / 1e12, 4)
 
 
 def test_train_lm_lora_adapter_loads_in_both_packages(tmp_path):

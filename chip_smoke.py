@@ -39,17 +39,20 @@ failure exits non-zero before the result lines:
                  prefix); then prefix hits only within a tenant, a 4th
                  adapter hot-loads with one eviction, an unknown model
                  is a 404; both kernels launched, no plain call
-  flash_kernels  the flash forward, dK/dV and dQ kernels vs their plain
-                 versions (D=128) at training's shape (bf16 B=8 S=2048
-                 Hq=32 Hkv=8), a long prefill's (bf16 B=1 S=2300) and
-                 {bf16, f32} x {B=1 S=2048 Hq=32 Hkv=8, B=2 S=1000 Hq=8
-                 Hkv=2}: the norm of the error over that of the plain
-                 result, in every 128-row tile of each batch row and
-                 head, within 6e-3 (bf16) or 1e-5 (f32); query row 0
-                 (which sees only key 0) exactly v[0]; the perturbed
-                 control fails all three; L2-cold timings at the
-                 training shape vs the bound, the plain versions and
-                 scaled_dot_product_attention fwd / bwd
+  flash_kernels  the flash forward and fused backward (dQ, dK, dV)
+                 kernels vs their plain versions (D=128) at training's
+                 shape (bf16 B=8 S=2048 Hq=32 Hkv=8), a long prefill's
+                 (bf16 B=1 S=2300) and {bf16, f32} x {B=1 S=2048 Hq=32
+                 Hkv=8, B=2 S=1000 Hq=8 Hkv=2}: the norm of the error over
+                 that of the plain result, in every 128-row tile of each
+                 batch row and head, within 6e-3 (bf16) or 1e-5 (f32);
+                 query row 0 (which sees only key 0) exactly v[0]; the
+                 perturbed control fails both; two backward runs on the
+                 same inputs give bit-identical dK and dV (dQ's atomics
+                 may differ: its largest difference is reported);
+                 L2-cold timings at the training shape vs the bound, the
+                 plain versions and scaled_dot_product_attention fwd /
+                 bwd
   serve_long     serve_lm's flags with --prefill-chunk 0 --max-total-len
                  4096: 3 prompts of 2048-2600 tokens prefill whole
                  through the flash forward (32 launches each), 8 new
@@ -69,7 +72,7 @@ failure exits non-zero before the result lines:
   train_lora     `train_lm --model llama3-8b --lora 16 --seq 2048
                  --remat` at full depth: 4 steps with checkpoints every
                  2, a relaunch to 6 resumes from step 4; forward launches
-                 = 32 x 6 x 2 (remat), backward 32 x 6 each; then
+                 = 32 x 6 x 2 (remat), backward 32 x 6; then
                  serve_lm --adapter-dir answers a request with the
                  trained adapter
 
@@ -109,8 +112,7 @@ LORA_TOL = 1e-5
 D_MODEL, D_Q, D_KV = 4096, 4096, 1024
 FLASH_TPU = 'jax/experimental/pallas/ops/tpu/flash_attention.py'
 FLASH_REPLACES = {'flash_fwd': f'{FLASH_TPU}:331',
-                  'flash_bwd_dkv': f'{FLASH_TPU}:796',
-                  'flash_bwd_dq': f'{FLASH_TPU}:1146'}
+                  'flash_bwd': f'{FLASH_TPU}:796 and {FLASH_TPU}:1146'}
 # Flash tolerances on |x - plain| / |plain| (Frobenius norms) over every
 # 128-row tile of one batch row and head, the worst tile: f32 sums over
 # up to 2600 keys in another order; bf16 rounds P and dS to bf16 before
@@ -462,17 +464,17 @@ def flash_inputs(dtype, batch, seq, hq, hkv, seed):
 
 def flash_errors(fk, case, perturb=0.0):
     """Each kernel vs its plain version on `case`: {kernel: (max abs
-    err, worst tile's relative err, whole tensor's relative err)}, dK/dV
-    the worse of the two; the backward kernels are fed the plain
-    forward's o and lse, so each kernel is held alone."""
+    err, worst tile's relative err, whole tensor's relative err)}, the
+    backward the worst of dQ, dK and dV (each also under its own name);
+    the backward is fed the plain forward's o and lse, so each kernel is
+    held alone."""
     q, k, v, do = case
     scale = (1.0 + perturb) / math.sqrt(D)
     o, _ = fk.flash_forward_kernel(q, k, v, scale=scale)
     ro, rlse = fk.flash_forward_reference(q, k, v)
     di = fk.attention_di(ro, do)
-    dk, dv = fk.flash_dkv_kernel(q, k, v, do, rlse, di, scale=scale)
-    dq = fk.flash_dq_kernel(q, k, v, do, rlse, di, scale=scale)
-    rq, rk, rv = fk.flash_backward_reference(q, k, v, do, rlse, di)
+    grads = fk.flash_backward_kernel(q, k, v, do, rlse, di, scale=scale)
+    refs = fk.flash_backward_reference(q, k, v, do, rlse, di)
     torch.cuda.synchronize()
 
     def err(x, ref):
@@ -490,27 +492,42 @@ def flash_errors(fk, case, perturb=0.0):
                 (tiles(diff) / tiles(norm)).sqrt().max().item(),
                 (diff.sum() / norm.sum()).sqrt().item())
 
-    ek, ev = err(dk, rk), err(dv, rv)
+    per_grad = {n: err(x, r) for n, x, r in zip(('dq', 'dk', 'dv'), grads,
+                                                  refs)}
     first = (o[:, 0].float() - v[:, 0].float().repeat_interleave(
         q.shape[2] // k.shape[2], dim=1)).abs().max().item()
-    finite = all(bool(torch.isfinite(t.float()).all())
-                 for t in (o, dq, dk, dv))
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in (o, *grads))
     return {'flash_fwd': err(o, ro),
-            'flash_bwd_dkv': tuple(map(max, ek, ev)),
-            'flash_bwd_dq': err(dq, rq)}, first, finite
+            'flash_bwd': tuple(map(max, *per_grad.values()))}, \
+        per_grad, first, finite
+
+
+def flash_determinism(fk, case):
+    """The backward twice on the same inputs: whether dK and dV are
+    bit-identical, and dQ's largest difference (its key tiles are summed
+    by atomics in whatever order the blocks reach them)."""
+    q, k, v, do = case
+    o, lse = fk.flash_forward_kernel(q, k, v)
+    di = fk.attention_di(o, do)
+    dq1, dk1, dv1 = fk.flash_backward_kernel(q, k, v, do, lse, di)
+    dq2, dk2, dv2 = fk.flash_backward_kernel(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    return {'dk_dv_identical': bool(torch.equal(dk1, dk2)
+                                    and torch.equal(dv1, dv2)),
+            'dq_max_diff': (dq1.float() - dq2.float()).abs().max().item()}
 
 
 def flash_bound_ms(batch, seq, hq, hkv, elt):
     """Least time per kernel at a shape: the larger of the bytes each
-    must move (inputs read once, outputs written once) over HBM, and its
-    causal flops (4, 8 and 6 x D per visible (query, key) pair) over the
-    bf16 (or f32) peak."""
+    must move (inputs read once, outputs written once; the backward's
+    f32 dQ workspace is the kernel's own choice and does not count), and
+    its causal flops (4 and 10 x D per visible (query, key) pair) over
+    the bf16 (or f32) peak."""
     pairs = batch * hq * seq * (seq + 1) / 2
     io_q, io_kv = batch * seq * hq * D * elt, batch * seq * hkv * D * elt
     rows = batch * hq * seq * 4
     work = {'flash_fwd': (4, 2 * io_q + 2 * io_kv + rows),
-            'flash_bwd_dkv': (8, 2 * io_q + 4 * io_kv + 2 * rows),
-            'flash_bwd_dq': (6, 3 * io_q + 2 * io_kv + 2 * rows)}
+            'flash_bwd': (10, 3 * io_q + 4 * io_kv + 2 * rows)}
     peak = BF16_FLOPS if elt == 2 else F32_FLOPS
     out = {}
     for name, (per_pair, n_bytes) in work.items():
@@ -534,13 +551,15 @@ def phase_flash_kernels(fk):
     worst = {name: 0.0 for name in FLASH_REPLACES}
     for kind, batch, seq, hq, hkv in FLASH_CASES:
         dtype = torch.bfloat16 if kind == 'bf16' else torch.float32
-        errs, first, finite = flash_errors(
+        errs, per_grad, first, finite = flash_errors(
             fk, flash_inputs(dtype, batch, seq, hq, hkv, seed=len(cases)))
         case = {'dtype': kind, 'batch': batch, 'seq': seq, 'hq': hq,
                 'hkv': hkv, 'tol': FLASH_TOL[kind], 'finite': finite,
                 'first_row_err': first,
                 **{n: {'max_abs_err': e, 'tile_rel_err': t, 'rel_err': r}
-                   for n, (e, t, r) in errs.items()}}
+                   for n, (e, t, r) in errs.items()},
+                'bwd_tile_rel_err': {n: t for n, (_, t, _) in
+                                     per_grad.items()}}
         cases.append(case)
         check(finite and first == 0.0
               and all(t <= FLASH_TOL[kind] for _, t, _ in errs.values()),
@@ -548,8 +567,8 @@ def phase_flash_kernels(fk):
         for n, (e, _, _) in errs.items():
             worst[n] = max(worst[n], e)
         torch.cuda.empty_cache()
-    bad, _, _ = flash_errors(fk, flash_inputs(torch.bfloat16, 1, 1000, 8, 2,
-                                              seed=99), perturb=0.5)
+    bad, _, _, _ = flash_errors(fk, flash_inputs(torch.bfloat16, 1, 1000, 8,
+                                                 2, seed=99), perturb=0.5)
     perturb = {n: t for n, (_, t, _) in bad.items()}
     check(all(t > FLASH_TOL['bf16'] for t in perturb.values()),
           f'a perturbed flash kernel passed the pin: {perturb}')
@@ -558,37 +577,41 @@ def phase_flash_kernels(fk):
     import torch.nn.functional as F
     batch, seq = 8, 2048
     q, k, v, do = flash_inputs(torch.bfloat16, batch, seq, HQ, HKV, seed=7)
+    determinism = flash_determinism(fk, (q, k, v, do))
+    check(determinism['dk_dv_identical'],
+          f'dK/dV differ between two backward runs: {determinism}')
     o, lse = fk.flash_forward_kernel(q, k, v)
     di = fk.attention_di(o, do)
     bounds = flash_bound_ms(batch, seq, HQ, HKV, 2)
     ms = {'flash_fwd': time_cold_ms(lambda: fk.flash_forward_kernel(q, k, v),
                                     iters=20),
-          'flash_bwd_dkv': time_cold_ms(
-              lambda: fk.flash_dkv_kernel(q, k, v, do, lse, di), iters=20),
-          'flash_bwd_dq': time_cold_ms(
-              lambda: fk.flash_dq_kernel(q, k, v, do, lse, di), iters=20)}
-    plain_fwd = time_cold_ms(lambda: fk.flash_forward_reference(q, k, v),
-                             iters=3, warmup=1)
-    plain_bwd = time_cold_ms(
+          'flash_bwd': time_cold_ms(
+              lambda: fk.flash_backward_kernel(q, k, v, do, lse, di),
+              iters=20)}
+    plain = {'flash_fwd': time_cold_ms(
+        lambda: fk.flash_forward_reference(q, k, v), iters=3, warmup=1),
+             'flash_bwd': time_cold_ms(
         lambda: fk.flash_backward_reference(q, k, v, do, lse, di),
-        iters=3, warmup=1)
+        iters=3, warmup=1)}
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
-    sdpa_fwd = time_cold_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+    sdpa = {'flash_fwd': time_cold_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)}
     out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                          enable_gqa=True)
-    sdpa_bwd = time_cold_ms(lambda: torch.autograd.grad(
+    sdpa['flash_bwd'] = time_cold_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), iters=20)
     timings = {n: {'ms': ms[n], 'bound_ms': bounds[n][0],
                    'bound_by': bounds[n][1], 'bytes': bounds[n][2]}
                for n in FLASH_REPLACES}
     emit('flash_kernels', cases=cases, perturb_tile_rel_err=perturb,
-         perturb_fails=True, shape={'batch': batch, 'seq': seq, 'hq': HQ,
-                                    'hkv': HKV, 'd': D, 'dtype': 'bf16'},
-         timings=timings, plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
-         sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd)
+         perturb_fails=True, determinism=determinism,
+         shape={'batch': batch, 'seq': seq, 'hq': HQ, 'hkv': HKV, 'd': D,
+                'dtype': 'bf16'},
+         timings=timings, plain_fwd_ms=plain['flash_fwd'],
+         plain_bwd_ms=plain['flash_bwd'], sdpa_fwd_ms=sdpa['flash_fwd'],
+         sdpa_bwd_ms=sdpa['flash_bwd'])
     rows = {}
     for n in FLASH_REPLACES:
         fwd = n == 'flash_fwd'
@@ -596,9 +619,9 @@ def phase_flash_kernels(fk):
             'name': n, 'route': 'cuda',
             'source': 'skypilot_tpu_torch/csrc/flash_attention.cu',
             'replaces': FLASH_REPLACES[n], 'max_abs_err': worst[n],
-            'ms': ms[n], 'plain_ms': plain_fwd if fwd else plain_bwd,
+            'ms': ms[n], 'plain_ms': plain[n],
             'bound_ms': bounds[n][0], 'bound_by': bounds[n][1],
-            'library_ms': sdpa_fwd if fwd else sdpa_bwd,
+            'library_ms': sdpa[n],
             'library': ('scaled_dot_product_attention' if fwd else
                         'scaled_dot_product_attention backward (dQ, dK '
                         'and dV together)'),
@@ -608,12 +631,11 @@ def phase_flash_kernels(fk):
 
 
 def flash_counts(fk):
-    return {'flash_fwd': fk.fwd_launches, 'flash_bwd_dkv': fk.dkv_launches,
-            'flash_bwd_dq': fk.dq_launches}
+    return {'flash_fwd': fk.fwd_launches, 'flash_bwd': fk.bwd_launches}
 
 
 def zero_flash(fk):
-    fk.fwd_launches = fk.dkv_launches = fk.dq_launches = fk.plain_calls = 0
+    fk.fwd_launches = fk.bwd_launches = fk.plain_calls = 0
 
 
 # -- training -------------------------------------------------------------------
@@ -715,8 +737,8 @@ def phase_train_lora(fk, lk, card):
     check('resumed from checkpoint step 4' in second
           and 'step 6/6 loss=' in second and 'step 4/6' not in second,
           'relaunch did not resume from step 4')
-    check(counts == {'flash_fwd': 32 * 6 * 2, 'flash_bwd_dkv': 32 * 6,
-                     'flash_bwd_dq': 32 * 6} and fk.plain_calls == 0,
+    check(counts == {'flash_fwd': 32 * 6 * 2, 'flash_bwd': 32 * 6}
+          and fk.plain_calls == 0,
           f'train_lora launches {counts}')
     records = read_jsonl(metrics)
     check(len(records) == 6 and all(np.isfinite(r['loss'])
@@ -990,8 +1012,8 @@ def phase_serve_long(model, fk, pk, card):
         stop_runtime(rt, server, thread)
     for p, o in zip(ps, outs):
         check(len(o) == len(p) + 8 and o[:len(p)] == p, 'serve_long answer')
-    check(counts['flash_fwd'] == 32 * len(ps) and counts['flash_bwd_dkv']
-          == 0 and fk.plain_calls == 0, f'serve_long launches {counts}')
+    check(counts['flash_fwd'] == 32 * len(ps) and counts['flash_bwd'] == 0
+          and fk.plain_calls == 0, f'serve_long launches {counts}')
     emit('serve_long', card=card, setup_s=setup_s,
          prompt_tokens=[len(p) for p in ps], new_tokens=8, e2e_s=lat,
          flash_launches=counts['flash_fwd'], paged_launches=paged)

@@ -1,11 +1,13 @@
-// Causal flash attention, forward and backward, for Hopper (sm_90a).
+// Causal flash attention, forward and fused backward, for Hopper (sm_90a).
 //
 // Replaces the upstream Pallas TPU kernels of
-// jax/experimental/pallas/ops/tpu/flash_attention.py that the JAX package
-// dispatches at skypilot_tpu/ops/attention.py:115-123 for seq >= 2048:
-//   - forward  `_flash_attention_kernel`  (pallas_call in `_flash_attention_impl`)
-//   - dK/dV    `_flash_attention_dkv_kernel` (pallas_call in `_flash_attention_bwd_dkv`)
-//   - dQ       `_flash_attention_dq_kernel`  (pallas_call in `_flash_attention_bwd_dq`)
+// jax/experimental/pallas/ops/tpu/flash_attention.py (FA below) that the
+// JAX package dispatches at skypilot_tpu/ops/attention.py:115-123 for
+// seq >= 2048:
+//   - flash_fwd  <- forward `_flash_attention_kernel`        (FA:331)
+//   - flash_bwd  <- dK/dV   `_flash_attention_dkv_kernel`    (FA:796)
+//                   and dQ  `_flash_attention_dq_kernel`     (FA:1146),
+//                   fused into one kernel.
 //
 // What it computes, for batch row b, query head h (kv head h / (Hq/Hkv)),
 // query s and key t <= s:
@@ -16,32 +18,59 @@
 // outside its kernels. Masked scores take the upstream mask value
 // -0.7 * FLT_MAX, never -inf. Layouts are the port's: q/o/do/dq
 // [B, S, Hq, D], k/v/dk/dv [B, S, Hkv, D], lse/di f32 [B, Hq, S]. GQA reads
-// kv head h / G directly; dK/dV of a kv head sum over the G query heads of
-// its group in one block (the sum the reference's jnp.repeat backward
-// forms), so no repeat is materialized and no atomics are needed.
+// kv head h / G in place. P and dS are rounded to bf16 before their
+// products, as upstream rounds them to the input dtype.
 //
-// What bounds it on an H100: operations. At the training shape (B=8,
-// Hq=32, S=2048, D=128) the forward does ~2.7e11 causal flops over
-// ~0.3 GB, ~800 flops per byte, far above the card's ~295 bf16 balance.
+// What bounds it on an H100: operations. Per visible (query, key) pair and
+// query head the forward does 4 * D flops (q.k, p.v) and the fused backward
+// 10 * D (q.k, do.v, p.do, ds.q, ds.k); at the training shape (B=8, S=2048,
+// Hq=32, Hkv=8, D=128) that is 0.278 ms and 0.695 ms at the 989 TFLOP/s bf16
+// peak, against ~0.3 GB of operands (0.09 ms at 3.35 TB/s).
 //
-// Design (a first, simple kernel; wgmma, TMA and a fused backward come
-// later). bf16: four warps per block, each owning 16 rows of a 64-row
-// tile; products are `mma.sync.m16n8k16` bf16 with f32 accumulation, and
-// scores, the online softmax state (m, l) and the output accumulator stay
-// in registers, the score accumulator re-packed in place as the A operand
-// of the P @ V product. The forward streams 64-key K/V tiles into shared
-// memory with cp.async, double-buffered, and skips tiles above the
-// diagonal. Upstream ran one grid step per K/V block and carried m/l/acc
-// across the sequential grid axis in VMEM scratch; Hopper blocks run in
-// no order, so the K/V walk is a loop inside the block. The dK/dV kernel
-// owns a 64-key tile and loops over 32-row query tiles at or below the
-// diagonal for every query head of its group; the dQ kernel owns a 64-row
-// query tile and loops over K/V tiles. P and dS are rounded to bf16
-// before their products, as upstream rounds them to the input dtype.
-// Any S works: rows past S are zero-filled on load and never stored.
+// Design (bf16; D in {32, 64, 128}, D = 32 runs as 64 with the upper half
+// zero-filled by TMA). Both kernels are warp-specialized: 3 warpgroups, the
+// last a producer whose one thread issues TMA loads of 128-byte-swizzled
+// tiles (boxes of 64 columns, so D = 128 is two boxes) into a ring of
+// shared-memory stages, each completing on an mbarrier; the first two are
+// consumers that run every product as `wgmma` and hand a stage back
+// through a second mbarrier. `setmaxnreg` moves registers from
+// the producer (24) to the consumers (240).
+//   flash_fwd: persistent (one block per SM) over 128-row query tiles (64
+//     rows a consumer), the longest first. A tile's Q is loaded once; 128-key K/V tiles stream
+//     through 2 stages and tiles above the diagonal are skipped (only the
+//     diagonal tile is masked). S = Q K^T is an SS wgmma (both K-major); the
+//     online softmax (m, l, rescaled O) stays in registers, in base 2 with
+//     one FFMA and one exp2 a score; P is rounded to bf16 in registers and
+//     is the A operand of P V, with V read MN-major (no transposed copy).
+//   flash_bwd: a block owns a 64-key tile of one kv head, keeps K and V in
+//     shared memory and walks the query heads of its GQA group and the
+//     64-row query tiles at or below the diagonal; Q, dO, lse and di of
+//     each step arrive by TMA through 3 stages. The two consumers split
+//     the work by role, so each holds one 64 x D f32 accumulator (with
+//     both dK and dV in one warpgroup, ptxas serialized every wgmma for
+//     lack of registers): warpgroup 0 computes S^T = K Q^T, P^T (f32 to
+//     warpgroup 1, bf16 to shared memory) and dV += P^T dO; warpgroup 1
+//     computes dP^T = V dO^T, dS^T = P^T (dP^T - di) (bf16 to shared
+//     memory) and dK += dS^T Q. Then each computes half of dQ = dS K
+//     (dS and K MN-major), stages it in shared memory and one thread adds
+//     it to an f32 workspace with a TMA reduce-add. P and dP are computed
+//     once: 10 * D flops per pair, where the former dK/dV and dQ kernels
+//     recomputed them (14 * D). Blocks walk (batch row, kv head) pairs in
+//     chunks of 4, the longest key tiles first within a chunk, so that the
+//     dQ rows the resident blocks add into stay in L2.
+//   dK and dV are summed over the group's query heads in registers, with no
+//   atomics: they are deterministic. dQ's sum over key tiles is made by
+//   reduce-adds in whatever order the blocks reach them, so its last bits
+//   can change from run to run.
+// Left for later: overlap of the softmax with the products (within a
+// warpgroup, or ping-pong of the two; a first intra-warpgroup try made the
+// forward slower), a persistent backward, clusters with multicast K/V
+// loads, and FP8.
+//
 // f32 inputs (parity runs) take scalar CUDA-core kernels, one thread per
-// row, with the same formulas.
+// row, with the same formulas: a forward, a dK/dV and a dQ kernel.
 
+#include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,56 +81,36 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr float kMaskValue = -0.7f * 3.402823466e38f;  // upstream DEFAULT_MASK_VALUE
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockM = 64;  // query rows of a forward / dQ block, 16 per warp
-constexpr int kBlockN = 64;  // keys of a K/V tile
-constexpr int kBwdQ = 32;    // query rows per step of the dK/dV loop
-constexpr int kPad = 8;      // bf16 padding per shared row (keeps 16-byte alignment)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kWg = 128;           // threads of a warpgroup
+constexpr int kConsumers = 2;      // consumer warpgroups, 64 rows each
+constexpr int kProducer = kConsumers * kWg;  // first thread of the producer warpgroup
+constexpr int kThreads = kProducer + kWg;
+constexpr int kConsumerWarps = 4 * kConsumers;
+// setmaxnreg: 384 threads start at 168 registers; the producer gives up
+// 144 each, the consumers take 72 each (the backward holds dK and dV, 128).
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kRowBytes = 128;     // one swizzled row of a box: 64 bf16
+constexpr int kFwdM = 128;         // query rows of a forward tile
+constexpr int kFwdN = 128;         // keys of a forward K/V tile
+constexpr int kFwdStages = 2;
+constexpr int kBwdN = 64;          // keys of a backward block
+constexpr int kBwdM = 64;          // query rows of a backward step
+constexpr int kBwdStages = 3;
+constexpr int kBwdChunk = 4;       // (batch row, kv head) pairs walked together
+// A wait that has not completed after this long is a bug: trap (the launch
+// then fails) instead of hanging the card.
+constexpr uint64_t kWaitLimitNs = 10ull * 1000 * 1000 * 1000;
+
+static_assert(kFwdM == kFwdN, "the forward's key tiles line up with its query tiles");
+static_assert(kBwdN == 64, "both backward consumers cover the block's 64 keys");
 
 // -- small helpers ----------------------------------------------------------
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a @ b for one m16n8k16 tile: a row-major 16x16, b column-major
-// 16x8, f32 accumulators. Fragment layout (g = lane / 4, t = lane % 4):
-// a0 (g, 2t..), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..);
-// b0 (k 2t.., n g), b1 (k 2t+8.., n g); d0,d1 (g, 2t..), d2,d3 (g+8, 2t..).
-__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1,
-                                    uint32_t a2, uint32_t a3, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -114,357 +123,695 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Rows s0 .. s0 + rows - 1 of head h of a [B, S, H, D] bf16 tensor into
-// shared [rows][D + kPad], by cp.async; rows at or past S are zeros.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, int b,
-                                          int s0, int rows, int S, int H, int h, int tid) {
-  constexpr int kChunks = D / 8;
-  constexpr int kLd = D + kPad;
-  for (int i = tid; i < rows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i - r * kChunks) * 8;
-    const int s = s0 + r;
-    const bool ok = s < S;
-    const bf16* g = src + (((size_t)b * S + (ok ? s : 0)) * H + h) * D + c;
-    cp_async16(dst + r * kLd + c, g, ok);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory rounded up to 1024 bytes (a 128-byte swizzle
+// repeats every 8 rows; tiles start on that period).
+__device__ __forceinline__ uint8_t* smem_base(uint8_t* raw) {
+  const uint32_t a = smem_addr(raw);
+  return raw + (((a + 1023u) & ~1023u) - a);
+}
+
+// -- mbarriers ----------------------------------------------------------------
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic.
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool bar_try(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  if (bar_try(addr, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!bar_try(addr, parity)) {
+    if (global_ns() - t0 > kWaitLimitNs) __trap();
   }
 }
 
-// A fragment (16 rows x 16 columns starting at column c) of a shared
-// [rows][kLd] bf16 tile whose first row is `base`.
-template <int kLd>
-__device__ __forceinline__ void a_frag(const bf16* base, int g, int c, uint32_t& a0,
-                                       uint32_t& a1, uint32_t& a2, uint32_t& a3) {
-  a0 = ld32(base + g * kLd + c);
-  a1 = ld32(base + (g + 8) * kLd + c);
-  a2 = ld32(base + g * kLd + c + 8);
-  a3 = ld32(base + (g + 8) * kLd + c + 8);
+// Barrier 1 across the consumer warpgroups (barrier 0 is __syncthreads).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * kWg) : "memory");
 }
 
-// acc[16 x D] += P[16 x K] @ X[K x D] where P sits in score accumulators
-// p[K/8][4] (rounded to bf16 here) and X is a shared [K][kLd] tile.
-template <int D, int K, int kLd>
-__device__ __forceinline__ void acc_px(float (&acc)[D / 8][4], const float (&p)[K / 8][4],
-                                       const bf16* x, int g, int t4) {
+// Barrier 2 + w across consumer warpgroup w.
+__device__ __forceinline__ void warpgroup_sync(int w) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(2 + w), "n"(kWg) : "memory");
+}
+
+// Generic-proxy shared-memory writes made visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// -- TMA ------------------------------------------------------------------------
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// dst[box at the coordinates] += the box at `src` (f32, dropped past the
+// tensor's edges), tracked by the issuing thread's bulk groups.
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, const void* src, int c0,
+                                               int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// This thread's bulk groups have finished reading shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// -- wgmma ------------------------------------------------------------------------
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads of wgmma accumulators above the wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t a0 = pack_f32(p[2 * kk][0], p[2 * kk][1]);
-    const uint32_t a1 = pack_f32(p[2 * kk][2], p[2 * kk][3]);
-    const uint32_t a2 = pack_f32(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    const uint32_t a3 = pack_f32(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-    const bf16* r0 = x + (kk * 16 + t4 * 2) * kLd;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      const int col = dn * 8 + g;
-      const uint32_t b0 = pack_bf16(r0[col], r0[kLd + col]);
-      const uint32_t b1 = pack_bf16(r0[8 * kLd + col], r0[9 * kLd + col]);
-      mma(acc[dn], a0, a1, a2, a3, b0, b1);
-    }
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void regs_release() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_claim() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// threadIdx.x / n as a value the compiler knows is the same across the
+// warp (n a multiple of 32): descriptors built from it then live in
+// uniform registers instead of taking the accumulators' registers.
+template <int n>
+__device__ __forceinline__ int warp_uniform_index() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / n, 0);
+}
+
+// Matrix descriptor of a 128-byte-swizzled operand at shared address
+// `addr`: leading and stride byte offsets (16-byte units in the fields).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | static_cast<uint64_t>(lead >> 4) << 16 |
+         static_cast<uint64_t>(stride >> 4) << 32 | 1ull << 62;
+}
+
+// A tile of `Rows` rows x D columns sits in shared memory as D/64 boxes of
+// Rows x 128 bytes (TMA's 128-byte swizzle: 16-byte chunk c of row r at
+// chunk c ^ (r % 8)).
+//
+// K-major operand (the 16-column slice kk, rows row0 ..): rows are 128
+// bytes apart, 8-row groups 1024; the slice starts 32 bytes in per step.
+template <int Rows>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int row0, int kk) {
+  return make_desc(tile + (kk / 4) * Rows * kRowBytes + row0 * kRowBytes + (kk % 4) * 32, 16,
+                   1024);
+}
+
+// MN-major operand: the reduction runs down the rows (16 from krow0), the
+// M/N dimension along the columns from col0: 8-row groups are 1024 bytes
+// apart, 64-column boxes Rows * 128.
+template <int Rows>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int krow0, int col0) {
+  return make_desc(tile + (col0 / 64) * Rows * kRowBytes + (col0 % 64) * 2 + krow0 * kRowBytes,
+                   Rows * kRowBytes, 1024);
+}
+
+// d[0 .. N/2) (+)= A B for one m64nNk16 step, A and B from shared memory
+// (descriptors), f32 accumulators in the C layout (per warp: rows g and
+// g + 8 of its 16, columns 8j + 2t and 8j + 2t + 1 in d[4j .. 4j + 3]).
+// TA / TB = 1 reads A / B MN-major (transposed). scale_d = 0 overwrites d.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+  } else {
+    static_assert(N == 128 || N == 64 || N == 32, "wgmma_ss: N");
   }
 }
 
-// s[16 x N] = A[16 x D] @ B[N x D]^T with A the 16 shared rows at `a`
-// and B the N shared rows at `bm`, both [.][kLd].
-template <int D, int N, int kLd>
-__device__ __forceinline__ void scores(float (&s)[N / 8][4], const bf16* a, const bf16* bm,
-                                       int g, int t4) {
-#pragma unroll
-  for (int nt = 0; nt < N / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + t4 * 2;
-    uint32_t a0, a1, a2, a3;
-    a_frag<kLd>(a, g, c, a0, a1, a2, a3);
-#pragma unroll
-    for (int nt = 0; nt < N / 8; ++nt) {
-      const bf16* r = bm + (nt * 8 + g) * kLd + c;
-      mma(s[nt], a0, a1, a2, a3, ld32(r), ld32(r + 8));
-    }
-  }
-}
-
-// Rows r (and r + 8) of a 16 x D accumulator into [B, S, H, D] bf16.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (&acc)[D / 8][4],
-                                           int b, int row, int S, int H, int h, int t4,
-                                           float inv0, float inv1) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int s = row + 8 * half;
-    if (s >= S) continue;
-    const float inv = half ? inv1 : inv0;
-    bf16* o = out + (((size_t)b * S + s) * H + h) * D + t4 * 2;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      *reinterpret_cast<uint32_t*>(o + dn * 8) =
-          pack_f32(acc[dn][2 * half] * inv, acc[dn][2 * half + 1] * inv);
-    }
+// d[0 .. N/2) (+)= A B for one m64nNk16 step with A from registers (a0..a3:
+// bf16 pairs at rows g / g + 8 and columns 2t / 2t + 8 of this warp's 16
+// rows, the C layout of a 16-column slice) and B from shared memory; TB = 1
+// reads B MN-major.
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t b,
+                                         int scale_d) {
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d), "n"(TB));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d), "n"(TB));
+  } else {
+    static_assert(N == 128 || N == 64, "wgmma_rs: N");
   }
 }
 
 // -- bf16 forward -------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-               int S, int Hq, int Hkv, float scale) {
-  constexpr int kLd = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kBlockM][kLd]
-  bf16* k_s = q_s + kBlockM * kLd;                // [2][kBlockN][kLd]
-  bf16* v_s = k_s + 2 * kBlockN * kLd;            // [2][kBlockN][kLd]
+struct FwdParams {
+  CUtensorMap q, k, v;  // [B, S, H, D] as {D, H, S, B}; boxes of 128 rows x 64 columns
+  bf16* o;
+  float* lse;
+  int B, S, Hq, Hkv, D;
+  int n_m;      // query tiles of one (batch row, head)
+  int n_tiles;  // n_m * Hq * B
+  float scale_log2;  // scale * log2(e): the softmax runs in base 2
+};
 
-  const int m_tile = gridDim.x - 1 - blockIdx.x;  // longest rows start first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = m_tile * kBlockM;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-  const int n_tiles = (min(q0 + kBlockM, S) - 1) / kBlockN + 1;
-
-  load_rows<D>(q_s, q, b, q0, kBlockM, S, Hq, h, tid);
-  load_rows<D>(k_s, k, b, 0, kBlockN, S, Hkv, hk, tid);
-  load_rows<D>(v_s, v, b, 0, kBlockN, S, Hkv, hk, tid);
-  cp_async_commit();
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY};
-  float l_r[2] = {0.f, 0.f};
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      // The other buffer was last read in iteration j - 1, which ended in
-      // a barrier: the next tile's copies overlap this tile's products.
-      load_rows<D>(k_s + (buf ^ 1) * kBlockN * kLd, k, b, (j + 1) * kBlockN, kBlockN, S,
-                   Hkv, hk, tid);
-      load_rows<D>(v_s + (buf ^ 1) * kBlockN * kLd, v, b, (j + 1) * kBlockN, kBlockN, S,
-                   Hkv, hk, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* ks = k_s + buf * kBlockN * kLd;
-    const bf16* vs = v_s + buf * kBlockN * kLd;
-
-    float s[kBlockN / 8][4];
-    scores<D, kBlockN, kLd>(s, q_s + warp * 16 * kLd, ks, g, t4);
-
-    const int k0 = j * kBlockN;
-    const bool diag = k0 + kBlockN - 1 > q0;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + (e >> 1) * 8;
-        const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-        float x = s[nt][e] * scale;
-        if (diag && col > row) x = kMaskValue;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // Every row sees key 0 in tile 0, so m is finite from then on.
-      const float m_new = fmaxf(m_r[r], quad_max(mx[r]));
-      alpha[r] = expf(m_r[r] - m_new);
-      m_r[r] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - m_r[e >> 1]);
-        s[nt][e] = p;
-        sum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + quad_sum(sum[r]);
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      acc[dn][0] *= alpha[0];
-      acc[dn][1] *= alpha[0];
-      acc[dn][2] *= alpha[1];
-      acc[dn][3] *= alpha[1];
-    }
-    acc_px<D, kBlockN, kLd>(acc, s, vs, g, t4);
-    __syncthreads();
-  }
-
-  store_rows<D>(o, acc, b, row0, S, Hq, h, t4, 1.f / l_r[0], 1.f / l_r[1]);
-  if (t4 == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      if (row < S) lse[((size_t)b * Hq + h) * S + row] = m_r[r] + logf(l_r[r]);
-    }
-  }
+// Tile i (0 = the longest): query tile m of head h of batch row b.
+__device__ __forceinline__ void fwd_tile(const FwdParams& p, int i, int& m, int& h, int& b) {
+  const int heads = p.Hq * p.B;
+  m = p.n_m - 1 - i / heads;
+  h = (i % heads) % p.Hq;
+  b = (i % heads) / p.Hq;
 }
 
-// -- bf16 backward: dK and dV ---------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ di,
-                   bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Hq, int Hkv,
-                   float scale) {
-  constexpr int kLd = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [kBlockN][kLd]
-  bf16* v_s = k_s + kBlockN * kLd;                // [kBlockN][kLd]
-  bf16* q_s = v_s + kBlockN * kLd;                // [kBwdQ][kLd]
-  bf16* do_s = q_s + kBwdQ * kLd;                 // [kBwdQ][kLd]
-  float* lse_s = reinterpret_cast<float*>(do_s + kBwdQ * kLd);  // [kBwdQ]
-  float* di_s = lse_s + kBwdQ;                                  // [kBwdQ]
+template <int Dp>
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_bf16(const __grid_constant__ FwdParams p) {
+  constexpr int kBoxes = Dp / 64;
+  constexpr uint32_t kQBytes = kFwdM * Dp * 2;
+  constexpr uint32_t kKVBytes = kFwdN * Dp * 2;  // one of K, V
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = smem_base(smem_raw);
+  uint8_t* kv_s = q_s + kQBytes;  // stage s: K at 2 s kKVBytes, V right after
+  uint64_t* bars = reinterpret_cast<uint64_t*>(kv_s + 2 * kFwdStages * kKVBytes);
+  uint64_t* q_full = bars;
+  uint64_t* q_free = bars + 1;
+  uint64_t* kv_full = bars + 2;
+  uint64_t* kv_free = kv_full + kFwdStages;
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    bar_init(q_free, kConsumerWarps);
+    for (int s = 0; s < kFwdStages; ++s) {
+      bar_init(kv_full + s, 1);
+      bar_init(kv_free + s, kConsumerWarps);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+  const int group = p.Hq / p.Hkv;
 
-  const int k0 = (gridDim.x - 1 - blockIdx.x) * kBlockN;  // most work first
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int G = Hq / Hkv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
-
-  load_rows<D>(k_s, k, b, k0, kBlockN, S, Hkv, hk, tid);
-  load_rows<D>(v_s, v, b, k0, kBlockN, S, Hkv, hk, tid);
-  cp_async_commit();
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dn][e] = dv_acc[dn][e] = 0.f;
-
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
-    const float* lse_h = lse + ((size_t)b * Hq + h) * S;
-    const float* di_h = di + ((size_t)b * Hq + h) * S;
-    // Query tiles at or below the diagonal: those with a row >= k0.
-    for (int qs = (k0 / kBwdQ) * kBwdQ; qs < S; qs += kBwdQ) {
-      __syncthreads();  // the previous step is done with q_s / do_s
-      load_rows<D>(q_s, q, b, qs, kBwdQ, S, Hq, h, tid);
-      load_rows<D>(do_s, dout, b, qs, kBwdQ, S, Hq, h, tid);
-      cp_async_commit();
-      if (tid < kBwdQ) {
-        const int row = qs + tid;
-        lse_s[tid] = row < S ? lse_h[row] : 0.f;
-        di_s[tid] = row < S ? di_h[row] : 0.f;
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-
-      float pt[kBwdQ / 8][4], dst[kBwdQ / 8][4];
-      scores<D, kBwdQ, kLd>(pt, k_s + warp * 16 * kLd, q_s, g, t4);    // S^T
-      scores<D, kBwdQ, kLd>(dst, v_s + warp * 16 * kLd, do_s, g, t4);  // dP^T
-      const bool diag = qs < k0 + kBlockN - 1;
-#pragma unroll
-      for (int nt = 0; nt < kBwdQ / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + (e >> 1) * 8;
-          const int r = nt * 8 + t4 * 2 + (e & 1);
-          const int row = qs + r;
-          float p = 0.f, ds = 0.f;
-          if (row < S && (!diag || row >= key)) {
-            p = expf(pt[nt][e] * scale - lse_s[r]);
-            ds = p * (dst[nt][e] - di_s[r]) * scale;
+  if (threadIdx.x >= kProducer) {
+    // Producer: one thread keeps the ring full, tile after tile.
+    regs_release<kProducerRegs>();
+    if (threadIdx.x == kProducer) {
+      int it = 0, t = 0;
+      for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x, ++t) {
+        int m, h, b;
+        fwd_tile(p, tile, m, h, b);
+        bar_wait(q_free, (t & 1) ^ 1);
+        bar_expect(q_full, kQBytes);
+        for (int x = 0; x < kBoxes; ++x)
+          tma_load(q_s + x * kFwdM * kRowBytes, &p.q, q_full, x * 64, h, m * kFwdM, b);
+        for (int j = 0; j <= m; ++j, ++it) {  // key tiles at or below the diagonal
+          const int s = it % kFwdStages;
+          bar_wait(kv_free + s, ((it / kFwdStages) & 1) ^ 1);
+          bar_expect(kv_full + s, 2 * kKVBytes);
+          uint8_t* k_s = kv_s + 2 * s * kKVBytes;
+          for (int x = 0; x < kBoxes; ++x) {
+            tma_load(k_s + x * kFwdN * kRowBytes, &p.k, kv_full + s, x * 64, h / group,
+                     j * kFwdN, b);
+            tma_load(k_s + kKVBytes + x * kFwdN * kRowBytes, &p.v, kv_full + s, x * 64,
+                     h / group, j * kFwdN, b);
           }
-          pt[nt][e] = p;
-          dst[nt][e] = ds;
         }
-      acc_px<D, kBwdQ, kLd>(dv_acc, pt, do_s, g, t4);   // dV += P^T dO
-      acc_px<D, kBwdQ, kLd>(dk_acc, dst, q_s, g, t4);   // dK += dS^T Q
+      }
+    }
+  } else {
+    regs_claim<kConsumerRegs>();
+    const int cw = warp_uniform_index<kWg>();  // rows 64 cw .. of the tile
+    const int warp = warp_uniform_index<32>() % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    float sacc[kFwdN / 2];
+    float oacc[Dp / 2];
+    int it = 0, t = 0;
+    for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x, ++t) {
+      int m, h, b;
+      fwd_tile(p, tile, m, h, b);
+      const int row0 = m * kFwdM + cw * 64 + warp * 16 + g;  // this thread's rows: +0, +8
+#pragma unroll
+      for (int i = 0; i < Dp / 2; ++i) oacc[i] = 0.f;
+      float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+      bar_wait(q_full, t & 1);
+      const uint32_t q_a = smem_addr(q_s);
+      for (int j = 0; j <= m; ++j, ++it) {
+        const int s = it % kFwdStages;
+        bar_wait(kv_full + s, (it / kFwdStages) & 1);
+        const uint32_t k_a = smem_addr(kv_s + 2 * s * kKVBytes);
+        const uint32_t v_a = k_a + kKVBytes;
+
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < Dp / 16; ++kk)
+          wgmma_ss<kFwdN, 0, 0>(sacc, desc_k<kFwdM>(q_a, cw * 64, kk), desc_k<kFwdN>(k_a, 0, kk),
+                                kk > 0);
+        wg_commit();
+        wg_wait();
+        reg_fence(sacc);
+
+        // Mask above the diagonal (the diagonal tile only), online softmax
+        // in base 2: p = 2^(s * scale * log2(e) - m), one FFMA and one
+        // exp2 a score; m and l per row, m in raw score units.
+        const bool diag = j == m;
+        float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+        for (int i = 0; i < kFwdN / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          if (diag && (i / 4) * 8 + 2 * t4 + (i & 1) > cw * 64 + warp * 16 + g + 8 * r)
+            sacc[i] = kMaskValue;
+          mx[r] = fmaxf(mx[r], sacc[i]);
+        }
+        float alpha[2], m2[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          // Every row sees a key in every tile it visits, so m is finite.
+          mx[r] = quad_max(mx[r]);
+          alpha[r] = exp2f((m_r[r] - mx[r]) * p.scale_log2);
+          m_r[r] = mx[r];
+          m2[r] = mx[r] * p.scale_log2;
+        }
+#pragma unroll
+        for (int i = 0; i < kFwdN / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          sacc[i] = exp2f(fmaf(sacc[i], p.scale_log2, -m2[r]));
+          sum[r] += sacc[i];
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + quad_sum(sum[r]);
+#pragma unroll
+        for (int i = 0; i < Dp / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+
+        // O += P V: P from registers (bf16), V MN-major.
+        uint32_t pa[kFwdN / 4];
+#pragma unroll
+        for (int i = 0; i < kFwdN / 4; ++i) pa[i] = pack_f32(sacc[2 * i], sacc[2 * i + 1]);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kFwdN / 16; ++kk)
+          wgmma_rs<Dp, 1>(oacc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                          desc_mn<kFwdN>(v_a, kk * 16, 0), 1);
+        wg_commit();
+        wg_wait();
+        reg_fence(oacc);
+        if (lane == 0) bar_arrive(kv_free + s);
+      }
+      if (lane == 0) bar_arrive(q_free);  // the producer may load the next Q
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row >= p.S) continue;
+        const float inv = 1.f / l_r[r];
+        bf16* o = p.o + (((size_t)b * p.S + row) * p.Hq + h) * p.D + 2 * t4;
+#pragma unroll
+        for (int c = 0; c < Dp / 8; ++c)
+          if (c * 8 < p.D)
+            *reinterpret_cast<uint32_t*>(o + c * 8) =
+                pack_f32(oacc[4 * c + 2 * r] * inv, oacc[4 * c + 2 * r + 1] * inv);
+        if (t4 == 0) p.lse[((size_t)b * p.Hq + h) * p.S + row] =
+              (m_r[r] * p.scale_log2 + log2f(l_r[r])) * kLn2;
+      }
     }
   }
-  store_rows<D>(dk, dk_acc, b, key0, S, Hkv, hk, t4, 1.f, 1.f);
-  store_rows<D>(dv, dv_acc, b, key0, S, Hkv, hk, t4, 1.f, 1.f);
 }
 
-// -- bf16 backward: dQ ------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ di,
-                  bf16* __restrict__ dq, int S, int Hq, int Hkv, float scale) {
-  constexpr int kLd = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [kBlockM][kLd]
-  bf16* do_s = q_s + kBlockM * kLd;               // [kBlockM][kLd]
-  bf16* k_s = do_s + kBlockM * kLd;               // [kBlockN][kLd]
-  bf16* v_s = k_s + kBlockN * kLd;                // [kBlockN][kLd]
+// -- bf16 fused backward ----------------------------------------------------------
+struct BwdParams {
+  CUtensorMap q, dout;  // [B, S, Hq, D]: boxes of 64 rows x 64 columns
+  CUtensorMap k, v;     // [B, S, Hkv, D]: boxes of 128 rows x 64 columns
+  CUtensorMap lse, di;  // [B * Hq, S] f32 (rows padded to 16 bytes): boxes of 64
+  CUtensorMap dq;       // f32 [B, S, Hq, D] workspace, zeroed by the caller: boxes of 64
+                        // rows x 32 columns, which the kernel adds in
+  bf16* dk;
+  bf16* dv;
+  int B, S, Hq, Hkv, D;
+  int n_qt;  // query tiles (64 rows) of one (batch row, head)
+  float scale_log2, scale;
+};
 
-  const int m_tile = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = m_tile * kBlockM;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int row0 = q0 + warp * 16 + g;
-  const int n_tiles = (min(q0 + kBlockM, S) - 1) / kBlockN + 1;
-
-  load_rows<D>(q_s, q, b, q0, kBlockM, S, Hq, h, tid);
-  load_rows<D>(do_s, dout, b, q0, kBlockM, S, Hq, h, tid);
-  cp_async_commit();
-  float lse_r[2], di_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    const size_t at = ((size_t)b * Hq + h) * S + row;
-    lse_r[r] = row < S ? lse[at] : 0.f;
-    di_r[r] = row < S ? di[at] : 0.f;
+template <int Dp>
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_bf16(const __grid_constant__ BwdParams p) {
+  constexpr int kBoxes = Dp / 64;
+  constexpr uint32_t kKVBytes = kBwdN * Dp * 2;      // one of K, V
+  constexpr uint32_t kStepBytes = kBwdM * Dp * 2;    // one of Q, dO of a step
+  constexpr uint32_t kTileBytes = kBwdN * kBwdM * 2;  // bf16 [keys][queries], 128-byte rows
+  constexpr uint32_t kPBytes = kBwdN * kBwdM * 4;     // f32 P^T, in the C fragments' order
+  constexpr uint32_t kDqBytes = kBwdM * (Dp / 2) * 4;  // f32 dQ[queries][D/2] of a warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = smem_base(smem_raw);
+  uint8_t* v_s = k_s + kKVBytes;
+  uint8_t* qdo_s = v_s + kKVBytes;                     // stage s: Q at 2 s kStepBytes, dO after
+  uint8_t* pt_s = qdo_s + 2 * kBwdStages * kStepBytes;  // P^T, bf16
+  uint8_t* ds_s = pt_s + kTileBytes;                    // dS^T, bf16
+  float* pf_s = reinterpret_cast<float*>(ds_s + kTileBytes);  // P^T, f32
+  uint8_t* dq_s = ds_s + kTileBytes + kPBytes;          // warpgroup w's dQ tile at w kDqBytes
+  float* vec_s = reinterpret_cast<float*>(dq_s + kConsumers * kDqBytes);  // stage s: lse, di
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vec_s + 2 * kBwdStages * kBwdM);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* free_ = full + kBwdStages;
+  if (threadIdx.x == 0) {
+    bar_init(kv_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      bar_init(full + s, 1);
+      bar_init(free_ + s, kConsumerWarps);
+    }
+    bar_init_fence();
   }
+  __syncthreads();
 
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[dn][e] = 0.f;
+  // Block -> (key tile, kv head, batch row). The (batch row, kv head)
+  // pairs go in chunks of kBwdChunk, and within a chunk key tile 0 (the
+  // most work) comes first: the blocks resident at one time add into the
+  // dQ rows of a few kv heads, which stay in L2, where key-tile-major
+  // order over all pairs would spread their reduce-adds over the whole
+  // workspace.
+  const int n_kt = (p.S + kBwdN - 1) / kBwdN;
+  const int pairs = p.Hkv * p.B;
+  const int chunk0 = (blockIdx.x / (kBwdChunk * n_kt)) * kBwdChunk;
+  const int in_chunk = min(kBwdChunk, pairs - chunk0);
+  const int j = blockIdx.x - chunk0 * n_kt;
+  const int k0 = (j / in_chunk) * kBwdN;
+  const int hk = (chunk0 + j % in_chunk) % p.Hkv;
+  const int b = (chunk0 + j % in_chunk) / p.Hkv;
+  const int group = p.Hq / p.Hkv;
+  const int qt0 = k0 / kBwdM;  // the first query tile with a row >= k0
 
-  for (int j = 0; j < n_tiles; ++j) {
-    __syncthreads();  // the previous tile is done with k_s / v_s
-    load_rows<D>(k_s, k, b, j * kBlockN, kBlockN, S, Hkv, hk, tid);
-    load_rows<D>(v_s, v, b, j * kBlockN, kBlockN, S, Hkv, hk, tid);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    float s[kBlockN / 8][4], dp[kBlockN / 8][4];
-    scores<D, kBlockN, kLd>(s, q_s + warp * 16 * kLd, k_s, g, t4);
-    scores<D, kBlockN, kLd>(dp, do_s + warp * 16 * kLd, v_s, g, t4);
-    const int k0 = j * kBlockN;
-    const bool diag = k0 + kBlockN - 1 > q0;
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + (e >> 1) * 8;
-        const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-        float ds = 0.f;
-        if (row < S && (!diag || col <= row)) {
-          const float p = expf(s[nt][e] * scale - lse_r[e >> 1]);
-          ds = p * (dp[nt][e] - di_r[e >> 1]) * scale;
-        }
-        s[nt][e] = ds;
+  if (threadIdx.x >= kProducer) {
+    regs_release<kProducerRegs>();
+    if (threadIdx.x == kProducer) {
+      bar_expect(kv_full, 2 * kKVBytes);
+      for (int x = 0; x < kBoxes; ++x) {
+        tma_load(k_s + x * kBwdN * kRowBytes, &p.k, kv_full, x * 64, hk, k0, b);
+        tma_load(v_s + x * kBwdN * kRowBytes, &p.v, kv_full, x * 64, hk, k0, b);
       }
-    acc_px<D, kBlockN, kLd>(dq_acc, s, k_s, g, t4);  // dQ += dS K
+      int it = 0;
+      for (int gi = 0; gi < group; ++gi) {
+        const int h = hk * group + gi;
+        for (int qt = qt0; qt < p.n_qt; ++qt, ++it) {
+          const int s = it % kBwdStages;
+          bar_wait(free_ + s, ((it / kBwdStages) & 1) ^ 1);
+          bar_expect(full + s, 2 * kStepBytes + 2 * kBwdM * 4);
+          uint8_t* q_s = qdo_s + 2 * s * kStepBytes;
+          for (int x = 0; x < kBoxes; ++x) {
+            tma_load(q_s + x * kBwdM * kRowBytes, &p.q, full + s, x * 64, h, qt * kBwdM, b);
+            tma_load(q_s + kStepBytes + x * kBwdM * kRowBytes, &p.dout, full + s, x * 64, h,
+                     qt * kBwdM, b);
+          }
+          float* lse_s = vec_s + 2 * s * kBwdM;
+          tma_load(lse_s, &p.lse, full + s, qt * kBwdM, b * p.Hq + h);
+          tma_load(lse_s + kBwdM, &p.di, full + s, qt * kBwdM, b * p.Hq + h);
+        }
+      }
+    }
+  } else {
+    regs_claim<kConsumerRegs>();
+    // Warpgroup 0 computes P^T and holds dV; warpgroup 1 computes dS^T and
+    // holds dK. Both run the same wgmma calls on role-chosen operands.
+    const int cw = warp_uniform_index<kWg>();
+    const int warp = warp_uniform_index<32>() % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int key_l = warp * 16 + g;  // this thread's keys (in the block): +0, +8
+    float4* pf = reinterpret_cast<float4*>(pf_s) + (threadIdx.x % kWg);  // stride kWg
+    float acc[Dp / 2];  // dV (warpgroup 0) or dK (warpgroup 1), [keys][D]
+#pragma unroll
+    for (int i = 0; i < Dp / 2; ++i) acc[i] = 0.f;
+    bar_wait(kv_full, 0);
+    const uint32_t k_a = smem_addr(k_s);
+    const uint32_t kv_a = cw ? k_a + kKVBytes : k_a;  // K (S^T) or V (dP^T)
+    const uint32_t pt_a = smem_addr(pt_s), ds_a = smem_addr(ds_s);
+    const uint32_t acc_a = cw ? ds_a : pt_a;  // A of dV += P^T dO or dK += dS^T Q
+    int it = 0;
+    for (int gi = 0; gi < group; ++gi) {
+      const int h = hk * group + gi;
+      for (int qt = qt0; qt < p.n_qt; ++qt, ++it) {
+        const int s = it % kBwdStages;
+        const int q0 = qt * kBwdM;
+        bar_wait(full + s, (it / kBwdStages) & 1);
+        const uint32_t q_a = smem_addr(qdo_s + 2 * s * kStepBytes);
+        const uint32_t do_a = q_a + kStepBytes;
+        const uint32_t row_a = cw ? do_a : q_a;   // B of S^T (Q) or dP^T (dO)
+        const uint32_t accb_a = cw ? q_a : do_a;  // B of dK (Q) or dV (dO)
+        const float* lse_s = vec_s + 2 * s * kBwdM;
+        const float* di_s = lse_s + kBwdM;
+
+        // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1), [keys][queries].
+        float sc[kBwdM / 2];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < Dp / 16; ++kk)
+          wgmma_ss<kBwdM, 0, 0>(sc, desc_k<kBwdN>(kv_a, 0, kk), desc_k<kBwdM>(row_a, 0, kk),
+                                kk > 0);
+        wg_commit();
+        wg_wait();
+        reg_fence(sc);
+
+        if (cw == 0) {
+          // P^T = exp(S^T scale - lse), zero above the diagonal and past S:
+          // f32 for warpgroup 1, bf16 (swizzled) for dV.
+#pragma unroll
+          for (int c = 0; c < kBwdM / 8; ++c) {
+            const int col = c * 8 + 2 * t4;
+            const float2 lse2 = *reinterpret_cast<const float2*>(lse_s + col);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int key = k0 + key_l + 8 * r;
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * c + 2 * r + e;
+                const int q = q0 + col + e;
+                sc[i] = q < p.S && key <= q
+                            ? exp2f(fmaf(sc[i], p.scale_log2, -(e ? lse2.y : lse2.x) * kLog2e))
+                            : 0.f;
+              }
+              *reinterpret_cast<uint32_t*>(pt_s + (key_l + 8 * r) * kRowBytes +
+                                           ((c ^ g) * 16) + t4 * 4) =
+                  pack_f32(sc[4 * c + 2 * r], sc[4 * c + 2 * r + 1]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kBwdM / 8; ++j)
+            pf[j * kWg] = make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]);
+        }
+        fence_async_smem();
+        consumers_sync();  // P^T is in shared memory
+
+        if (cw == 1) {
+          // dS^T = P^T (dP^T - di) scale, bf16 (swizzled) for dK and dQ.
+#pragma unroll
+          for (int c = 0; c < kBwdM / 8; ++c) {
+            const int col = c * 8 + 2 * t4;
+            const float2 di2 = *reinterpret_cast<const float2*>(di_s + col);
+            const float4 p4 = pf[c * kWg];
+            const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * c + 2 * r + e;
+                sc[i] = pv[2 * r + e] * (sc[i] - (e ? di2.y : di2.x)) * p.scale;
+              }
+              *reinterpret_cast<uint32_t*>(ds_s + (key_l + 8 * r) * kRowBytes +
+                                           ((c ^ g) * 16) + t4 * 4) =
+                  pack_f32(sc[4 * c + 2 * r], sc[4 * c + 2 * r + 1]);
+            }
+          }
+        }
+        fence_async_smem();
+        if (threadIdx.x % kWg == 0) bulk_wait_read();  // the previous dQ tile is read out
+        consumers_sync();  // dS^T is in shared memory
+
+        // dV += P^T dO or dK += dS^T Q (A K-major, B MN-major), and
+        // dQ[:, cw D/2 ..] = dS K over the block's keys (both MN-major).
+        float dq[Dp / 4];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBwdM / 16; ++kk)
+          wgmma_ss<Dp, 0, 1>(acc, desc_k<kBwdN>(acc_a, 0, kk), desc_mn<kBwdM>(accb_a, kk * 16, 0),
+                             1);
+#pragma unroll
+        for (int kk = 0; kk < kBwdN / 16; ++kk)
+          wgmma_ss<Dp / 2, 1, 1>(dq, desc_mn<kBwdN>(ds_a, kk * 16, 0),
+                                 desc_mn<kBwdN>(k_a, kk * 16, cw * (Dp / 2)), kk > 0);
+        wg_commit();
+        wg_wait();
+        reg_fence(acc);
+        reg_fence(dq);
+        if (lane == 0) bar_arrive(free_ + s);  // done with this step's Q, dO, lse, di
+
+        // The dQ tile to shared memory as boxes of 32 f32 columns (128-byte
+        // swizzle), then one thread adds it to the workspace by TMA.
+        uint8_t* dqt = dq_s + cw * kDqBytes;
+#pragma unroll
+        for (int c = 0; c < Dp / 16; ++c)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = warp * 16 + g + 8 * r;  // row % 8 == g
+            const int col = c * 8 + 2 * t4;         // in the warpgroup's D/2 columns
+            *reinterpret_cast<float2*>(dqt + (col / 32) * kBwdM * kRowBytes + row * kRowBytes +
+                                       ((((col % 32) / 4) ^ g) * 16) + (col % 4) * 4) =
+                make_float2(dq[4 * c + 2 * r], dq[4 * c + 2 * r + 1]);
+          }
+        fence_async_smem();
+        warpgroup_sync(cw);
+        if (threadIdx.x % kWg == 0) {
+          for (int x = 0; x < Dp / 64; ++x)
+            if (cw * (Dp / 2) + x * 32 < p.D)
+              tma_reduce_add(&p.dq, dqt + x * kBwdM * kRowBytes, cw * (Dp / 2) + x * 32, h, q0, b);
+          bulk_commit();
+        }
+      }
+    }
+    if (threadIdx.x % kWg == 0) bulk_wait();
+
+    bf16* out = cw ? p.dk : p.dv;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = k0 + key_l + 8 * r;
+      if (key >= p.S) continue;
+      bf16* row = out + (((size_t)b * p.S + key) * p.Hkv + hk) * p.D + 2 * t4;
+#pragma unroll
+      for (int c = 0; c < Dp / 8; ++c)
+        if (c * 8 < p.D)
+          *reinterpret_cast<uint32_t*>(row + c * 8) =
+              pack_f32(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+    }
   }
-  store_rows<D>(dq, dq_acc, b, row0, S, Hq, h, t4, 1.f, 1.f);
 }
 
 // -- f32 kernels (CUDA cores, one thread per row) ---------------------------------
@@ -644,55 +991,124 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& configured) {
   return err;
 }
 
-template <int D>
-size_t ld_bytes(int rows) {
-  return sizeof(bf16) * (size_t)rows * (D + kPad);
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 1;
+  }
+  return n;
 }
 
-template <int D>
+// cuTensorMapEncodeTiled is a driver-API function; the runtime hands out its
+// address, so the library links no libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// [B, S, H, D] (bf16, or f32 with `f32`) as a 4-D map {D, H, S, B}: a
+// box is `rows` rows of one head by 128 bytes of columns, 128-byte
+// swizzled; columns past D and rows past S read as zeros and are not
+// written.
+bool rows_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int rows,
+              bool f32 = false) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t elt = f32 ? 4 : 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {D * elt, H * D * elt, S * H * D * elt};
+  const cuuint32_t box[4] = {(cuuint32_t)(kRowBytes / elt), 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// [rows, S] f32 with rows `ld` floats apart (ld % 4 == 0) as a 2-D map:
+// a box is kBwdM values of one row, zeros past S.
+bool vec_map(CUtensorMap* map, const void* ptr, int rows, int S, int ld) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)S, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {kBwdM, 1};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int Dp>
 cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                     int S, int Hq, int Hkv, float scale, cudaStream_t st) {
+                     int S, int Hq, int Hkv, int D, float scale, cudaStream_t st) {
+  FwdParams p;
+  if (!rows_map(&p.q, q, B, S, Hq, D, kFwdM) || !rows_map(&p.k, k, B, S, Hkv, D, kFwdN) ||
+      !rows_map(&p.v, v, B, S, Hkv, D, kFwdN))
+    return cudaErrorInvalidValue;
+  p.o = static_cast<bf16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.B = B, p.S = S, p.Hq = Hq, p.Hkv = Hkv, p.D = D;
+  p.n_m = (S + kFwdM - 1) / kFwdM;
+  p.n_tiles = p.n_m * Hq * B;
+  p.scale_log2 = scale * kLog2e;
   static size_t configured = 48 * 1024;
-  const size_t smem = ld_bytes<D>(kBlockM + 4 * kBlockN);
-  cudaError_t err = allow_smem(flash_fwd_bf16<D>, smem, configured);
+  const size_t smem = 1024 + (size_t)(kFwdM + 2 * kFwdStages * kFwdN) * Dp * 2 +
+                      (2 + 2 * kFwdStages) * sizeof(uint64_t);
+  const cudaError_t err = allow_smem(flash_fwd_bf16<Dp>, smem, configured);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBlockM - 1) / kBlockM, Hq, B);
-  flash_fwd_bf16<D><<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<float*>(lse), S, Hq, Hkv, scale);
+  const int grid = p.n_tiles < sm_count() ? p.n_tiles : sm_count();
+  flash_fwd_bf16<Dp><<<grid, kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
-                     const void* lse, const void* di, void* dk, void* dv, int B, int S, int Hq,
-                     int Hkv, float scale, cudaStream_t st) {
+template <int Dp>
+cudaError_t bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* di, void* dq, void* dk, void* dv, int B, int S,
+                     int Hq, int Hkv, int D, int lse_ld, float scale, cudaStream_t st) {
+  if (lse_ld % 4 != 0 || lse_ld < S) return cudaErrorInvalidValue;
+  BwdParams p;
+  if (!rows_map(&p.q, q, B, S, Hq, D, kBwdM) || !rows_map(&p.dout, dout, B, S, Hq, D, kBwdM) ||
+      !rows_map(&p.k, k, B, S, Hkv, D, kBwdN) || !rows_map(&p.v, v, B, S, Hkv, D, kBwdN) ||
+      !vec_map(&p.lse, lse, B * Hq, S, lse_ld) || !vec_map(&p.di, di, B * Hq, S, lse_ld) ||
+      !rows_map(&p.dq, dq, B, S, Hq, D, kBwdM, true))
+    return cudaErrorInvalidValue;
+  p.dk = static_cast<bf16*>(dk);
+  p.dv = static_cast<bf16*>(dv);
+  p.B = B, p.S = S, p.Hq = Hq, p.Hkv = Hkv, p.D = D;
+  p.n_qt = (S + kBwdM - 1) / kBwdM;
+  p.scale_log2 = scale * kLog2e;
+  p.scale = scale;
   static size_t configured = 48 * 1024;
-  const size_t smem = ld_bytes<D>(2 * kBlockN + 2 * kBwdQ) + 2 * kBwdQ * sizeof(float);
-  cudaError_t err = allow_smem(flash_bwd_dkv_bf16<D>, smem, configured);
+  const size_t smem = 1024 + (size_t)(2 * kBwdN + 2 * kBwdStages * kBwdM) * Dp * 2 +
+                      (size_t)kBwdN * kBwdM * (2 + 2 + 4) + (size_t)kConsumers * kBwdM * (Dp / 2) * 4 +
+                      2 * kBwdStages * kBwdM * sizeof(float) +
+                      (1 + 2 * kBwdStages) * sizeof(uint64_t);
+  const cudaError_t err = allow_smem(flash_bwd_bf16<Dp>, smem, configured);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBlockN - 1) / kBlockN, Hkv, B);
-  flash_bwd_dkv_bf16<D><<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Hq,
-      Hkv, scale);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t dq_bf16(const void* q, const void* k, const void* v, const void* dout,
-                    const void* lse, const void* di, void* dq, int B, int S, int Hq, int Hkv,
-                    float scale, cudaStream_t st) {
-  static size_t configured = 48 * 1024;
-  const size_t smem = ld_bytes<D>(2 * kBlockM + 2 * kBlockN);
-  cudaError_t err = allow_smem(flash_bwd_dq_bf16<D>, smem, configured);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBlockM - 1) / kBlockM, Hq, B);
-  flash_bwd_dq_bf16<D><<<grid, kThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<bf16*>(dq), S, Hq, Hkv, scale);
+  const int grid = ((S + kBwdN - 1) / kBwdN) * Hkv * B;
+  flash_bwd_bf16<Dp><<<grid, kThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -705,10 +1121,10 @@ bool valid_shape(int B, int S, int Hq, int Hkv, int D, int dtype) {
 }  // namespace
 
 // Dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, do and the outputs share
-// it; lse and di are always float32). Shapes: q/o/do/dq [B, S, Hq, D];
-// k/v/dk/dv [B, S, Hkv, D]; lse/di [B, Hq, S]. All contiguous. `scale`
-// multiplies the f32 scores (1/sqrt(D) for the models). Each returns the
-// launch's cudaError_t.
+// it; lse and di are always float32). Shapes: q/o/do [B, S, Hq, D];
+// k/v/dk/dv [B, S, Hkv, D]; lse [B, Hq, S]. All contiguous and 16-byte
+// aligned. `scale` multiplies the f32 scores (1/sqrt(D) for the models).
+// Each returns the launch's cudaError_t.
 extern "C" int skypilot_flash_fwd(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int B, int S, int Hq, int Hkv, int D, int dtype,
                                   float scale, void* stream) {
@@ -726,64 +1142,49 @@ extern "C" int skypilot_flash_fwd(const void* q, const void* k, const void* v, v
         Hq, Hkv, D, scale);
     return cudaGetLastError();
   }
-  switch (D) {
-    case 32: return fwd_bf16<32>(q, k, v, o, lse, B, S, Hq, Hkv, scale, st);
-    case 64: return fwd_bf16<64>(q, k, v, o, lse, B, S, Hq, Hkv, scale, st);
-    default: return fwd_bf16<128>(q, k, v, o, lse, B, S, Hq, Hkv, scale, st);
-  }
+  if (D == 128) return fwd_bf16<128>(q, k, v, o, lse, B, S, Hq, Hkv, D, scale, st);
+  return fwd_bf16<64>(q, k, v, o, lse, B, S, Hq, Hkv, D, scale, st);
 }
 
-extern "C" int skypilot_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                      const void* dout, const void* lse, const void* di,
-                                      void* dk, void* dv, int B, int S, int Hq, int Hkv, int D,
-                                      int dtype, float scale, void* stream) {
+// The backward: dq, dk and dv from q, k, v, do, lse and di (f32 [B, Hq, S],
+// rows `lse_ld` floats apart). bf16: one fused kernel; `dq` is an f32
+// [B, S, Hq, D] workspace that the caller zeroes and the kernel adds into,
+// and lse_ld is a multiple of 4 (TMA's 16-byte strides). f32: the dK/dV
+// and dQ scalar kernels, `dq` the f32 result, lse_ld == S.
+extern "C" int skypilot_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
+                                  const void* lse, const void* di, void* dq, void* dk, void* dv,
+                                  int B, int S, int Hq, int Hkv, int D, int dtype, int lse_ld,
+                                  float scale, void* stream) {
   if (!valid_shape(B, S, Hq, Hkv, D, dtype)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    static size_t configured = 48 * 1024;
-    const size_t smem = sizeof(float) * (4 * (size_t)kRowsF * (D + 1) +
-                                         2 * (size_t)kKeysF * D + 2 * kKeysF);
-    cudaError_t err = allow_smem(flash_bwd_dkv_f32, smem, configured);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((S + kRowsF - 1) / kRowsF, Hkv, B);
-    flash_bwd_dkv_f32<<<grid, kRowsF, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(di),
-        static_cast<float*>(dk), static_cast<float*>(dv), S, Hq, Hkv, D, scale);
-    return cudaGetLastError();
+  if (dtype == 1) {
+    if (D == 128)
+      return bwd_bf16<128>(q, k, v, dout, lse, di, dq, dk, dv, B, S, Hq, Hkv, D, lse_ld, scale,
+                           st);
+    return bwd_bf16<64>(q, k, v, dout, lse, di, dq, dk, dv, B, S, Hq, Hkv, D, lse_ld, scale, st);
   }
-  switch (D) {
-    case 32: return dkv_bf16<32>(q, k, v, dout, lse, di, dk, dv, B, S, Hq, Hkv, scale, st);
-    case 64: return dkv_bf16<64>(q, k, v, dout, lse, di, dk, dv, B, S, Hq, Hkv, scale, st);
-    default: return dkv_bf16<128>(q, k, v, dout, lse, di, dk, dv, B, S, Hq, Hkv, scale, st);
-  }
-}
-
-extern "C" int skypilot_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                     const void* dout, const void* lse, const void* di,
-                                     void* dq, int B, int S, int Hq, int Hkv, int D, int dtype,
-                                     float scale, void* stream) {
-  if (!valid_shape(B, S, Hq, Hkv, D, dtype)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    static size_t configured = 48 * 1024;
-    const size_t smem = sizeof(float) * (3 * (size_t)kRowsF * (D + 1) + 2 * (size_t)kKeysF * D);
-    cudaError_t err = allow_smem(flash_bwd_dq_f32, smem, configured);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((S + kRowsF - 1) / kRowsF, Hq, B);
-    flash_bwd_dq_f32<<<grid, kRowsF, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(di),
-        static_cast<float*>(dq), S, Hq, Hkv, D, scale);
-    return cudaGetLastError();
-  }
-  switch (D) {
-    case 32: return dq_bf16<32>(q, k, v, dout, lse, di, dq, B, S, Hq, Hkv, scale, st);
-    case 64: return dq_bf16<64>(q, k, v, dout, lse, di, dq, B, S, Hq, Hkv, scale, st);
-    default: return dq_bf16<128>(q, k, v, dout, lse, di, dq, B, S, Hq, Hkv, scale, st);
-  }
+  if (lse_ld != S) return cudaErrorInvalidValue;
+  static size_t dkv_configured = 48 * 1024, dq_configured = 48 * 1024;
+  const size_t dkv_smem =
+      sizeof(float) * (4 * (size_t)kRowsF * (D + 1) + 2 * (size_t)kKeysF * D + 2 * kKeysF);
+  const size_t dq_smem = sizeof(float) * (3 * (size_t)kRowsF * (D + 1) + 2 * (size_t)kKeysF * D);
+  cudaError_t err = allow_smem(flash_bwd_dkv_f32, dkv_smem, dkv_configured);
+  if (err == cudaSuccess) err = allow_smem(flash_bwd_dq_f32, dq_smem, dq_configured);
+  if (err != cudaSuccess) return err;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* dof = static_cast<const float*>(dout);
+  const float* lsef = static_cast<const float*>(lse);
+  const float* dif = static_cast<const float*>(di);
+  flash_bwd_dkv_f32<<<dim3((S + kRowsF - 1) / kRowsF, Hkv, B), kRowsF, dkv_smem, st>>>(
+      qf, kf, vf, dof, lsef, dif, static_cast<float*>(dk), static_cast<float*>(dv), S, Hq, Hkv,
+      D, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_f32<<<dim3((S + kRowsF - 1) / kRowsF, Hq, B), kRowsF, dq_smem, st>>>(
+      qf, kf, vf, dof, lsef, dif, static_cast<float*>(dq), S, Hq, Hkv, D, scale);
+  return cudaGetLastError();
 }
 
 extern "C" const char* skypilot_flash_error_string(int err) {

@@ -129,3 +129,113 @@ def test_cuda_impl_on_cpu_tensors_raises():
     with fk.impl_scope('cuda'):
         with pytest.raises(RuntimeError):
             fk.flash_attention(qt, kt, vt)
+
+
+# -- the kernel wrappers' own checks (the CUDA kernels run only on the card) --
+def _bf16(*shape, offset=0):
+    """A contiguous bf16 tensor; `offset` elements into its storage."""
+    return torch.zeros(int(np.prod(shape)) + offset,
+                       dtype=torch.bfloat16)[offset:].view(shape)
+
+
+def _fwd_args(dim=64, seq=64):
+    return _bf16(1, seq, 4, dim), _bf16(1, seq, 2, dim), _bf16(1, seq, 2, dim)
+
+
+def _rows(seq=64, dtype=torch.float32):
+    return torch.zeros(1, 4, seq, dtype=dtype)
+
+
+REFUSED = {
+    'mixed_dtypes': (lambda q, k, v: (q, k.float(), v), TypeError),
+    'head_dim_48': (lambda q, k, v: _fwd_args(dim=48), ValueError),
+    'head_dim_256': (lambda q, k, v: _fwd_args(dim=256), ValueError),
+    'non_contiguous': (lambda q, k, v: (
+        q.transpose(1, 2).contiguous().transpose(1, 2), k, v), ValueError),
+    'misaligned': (lambda q, k, v: (_bf16(1, 64, 4, 64, offset=1), k, v),
+                   ValueError),
+    'kv_shape': (lambda q, k, v: (q, k, v[:, :, :1]), ValueError),
+}
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    def refuse():
+        raise AssertionError('the kernel library was asked for')
+    monkeypatch.setattr(fk, '_library', refuse)
+
+
+@pytest.mark.parametrize('name', list(REFUSED))
+def test_forward_kernel_refuses_before_building(no_build, name):
+    make, exc = REFUSED[name]
+    with pytest.raises(exc):
+        fk.flash_forward_kernel(*make(*_fwd_args()))
+
+
+@pytest.mark.parametrize('name', list(REFUSED) + [
+    'do_dtype', 'lse_dtype', 'lse_shape'])
+def test_backward_kernel_refuses_before_building(no_build, name):
+    q, k, v = _fwd_args()
+    do, lse, di = _bf16(1, 64, 4, 64), _rows(), _rows()
+    if name in REFUSED:
+        make, exc = REFUSED[name]
+        q, k, v = make(q, k, v)
+        if q.shape != do.shape:
+            do = _bf16(*q.shape)
+            lse = di = _rows(q.shape[1])
+    elif name == 'do_dtype':
+        do, exc = do.float(), TypeError
+    elif name == 'lse_dtype':
+        lse, exc = _rows(dtype=torch.bfloat16), ValueError
+    else:
+        di, exc = _rows(seq=63), ValueError
+    with pytest.raises(exc):
+        fk.flash_backward_kernel(q, k, v, do, lse, di)
+
+
+def test_torch_route_counts_two_plain_calls_and_no_launches():
+    q, k, v, ct = inputs(64, seed=6)
+    qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    counts0 = (fk.plain_calls, fk.fwd_launches, fk.bwd_launches)
+    out = fk.flash_attention(qt, kt, vt, impl='torch')
+    (out * torch.from_numpy(ct)).sum().backward()
+    assert (fk.plain_calls, fk.fwd_launches, fk.bwd_launches) == (
+        counts0[0] + 2, counts0[1], counts0[2])
+    assert all(t.grad is not None for t in (qt, kt, vt))
+
+
+class _FakeLibrary:
+    """Stands in for the built library: records the backward's arguments
+    and launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def skypilot_flash_bwd(self, *args):
+        self.calls.append(args)
+        return 0
+
+    def skypilot_flash_error_string(self, err):
+        return b'fake'
+
+
+@pytest.mark.parametrize('seq', [64, 66])
+def test_backward_wrapper_pads_lse_rows_and_casts_the_workspace(
+        monkeypatch, seq):
+    """bf16: lse/di rows reach the kernel padded to 4 floats (TMA's
+    16-byte strides), dQ is a zeroed f32 workspace cast to bf16, one
+    launch is counted."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(fk, '_library', lambda: lib)
+    monkeypatch.setattr(fk.torch.cuda, 'current_stream',
+                        lambda device=None: type('S', (), {'cuda_stream': 0}))
+    q, k, v = _fwd_args(seq=seq)
+    do, lse, di = _bf16(1, seq, 4, 64), _rows(seq), _rows(seq)
+    launches = fk.bwd_launches
+    dq, dk, dv = fk.flash_backward_kernel(q, k, v, do, lse, di)
+    assert fk.bwd_launches == launches + 1
+    assert len(lib.calls) == 1 and lib.calls[0][9:16] == (
+        1, seq, 4, 2, 64, 1, -(-seq // 4) * 4)
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+    assert not dq.any()          # the zeroed workspace, cast
+    assert dk.shape == k.shape and dv.shape == v.shape

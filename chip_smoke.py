@@ -14,12 +14,24 @@ failure exits non-zero before the result lines:
   device         card name and power limit, torch/CUDA versions
   build          nvcc build of every kernel from skypilot_tpu_torch/csrc
   kernels        paged attention at Llama-3-8B's head shape (Hq=32,
-                 Hkv=8, D=128, page 16) vs its plain version, for
-                 {bf16, int8, f32} pools x {decode S=1 B=8, chunk S=256
-                 B=1} with contexts ending mid-page, on a page boundary
-                 and fully masked; the perturbed control must fail;
-                 timings (CUDA events, L2-cold) vs the plain version
-                 and scaled_dot_product_attention on gathered K/V
+                 Hkv=8, D=128) vs its plain version, for {bf16, int8, f32}
+                 pools x {decode B=8 (rows ending mid-page, on a page
+                 and on a split boundary, past it, at full length beside
+                 rows whose later splits are empty, and a row that sees
+                 nothing), B=1 context 4096, page size 8, S=4, B=32
+                 (one split a row); chunks of
+                 256 at offsets 300 and 768, S=64 on page size 8}: each
+                 call takes its route (split for bf16/int8 decode, chunk
+                 for bf16/int8 chunks, scalar for f32) and its error is
+                 |x - plain| / |plain| (Frobenius) in the worst unit (a
+                 (batch row, q head) vector at decode, a 128-row tile of
+                 one in a chunk) within 6e-3 (bf16, int8) or 1e-5 (f32);
+                 rows that see nothing exactly 0; the perturbed control
+                 fails both new routes; device-time (spun, L2-cold)
+                 timings at decode B in {1, 8, 32} and the chunk at
+                 offset 768 vs the bound, the plain version and
+                 scaled_dot_product_attention on gathered K/V (a boolean
+                 mask for the chunk)
   lora_kernels   QKV LoRA at Llama-3-8B width (d=4096, q 4096, k/v
                  1024), ranks {8, 16, 64} x {bf16, f32} x {decode B=8
                  S=1 with ids [0,1,1,2,3,0,2,1], chunk B=1 S=256} vs its
@@ -76,7 +88,10 @@ failure exits non-zero before the result lines:
                  serve_lm --adapter-dir answers a request with the
                  trained adapter
 
-The flash kernels' launch counts are those of the two training phases,
+The paged kernel's two rows in the kernels line (split and chunk
+routes) count their launches in the base-serving window (serve_bf16 +
+serve_int8, counted from zero; no scalar-route launch may occur there);
+the flash kernels' launch counts are those of the two training phases,
 each counted from zero. Then, as the last three lines: the card (`nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`), the kernels JSON
 line, and {"ok": true, "device": {...}}. Exits non-zero, printing no
@@ -102,7 +117,15 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 F32_FLOPS = 67e12              # f32 outside the tensor cores
-TOL = {'f32': 1e-5, 'bf16': 2e-2, 'int8': 2e-2}
+# Paged attention tolerances on |x - plain| / |plain| (Frobenius) in the
+# worst unit (each (batch row, q head) vector at decode, each 128-row tile
+# of a (batch row, head) in a chunk): f32 sums in another order; the
+# bf16 and int8 routes round P to bf16 (chunk) and the output to bf16.
+PAGED_TOL = {'f32': 1e-5, 'bf16': 6e-3, 'int8': 6e-3}
+PAGED_TILE = 128
+L2_FLUSH_BYTES = 64e6   # more K/V than the 50 MB L2 per timed cycle
+PAGED_TIMED = (('decode_b1', 1, 1), ('decode_b8', 8, 1), ('decode_b32', 32, 1),
+               ('chunk_offset768', 1, 256))
 HQ, HKV, D, PAGE = 32, 8, 128, 16
 PAGED_ATTENTION_TPU = 'skypilot_tpu/ops/pallas_paged.py:224'
 QKV_LORA_TPU = 'skypilot_tpu/ops/pallas_paged.py:386'
@@ -136,7 +159,8 @@ def check(cond, msg):
 
 
 # -- kernels ---------------------------------------------------------------
-def paged_case(kind, batch, seq, ctx_end, pps, seed, masked_rows=0):
+def paged_case(kind, batch, seq, ctx_end, pps, seed, masked_rows=0,
+               page=PAGE):
     """Inputs at Llama-3-8B's head shape. Row b's queries sit at
     positions ctx_end[b] - seq + 1 .. ctx_end[b]; the first
     `masked_rows` queries of row 0 see nothing (position -1)."""
@@ -144,15 +168,15 @@ def paged_case(kind, batch, seq, ctx_end, pps, seed, masked_rows=0):
     rng = np.random.default_rng(seed)
     total = batch * pps + 1
     tbl = (1 + rng.permutation(total - 1)[:batch * pps]).reshape(batch, pps)
-    shape = (HKV, total, PAGE, D)
+    shape = (HKV, total, page, D)
     g = torch.Generator(dev).manual_seed(seed)
     if kind == 'int8':
         k = torch.randint(-127, 128, shape, generator=g, device=dev,
                           dtype=torch.int8)
         v = torch.randint(-127, 128, shape, generator=g, device=dev,
                           dtype=torch.int8)
-        ks = torch.rand((total, PAGE), generator=g, device=dev) * 0.02
-        vs = torch.rand((total, PAGE), generator=g, device=dev) * 0.02
+        ks = torch.rand((total, page), generator=g, device=dev) * 0.02
+        vs = torch.rand((total, page), generator=g, device=dev) * 0.02
         qdt = torch.bfloat16
     else:
         dt = torch.float32 if kind == 'f32' else torch.bfloat16
@@ -213,20 +237,34 @@ def bound_ms(c):
 
 
 def time_ms(fns, iters=60, warmup=6):
-    """Mean ms per call over `iters` calls cycling through `fns` (each
-    on its own inputs, so together they exceed the 50 MB L2 and every
-    call finds its K/V cold, as a layer does in a real decode step)."""
+    """Mean device ms per call over `iters` calls cycling through `fns`
+    (each on its own inputs, so together they exceed the 50 MB L2 and
+    every call finds its K/V cold, as a layer does in a real decode
+    step). A device spin ahead of the timed calls outlasts their
+    enqueue, so the events bracket back-to-back device work, not the
+    host's launch rate."""
     for i in range(warmup):
         fns[i % len(fns)]()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000 * iters)  # pylint: disable=protected-access
     e0.record()
     for i in range(iters):
         fns[i % len(fns)]()
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def paged_timing_sets(kind, batch, seq):
+    """Input sets of one timed shape (context 1024, queries ending at
+    position 1023), enough that their K/V exceed the L2 together."""
+    elt = 1 if kind == 'int8' else 2
+    kv_bytes = batch * 1024 * HKV * D * elt * 2
+    n_sets = max(2, math.ceil(L2_FLUSH_BYTES / kv_bytes))
+    return [paged_case(kind, batch, seq, [1023] * batch, 64, seed=100 + i)
+            for i in range(n_sets)]
 
 
 def dense_kv(c):
@@ -239,82 +277,175 @@ def dense_kv(c):
             v.to(torch.bfloat16).transpose(1, 2).contiguous())
 
 
-def sdpa_fn(q, k, v):
-    """scaled_dot_product_attention over [B, H, S, D]; GQA through
-    enable_gqa where this torch has it, else heads expanded first."""
+def sdpa_fn(q, k, v, mask=None):
+    """scaled_dot_product_attention over [B, H, S, D] (with a boolean
+    mask if given); GQA through enable_gqa where this torch has it,
+    else heads expanded first."""
     import torch.nn.functional as F
     try:
         F.scaled_dot_product_attention(q[:1], k[:1], v[:1], enable_gqa=True)
-        return lambda: F.scaled_dot_product_attention(q, k, v,
-                                                      enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
     except TypeError:
         rep = q.shape[1] // k.shape[1]
         k2 = k.repeat_interleave(rep, dim=1)
         v2 = v.repeat_interleave(rep, dim=1)
-        return lambda: F.scaled_dot_product_attention(q, k2, v2)
+        return lambda: F.scaled_dot_product_attention(q, k2, v2,
+                                                      attn_mask=mask)
+
+
+def paged_library_fn(c):
+    """One PyTorch call for the same function on the case's K/V gathered
+    dense: SDPA, with a boolean mask (token t <= position) for chunks."""
+    k, v = dense_kv(c)
+    q = c['q'].transpose(1, 2).contiguous()
+    mask = None
+    if q.shape[2] > 1:
+        t = torch.arange(k.shape[2], device='cuda')
+        mask = (t[None, None, :] <= c['positions'][:, :, None])[:, None]
+    return sdpa_fn(q, k, v, mask)
+
+
+def paged_errors(out, ref, tile):
+    """|out - ref| / |ref| (Frobenius) in the worst unit, a unit being
+    `tile` consecutive query positions of one (batch row, q head):
+    1 at decode (each vector), 128 in a chunk. Units whose reference is
+    0 (rows that see nothing) are left to the exact-zero check. Also
+    the largest absolute error."""
+    diff = (out.float() - ref.float()).square().sum(-1)     # [B, S, H]
+    norm = ref.float().square().sum(-1)
+    pad = -out.shape[1] % tile
+
+    def units(t):
+        return torch.nn.functional.pad(t, (0, 0, 0, pad)).unflatten(
+            1, (-1, tile)).sum(2)
+
+    d, n = units(diff), units(norm)
+    rel = (d[n > 0] / n[n > 0]).sqrt()
+    return (rel.max().item() if rel.numel() else 0.0,
+            (out.float() - ref.float()).abs().max().item())
+
+
+def paged_cases(pk):
+    """(label, batch, seq, context ends, pages per row, masked queries
+    of row 0, page size) for every pool type. Decode rows end on split
+    boundaries (the split route's cut for that shape on this card),
+    just past them, and well before a full-length row; at B=32 each
+    row is one split (its block writes the rows, with no merge)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, _, n8, st8 = pk.split_plan(8, HKV, HQ // HKV, 64, PAGE, sms)
+    _, _, n1, st1 = pk.split_plan(1, HKV, HQ // HKV, 256, PAGE, sms)
+    return (
+        ('decode', 8, 1, [999, 1023, 0, 16, 511, 776, 1, 1022], 64, 1, PAGE),
+        ('decode_split_edges', 8, 1, [st8 - 1, st8, 2 * st8 - 1, 2 * st8,
+                                      1023, 5, st8 + 2, 0], 64, 0, PAGE),
+        ('decode_ctx4096', 1, 1, [4095], 256, 0, PAGE),
+        ('decode_page8', 8, 1, [1023, 0, 7, 8, 500, 999, 255, 256], 128, 1,
+         8),
+        ('decode_s4', 3, 4, [300, 1023, 64], 64, 2, PAGE),
+        ('decode_b32', 32, 1, [(37 * i) % 1024 for i in range(32)], 64, 1,
+         PAGE),
+        ('chunk', 1, 256, [555], 48, 16, PAGE),
+        ('chunk_offset768', 1, 256, [1023], 64, 0, PAGE),
+        ('chunk_page8', 2, 64, [700, 130], 128, 3, 8)), \
+        {'split_plan_b8': [n8, st8], 'split_plan_b1_ctx4096': [n1, st1]}
+
+
+def expected_route(kind, seq):
+    if kind == 'f32':
+        return 'scalar'
+    return 'split' if seq * (HQ // HKV) <= 16 else 'chunk'
 
 
 def phase_kernels(pk):
     cases = []
-    decode_ends = [999, 1023, 0, 16, 511, 776, 1, 1022]   # lengths - 1
+    worst = {'split': 0.0, 'chunk': 0.0, 'scalar': 0.0}
+    shapes, plans = paged_cases(pk)
     for kind in ('bf16', 'int8', 'f32'):
-        for label, batch, seq, ends, pps, masked in (
-                ('decode', 8, 1, decode_ends, 64, 1),
-                ('chunk', 1, 256, [555], 48, 16)):
+        for label, batch, seq, ends, pps, masked, page in shapes:
             c = paged_case(kind, batch, seq, ends, pps, seed=len(cases),
-                           masked_rows=masked)
+                           masked_rows=masked, page=page)
+            routes0 = dict(pk.route_launches)
             out = call(pk, c)
             ref = plain(pk, c)
             torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
+            route = [r for r in pk.ROUTES
+                     if pk.route_launches[r] != routes0[r]]
+            tile = 1 if label.startswith('decode') else PAGED_TILE
+            rel, err = paged_errors(out, ref, tile)
             pos = c['positions']
             masked_zero = bool((out[pos < 0].float() == 0).all())
             finite = bool(torch.isfinite(out.float()).all())
             case = {'pool': kind, 'shape': label, 'batch': batch,
-                    'seq': seq, 'max_abs_err': err, 'tol': TOL[kind],
-                    'masked_rows_zero': masked_zero, 'finite': finite}
+                    'seq': seq, 'page': page, 'route': route,
+                    'unit_rel_err': rel, 'tol': PAGED_TOL[kind],
+                    'max_abs_err': err, 'masked_rows_zero': masked_zero,
+                    'finite': finite}
             cases.append(case)
-            check(err <= TOL[kind] and masked_zero and finite,
+            check(route == [expected_route(kind, seq)],
+                  f'paged attention took the wrong route: {case}')
+            check(rel <= PAGED_TOL[kind] and masked_zero and finite,
                   f'kernel disagrees with its plain version: {case}')
-    c = paged_case('bf16', 8, 1, decode_ends, 64, seed=99)
-    bad = call(pk, c, perturb=0.5)
-    perturb_err = (bad.float() - plain(pk, c).float()).abs().max().item()
-    check(perturb_err > TOL['bf16'],
-          f'perturbed kernel passed the pin (err {perturb_err})')
+            worst[route[0]] = max(worst[route[0]], err)
+    perturb = {}
+    controls = [next(c for c in shapes if c[0] == label)   # one a route
+                for label in ('decode', 'chunk')]
+    for label, batch, seq, ends, pps, masked, page in controls:
+        c = paged_case('bf16', batch, seq, ends, pps, seed=99,
+                       masked_rows=masked, page=page)
+        bad = call(pk, c, perturb=0.5)
+        perturb[expected_route('bf16', seq)] = paged_errors(
+            bad, plain(pk, c), 1 if seq == 1 else PAGED_TILE)[0]
+    check(sorted(perturb) == ['chunk', 'split']
+          and all(e > PAGED_TOL['bf16'] for e in perturb.values()),
+          f'perturbed kernel passed the pin: {perturb}')
 
-    # Timings at decode B=8, context 1024, and the chunk shape.
+    # Timings: decode at B in {1, 8, 32}, context 1024, and a chunk of
+    # 256 queries at offset 768; enough input sets that their K/V
+    # exceed the 50 MB L2.
     timings = {}
-    lib = None
     for kind in ('bf16', 'int8'):
-        for label, batch, seq, ends, pps in (
-                ('decode', 8, 1, [1023] * 8, 64),
-                ('chunk', 1, 256, [1023], 64)):
-            sets = [paged_case(kind, batch, seq, ends, pps, seed=100 + i)
-                    for i in range(4)]
-            ms = time_ms([lambda c=c: call(pk, c) for c in sets])
-            plain_ms = time_ms([lambda c=c: plain(pk, c) for c in sets],
-                               iters=12, warmup=2)
+        for label, batch, seq in PAGED_TIMED:
+            sets = paged_timing_sets(kind, batch, seq)
+            n_sets = len(sets)
+            routes0 = dict(pk.route_launches)
+            ms = time_ms([lambda c=c: call(pk, c) for c in sets],
+                         iters=max(60, 3 * n_sets))
+            route = [r for r in pk.ROUTES
+                     if pk.route_launches[r] != routes0[r]]
+            plain_ms = time_ms([lambda c=c: plain(pk, c) for c in sets[:2]],
+                               iters=6, warmup=2)
+            lib = [paged_library_fn(c) for c in sets]
+            library_ms = time_ms(lib, iters=max(60, 3 * n_sets))
+            del lib
             b_ms, b_by = bound_ms(sets[0])
-            entry = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
-                     'bound_by': b_by, 'bytes': must_bytes(sets[0])}
-            if label == 'decode':
-                dense = [dense_kv(c) for c in sets]
-                qs = [c['q'].transpose(1, 2).contiguous() for c in sets]
-                entry['library_ms'] = time_ms(
-                    [sdpa_fn(q, k, v) for q, (k, v) in zip(qs, dense)])
-            timings[f'{kind}_{label}'] = entry
+            timings[f'{kind}_{label}'] = {
+                'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+                'bound_by': b_by, 'bytes': must_bytes(sets[0]),
+                'flops': must_flops(sets[0]), 'library_ms': library_ms,
+                'input_sets': n_sets, 'route': route}
             del sets
-    main = timings['bf16_decode']
-    emit('kernels', cases=cases, perturb_err=perturb_err,
-         perturb_fails=True, timings=timings,
+            torch.cuda.empty_cache()
+    emit('kernels', cases=cases, perturb_unit_rel_err=perturb,
+         perturb_fails=True, split_plans=plans, timings=timings,
          kernels=['paged_attention'])
-    return {'name': 'paged_attention', 'route': 'cuda',
-            'source': 'skypilot_tpu_torch/csrc/paged_attention.cu',
-            'replaces': PAGED_ATTENTION_TPU,
-            'max_abs_err': max(c['max_abs_err'] for c in cases),
-            'ms': main['ms'], 'plain_ms': main['plain_ms'],
-            'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
-            'library_ms': main['library_ms']}
+    rows = []
+    for name, route, key, library in (
+            ('paged_attention', 'split', 'bf16_decode_b8',
+             'scaled_dot_product_attention on gathered K/V'),
+            ('paged_attention_chunk', 'chunk', 'bf16_chunk_offset768',
+             'scaled_dot_product_attention with a boolean mask on '
+             'gathered K/V')):
+        t = timings[key]
+        rows.append({'name': name, 'route': 'cuda',
+                     'source': 'skypilot_tpu_torch/csrc/paged_attention.cu',
+                     'replaces': PAGED_ATTENTION_TPU,
+                     'kernel_route': route, 'timed': key,
+                     'max_abs_err': worst[route], 'ms': t['ms'],
+                     'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+                     'bound_by': t['bound_by'],
+                     'library_ms': t['library_ms'], 'library': library})
+    return rows
 
 
 # -- QKV LoRA kernel --------------------------------------------------------
@@ -628,6 +759,10 @@ def phase_flash_kernels(fk):
             'plain': ('flash_forward_reference' if fwd else
                       'flash_backward_reference (dQ, dK and dV together)')}
     return rows
+
+
+def zero_paged(pk):
+    pk.route_launches.update(dict.fromkeys(pk.ROUTES, 0))
 
 
 def flash_counts(fk):
@@ -1129,7 +1264,7 @@ def main() -> int:
              if 'registers' in line or 'spill' in line]
     emit('build', seconds=time.perf_counter() - t0, ptxas=ptxas)
 
-    kernel = phase_kernels(pk)
+    paged_rows = phase_kernels(pk)
     lora_kernel = phase_lora_kernels(lk)
     flash_rows = phase_flash_kernels(fk)
 
@@ -1142,12 +1277,17 @@ def main() -> int:
     torch.cuda.synchronize()
     emit('init_weights', seconds=time.perf_counter() - t0,
          parameters=sum(p.numel() for p in model.parameters()))
+    zero_paged(pk)
     pk.launches = pk.plain_calls = lk.launches = lk.plain_calls = 0
     phase_serve('bf16', model, pk, lk, card)
     phase_serve('int8', model, pk, lk, card)
     launches, plain_calls = pk.launches, pk.plain_calls
-    check(launches > 0 and plain_calls == 0,
-          f'main path: {launches} launches, {plain_calls} plain calls')
+    routes = dict(pk.route_launches)
+    check(routes['split'] > 0 and routes['chunk'] > 0
+          and routes['scalar'] == 0 and plain_calls == 0,
+          f'main path: {routes} launches by route, {plain_calls} plain '
+          f'calls')
+    zero_paged(pk)
     pk.launches = pk.plain_calls = lk.launches = lk.plain_calls = 0
     phase_serve_lora(model, pk, lk, card)
     lora_launches, lora_plain = lk.launches, lk.plain_calls
@@ -1164,12 +1304,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     lora_counts = phase_train_lora(fk, lk, card)
 
-    kernel['launches'] = launches
+    for row in paged_rows:
+        row['launches'] = routes[row['kernel_route']]
     lora_kernel['launches'] = lora_launches
     for name, row in flash_rows.items():
         row['launches'] = full_counts[name] + lora_counts[name]
     print(card, flush=True)
-    print(json.dumps({'kernels': [kernel, lora_kernel,
+    print(json.dumps({'kernels': [*paged_rows, lora_kernel,
                                   *flash_rows.values()]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

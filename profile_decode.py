@@ -34,7 +34,9 @@ it. One JSON line per phase:
 On the GPU the lora phase checks that each round launches
 num_layers x qkv_lora_dispatches_per_layer('cuda') x
 DEVICE_LAUNCHES_PER_CALL QKV LoRA kernels, the base phase none, and
-both phases one paged-attention kernel per layer.
+both phases num_layers x DEVICE_LAUNCHES_PER_CALL paged-attention
+kernels (one call a layer; `paged_attention_ms_per_round` is their
+device time).
 """
 import argparse
 import collections
@@ -55,6 +57,8 @@ WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
 ROUNDS = 16
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 LORA_KERNELS = ('shrink_kernel', 'expand_kernel')
+# Every route of csrc/paged_attention.cu names its kernel paged_attention_*.
+PAGED_KERNEL = 'paged_attention_'
 
 
 def parse_args(argv=None):
@@ -129,7 +133,10 @@ def summarize(trace_path, rounds, layers):
             any(k in ev['name'] for k in LORA_KERNELS)
             for ev in kernels) / rounds,
         'paged_attention_per_round': sum(
-            'paged_attention_kernel' in ev['name'] for ev in kernels) / rounds,
+            PAGED_KERNEL in ev['name'] for ev in kernels) / rounds,
+        'paged_attention_ms_per_round': sum(
+            ev['dur'] for ev in kernels if PAGED_KERNEL in ev['name'])
+        / 1e3 / rounds,
         'top_kernels_ms_per_round': {
             name: ms / rounds for name, ms in by_name.most_common(12)},
         'top_host_ops_per_round': {
@@ -234,7 +241,8 @@ def main(argv=None) -> int:
                 f'{name}: {out["lora_kernels_per_round"]} QKV LoRA '
                 f'kernels per round, want {want}')
             chip_smoke.check(
-                out['paged_attention_per_round'] == cfg.num_layers,
+                out['paged_attention_per_round']
+                == cfg.num_layers * pk.DEVICE_LAUNCHES_PER_CALL,
                 f'{name}: {out["paged_attention_per_round"]} paged-'
                 f'attention kernels per round')
             chip_smoke.check(

@@ -6,9 +6,9 @@ q [B, S, Hq, D]; positions int32 [B, S] — query s of row b attends
 every cache index <= positions[b, s] (decode is S=1 with positions =
 lengths - 1; chunks pass absolute positions); pools
 [Hkv, P, page_size, D] in f32, bf16 or int8 (int8 needs the f32
-[P, page_size] scale arrays); page_indices int32 [B, pages_per_seq].
-Returns [B, S, Hq, D] in q.dtype; a row with nothing visible returns
-0.
+[P, page_size] scale arrays, one scale per (page, slot) shared across
+heads); page_indices int32 [B, pages_per_seq]. Returns [B, S, Hq, D]
+in q.dtype; a row with nothing visible returns 0.
 
 Dispatch. `IMPLS = ('auto', 'torch', 'cuda')`. 'auto' means the CUDA
 kernel (csrc/paged_attention.cu) for CUDA tensors and the plain PyTorch
@@ -17,8 +17,23 @@ version `fused_paged_attention_reference` for CPU tensors; an
 tensors raises. There is no environment switch and no fallback: a
 kernel that fails to build or launch raises.
 
-`launches` counts kernel launches and `plain_calls` plain-version
-calls through the wrapper, so a run can show which route it took.
+Routes inside the kernel library, chosen by `choose_route`, a fixed
+rule on dtypes and shapes (never a reaction to a failure):
+  'split'   bf16 q over a bf16 or int8 pool, head_dim 64 or 128, page
+            size 8, 16, 32 or 64, and S * G <= 16 query rows per kv head
+            (decode): split-K over the page table, `split_plan` cuts it;
+  'chunk'   the same dtypes, head_dims and page sizes with S * G > 16
+            (prefill chunks): tensor-core (wgmma) tiles;
+  'scalar'  everything else the library takes: f32 pools (the parity
+            path), f32 q, other page sizes; head_dim <= 128 and a
+            multiple of 16. A shape no route takes raises before any
+            build.
+
+`launches` counts wrapper calls that launched the kernel (each call is
+`DEVICE_LAUNCHES_PER_CALL` device launch on every route: the split
+route's merge runs in the last block of each (row, kv head)),
+`route_launches` the same per route, and `plain_calls` plain-version
+calls through the wrapper.
 """
 from __future__ import annotations
 
@@ -26,14 +41,20 @@ import contextlib
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 IMPLS: Tuple[str, ...] = ('auto', 'torch', 'cuda')
 
+ROUTES: Tuple[str, ...] = ('scalar', 'split', 'chunk')
+
 #: Kernel launches made by `fused_paged_attention` in this process.
 launches = 0
+#: The same, per route.
+route_launches: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+#: Device launches per kernel call, on every route.
+DEVICE_LAUNCHES_PER_CALL = 1
 #: Calls of the plain version made through `fused_paged_attention`.
 plain_calls = 0
 
@@ -41,7 +62,20 @@ _default_impl: Optional[str] = None
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_ROUTE_CODES = {name: i for i, name in enumerate(ROUTES)}
 _MAX_HEAD_DIM = 128
+#: What the split and chunk routes take.
+TC_HEAD_DIMS = (64, 128)
+TC_PAGE_SIZES = (8, 16, 32, 64)
+#: Query rows per kv head (S * G) up to which a call takes the split route.
+SPLIT_MAX_ROWS = 16
+#: Split-route tiling: tokens a stage holds, the fewest tiles of a split
+#: (one tile's fixed costs outweigh its bytes), the most splits of one
+#: row, and the blocks the split count aims at per SM.
+SPLIT_TILE = 32
+MIN_SPLIT_TILES = 2
+MAX_SPLITS = 32
+SPLIT_BLOCKS_PER_SM = 2
 
 
 def unavailable_reason() -> Optional[str]:
@@ -139,6 +173,67 @@ def fused_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                    k_scales, v_scales, perturb)
 
 
+def choose_route(q_dtype: torch.dtype, kv_dtype: torch.dtype, seq: int,
+                 num_q_heads: int, num_kv_heads: int, page_size: int,
+                 head_dim: int) -> str:
+    """The kernel route of a call (see module doc): a fixed rule on its
+    dtypes and shapes. Raises ValueError for a shape no route takes."""
+    if q_dtype not in _Q_CODES:
+        raise TypeError(f'q dtype {q_dtype} not in {list(_Q_CODES)}')
+    if kv_dtype not in _KV_CODES:
+        raise TypeError(f'pool dtype {kv_dtype} not in {list(_KV_CODES)}')
+    if head_dim > _MAX_HEAD_DIM or head_dim % 16:
+        raise ValueError(f'the kernel takes head_dim <= {_MAX_HEAD_DIM} '
+                         f'and a multiple of 16, got {head_dim}')
+    if (q_dtype == torch.bfloat16 and kv_dtype != torch.float32
+            and head_dim in TC_HEAD_DIMS and page_size in TC_PAGE_SIZES):
+        rows = seq * (num_q_heads // num_kv_heads)
+        return 'split' if rows <= SPLIT_MAX_ROWS else 'chunk'
+    return 'scalar'
+
+
+def split_plan(batch: int, num_kv_heads: int, rows: int, pages_per_seq: int,
+               page_size: int, sm_count: int) -> Tuple[int, int, int, int]:
+    """How the split route cuts a call: (rows per block, row groups per
+    kv head, splits per row, tokens per split). As many splits as let
+    the (split, kv head, row group, batch row) blocks run in one wave
+    of SPLIT_BLOCKS_PER_SM an SM (a second, partial wave would double
+    the time of the last), each a whole number of SPLIT_TILE-token
+    tiles, at least MIN_SPLIT_TILES where the table has them, at most
+    MAX_SPLITS; the last split ends at the page table's end. A
+    function of shapes only: the host cannot see row lengths without a
+    sync."""
+    rows_per_block = 4 if rows <= 4 else 8
+    groups = -(-rows // rows_per_block)
+    tiles = -(-pages_per_seq * page_size // SPLIT_TILE)
+    slots = SPLIT_BLOCKS_PER_SM * sm_count
+    n_split = max(1, min(slots // (batch * num_kv_heads * groups),
+                         tiles // MIN_SPLIT_TILES, MAX_SPLITS))
+    per = -(-tiles // n_split)
+    return rows_per_block, groups, -(-tiles // per), per * SPLIT_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+#: Per (device, stream): the split route's merge counters. They start at
+#: zero and every launch leaves them at zero (the last block of each
+#: (row, kv head) resets its own), so one buffer serves every call.
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counter_buffer(device: torch.device, stream: int,
+                    n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
@@ -146,7 +241,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load('paged_attention')
     lib.skypilot_paged_attention.restype = ctypes.c_int
     lib.skypilot_paged_attention.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
         + [ctypes.c_float, ctypes.c_void_p])
     lib.skypilot_cuda_error_string.restype = ctypes.c_char_p
     lib.skypilot_cuda_error_string.argtypes = [ctypes.c_int]
@@ -167,11 +262,12 @@ def _launch(q, k_pages, v_pages, positions, page_indices, k_scales,
             raise ValueError(f'the kernel takes contiguous tensors; got '
                              f'strides {t.stride()} for shape '
                              f'{tuple(t.shape)}')
-    if q.dtype not in _Q_CODES:
-        raise TypeError(f'q dtype {q.dtype} not in {list(_Q_CODES)}')
-    if k_pages.dtype not in _KV_CODES or v_pages.dtype != k_pages.dtype:
-        raise TypeError(f'pool dtype {k_pages.dtype} not in '
-                        f'{list(_KV_CODES)}')
+    for t in tensors[:3] + tensors[5:]:
+        if t.data_ptr() % 16:
+            raise ValueError('the kernel takes 16-byte aligned q, pools '
+                             'and scales')
+    if v_pages.dtype != k_pages.dtype:
+        raise TypeError('k_pages and v_pages must share a dtype')
     quantized = k_pages.dtype == torch.int8
     if quantized != (k_scales is not None):
         raise TypeError('int8 pools need scale arrays, and only int8 '
@@ -183,25 +279,41 @@ def _launch(q, k_pages, v_pages, positions, page_indices, k_scales,
         raise TypeError('positions and page_indices must be int32')
     batch, seq, num_q_heads, head_dim = q.shape
     num_kv_heads, total_pages, page_size, _ = k_pages.shape
-    if head_dim > _MAX_HEAD_DIM or head_dim % 16:
-        raise ValueError(f'the kernel takes head_dim <= {_MAX_HEAD_DIM} '
-                         f'and a multiple of 16, got {head_dim}')
+    pages_per_seq = page_indices.shape[1]
+    route = choose_route(q.dtype, k_pages.dtype, seq, num_q_heads,
+                         num_kv_heads, page_size, head_dim)
     lib = _library()
-    fn = lib.skypilot_paged_attention
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             k_scales.data_ptr() if quantized else None,
-             v_scales.data_ptr() if quantized else None,
-             positions.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
-             batch, seq, num_q_heads, num_kv_heads, head_dim, total_pages,
-             page_size, page_indices.shape[1], _Q_CODES[q.dtype],
-             _KV_CODES[k_pages.dtype], float(perturb), stream)
+    partials = counters = None
+    n_split = split_tokens = 0
+    if route == 'split':
+        rows = seq * (num_q_heads // num_kv_heads)
+        rows_per_block, groups, n_split, split_tokens = split_plan(
+            batch, num_kv_heads, rows, pages_per_seq, page_size,
+            _sm_count(q.device.index or 0))
+        pairs = batch * num_kv_heads * groups
+        partials = torch.empty(pairs * n_split * rows_per_block
+                               * (head_dim + 2), dtype=torch.float32,
+                               device=q.device)
+        counters = _counter_buffer(q.device, stream, pairs)
+    err = lib.skypilot_paged_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr() if quantized else None,
+        v_scales.data_ptr() if quantized else None,
+        positions.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
+        None if partials is None else partials.data_ptr(),
+        None if counters is None else counters.data_ptr(),
+        batch, seq, num_q_heads, num_kv_heads, head_dim, total_pages,
+        page_size, pages_per_seq, _Q_CODES[q.dtype],
+        _KV_CODES[k_pages.dtype], _ROUTE_CODES[route], n_split,
+        split_tokens, float(perturb), stream)
     if err != 0:
         msg = lib.skypilot_cuda_error_string(err).decode()
-        raise RuntimeError(f'paged attention kernel failed to launch: '
-                           f'CUDA error {err} ({msg})')
+        raise RuntimeError(f'paged attention kernel ({route} route) failed '
+                           f'to launch: CUDA error {err} ({msg})')
     launches += 1
+    route_launches[route] += 1
     return out
 
 
@@ -234,3 +346,51 @@ def fused_paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
     p = w / torch.where(denom > 0, denom, torch.ones_like(denom))
     out = torch.einsum('bhst,bthd->bshd', p, v_all.float())
     return out.to(q.dtype)
+
+
+def fused_paged_attention_split_reference(
+        q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+        positions: torch.Tensor, page_indices: torch.Tensor, *,
+        split_tokens: int, k_scales: Optional[torch.Tensor] = None,
+        v_scales: Optional[torch.Tensor] = None,
+        perturb: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of the split route's arithmetic: the page
+    table cut into splits of `split_tokens` tokens, a partial (m, l,
+    acc) per split, merged by log-sum-exp; int8 scales folded in without
+    a dequantized copy (score t times k_scale[t] after q.k, weight t
+    times v_scale[t] before p.v). An empty split is (-inf, 0, 0); a row
+    empty in every split returns 0. f32 throughout."""
+    from skypilot_tpu_torch.ops.paged_attention import _gather_kv
+    batch, _, num_q_heads, head_dim = q.shape
+    max_len = page_indices.shape[1] * k_pages.shape[2]
+    # Raw pool values per query head (no scales), [B, T, Hq, D].
+    k_all, v_all = _gather_kv(num_q_heads, k_pages, v_pages, page_indices)
+    s = torch.einsum('bshd,bthd->bhst', q.float(), k_all.float())
+    s = s * ((1.0 + perturb) / math.sqrt(head_dim))
+    v_w = torch.ones(batch, max_len, device=q.device)
+    if k_scales is not None:
+        idx = page_indices.long()
+        s = s * k_scales[idx].reshape(batch, 1, 1, max_len)
+        v_w = v_scales[idx].reshape(batch, max_len)
+    t_idx = torch.arange(max_len, device=q.device)
+    visible = t_idx[None, None, :] <= positions[:, :, None]
+    s = s.masked_fill(~visible[:, None], float('-inf'))
+    m_all, l_all, acc_all = [], [], []
+    for t0 in range(0, max_len, split_tokens):
+        part = s[..., t0:t0 + split_tokens]                  # [B, H, S, T]
+        m = part.amax(dim=-1)
+        w = torch.exp(part - torch.where(torch.isfinite(m), m,
+                                         torch.zeros_like(m))[..., None])
+        m_all.append(m)
+        l_all.append(w.sum(-1))
+        acc_all.append(torch.einsum(
+            'bhst,bthd->bhsd', w * v_w[:, None, None, t0:t0 + split_tokens],
+            v_all[:, t0:t0 + split_tokens].float()))
+    m, l, acc = torch.stack(m_all), torch.stack(l_all), torch.stack(acc_all)
+    big = m.amax(dim=0)
+    big = torch.where(torch.isfinite(big), big, torch.zeros_like(big))
+    w = torch.exp(m - big)                                   # 0 where empty
+    total = (w * l).sum(0)
+    out = (w[..., None] * acc).sum(0) / torch.where(
+        total > 0, total, torch.ones_like(total))[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)

@@ -10,7 +10,13 @@ ops/paged_kernel.py) against the JAX reference, CPU:
   - after the same write sequence the port's pools and scales are
     byte-identical to the reference's (page 0, the trash page where
     colliding writes land in unspecified order, excluded);
-  - PageAllocator hands out the same pages.
+  - PageAllocator hands out the same pages;
+  - the CUDA kernel's split route, through the plain version of its
+    split-K decomposition and int8 scale folding, matches the Pallas
+    kernel and the plain version at atol=1e-5 over splits that do not
+    divide the page table, empty splits and rows empty in every split;
+    the wrapper's split plan and route choice are fixed functions of
+    shapes, and a shape no route takes raises before any build.
 A CUDA kernel cannot run here: chip_smoke.py holds it against the plain
 version on the card.
 """
@@ -228,3 +234,142 @@ def test_page_allocator_sequence_matches():
     assert port.pages_needed(17, 8) == ref.pages_needed(17, 8) == 3
     with pytest.raises(MemoryError):
         port.allocate(99)
+
+
+# -- the CUDA kernel's routes, through their plain versions -------------------
+SPLIT_PSEQ, SPLIT_TOTAL = 10, 64    # 80 tokens a row: splits of 32 or 64
+
+
+def _split_inputs(batch, seq, quantized, seed):
+    """(Hkv, Hq) = (2, 4) inputs over SPLIT_PSEQ pages a row."""
+    rng = np.random.default_rng(seed)
+    tbl = rng.permutation(SPLIT_TOTAL)[:batch * SPLIT_PSEQ].reshape(
+        batch, SPLIT_PSEQ).astype(np.int32)
+    shape = (2, SPLIT_TOTAL, PAGE, D)
+    if quantized:
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = (rng.random((SPLIT_TOTAL, PAGE)) * 0.02).astype(np.float32)
+        vs = (rng.random((SPLIT_TOTAL, PAGE)) * 0.02).astype(np.float32)
+    else:
+        k = rng.standard_normal(shape).astype(np.float32)
+        v = rng.standard_normal(shape).astype(np.float32)
+        ks = vs = None
+    q = rng.standard_normal((batch, seq, 4, D)).astype(np.float32)
+    return q, k, v, tbl, ks, vs
+
+
+# Row ends: nothing visible (every split empty), a full row, rows whose
+# later splits are empty, a row ending on a 32- and a 64-token boundary
+# and one just past it.
+SPLIT_ENDS = np.array([-1, 79, 20, 31, 63, 64], np.int32)
+
+
+@pytest.mark.parametrize('quantized', [False, True], ids=['f32', 'int8'])
+@pytest.mark.parametrize('seq', [1, 3], ids=['decode', 's3'])
+@pytest.mark.parametrize('split_tokens', [32, 64, 96],
+                         ids=['st32', 'st64', 'st96'])
+def test_split_k_reference_parity(quantized, seq, split_tokens):
+    """The split route's decomposition (partials per split, log-sum-exp
+    merge, int8 scales folded into scores and weights) equals the Pallas
+    kernel and the plain version; 80 tokens do not divide into splits
+    of 32 or 64, and 96 leaves one split covering every row."""
+    q, k, v, tbl, ks, vs = _split_inputs(len(SPLIT_ENDS), seq, quantized,
+                                         11)
+    pos = SPLIT_ENDS[:, None] - np.arange(seq)[::-1][None]
+    pos = np.maximum(pos, -1).astype(np.int32)
+    pallas = np.asarray(jax_pp.fused_paged_attention(
+        _j(q), _j(k), _j(v), _j(pos), _j(tbl), k_scales=_j(ks),
+        v_scales=_j(vs), interpret=True))
+    plain = pk.fused_paged_attention_reference(
+        _t(q), _t(k), _t(v), _t(pos), _t(tbl), k_scales=_t(ks),
+        v_scales=_t(vs)).numpy()
+    split = pk.fused_paged_attention_split_reference(
+        _t(q), _t(k), _t(v), _t(pos), _t(tbl), split_tokens=split_tokens,
+        k_scales=_t(ks), v_scales=_t(vs)).numpy()
+    assert np.all(np.isfinite(split))
+    assert np.all(split[0, pos[0] < 0] == 0)
+    np.testing.assert_allclose(split, pallas, atol=ATOL)
+    np.testing.assert_allclose(split, plain, atol=ATOL)
+
+
+def test_split_k_reference_perturbed_fails_the_pin():
+    q, k, v, tbl, ks, vs = _split_inputs(len(SPLIT_ENDS), 1, True, 12)
+    pos = SPLIT_ENDS[:, None]
+    plain = pk.fused_paged_attention_reference(
+        _t(q), _t(k), _t(v), _t(pos), _t(tbl), k_scales=_t(ks),
+        v_scales=_t(vs)).numpy()
+    bad = pk.fused_paged_attention_split_reference(
+        _t(q), _t(k), _t(v), _t(pos), _t(tbl), split_tokens=32,
+        k_scales=_t(ks), v_scales=_t(vs), perturb=0.5).numpy()
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(bad, plain, atol=ATOL)
+
+
+@pytest.mark.parametrize('shape', [
+    (8, 8, 4, 64, 16, 132), (1, 8, 4, 256, 16, 132), (32, 8, 4, 64, 16, 132),
+    (1, 8, 4, 64, 16, 132), (3, 8, 16, 64, 16, 132), (2, 2, 6, 10, 8, 4),
+    (5, 3, 2, 7, 64, 132), (1, 1, 1, 1, 8, 132)])
+def test_split_plan_is_deterministic_and_covers_the_table(shape):
+    batch, hkv, rows, pps, page, sms = shape
+    plan = pk.split_plan(*shape)
+    assert plan == pk.split_plan(*shape)
+    rows_per_block, groups, n_split, split_tokens = plan
+    tokens = pps * page
+    assert rows_per_block in (4, 8) and rows_per_block * groups >= rows
+    assert rows_per_block * (groups - 1) < rows
+    assert split_tokens % pk.SPLIT_TILE == 0
+    assert 1 <= n_split <= pk.MAX_SPLITS
+    assert (n_split - 1) * split_tokens < tokens <= n_split * split_tokens
+
+
+def test_split_plan_at_llama3_decode():
+    """Llama-3-8B decode (Hkv=8, G=4) on 132 SMs: at B=8, context 1024,
+    4 splits of 256 tokens (256 blocks, one wave of 2 an SM); at B=1,
+    context 4096, the most splits (32 of 128 tokens); at B=32 the
+    (batch row, kv head) pairs alone fill the wave."""
+    assert pk.split_plan(8, 8, 4, 64, 16, 132) == (4, 1, 4, 256)
+    assert pk.split_plan(1, 8, 4, 256, 16, 132) == (4, 1, 32, 128)
+    assert pk.split_plan(32, 8, 4, 64, 16, 132) == (4, 1, 1, 1024)
+
+
+@pytest.mark.parametrize('args,route', [
+    ((torch.bfloat16, torch.bfloat16, 1, 32, 8, 16, 128), 'split'),
+    ((torch.bfloat16, torch.int8, 1, 32, 8, 8, 128), 'split'),
+    ((torch.bfloat16, torch.bfloat16, 4, 32, 8, 16, 128), 'split'),
+    ((torch.bfloat16, torch.bfloat16, 5, 32, 8, 16, 128), 'chunk'),
+    ((torch.bfloat16, torch.int8, 256, 32, 8, 16, 64), 'chunk'),
+    ((torch.bfloat16, torch.bfloat16, 256, 32, 8, 64, 128), 'chunk'),
+    ((torch.float32, torch.float32, 1, 32, 8, 16, 128), 'scalar'),
+    ((torch.float32, torch.int8, 256, 32, 8, 16, 128), 'scalar'),
+    ((torch.float32, torch.bfloat16, 1, 32, 8, 16, 128), 'scalar'),
+    ((torch.bfloat16, torch.float32, 1, 32, 8, 16, 128), 'scalar'),
+    ((torch.bfloat16, torch.bfloat16, 1, 32, 8, 12, 128), 'scalar'),
+    ((torch.bfloat16, torch.bfloat16, 256, 32, 8, 4, 128), 'scalar'),
+    ((torch.bfloat16, torch.bfloat16, 1, 32, 8, 16, 96), 'scalar'),
+    ((torch.bfloat16, torch.bfloat16, 1, 6, 3, 16, 16), 'scalar')])
+def test_route_rule(args, route):
+    assert pk.choose_route(*args) == route
+    assert pk.choose_route(*args) == route       # a rule, not a state
+
+
+@pytest.mark.parametrize('head_dim', [72, 144])
+def test_untaken_shape_raises_before_any_build(monkeypatch, head_dim):
+    def no_build():
+        raise AssertionError('the kernel library was asked for')
+
+    monkeypatch.setattr(pk, '_library', no_build)
+    q = torch.zeros(1, 1, 4, head_dim, dtype=torch.bfloat16)
+    pages = torch.zeros(2, 4, 16, head_dim, dtype=torch.bfloat16)
+    pos = torch.zeros(1, 1, dtype=torch.int32)
+    tbl = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match='head_dim'):
+        pk._launch(q, pages, pages, pos, tbl, None, None, 0.0)
+    with pytest.raises(ValueError, match='head_dim'):
+        pk.choose_route(q.dtype, pages.dtype, 1, 4, 2, 16, head_dim)
+    launches = dict(pk.route_launches)
+    # A shape a route takes gets as far as the library.
+    q, pages = q[..., :64].contiguous(), pages[..., :64].contiguous()
+    with pytest.raises(AssertionError, match='library'):
+        pk._launch(q, pages, pages, pos, tbl, None, None, 0.0)
+    assert pk.route_launches == launches

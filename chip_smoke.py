@@ -20,7 +20,9 @@ failure exits non-zero before the result lines:
                  rows whose later splits are empty, and a row that sees
                  nothing), B=1 context 4096, page size 8, S=4, B=32
                  (one split a row); chunks of
-                 256 at offsets 300 and 768, S=64 on page size 8}: each
+                 256 at offsets 300 and 768, S=64 on page size 8; and at
+                 Qwen2-7B's heads (Hq=28, Hkv=4: G=7) decode B=8 and a
+                 chunk of 256}: each
                  call takes its route (split for bf16/int8 decode, chunk
                  for bf16/int8 chunks, scalar for f32) and its error is
                  |x - plain| / |plain| (Frobenius) in the worst unit (a
@@ -35,9 +37,18 @@ failure exits non-zero before the result lines:
   lora_kernels   QKV LoRA at Llama-3-8B width (d=4096, q 4096, k/v
                  1024), ranks {8, 16, 64} x {bf16, f32} x {decode B=8
                  S=1 with ids [0,1,1,2,3,0,2,1], chunk B=1 S=256} vs its
-                 plain version, id-0 rows exactly 0; the perturbed
-                 control must fail; L2-cold timings vs the bound and the
-                 gathered-bmm route
+                 plain version within 1e-5 (max-abs), id-0 rows exactly
+                 0; per dtype also rank 12, decode B=32 over 9 slots,
+                 decode B=64, all rows under one adapter, all under
+                 distinct ones, rows whose id is N (NaN, the others
+                 right), Qwen2-7B's widths (d 3584, q 3584, k/v 512:
+                 decode B=8 and a chunk B=2 S=100) and widths of 4100 /
+                 1028 (no 16-byte copy); two calls bit-identical; one
+                 call captured in a CUDA graph replays right on new x
+                 and ids; the perturbed control must fail; L2-cold
+                 timings (bf16, r 16 and 64, decode B=8, B=32 over 9
+                 slots, chunk of 256) vs the bound, the plain version,
+                 the gathered-bmm route and one near-empty launch
   serve_bf16,    build_runtime with serve_lm's flags, make_server on an
   serve_int8     ephemeral port, 8 concurrent greedy /generate requests
                  (300-700 prompt tokens, two sharing a 256-token
@@ -54,7 +65,8 @@ failure exits non-zero before the result lines:
   flash_kernels  the flash forward and fused backward (dQ, dK, dV)
                  kernels vs their plain versions (D=128) at training's
                  shape (bf16 B=8 S=2048 Hq=32 Hkv=8), a long prefill's
-                 (bf16 B=1 S=2300) and {bf16, f32} x {B=1 S=2048 Hq=32
+                 (bf16 B=1 S=2300), Qwen2-7B's heads (bf16 B=1 S=2048
+                 Hq=28 Hkv=4) and {bf16, f32} x {B=1 S=2048 Hq=32
                  Hkv=8, B=2 S=1000 Hq=8 Hkv=2}: the norm of the error over
                  that of the plain result, in every 128-row tile of each
                  batch row and head, within 6e-3 (bf16) or 1e-5 (f32);
@@ -127,6 +139,7 @@ L2_FLUSH_BYTES = 64e6   # more K/V than the 50 MB L2 per timed cycle
 PAGED_TIMED = (('decode_b1', 1, 1), ('decode_b8', 8, 1), ('decode_b32', 32, 1),
                ('chunk_offset768', 1, 256))
 HQ, HKV, D, PAGE = 32, 8, 128, 16
+QWEN2_7B_HEADS = (28, 4)       # models/registry.py qwen2-7b: G = 7
 PAGED_ATTENTION_TPU = 'skypilot_tpu/ops/pallas_paged.py:224'
 QKV_LORA_TPU = 'skypilot_tpu/ops/pallas_paged.py:386'
 # Both the kernel and its plain version accumulate in f32 from the same
@@ -160,15 +173,17 @@ def check(cond, msg):
 
 # -- kernels ---------------------------------------------------------------
 def paged_case(kind, batch, seq, ctx_end, pps, seed, masked_rows=0,
-               page=PAGE):
-    """Inputs at Llama-3-8B's head shape. Row b's queries sit at
-    positions ctx_end[b] - seq + 1 .. ctx_end[b]; the first
-    `masked_rows` queries of row 0 see nothing (position -1)."""
+               page=PAGE, heads=(HQ, HKV)):
+    """Inputs at a head shape (q heads, kv heads; Llama-3-8B's by
+    default). Row b's queries sit at positions ctx_end[b] - seq + 1 ..
+    ctx_end[b]; the first `masked_rows` queries of row 0 see nothing
+    (position -1)."""
+    hq, hkv = heads
     dev = 'cuda'
     rng = np.random.default_rng(seed)
     total = batch * pps + 1
     tbl = (1 + rng.permutation(total - 1)[:batch * pps]).reshape(batch, pps)
-    shape = (HKV, total, page, D)
+    shape = (hkv, total, page, D)
     g = torch.Generator(dev).manual_seed(seed)
     if kind == 'int8':
         k = torch.randint(-127, 128, shape, generator=g, device=dev,
@@ -184,7 +199,7 @@ def paged_case(kind, batch, seq, ctx_end, pps, seed, masked_rows=0,
         v = torch.randn(shape, generator=g, device=dev).to(dt)
         ks = vs = None
         qdt = dt
-    q = torch.randn((batch, seq, HQ, D), generator=g, device=dev).to(qdt)
+    q = torch.randn((batch, seq, hq, D), generator=g, device=dev).to(qdt)
     pos = np.stack([np.arange(e - seq + 1, e + 1) for e in ctx_end])
     pos[0, :masked_rows] = -1
     pos = np.maximum(pos, -1).astype(np.int32)
@@ -213,7 +228,7 @@ def must_bytes(c):
     pos = c['positions'].cpu().numpy()
     visible = int(np.maximum(pos.max(axis=1) + 1, 0).sum())  # tokens
     kv = c['k_pages']
-    per_token = 2 * HKV * D * kv.element_size()
+    per_token = 2 * kv.shape[0] * D * kv.element_size()
     if c['k_scales'] is not None:
         per_token += 2 * 4
     io = 2 * c['q'].numel() * c['q'].element_size()
@@ -225,7 +240,7 @@ def must_flops(c):
     """4 * D flops (q.k and p.v) per query head per (query, visible
     token) pair."""
     pos = c['positions'].cpu().numpy()
-    return 4.0 * D * HQ * float(np.maximum(pos + 1, 0).sum())
+    return 4.0 * D * c['q'].shape[2] * float(np.maximum(pos + 1, 0).sum())
 
 
 def bound_ms(c):
@@ -328,33 +343,41 @@ def paged_errors(out, ref, tile):
 
 def paged_cases(pk):
     """(label, batch, seq, context ends, pages per row, masked queries
-    of row 0, page size) for every pool type. Decode rows end on split
-    boundaries (the split route's cut for that shape on this card),
-    just past them, and well before a full-length row; at B=32 each
-    row is one split (its block writes the rows, with no merge)."""
+    of row 0, page size, (q heads, kv heads)) for every pool type.
+    Decode rows end on split boundaries (the split route's cut for that
+    shape on this card), just past them, and well before a full-length
+    row; at B=32 each row is one split (its block writes the rows, with
+    no merge). The g7 cases take Qwen2-7B's heads (Hq=28, Hkv=4: 7 query
+    heads a kv head, so a 64-row chunk tile cuts across positions)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     _, _, n8, st8 = pk.split_plan(8, HKV, HQ // HKV, 64, PAGE, sms)
     _, _, n1, st1 = pk.split_plan(1, HKV, HQ // HKV, 256, PAGE, sms)
+    llama, qwen = (HQ, HKV), QWEN2_7B_HEADS
     return (
-        ('decode', 8, 1, [999, 1023, 0, 16, 511, 776, 1, 1022], 64, 1, PAGE),
+        ('decode', 8, 1, [999, 1023, 0, 16, 511, 776, 1, 1022], 64, 1, PAGE,
+         llama),
         ('decode_split_edges', 8, 1, [st8 - 1, st8, 2 * st8 - 1, 2 * st8,
-                                      1023, 5, st8 + 2, 0], 64, 0, PAGE),
-        ('decode_ctx4096', 1, 1, [4095], 256, 0, PAGE),
+                                      1023, 5, st8 + 2, 0], 64, 0, PAGE,
+         llama),
+        ('decode_ctx4096', 1, 1, [4095], 256, 0, PAGE, llama),
         ('decode_page8', 8, 1, [1023, 0, 7, 8, 500, 999, 255, 256], 128, 1,
-         8),
-        ('decode_s4', 3, 4, [300, 1023, 64], 64, 2, PAGE),
+         8, llama),
+        ('decode_s4', 3, 4, [300, 1023, 64], 64, 2, PAGE, llama),
         ('decode_b32', 32, 1, [(37 * i) % 1024 for i in range(32)], 64, 1,
-         PAGE),
-        ('chunk', 1, 256, [555], 48, 16, PAGE),
-        ('chunk_offset768', 1, 256, [1023], 64, 0, PAGE),
-        ('chunk_page8', 2, 64, [700, 130], 128, 3, 8)), \
+         PAGE, llama),
+        ('chunk', 1, 256, [555], 48, 16, PAGE, llama),
+        ('chunk_offset768', 1, 256, [1023], 64, 0, PAGE, llama),
+        ('chunk_page8', 2, 64, [700, 130], 128, 3, 8, llama),
+        ('decode_g7', 8, 1, [999, 1023, 0, 16, 511, 776, 1, 1022], 64, 1,
+         PAGE, qwen),
+        ('chunk_g7', 1, 256, [555], 48, 16, PAGE, qwen)), \
         {'split_plan_b8': [n8, st8], 'split_plan_b1_ctx4096': [n1, st1]}
 
 
-def expected_route(kind, seq):
+def expected_route(kind, seq, heads=(HQ, HKV)):
     if kind == 'f32':
         return 'scalar'
-    return 'split' if seq * (HQ // HKV) <= 16 else 'chunk'
+    return 'split' if seq * (heads[0] // heads[1]) <= 16 else 'chunk'
 
 
 def phase_kernels(pk):
@@ -362,9 +385,9 @@ def phase_kernels(pk):
     worst = {'split': 0.0, 'chunk': 0.0, 'scalar': 0.0}
     shapes, plans = paged_cases(pk)
     for kind in ('bf16', 'int8', 'f32'):
-        for label, batch, seq, ends, pps, masked, page in shapes:
+        for label, batch, seq, ends, pps, masked, page, heads in shapes:
             c = paged_case(kind, batch, seq, ends, pps, seed=len(cases),
-                           masked_rows=masked, page=page)
+                           masked_rows=masked, page=page, heads=heads)
             routes0 = dict(pk.route_launches)
             out = call(pk, c)
             ref = plain(pk, c)
@@ -377,12 +400,13 @@ def phase_kernels(pk):
             masked_zero = bool((out[pos < 0].float() == 0).all())
             finite = bool(torch.isfinite(out.float()).all())
             case = {'pool': kind, 'shape': label, 'batch': batch,
-                    'seq': seq, 'page': page, 'route': route,
+                    'seq': seq, 'page': page, 'hq': heads[0],
+                    'hkv': heads[1], 'route': route,
                     'unit_rel_err': rel, 'tol': PAGED_TOL[kind],
                     'max_abs_err': err, 'masked_rows_zero': masked_zero,
                     'finite': finite}
             cases.append(case)
-            check(route == [expected_route(kind, seq)],
+            check(route == [expected_route(kind, seq, heads)],
                   f'paged attention took the wrong route: {case}')
             check(rel <= PAGED_TOL[kind] and masked_zero and finite,
                   f'kernel disagrees with its plain version: {case}')
@@ -390,7 +414,7 @@ def phase_kernels(pk):
     perturb = {}
     controls = [next(c for c in shapes if c[0] == label)   # one a route
                 for label in ('decode', 'chunk')]
-    for label, batch, seq, ends, pps, masked, page in controls:
+    for label, batch, seq, ends, pps, masked, page, _ in controls:
         c = paged_case('bf16', batch, seq, ends, pps, seed=99,
                        masked_rows=masked, page=page)
         bad = call(pk, c, perturb=0.5)
@@ -449,13 +473,15 @@ def phase_kernels(pk):
 
 
 # -- QKV LoRA kernel --------------------------------------------------------
-def lora_case(dtype, rank, batch, seq, ids, seed, n_adapters=4):
-    """Stacked factors at Llama-3-8B width (row 0 zeros: the base model)
-    and inputs, on the card."""
+def lora_case(dtype, rank, batch, seq, ids, seed, n_adapters=4,
+              widths=(D_MODEL, D_Q, D_KV)):
+    """Stacked factors (row 0 zeros: the base model) and inputs on the
+    card, at `widths` = (d_in, d_q, d_kv): Llama-3-8B's by default."""
+    d_in, d_q, d_kv = widths
     g = torch.Generator('cuda').manual_seed(seed)
 
     def factors(d_out):
-        a = torch.randn((n_adapters, D_MODEL, rank), generator=g,
+        a = torch.randn((n_adapters, d_in, rank), generator=g,
                         device='cuda') * 0.02
         b = torch.randn((n_adapters, rank, d_out), generator=g,
                         device='cuda') * 0.02
@@ -463,9 +489,8 @@ def lora_case(dtype, rank, batch, seq, ids, seed, n_adapters=4):
         b[0] = 0
         return {'a': a.to(dtype), 'b': b.to(dtype)}
 
-    x = torch.randn((batch, seq, D_MODEL), generator=g,
-                    device='cuda').to(dtype)
-    return {'x': x, 'f': [factors(D_Q), factors(D_KV), factors(D_KV)],
+    x = torch.randn((batch, seq, d_in), generator=g, device='cuda').to(dtype)
+    return {'x': x, 'f': [factors(d_q), factors(d_kv), factors(d_kv)],
             'ids': torch.tensor(ids, dtype=torch.int32, device='cuda')}
 
 
@@ -478,15 +503,15 @@ def lora_bound_ms(c):
     x = c['x']
     batch, seq, d_in = x.shape
     rank = c['f'][0]['a'].shape[2]
+    d_outs = sum(f['b'].shape[2] for f in c['f'])
     peak = F32_FLOPS if c['f'][0]['a'].dtype == torch.float32 \
         else BF16_FLOPS
     distinct = len(set(c['ids'].tolist()))
     per_row = sum(f[k][0].numel() * f[k].element_size() for f in c['f']
                   for k in ('a', 'b'))
-    outs = 4 * batch * seq * (D_Q + 2 * D_KV)
-    n_bytes = x.numel() * x.element_size() + distinct * per_row + outs \
-        + 4 * batch
-    flops = 2.0 * batch * seq * (3 * d_in * rank + rank * (D_Q + 2 * D_KV))
+    n_bytes = x.numel() * x.element_size() + distinct * per_row \
+        + 4 * batch * seq * d_outs + 4 * batch
+    flops = 2.0 * batch * seq * (3 * d_in * rank + rank * d_outs)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                        else 'operations'), n_bytes
@@ -515,6 +540,13 @@ def time_cold_ms(fn, iters=40, warmup=4):
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
+def launch_floor_ms():
+    """`time_cold_ms` of one near-empty launch: the device time any
+    one-launch call pays before its work."""
+    return time_cold_ms(
+        lambda: torch.cuda._sleep(0))  # pylint: disable=protected-access
+
+
 def gathered_bmm(c):
     """The yardstick: one gathered `torch.bmm` chain per projection."""
     x, ids = c['x'], c['ids']
@@ -522,44 +554,128 @@ def gathered_bmm(c):
                       f['b'][ids].float()) for f in c['f']]
 
 
-def phase_lora_kernels(lk):
-    cases = []
-    shapes = (('decode', 8, 1, [0, 1, 1, 2, 3, 0, 2, 1]),
-              ('chunk', 1, 256, [2]))
+QWEN2_7B_WIDTHS = (3584, 3584, 512)    # models/registry.py qwen2-7b
+# Widths no 16-byte copy fits (d % 8 = 4): the kernel's element-wise
+# copy and store paths.
+UNALIGNED_WIDTHS = (4100, 4100, 1028)
+LORA_IDS_B8 = [0, 1, 1, 2, 3, 0, 2, 1]
+# Timed shapes: (label, batch, seq, ids, adapter slots).
+LORA_TIMED = (('decode', 8, 1, LORA_IDS_B8, 4),
+              ('decode_b32_9slots', 32, 1, [i % 9 for i in range(32)], 9),
+              ('chunk', 1, 256, [2], 4))
+
+
+def lora_cases():
+    """(label, dtype, rank, batch, seq, ids, slots, widths) of every
+    correctness case: PR 2's ranks x dtypes x {decode B=8, chunk of
+    256}, then a rank that is not a multiple of 8, 32 rows over 9 slots,
+    64 rows (the grouping for more than 32 rows), one adapter, all
+    distinct, an id = N (its row must be NaN), Qwen2-7B's widths
+    (d_in / 8 = 448, k/v of 512 columns) and widths no 16-byte copy
+    fits."""
+    out = []
     for dtype in (torch.bfloat16, torch.float32):
         for rank in (8, 16, 64):
-            for label, batch, seq, ids in shapes:
-                c = lora_case(dtype, rank, batch, seq, ids, seed=len(cases))
-                out = lk.fused_qkv_lora_delta(c['x'], *c['f'], c['ids'])
-                ref = lk.fused_qkv_lora_delta_reference(c['x'], *c['f'],
-                                                        c['ids'])
-                torch.cuda.synchronize()
-                err = max((o - r).abs().max().item()
-                          for o, r in zip(out, ref))
-                base_rows = c['ids'] == 0
-                base_zero = all(not o[base_rows].any() for o in out)
-                finite = all(bool(torch.isfinite(o).all()) for o in out)
-                shape_ok = [tuple(o.shape) for o in out] == [
-                    (batch, seq, D_Q), (batch, seq, D_KV), (batch, seq, D_KV)]
-                case = {'dtype': str(dtype).split('.')[-1], 'rank': rank,
-                        'shape': label, 'batch': batch, 'seq': seq,
-                        'max_abs_err': err, 'tol': LORA_TOL,
-                        'base_rows_zero': base_zero, 'finite': finite}
-                cases.append(case)
-                check(err <= LORA_TOL and base_zero and finite and shape_ok,
-                      f'QKV LoRA kernel disagrees with its plain version: '
-                      f'{case}')
-    c = lora_case(torch.bfloat16, 16, 8, 1, shapes[0][3], seed=99)
+            out += [('decode', dtype, rank, 8, 1, LORA_IDS_B8, 4, None),
+                    ('chunk', dtype, rank, 1, 256, [2], 4, None)]
+        out += [('decode_rank12', dtype, 12, 8, 1, LORA_IDS_B8, 4, None),
+                ('chunk_rank12', dtype, 12, 1, 256, [2], 4, None),
+                ('decode_b32_9slots', dtype, 16, 32, 1,
+                 [i % 9 for i in range(32)], 9, None),
+                ('decode_b64', dtype, 16, 64, 1,
+                 [(7 * i) % 6 for i in range(64)], 6, None),
+                ('decode_one_adapter', dtype, 16, 8, 1, [3] * 8, 4, None),
+                ('decode_distinct', dtype, 16, 8, 1,
+                 [5, 0, 7, 2, 6, 1, 4, 3], 8, None),
+                ('decode_id_n', dtype, 16, 8, 1, [1, 0, 4, 2, 3, 0, 4, 1],
+                 4, None),
+                ('decode_qwen2_7b', dtype, 16, 8, 1, LORA_IDS_B8, 4,
+                 QWEN2_7B_WIDTHS),
+                ('chunk_qwen2_7b', dtype, 16, 2, 100, [1, 1], 4,
+                 QWEN2_7B_WIDTHS),
+                ('decode_unaligned_widths', dtype, 16, 8, 1, LORA_IDS_B8, 4,
+                 UNALIGNED_WIDTHS)]
+    return out
+
+
+def lora_check_case(lk, label, dtype, rank, batch, seq, ids, slots, widths,
+                    seed):
+    """The kernel vs its plain version on one case: rows whose id is out
+    of range must be NaN; the others within LORA_TOL (max-abs), id-0
+    rows exactly 0, finite, of the expected shapes."""
+    c = lora_case(dtype, rank, batch, seq, ids, seed, n_adapters=slots,
+                  widths=widths or (D_MODEL, D_Q, D_KV))
+    out = lk.fused_qkv_lora_delta(c['x'], *c['f'], c['ids'])
+    valid = (c['ids'] >= 0) & (c['ids'] < slots)
+    # The plain version indexes the stacks: only rows with a valid id.
+    ref = lk.fused_qkv_lora_delta_reference(c['x'][valid], *c['f'],
+                                            c['ids'][valid])
+    torch.cuda.synchronize()
+    err = max((o[valid] - r).abs().max().item() for o, r in zip(out, ref))
+    nan_rows = all(bool(o[~valid].isnan().all()) for o in out)
+    base_zero = all(not o[c['ids'] == 0].any() for o in out)
+    finite = all(bool(torch.isfinite(o[valid]).all()) for o in out)
+    shape_ok = [tuple(o.shape[:2]) for o in out] == [(batch, seq)] * 3 \
+        and [o.shape[2] for o in out] == [f['b'].shape[2] for f in c['f']]
+    case = {'shape': label, 'dtype': str(dtype).split('.')[-1],
+            'rank': rank, 'batch': batch, 'seq': seq, 'slots': slots,
+            'd_in': c['x'].shape[2], 'max_abs_err': err, 'tol': LORA_TOL,
+            'nan_rows': int((~valid).sum()), 'nan_rows_nan': nan_rows,
+            'base_rows_zero': base_zero, 'finite': finite}
+    check(err <= LORA_TOL and base_zero and finite and shape_ok
+          and nan_rows, f'QKV LoRA kernel disagrees with its plain '
+                        f'version: {case}')
+    return case
+
+
+def lora_graph_replay(lk):
+    """One call captured in a CUDA graph; new x and ids contents copied
+    into its inputs; the replay against the plain version on them."""
+    c = lora_case(torch.bfloat16, 16, 8, 1, LORA_IDS_B8, seed=300)
+    x, ids = c['x'].clone(), c['ids'].clone()
+    lk.fused_qkv_lora_delta(x, *c['f'], ids)      # first use outside
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = lk.fused_qkv_lora_delta(x, *c['f'], ids)
+    new = lora_case(torch.bfloat16, 16, 8, 1, [3, 3, 0, 1, 2, 2, 1, 0],
+                    seed=301)
+    x.copy_(new['x'])
+    ids.copy_(new['ids'])
+    graph.replay()
+    ref = lk.fused_qkv_lora_delta_reference(new['x'], *c['f'], new['ids'])
+    torch.cuda.synchronize()
+    return max((o - r).abs().max().item() for o, r in zip(outs, ref))
+
+
+def phase_lora_kernels(lk):
+    cases = [lora_check_case(lk, *spec, seed=i)
+             for i, spec in enumerate(lora_cases())]
+    c = lora_case(torch.bfloat16, 16, 8, 1, LORA_IDS_B8, seed=99)
     bad = lk.fused_qkv_lora_delta(c['x'], *c['f'], c['ids'], perturb=0.5)
     ref = lk.fused_qkv_lora_delta_reference(c['x'], *c['f'], c['ids'])
     perturb_err = max((o - r).abs().max().item() for o, r in zip(bad, ref))
     check(perturb_err > LORA_TOL,
           f'perturbed LoRA kernel passed the pin (err {perturb_err})')
+    identical = {}
+    for label, batch, seq, ids, slots in LORA_TIMED:
+        c = lora_case(torch.bfloat16, 16, batch, seq, ids, seed=98,
+                      n_adapters=slots)
+        one = lk.fused_qkv_lora_delta(c['x'], *c['f'], c['ids'])
+        two = lk.fused_qkv_lora_delta(c['x'], *c['f'], c['ids'])
+        identical[label] = all(bool(torch.equal(a, b))
+                               for a, b in zip(one, two))
+    check(all(identical.values()),
+          f'two calls on the same inputs differ: {identical}')
+    graph_err = lora_graph_replay(lk)
+    check(graph_err <= LORA_TOL,
+          f'CUDA-graph replay disagrees with the plain version: {graph_err}')
 
     timings = {}
     for rank in (16, 64):
-        for label, batch, seq, ids in shapes:
-            c = lora_case(torch.bfloat16, rank, batch, seq, ids, seed=200)
+        for label, batch, seq, ids, slots in LORA_TIMED:
+            c = lora_case(torch.bfloat16, rank, batch, seq, ids, seed=200,
+                          n_adapters=slots)
             args = (c['x'], *c['f'], c['ids'])
             b_ms, b_by, n_bytes = lora_bound_ms(c)
             timings[f'bf16_r{rank}_{label}'] = {
@@ -568,18 +684,21 @@ def phase_lora_kernels(lk):
                     lambda: lk.fused_qkv_lora_delta_reference(*args)),
                 'library_ms': time_cold_ms(lambda: gathered_bmm(c)),
                 'library': 'gathered torch.bmm per projection',
+                'launch_floor_ms': launch_floor_ms(),
                 'bound_ms': b_ms, 'bound_by': b_by, 'bytes': n_bytes,
                 'device_launches_per_call': lk.DEVICE_LAUNCHES_PER_CALL}
     main = timings['bf16_r16_decode']
     emit('lora_kernels', cases=cases, perturb_err=perturb_err,
-         perturb_fails=True, timings=timings)
+         perturb_fails=True, bit_identical=identical,
+         graph_replay_max_abs_err=graph_err, timings=timings)
     return {'name': 'qkv_lora', 'route': 'cuda',
             'source': 'skypilot_tpu_torch/csrc/qkv_lora.cu',
-            'replaces': QKV_LORA_TPU,
+            'replaces': QKV_LORA_TPU, 'timed': 'bf16_r16_decode',
             'max_abs_err': max(c['max_abs_err'] for c in cases),
             'ms': main['ms'], 'plain_ms': main['plain_ms'],
             'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
-            'library_ms': main['library_ms']}
+            'library_ms': main['library_ms'],
+            'launch_floor_ms': main['launch_floor_ms']}
 
 
 # -- flash attention kernels ---------------------------------------------------
@@ -672,6 +791,7 @@ FLASH_CASES = (   # (dtype, batch, seq, hq, hkv)
     ('bf16', 8, 2048, 32, 8),     # train_lm --seq 2048, Llama-3-8B
     ('bf16', 1, 2300, 32, 8),     # a serve_long whole-prompt prefill
     ('bf16', 1, 2048, 32, 8),
+    ('bf16', 1, 2048, 28, 4),     # Qwen2-7B's heads: 7 q heads a kv head
     ('bf16', 2, 1000, 8, 2),
     ('f32', 1, 2048, 32, 8),
     ('f32', 2, 1000, 8, 2))

@@ -36,7 +36,7 @@ num_layers x qkv_lora_dispatches_per_layer('cuda') x
 DEVICE_LAUNCHES_PER_CALL QKV LoRA kernels, the base phase none, and
 both phases num_layers x DEVICE_LAUNCHES_PER_CALL paged-attention
 kernels (one call a layer; `paged_attention_ms_per_round` is their
-device time).
+device time, `lora_ms_per_round` the QKV LoRA kernels').
 """
 import argparse
 import collections
@@ -56,7 +56,10 @@ WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
                     'profile_decode')
 ROUNDS = 16
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
-LORA_KERNELS = ('shrink_kernel', 'expand_kernel')
+# The QKV LoRA kernel; the two-launch kernel before it named its kernels
+# shrink/expand, so this script, run from a checkout of that version,
+# times its rounds too.
+LORA_KERNELS = ('qkv_lora_kernel', 'shrink_kernel', 'expand_kernel')
 # Every route of csrc/paged_attention.cu names its kernel paged_attention_*.
 PAGED_KERNEL = 'paged_attention_'
 
@@ -132,6 +135,9 @@ def summarize(trace_path, rounds, layers):
         'lora_kernels_per_round': sum(
             any(k in ev['name'] for k in LORA_KERNELS)
             for ev in kernels) / rounds,
+        'lora_ms_per_round': sum(
+            ev['dur'] for ev in kernels
+            if any(k in ev['name'] for k in LORA_KERNELS)) / 1e3 / rounds,
         'paged_attention_per_round': sum(
             PAGED_KERNEL in ev['name'] for ev in kernels) / rounds,
         'paged_attention_ms_per_round': sum(

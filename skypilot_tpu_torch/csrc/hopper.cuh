@@ -1,7 +1,9 @@
 // Device helpers shared by the port's Hopper (sm_90a) kernels: bf16
-// packing, shared-memory addresses, mbarriers, the async-proxy fence and
-// wgmma on 128-byte-swizzled operands; and two host helpers (the
-// dynamic shared-memory opt-in, the SM count).
+// packing and unpacking, shared-memory addresses, mbarriers, 16-byte
+// cp.async, ldmatrix and mma.sync, thread-block cluster barriers and
+// distributed shared memory, the async-proxy fence and wgmma on
+// 128-byte-swizzled operands; and two host helpers (the dynamic
+// shared-memory opt-in, the SM count).
 //
 // Operand layout that the wgmma descriptors below assume: a tile of
 // `Rows` rows x D columns (bf16) sits in shared memory as D/64 boxes of
@@ -40,6 +42,24 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 8 bf16 (16 bytes, 16-byte aligned) as f32: exact.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = lo.x; f[1] = lo.y; f[2] = lo.z; f[3] = lo.w;
+  f[4] = hi.x; f[5] = hi.y; f[6] = hi.z; f[7] = hi.w;
 }
 
 // The dynamic shared memory rounded up to 1024 bytes (a 128-byte swizzle
@@ -96,6 +116,92 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
   while (!bar_try(addr, parity)) {
     if (global_ns() - t0 > kWaitLimitNs) __trap();
   }
+}
+
+// -- cp.async ---------------------------------------------------------------
+// 16 bytes global -> shared without registers, of which the first `bytes`
+// (0..16) are read and the rest written as zeros: a slot past the valid
+// data never holds stale bytes (0 x NaN would poison a product). Both
+// addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16_n(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  cp_async16_n(dst, src, valid ? 16 : 0);
+}
+
+// One arrival on `bar` once every cp.async this thread issued so far has
+// landed (.noinc: the barrier counts one arrival per thread and phase).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// -- ldmatrix and mma.sync ----------------------------------------------------
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += A B, m16n8k16, bf16 in, f32 accumulators: A rows g / g + 8 and k
+// 2t.. / 2t + 8.. in a[0..3], B k 2t.. / 2t + 8.. of column g in b0 / b1,
+// d rows g (d[0..1]) and g + 8 (d[2..3]), columns 2t and 2t + 1.
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// -- thread-block clusters ------------------------------------------------------
+// A cluster barrier in two halves: arrive (release: this block's shared
+// memory writes before it are visible to the cluster) and wait (acquire).
+// Every thread of every block of the cluster takes part.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// An arrival that publishes nothing (this block only read its peers).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of shared address `addr` in block `rank`.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float4 ld_cluster_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // Generic-proxy shared-memory writes made visible to wgmma's reads.
@@ -278,6 +384,18 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& configured) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess) configured = bytes;
+  return err;
+}
+
+// All of the SM's unified memory as shared memory, once per kernel
+// instantiation, so occupancy is set by the kernel's own use (the default
+// carveout can fit fewer blocks an SM than their shared memory allows).
+template <typename Kernel>
+inline cudaError_t max_shared_carveout(Kernel kernel, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done = true;
   return err;
 }
 

@@ -375,33 +375,8 @@ typedef __nv_bfloat16 bf16;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// 16 bytes global -> shared without registers; `valid` false writes zeros
-// (src-size 0: nothing is read), so a slot past the visible tokens never
-// holds stale bytes (0 x NaN would poison a product).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// One arrival on `bar` once every cp.async this thread issued so far has
-// landed (.noinc: the barrier counts one arrival per thread and phase).
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// 8 pool elements (16 bytes of bf16, 8 of int8) from shared memory as f32.
-__device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
-  const uint4 r = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
+// 8 int8 pool elements from shared memory as f32 (the bf16 overload is
+// in hopper.cuh).
 __device__ __forceinline__ void load8(const int8_t* p, float (&f)[8]) {
   const uint2 r = *reinterpret_cast<const uint2*>(p);
   const uint32_t w[2] = {r.x, r.y};
@@ -454,19 +429,8 @@ __host__ __device__ constexpr size_t split_stage_bytes() {
   return 2 * (size_t)kSplitTile * Dp * sizeof(KV) + 2 * kSplitTile * sizeof(float);
 }
 
-// mma.sync helpers (the split route's products: m16n8 tiles of one warp).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
+// mma.sync helpers (the split route's products: m16n8 tiles of one warp;
+// ldmatrix is in hopper.cuh).
 // d (+)= A B, m16n8k16: A rows g / g + 8 and k 2t.. / 2t + 8.. in a0..a3
 // (rows g + 8 are zero here: a1 = a3 = 0), B k 2t.. / 2t + 8.. of column g.
 __device__ __forceinline__ void mma_k16(float (&d)[4], uint32_t a0, uint32_t a2, uint32_t b0,
@@ -1024,16 +988,10 @@ cudaError_t launch_split(const Params& p, cudaStream_t st) {
                       pages * sizeof(int);
   cudaError_t err = allow_smem(paged_attention_split<KV, Dp, Rows>, smem, configured);
   if (err != cudaSuccess) return err;
-  // All of the SM's unified memory as shared memory, so occupancy is set by
-  // the kernel's own use (the default carveout fitted 3 int8 blocks an SM).
+  // (The default carveout fitted 3 int8 blocks an SM.)
   static bool carved = false;
-  if (!carved) {
-    err = cudaFuncSetAttribute(paged_attention_split<KV, Dp, Rows>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return err;
-    carved = true;
-  }
+  err = max_shared_carveout(paged_attention_split<KV, Dp, Rows>, carved);
+  if (err != cudaSuccess) return err;
   const dim3 grid(p.n_split, p.Hkv, p.B * p.groups);
   paged_attention_split<KV, Dp, Rows><<<grid, kSplitThreads, smem, st>>>(p);
   return cudaGetLastError();

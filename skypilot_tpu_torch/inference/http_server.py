@@ -7,7 +7,12 @@ token-id endpoints):
   GET  /readyz             readiness (503 while draining, engine dead
                            or queue saturated, with the reasons)
   GET  /stats              slots, queue, KV pool, kernel launches,
-                           adapters, request metrics (JSON)
+                           adapters, request metrics (JSON); the
+                           top-level keys the replica plane's
+                           ReplicaManager scrapes, as the reference
+                           names them (instance_uuid, queued,
+                           prefill_backlog_tokens, requests_shed,
+                           healthy, role, prefix_cache)
   GET  /v1/models          the base model plus the adapter inventory
   POST /generate           {"tokens": [[...]], "max_new_tokens": N,
                            "temperature", "top_k", "top_p",
@@ -34,6 +39,7 @@ import os
 import signal
 import threading
 import time
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 
@@ -43,6 +49,16 @@ from skypilot_tpu_torch.errors import (AdapterLoadError,
                                        EngineDeadError, QueueSaturatedError)
 from skypilot_tpu_torch.inference.runtime import InferenceRuntime
 from skypilot_tpu_torch.ops import lora_kernel, paged_kernel
+
+
+#: The environment variable through which the replica plane hands a
+#: spawned replica its instance identity (the reference's
+#: replica_manager.INSTANCE_UUID_ENV).
+INSTANCE_UUID_ENV = 'STPU_REPLICA_INSTANCE_UUID'
+#: This process's replica identity, echoed in `GET /stats`: the manager
+#: adopts a journaled pid/port after a restart only if the echo matches.
+#: A standalone server mints its own.
+INSTANCE_UUID = os.environ.get(INSTANCE_UUID_ENV) or uuid.uuid4().hex
 
 
 def classify_error(e: Exception):
@@ -184,7 +200,17 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
         def _stats(self):
             eng = rt.engine
             cfg = eng.model.config
+            pc = eng.prefix_cache
             body = {
+                # The keys ReplicaManager scrapes, at the top level as
+                # the reference serves them. This port serves unified
+                # replicas only: its role is ''.
+                'instance_uuid': INSTANCE_UUID,
+                'queued': eng.queued_requests(),
+                'prefill_backlog_tokens': eng.prefill_backlog_tokens(),
+                'requests_shed': eng.requests_shed,
+                'healthy': eng.healthy(),
+                'role': '',
                 'model': rt.model_name,
                 'device': str(eng.device),
                 'zone': rt.zone,
@@ -202,6 +228,13 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                              'plain_calls': lora_kernel.plain_calls},
                 'requests': rt.metrics.snapshot(),
             }
+            if pc is not None:
+                body['prefix_cache'] = {
+                    'hits': pc.hits, 'misses': pc.misses,
+                    'hit_rate': round(pc.hits / max(pc.hits + pc.misses,
+                                                    1), 3),
+                    'evictions': pc.evictions,
+                    'resident_unreferenced': len(pc.lru)}
             if rt.adapters is not None:
                 body['adapters'] = rt.adapters.stats()
             return body
@@ -291,9 +324,11 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                                     'logprobs': None,
                                     'finish_reason': 'length'
                                     if len(gen) >= max_new else 'stop'})
+                # Each prompt counts once, however many choices it
+                # fans out to (the OpenAI usage contract).
                 n_prompt = sum(len(p) for p in prompts)
-                rt.metrics.record(time.monotonic() - t0, n_gen,
-                                  sum(len(p) for p in fanned), ttft)
+                rt.metrics.record(time.monotonic() - t0, n_gen, n_prompt,
+                                  ttft)
                 self._json({'object': 'text_completion',
                             'model': body.get('model') or rt.model_name,
                             'choices': choices,

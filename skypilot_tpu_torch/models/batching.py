@@ -369,6 +369,12 @@ class ContinuousBatchingEngine:
     def queued_requests(self) -> int:
         return self._queue.qsize() + len(self._ready)
 
+    def prefill_backlog_tokens(self) -> int:
+        """Prompt tokens admitted but not yet prefilled (racy numpy
+        reads from other threads, as in the reference)."""
+        return int(((self.prompt_len - self.prefill_frontier)
+                    * self.prefilling).sum())
+
     def queued_tokens(self) -> int:
         with self._shed_lock:
             return self._queued_tokens_n

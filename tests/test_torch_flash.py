@@ -8,7 +8,8 @@ interpret mode, on the same numpy inputs, f32:
     normalizes its accumulator every block, the port once at the end);
   - dq, dk and dv within 1e-4 (the backward recomputes P from the saved
     logsumexp and sums over 256-384 keys in another order);
-  - causal, S in {256, 384}, GQA Hq=4, Hkv=2;
+  - causal, S in {256, 384}, GQA Hq=4, Hkv=2; and S=128 at Qwen2-7B's
+    heads (Hq=28, Hkv=4: G = 7), D=32;
   - the perturbed plain version (scores x 1.5) fails the pin;
   - the saved logsumexp equals the reference's logsumexp of the scores;
   - the dispatch routes seq >= 2048 to flash only for CUDA tensors.
@@ -87,6 +88,19 @@ def test_perturbed_plain_version_fails_the_pin(case):
     out, grads = port_flash(*args, perturb=0.5)
     assert np.abs(out - ref).max() > 100 * FWD_TOL
     assert np.abs(grads[0] - ref_grads[0]).max() > 100 * GRAD_TOL
+
+
+def test_qwen2_heads_match_upstream_kernel():
+    """Qwen2-7B's head shape (Hq=28, Hkv=4: G = 7) at a small width: the
+    forward and dQ/dK/dV of the plain versions against the upstream
+    kernel."""
+    args = inputs(128, hq=28, hkv=4, dim=32, seed=7)
+    ref, ref_grads = jax_flash(*args)
+    out, grads = port_flash(*args)
+    np.testing.assert_allclose(out, ref, atol=FWD_TOL, rtol=FWD_TOL)
+    for g, r in zip(grads, ref_grads):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g, r, atol=GRAD_TOL, rtol=GRAD_TOL)
 
 
 def test_lse_is_the_scores_logsumexp():

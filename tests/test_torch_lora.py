@@ -6,6 +6,13 @@ reference, CPU, f32:
     `fused_qkv_lora_delta` (run in Pallas interpret mode) and
     `lora.apply_delta`, with repeated ids and id 0, to 1e-5; a perturbed
     kernel fails that pin;
+  - the plain version of the kernel's partition (adapters grouped on
+    the device, row tiles, d_in slices summed in order, column slices)
+    equals the Pallas kernel and `gathered_delta` to 1e-5 for an odd
+    rank, a d_in that the cluster does not divide, unsorted repeated
+    ids, one adapter, all distinct and a chunk of several row tiles;
+    out-of-range ids give NaN rows only; the grid's bound covers every
+    batch's (adapter, row tile) pairs from B, S and N alone;
   - port `Llama` logits for a batch whose rows use different adapters
     (and row 0 the base) match the JAX `Llama` with the same `lora`
     (through `convert.lora_from_jax`) to 1e-4, and each row matches the
@@ -260,3 +267,124 @@ def test_framework_free_copies_match_reference(tmp_path):
         with open(os.path.join(tmp_path, path, pt_lora.CONFIG_FILE)) as f:
             texts.append(f.read())
     assert texts[0] == texts[1]
+
+
+# -- the kernel's partition (its grouped plain version) ----------------------
+GROUPED_CASES = {   # (d_in, rank, batch, seq, ids, slots)
+    'odd_rank': (64, 3, 5, 2, [0, 2, 3, 2, 0], 4),
+    'd_in_not_divisible': (100, 4, 4, 3, [1, 3, 1, 2], 4),
+    'unsorted_repeats': (96, 8, 8, 1, [3, 1, 1, 0, 3, 2, 0, 1], 4),
+    'one_adapter': (64, 5, 6, 1, [2] * 6, 3),
+    'all_distinct': (64, 6, 6, 1, [5, 0, 4, 2, 1, 3], 6),
+    'chunk_of_tiles': (48, 4, 2, 70, [1, 1], 3),
+}
+
+
+def _grouped_case(d_in, rank, batch, seq, ids, slots, seed):
+    rng = np.random.default_rng(seed)
+    facs = [_stacked(rng, slots, d_in, rank, d) for d in (40, 24, 24)]
+    x = rng.standard_normal((batch, seq, d_in)).astype(np.float32)
+    return x, facs, np.asarray(ids, np.int32)
+
+
+@pytest.mark.parametrize('name', list(GROUPED_CASES))
+def test_grouped_reference_matches_pallas_and_gathered(name):
+    x, facs, ids = _grouped_case(*GROUPED_CASES[name], seed=len(name))
+    jfacs = [{k: jnp.asarray(v) for k, v in f.items()} for f in facs]
+    pallas = pp.fused_qkv_lora_delta(jnp.asarray(x), *jfacs,
+                                     jnp.asarray(ids), interpret=True)
+    tx, tids = torch.from_numpy(x), torch.from_numpy(ids)
+    grouped = lk.fused_qkv_lora_delta_grouped_reference(
+        tx, *_torch_facs(facs), tids)
+    for g, ref, f in zip(grouped, pallas, _torch_facs(facs)):
+        assert g.dtype == torch.float32 and g.shape == tuple(ref.shape)
+        np.testing.assert_allclose(g.numpy(), np.asarray(ref), atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(g.numpy(),
+                                   lk.gathered_delta(tx, f, tids).numpy(),
+                                   atol=1e-5, rtol=1e-5)
+        assert not g[tids == 0].any()      # slot 0 is the zero adapter
+
+
+def test_grouped_reference_out_of_range_ids_give_nan_rows_only():
+    x, facs, _ = _grouped_case(64, 4, 6, 2, [0] * 6, 4, seed=3)
+    ids = np.asarray([1, 4, 2, -1, 1, 9], np.int32)   # N = 4
+    tx = torch.from_numpy(x)
+    grouped = lk.fused_qkv_lora_delta_grouped_reference(
+        tx, *_torch_facs(facs), torch.from_numpy(ids))
+    ok = (ids >= 0) & (ids < 4)
+    for g, f in zip(grouped, _torch_facs(facs)):
+        assert torch.isnan(g[torch.from_numpy(~ok)]).all()
+        good = g[torch.from_numpy(ok)]
+        assert torch.isfinite(good).all()
+        want = lk.gathered_delta(tx[torch.from_numpy(ok)], f,
+                                 torch.from_numpy(ids[ok]))
+        np.testing.assert_allclose(good.numpy(), want.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def _tile_pairs(ids, seq, slots):
+    """(adapter, row tile) pairs of a batch, counted directly: each
+    distinct key (ids outside [0, N) share one) takes ceil(rows * S /
+    TILE_ROWS) tiles."""
+    keys = np.where((ids >= 0) & (ids < slots), ids, slots)
+    return sum(-(-int((keys == k).sum()) * seq // lk.TILE_ROWS)
+               for k in np.unique(keys))
+
+
+def test_grid_bound_covers_every_batch_from_shapes_alone():
+    rng = np.random.default_rng(0)
+    for _ in range(400):
+        batch = int(rng.integers(1, 300))
+        seq = int(rng.choice([1, 1, 2, 7, 64, 65, 256, 300]))
+        slots = int(rng.integers(1, 40))
+        bound = lk.grid_tiles(batch, seq, slots)
+        for _ in range(3):
+            ids = rng.integers(-2, slots + 3, batch)
+            assert _tile_pairs(ids, seq, slots) <= bound
+    # Tight where every row is its own adapter, or all share one.
+    assert lk.grid_tiles(8, 1, 8) == _tile_pairs(np.arange(8), 1, 8)
+    assert lk.grid_tiles(1, 256, 4) == _tile_pairs(np.asarray([2]), 256, 4)
+    # A function of B, S and N only: the same for any ids.
+    assert lk.grid_tiles(32, 1, 9) == 10 and lk.grid_tiles(8, 1, 4) == 5
+
+
+@pytest.mark.parametrize('d_in', [1, 15, 100, 3584, 4096, 8192])
+def test_d_in_slices_partition_the_rows_in_steps_of_16(d_in):
+    slices = lk.d_in_slices(d_in)
+    assert len(slices) == lk.CLUSTER
+    assert slices[0][0] == 0 and slices[-1][1] == d_in
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    width = slices[0][1] - slices[0][0]
+    assert width % 16 == 0 or width == d_in
+    assert all(k1 - k0 <= width for k0, k1 in slices)
+
+
+@pytest.mark.parametrize('d_out,rows,rank,elt,cap', [
+    (4096, 8, 16, 2, 512), (1024, 8, 16, 2, 512), (4096, 32, 16, 2, 256),
+    (4096, 256, 64, 2, 128), (3584, 8, 16, 2, 512), (512, 8, 16, 2, 512),
+    (4096, 8, 128, 4, 128), (100, 3, 3, 4, 512)])
+def test_expand_columns_cover_each_column_once(d_out, rows, rank, elt, cap):
+    cols = lk.expand_columns(d_out, rows, rank, elt)
+    assert cols[0][0] == 0 and cols[-1][1] == d_out
+    assert all(a[1] == b[0] for a, b in zip(cols, cols[1:]))
+    assert all(0 < c1 - c0 <= cap for c0, c1 in cols)
+    assert all(c0 % 8 == 0 for c0, _ in cols)
+    assert len(cols) <= lk.CLUSTER * -(-d_out // (lk.CLUSTER * cap))
+
+
+def test_grouped_reference_perturbed_fails_the_pin():
+    x, facs, ids = _grouped_case(*GROUPED_CASES['unsorted_repeats'], seed=5)
+    args = (torch.from_numpy(x), *_torch_facs(facs), torch.from_numpy(ids))
+    good = lk.fused_qkv_lora_delta_grouped_reference(*args)
+    bad = lk.fused_qkv_lora_delta_grouped_reference(*args, perturb=0.5)
+    for g, b in zip(good, bad):
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose(b.numpy(), g.numpy(), atol=1e-5,
+                                       rtol=1e-5)
+
+
+def test_one_device_launch_per_call():
+    assert lk.DEVICE_LAUNCHES_PER_CALL == 1
+    assert lk.qkv_lora_dispatches_per_layer('cuda') \
+        * lk.DEVICE_LAUNCHES_PER_CALL == 1

@@ -1,6 +1,6 @@
 """Package rules of the PyTorch/CUDA port (skypilot_tpu_torch/):
 
-  - neither the package nor chip_smoke.py / profile_decode.py imports
+  - neither the package nor chip_smoke.py / profile_*.py imports
     jax, flax, optax, orbax,
     ml_dtypes or skypilot_tpu (an AST scan), and serve_lm and train_lm
     import with those made unimportable;
@@ -35,7 +35,7 @@ FORBIDDEN = ('jax', 'flax', 'optax', 'orbax', 'ml_dtypes', 'skypilot_tpu')
 
 def _sources():
     return sorted((ROOT / 'skypilot_tpu_torch').rglob('*.py')) + [
-        ROOT / 'chip_smoke.py', ROOT / 'profile_decode.py']
+        ROOT / 'chip_smoke.py'] + sorted(ROOT.glob('profile_*.py'))
 
 
 def _imported_roots(path: Path):
@@ -51,6 +51,7 @@ def _imported_roots(path: Path):
 def test_no_jax_or_reference_imports():
     sources = _sources()
     assert len(sources) > 15
+    assert ROOT / 'profile_lora.py' in sources
     bad = [(str(p.relative_to(ROOT)), mod) for p in sources
            for mod in _imported_roots(p) if mod in FORBIDDEN]
     assert not bad, bad

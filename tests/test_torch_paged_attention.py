@@ -1,8 +1,9 @@
 """Port's paged attention (skypilot_tpu_torch/ops/paged_attention.py and
 ops/paged_kernel.py) against the JAX reference, CPU:
 
-  - PARITY MATRIX {f32, int8} x {(Hkv, Hq) = (2, 4), (3, 6)} x {decode
-    S=1, chunk S=5} over scattered page tables: the port's plain kernel
+  - PARITY MATRIX {f32, int8} x {(Hkv, Hq) = (2, 4), (3, 6), (4, 28)
+    (Qwen2-7B's heads, G = 7)} x {decode S=1, chunk S=5} over scattered
+    page tables: the port's plain kernel
     version and its paged_decode/chunk_attention match the Pallas
     kernel in interpret mode, `_reference_paged_attention` and
     `paged_chunk_attention(impl='xla')` at atol=1e-5;
@@ -14,7 +15,8 @@ ops/paged_kernel.py) against the JAX reference, CPU:
   - the CUDA kernel's split route, through the plain version of its
     split-K decomposition and int8 scale folding, matches the Pallas
     kernel and the plain version at atol=1e-5 over splits that do not
-    divide the page table, empty splits and rows empty in every split;
+    divide the page table, empty splits and rows empty in every split,
+    also at Qwen2-7B's heads;
     the wrapper's split plan and route choice are fixed functions of
     shapes, and a shape no route takes raises before any build.
 A CUDA kernel cannot run here: chip_smoke.py holds it against the plain
@@ -61,8 +63,8 @@ def _t(x):
 
 
 @pytest.mark.parametrize('quantized', [False, True], ids=['f32', 'int8'])
-@pytest.mark.parametrize('hkv,hq', [(2, 4), (3, 6)],
-                         ids=['gqa_divisible', 'gqa_remainder'])
+@pytest.mark.parametrize('hkv,hq', [(2, 4), (3, 6), (4, 28)],
+                         ids=['gqa_divisible', 'gqa_remainder', 'qwen2_g7'])
 def test_decode_parity(quantized, hkv, hq):
     q, k, v, tbl, ks, vs = _inputs(4, 1, hkv, hq, quantized, 1)
     lengths = np.array([1, 7, 20, 32], np.int32)   # cross-page mix
@@ -88,8 +90,8 @@ def test_decode_parity(quantized, hkv, hq):
 
 
 @pytest.mark.parametrize('quantized', [False, True], ids=['f32', 'int8'])
-@pytest.mark.parametrize('hkv,hq', [(2, 4), (3, 6)],
-                         ids=['gqa_divisible', 'gqa_remainder'])
+@pytest.mark.parametrize('hkv,hq', [(2, 4), (3, 6), (4, 28)],
+                         ids=['gqa_divisible', 'gqa_remainder', 'qwen2_g7'])
 def test_chunk_parity(quantized, hkv, hq):
     q, k, v, tbl, ks, vs = _inputs(3, 5, hkv, hq, quantized, 3)
     rng = np.random.default_rng(4)
@@ -240,12 +242,12 @@ def test_page_allocator_sequence_matches():
 SPLIT_PSEQ, SPLIT_TOTAL = 10, 64    # 80 tokens a row: splits of 32 or 64
 
 
-def _split_inputs(batch, seq, quantized, seed):
-    """(Hkv, Hq) = (2, 4) inputs over SPLIT_PSEQ pages a row."""
+def _split_inputs(batch, seq, quantized, seed, heads=(2, 4)):
+    """(Hkv, Hq) = `heads` inputs over SPLIT_PSEQ pages a row."""
     rng = np.random.default_rng(seed)
     tbl = rng.permutation(SPLIT_TOTAL)[:batch * SPLIT_PSEQ].reshape(
         batch, SPLIT_PSEQ).astype(np.int32)
-    shape = (2, SPLIT_TOTAL, PAGE, D)
+    shape = (heads[0], SPLIT_TOTAL, PAGE, D)
     if quantized:
         k = rng.integers(-127, 128, shape).astype(np.int8)
         v = rng.integers(-127, 128, shape).astype(np.int8)
@@ -255,7 +257,7 @@ def _split_inputs(batch, seq, quantized, seed):
         k = rng.standard_normal(shape).astype(np.float32)
         v = rng.standard_normal(shape).astype(np.float32)
         ks = vs = None
-    q = rng.standard_normal((batch, seq, 4, D)).astype(np.float32)
+    q = rng.standard_normal((batch, seq, heads[1], D)).astype(np.float32)
     return q, k, v, tbl, ks, vs
 
 
@@ -291,6 +293,25 @@ def test_split_k_reference_parity(quantized, seq, split_tokens):
     assert np.all(split[0, pos[0] < 0] == 0)
     np.testing.assert_allclose(split, pallas, atol=ATOL)
     np.testing.assert_allclose(split, plain, atol=ATOL)
+
+
+@pytest.mark.parametrize('quantized', [False, True], ids=['f32', 'int8'])
+@pytest.mark.parametrize('seq', [1, 2], ids=['decode', 's2'])
+def test_split_k_reference_parity_at_qwen2_heads(quantized, seq):
+    """The split decomposition at G = 7 (Hq=28, Hkv=4): 7 and 14 query
+    rows a kv head, neither a power of two."""
+    q, k, v, tbl, ks, vs = _split_inputs(len(SPLIT_ENDS), seq, quantized,
+                                         13, heads=(4, 28))
+    pos = SPLIT_ENDS[:, None] - np.arange(seq)[::-1][None]
+    pos = np.maximum(pos, -1).astype(np.int32)
+    pallas = np.asarray(jax_pp.fused_paged_attention(
+        _j(q), _j(k), _j(v), _j(pos), _j(tbl), k_scales=_j(ks),
+        v_scales=_j(vs), interpret=True))
+    split = pk.fused_paged_attention_split_reference(
+        _t(q), _t(k), _t(v), _t(pos), _t(tbl), split_tokens=32,
+        k_scales=_t(ks), v_scales=_t(vs)).numpy()
+    assert np.all(split[0, pos[0] < 0] == 0)
+    np.testing.assert_allclose(split, pallas, atol=ATOL)
 
 
 def test_split_k_reference_perturbed_fails_the_pin():
@@ -347,7 +368,13 @@ def test_split_plan_at_llama3_decode():
     ((torch.bfloat16, torch.bfloat16, 1, 32, 8, 12, 128), 'scalar'),
     ((torch.bfloat16, torch.bfloat16, 256, 32, 8, 4, 128), 'scalar'),
     ((torch.bfloat16, torch.bfloat16, 1, 32, 8, 16, 96), 'scalar'),
-    ((torch.bfloat16, torch.bfloat16, 1, 6, 3, 16, 16), 'scalar')])
+    ((torch.bfloat16, torch.bfloat16, 1, 6, 3, 16, 16), 'scalar'),
+    # Qwen2-7B's heads (G = 7): 7 rows a kv head at decode, 14 at S=2,
+    # 21 at S=3.
+    ((torch.bfloat16, torch.bfloat16, 1, 28, 4, 16, 128), 'split'),
+    ((torch.bfloat16, torch.int8, 2, 28, 4, 16, 128), 'split'),
+    ((torch.bfloat16, torch.bfloat16, 3, 28, 4, 16, 128), 'chunk'),
+    ((torch.bfloat16, torch.int8, 256, 28, 4, 16, 128), 'chunk')])
 def test_route_rule(args, route):
     assert pk.choose_route(*args) == route
     assert pk.choose_route(*args) == route       # a rule, not a state

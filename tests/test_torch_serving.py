@@ -10,10 +10,16 @@ reference engine, CPU, llama-tiny at f32:
     then: both engines count the same prefix-cache hits;
   - PrefixCache.chain_keys equals inference/affinity.chain_keys;
   - the port's make_server answers POST /generate and /v1/completions
-    with those same tokens.
+    with those same tokens;
+  - the port's /stats, scraped through the reference ReplicaManager,
+    gives the view a reference replica's /stats gives for the same
+    engine state, and passes the manager's adoption check by its
+    instance UUID;
+  - /v1/completions with n=2 counts its prompt once in /stats.
 """
 import dataclasses
 import json
+import os
 import threading
 import urllib.error
 import urllib.request
@@ -170,3 +176,113 @@ def test_filter_logits_and_greedy_match_reference(top_k, top_p):
     np.testing.assert_array_equal(greedy,
                                   np.asarray(jnp.argmax(logits, -1)))
     assert greedy[2] == 7     # first index on ties
+
+
+def _get_json(port, path):
+    with urllib.request.urlopen(f'http://127.0.0.1:{port}{path}',
+                                timeout=30) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def _serving(rt, make):
+    server = make(rt, 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread
+
+
+def _scraped_view(body, ready=True):
+    """A ReplicaView after the reference ReplicaManager scraped `body`
+    as the replica's /stats (and 200/503 as its /readyz)."""
+    from skypilot_tpu.serve.replica_plane import replica_manager as rm
+    from skypilot_tpu.serve.serve_state import ReplicaStatus
+
+    def http_get(url, timeout):
+        if url.endswith('/readyz'):
+            return (200 if ready else 503), {}
+        return 200, body
+
+    mgr = rm.ReplicaManager(lambda rid, port: None, http_get=http_get)
+    view = rm.ReplicaView(replica_id=1, port=1, endpoint='127.0.0.1:1',
+                          state=ReplicaStatus.STARTING, spawned_at=0.0)
+    mgr._scrape_replica(view)  # pylint: disable=protected-access
+    return mgr, view
+
+
+def test_stats_scrape_matches_reference_replica():
+    from skypilot_tpu.inference import http_server as jax_http
+    from skypilot_tpu.inference import runtime as jax_runtime
+    from skypilot_tpu.serve.replica_plane import journal
+    from skypilot_tpu_torch.inference import http_server as pt_http
+    model, params, port_model = _models('bf16')
+    ref_engine = jax_batching.ContinuousBatchingEngine(model, params,
+                                                       **ENGINE_KW)
+    engine = pt_batching.ContinuousBatchingEngine(port_model, **ENGINE_KW)
+    for eng in (ref_engine, engine):   # the same work on both engines
+        futs = [eng.submit(p, max_new_tokens=n)
+                for p, n in zip(_prompts(), MAX_NEW)]
+        [f.result(timeout=120) for f in futs]
+    ref_rt = jax_runtime.InferenceRuntime(
+        model=model, params=params, vocab_size=model.config.vocab_size,
+        model_name='llama-tiny', max_total_len=96, spec_total=96,
+        speculative=0, engine=ref_engine, engine_total=96)
+    rt = InferenceRuntime(engine=engine, model_name='llama-tiny')
+    servers = [_serving(ref_rt, jax_http.make_server),
+               _serving(rt, make_server)]
+    try:
+        bodies = [_get_json(srv.server_address[1], '/stats')[1]
+                  for srv, _ in servers]
+    finally:
+        for srv, thread in servers:
+            srv.shutdown()
+            thread.join(timeout=10)
+        ref_rt.engine.stop()
+        rt.stop()
+    ref_body, body = bodies
+    for key in ('instance_uuid', 'queued', 'prefill_backlog_tokens',
+                'requests_shed', 'healthy', 'role', 'prefix_cache'):
+        assert key in body, key
+    assert body['instance_uuid'] == pt_http.INSTANCE_UUID
+    assert body['prefix_cache']['hits'] == 2     # the shared prefix
+    fields = ('ready', 'state', 'queue_depth', 'prefill_backlog_tokens',
+              'requests_shed_total', 'engine_healthy', 'role',
+              'prefix_hits', 'prefix_misses')
+    (_, ref_view), (mgr, view) = _scraped_view(ref_body), _scraped_view(body)
+    assert {f: getattr(view, f) for f in fields} == \
+        {f: getattr(ref_view, f) for f in fields}
+    assert view.engine_healthy and view.prefix_hits == 2
+
+    # Adoption after a controller restart: the journaled UUID must echo.
+    def record(instance_uuid):
+        return journal.ReplicaRecord(replica_id=1, port=1,
+                                     endpoint='127.0.0.1:1',
+                                     instance_uuid=instance_uuid,
+                                     state='READY', pid=os.getpid())
+
+    mgr._pid_probe = lambda pid: True  # pylint: disable=protected-access
+    assert mgr._verify_candidate(  # pylint: disable=protected-access
+        record(pt_http.INSTANCE_UUID))
+    assert not mgr._verify_candidate(  # pylint: disable=protected-access
+        record('another-replica'))
+
+
+def test_completions_count_each_prompt_once(served):
+    _, port_model, _, _ = served
+    engine = pt_batching.ContinuousBatchingEngine(port_model, **ENGINE_KW)
+    rt = InferenceRuntime(engine=engine, model_name='llama-tiny')
+    server, thread = _serving(rt, make_server)
+    port = server.server_address[1]
+    prompt = _prompts()[1]
+    try:
+        comp = _post(port, '/v1/completions',
+                     {'prompt': prompt, 'max_tokens': 3, 'n': 2,
+                      'temperature': 0.0})
+        _, stats = _get_json(port, '/stats')
+    finally:
+        server.shutdown()
+        rt.stop()
+        thread.join(timeout=10)
+    assert len(comp['choices']) == 2
+    assert comp['usage']['prompt_tokens'] == len(prompt)
+    assert stats['requests']['prompt_tokens'] == len(prompt)
+    assert stats['requests']['requests'] == 1

@@ -477,6 +477,48 @@ def test_refused_flags_and_models_exit_naming_themselves(argv, name,
     assert name in capsys.readouterr().err
 
 
+def test_bare_recipe_refuses_the_reference_default_naming_a12(capsys):
+    assert train_lm.build_parser().parse_args([]).model == 'gpt2-124m'
+    with pytest.raises(SystemExit) as exc:
+        train_lm.parse_args([])
+    assert exc.value.code != 0
+    err = capsys.readouterr().err
+    assert 'gpt2-124m' in err and 'ROADMAP A12' in err
+
+
+def _add_argument_defaults(path):
+    """{flag: default} of every `add_argument('--flag', ...)` call in a
+    module's source: the literal default, False for store_true and None
+    where no default is given."""
+    import ast
+    out = {}
+    for node in ast.walk(ast.parse(Path(path).read_text())):
+        if not (isinstance(node, ast.Call)
+                and getattr(node.func, 'attr', '') == 'add_argument'
+                and node.args and isinstance(node.args[0], ast.Constant)
+                and str(node.args[0].value).startswith('--')):
+            continue
+        kw = {k.arg: k.value for k in node.keywords}
+        if 'default' in kw:
+            value = ast.literal_eval(kw['default'])
+        else:
+            action = kw.get('action')
+            value = (action is not None
+                     and ast.literal_eval(action) == 'store_true') or None
+        out[node.args[0].value] = value
+    return out
+
+
+def test_recipe_defaults_agree_with_the_reference_flag_for_flag():
+    root = Path(__file__).resolve().parents[1]
+    ref = _add_argument_defaults(root / 'skypilot_tpu/recipes/train_lm.py')
+    port = _add_argument_defaults(
+        root / 'skypilot_tpu_torch/recipes/train_lm.py')
+    shared = sorted(set(ref) & set(port))
+    assert len(shared) == len(ref) >= 40    # every reference flag
+    assert {f: port[f] for f in shared} == {f: ref[f] for f in shared}
+
+
 def test_train_config_refuses_other_families():
     with pytest.raises(ValueError, match='A12'):
         registry.train_config('tiny', 64)

@@ -20,20 +20,24 @@ failure exits non-zero before the result lines:
                  rows whose later splits are empty, and a row that sees
                  nothing), B=1 context 4096, page size 8, S=4, B=32
                  (one split a row); chunks of
-                 256 at offsets 300 and 768, S=64 on page size 8; and at
+                 256 at offsets 300 and 768, S=64 on page size 8; a
+                 speculative verify chunk B=8 S=5 (K=4), every row at its
+                 own position, rows ending mid-page, on a page's last
+                 slot and on its first; and at
                  Qwen2-7B's heads (Hq=28, Hkv=4: G=7) decode B=8 and a
                  chunk of 256}: each
                  call takes its route (split for bf16/int8 decode, chunk
                  for bf16/int8 chunks, scalar for f32) and its error is
                  |x - plain| / |plain| (Frobenius) in the worst unit (a
-                 (batch row, q head) vector at decode, a 128-row tile of
-                 one in a chunk) within 6e-3 (bf16, int8) or 1e-5 (f32);
+                 (batch row, q head) vector at decode and in the verify
+                 chunk, a 128-row tile of one in a chunk) within 6e-3
+                 (bf16, int8) or 1e-5 (f32);
                  rows that see nothing exactly 0; the perturbed control
                  fails both new routes; device-time (spun, L2-cold)
-                 timings at decode B in {1, 8, 32} and the chunk at
-                 offset 768 vs the bound, the plain version and
-                 scaled_dot_product_attention on gathered K/V (a boolean
-                 mask for the chunk)
+                 timings at decode B in {1, 8, 32}, the chunk at
+                 offset 768 and the verify chunk vs the bound, the plain
+                 version and scaled_dot_product_attention on gathered
+                 K/V (a boolean mask for the chunks)
   lora_kernels   QKV LoRA at Llama-3-8B width (d=4096, q 4096, k/v
                  1024), ranks {8, 16, 64} x {bf16, f32} x {decode B=8
                  S=1 with ids [0,1,1,2,3,0,2,1], chunk B=1 S=256} vs its
@@ -52,9 +56,10 @@ failure exits non-zero before the result lines:
   serve_bf16,    build_runtime with serve_lm's flags, make_server on an
   serve_int8     ephemeral port, 8 concurrent greedy /generate requests
                  (300-700 prompt tokens, two sharing a 256-token
-                 prefix, 32 new tokens); every answer has prompt + 32
-                 tokens, the kernel's launch count grew and the plain
-                 route was never taken; no LoRA code runs
+                 prefix, 32 new tokens), in the default decode loop
+                 (pipelined, each step a CUDA-graph replay); every answer
+                 has prompt + 32 tokens, the kernel's launch count grew
+                 and the plain route was never taken; no LoRA code runs
   serve_lora     the same weights with --adapter-dir (3 seeded adapters:
                  attn r8, attn r16, attn-mlp r16) --max-adapters 3 and a
                  bf16 pool: 8 concurrent requests (2 base, 2 per adapter,
@@ -81,11 +86,30 @@ failure exits non-zero before the result lines:
                  4096: 3 prompts of 2048-2600 tokens prefill whole
                  through the flash forward (32 launches each), 8 new
                  tokens each
+  graph_round    one decode round of the 32-layer model (8 rows, bf16
+                 pool of random history) captured into a CUDA graph and
+                 replayed on new inputs: logits bit-identical to the same
+                 round run eagerly
+  decode_modes   serve_bf16's weights through serve_lm's flags, 8 slots,
+                 the 8 prompts, 32 greedy tokens: (a) --no-pipeline-decode
+                 with graphs off, (b) pipelined with graphs off, (c) the
+                 default (pipelined, graphs), (d) --decode-chunk 4 on the
+                 bf16 pool, (a) and (c) on the int8 pool and with
+                 serve_lora's adapters; (b), (c) and (d) give (a)'s
+                 tokens on every request; split-route launches = layers x
+                 decode steps (graph replays counted); then (e)
+                 --speculative 4: every answer prompt + 32 tokens, more
+                 than one token a verify call, its verify chunks (chunk
+                 route, S=5) launched layers x calls; per run the steady
+                 round ms, tokens a call, decode stall, graph replays and
+                 launches per route; no plain call
   greedy_parity  a 2-layer model at Llama-3-8B width (f32 weights and
                  pool): the engine's greedy tokens through the kernels
                  equal those through the plain versions (4 base and 2
                  adapter requests x 16; and 2 prompts of 2100 / 2600
-                 tokens prefilled whole, through the flash forward)
+                 tokens prefilled whole, through the flash forward), and
+                 --speculative 4 and --decode-chunk 4 engines give the
+                 plain engine's tokens exactly
   train_full     ShardedTrainer on Llama-3-8B width cut to 4 layers (f32
                  params + Adam: 1.9e9 params, ~31 GB), B=8 S=2048:
                  step-1 loss and grad norm through the kernels vs the
@@ -100,9 +124,10 @@ failure exits non-zero before the result lines:
                  serve_lm --adapter-dir answers a request with the
                  trained adapter
 
-The paged kernel's two rows in the kernels line (split and chunk
-routes) count their launches in the base-serving window (serve_bf16 +
-serve_int8, counted from zero; no scalar-route launch may occur there);
+The paged kernel's split and chunk rows in the kernels line count their
+launches in the base-serving window (serve_bf16 + serve_int8, counted
+from zero, graph replays included; no scalar-route launch may occur
+there), its verify row those of decode_modes' (e) run;
 the flash kernels' launch counts are those of the two training phases,
 each counted from zero. Then, as the last three lines: the card (`nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`), the kernels JSON
@@ -111,6 +136,7 @@ result, without CUDA or outside a checkout of the repository.
 """
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -136,8 +162,13 @@ F32_FLOPS = 67e12              # f32 outside the tensor cores
 PAGED_TOL = {'f32': 1e-5, 'bf16': 6e-3, 'int8': 6e-3}
 PAGED_TILE = 128
 L2_FLUSH_BYTES = 64e6   # more K/V than the 50 MB L2 per timed cycle
+# A speculative verify chunk (K=4): 8 rows of K+1 queries, each row at
+# its own position, ending mid-page, on a page's last slot (15, 47, 1023)
+# and on its first (16, 512).
+VERIFY_ENDS = [999, 1023, 15, 16, 512, 776, 47, 300]
+VERIFY_S = 5
 PAGED_TIMED = (('decode_b1', 1, 1), ('decode_b8', 8, 1), ('decode_b32', 32, 1),
-               ('chunk_offset768', 1, 256))
+               ('chunk_offset768', 1, 256), ('verify_b8', 8, 5))
 HQ, HKV, D, PAGE = 32, 8, 128, 16
 QWEN2_7B_HEADS = (28, 4)       # models/registry.py qwen2-7b: G = 7
 PAGED_ATTENTION_TPU = 'skypilot_tpu/ops/pallas_paged.py:224'
@@ -274,11 +305,14 @@ def time_ms(fns, iters=60, warmup=6):
 
 def paged_timing_sets(kind, batch, seq):
     """Input sets of one timed shape (context 1024, queries ending at
-    position 1023), enough that their K/V exceed the L2 together."""
+    position 1023; a verify chunk's rows end 61 positions apart from
+    1023 down), enough that their K/V exceed the L2 together."""
     elt = 1 if kind == 'int8' else 2
     kv_bytes = batch * 1024 * HKV * D * elt * 2
     n_sets = max(2, math.ceil(L2_FLUSH_BYTES / kv_bytes))
-    return [paged_case(kind, batch, seq, [1023] * batch, 64, seed=100 + i)
+    ends = ([1023 - 61 * i for i in range(batch)] if seq == VERIFY_S
+            else [1023] * batch)
+    return [paged_case(kind, batch, seq, ends, 64, seed=100 + i)
             for i in range(n_sets)]
 
 
@@ -370,8 +404,54 @@ def paged_cases(pk):
         ('chunk_page8', 2, 64, [700, 130], 128, 3, 8, llama),
         ('decode_g7', 8, 1, [999, 1023, 0, 16, 511, 776, 1, 1022], 64, 1,
          PAGE, qwen),
-        ('chunk_g7', 1, 256, [555], 48, 16, PAGE, qwen)), \
+        ('chunk_g7', 1, 256, [555], 48, 16, PAGE, qwen),
+        ('verify_k4', 8, 5, VERIFY_ENDS, 64, 0, PAGE, llama)), \
         {'split_plan_b8': [n8, st8], 'split_plan_b1_ctx4096': [n1, st1]}
+
+
+# (batch, S, max_total_len, extra tokens of table): an engine's width and
+# a --decode-chunk / --speculative engine's write lookahead past it.
+TAIL_CASES = ((1, 1, 4096, 16), (8, 1, 1024, 16), (32, 1, 1024, 16),
+              (1, 1, 1000, 48), (8, 1, 4096, 64), (3, 4, 1024, 16))
+
+
+def tail_split_identity(pk):
+    """A call over a table `extra` tokens wider than the width it is cut
+    for (attend_len) must give the narrower table's call the same bits
+    on every row below that width: the same splits, then empty tail
+    splits (at B=32 a row's one split alone against the same split
+    merged with an empty tail). Also reports whether the cut made for
+    each table's own width (no attend_len) would give the same bits."""
+    out = []
+    for kind in ('bf16', 'int8'):
+        for batch, seq, width, extra in TAIL_CASES:
+            narrow = -(-width // PAGE)
+            wide = -(-(width + extra) // PAGE)
+            rng = np.random.default_rng(batch * width + extra)
+            ends = rng.integers(seq - 1, width, batch)
+            ends[0] = width - 1
+            c = paged_case(kind, batch, seq, ends.tolist(), wide,
+                           seed=batch + extra)
+            cut = dict(c, page_indices=c['page_indices'][:, :narrow]
+                       .contiguous())
+            a = call(pk, cut, attend_len=width)
+            b = call(pk, c, attend_len=width)
+            own = call(pk, c)
+            torch.cuda.synchronize()
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            out.append({
+                'pool': kind, 'batch': batch, 'seq': seq, 'width': width,
+                'table_tokens': wide * PAGE,
+                'plan': pk.split_plan(batch, HKV, seq * HQ // HKV, wide,
+                                      PAGE, sms, width)[2:],
+                'plan_narrow': pk.split_plan(batch, HKV, seq * HQ // HKV,
+                                             narrow, PAGE, sms, width)[2:],
+                'bit_identical': bool(torch.equal(a, b)),
+                'own_cut_bit_identical': bool(torch.equal(a, own)),
+                'finite': bool(torch.isfinite(b.float()).all())})
+    check(all(r['bit_identical'] and r['finite'] for r in out),
+          f'tail splits changed the bits of rows below the width: {out}')
+    return out
 
 
 def expected_route(kind, seq, heads=(HQ, HKV)):
@@ -382,7 +462,7 @@ def expected_route(kind, seq, heads=(HQ, HKV)):
 
 def phase_kernels(pk):
     cases = []
-    worst = {'split': 0.0, 'chunk': 0.0, 'scalar': 0.0}
+    worst = {'split': 0.0, 'chunk': 0.0, 'scalar': 0.0, 'verify': 0.0}
     shapes, plans = paged_cases(pk)
     for kind in ('bf16', 'int8', 'f32'):
         for label, batch, seq, ends, pps, masked, page, heads in shapes:
@@ -394,7 +474,8 @@ def phase_kernels(pk):
             torch.cuda.synchronize()
             route = [r for r in pk.ROUTES
                      if pk.route_launches[r] != routes0[r]]
-            tile = 1 if label.startswith('decode') else PAGED_TILE
+            tile = 1 if label.startswith(('decode', 'verify')) \
+                else PAGED_TILE
             rel, err = paged_errors(out, ref, tile)
             pos = c['positions']
             masked_zero = bool((out[pos < 0].float() == 0).all())
@@ -411,6 +492,8 @@ def phase_kernels(pk):
             check(rel <= PAGED_TOL[kind] and masked_zero and finite,
                   f'kernel disagrees with its plain version: {case}')
             worst[route[0]] = max(worst[route[0]], err)
+            if label.startswith('verify') and kind != 'f32':
+                worst['verify'] = max(worst['verify'], err)
     perturb = {}
     controls = [next(c for c in shapes if c[0] == label)   # one a route
                 for label in ('decode', 'chunk')]
@@ -423,6 +506,7 @@ def phase_kernels(pk):
     check(sorted(perturb) == ['chunk', 'split']
           and all(e > PAGED_TOL['bf16'] for e in perturb.values()),
           f'perturbed kernel passed the pin: {perturb}')
+    tails = tail_split_identity(pk)
 
     # Timings: decode at B in {1, 8, 32}, context 1024, and a chunk of
     # 256 queries at offset 768; enough input sets that their K/V
@@ -451,13 +535,16 @@ def phase_kernels(pk):
             del sets
             torch.cuda.empty_cache()
     emit('kernels', cases=cases, perturb_unit_rel_err=perturb,
-         perturb_fails=True, split_plans=plans, timings=timings,
-         kernels=['paged_attention'])
+         perturb_fails=True, split_plans=plans, tail_splits=tails,
+         timings=timings, kernels=['paged_attention'])
     rows = []
-    for name, route, key, library in (
-            ('paged_attention', 'split', 'bf16_decode_b8',
+    for name, route, key, err_key, library in (
+            ('paged_attention', 'split', 'bf16_decode_b8', 'split',
              'scaled_dot_product_attention on gathered K/V'),
             ('paged_attention_chunk', 'chunk', 'bf16_chunk_offset768',
+             'chunk', 'scaled_dot_product_attention with a boolean mask '
+                      'on gathered K/V'),
+            ('paged_attention_verify', 'chunk', 'bf16_verify_b8', 'verify',
              'scaled_dot_product_attention with a boolean mask on '
              'gathered K/V')):
         t = timings[key]
@@ -465,7 +552,7 @@ def phase_kernels(pk):
                      'source': 'skypilot_tpu_torch/csrc/paged_attention.cu',
                      'replaces': PAGED_ATTENTION_TPU,
                      'kernel_route': route, 'timed': key,
-                     'max_abs_err': worst[route], 'ms': t['ms'],
+                     'max_abs_err': worst[err_key], 'ms': t['ms'],
                      'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
                      'bound_by': t['bound_by'],
                      'library_ms': t['library_ms'], 'library': library})
@@ -1049,10 +1136,10 @@ def post(port, path, body, timeout=600):
         return json.loads(resp.read())
 
 
-def serve_runtime(model, kv_dtype, extra=()):
+def serve_runtime(model, kv_dtype, extra=(), cuda_graphs=True):
     """build_runtime with serve_lm's flags and make_server on an
     ephemeral port, serving from a thread: (rt, server, thread, port,
-    setup seconds)."""
+    setup seconds, CUDA-graph captures included)."""
     from skypilot_tpu_torch.inference.http_server import make_server
     from skypilot_tpu_torch.inference.runtime import build_runtime
     from skypilot_tpu_torch.recipes import serve_lm
@@ -1062,7 +1149,7 @@ def serve_runtime(model, kv_dtype, extra=()):
         kv_dtype, '--kv-pool-bytes', '8000000000', '--port', '0',
         *extra])
     t0 = time.perf_counter()
-    rt = build_runtime(args, model=model)
+    rt = build_runtime(args, model=model, cuda_graphs=cuda_graphs)
     setup_s = time.perf_counter() - t0
     server = make_server(rt, 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -1084,6 +1171,8 @@ def burst(rt, port, ps, models, kernels):
     post(port, '/generate', {'tokens': [ps[0][:64]], 'max_new_tokens': 2})
     rt.metrics = type(rt.metrics)()
     counts0 = [(k.launches, k.plain_calls) for k in kernels]
+    routes0 = dict(kernels[0].route_launches)
+    verify0 = kernels[0].shape_launches[('chunk', VERIFY_S)]
     stats0 = rt.engine.stats()
     results = [None] * len(ps)
     lat = [0.0] * len(ps)
@@ -1117,6 +1206,7 @@ def burst(rt, port, ps, models, kernels):
 
     steady_s = delta('steady_decode_s')
     steady_rounds = delta('steady_decode_rounds')
+    calls = delta('decode_calls')
     return results, {
         'requests': len(ps), 'answered': sum(r is not None for r in results),
         'prompt_tokens': sum(len(p) for p in ps), 'new_tokens': 32,
@@ -1129,7 +1219,18 @@ def burst(rt, port, ps, models, kernels):
                                 if steady_s else None),
         'decode_round_ms': (1e3 * steady_s / steady_rounds
                             if steady_rounds else None),
-        'decode_rounds': delta('decode_calls'),
+        'decode_rounds': calls,
+        'tokens_per_call': delta('tokens_committed') / max(calls, 1),
+        'decode_stall_s': delta('decode_stall_s'),
+        'graph_replays': delta('graph_replays'),
+        'graph_captures': delta('graph_captures'),
+        'pipeline_decode': stats['pipeline_decode'],
+        'cuda_graphs': stats['cuda_graphs'],
+        'paged_route_launches': {
+            r: n - routes0[r]
+            for r, n in kernels[0].route_launches.items()},
+        'verify_launches': (kernels[0].shape_launches[('chunk', VERIFY_S)]
+                            - verify0),
         'prefill_chunks': delta('prefill_chunks'),
         'counts': [(k.launches - l0, k.plain_calls - p0)
                    for k, (l0, p0) in zip(kernels, counts0)]}
@@ -1238,6 +1339,267 @@ def phase_serve_lora(model, pk, lk, card):
              'requests', 'bytes_per_adapter')})
 
 
+# -- decode modes ------------------------------------------------------------
+# (label, pool, serve_lm flags, CUDA graphs, adapters): (a) the eager
+# unpipelined baseline, (b) pipelined eager, (c) the default, pipelined
+# with graphs, (d) --decode-chunk 4; int8 and LoRA runtimes run (a) and
+# (c); (e) --speculative 4. The 4096 runs hold (d) to (a) on one slot at
+# --max-total-len 4096, where the split route cuts a row into 32 splits
+# of 128 tokens and the prompts' rows cross several of them.
+LONG_WIDTH = ('--num-slots', '1', '--max-total-len', '4096')
+DECODE_MODES = (
+    ('a_bf16', 'bf16', ('--no-pipeline-decode',), False, False),
+    ('b_bf16', 'bf16', (), False, False),
+    ('c_bf16', 'bf16', (), True, False),
+    ('d_bf16', 'bf16', ('--decode-chunk', '4'), True, False),
+    ('a_int8', 'int8', ('--no-pipeline-decode',), False, False),
+    ('c_int8', 'int8', (), True, False),
+    ('a_lora', 'bf16', ('--no-pipeline-decode',), False, True),
+    ('c_lora', 'bf16', (), True, True),
+    ('e_spec', 'bf16', ('--speculative', '4'), True, False),
+    ('a_4096', 'bf16', ('--no-pipeline-decode', *LONG_WIDTH), False, False),
+    ('d_4096', 'bf16', ('--decode-chunk', '4', *LONG_WIDTH), True, False))
+# The sampled first request: (label, serve_lm flags, CUDA graphs).
+SAMPLED_MODES = (('single_graphs', (), True),
+                 ('chunk_graphs', ('--decode-chunk', '4'), True),
+                 ('single_eager', (), False),
+                 ('chunk_eager', ('--decode-chunk', '4'), False))
+SAMPLED_REQUEST = {'max_new_tokens': 32, 'temperature': 0.9, 'top_k': 50}
+LORA_MODELS = ['attn8', 'attn16', None, 'mlp16', None, 'attn8', 'mlp16',
+               'attn16']
+
+
+def phase_decode_modes(model, pk, lk, card):
+    """serve_bf16's weights, 8 slots, the 8 prompts, 32 greedy tokens each,
+    through serve_lm's flags in each decode mode: (b), (c) and (d) must
+    give (a)'s tokens on every request, on each pool and with adapters;
+    (e) answers every request with prompt + 32 tokens and commits more
+    than one token a verify call. Every single-token decode step
+    launches the split route once a layer, so its launches are
+    layers x steps: steps = graph replays (launches are counted from
+    replays) plus the eager warm-up of each graph captured during the
+    burst (a LoRA graph, at the first adapter round) with graphs on, and
+    decode calls without. Returns the (e) run's verify-chunk launches
+    (chunk route, S = 5)."""
+    from skypilot_tpu_torch.models import convert, registry
+    root = os.path.join(WORK, 'adapters')     # serve_lora's adapters
+    layers = model.config.num_layers
+    # The same weight tensors under the 4096-token config.
+    long_model = convert.assemble(registry.model_config('llama3-8b', 4096),
+                                  model.state_dict())
+    runs, tokens = {}, {}
+    verify_launches = 0
+    for label, kv, flags, graphs, lora in DECODE_MODES:
+        extra = list(flags)
+        if lora:
+            extra += ['--adapter-dir', root, '--max-adapters', '3']
+        long = label.endswith('4096')
+        rt, server, thread, port, setup_s = serve_runtime(
+            long_model if long else model, kv, extra, cuda_graphs=graphs)
+        ps = prompts()[:3] if long else prompts()
+        try:
+            tokens[label], out = burst(
+                rt, port, ps, LORA_MODELS if lora else [None] * len(ps),
+                (pk, lk))
+        finally:
+            stop_runtime(rt, server, thread)
+            del rt
+            gc.collect()
+            torch.cuda.empty_cache()
+        (launches, plain_calls), (lora_launches, lora_plain) = \
+            out.pop('counts')
+        split = out['paged_route_launches']['split']
+        steps = (out['graph_replays'] + out['graph_captures']
+                 if graphs and label != 'e_spec' else out['decode_rounds'])
+        runs[label] = {'setup_s': setup_s, **out, 'flags': list(flags),
+                       'paged_launches': launches,
+                       'lora_launches': lora_launches}
+        check(plain_calls == 0 and lora_plain == 0,
+              f'{label}: plain route taken ({plain_calls}, {lora_plain})')
+        check((out['graph_replays'] > 0) == (graphs and label != 'e_spec'),
+              f'{label}: {out["graph_replays"]} graph replays')
+        if label == 'e_spec':
+            verify_launches = out['verify_launches']
+            check(verify_launches == layers * out['decode_rounds']
+                  and out['tokens_per_call'] > 1,
+                  f'e_spec: {verify_launches} verify launches over '
+                  f'{out["decode_rounds"]} calls, {out["tokens_per_call"]} '
+                  f'tokens a call')
+        else:
+            check(split == layers * steps,
+                  f'{label}: {split} split-route launches for {steps} '
+                  f'decode steps of {layers} layers')
+        check(not lora or lora_launches > 0, f'{label}: no LoRA launch')
+    same = {label: tokens[label] == tokens['a_' + label.split('_')[1]]
+            for label in ('b_bf16', 'c_bf16', 'd_bf16', 'c_int8', 'c_lora',
+                          'd_4096')}
+    del long_model
+    sampled = sampled_first_request(model, tokens['a_bf16'][0])
+    emit('decode_modes', card=card, runs=runs, token_identical=same,
+         verify_launches=verify_launches, sampled=sampled)
+    check(all(same.values()), f'decode modes disagree with the eager '
+                              f'unpipelined baseline: {same}')
+    check(sampled['chunk_equals_single_graphs']
+          and sampled['chunk_equals_single_eager']
+          and sampled['differs_from_greedy']
+          and sampled['single_graphs']['graph_replays'] > 0
+          and sampled['chunk_graphs']['graph_replays'] > 0,
+          f'sampled first request: {sampled}')
+    return verify_launches
+
+
+def sampled_first_request(model, greedy):
+    """chip_smoke's first prompt, sampled (temperature 0.9, top-k 50: the
+    filter variant of the round), as the first request of a fresh
+    runtime, single-step and --decode-chunk 4, with graphs and eagerly:
+    under the engine's one seed the chunked tokens must equal the
+    single-step ones in each (the reference's contract for the first
+    request), and differ from the greedy answer. Also reports whether
+    the graph and eager runs drew the same tokens."""
+    out = {}
+    for label, flags, graphs in SAMPLED_MODES:
+        rt, server, thread, port, _ = serve_runtime(model, 'bf16', flags,
+                                                    cuda_graphs=graphs)
+        try:
+            row = post(port, '/generate', {'tokens': [prompts()[0]],
+                                           **SAMPLED_REQUEST})['tokens'][0]
+            stats = rt.engine.stats()
+        finally:
+            stop_runtime(rt, server, thread)
+            del rt
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[label] = {'tokens': row[len(prompts()[0]):],
+                      'graph_replays': stats['graph_replays']}
+    tok = {label: r['tokens'] for label, r in out.items()}
+    out.update(
+        chunk_equals_single_graphs=tok['chunk_graphs'] == tok['single_graphs'],
+        chunk_equals_single_eager=tok['chunk_eager'] == tok['single_eager'],
+        graphs_equal_eager=tok['single_graphs'] == tok['single_eager'],
+        differs_from_greedy=tok['single_graphs'] != greedy[
+            len(prompts()[0]):])
+    return out
+
+
+def phase_graph_round(model, pk, card):
+    """One decode round of the 32-layer model (8 rows over a bf16 pool of
+    random history) captured into a CUDA graph, replayed on new tokens,
+    positions and tables, against the same round run eagerly on those
+    inputs: the logits must be bit-identical (the same kernels on the
+    same shapes; each run writes the same K/V at each row's position
+    before attending)."""
+    from skypilot_tpu_torch.models.llama import PagedKVCache
+    cfg = dataclasses.replace(model.config, kv_total_pages=8 * 64 + 1)
+    cache = PagedKVCache(cfg, 'cuda')
+    g = torch.Generator('cuda').manual_seed(7)
+    for layer in cache.layers:
+        for t in layer.values():
+            t.copy_(torch.randn(t.shape, generator=g, device='cuda') * 0.5)
+    rng = np.random.default_rng(8)
+
+    def inputs():
+        tok = torch.tensor(rng.integers(1, cfg.vocab_size, (8, 1)),
+                           device='cuda')
+        pos = torch.tensor(rng.integers(0, 1024, (8, 1)), dtype=torch.int32,
+                           device='cuda')
+        table = torch.tensor(1 + rng.permutation(8 * 64).reshape(8, 64),
+                             dtype=torch.int32, device='cuda')
+        return tok, pos, table
+
+    tok, pos, table = inputs()
+
+    def round_logits():
+        return model.logits(model.hidden(tok, pos, cache, table)[:, 0])
+
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            round_logits()
+        torch.cuda.current_stream().wait_stream(side)
+        pk.reserve_graph_counters(torch.device('cuda'))
+        graph = torch.cuda.CUDAGraph()
+        counts0 = (pk.launches, dict(pk.route_launches),
+                   dict(pk.shape_launches))
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            static_out = round_logits()
+        capture_s = time.perf_counter() - t0
+        captured = pk.launches - counts0[0]
+        # The capture launched nothing: its calls are taken back.
+        pk.launches = counts0[0]
+        pk.route_launches.update(counts0[1])
+        pk.shape_launches.clear()
+        pk.shape_launches.update(counts0[2])
+        results = []
+        for _ in range(2):
+            for dst, src in zip((tok, pos, table), inputs()):
+                dst.copy_(src)
+            graph.replay()
+            replayed = static_out.clone()
+            eager = round_logits()
+            torch.cuda.synchronize()
+            results.append((bool(torch.equal(replayed, eager)),
+                            (replayed - eager).abs().max().item(),
+                            bool(torch.isfinite(eager).all())))
+    del graph
+    draws = sampled_replays(model, cache, tok, pos, table)
+    del cache
+    torch.cuda.empty_cache()
+    emit('graph_round', card=card, layers=cfg.num_layers,
+         capture_s=capture_s, paged_calls_captured=captured,
+         bit_identical=[r[0] for r in results],
+         max_abs_diff=[r[1] for r in results],
+         finite=[r[2] for r in results], sampled_replays=draws)
+    check(captured == cfg.num_layers, f'{captured} paged calls captured')
+    check(all(r[0] and r[2] for r in results),
+          f'graph replay differs from the eager round: {results}')
+    check(all(d['replays_differ'] and d['reset_repeats']
+              for d in draws.values()),
+          f'sampled graph replays do not draw from the generator: {draws}')
+
+
+def sampled_replays(model, cache, tok, pos, table):
+    """The engine's round (models/decode_graph.py) in its sampled
+    variants, replayed as graphs over the same inputs: two replays must
+    draw different tokens (the generator registered with the graph
+    advances), and a replay after the generator is reset to its state
+    before the first must draw the first replay's tokens. Also reports
+    whether an eager round from that state draws the same tokens."""
+    from skypilot_tpu_torch.models import decode_graph
+    b, pps = table.shape
+    lanes = dict(tok=tok[:, 0].cpu().numpy(), pos=pos[:, 0].cpu().numpy(),
+                 cont=np.zeros(b, np.int32), ids=np.zeros(b, np.int32),
+                 temp=np.ones(b, np.float32), top_p=np.ones(b, np.float32),
+                 table=table.cpu().numpy())
+    out = {}
+    for selection, top_k in (('sample', 0), ('filter', 50)):
+        rounds = {}
+        for graphs in (True, False):
+            gen = torch.Generator('cuda').manual_seed(11)
+            rounds[graphs] = (decode_graph.DecodeRound(
+                model, cache, b, pps, max_steps=1, generator=gen,
+                use_graphs=graphs, attend_len=1024), gen)
+        kw = dict(lanes, top_k=np.full(b, top_k, np.int32),
+                  selection=selection, lora=None)
+        rnd, gen = rounds[True]
+        rnd.capture(selection, None)
+        state = gen.get_state()
+        first = rnd.dispatch(**kw).wait()[0]
+        second = rnd.dispatch(**kw).wait()[0]
+        gen.set_state(state)
+        again = rnd.dispatch(**kw).wait()[0]
+        eager = rounds[False][0].dispatch(**kw).wait()[0]
+        out[selection] = {
+            'replays': rnd.replays, 'first': first.tolist(),
+            'second': second.tolist(),
+            'replays_differ': bool((first != second).any()),
+            'reset_repeats': bool((first == again).all()),
+            'eager_draws_equal': bool((first == eager).all())}
+        del rounds, rnd
+    return out
+
+
 def phase_serve_long(model, fk, pk, card):
     """Whole-prompt prefill (--prefill-chunk 0) of 2048+ token prompts."""
     from skypilot_tpu_torch.models import convert, registry
@@ -1322,28 +1684,40 @@ def phase_greedy_parity(pk, lk, fk):
     ps += [ps[0], ps[0]]       # the first prompt again, under each adapter
     models = [None, None, None, None, 'p8', 'p16']
     outs = {}
-    for impl in ('cuda', 'torch'):
-        engine = ContinuousBatchingEngine(
-            model, num_slots=4, max_total_len=1024, prefill_chunk=256,
-            adapter_store=AdapterRegistry(root, model, max_adapters=2))
+    # The kernels and their plain versions (the engines capture their
+    # decode graphs at construction, inside the scope); then the
+    # speculative and chunked engines through the kernels.
+    for label, impl, kw in (('cuda', 'cuda', {}), ('torch', 'torch', {}),
+                            ('spec4', 'cuda', {'speculative_k': 4}),
+                            ('chunk4', 'cuda', {'decode_chunk': 4})):
         counts0 = [(k.launches, k.plain_calls) for k in (pk, lk)]
-        try:
-            with pk.impl_scope(impl):    # routes both kernels
+        with pk.impl_scope(impl):    # routes both kernels
+            engine = ContinuousBatchingEngine(
+                model, num_slots=4, max_total_len=1024, prefill_chunk=256,
+                adapter_store=AdapterRegistry(root, model, max_adapters=2),
+                **kw)
+            try:
                 futs = [engine.submit(p, max_new_tokens=16, adapter=m)
                         for p, m in zip(ps, models)]
-                outs[impl] = [f.result(timeout=600) for f in futs]
-        finally:
-            engine.stop()
+                outs[label] = [f.result(timeout=600) for f in futs]
+            finally:
+                engine.stop()
         for k, (l0, p0) in zip((pk, lk), counts0):
             routed = k.launches - l0 if impl == 'cuda' else k.plain_calls - p0
             check(routed > 0, f'impl {impl} of {k.__name__} was never taken')
+            check(impl == 'torch' or k.plain_calls == p0,
+                  f'{label}: plain calls of {k.__name__}')
+        del engine
+        gc.collect()
     same = outs['cuda'] == outs['torch']
+    modes_same = {label: outs[label] == outs['cuda']
+                  for label in ('spec4', 'chunk4')}
     del model
     torch.cuda.empty_cache()
     long_outs = long_parity(fk, pk)
     long_same = long_outs['cuda'] == long_outs['torch']
     emit('greedy_parity', requests=len(ps), new_tokens=16, layers=2,
-         models=models, equal=same,
+         models=models, equal=same, decode_modes_equal=modes_same,
          tokens_cuda=[o[-16:] for o in outs['cuda']],
          tokens_torch=[o[-16:] for o in outs['torch']],
          long_prompt_tokens=[len(o) - 8 for o in long_outs['cuda']],
@@ -1351,6 +1725,9 @@ def phase_greedy_parity(pk, lk, fk):
          long_tokens_cuda=[o[-8:] for o in long_outs['cuda']],
          long_tokens_torch=[o[-8:] for o in long_outs['torch']])
     check(same, 'greedy tokens differ between the kernel and plain routes')
+    check(all(modes_same.values()), f'speculative / chunked greedy tokens '
+                                    f'differ from the plain engine\'s: '
+                                    f'{modes_same}')
     check(long_same, 'long-prefill greedy tokens differ between the '
                      'kernel and plain routes')
     check(len({tuple(outs['cuda'][i][-16:]) for i in (0, 4, 5)}) == 3,
@@ -1414,6 +1791,8 @@ def main() -> int:
     check(lora_launches > 0 and lora_plain == 0 and pk.plain_calls == 0,
           f'LoRA path: {lora_launches} LoRA launches, {lora_plain} plain')
     phase_serve_long(model, fk, pk, card)
+    phase_graph_round(model, pk, card)
+    verify_launches = phase_decode_modes(model, pk, lk, card)
     del model
     torch.cuda.empty_cache()
 
@@ -1425,7 +1804,9 @@ def main() -> int:
     lora_counts = phase_train_lora(fk, lk, card)
 
     for row in paged_rows:
-        row['launches'] = routes[row['kernel_route']]
+        row['launches'] = (verify_launches
+                           if row['name'] == 'paged_attention_verify'
+                           else routes[row['kernel_route']])
     lora_kernel['launches'] = lora_launches
     for name, row in flash_rows.items():
         row['launches'] = full_counts[name] + lora_counts[name]

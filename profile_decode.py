@@ -15,31 +15,45 @@ prompts (300-700 tokens):
          attn-mlp r16) with 2 base and 6 adapter requests, as in its
          serve_lora phase: every round runs the LoRA path.
 
-The engine's own scheduler iteration is driven on this thread (its
+Each phase runs four times in one process, in turns: decode rounds
+eager (`cuda_graphs=False`, the A/B switch serve_lm does not have),
+then each single-token step one CUDA-graph replay (the default), graphs
+again, eager again. The engine runs its default pipelined loop. The
+engine's own scheduler iteration is driven on this thread (its
 background thread is stopped first), so the profiler records the host
 ops of each round. Once every slot decodes and no prefill is queued,
 ROUNDS rounds are timed without the profiler, then ROUNDS more under
-it. One JSON line per phase:
+it. One JSON line per phase and turn:
 
   round_ms           host wall time per round, unprofiled / profiled
   device_ms          device-busy time per round: the union of kernel,
-                     memcpy and memset intervals
+                     memcpy and memset intervals (graph replays
+                     included: their kernels are traced one by one)
   device_busy_share  device_ms over the unprofiled round (the profiler
                      slows the host, not the device), and over the
                      profiled round
+  graph_replays_per_round, paged_launches_per_round,
+  lora_launches_per_round   from the engine's and the kernel wrappers'
+                     counters over the profiled rounds (a replay adds
+                     the launches its capture recorded)
   kernels            device launches per round and per layer
   host_ops           top-level aten ops per round and per layer
   top_kernels        device ms per round by kernel name (largest 12)
 
-On the GPU the lora phase checks that each round launches
+and then one line per phase with each turn's round_ms, device_ms and
+device_busy_share side by side.
+
+On the GPU every turn of the lora phase checks that each round counts
 num_layers x qkv_lora_dispatches_per_layer('cuda') x
-DEVICE_LAUNCHES_PER_CALL QKV LoRA kernels, the base phase none, and
+DEVICE_LAUNCHES_PER_CALL QKV LoRA launches, the base phase none, and
 both phases num_layers x DEVICE_LAUNCHES_PER_CALL paged-attention
-kernels (one call a layer; `paged_attention_ms_per_round` is their
-device time, `lora_ms_per_round` the QKV LoRA kernels').
+launches (one call a layer), and every turn, graph turns included,
+checks the same of the traced kernels (`paged_attention_ms_per_round`
+is their device time, `lora_ms_per_round` the QKV LoRA kernels').
 """
 import argparse
 import collections
+import gc
 import json
 import os
 import shutil
@@ -67,7 +81,8 @@ PAGED_KERNEL = 'paged_attention_'
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog='python3 profile_decode.py')
     p.add_argument('--cpu', action='store_true',
-                   help='run llama-tiny on the CPU (no device numbers)')
+                   help='run llama-tiny on the CPU (no device numbers; '
+                        'eager turns only)')
     return p.parse_args(argv)
 
 
@@ -75,7 +90,7 @@ def model_name(args):
     return 'llama-tiny' if args.cpu else 'llama3-8b'
 
 
-def build(args, model, extra=()):
+def build(args, model, extra=(), cuda_graphs=True):
     from skypilot_tpu_torch.inference.runtime import build_runtime
     from skypilot_tpu_torch.recipes import serve_lm
     flags = ['--model', model_name(args), '--continuous-batching',
@@ -85,7 +100,8 @@ def build(args, model, extra=()):
         flags.append('--cpu')
     else:
         flags += ['--kv-pool-bytes', '8000000000']
-    return build_runtime(serve_lm.parse_args(flags), model=model)
+    return build_runtime(serve_lm.parse_args(flags), model=model,
+                         cuda_graphs=cuda_graphs)
 
 
 def merged_ms(spans):
@@ -166,7 +182,7 @@ def steady_rounds(engine, n):
     return wall / n
 
 
-def profile_phase(name, rt, models, args, trace_dir):
+def profile_phase(name, rt, models, args, trace_dir, kernels):
     engine = rt.engine
     engine.stop()          # the iterations below run on this thread
     new_tokens = 2 * ROUNDS + 64
@@ -184,14 +200,22 @@ def profile_phase(name, rt, models, args, trace_dir):
         activities = [torch.profiler.ProfilerActivity.CPU]
         if not args.cpu:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
+        counts0 = [k.launches for k in kernels] + [engine.stats()[
+            'graph_replays']]
         with torch.profiler.profile(activities=activities) as prof:
             traced_s = steady_rounds(engine, ROUNDS)
+        counts = [(b - a) / ROUNDS for a, b in zip(
+            counts0, [k.launches for k in kernels]
+            + [engine.stats()['graph_replays']])]
     path = os.path.join(trace_dir, f'{name}.json')
     prof.export_chrome_trace(path)
     layers = engine.model.config.num_layers
     out = summarize(path, ROUNDS, layers)
     out['round_ms'] = 1e3 * round_s
     out['profiled_round_ms'] = 1e3 * traced_s
+    out['cuda_graphs'] = engine.cuda_graphs
+    (out['paged_launches_per_round'], out['lora_launches_per_round'],
+     out['graph_replays_per_round']) = counts
     if args.cpu:
         out = {k: v for k, v in out.items()
                if not k.startswith(('device', 'kernels', 'lora_', 'paged_',
@@ -201,6 +225,28 @@ def profile_phase(name, rt, models, args, trace_dir):
         out['device_busy_share_traced'] = \
             out['device_ms'] / out['profiled_round_ms']
     return out
+
+
+def check_turn(name, out, cfg, lk, pk, plain_calls):
+    """The launch counts a turn's rounds must show (see module doc)."""
+    want = (cfg.num_layers * lk.qkv_lora_dispatches_per_layer('cuda')
+            * lk.DEVICE_LAUNCHES_PER_CALL if name == 'lora' else 0)
+    paged = cfg.num_layers * pk.DEVICE_LAUNCHES_PER_CALL
+    # The wrappers' counters, and the kernels the trace recorded (a
+    # replay's kernels are traced one by one): under graphs the counters
+    # only restate what the capture recorded, the trace measures it.
+    counted = [('lora_launches_per_round', want),
+               ('paged_launches_per_round', paged),
+               ('lora_kernels_per_round', want),
+               ('paged_attention_per_round', paged)]
+    for key, n in counted:
+        chip_smoke.check(out[key] == n, f'{name}: {out[key]} {key}, '
+                                        f'want {n}')
+    chip_smoke.check(out['graph_replays_per_round']
+                     == (1 if out['cuda_graphs'] else 0),
+                     f'{name}: {out["graph_replays_per_round"]} graph '
+                     f'replays a round')
+    chip_smoke.check(plain_calls == 0, f'{name}: plain route taken')
 
 
 def main(argv=None) -> int:
@@ -229,36 +275,30 @@ def main(argv=None) -> int:
               ('lora', ('--adapter-dir', root, '--max-adapters', '3'),
                ['attn8', 'attn16', None, 'mlp16', None, 'attn8',
                 'mlp16', 'attn16']))
+    turns = (False,) if args.cpu else (False, True, True, False)
     for name, extra, models in phases:
-        rt = build(args, model, extra)
-        counts0 = (lk.launches, lk.plain_calls, pk.plain_calls)
-        out = profile_phase(name, rt, models, args, WORK)
-        lora_launches, lora_plain, pa_plain = (
-            a - b for a, b in zip((lk.launches, lk.plain_calls,
-                                   pk.plain_calls), counts0))
-        del rt
-        if not args.cpu:
-            torch.cuda.empty_cache()
-            want = (cfg.num_layers * lk.qkv_lora_dispatches_per_layer(
-                'cuda') * lk.DEVICE_LAUNCHES_PER_CALL
-                    if name == 'lora' else 0)
-            chip_smoke.check(
-                out['lora_kernels_per_round'] == want,
-                f'{name}: {out["lora_kernels_per_round"]} QKV LoRA '
-                f'kernels per round, want {want}')
-            chip_smoke.check(
-                out['paged_attention_per_round']
-                == cfg.num_layers * pk.DEVICE_LAUNCHES_PER_CALL,
-                f'{name}: {out["paged_attention_per_round"]} paged-'
-                f'attention kernels per round')
-            chip_smoke.check(
-                lora_plain == 0 and pa_plain == 0,
-                f'{name}: plain route taken')
-        print(json.dumps({'phase': name, 'card': card,
-                          'rounds': ROUNDS,
-                          'layers': cfg.num_layers,
-                          'lora_calls': lora_launches, **out}),
-              flush=True)
+        summary = []
+        for turn, graphs in enumerate(turns):
+            rt = build(args, model, extra, cuda_graphs=graphs)
+            counts0 = (lk.plain_calls, pk.plain_calls)
+            out = profile_phase(name, rt, models, args, WORK, (pk, lk))
+            lora_plain, pa_plain = (a - b for a, b in zip(
+                (lk.plain_calls, pk.plain_calls), counts0))
+            rt.stop()
+            del rt
+            gc.collect()
+            if not args.cpu:
+                torch.cuda.empty_cache()
+                check_turn(name, out, cfg, lk, pk, lora_plain + pa_plain)
+            mode = 'graphs' if out['cuda_graphs'] else 'eager'
+            summary.append({k: out.get(k) for k in (
+                'cuda_graphs', 'round_ms', 'device_ms', 'device_busy_share',
+                'graph_replays_per_round')})
+            print(json.dumps({'phase': name, 'turn': turn, 'mode': mode,
+                              'card': card, 'rounds': ROUNDS,
+                              'layers': cfg.num_layers, **out}), flush=True)
+        print(json.dumps({'phase': f'{name}_turns', 'card': card,
+                          'turns': summary}), flush=True)
     return 0
 
 

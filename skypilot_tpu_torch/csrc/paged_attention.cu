@@ -679,11 +679,13 @@ paged_attention_split(const __grid_constant__ Params p) {
         a += wt * comb[w * Rows * Dp + e];
         l += wt * wl_s[w][r];
       }
+      // Alone, a * (1 / l) as the merge ends: a row's one split gives the bits
+      // it gives merged with empty tail splits. A row that sees nothing returns 0.
       if (alone) {
         if (r < rows_here) {
           const int row = row0 + r;
           out_b[((size_t)(row / G) * p.Hq + row % G) * Dp + e % Dp] =
-              __float2bfloat16(l > 0.f ? a / l : 0.f);  // a row that sees nothing returns 0
+              __float2bfloat16(a * (l > 0.f ? 1.f / l : 0.f));
         }
       } else {
         part[2 * Rows + e] = a;

@@ -211,6 +211,17 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                 'requests_shed': eng.requests_shed,
                 'healthy': eng.healthy(),
                 'role': '',
+                # The decode loop's health, top-level as the reference
+                # serves it (skypilot_tpu/inference/http_server.py:313-333).
+                'decode_calls': eng.decode_calls,
+                'tokens_committed': eng.tokens_committed,
+                'tokens_per_call': round(
+                    eng.tokens_committed / max(eng.decode_calls, 1), 3),
+                'speculative_k': eng.spec_k,
+                'pipeline_decode': eng.pipeline_decode,
+                'prefill_chunk': eng.prefill_chunk,
+                'prefill_chunks_run': eng.prefill_chunks_run,
+                'decode_stall_s': round(eng.decode_stall_s, 4),
                 'model': rt.model_name,
                 'device': str(eng.device),
                 'zone': rt.zone,

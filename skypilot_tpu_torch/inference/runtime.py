@@ -126,7 +126,7 @@ class InferenceRuntime:
 #: that means "not asked for".
 _UNSUPPORTED_DEFAULTS = (
     ('hf', None), ('ckpt_dir', None), ('tensor', 1), ('stages', 1),
-    ('speculative', 0), ('decode_chunk', 1), ('weight_dtype', 'bf16'),
+    ('weight_dtype', 'bf16'),
     ('param_dtype', 'bf16'), ('role', ''), ('decode_peers', None),
     ('kv_spill_bytes', 0), ('kv_cold_dir', None), ('fault_plan', None),
     ('trace_sample', 0.0), ('trace_seed', None), ('slo', None),
@@ -145,13 +145,47 @@ def unsupported_flags(args) -> List[str]:
     return bad
 
 
-def build_runtime(args, model=None) -> InferenceRuntime:
+def engine_total_len(args, max_seq_len: int) -> int:
+    """The max total length the engine runs at (what `limit_for`
+    advertises): --max-total-len, clamped at startup so a verify chunk
+    (--speculative K) or a decode chunk (--decode-chunk N) has its
+    headroom below the model's max_seq_len, with the reference's
+    messages (skypilot_tpu/inference/runtime.py:836-856, :1005-1024)."""
+    total = args.max_total_len
+    if args.speculative > 0:
+        total = min(args.max_total_len, max_seq_len - args.speculative)
+        if total <= 1:
+            raise SystemExit(
+                f'--speculative {args.speculative} needs headroom in '
+                f'the model context: max_seq_len={max_seq_len} leaves no '
+                f'room for the verify chunk. Use a smaller K or a '
+                f'longer-context model.')
+        if total < args.max_total_len:
+            print(f'speculative decoding: clamping max_total_len '
+                  f'{args.max_total_len} -> {total} (verify chunk '
+                  f'needs K={args.speculative} tokens of headroom '
+                  f'below max_seq_len={max_seq_len})', flush=True)
+    if args.decode_chunk > 1:
+        clamped = min(total, max_seq_len - args.decode_chunk)
+        if clamped < total:
+            print(f'decode chunking: clamping max_total_len {total} -> '
+                  f'{clamped} (chunk writes need N={args.decode_chunk} '
+                  f'tokens of headroom below max_seq_len={max_seq_len})',
+                  flush=True)
+        total = clamped
+    return total
+
+
+def build_runtime(args, model=None,
+                  cuda_graphs: bool = True) -> InferenceRuntime:
     """Construct the runtime from serve_lm CLI args: the registry
     config, the KV pool sized by --kv-dtype / --kv-pool-bytes, seeded
     weights initialized on the device (or `model`'s weight tensors,
     shared, when given: two runtimes that differ only in their KV pool
     need one copy of the weights), the adapter registry of
-    --adapter-dir, and the continuous engine."""
+    --adapter-dir, and the continuous engine. `cuda_graphs=False` runs
+    the decode rounds eagerly on the card (serve_lm never sets it; the
+    chip_smoke.py and profile_decode.py A/Bs do)."""
     bad = unsupported_flags(args)
     if bad:
         raise ValueError('not supported by the PyTorch port yet: '
@@ -187,12 +221,16 @@ def build_runtime(args, model=None) -> InferenceRuntime:
               f'{args.adapter_dir} (max {adapters.max_adapters} '
               f'device-resident): {inv}', flush=True)
     engine = ContinuousBatchingEngine(
-        model, num_slots=args.num_slots, max_total_len=args.max_total_len,
+        model, num_slots=args.num_slots,
+        max_total_len=engine_total_len(args, cfg.max_seq_len),
         prefix_caching=not args.no_prefix_caching,
         prefill_chunk=args.prefill_chunk,
         prefill_budget=args.prefill_budget,
         max_queue_requests=args.max_queue_requests,
-        max_queue_tokens=args.max_queue_tokens, adapter_store=adapters)
+        max_queue_tokens=args.max_queue_tokens, adapter_store=adapters,
+        speculative_k=args.speculative, decode_chunk=args.decode_chunk,
+        pipeline_decode=False if args.no_pipeline_decode else None,
+        cuda_graphs=cuda_graphs)
     return InferenceRuntime(engine=engine, model_name=args.model,
                             request_timeout=args.request_timeout,
                             zone=args.zone, adapters=adapters)

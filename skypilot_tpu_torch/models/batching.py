@@ -1,5 +1,5 @@
 """Continuous batching: a slot-based decode engine for LM serving (port
-of skypilot_tpu/models/batching.py, the plain decode loop).
+of skypilot_tpu/models/batching.py).
 
 A fixed pool of `num_slots` decode slots shares one paged KV pool.
 Requests are admitted into free slots (prefix-cache lookup + page
@@ -11,13 +11,17 @@ thread owns every device call and all slot state.
 
 Ported: `PrefixCache`, `submit`/`cancel`, deadlines, bounded-queue
 shedding, the scheduler thread and admission, chunked prefill, page
-growth with preemption, the plain decode step, trash page 0, and
-multi-LoRA serving over an `adapter_store` (inference/adapters.py).
-Not ported yet (the constructor raises when asked for them): pipelined,
-speculative and chunked decode, meshes and pipeline stages, spill/cold
-tiers and chain export/import/evacuation, and the flight recorder and
-Prometheus metrics. Greedy outputs of the plain loop equal
-the pipelined loop's by the reference's own contract.
+growth with preemption, trash page 0, multi-LoRA serving over an
+`adapter_store` (inference/adapters.py), and the reference's decode
+modes: the plain loop, the pipelined loop (on by default: round N+1 is
+dispatched before round N is fetched and committed), `decode_chunk` (N
+steps a dispatch) and `speculative_k` (prompt-lookup drafts verified in
+one [slots, K+1] chunk). Single-token rounds run on the static buffers
+of `models/decode_graph.py`, one CUDA-graph replay a step on the card
+(`cuda_graphs=False` runs them eagerly); the verify chunk runs eagerly.
+Not ported yet (the constructor raises when asked for them): meshes and
+pipeline stages, spill/cold tiers and chain export/import/evacuation,
+and the flight recorder and Prometheus metrics.
 
 The reference donated its cache to each jitted call; here the pool is
 preallocated once (`PagedKVCache`) and updated in place.
@@ -39,9 +43,15 @@ import torch
 from skypilot_tpu_torch.errors import (AdapterNotFoundError,
                                        DeadlineExceededError,
                                        EngineDeadError, QueueSaturatedError)
-from skypilot_tpu_torch.models.generate import sample_tokens
+from skypilot_tpu_torch.models import decode_graph
 from skypilot_tpu_torch.models.llama import PagedKVCache
 from skypilot_tpu_torch.ops import paged_attention as paged_ops
+
+#: Prompt-lookup drafting for --speculative: the n-gram matched, and how
+#: many trailing tokens the match is searched over (the reference
+#: engine's defaults, skypilot_tpu/models/batching.py:300-301).
+SPEC_NGRAM = 2
+SPEC_LOOKBACK = 512
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -160,20 +170,46 @@ class ContinuousBatchingEngine:
                  adapter_store=None,
                  kv_spill_bytes: int = 0,
                  kv_cold_dir: Optional[str] = None,
-                 mesh=None) -> None:
+                 mesh=None,
+                 cuda_graphs: bool = True) -> None:
         asked = [name for name, on in (
-            ('speculative_k', speculative_k), ('decode_chunk',
-                                               decode_chunk > 1),
-            ('pipeline_decode', pipeline_decode),
             ('kv_spill_bytes', kv_spill_bytes), ('kv_cold_dir', kv_cold_dir),
             ('mesh', mesh is not None)) if on]
         if asked:
             raise ValueError(f'not supported by the PyTorch engine yet: '
-                             f'{", ".join(asked)} (plain decode loop only)')
+                             f'{", ".join(asked)}')
         cfg = model.config
         if max_total_len > cfg.max_seq_len:
             raise ValueError(f'max_total_len {max_total_len} > model '
                              f'max_seq_len {cfg.max_seq_len}')
+        # Chunked decode: N single-token steps a dispatch, committed by
+        # the host afterwards (truncated at limit/eos/stop); the steps
+        # past a finishing request write junk that the next owner of
+        # those positions overwrites before attending.
+        if decode_chunk < 1:
+            raise ValueError(f'decode_chunk must be >= 1, got '
+                             f'{decode_chunk}')
+        if decode_chunk > 1 and speculative_k:
+            raise ValueError(
+                'decode_chunk composes with the plain decode loop only; '
+                'speculative verify chunks already commit multiple tokens '
+                'per dispatch')
+        if decode_chunk > 1 and max_total_len + decode_chunk > \
+                cfg.max_seq_len:
+            raise ValueError(
+                f'decode_chunk={decode_chunk} writes up to that many '
+                f'positions past a finishing request: max_total_len'
+                f'({max_total_len}) + chunk must be <= max_seq_len'
+                f'({cfg.max_seq_len})')
+        if speculative_k < 0:
+            raise ValueError(f'speculative_k must be >= 0, got '
+                             f'{speculative_k}')
+        if speculative_k and max_total_len + speculative_k > \
+                cfg.max_seq_len:
+            raise ValueError(
+                f'speculative_k={speculative_k} needs headroom: '
+                f'max_total_len({max_total_len}) + K must be <= '
+                f'max_seq_len({cfg.max_seq_len})')
         if prefill_chunk < 0:
             raise ValueError(
                 f'prefill_chunk must be >= 0, got {prefill_chunk}')
@@ -181,12 +217,32 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f'prefill_budget={prefill_budget} < prefill_chunk='
                 f'{prefill_chunk}: the budget is spent in whole chunks')
+        # One-step pipelining composes with the plain loop only: verify
+        # and decode chunks are committed synchronously. None = on
+        # exactly when the plain loop runs.
+        if pipeline_decode and (speculative_k or decode_chunk > 1):
+            raise ValueError(
+                'pipeline_decode composes with the plain decode loop '
+                'only; speculative_k and decode_chunk dispatch '
+                'multi-token rounds that are committed synchronously '
+                '(set pipeline_decode=None/False with those modes)')
+        self.pipeline_decode = (not speculative_k and decode_chunk == 1
+                                if pipeline_decode is None
+                                else bool(pipeline_decode))
+        self.spec_k = int(speculative_k)
+        self.decode_chunk = int(decode_chunk)
+        # Verify chunks write K tokens, and decode chunks N-1, past the
+        # last committed one: the pool and each table row carry that.
+        self._write_lookahead = max(self.spec_k, self.decode_chunk - 1)
         # The pool must hold one full-depth sequence; page 0 is trash.
-        if (cfg.kv_total_pages - 1) * cfg.kv_page_size < max_total_len:
+        usable = (cfg.kv_total_pages - 1) * cfg.kv_page_size
+        if usable < max_total_len + self._write_lookahead:
             raise ValueError(
                 f'kv_total_pages={cfg.kv_total_pages} x kv_page_size='
                 f'{cfg.kv_page_size} cannot hold one max_total_len='
-                f'{max_total_len} sequence (page 0 is reserved)')
+                f'{max_total_len} sequence (+{self._write_lookahead} '
+                f'chunk-write headroom; usable {usable} tokens; page 0 is '
+                f'reserved)')
         self.model = model
         self.device = model.device
         # Multi-LoRA serving (inference/adapters.py): each slot may carry
@@ -202,12 +258,29 @@ class ContinuousBatchingEngine:
         self.kv_dtype = cfg.kv_dtype
         self.page_size = cfg.kv_page_size
         self.total_pages = cfg.kv_total_pages
-        self.pages_per_seq = -(-max_total_len // self.page_size)
+        self.pages_per_seq = -(-(max_total_len + self._write_lookahead)
+                               // self.page_size)
         self.prefix_caching = bool(prefix_caching)
         self.prefix_cache: Optional[PrefixCache] = None  # set per reset
         self.cache = PagedKVCache(cfg, self.device)
         self._generator = torch.Generator(self.device).manual_seed(seed)
         self._reset_paging()
+        # Single-token rounds (plain, pipelined, chunked) on static
+        # buffers; captured into CUDA graphs on the card unless
+        # `cuda_graphs` is False. The base variants are captured here,
+        # so a capture that fails stops the engine before it serves;
+        # LoRA variants once the adapter stack exists.
+        self._round = decode_graph.DecodeRound(
+            model, self.cache, num_slots, self.pages_per_seq,
+            max_steps=self.decode_chunk, generator=self._generator,
+            use_graphs=cuda_graphs, attend_len=max_total_len)
+        self.cuda_graphs = self._round.use_graphs
+        if self.cuda_graphs and not self.spec_k:
+            with torch.no_grad():
+                for selection in decode_graph.SELECTIONS:
+                    self._round.capture(selection, None)
+        # The pipelined loop's dispatched-but-uncommitted round.
+        self._inflight: Optional[Dict[str, object]] = None
 
         # Host-side slot bookkeeping. A slot is OCCUPIED when
         # `prefilling` (admitted, prompt suffix still being written) or
@@ -400,6 +473,12 @@ class ContinuousBatchingEngine:
             'queued_requests': self.queued_requests(),
             'decode_calls': self.decode_calls,
             'tokens_committed': self.tokens_committed,
+            'speculative_k': self.spec_k,
+            'decode_chunk': self.decode_chunk,
+            'pipeline_decode': self.pipeline_decode,
+            'cuda_graphs': self.cuda_graphs,
+            'graph_replays': self._round.replays,
+            'graph_captures': self._round.graphs_captured(),
             'prefill_chunks': self.prefill_chunks_run,
             'preemptions': self.preemptions,
             'requests_shed': self.requests_shed,
@@ -452,7 +531,7 @@ class ContinuousBatchingEngine:
         if prefilled:
             self._prefill_work()
             progressed = True
-        if self.active.any():
+        if self.active.any() or self._inflight is not None:
             t0 = time.perf_counter()
             committed = self.tokens_committed
             self._decode_step()
@@ -478,6 +557,7 @@ class ContinuousBatchingEngine:
         and the pool, keep serving."""
         traceback.print_exc()
         self.engine_restarts += 1
+        self._inflight = None
         for slot in range(self.num_slots):
             self._release_adapter(slot)
             fut = self.futures[slot]
@@ -600,6 +680,7 @@ class ContinuousBatchingEngine:
                 self._ready.append(self._queue.get_nowait())
             except queue.Empty:
                 break
+        reserve = self._growth_reserve()
         while self._ready and not self._occupied().all():
             item = self._ready.popleft()
             (prompt, max_new, temp, top_k, top_p, stops, adapter,
@@ -650,8 +731,8 @@ class ContinuousBatchingEngine:
             need = self.allocator.pages_needed(plen + 1, self.page_size) \
                 - len(shared)
             if self.prefix_cache is not None:
-                self.prefix_cache.evict_into(self.allocator, need)
-            if not self.allocator.can_allocate(need):
+                self.prefix_cache.evict_into(self.allocator, need + reserve)
+            if not self.allocator.can_allocate(need + reserve):
                 # Pool exhausted: back to the HEAD, stop admitting.
                 if self.prefix_cache is not None:
                     self.prefix_cache.release(shared)
@@ -676,8 +757,11 @@ class ContinuousBatchingEngine:
             self.prefill_frontier[slot] = n_cached
             self.pos[slot] = n_cached
             self.cur_token[slot] = 0
+            # The pool bounds the deepest a sequence can get, less the
+            # chunk-write lookahead.
             self.limits[slot] = min(plen + max_new, self.max_total_len,
-                                    (self.total_pages - 1) * self.page_size)
+                                    (self.total_pages - 1) * self.page_size
+                                    - self._write_lookahead)
             self.temps[slot] = temp
             self.top_ks[slot] = top_k
             self.top_ps[slot] = top_p
@@ -720,6 +804,7 @@ class ContinuousBatchingEngine:
         page_row = torch.from_numpy(self.page_table[slot:slot + 1]).to(dev)
         hidden = self.model.hidden(tokens, positions, self.cache, page_row,
                                    prefill=offset == 0,
+                                   attend_len=self.max_total_len,
                                    **self._slot_lora_args(slot))
         self.prefill_chunks_run += 1
         return self.model.logits(hidden[0, n - 1])
@@ -728,18 +813,21 @@ class ContinuousBatchingEngine:
                       ) -> torch.Tensor:
         """The continuation token (a device scalar) from the final
         chunk's last-position logits."""
-        temp = float(self.temps[slot])
-        if temp > 0:
-            dev = self.device
-            return sample_tokens(
-                last_logits[None],
-                torch.full((1,), temp, dtype=torch.float32, device=dev),
-                torch.full((1,), int(self.top_ks[slot]), dtype=torch.int32,
-                           device=dev),
-                torch.full((1,), float(self.top_ps[slot]),
-                           dtype=torch.float32, device=dev),
-                self._generator)[0]
-        return torch.argmax(last_logits)
+        return self._select(last_logits[None], slice(slot, slot + 1))[0]
+
+    def _select(self, logits: torch.Tensor, lanes: slice,
+                selection: Optional[str] = None) -> torch.Tensor:
+        """Eager token selection over logits [n, ...] for the slots
+        `lanes`; by default their host settings pick the selection."""
+        dev = self.device
+        temps, top_ks, top_ps = (self.temps[lanes], self.top_ks[lanes],
+                                 self.top_ps[lanes])
+        if selection is None:
+            selection = decode_graph.selection_for(temps, top_ks, top_ps)
+        return decode_graph.select_tokens(
+            logits, selection, torch.from_numpy(temps).to(dev),
+            torch.from_numpy(top_ks).to(dev),
+            torch.from_numpy(top_ps).to(dev), self._generator)
 
     def _prefill_work(self) -> None:
         """At most `prefill_budget` suffix tokens of prefill, in
@@ -785,9 +873,10 @@ class ContinuousBatchingEngine:
             self.active[slot] = True
 
     # -- paging -------------------------------------------------------------
-    def _grow_pages(self, lookahead: int = 1) -> None:
+    def _grow_pages(self, lookahead=1) -> None:
         """Before a decode step: every active slot about to write past
-        its allocated tokens gets another page. On pool exhaustion the
+        its allocated tokens gets another page (`lookahead` tokens past
+        its position: an int, or one per slot). On pool exhaustion the
         slot is PREEMPTED: its pages are released and the request
         re-queued at the head with everything generated so far as its
         prompt (recomputed on re-admission; greedy output unchanged)."""
@@ -795,7 +884,8 @@ class ContinuousBatchingEngine:
         for slot in range(self.num_slots):
             if not self.active[slot]:
                 continue
-            need_tokens = min(int(self.pos[slot]) + lookahead,
+            ahead = int(lookahead[slot] if np.ndim(lookahead) else lookahead)
+            need_tokens = min(int(self.pos[slot]) + ahead,
                               self.pages_per_seq * self.page_size)
             exhausted = False
             while int(self.allocated_tokens[slot]) < need_tokens:
@@ -835,6 +925,22 @@ class ContinuousBatchingEngine:
                 self._queued_tokens_add(len(self.outputs[slot]))
         # Back to the HEAD in pass order.
         self._ready.extendleft(reversed(preempted))
+
+    def _growth_reserve(self) -> int:
+        """Pages the decoding slots need before their next dispatch can
+        write (pos + 1, + the chunk-write lookahead, + 1 for a lane that
+        continues a pipelined round). Admission leaves them free: a
+        request it took them for would preempt a running slot, and a
+        preempted request re-admitted straight away can take them back
+        from the other, round after round, with neither committing."""
+        ahead = self._write_lookahead + 1 + int(self.pipeline_decode)
+        cap = self.pages_per_seq * self.page_size
+        need = 0
+        for slot in np.flatnonzero(self.active):
+            tokens = min(int(self.pos[slot]) + ahead, cap)
+            need += max(0, -(-tokens // self.page_size)
+                        - int(self.allocated_tokens[slot]) // self.page_size)
+        return need
 
     def _release_slot_pages(self, slot: int, promote: bool) -> None:
         """Return a slot's pages: shared refs drop, own PROMPT-full pages
@@ -883,9 +989,10 @@ class ContinuousBatchingEngine:
         {} while every decoding lane is the base model, so base-only
         rounds run no LoRA code at all."""
         ids = np.where(self.active, self.slot_adapter, 0).astype(np.int32)
-        if self.adapter_store is None or not ids.any():
+        lora = self._round_lora(ids)
+        if lora is None:
             return {}
-        return {'lora': self.adapter_store.model_lora(),
+        return {'lora': lora,
                 'adapter_ids': torch.from_numpy(ids).to(self.device)}
 
     def _slot_lora_args(self, slot: int) -> Dict[str, object]:
@@ -947,32 +1054,211 @@ class ContinuousBatchingEngine:
             self._finish_slot(slot)
         return done
 
-    def _decode_step(self) -> None:
-        """One decode round over every slot. Inactive lanes decode as
+    def _fetch_tokens(self, pending) -> np.ndarray:
+        """Wait for a dispatched round's tokens (a `decode_graph.Pending`,
+        or a device tensor), accounting the wall time the host spends
+        blocked: the serial host/device bubble pipelining hides."""
+        t0 = time.perf_counter()
+        if isinstance(pending, decode_graph.Pending):
+            out = pending.wait()
+        else:
+            out = pending.cpu().numpy()
+        self.decode_stall_s += time.perf_counter() - t0
+        return out
+
+    def _round_lora(self, ids: np.ndarray) -> Optional[dict]:
+        """The stacked factors a round over lane adapter ids `ids` runs
+        with; None (no LoRA code) while every lane is the base model."""
+        if self.adapter_store is None or not ids.any():
+            return None
+        return self.adapter_store.model_lora()
+
+    def _dispatch(self, cont: np.ndarray,
+                  steps: int = 1) -> decode_graph.Pending:
+        """Stage the slots' host state and dispatch `steps` single-token
+        steps; `cont` lanes take the previous step's token at position
+        +1 on the device instead of the host's. Inactive lanes decode as
         no-ops: their page-table rows are zero, so their writes land in
         the trash page; prefilling lanes write at their frontier, which
         the next chunk overwrites before attending."""
+        ids = np.where(self.active, self.slot_adapter, 0)
+        lanes = self.active
+        return self._round.dispatch(
+            tok=self.cur_token, pos=self.pos, cont=cont, ids=ids,
+            top_k=self.top_ks, temp=self.temps, top_p=self.top_ps,
+            table=self.page_table,
+            selection=decode_graph.selection_for(
+                self.temps[lanes], self.top_ks[lanes], self.top_ps[lanes]),
+            lora=self._round_lora(ids), steps=steps)
+
+    def _decode_step(self) -> None:
+        if self.spec_k:
+            self._spec_decode_step()
+            return
+        if self.decode_chunk > 1:
+            self._chunk_decode_step()
+            return
+        if self.pipeline_decode:
+            self._pipelined_decode_step()
+            return
         self._grow_pages()
         if not self.active.any():
             return  # _grow_pages may have preempted the last slot
-        dev = self.device
-        cur = torch.from_numpy(self.cur_token).to(dev)[:, None]
-        pos = torch.from_numpy(self.pos).to(dev)[:, None]
-        table = torch.from_numpy(self.page_table).to(dev)
-        hidden = self.model.hidden(cur, pos, self.cache, table,
-                                   **self._lora_args())
-        logits = self.model.logits(hidden[:, 0])
-        if (self.temps > 0).any():
-            out = sample_tokens(
-                logits, torch.from_numpy(self.temps).to(dev),
-                torch.from_numpy(self.top_ks).to(dev),
-                torch.from_numpy(self.top_ps).to(dev), self._generator)
-        else:
-            out = torch.argmax(logits, dim=-1)
-        t0 = time.perf_counter()
-        sampled = out.cpu().numpy()     # the round's one host fetch
-        self.decode_stall_s += time.perf_counter() - t0
+        pending = self._dispatch(np.zeros(self.num_slots, bool))
+        sampled = self._fetch_tokens(pending)[0]   # the one host fetch
         self.decode_calls += 1
         for slot in range(self.num_slots):
             if self.active[slot]:
                 self._commit_token(slot, int(sampled[slot]))
+
+    # -- pipelined decode ---------------------------------------------------
+    def _dispatch_round(self, inflight: Optional[Dict[str, object]]
+                        ) -> Optional[Dict[str, object]]:
+        """Dispatch the next round WITHOUT waiting for the in-flight one:
+        continuing lanes feed the in-flight round's device-resident
+        tokens back at position +1; lanes that joined since take their
+        host-side first token. A lane the pending commit will retire
+        gets a junk write one past its last position (write-before-read
+        keeps it harmless)."""
+        # Continuing lanes write at pos+1 (their round N is uncommitted):
+        # they grow one token further than lanes that joined since. (One
+        # lookahead for all, as the reference grows, can preempt a lane
+        # that rejoins at a page boundary before it commits anything,
+        # again and again.)
+        self._grow_pages(lookahead=1 + self._continuing(inflight))
+        if not self.active.any():
+            return None
+        cont = self._continuing(inflight)
+        pos = (self.pos.copy() if inflight is None else np.where(
+            cont, inflight['pos'] + 1, self.pos).astype(np.int32))
+        pending = self._dispatch(cont)
+        self.decode_calls += 1
+        return {'pending': pending, 'mask': self.active.copy(),
+                'pos': pos, 'futs': list(self.futures)}
+
+    def _continuing(self, inflight: Optional[Dict[str, object]]
+                    ) -> np.ndarray:
+        """Lanes whose request rode the in-flight round and still holds
+        the slot: they feed its tokens back on the device."""
+        if inflight is None:
+            return np.zeros(self.num_slots, bool)
+        return np.array([bool(inflight['mask'][s]) and bool(self.active[s])
+                         and self.futures[s] is inflight['futs'][s]
+                         for s in range(self.num_slots)])
+
+    def _commit_round(self, inflight: Dict[str, object]) -> None:
+        """Fetch and commit a dispatched round. Lanes whose request
+        finished, was preempted or was replaced since dispatch are
+        discarded (their token belongs to nobody)."""
+        sampled = self._fetch_tokens(inflight['pending'])[0]
+        for slot in range(self.num_slots):
+            if not inflight['mask'][slot]:
+                continue
+            if not self.active[slot] or \
+                    self.futures[slot] is not inflight['futs'][slot]:
+                continue
+            self._commit_token(slot, int(sampled[slot]))
+
+    def _pipelined_decode_step(self) -> None:
+        """Dispatch round N+1 first, then fetch and commit round N while
+        N+1 runs: stop detection, streaming callbacks and future
+        resolution overlap device work. Greedy outputs are token for
+        token the unpipelined loop's; only the trailing round after a
+        drain is wasted."""
+        inflight = self._inflight
+        nxt = self._dispatch_round(inflight) if self.active.any() \
+            else None
+        if inflight is not None:
+            self._commit_round(inflight)
+        self._inflight = nxt
+
+    # -- chunked and speculative decode -------------------------------------
+    def _chunk_decode_step(self) -> None:
+        """`decode_chunk` tokens for every active slot in one dispatch
+        (N steps, one fetch); the host commits them, truncating each slot
+        at its limit/eos/stop (a finished slot's remaining tokens are
+        discarded)."""
+        n = self.decode_chunk
+        # The chunk writes positions pos..pos+n-1.
+        self._grow_pages(lookahead=n)
+        if not self.active.any():
+            return
+        was_active = self.active.copy()
+        toks = self._fetch_tokens(
+            self._dispatch(np.zeros(self.num_slots, bool), steps=n))
+        self.decode_calls += 1
+        for slot in range(self.num_slots):
+            if not was_active[slot]:
+                continue
+            for i in range(n):
+                if self._commit_token(slot, int(toks[i, slot])):
+                    break   # finished: discard the chunk's tail
+
+    def _draft(self) -> np.ndarray:
+        """Prompt-lookup drafts [slots, K]: for each active slot, the K
+        tokens that followed the most recent earlier occurrence of the
+        trailing SPEC_NGRAM tokens (context = committed output ++ the
+        pending token), searched over the trailing SPEC_LOOKBACK
+        tokens; no match (or inactive) repeats the last token."""
+        k, ngram = self.spec_k, SPEC_NGRAM
+        drafts = np.zeros((self.num_slots, k), np.int32)
+        for slot in range(self.num_slots):
+            if not self.active[slot]:
+                continue
+            ctx = self.outputs[slot] + [int(self.cur_token[slot])]
+            drafts[slot, :] = ctx[-1]
+            if len(ctx) <= ngram:
+                continue
+            pattern = ctx[-ngram:]
+            floor = max(0, len(ctx) - SPEC_LOOKBACK)
+            # Most recent strictly-earlier occurrence of the pattern.
+            for start in range(len(ctx) - ngram - 1, floor - 1, -1):
+                if ctx[start:start + ngram] == pattern:
+                    cont = ctx[start + ngram:start + ngram + k]
+                    if cont:
+                        drafts[slot, :len(cont)] = cont
+                        drafts[slot, len(cont):] = cont[-1]
+                    break
+        return drafts
+
+    def _spec_decode_step(self) -> None:
+        """One speculative round: draft K tokens per slot, verify the
+        [current ++ drafts] chunk in one eager model call at per-row
+        positions pos..pos+K, commit the confirmed prefix (1..K+1 tokens
+        a call). Rejected drafts leave stale entries above the new
+        position; the next chunk overwrites them before attending."""
+        k = self.spec_k
+        drafts = self._draft()
+        # The chunk writes positions pos..pos+K.
+        self._grow_pages(lookahead=k + 1)
+        if not self.active.any():
+            return
+        dev = self.device
+        chunk = np.concatenate([self.cur_token[:, None], drafts], axis=1)
+        positions = self.pos[:, None] + np.arange(k + 1, dtype=np.int32)
+        hidden = self.model.hidden(
+            torch.from_numpy(chunk).to(dev).long(),
+            torch.from_numpy(positions).to(dev), self.cache,
+            torch.from_numpy(self.page_table).to(dev),
+            attend_len=self.max_total_len, **self._lora_args())
+        live = self.active
+        y = self._select(self.model.logits(hidden), slice(None),
+                         decode_graph.selection_for(
+                             self.temps[live], self.top_ks[live],
+                             self.top_ps[live]))
+        y = self._fetch_tokens(y)                      # [slots, K+1]
+        self.decode_calls += 1
+        for slot in range(self.num_slots):
+            if not self.active[slot]:
+                continue
+            accept = 0
+            while accept < k and int(drafts[slot, accept]) == \
+                    int(y[slot, accept]):
+                accept += 1
+            # Commit the pending token, then each accepted draft; each
+            # commit's successor is the model's own token for that
+            # position, so the last pending token is the first
+            # correction.
+            for nxt in y[slot, :accept + 1]:
+                if self._commit_token(slot, int(nxt)):
+                    break

@@ -250,7 +250,8 @@ class Attention(nn.Module):
                 page_indices: Optional[torch.Tensor] = None,
                 prefill: bool = False, lora: Optional[dict] = None,
                 adapter_ids: Optional[torch.Tensor] = None,
-                lora_scale: float = 1.0) -> torch.Tensor:
+                lora_scale: float = 1.0,
+                attend_len: Optional[int] = None) -> torch.Tensor:
         cfg = self.config
         batch, seq, _ = x.shape
         hd = cfg.head_dim
@@ -292,7 +293,8 @@ class Attention(nn.Module):
                 out = paged_ops.paged_chunk_attention(
                     q, kv['k_pages'], kv['v_pages'], positions,
                     page_indices, k_scales=kv.get('k_scales'),
-                    v_scales=kv.get('v_scales')).to(cfg.dtype)
+                    v_scales=kv.get('v_scales'),
+                    attend_len=attend_len).to(cfg.dtype)
         else:
             # One decode token per row, each at its own position.
             if 'k_scales' in kv:
@@ -306,7 +308,8 @@ class Attention(nn.Module):
             out = paged_ops.paged_decode_attention(
                 q[:, 0], kv['k_pages'], kv['v_pages'],
                 lengths=positions[:, 0] + 1, page_indices=page_indices,
-                k_scales=kv.get('k_scales'), v_scales=kv.get('v_scales'))
+                k_scales=kv.get('k_scales'), v_scales=kv.get('v_scales'),
+                attend_len=attend_len)
             out = out[:, None].to(cfg.dtype)
         out = out.reshape(batch, seq, cfg.num_heads * hd)
         return _lora('wo', self.wo(out), out, lora, adapter_ids, lora_scale)
@@ -345,9 +348,11 @@ class Block(nn.Module):
         self.mlp = FeedForward(cfg)
 
     def forward(self, x, positions, kv=None, page_indices=None,
-                prefill=False, lora=None, adapter_ids=None, lora_scale=1.0):
+                prefill=False, lora=None, adapter_ids=None, lora_scale=1.0,
+                attend_len=None):
         x = x + self.attn(self.attn_norm(x), positions, kv, page_indices,
-                          prefill, lora, adapter_ids, lora_scale)
+                          prefill, lora, adapter_ids, lora_scale,
+                          attend_len)
         return x + self.mlp(self.mlp_norm(x), lora, adapter_ids,
                             lora_scale)
 
@@ -390,11 +395,15 @@ class Llama(nn.Module):
                cache: Optional[PagedKVCache] = None,
                page_indices: Optional[torch.Tensor] = None,
                prefill: bool = False, lora: Optional[dict] = None,
-               adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+               adapter_ids: Optional[torch.Tensor] = None,
+               attend_len: Optional[int] = None) -> torch.Tensor:
         """Final-norm hidden states [B, S, embed] in `dtype`. `lora` =
         {'scale', 'layers'}: stacked factors with `adapter_ids` [B]
         picking each row's adapter, or one adapter's factors with no
-        `adapter_ids` (see module doc)."""
+        `adapter_ids` (see module doc). `attend_len` (a serving engine's
+        max_total_len) is the width the paged kernel cuts the page
+        table for, so that rows below it get the same bits from tables
+        of any width (ops/paged_kernel.py, `split_plan`)."""
         cfg = self.config
         batch, seq = tokens.shape
         if adapter_ids is not None and lora is None:
@@ -414,7 +423,7 @@ class Llama(nn.Module):
             args = (x, positions,
                     cache.layers[i] if cache is not None else None,
                     page_indices, prefill, lora_layers.get(f'layer_{i}'),
-                    adapter_ids, lora_scale)
+                    adapter_ids, lora_scale, attend_len)
             x = (checkpoint.checkpoint(block, *args, use_reentrant=False)
                  if remat else block(*args))
         return self.final_norm(x)

@@ -54,14 +54,18 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            page_indices: torch.Tensor, *,
                            k_scales: Optional[torch.Tensor] = None,
                            v_scales: Optional[torch.Tensor] = None,
-                           impl: str = 'auto') -> torch.Tensor:
+                           impl: str = 'auto',
+                           attend_len: Optional[int] = None
+                           ) -> torch.Tensor:
     """Attention of one query token per row over its paged history.
-    Returns [B, num_q_heads, head_dim] in q.dtype."""
+    Returns [B, num_q_heads, head_dim] in q.dtype. `attend_len`: see
+    `paged_kernel.fused_paged_attention`."""
     if q.ndim != 3:
         raise ValueError(f'q must be [B, Hq, D], got {tuple(q.shape)}')
     out = paged_kernel.fused_paged_attention(
         q[:, None], k_pages, v_pages, (lengths - 1)[:, None],
-        page_indices, k_scales=k_scales, v_scales=v_scales, impl=impl)
+        page_indices, k_scales=k_scales, v_scales=v_scales, impl=impl,
+        attend_len=attend_len)
     return out[:, 0]
 
 
@@ -70,14 +74,18 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: torch.Tensor,
                           page_indices: torch.Tensor,
                           k_scales: Optional[torch.Tensor] = None,
                           v_scales: Optional[torch.Tensor] = None,
-                          impl: str = 'auto') -> torch.Tensor:
+                          impl: str = 'auto',
+                          attend_len: Optional[int] = None
+                          ) -> torch.Tensor:
     """S queries per row over the row's full paged history: query s of
     row b attends every cache index <= positions[b, s] (the chunk's own
     K/V must already be written). q: [B, S, Hq, D]; returns the same
-    shape in q.dtype."""
+    shape in q.dtype. `attend_len`: see
+    `paged_kernel.fused_paged_attention`."""
     return paged_kernel.fused_paged_attention(
         q, k_pages, v_pages, positions, page_indices,
-        k_scales=k_scales, v_scales=v_scales, impl=impl)
+        k_scales=k_scales, v_scales=v_scales, impl=impl,
+        attend_len=attend_len)
 
 
 def _gather_kv(q_heads: int, k_pages: torch.Tensor, v_pages: torch.Tensor,

@@ -32,11 +32,20 @@ rule on dtypes and shapes (never a reaction to a failure):
 `launches` counts wrapper calls that launched the kernel (each call is
 `DEVICE_LAUNCHES_PER_CALL` device launch on every route: the split
 route's merge runs in the last block of each (row, kv head)),
-`route_launches` the same per route, and `plain_calls` plain-version
-calls through the wrapper.
+`route_launches` the same per route (`shape_launches` per route and S),
+and `plain_calls` plain-version
+calls through the wrapper. A call captured into a CUDA graph launches
+nothing; models/decode_graph.py takes its counts back after the
+capture and adds them at every replay.
+
+Under capture the split route's partials come from the graph's private
+pool (allocated per call, as eagerly) and its merge counters from a
+per-device buffer that `reserve_graph_counters` allocates before the
+capture.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import functools
@@ -53,6 +62,10 @@ ROUTES: Tuple[str, ...] = ('scalar', 'split', 'chunk')
 launches = 0
 #: The same, per route.
 route_launches: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+#: The same, per (route, queries a row S): a verify chunk's S = K+1 apart
+#: from prefill chunks and decode.
+shape_launches: 'collections.Counter[Tuple[str, int]]' = \
+    collections.Counter()
 #: Device launches per kernel call, on every route.
 DEVICE_LAUNCHES_PER_CALL = 1
 #: Calls of the plain version made through `fused_paged_attention`.
@@ -76,6 +89,9 @@ SPLIT_TILE = 32
 MIN_SPLIT_TILES = 2
 MAX_SPLITS = 32
 SPLIT_BLOCKS_PER_SM = 2
+#: The most splits a call may have with its tail splits (the kernel's
+#: kMaxSplits).
+SPLIT_LIMIT = 64
 
 
 def unavailable_reason() -> Optional[str]:
@@ -139,10 +155,14 @@ def fused_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                           k_scales: Optional[torch.Tensor] = None,
                           v_scales: Optional[torch.Tensor] = None,
                           impl: str = 'auto',
+                          attend_len: Optional[int] = None,
                           perturb: float = 0.0) -> torch.Tensor:
     """Paged attention over bf16/f32 or int8 pools (see module doc).
-    `perturb` scales every score by (1 + perturb): a deliberately wrong
-    kernel for tests to prove the parity pins bite."""
+    `attend_len` is the width the split route cuts the page table for
+    (`split_plan`'s attend_tokens; the result does not depend on it
+    beyond the last bits). `perturb` scales every score by
+    (1 + perturb): a deliberately wrong kernel for tests to prove the
+    parity pins bite."""
     global plain_calls
     if q.ndim != 4 or k_pages.ndim != 4 or v_pages.shape != k_pages.shape:
         raise ValueError(f'expected q [B,S,Hq,D] and pools [Hkv,P,page,D], '
@@ -170,7 +190,7 @@ def fused_paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             q, k_pages, v_pages, positions, page_indices,
             k_scales=k_scales, v_scales=v_scales, perturb=perturb)
     return _launch(q, k_pages, v_pages, positions, page_indices,
-                   k_scales, v_scales, perturb)
+                   k_scales, v_scales, perturb, attend_len)
 
 
 def choose_route(q_dtype: torch.dtype, kv_dtype: torch.dtype, seq: int,
@@ -193,23 +213,38 @@ def choose_route(q_dtype: torch.dtype, kv_dtype: torch.dtype, seq: int,
 
 
 def split_plan(batch: int, num_kv_heads: int, rows: int, pages_per_seq: int,
-               page_size: int, sm_count: int) -> Tuple[int, int, int, int]:
+               page_size: int, sm_count: int,
+               attend_tokens: Optional[int] = None
+               ) -> Tuple[int, int, int, int]:
     """How the split route cuts a call: (rows per block, row groups per
     kv head, splits per row, tokens per split). As many splits as let
     the (split, kv head, row group, batch row) blocks run in one wave
     of SPLIT_BLOCKS_PER_SM an SM (a second, partial wave would double
     the time of the last), each a whole number of SPLIT_TILE-token
     tiles, at least MIN_SPLIT_TILES where the table has them, at most
-    MAX_SPLITS; the last split ends at the page table's end. A
-    function of shapes only: the host cannot see row lengths without a
-    sync."""
+    MAX_SPLITS; the last split ends at the page table's end.
+
+    `attend_tokens` (default: the table's width) is the width that the
+    cut is made for. The table past it goes into tail splits of the
+    same size, beyond the one-wave budget: an engine passes its
+    max_total_len, and a --decode-chunk or --speculative engine's table
+    carries write lookahead past that. Every row below attend_tokens
+    then sums the same splits in the same order whatever the table's
+    width (the tail splits are empty for it and add exact zeros to the
+    merge), so chunked decode stays bit-identical to single-step decode.
+    Only where the table is so much wider that SPLIT_LIMIT would be
+    passed do the splits grow. A function of shapes only: the host
+    cannot see row lengths without a sync."""
     rows_per_block = 4 if rows <= 4 else 8
     groups = -(-rows // rows_per_block)
     tiles = -(-pages_per_seq * page_size // SPLIT_TILE)
+    cut = tiles
+    if attend_tokens is not None:
+        cut = min(tiles, max(1, -(-attend_tokens // SPLIT_TILE)))
     slots = SPLIT_BLOCKS_PER_SM * sm_count
     n_split = max(1, min(slots // (batch * num_kv_heads * groups),
-                         tiles // MIN_SPLIT_TILES, MAX_SPLITS))
-    per = -(-tiles // n_split)
+                         cut // MIN_SPLIT_TILES, MAX_SPLITS))
+    per = max(-(-cut // n_split), -(-tiles // SPLIT_LIMIT))
     return rows_per_block, groups, -(-tiles // per), per * SPLIT_TILE
 
 
@@ -218,18 +253,45 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-#: Per (device, stream): the split route's merge counters. They start at
-#: zero and every launch leaves them at zero (the last block of each
-#: (row, kv head) resets its own), so one buffer serves every call.
-_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+#: The split route's merge counters: per (device index, stream) for
+#: eager calls, created on first use, and per (device index, None) for
+#: calls being captured into a CUDA graph, created beforehand by
+#: `reserve_graph_counters` (an allocation made during a capture would
+#: come from that graph's private pool). They start at zero and every
+#: launch leaves them at zero (the last block of each (row, kv head)
+#: resets its own), so one buffer serves every call on its stream, and
+#: the graph buffer every graph as long as graphs replay on one stream
+#: at a time.
+_counters: Dict[Tuple[int, Optional[int]], torch.Tensor] = {}
+_MIN_COUNTERS = 1024
+
+
+def reserve_graph_counters(device: torch.device,
+                           n: int = _MIN_COUNTERS) -> None:
+    """Allocate (outside any capture) the merge counters that captured
+    split-route calls on `device` use, at least `n` of them."""
+    key = (torch.device(device).index or 0, None)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        _counters[key] = torch.zeros(max(n, _MIN_COUNTERS),
+                                     dtype=torch.int32, device=device)
 
 
 def _counter_buffer(device: torch.device, stream: int,
                     n: int) -> torch.Tensor:
+    if torch.cuda.is_current_stream_capturing():
+        buf = _counters.get((device.index, None))
+        if buf is None or buf.numel() < n:
+            raise RuntimeError(
+                f'capturing a split-route paged attention call that needs '
+                f'{n} merge counters: call paged_kernel.'
+                f'reserve_graph_counters({device}, {n}) before the capture')
+        return buf
     key = (device.index, stream)
     buf = _counters.get(key)
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        buf = torch.zeros(max(n, _MIN_COUNTERS), dtype=torch.int32,
+                          device=device)
         _counters[key] = buf
     return buf
 
@@ -249,7 +311,7 @@ def _library() -> ctypes.CDLL:
 
 
 def _launch(q, k_pages, v_pages, positions, page_indices, k_scales,
-            v_scales, perturb) -> torch.Tensor:
+            v_scales, perturb, attend_len=None) -> torch.Tensor:
     global launches
     tensors = [q, k_pages, v_pages, positions, page_indices]
     if k_scales is not None:
@@ -291,7 +353,7 @@ def _launch(q, k_pages, v_pages, positions, page_indices, k_scales,
         rows = seq * (num_q_heads // num_kv_heads)
         rows_per_block, groups, n_split, split_tokens = split_plan(
             batch, num_kv_heads, rows, pages_per_seq, page_size,
-            _sm_count(q.device.index or 0))
+            _sm_count(q.device.index or 0), attend_len)
         pairs = batch * num_kv_heads * groups
         partials = torch.empty(pairs * n_split * rows_per_block
                                * (head_dim + 2), dtype=torch.float32,
@@ -314,6 +376,7 @@ def _launch(q, k_pages, v_pages, positions, page_indices, k_scales,
                            f'to launch: CUDA error {err} ({msg})')
     launches += 1
     route_launches[route] += 1
+    shape_launches[(route, seq)] += 1
     return out
 
 

@@ -14,6 +14,13 @@ without `--cpu` it exits with an error.
       --continuous-batching       # a local probe on the CPU
   python -m skypilot_tpu_torch.recipes.serve_lm --model llama3-8b \\
       --continuous-batching --adapter-dir adapters/ --max-adapters 4
+  python -m skypilot_tpu_torch.recipes.serve_lm --model llama3-8b \\
+      --continuous-batching --speculative 4     # or --decode-chunk 4
+
+Decode rounds are pipelined (round N+1 is dispatched before round N is
+committed) unless --no-pipeline-decode, --speculative or --decode-chunk
+is given, and on the GPU each single-token step replays one captured
+CUDA graph.
 """
 from __future__ import annotations
 
@@ -40,8 +47,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help='max prefill tokens per scheduler iteration '
                         '(default: one chunk)')
     p.add_argument('--no-pipeline-decode', action='store_true',
-                   help='accepted for compatibility: this port always '
-                        'runs the plain (unpipelined) decode loop')
+                   help='disable one-step host/device pipelining of '
+                        'decode rounds (on by default; it turns itself '
+                        'off with --speculative or --decode-chunk)')
+    p.add_argument('--decode-chunk', type=int, default=1, metavar='N',
+                   help='N single-token decode steps per dispatch (N '
+                        'CUDA-graph replays, one host fetch); clamps '
+                        'max_total_len to max_seq_len - N')
+    p.add_argument('--speculative', type=int, default=0, metavar='K',
+                   help='prompt-lookup speculative decoding: verify K '
+                        'drafted tokens per round in one [slots, K+1] '
+                        'chunk (greedy output unchanged); clamps '
+                        'max_total_len to max_seq_len - K')
     p.add_argument('--no-prefix-caching', action='store_true',
                    help='disable shared-prefix KV page reuse')
     p.add_argument('--kv-dtype', choices=['bf16', 'int8'], default='bf16',
@@ -89,8 +106,6 @@ def build_parser() -> argparse.ArgumentParser:
     # parsed so the command line stays the same, refused if used.
     p.add_argument('--hf', default=None, metavar='DIR')
     p.add_argument('--ckpt-dir', default=None)
-    p.add_argument('--decode-chunk', type=int, default=1, metavar='N')
-    p.add_argument('--speculative', type=int, default=0, metavar='K')
     p.add_argument('--tensor', type=int, default=1)
     p.add_argument('--stages', type=int, default=1)
     p.add_argument('--weight-dtype', choices=['bf16', 'int8'],

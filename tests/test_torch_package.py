@@ -141,7 +141,7 @@ def test_cuda_impl_on_cpu_tensors_raises():
 
 
 @pytest.mark.parametrize('argv,flag', [
-    (['--speculative', '4'], '--speculative'),
+    (['--stages', '2'], '--stages'),
     (['--tensor', '2'], '--tensor'),
     (['--kv-spill-bytes', '1024'], '--kv-spill-bytes'),
     (['--weight-dtype', 'int8'], '--weight-dtype'),

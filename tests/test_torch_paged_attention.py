@@ -348,10 +348,58 @@ def test_split_plan_at_llama3_decode():
     """Llama-3-8B decode (Hkv=8, G=4) on 132 SMs: at B=8, context 1024,
     4 splits of 256 tokens (256 blocks, one wave of 2 an SM); at B=1,
     context 4096, the most splits (32 of 128 tokens); at B=32 the
-    (batch row, kv head) pairs alone fill the wave."""
+    (batch row, kv head) pairs alone fill the wave. A table one page
+    longer, cut for the shorter width, keeps its cut and adds a tail
+    split, past MAX_SPLITS where it must."""
     assert pk.split_plan(8, 8, 4, 64, 16, 132) == (4, 1, 4, 256)
     assert pk.split_plan(1, 8, 4, 256, 16, 132) == (4, 1, 32, 128)
     assert pk.split_plan(32, 8, 4, 64, 16, 132) == (4, 1, 1, 1024)
+    # One page more (a --decode-chunk / --speculative engine's table at
+    # max_total_len 1024 / 4096): the same cut, and a tail split.
+    assert pk.split_plan(8, 8, 4, 65, 16, 132, 1024) == (4, 1, 5, 256)
+    assert pk.split_plan(1, 8, 4, 257, 16, 132, 4096) == (4, 1, 33, 128)
+    assert pk.split_plan(32, 8, 4, 65, 16, 132, 1024) == (4, 1, 2, 1024)
+
+
+@pytest.mark.parametrize('batch', [1, 8, 32])
+@pytest.mark.parametrize('width,page', [(1024, 16), (4096, 16), (1000, 16),
+                                        (990, 64), (333, 8)])
+@pytest.mark.parametrize('lookahead', [1, 3, 4, 8])
+def test_split_plan_cut_ignores_the_write_lookahead(batch, width, page,
+                                                    lookahead):
+    """An engine at max_total_len `width` whose table carries `lookahead`
+    more tokens (--decode-chunk lookahead + 1, --speculative K) cuts the
+    table as the single-step engine at that width does: the same split
+    size, so every split a row below `width` reaches is the same, and
+    the rest of the table lies in tail splits. Where its table is
+    `width` rounded up to a tile, the single-step engine's plan is the
+    one made with no width given (no extra split), and the splits below
+    `width` stay within the one-wave budget."""
+    sms = 132
+    pairs = batch * 8                    # Llama-3-8B: Hkv = 8, G = 4
+    single = -(-width // page)
+    wide = -(-(width + lookahead) // page)
+    plan_single = pk.split_plan(batch, 8, 4, single, page, sms, width)
+    plan_wide = pk.split_plan(batch, 8, 4, wide, page, sms, width)
+    assert plan_single[3] == plan_wide[3]
+    split_tokens = plan_single[3]
+    n_main = -(-width // split_tokens)
+    assert n_main <= plan_single[2] <= plan_wide[2] <= pk.SPLIT_LIMIT
+    assert n_main * pairs <= max(pk.SPLIT_BLOCKS_PER_SM * sms, pairs)
+    for pps, (_, _, n_split, st) in ((single, plan_single),
+                                     (wide, plan_wide)):
+        assert (n_split - 1) * st < pps * page <= n_split * st
+    if -(-single * page // pk.SPLIT_TILE) == -(-width // pk.SPLIT_TILE):
+        assert plan_single == pk.split_plan(batch, 8, 4, single, page, sms)
+
+
+def test_split_plan_grows_splits_only_past_the_kernel_limit():
+    """A table far wider than the width it is cut for: the splits grow so
+    that the call stays within the kernel's SPLIT_LIMIT."""
+    _, _, n_split, st = pk.split_plan(1, 8, 4, 256, 16, 132, 64)
+    assert n_split <= pk.SPLIT_LIMIT and n_split * st >= 4096
+    assert pk.split_plan(1, 8, 4, 256, 16, 132, 10 ** 6) == \
+        pk.split_plan(1, 8, 4, 256, 16, 132)
 
 
 @pytest.mark.parametrize('args,route', [

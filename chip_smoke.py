@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Drives the port's main paths (`serve_lm --continuous-batching` on a
-paged KV pool, base model and multi-LoRA, whole-prompt long prefill;
-training through the trainer API and `train_lm --lora`) through the
+paged KV pool, base model and multi-LoRA, whole-prompt long prefill,
+SSE streams, text and chat endpoints, logprobs, `--hf` checkpoints and
+the one-shot engine; training through the trainer API and `train_lm
+--lora`) through the
 entry points a user calls, at the full width of Llama-3-8B with seeded
 random weights and adapters, and holds every CUDA kernel of those paths
 against its plain PyTorch version. Phases, one JSON line each; any
@@ -109,7 +111,45 @@ failure exits non-zero before the result lines:
                  adapter requests x 16; and 2 prompts of 2100 / 2600
                  tokens prefilled whole, through the flash forward), and
                  --speculative 4 and --decode-chunk 4 engines give the
-                 plain engine's tokens exactly
+                 plain engine's tokens exactly; so do the one-shot
+                 generate functions (plain and speculative K=4, dense
+                 cache) on the first two base requests
+  serve_stream   serve_lora's weights, flags and adapters: the 8 prompts
+                 as concurrent /generate SSE streams of 32 tokens (two
+                 under adapters); each row's streamed tokens equal its
+                 terminal event's row and the non-streamed /generate row
+                 of a runtime with the same flags; paged and QKV LoRA
+                 kernels launched, no plain call; a client that hangs up
+                 after 4 events frees its slot and nothing more is
+                 committed for it; stream TTFT and commit-time ITL
+  serve_text     a stand-in byte-level tokenizer (the card has no
+                 transformers), prefix caching off: /generate_text,
+                 text /v1/completions with a stop string and
+                 /v1/chat/completions (no template), plain and streamed,
+                 each equal to decoding /generate's ids for the same
+                 prompt; then at --max-total-len 4096 a logprobs=5,
+                 echo completion of a 2150-token prompt: its scoring
+                 pass (bucket 4096) launches flash_fwd once per layer,
+                 its token_logprobs lie within 0.1 nats on average and
+                 0.5 at most of the same pass on the plain versions
+                 (beside the plain pass that rounds P to bf16 as the
+                 kernel does: this model's bf16 noise floor), and each
+                 generated token is the pass's top alternative where
+                 the top-2 margin exceeds 0.5
+  one_shot       serve_lm's flags without --continuous-batching at
+                 --max-total-len 128: two greedy 48-token rows run the
+                 whole bucket (127 eager steps) through the dense cache;
+                 the continuous engine's rows, --speculative 4's and a
+                 stream's (the lazy stream engine, paged launches) may
+                 part from them only at a top-2 margin <= 0.5 (bf16
+                 routes that sum in other orders; exact in f32, see
+                 greedy_parity)
+  serve_hf       a Llama-3-8B-width checkpoint cut to 2 layers, written
+                 here in HF's layout (two bf16 safetensors shards and an
+                 index), served through serve_lm --hf: weights on the card
+                 bit-identical to the seeded model's, greedy tokens equal
+                 a runtime built from that model, /v1/models names
+                 hf:hf_llama; the checkpoint is deleted after
   train_full     ShardedTrainer on Llama-3-8B width cut to 4 layers (f32
                  params + Adam: 1.9e9 params, ~31 GB), B=8 S=2048:
                  step-1 loss and grad norm through the kernels vs the
@@ -136,6 +176,7 @@ result, without CUDA or outside a checkout of the repository.
 """
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -1712,6 +1753,15 @@ def phase_greedy_parity(pk, lk, fk):
     same = outs['cuda'] == outs['torch']
     modes_same = {label: outs[label] == outs['cuda']
                   for label in ('spec4', 'chunk4')}
+    # The one-shot engine's functions on the first two base requests:
+    # each alone, its whole bucket (prompt + 16).
+    from skypilot_tpu_torch.models import generate as gen
+    for label, make in (('one_shot', gen.make_generate_fn),
+                        ('one_shot_spec4', functools.partial(
+                            gen.make_speculative_generate_fn, draft_k=4))):
+        modes_same[label] = all(
+            make(model, len(p) + 16)(torch.tensor([p], device='cuda'))
+            [0].tolist() == o for p, o in zip(ps[:2], outs['cuda'][:2]))
     del model
     torch.cuda.empty_cache()
     long_outs = long_parity(fk, pk)
@@ -1725,13 +1775,593 @@ def phase_greedy_parity(pk, lk, fk):
          long_tokens_cuda=[o[-8:] for o in long_outs['cuda']],
          long_tokens_torch=[o[-8:] for o in long_outs['torch']])
     check(same, 'greedy tokens differ between the kernel and plain routes')
-    check(all(modes_same.values()), f'speculative / chunked greedy tokens '
-                                    f'differ from the plain engine\'s: '
-                                    f'{modes_same}')
+    check(all(modes_same.values()), f'speculative / chunked / one-shot '
+                                    f'greedy tokens differ from the plain '
+                                    f'engine\'s: {modes_same}')
     check(long_same, 'long-prefill greedy tokens differ between the '
                      'kernel and plain routes')
     check(len({tuple(outs['cuda'][i][-16:]) for i in (0, 4, 5)}) == 3,
           'the adapters did not change the greedy tokens')
+
+
+# -- the request surface: streams, text, HF checkpoints, one-shot ----------
+# Streamed and non-streamed runs must prefill the same chunks to give the
+# same bf16 tokens, so each side runs on a fresh runtime (a prompt sent
+# twice to one runtime hits its own cached pages the second time).
+STREAM_MODELS = ['attn8', None, None, 'mlp16', None, None, None, None]
+# token_logprobs of the scoring pass (bucket 4096, flash forward) against
+# the same pass on the plain versions, in nats. On this random-weight
+# model bf16 routes that round differently part by ~0.05 nats on average
+# and up to ~0.3 over 32 layers: a plain pass that only rounds P to bf16,
+# as the kernel does, differs from the f32 plain pass that much
+# (`serve_text` measures it in the same run). Mean and max are both held.
+LOGPROB_TOL = {'mean': 0.1, 'max': 0.5}
+# Where two greedy bf16 runs that sum in different orders part, the top-2
+# log-prob margin there must be below the same bf16 noise (a near tie),
+# else it is a fault; in f32 (greedy_parity) they must not part at all.
+PART_MARGIN_TOL = 0.5
+
+
+class ByteTokenizer:
+    """Stand-in tokenizer for the text endpoints on the card, which has no
+    `transformers` (so no HF tokenizer can load there): UTF-8 bytes are
+    token ids, and an id decodes as its low byte. No chat template, so
+    chat renders `role: content` lines. Test scaffolding, not a feature
+    of the port: the runtime keeps it where `get_tokenizer` keeps a
+    loaded tokenizer."""
+
+    def __call__(self, text):
+        return {'input_ids': list(text.encode('utf-8'))}
+
+    def decode(self, ids, skip_special_tokens=True):
+        return bytes(int(t) % 256 for t in ids).decode('utf-8',
+                                                       errors='replace')
+
+
+def stream_text(text):
+    """What an SSE text stream of `text`'s tokens delivers: the
+    incremental decoder drops an unresolved trailing partial codepoint."""
+    return text[:-1] if text.endswith('�') else text
+
+
+def text_prompt(rng, n_chars):
+    words = [''.join(chr(97 + int(c)) for c in rng.integers(0, 26, k))
+             for k in rng.integers(2, 9, n_chars // 4)]
+    return ' '.join(words)[:n_chars]
+
+
+def sse(port, path, body, stop_after=None, timeout=600):
+    """(events, seconds to the first event, seconds to the end) of an
+    SSE answer; `stop_after` events, then the client hangs up."""
+    import http.client
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection('127.0.0.1', port, timeout=timeout)
+    conn.request('POST', path, json.dumps(body),
+                 {'Content-Type': 'application/json'})
+    resp = conn.getresponse()
+    check(resp.status == 200 and
+          resp.getheader('Content-Type') == 'text/event-stream',
+          f'{path}: status {resp.status}')
+    events, first = [], None
+    for line in resp:
+        if not line.startswith(b'data: '):
+            continue
+        first = first if first is not None else time.perf_counter() - t0
+        data = line[len(b'data: '):].strip()
+        events.append('[DONE]' if data == b'[DONE]' else json.loads(data))
+        if stop_after is not None and len(events) >= stop_after:
+            break
+    resp.close()
+    conn.close()
+    return events, first, time.perf_counter() - t0
+
+
+def concurrently(fn, n):
+    out = [None] * n
+    errors = []
+
+    def one(i):
+        try:
+            out[i] = fn(i)
+        except Exception as e:  # pylint: disable=broad-except
+            errors.append(f'{type(e).__name__}: {e}')
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    check(not errors, f'concurrent requests failed: {errors}')
+    return out
+
+
+def zero_counts(pk, lk, fk):
+    pk.launches = pk.plain_calls = lk.launches = lk.plain_calls = 0
+    zero_paged(pk)
+    zero_flash(fk)
+
+
+def phase_serve_stream(model, pk, lk, fk, card):
+    """The 8 prompts as concurrent /generate SSE streams (two under
+    serve_lora's adapters), against the same requests non-streamed on a
+    runtime with the same flags; then a client that hangs up."""
+    root = os.path.join(WORK, 'adapters')
+    flags = ['--adapter-dir', root, '--max-adapters', '3']
+    ps = prompts()
+
+    def body(i, **kw):
+        b = {'tokens': [ps[i]], 'max_new_tokens': 32, **kw}
+        if STREAM_MODELS[i] is not None:
+            b['model'] = STREAM_MODELS[i]
+        return b
+
+    rt, server, thread, port, _ = serve_runtime(model, 'bf16', flags)
+    try:
+        post(port, '/generate', {'tokens': [ps[2][:64]], 'max_new_tokens': 2})
+        plain = concurrently(lambda i: post(port, '/generate', body(i))
+                             ['tokens'][0], len(ps))
+    finally:
+        stop_runtime(rt, server, thread)
+    rt, server, thread, port, setup_s = serve_runtime(model, 'bf16', flags)
+    try:
+        post(port, '/generate', {'tokens': [ps[2][:64]], 'max_new_tokens': 2})
+        rt.metrics = type(rt.metrics)()
+        zero_counts(pk, lk, fk)
+        streams = concurrently(lambda i: sse(port, '/generate',
+                                             body(i, stream=True)), len(ps))
+        launches, plain_calls = pk.launches, pk.plain_calls
+        routes = dict(pk.route_launches)
+        lora_launches, lora_plain = lk.launches, lk.plain_calls
+        metrics = rt.metrics.snapshot()
+        # A client that hangs up after 4 tokens: its slot frees and
+        # nothing more is committed for it.
+        eng = rt.engine
+        committed0 = eng.tokens_committed
+        events, _, _ = sse(port, '/generate',
+                           {'tokens': [ps[3]], 'max_new_tokens': 200,
+                            'stream': True}, stop_after=4)
+        deadline = time.monotonic() + 30
+        while (eng.active.any() or any(f is not None for f in eng.futures)) \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        freed = not eng.active.any() and all(f is None for f in eng.futures)
+        hung_up = eng.tokens_committed - committed0
+        time.sleep(0.5)
+        after = eng.tokens_committed - committed0
+    finally:
+        stop_runtime(rt, server, thread)
+    for i, (evs, _, _) in enumerate(streams):
+        toks = [e['token'] for e in evs[:-2]]
+        check(evs[-1] == '[DONE]' and evs[-2].get('done') is True,
+              f'stream {i}: no terminal event')
+        check(evs[-2]['tokens'] == [ps[i] + toks],
+              f'stream {i}: streamed tokens differ from the terminal row')
+        check(evs[-2]['tokens'][0] == plain[i],
+              f'stream {i}: differs from the non-streamed /generate row')
+        check(len(toks) == 32, f'stream {i}: {len(toks)} tokens')
+    check(launches > 0 and routes['split'] > 0 and plain_calls == 0,
+          f'serve_stream: paged {routes}, {plain_calls} plain calls')
+    check(lora_launches > 0 and lora_plain == 0,
+          f'serve_stream: {lora_launches} LoRA launches, {lora_plain} plain')
+    check(freed and 4 <= hung_up < 200 and after == hung_up,
+          f'hung-up stream: freed={freed}, committed {hung_up} then '
+          f'{after}')
+    firsts = [f for _, f, _ in streams]
+    emit('serve_stream', card=card, setup_s=setup_s, streams=len(ps),
+         models=STREAM_MODELS, new_tokens=32,
+         ttft_client_p50_s=float(np.median(firsts)),
+         ttft_client_max_s=max(firsts),
+         ttft_p50_s=metrics['ttft_p50_s'], ttft_max_s=metrics['ttft_p99_s'],
+         itl_ms_n=metrics['itl_ms_n'], itl_ms_p50=metrics['itl_ms_p50'],
+         itl_ms_p99=metrics['itl_ms_p99'],
+         e2e_max_s=max(t for _, _, t in streams),
+         paged_launches=launches, paged_route_launches=routes,
+         lora_launches=lora_launches, hung_up_after_events=len(events),
+         hung_up_committed=hung_up)
+
+
+def _deltas(events, key='delta'):
+    rows = {}
+    for e in events:
+        if isinstance(e, dict) and 'index' in e:
+            rows[e['index']] = rows.get(e['index'], '') + e[key]
+    return [rows.get(i, '') for i in range(len(rows))]
+
+
+def text_runtime(model, extra=()):
+    """serve_lm's flags without prefix caching (a prompt is sent twice:
+    as text, then as ids), the stand-in tokenizer in place."""
+    rt, server, thread, port, setup_s = serve_runtime(
+        model, 'bf16', ['--no-prefix-caching', *extra])
+    rt._tok_holder['tok'] = ByteTokenizer()  # pylint: disable=protected-access
+    return rt, server, thread, port, setup_s
+
+
+def phase_serve_text(model, pk, lk, fk, card):
+    """/generate_text, text /v1/completions with a stop string and
+    /v1/chat/completions, plain and streamed, each equal to decoding the
+    token answer for the same prompt; then logprobs with echo over a
+    2100+ token prompt at --max-total-len 4096."""
+    from skypilot_tpu_torch.inference import openai_compat as oai
+    from skypilot_tpu_torch.models import convert, registry
+    tok = ByteTokenizer()
+    rng = np.random.default_rng(11)
+    texts = [text_prompt(rng, n) for n in (420, 610)]
+    ids = [tok(t)['input_ids'] for t in texts]
+    rt, server, thread, port, setup_s = text_runtime(model)
+    out = {}
+    try:
+        post(port, '/generate', {'tokens': [ids[0][:64]],
+                                 'max_new_tokens': 2})
+        zero_counts(pk, lk, fk)
+        rows = post(port, '/generate', {'tokens': ids,
+                                        'max_new_tokens': 32})['tokens']
+        want = [tok.decode(r[len(i):]) for r, i in zip(rows, ids)]
+        got = post(port, '/generate_text', {'prompts': texts,
+                                            'max_new_tokens': 32})['texts']
+        check(got == want, '/generate_text differs from the decoded ids')
+        evs, _, _ = sse(port, '/generate_text', {
+            'prompts': texts, 'max_new_tokens': 32, 'stream': True})
+        check(_deltas(evs) == [stream_text(w) for w in want],
+              '/generate_text stream differs from the decoded ids')
+        # A two-character stop string from the answer (holdback spans
+        # tokens), at its first occurrence past the answer's start.
+        text0 = want[0]
+        k = next((j for j in range(1, len(text0) - 1)
+                  if '�' not in text0[j:j + 2]
+                  and text0.find(text0[j:j + 2]) == j), None)
+        check(k is not None, f'no stop-string candidate in {text0!r}')
+        stop = text0[k:k + 2]
+        comp = {'prompt': texts[0], 'max_tokens': 32, 'temperature': 0.0,
+                'stop': [stop]}
+        c = post(port, '/v1/completions', comp)['choices'][0]
+        check(c['text'] == text0[:k] and c['finish_reason'] == 'stop',
+              f'/v1/completions with stop {stop!r}: {c["text"]!r}')
+        evs, _, _ = sse(port, '/v1/completions', dict(comp, stream=True))
+        streamed = ''.join(e['choices'][0]['text'] for e in evs[:-1])
+        check(streamed == text0[:k] and
+              evs[-2]['choices'][0]['finish_reason'] == 'stop',
+              f'/v1/completions stream with stop: {streamed!r}')
+        # Chat: no template, so `role: content` lines.
+        msgs = [{'role': 'user', 'content': texts[1][:200]}]
+        chat_ids = tok(oai.render_chat_prompt(rt, msgs))['input_ids']
+        chat_row = post(port, '/generate', {'tokens': [chat_ids],
+                                            'max_new_tokens': 24})
+        chat_want = tok.decode(chat_row['tokens'][0][len(chat_ids):])
+        chat = {'messages': msgs, 'max_tokens': 24, 'temperature': 0.0}
+        c = post(port, '/v1/chat/completions', chat)['choices'][0]
+        check(c['message'] == {'role': 'assistant', 'content': chat_want},
+              '/v1/chat/completions differs from the decoded ids')
+        evs, _, _ = sse(port, '/v1/chat/completions', dict(chat, stream=True))
+        streamed = ''.join(e['choices'][0]['delta'].get('content', '')
+                           for e in evs[:-1])
+        check(streamed == stream_text(chat_want),
+              '/v1/chat/completions stream differs from the decoded ids')
+        out['text_paged_launches'] = pk.launches
+        check(pk.launches > 0 and pk.plain_calls == 0 and
+              fk.fwd_launches == 0, 'text endpoints: kernel counts')
+    finally:
+        stop_runtime(rt, server, thread)
+    # logprobs + echo over 2100+ tokens: the scoring pass's bucket is
+    # 4096, which takes the flash forward once per layer.
+    long_model = convert.assemble(registry.model_config('llama3-8b', 4096),
+                                  model.state_dict())
+    rt, server, thread, port, _ = text_runtime(
+        long_model, ['--max-total-len', '4096'])
+    try:
+        prompt = text_prompt(np.random.default_rng(12), 2150)
+        p_ids = tok(prompt)['input_ids']
+        row = post(port, '/generate', {'tokens': [p_ids],
+                                       'max_new_tokens': 16})['tokens'][0]
+        zero_counts(pk, lk, fk)
+        t0 = time.perf_counter()
+        c = post(port, '/v1/completions', {
+            'prompt': prompt, 'max_tokens': 16, 'temperature': 0.0,
+            'logprobs': 5, 'echo': True})['choices'][0]
+        score_s = time.perf_counter() - t0
+        flash_launches, flash_plain = fk.fwd_launches, fk.plain_calls
+        chosen, top_ids, top_vals = rt.score_logprobs(row, 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.score_logprobs(row, 5)
+        torch.cuda.synchronize()
+        score_pass_ms = 1e3 * (time.perf_counter() - t0)
+        with pk.impl_scope('torch'):
+            plain_chosen, _, _ = rt.score_logprobs(row, 5)
+            # The noise floor: the plain pass with the kernel's rounding
+            # of P to bf16.
+            plain_forward = fk.flash_forward_reference
+            fk.flash_forward_reference = flash_forward_bf16p
+            try:
+                bf16p_chosen, _, _ = rt.score_logprobs(row, 5)
+            finally:
+                fk.flash_forward_reference = plain_forward
+    finally:
+        stop_runtime(rt, server, thread)
+        del long_model
+    lp = c['logprobs']
+    check(c['text'].startswith(prompt) and
+          len(lp['token_logprobs']) == len(row) and
+          lp['token_logprobs'][0] is None, 'logprobs answer shape')
+    check(flash_launches == 32 and flash_plain == 0,
+          f'scoring pass: {flash_launches} flash launches, {flash_plain} '
+          f'plain calls (want 32, 0)')
+    http_lp = np.array(lp['token_logprobs'][1:], np.float64)
+    err = np.abs(http_lp - plain_chosen)
+    floor = np.abs(bf16p_chosen - plain_chosen)
+    errs = {'mean': float(err.mean()), 'max': float(err.max())}
+    check(all(errs[k] <= LOGPROB_TOL[k] for k in errs),
+          f'token_logprobs vs the plain pass: {errs} > {LOGPROB_TOL}')
+    margins = top_vals[:, 0] - top_vals[:, 1]
+    gen = range(len(p_ids), len(row))
+    wrong = [i for i in gen if margins[i - 1] > LOGPROB_TOL['max']
+             and top_ids[i - 1, 0] != row[i]]
+    check(not wrong, f'generated tokens not the scoring pass\'s top '
+                     f'alternative at {wrong}')
+    emit('serve_text', card=card, setup_s=setup_s,
+         endpoints=['/generate_text', '/generate_text stream',
+                    '/v1/completions stop', '/v1/completions stream stop',
+                    '/v1/chat/completions', '/v1/chat/completions stream'],
+         stop=stop, **out, logprob_prompt_tokens=len(p_ids),
+         logprob_request_s=score_s, score_pass_ms=score_pass_ms,
+         score_bucket=4096, flash_launches=flash_launches,
+         logprob_err=errs, logprob_tol=LOGPROB_TOL,
+         bf16p_plain_err={'mean': float(floor.mean()),
+                          'max': float(floor.max())},
+         generated_margins=[float(margins[i - 1]) for i in gen])
+
+
+def flash_forward_bf16p(q, k, v, *, scale=None):
+    """The flash forward's plain version with P rounded to bf16 before
+    its product with V, as the kernel rounds it: the bf16 noise floor
+    `serve_text` reports beside the kernel's error."""
+    from skypilot_tpu_torch.ops import flash_kernel as fk
+    scale = fk._scale(q, scale)   # pylint: disable=protected-access
+    batch, seq, num_q_heads, _ = q.shape
+    rep = num_q_heads // k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((batch, num_q_heads, seq), dtype=torch.float32,
+                      device=q.device)
+    for b in range(batch):
+        s = fk._masked_scores(   # pylint: disable=protected-access
+            fk._heads_first(q[b], 1), fk._heads_first(k[b], rep), scale)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        out = (p.bfloat16().float() @ fk._heads_first(v[b], rep)) / l
+        o[b] = out.transpose(0, 1).to(q.dtype)
+        lse[b] = (m + torch.log(l))[..., 0]
+    return o, lse
+
+
+def write_safetensors(path, tensors):
+    """A .safetensors file: 8-byte little-endian header length, the JSON
+    header (padded to 8 bytes), then each tensor's raw bytes."""
+    names = {torch.bfloat16: 'BF16', torch.float16: 'F16',
+             torch.float32: 'F32'}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {'dtype': names[t.dtype], 'shape': list(t.shape),
+                        'data_offsets': [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b' ' * (-len(blob) % 8)
+    with open(path, 'wb') as f:
+        f.write(len(blob).to_bytes(8, 'little'))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1)
+                    .view(torch.uint8).numpy().tobytes())
+
+
+def write_hf_checkpoint(path, model):
+    """`model` as an HF Llama checkpoint: config.json, HF tensor names in
+    bf16 over two shards and model.safetensors.index.json. HF stores each
+    head's q/k rows in the half-split order its rotate_half reads, the
+    order the port's apply_rope reads, so rows are written as they are."""
+    cfg = model.config
+    state = model.state_dict()
+    names = {'tok_embed': 'model.embed_tokens.weight',
+             'final_norm.scale': 'model.norm.weight',
+             'lm_head': 'lm_head.weight'}
+    theirs = {'attn_norm.scale': 'input_layernorm.weight',
+              'mlp_norm.scale': 'post_attention_layernorm.weight',
+              'attn.wq.weight': 'self_attn.q_proj.weight',
+              'attn.wk.weight': 'self_attn.k_proj.weight',
+              'attn.wv.weight': 'self_attn.v_proj.weight',
+              'attn.wo.weight': 'self_attn.o_proj.weight',
+              'mlp.w_gate.weight': 'mlp.gate_proj.weight',
+              'mlp.w_up.weight': 'mlp.up_proj.weight',
+              'mlp.w_down.weight': 'mlp.down_proj.weight'}
+    for i in range(cfg.num_layers):
+        for ours, hf in theirs.items():
+            names[f'layers.{i}.{ours}'] = f'model.layers.{i}.{hf}'
+    os.makedirs(path, exist_ok=True)
+    hf_state = {names[k]: v.to(torch.bfloat16) for k, v in state.items()}
+    first = [n for n in hf_state if n.startswith(('model.embed',
+                                                  'model.layers.0.'))]
+    shards = {'model-00001-of-00002.safetensors': first,
+              'model-00002-of-00002.safetensors':
+                  [n for n in hf_state if n not in first]}
+    for shard, keys in shards.items():
+        write_safetensors(os.path.join(path, shard),
+                          {k: hf_state[k] for k in keys})
+    with open(os.path.join(path, 'model.safetensors.index.json'), 'w') as f:
+        json.dump({'metadata': {}, 'weight_map': {
+            k: shard for shard, keys in shards.items() for k in keys}}, f)
+    with open(os.path.join(path, 'config.json'), 'w') as f:
+        json.dump({'model_type': 'llama',
+                   'architectures': ['LlamaForCausalLM'],
+                   'vocab_size': cfg.vocab_size,
+                   'hidden_size': cfg.embed_dim,
+                   'intermediate_size': cfg.mlp_dim,
+                   'num_hidden_layers': cfg.num_layers,
+                   'num_attention_heads': cfg.num_heads,
+                   'num_key_value_heads': cfg.num_kv_heads,
+                   'max_position_embeddings': 8192,
+                   'rope_theta': cfg.rope_theta, 'rms_norm_eps': cfg.norm_eps,
+                   'tie_word_embeddings': False, 'torch_dtype': 'bfloat16'},
+                  f)
+
+
+def phase_serve_hf(pk, lk, fk, card):
+    """serve_lm --hf on a checkpoint written here (Llama-3-8B width, 2
+    layers, seeded), against a runtime built directly from the seeded
+    model."""
+    from skypilot_tpu_torch.inference.http_server import make_server
+    from skypilot_tpu_torch.inference.runtime import (InferenceRuntime,
+                                                      build_runtime)
+    from skypilot_tpu_torch.models import convert, registry
+    from skypilot_tpu_torch.models.batching import ContinuousBatchingEngine
+    from skypilot_tpu_torch.recipes import serve_lm
+    cfg = dataclasses.replace(registry.model_config('llama3-8b', 1024),
+                              num_layers=2)
+    model = convert.init_params(cfg, seed=4, device='cuda')
+    path = os.path.join(WORK, 'hf_llama')
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_hf_checkpoint(path, model)
+    write_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    args = serve_lm.parse_args([
+        '--hf', path, '--continuous-batching', '--num-slots', '8',
+        '--max-total-len', '1024', '--prefill-chunk', '256',
+        '--kv-pool-bytes', '2000000000', '--port', '0'])
+    ps = [p[:400] for p in prompts(seed=2, n=4)]
+    answers, runtimes = [], []
+    try:
+        t0 = time.perf_counter()
+        hf_rt = build_runtime(args)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = hf_rt.model.state_dict()
+        same = all(torch.equal(got[k], v)
+                   for k, v in model.state_dict().items())
+        direct = InferenceRuntime(
+            engine=ContinuousBatchingEngine(
+                convert.assemble(hf_rt.model.config, model.state_dict()),
+                num_slots=8, max_total_len=1024, prefill_chunk=256),
+            model_name='direct')
+        for rt in (hf_rt, direct):
+            server = make_server(rt, 0)
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            runtimes.append((rt, server, thread))
+            port = server.server_address[1]
+            post(port, '/generate', {'tokens': [ps[0][:64]],
+                                     'max_new_tokens': 2})
+            zero_counts(pk, lk, fk)
+            answers.append(concurrently(lambda i: post(
+                port, '/generate', {'tokens': [ps[i]], 'max_new_tokens': 16})
+                ['tokens'][0], len(ps)))
+            check(pk.launches > 0 and pk.plain_calls == 0,
+                  'serve_hf: paged kernel counts')
+        with urllib.request.urlopen(
+                f'http://127.0.0.1:{runtimes[0][1].server_address[1]}'
+                f'/v1/models', timeout=30) as resp:
+            listed = [m['id'] for m in json.loads(resp.read())['data']]
+    finally:
+        for rt, server, thread in runtimes:
+            stop_runtime(rt, server, thread)
+        shutil.rmtree(path, ignore_errors=True)
+    check(same, '--hf weights differ from the seeded model\'s')
+    check(answers[0] == answers[1],
+          '--hf greedy tokens differ from the seeded model\'s runtime')
+    check(listed == ['hf:hf_llama'], f'/v1/models under --hf: {listed}')
+    emit('serve_hf', card=card, layers=2, checkpoint_bytes=size, shards=2,
+         write_s=write_s, load_s=load_s, weights_equal=same,
+         tokens_equal=True, requests=len(ps), new_tokens=16, models=listed)
+    del model, direct, hf_rt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def part_margin(rt, a, b):
+    """(first position where rows a and b part, or None; the top-2
+    log-prob margin the scoring pass of a[:pos] sees there)."""
+    pos = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if pos is None:
+        return None, None
+    _, _, top_vals = rt.score_logprobs(a[:pos + 1], 2)
+    return pos, float(top_vals[pos - 1, 0] - top_vals[pos - 1, 1])
+
+
+def phase_one_shot(model, pk, lk, fk, card):
+    """serve_lm's flags without --continuous-batching (the one-shot
+    engine) at --max-total-len 128: two greedy rows against the
+    continuous engine's, --speculative 4 against plain, and a stream,
+    which builds the lazy stream engine."""
+    from skypilot_tpu_torch.inference.http_server import make_server
+    from skypilot_tpu_torch.inference.runtime import build_runtime
+    from skypilot_tpu_torch.recipes import serve_lm
+    ps = prompts(seed=3, n=2)
+    rows = [p[:48] for p in ps]
+
+    def one_shot(extra=()):
+        rt = build_runtime(serve_lm.parse_args(
+            ['--model', 'llama3-8b', '--max-total-len', '128', '--port', '0',
+             *extra]), model=model)
+        server = make_server(rt, 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        return rt, server, thread, server.server_address[1]
+
+    rt, server, thread, port = one_shot()
+    try:
+        check(rt.engine is None, 'one-shot runtime built an engine')
+        zero_counts(pk, lk, fk)
+        t0 = time.perf_counter()
+        out = post(port, '/generate', {'tokens': rows})['tokens']
+        one_shot_s = time.perf_counter() - t0
+        check(pk.launches == 0 and fk.fwd_launches == 0,
+              'the one-shot path launched a kernel')
+        check(all(len(r) == 128 and r[:48] == p for r, p in zip(out, rows)),
+              'one-shot rows: bad shape')
+        # A stream in one-shot mode runs on the lazy stream engine.
+        zero_counts(pk, lk, fk)
+        evs, _, _ = sse(port, '/generate', {'tokens': [rows[0]],
+                                            'max_new_tokens': 16,
+                                            'stream': True})
+        stream_launches = dict(pk.route_launches)
+        check(len(rt.live_engines()) == 1 and pk.launches > 0 and
+              pk.plain_calls == 0, f'one-shot stream: engines '
+              f'{len(rt.live_engines())}, paged {stream_launches}')
+        toks = [e['token'] for e in evs[:-2]]
+        check(evs[-2]['tokens'] == [rows[0] + toks] and len(toks) == 16,
+              'one-shot stream: streamed tokens differ from the terminal row')
+        parts = [part_margin(rt, out[0], rows[0] + toks)]
+    finally:
+        stop_runtime(rt, server, thread)
+    spec, s_server, s_thread, s_port = one_shot(['--speculative', '4'])
+    try:
+        t0 = time.perf_counter()
+        spec_out = post(s_port, '/generate', {'tokens': rows})['tokens']
+        spec_s = time.perf_counter() - t0
+        spec_parts = [part_margin(spec, a, b) for a, b in zip(out, spec_out)]
+    finally:
+        stop_runtime(spec, s_server, s_thread)
+    crt, c_server, c_thread, c_port, _ = serve_runtime(
+        model, 'bf16', ['--max-total-len', '128'])
+    try:
+        cont = concurrently(lambda i: post(c_port, '/generate', {
+            'tokens': [rows[i]], 'max_new_tokens': 80})['tokens'][0], 2)
+        cont_parts = [part_margin(crt, a, b) for a, b in zip(out, cont)]
+    finally:
+        stop_runtime(crt, c_server, c_thread)
+    emit('one_shot', card=card, max_total_len=128, rows=2, prompt_tokens=48,
+         one_shot_s=one_shot_s, step_ms=1e3 * one_shot_s / 127,
+         speculative_s=spec_s, stream_paged_route_launches=stream_launches,
+         continuous_parts=cont_parts, speculative_parts=spec_parts,
+         stream_parts=parts, part_margin_tol=PART_MARGIN_TOL)
+    for label, ps_ in (('continuous', cont_parts), ('speculative', spec_parts),
+                       ('stream', parts)):
+        for pos, margin in ps_:
+            check(pos is None or margin <= PART_MARGIN_TOL,
+                  f'one-shot vs {label}: part at {pos} with top-2 margin '
+                  f'{margin} > {PART_MARGIN_TOL}')
 
 
 def main() -> int:
@@ -1793,8 +2423,13 @@ def main() -> int:
     phase_serve_long(model, fk, pk, card)
     phase_graph_round(model, pk, card)
     verify_launches = phase_decode_modes(model, pk, lk, card)
+    # The request surface, each path counted from zero.
+    phase_serve_stream(model, pk, lk, fk, card)
+    phase_serve_text(model, pk, lk, fk, card)
+    phase_one_shot(model, pk, lk, fk, card)
     del model
     torch.cuda.empty_cache()
+    phase_serve_hf(pk, lk, fk, card)
 
     phase_greedy_parity(pk, lk, fk)
 

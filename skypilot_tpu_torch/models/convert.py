@@ -9,7 +9,9 @@ the same for LoRA factor trees. `train_params_from_jax` and
 `lora_train_params_from_jax` carry a tree into training's layout (every
 leaf an f32 master, as in the reference); `train_params_to_jax` and
 `lora_params_to_numpy` map trained tensors back to numpy under the
-reference's names. `init_params` is the seeded init the card uses:
+reference's names. `cast_to_layout` stores a {name: tensor} state of
+any source dtype (an HF import, a `train_lm` checkpoint) as a config's
+layout says. `init_params` is the seeded init the card uses:
 normal(0, 0.02) for Dense kernels, the embedding and the head, ones for
 norms, zeros for biases. Nothing is downloaded.
 """
@@ -42,6 +44,25 @@ def _head(w: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     # The head multiplies bf16 operands into an f32 result: store the
     # operand already rounded to the compute dtype, in f32.
     return w.to(cfg.dtype).float()
+
+
+def cast_to_layout(cfg: LlamaConfig, state: Mapping[str, torch.Tensor],
+                   device: Optional[torch.device] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """`state` ({port parameter name: tensor}, any float dtype) stored
+    as `cfg.param_dtype` says: norm scales in f32; with param_dtype
+    None (serving) the rest in `dtype` and the head in f32 holding
+    `dtype`-rounded values, else every tensor an f32 master."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in state.items():
+        t = t.to(device) if device is not None else t
+        if name.endswith('.scale') or cfg.trainable:
+            out[name] = t.float()
+        elif name == 'lm_head':
+            out[name] = _head(t, cfg)
+        else:
+            out[name] = t.to(cfg.param_dtype or cfg.dtype)
+    return out
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig,

@@ -12,8 +12,14 @@ Modes of `Llama.forward`:
   - paged, S > 1, prefill=True: a chunk whose sequence starts empty
     attends its own K/V (the pool is written for later steps);
   - paged, S > 1, prefill=False: the chunk attends the row's full
-    history through the page table.
-The KV pool (`PagedKVCache`) is preallocated and updated in place.
+    history through the page table;
+  - dense (`DenseKVCache`, the one-shot engine's per-request cache
+    [B, max_seq_len, Hkv, D], reference `llama.py:284-340`): S == 1
+    decodes one token per row, S > 1 writes a chunk (prefill=True
+    attends it alone, else the row's whole history), with the
+    reference's plain einsum attention.
+The KV pool (`PagedKVCache`) is preallocated and updated in place; so
+is a dense cache.
 
 LoRA: `lora` = {'scale', 'layers': {'layer_i': {target: {'a', 'b'}}}}
 (models/lora.py). Serving passes stacked factors `a [N, d_in, r]`,
@@ -34,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import torch
 from torch import nn
@@ -186,6 +192,23 @@ class PagedKVCache:
                    for layer in self.layers for t in layer.values())
 
 
+class DenseKVCache:
+    """The one-shot engine's per-request cache: per layer
+    `cached_key` / `cached_value` [batch, max_seq_len, Hkv, D] in the
+    compute dtype, zeroed (the reference's `cached_key` variables)."""
+
+    def __init__(self, config: LlamaConfig, batch: int,
+                 device: Optional[torch.device] = None) -> None:
+        shape = (batch, config.max_seq_len, config.num_kv_heads,
+                 config.head_dim)
+        self.layers: List[dict] = [
+            {'cached_key': torch.zeros(shape, dtype=config.dtype,
+                                       device=device),
+             'cached_value': torch.zeros(shape, dtype=config.dtype,
+                                         device=device)}
+            for _ in range(config.num_layers)]
+
+
 class RMSNorm(nn.Module):
 
     def __init__(self, dim: int, eps: float, dtype: torch.dtype,
@@ -275,6 +298,16 @@ class Attention(nn.Module):
 
         if kv is None:
             out = attention_ops.dot_product_attention(q, k, v, causal=True)
+        elif 'cached_key' in kv:
+            if seq > 1:
+                out = attention_ops.chunked_cache_attention(
+                    q, k, v, kv['cached_key'], kv['cached_value'],
+                    positions, chunk_only=prefill)
+            else:
+                out = attention_ops.cached_decode_attention(
+                    q, k, v, kv['cached_key'], kv['cached_value'],
+                    positions[:, 0])
+            out = out.to(cfg.dtype)
         elif seq > 1:
             # A chunk of S tokens per row: write all of them, then either
             # attend chunk-locally (the sequence starts empty; reads the
@@ -392,7 +425,7 @@ class Llama(nn.Module):
 
     def hidden(self, tokens: torch.Tensor,
                positions: Optional[torch.Tensor] = None,
-               cache: Optional[PagedKVCache] = None,
+               cache: Optional[Union[PagedKVCache, DenseKVCache]] = None,
                page_indices: Optional[torch.Tensor] = None,
                prefill: bool = False, lora: Optional[dict] = None,
                adapter_ids: Optional[torch.Tensor] = None,
@@ -414,7 +447,10 @@ class Llama(nn.Module):
         if positions is None:
             positions = torch.arange(seq, dtype=torch.int32,
                                      device=tokens.device).expand(batch, seq)
-        if (cache is None) != (page_indices is None):
+        if isinstance(cache, DenseKVCache):
+            if page_indices is not None:
+                raise ValueError('a dense cache takes no page_indices')
+        elif (cache is None) != (page_indices is None):
             raise ValueError('pass the paged cache and page_indices '
                              'together (or neither, for no-cache mode)')
         x = self.tok_embed[tokens].to(cfg.dtype)
@@ -440,7 +476,7 @@ class Llama(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                cache: Optional[PagedKVCache] = None,
+                cache: Optional[Union[PagedKVCache, DenseKVCache]] = None,
                 page_indices: Optional[torch.Tensor] = None,
                 prefill: bool = False, lora: Optional[dict] = None,
                 adapter_ids: Optional[torch.Tensor] = None,

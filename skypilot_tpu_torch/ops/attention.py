@@ -12,6 +12,12 @@ every call on the CPU unless impl='flash' asks for the flash route's
 plain version, take the plain route below (f32 scores and softmax,
 output cast back to q.dtype).
 
+`chunked_cache_attention` and `cached_decode_attention` (reference
+`:182-272`) are the one-shot engine's attention over a dense
+per-request cache [B, T, Hkv, D]; the reference computes them with
+einsum outside any Pallas kernel, and so does the port (in place: the
+cache tensors are written, not returned).
+
 The reference's SKYPILOT_TPU_FLASH_MIN_SEQ environment override is not
 carried over: the port selects its routes with arguments and
 `impl_scope`, never with environment variables. Its
@@ -66,3 +72,66 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum('bhqk,bkhd->bqhd', p, v.float())
     return out.to(q.dtype)
+
+
+def _write_rows(cache: torch.Tensor, rows: torch.Tensor,
+                start: torch.Tensor) -> None:
+    """cache[b, start[b]:start[b]+S] = rows[b], in place; the start is
+    clamped so the rows fit, as `lax.dynamic_update_slice` clamps it."""
+    seq = rows.shape[1]
+    start = start.long().clamp(0, cache.shape[1] - seq)
+    idx = start[:, None] + torch.arange(seq, device=cache.device)
+    batch = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    cache[batch, idx] = rows.to(cache.dtype)
+
+
+def _cache_attention(q: torch.Tensor, cached_k: torch.Tensor,
+                     cached_v: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """q [B, S, H, D] over every cache entry t <= positions[b, s], f32
+    scores and softmax; output in q.dtype."""
+    num_q_heads, num_kv_heads = q.shape[2], cached_k.shape[2]
+    k_all, v_all = cached_k, cached_v
+    if num_kv_heads != num_q_heads:
+        rep = num_q_heads // num_kv_heads
+        k_all = k_all.repeat_interleave(rep, dim=2)
+        v_all = v_all.repeat_interleave(rep, dim=2)
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum('bshd,bthd->bhst', q.float(), k_all.float()) * scale
+    mask = (torch.arange(cached_k.shape[1], device=q.device)[None, None, :]
+            <= positions.long()[:, :, None])[:, None]      # [B,1,S,T]
+    s = s.masked_fill(~mask, float('-inf'))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum('bhst,bthd->bshd', p, v_all.float())
+    return out.to(q.dtype)
+
+
+def chunked_cache_attention(q: torch.Tensor, k_new: torch.Tensor,
+                            v_new: torch.Tensor, cached_k: torch.Tensor,
+                            cached_v: torch.Tensor, positions: torch.Tensor,
+                            *, chunk_only: bool = False) -> torch.Tensor:
+    """A chunk of S queries per row at its own offset: write the chunk's
+    K/V at positions[b, 0].. into the dense cache, then attend every
+    cache entry up to each query's position. `chunk_only` (the cache
+    holds nothing below the chunk) attends the chunk alone, through
+    `dot_product_attention` (flash from 2048 tokens on the card).
+    q/k_new/v_new: [B, S, H|Hkv, D]; cached_k/v: [B, T, Hkv, D];
+    positions: [B, S]. Returns out [B, S, H, D]."""
+    start = positions[:, 0]
+    _write_rows(cached_k, k_new, start)
+    _write_rows(cached_v, v_new, start)
+    if chunk_only:
+        return dot_product_attention(q, k_new, v_new, causal=True)
+    return _cache_attention(q, cached_k, cached_v, positions)
+
+
+def cached_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
+                            v_new: torch.Tensor, cached_k: torch.Tensor,
+                            cached_v: torch.Tensor,
+                            pos: torch.Tensor) -> torch.Tensor:
+    """One token per row at its own position pos[b]: write its K/V,
+    attend the cache masked to t <= pos[b]. q/k_new/v_new:
+    [B, 1, H|Hkv, D]; pos: [B]. Returns out [B, 1, H, D]."""
+    _write_rows(cached_k, k_new, pos)
+    _write_rows(cached_v, v_new, pos)
+    return _cache_attention(q, cached_k, cached_v, pos[:, None])

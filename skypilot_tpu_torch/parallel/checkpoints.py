@@ -137,6 +137,31 @@ class CheckpointManager:
         logged and skipped for the next-newest that verifies. Raises
         CheckpointNotFoundError when there is nothing to restore and
         CheckpointCorruptionError when every candidate is corrupt."""
+        candidate = self._verified_step(step)
+        self._load_into(state_template, candidate)
+        self.last_restored_step = candidate
+        return state_template
+
+    def restore_params(self, step: Optional[int] = None
+                       ) -> Dict[str, torch.Tensor]:
+        """The parameters ({name: f32 CPU tensor}) of a full-parameter
+        step, with `restore`'s integrity fallback and no optimizer
+        template: what serving (`serve_lm --ckpt-dir`) needs."""
+        candidate = self._verified_step(step)
+        payload = torch.load(os.path.join(self._step_dir(candidate),
+                                          STATE_FILE),
+                             map_location='cpu', weights_only=True)
+        if payload['lora']:
+            raise ValueError(
+                f'checkpoint step {candidate} in {self.ckpt_dir} holds '
+                f'LoRA factors, not full parameters; serve its adapter '
+                f'artifact with --adapter-dir')
+        self.last_restored_step = candidate
+        return payload['params']
+
+    def _verified_step(self, step: Optional[int]) -> int:
+        """The step to read: `step` (default: newest) or, past corrupt
+        ones, the next-newest that verifies."""
         steps = sorted(self.all_steps(), reverse=True)
         candidates = steps if step is None else \
             [step] + [s for s in steps if s < step]
@@ -160,9 +185,7 @@ class CheckpointManager:
             if corrupt:
                 _log(f'checkpoint restore: fell back from corrupt step(s) '
                      f'{corrupt} to step {candidate}.')
-            self._load_into(state_template, candidate)
-            self.last_restored_step = candidate
-            return state_template
+            return candidate
         raise CheckpointCorruptionError(
             f'every restore candidate failed integrity verification '
             f'(steps {corrupt}) in {self.ckpt_dir}: no uncorrupted '

@@ -4,18 +4,28 @@ skypilot_tpu/recipes/serve_lm.py).
 Takes the reference's flags, so a replica manager can spawn it with the
 same command line; the flags this port does not implement yet exit at
 startup with an error naming them (nothing is ignored silently).
-`--continuous-batching` is required. Weights come from a seeded init on
-the device. Runs on the GPU unless `--cpu` is given; without a GPU and
-without `--cpu` it exits with an error.
+Weights come from a seeded init on the device, from a local HF
+checkpoint (`--hf DIR`: llama, mistral or qwen2, with its tokenizer
+when the directory has one, for the text endpoints), and / or from the
+newest full-parameter step `train_lm` wrote (`--ckpt-dir`). Runs on
+the GPU unless `--cpu` is given; without a GPU and without `--cpu` it
+exits with an error.
 
   python -m skypilot_tpu_torch.recipes.serve_lm --model llama3-8b \\
       --continuous-batching --kv-dtype int8 --kv-pool-bytes 8000000000
   python -m skypilot_tpu_torch.recipes.serve_lm --cpu --model llama-tiny \\
       --continuous-batching       # a local probe on the CPU
+  python -m skypilot_tpu_torch.recipes.serve_lm --hf ckpts/Llama-3-8B \\
+      --continuous-batching       # text, chat and SSE endpoints
   python -m skypilot_tpu_torch.recipes.serve_lm --model llama3-8b \\
       --continuous-batching --adapter-dir adapters/ --max-adapters 4
   python -m skypilot_tpu_torch.recipes.serve_lm --model llama3-8b \\
       --continuous-batching --speculative 4     # or --decode-chunk 4
+
+Without --continuous-batching the server runs the one-shot engine, as
+the reference does: each request alone, every step of its power-of-two
+bucket run, through a dense per-request cache; streamed and adapter
+requests then run on a small slot engine built at first use.
 
 Decode rounds are pipelined (round N+1 is dispatched before round N is
 committed) unless --no-pipeline-decode, --speculative or --decode-chunk
@@ -37,7 +47,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help='llama3-8b, llama-tiny, qwen2-7b or qwen-tiny')
     p.add_argument('--max-total-len', type=int, default=256)
     p.add_argument('--continuous-batching', action='store_true',
-                   help='slot-based engine (required by this port)')
+                   help='slot-based engine (default: the one-shot '
+                        'engine)')
     p.add_argument('--num-slots', type=int, default=8)
     p.add_argument('--prefill-chunk', type=int, default=256, metavar='C',
                    help='chunked prefill: prompts prefill in C-token '
@@ -102,15 +113,23 @@ def build_parser() -> argparse.ArgumentParser:
                         'seen in --adapter-dir at startup; set '
                         'it explicitly if bigger-rank adapters '
                         'will be hot-dropped in later')
+    p.add_argument('--hf', default=None, metavar='DIR',
+                   help='serve a local HF checkpoint directory (llama, '
+                        'mistral, qwen2; safetensors or '
+                        'pytorch_model.bin); its tokenizer files enable '
+                        '/generate_text and the text / chat endpoints')
+    p.add_argument('--ckpt-dir', default=None,
+                   help='serve the newest full-parameter step a '
+                        'train_lm run wrote there')
+    p.add_argument('--param-dtype', choices=['bf16', 'f32'],
+                   default='bf16',
+                   help='weight storage; f32 keeps f32 weights, cast to '
+                        'bf16 where they are used')
     # The reference's flags for features this port does not have yet:
     # parsed so the command line stays the same, refused if used.
-    p.add_argument('--hf', default=None, metavar='DIR')
-    p.add_argument('--ckpt-dir', default=None)
     p.add_argument('--tensor', type=int, default=1)
     p.add_argument('--stages', type=int, default=1)
     p.add_argument('--weight-dtype', choices=['bf16', 'int8'],
-                   default='bf16')
-    p.add_argument('--param-dtype', choices=['bf16', 'f32'],
                    default='bf16')
     p.add_argument('--role', choices=['', 'prefill', 'decode'], default='')
     p.add_argument('--decode-peers', default=None, metavar='HOST:PORT,...')
@@ -125,14 +144,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     """Parse and validate: exits (status 2) naming every flag this port
-    cannot honor."""
-    from skypilot_tpu_torch.inference.runtime import unsupported_flags
+    cannot honor, and on the reference's refusal of int8 KV pages in
+    the one-shot mode."""
+    from skypilot_tpu_torch.inference.runtime import (INT8_NEEDS_CONTINUOUS,
+                                                      unsupported_flags)
     parser = build_parser()
     args = parser.parse_args(argv)
     bad = unsupported_flags(args)
     if bad:
         parser.error('not supported by the PyTorch port yet: '
                      + ', '.join(bad))
+    if args.kv_dtype == 'int8' and not args.continuous_batching:
+        parser.error(INT8_NEEDS_CONTINUOUS)
     return args
 
 

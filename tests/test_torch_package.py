@@ -6,8 +6,13 @@
     import with those made unimportable;
   - entry points default to CUDA and raise without it unless the CPU
     was asked for; serve_lm without --cpu exits non-zero saying so;
+  - no module of the package imports transformers or safetensors at
+    module level (the card has neither; the tokenizer loader imports
+    transformers when it is called);
   - impl='cuda' on CPU tensors raises; unsupported serve_lm flags exit
-    naming the flag; train_lm without --cpu exits on a GPU-less box;
+    naming the flag, and int8 KV pages without --continuous-batching
+    exit with the reference's message; train_lm without --cpu exits
+    on a GPU-less box;
   - kv pool sizing by bytes matches the reference's arithmetic.
 """
 import ast
@@ -57,6 +62,27 @@ def test_no_jax_or_reference_imports():
     assert not bad, bad
 
 
+def _module_level_roots(path: Path):
+    """Roots imported by statements outside any function or class."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split('.')[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split('.')[0]
+
+
+def test_no_module_level_transformers_or_safetensors():
+    sources = _sources()
+    assert ROOT / 'skypilot_tpu_torch' / 'models' / 'hf_import.py' in \
+        sources
+    bad = [(str(p.relative_to(ROOT)), mod) for p in sources
+           for mod in _module_level_roots(p)
+           if mod in ('transformers', 'safetensors', 'tokenizers')]
+    assert not bad, bad
+
+
 def _run(code, timeout=120):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES='')
     return subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
@@ -70,7 +96,9 @@ def test_serve_lm_imports_without_jax():
             '    sys.modules[m] = None\n'
             'import skypilot_tpu_torch.recipes.serve_lm\n'
             'import skypilot_tpu_torch.inference.http_server\n'
+            'import skypilot_tpu_torch.inference.openai_compat\n'
             'import skypilot_tpu_torch.models.batching\n'
+            'import skypilot_tpu_torch.models.hf_import\n'
             'print("ok")\n')
     out = _run(code)
     assert out.returncode == 0, out.stderr
@@ -146,6 +174,12 @@ def test_cuda_impl_on_cpu_tensors_raises():
     (['--kv-spill-bytes', '1024'], '--kv-spill-bytes'),
     (['--weight-dtype', 'int8'], '--weight-dtype'),
     (['--role', 'prefill'], '--role'),
+    (['--decode-peers', 'h:1'], '--decode-peers'),
+    (['--kv-cold-dir', '/x'], '--kv-cold-dir'),
+    (['--fault-plan', '{}'], '--fault-plan'),
+    (['--trace-sample', '0.5'], '--trace-sample'),
+    (['--trace-seed', '3'], '--trace-seed'),
+    (['--slo', 'ttft_p99_ms=100'], '--slo'),
 ])
 def test_unsupported_flag_exits_with_its_name(argv, flag, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -155,9 +189,14 @@ def test_unsupported_flag_exits_with_its_name(argv, flag, capsys):
 
 
 def test_continuous_batching_is_required(capsys):
+    """--continuous-batching is required by int8 KV pages only: the
+    one-shot engine (no flag) parses, int8 without it exits with the
+    reference's message."""
+    from skypilot_tpu_torch.inference.runtime import INT8_NEEDS_CONTINUOUS
+    assert not serve_lm.parse_args(['--cpu']).continuous_batching
     with pytest.raises(SystemExit):
-        serve_lm.parse_args(['--cpu'])
-    assert '--continuous-batching' in capsys.readouterr().err
+        serve_lm.parse_args(['--cpu', '--kv-dtype', 'int8'])
+    assert INT8_NEEDS_CONTINUOUS in capsys.readouterr().err
 
 
 @pytest.mark.parametrize('kv_dtype', ['bf16', 'int8'])

@@ -7,7 +7,8 @@ Drives the port's main paths (`serve_lm --continuous-batching` on a
 paged KV pool, base model and multi-LoRA, whole-prompt long prefill,
 SSE streams, text and chat endpoints, logprobs, `--hf` checkpoints and
 the one-shot engine; training through the trainer API and `train_lm
---lora`) through the
+--lora`, and train_lm's recovery contract: --guard, --init-from-hf, the
+native token reader, --ckpt-interval, --profile) through the
 entry points a user calls, at the full width of Llama-3-8B with seeded
 random weights and adapters, and holds every CUDA kernel of those paths
 against its plain PyTorch version. Phases, one JSON line each; any
@@ -163,13 +164,58 @@ failure exits non-zero before the result lines:
                  = 32 x 6 x 2 (remat), backward 32 x 6; then
                  serve_lm --adapter-dir answers a request with the
                  trained adapter
+  train_guard    train_lm's recovery contract, each train_lm run a child
+                 process after this one has freed its models (its own
+                 card memory is reported first, `train_guard_parent`)
+                 (`python -m skypilot_tpu_torch.recipes.train_lm`
+                 through runpy, writing its flash launch counts at exit;
+                 exits 83 and 84 end the child, not this run; the notice's
+                 metadata probe goes to a closed port on 127.0.0.1):
+                 (d) the trainer API at 4 layers, B=8 S=2048: guarded and
+                 unguarded step ms and peak memory in turns, ms a step
+                 of back-to-back loops (unguarded; guarded observing the
+                 previous step through pinned copies, as train_lm does;
+                 guarded observing it through float()), and the device
+                 ms of the optimizer update alone, each way; a poisoned
+                 step leaves params and moments bit-identical and the
+                 count as it was; the next good step equals an unguarded
+                 step from the same state on the same batch: loss and
+                 grad norm within 1e-3 (relative), the update no farther
+                 from the unguarded one (Frobenius over all params, over
+                 the update's norm) than twice the distance between two
+                 unguarded steps from that state (the floor set by the
+                 backward's dQ atomics);
+                 then on a 2-layer Llama-3-8B-width HF checkpoint written
+                 here and two uint16 token shards, each run --lora 16
+                 --seq 2048: (e)+(f) --init-from-hf --data --ckpt-interval
+                 30 --profile-steps 1:3: f32 masters equal the file's bf16
+                 tensors upcast, the first step's loss the trainer API's
+                 within 1e-3, the native reader's batches the numpy
+                 route's byte for byte, a cadence fixed after the first
+                 window, both flash kernels in the trace, the adapter's
+                 base_model the HF dir; (b) SIGTERM after the first logged
+                 step: exit 83, the notice at the step in flight and its
+                 checkpoint; (c) a 300 s stall in the third batch fetch
+                 under --watchdog-deadline 5: exit 84 within 15 s of the
+                 last step, the dump naming next_tokens;
+                 (a) --model llama3-8b --lora 16 --seq 2048 --remat --guard
+                 at full depth, 24 steps, NaN at the 5th-7th steps and a
+                 notice after 55 one-second polls (both scoped to the
+                 first launch): three skips, a rollback to step 4, then
+                 exit 83 with a checkpoint at the notice's step; the same
+                 command resumes there and finishes, finite losses after
+                 the streak; flash launches = 32 x steps run (rolled-back
+                 step included) x 2 (remat) forward, 32 x steps run
+                 backward, no plain call
 
 The paged kernel's split and chunk rows in the kernels line count their
 launches in the base-serving window (serve_bf16 + serve_int8, counted
 from zero, graph replays included; no scalar-route launch may occur
 there), its verify row those of decode_modes' (e) run;
-the flash kernels' launch counts are those of the two training phases,
-each counted from zero. Then, as the last three lines: the card (`nvidia-smi
+the flash kernels' launch counts are those of the three training phases
+(train_full, train_lora, and train_guard's trainer-API steps, its
+--init-from-hf run and its chaos run and relaunch), each counted from
+zero. Then, as the last three lines: the card (`nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`), the kernels JSON
 line, and {"ok": true, "device": {...}}. Exits non-zero, printing no
 result, without CUDA or outside a checkout of the repository.
@@ -183,6 +229,8 @@ import json
 import math
 import os
 import shutil
+import signal
+import subprocess
 import sys
 import threading
 import time
@@ -829,7 +877,7 @@ def phase_lora_kernels(lk):
             'launch_floor_ms': main['launch_floor_ms']}
 
 
-# -- flash attention kernels ---------------------------------------------------
+# -- flash attention kernels --------------------------------------------------
 def flash_inputs(dtype, batch, seq, hq, hkv, seed):
     g = torch.Generator('cuda').manual_seed(seed)
 
@@ -1021,7 +1069,7 @@ def zero_flash(fk):
     fk.fwd_launches = fk.bwd_launches = fk.plain_calls = 0
 
 
-# -- training -------------------------------------------------------------------
+# -- training -----------------------------------------------------------------
 def phase_train_full(fk, pk, card):
     """The trainer API at Llama-3-8B width, 4 layers, B=8, S=2048."""
     from skypilot_tpu_torch.models import convert, registry
@@ -1143,7 +1191,10 @@ def phase_train_lora(fk, lk, card):
         lora_launches = lk.launches - lora0
     finally:
         stop_runtime(rt, server, thread)
-    del model
+    # The runtime's engine, pool and graphs hold reference cycles: free
+    # them here, before later phases start processes of their own.
+    del model, rt, server, thread
+    gc.collect()
     torch.cuda.empty_cache()
     check(len(answer) == 308 and answer[:300] == prompt,
           'trained adapter: bad answer')
@@ -1158,6 +1209,557 @@ def phase_train_lora(fk, lk, card):
          launches=counts, served_tokens=answer[300:],
          serve_lora_launches=lora_launches)
     return counts
+
+
+# -- training recovery --------------------------------------------------------
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# The notice's metadata probe goes to a closed port on this host (it
+# fails at once, five strikes and it stops), so no run reaches past the
+# machine.
+LOCAL_METADATA = 'http://127.0.0.1:9/computeMetadata/v1/instance/preempted'
+# `python -m skypilot_tpu_torch.recipes.train_lm ARGS` run through runpy,
+# so that at exit (rc 0 or the SystemExit of rc 83) the child writes its
+# flash kernels' launch counts to the file named first.
+COUNTING_CHILD = (
+    'import atexit, json, runpy, sys\n'
+    'from skypilot_tpu_torch.ops import flash_kernel as fk\n'
+    'out = sys.argv.pop(1)\n'
+    'def dump():\n'
+    '    with open(out, "w") as f:\n'
+    '        json.dump({"flash_fwd": fk.fwd_launches, "flash_bwd": '
+    'fk.bwd_launches, "plain_calls": fk.plain_calls}, f)\n'
+    'atexit.register(dump)\n'
+    'runpy.run_module("skypilot_tpu_torch.recipes.train_lm", '
+    'run_name="__main__", alter_sys=True)\n')
+
+
+class Child:
+    """One train_lm process: stdout and stderr merged, each line stamped
+    with seconds since the start, echoed to WORK/train_guard/<name>.log.
+    `on_line(line, child)` sees every line as it arrives. Killed at
+    `timeout` or on the way out."""
+
+    def __init__(self, name, argv, plan=None, counts=False, on_line=None,
+                 timeout=600):
+        from skypilot_tpu_torch.robustness.train_guard import METADATA_URL_ENV
+        root = os.path.join(WORK, 'train_guard')
+        os.makedirs(root, exist_ok=True)
+        env = dict(os.environ)
+        env[METADATA_URL_ENV] = LOCAL_METADATA
+        env.pop('STPU_FAULT_PLAN', None)
+        if plan is not None:
+            env['STPU_FAULT_PLAN'] = json.dumps(plan)
+        self.counts_path = os.path.join(root, f'{name}.counts.json')
+        if os.path.exists(self.counts_path):
+            os.remove(self.counts_path)
+        cmd = ([sys.executable, '-c', COUNTING_CHILD, self.counts_path]
+               if counts else
+               [sys.executable, '-m', 'skypilot_tpu_torch.recipes.train_lm'])
+        self.lines = []
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd + list(argv), cwd=ROOT, env=env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        timer = threading.Timer(timeout, self.proc.kill)
+        timer.start()
+        try:
+            with open(os.path.join(root, f'{name}.log'), 'w') as log:
+                for line in self.proc.stdout:
+                    t = time.perf_counter() - self.t0
+                    self.lines.append((t, line.rstrip('\n')))
+                    log.write(f'{t:9.3f} {line}')
+                    if on_line is not None:
+                        on_line(line, self)
+            self.rc = self.proc.wait()
+            self.seconds = time.perf_counter() - self.t0
+        finally:
+            timer.cancel()
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        self.out = '\n'.join(l for _, l in self.lines)
+        self.counts = None
+        if counts and os.path.exists(self.counts_path):
+            with open(self.counts_path) as f:
+                self.counts = json.load(f)
+
+    def first(self, prefix, has=''):
+        """(seconds, line) of the first line starting with `prefix` and
+        holding `has`."""
+        return next(((t, l) for t, l in self.lines
+                     if l.startswith(prefix) and has in l), (None, None))
+
+    def logged_steps(self):
+        return [int(l.split()[1].split('/')[0]) for _, l in self.lines
+                if l.startswith('step ') and ' loss=' in l]
+
+    def tail(self, n=30):
+        return '\n'.join(l for _, l in self.lines[-n:])
+
+
+def ckpt_steps(path):
+    return sorted(int(d) for d in os.listdir(path) if d.isdigit())
+
+
+def guarded_step_cost(fk, card):
+    """(d) The trainer API at Llama-3-8B width, 4 layers, B=8 S=2048:
+    guarded against unguarded step time and peak memory in turns; a
+    poisoned step leaves params and moments as they were, bit for bit;
+    the next good step equals an unguarded step from the same state on
+    the same batch. Returns the flash launches of its steps."""
+    from skypilot_tpu_torch.models import convert, registry
+    from skypilot_tpu_torch.parallel import train
+    layers, batch, seq = 4, 8, 2048
+    cfg = dataclasses.replace(registry.train_config('llama3-8b', seq),
+                              num_layers=layers)
+    model = convert.init_params(cfg, seed=0, device='cuda')
+    # lr stays above 0 through every step taken here.
+    tx = train.default_optimizer(warmup_steps=10, total_steps=100)
+    plain = train.ShardedTrainer(model, tx=tx, collect_grad_norm=True)
+    guarded = train.ShardedTrainer(model, tx=tx, guard=True)
+    state = plain.init()
+    u_step, g_step = plain.make_train_step(), guarded.make_train_step()
+    rng = np.random.default_rng(5)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+            .cuda() for _ in range(12)]
+    times = {'unguarded': [], 'guarded': []}
+    peaks = {'unguarded': 0.0, 'guarded': 0.0}
+    zero_flash(fk)
+    steps_run = 0
+    for i, kind in enumerate(['unguarded', 'guarded'] +
+                             ['unguarded', 'guarded', 'guarded',
+                              'unguarded'] * 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if kind == 'guarded':
+            state, (_, _, bad) = g_step(state, toks[i])
+        else:
+            state, _ = u_step(state, toks[i])
+        torch.cuda.synchronize()
+        steps_run += 1
+        if i >= 2:          # the first of each kind warms up
+            times[kind].append(time.perf_counter() - t0)
+        peaks[kind] = max(peaks[kind],
+                          torch.cuda.max_memory_allocated() / 1e9)
+        check(kind != 'guarded' or not bad.item(), 'a good step was bad')
+
+    # The train loop's shape: steps dispatched back to back, the guarded
+    # ones observing the previous step's verdict while the next runs,
+    # through pinned copies (train_lm) or through float() on the device
+    # scalars (which waits for the step queued after them too).
+    def loop(kind, n=3):
+        pending = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for tokens in toks[:n]:
+            if kind == 'unguarded':
+                u_step(state, tokens)
+                continue
+            _, aux = g_step(state, tokens)
+            if pending is not None:
+                vals = (pending.values() if kind == 'pinned'
+                        else [float(x) for x in pending])
+                check(not vals[2], 'a good step was bad')
+            pending = train.HostScalars(*aux) if kind == 'pinned' else aux
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    loop_ms = {'unguarded': [], 'pinned': [], 'float': []}
+    for kind in ('unguarded', 'pinned', 'float', 'float', 'pinned',
+                 'unguarded'):
+        loop_ms[kind].append(loop(kind))
+        steps_run += 3
+
+    leaves = train.trainable_leaves(state.params)
+    tensors = leaves + state.opt_state['mu'] + state.opt_state['nu']
+    t0 = time.perf_counter()
+    snap = [t.to('cpu', copy=True) for t in tensors]
+    snap_s = time.perf_counter() - t0
+    count0, step0 = int(state.opt_state['count']), state.step
+    good, poison = toks[10], toks[11]
+
+    def restore():
+        with torch.no_grad():
+            for t, s in zip(tensors, snap):
+                t.copy_(s)
+        state.opt_state['count'].fill_(count0)
+        state.step = step0
+
+    def update_err(ref):
+        """|params - ref| over |ref - snapshot| (Frobenius, all params),
+        and the largest |params - ref|."""
+        moved_sq = diff_sq = diff_max = 0.0
+        for p, s0, r in zip(leaves, snap, ref):
+            s0, r = s0.to('cuda'), r.to('cuda')
+            moved_sq += (r - s0).double().square().sum().item()
+            d = p - r
+            diff_sq += d.double().square().sum().item()
+            diff_max = max(diff_max, d.abs().max().item())
+        return math.sqrt(diff_sq / moved_sq), diff_max
+
+    # Two unguarded steps from the snapshot on the good batch: their
+    # updates differ only by the backward's dQ atomics (each dQ sums in
+    # f32 in another order, then rounds to bf16), the floor the guarded
+    # step is held to.
+    state, (loss_u, gnorm_u) = u_step(state, good)
+    loss_u, gnorm_u = loss_u.item(), gnorm_u.item()
+    after_u = [p.to('cpu', copy=True) for p in leaves]
+    restore()
+    state, _ = u_step(state, good)
+    floor, floor_max = update_err(after_u)
+    restore()
+    # From the same snapshot, a poisoned guarded step, then the good
+    # batch.
+    state, (loss_p, gnorm_p, bad_p) = g_step(state, poison, math.inf,
+                                             math.nan)
+    loss_p, gnorm_p = loss_p.item(), gnorm_p.item()
+    # Bit for bit: int32 views, so even a zero's sign must be kept.
+    kept = all(torch.equal(t.view(torch.int32),
+                           s.to('cuda').view(torch.int32))
+               for t, s in zip(tensors, snap))
+    check(bad_p.item() and kept and int(state.opt_state['count']) == count0
+          and state.step == step0 + 1,
+          f'poisoned step: bad={bad_p.item()} state kept={kept} count '
+          f'{int(state.opt_state["count"])} (was {count0})')
+    state, (loss_g, gnorm_g, bad_g) = g_step(state, good)
+    loss_g, gnorm_g = loss_g.item(), gnorm_g.item()
+    steps_run += 4
+    err, err_max = update_err(after_u)
+    check(not bad_g.item()
+          and abs(loss_g - loss_u) <= TRAIN_TOL * abs(loss_u)
+          and abs(gnorm_g - gnorm_u) <= TRAIN_TOL * abs(gnorm_u)
+          and err <= 2 * floor,
+          f'good step after a poisoned one: loss {loss_g} vs {loss_u}, '
+          f'grad norm {gnorm_g} vs {gnorm_u}, update error {err} against '
+          f'the unguarded floor {floor}')
+    counts = flash_counts(fk)
+    check(all(c == layers * steps_run for c in counts.values())
+          and fk.plain_calls == 0, f'guarded step launches {counts}')
+    # The optimizer update alone, device time, unguarded and guarded (a
+    # good step), in turns: the guard's own cost, below the step's noise.
+    grads = [torch.zeros_like(p) for p in leaves]
+    good_flag = torch.zeros((), dtype=torch.bool, device='cuda')
+    update_ms = {'unguarded': [], 'guarded': []}
+    for kind in ('unguarded', 'guarded', 'guarded', 'unguarded'):
+        flag = good_flag if kind == 'guarded' else None
+        update_ms[kind].append(time_cold_ms(
+            lambda: tx.update(leaves, grads, state.opt_state, bad=flag),
+            iters=3, warmup=1))
+    del grads
+    u_ms = 1e3 * float(np.mean(times['unguarded']))
+    g_ms = 1e3 * float(np.mean(times['guarded']))
+    emit('train_guard_step', card=card, layers=layers, batch=batch, seq=seq,
+         unguarded_step_ms=[1e3 * t for t in times['unguarded']],
+         guarded_step_ms=[1e3 * t for t in times['guarded']],
+         unguarded_ms=u_ms, guarded_ms=g_ms,
+         guarded_over_unguarded=g_ms / u_ms, loop_step_ms=loop_ms,
+         update_ms=update_ms,
+         unguarded_peak_gb=peaks['unguarded'],
+         guarded_peak_gb=peaks['guarded'],
+         poisoned_loss=loss_p, poisoned_grad_norm=gnorm_p,
+         poisoned_state_kept=kept, good_loss=loss_g, unguarded_loss=loss_u,
+         good_grad_norm=gnorm_g, unguarded_grad_norm=gnorm_u,
+         update_rel_err=err, update_max_diff=err_max,
+         unguarded_floor_rel_err=floor, unguarded_floor_max_diff=floor_max,
+         snapshot_s=snap_s,
+         launches=counts)
+    del model, plain, guarded, state, tensors, leaves, snap, after_u
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def write_token_shards(root, vocab, sizes, seed):
+    """uint16 token shards (ids below min(vocab, 65536))."""
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i, n in enumerate(sizes):
+        path = os.path.join(root, f'shard{i}.bin')
+        rng.integers(0, min(vocab, 65536), n).astype(np.uint16).tofile(path)
+        paths.append(path)
+    return paths
+
+
+def hf_and_native_run(fk, hf, data, card):
+    """(e) + (f): `train_lm --init-from-hf` of a 2-layer Llama-3-8B-width
+    checkpoint with --lora 16 at S=2048 over token shards (the native
+    reader), --ckpt-interval 30 and --profile-steps 1:3. The f32 masters
+    equal the file's bf16 tensors upcast; the first step's loss is the
+    trainer API's on the same weights and batch; the native reader's
+    batches equal the numpy route's; a cadence is fixed after the first
+    window; the trace holds both flash kernels."""
+    from skypilot_tpu_torch.data import token_loader
+    from skypilot_tpu_torch.models import hf_import
+    from skypilot_tpu_torch.observability.step_metrics import read_jsonl
+    from skypilot_tpu_torch.parallel import train
+    batch, seq, steps = 8, 2048, 6
+    paths = sorted(os.path.join(data, f) for f in os.listdir(data))
+    seq_kw = dict(batch=batch, seq=seq, shuffle=False)
+    fast = token_loader.TokenLoader(paths, **seq_kw)
+    plain = token_loader.TokenLoader(paths, use_native=False, **seq_kw)
+    same = fast.native and all(
+        np.array_equal(fast.next_batch(), plain.next_batch())
+        for _ in range(12))
+    fast.close()
+    check(same, 'native reader: batches differ from the numpy route '
+          f'({token_loader.native_unavailable_reason()})')
+    first = token_loader.TokenLoader(paths, batch=batch, seq=seq)
+    tokens = torch.from_numpy(first.next_batch()[:, :-1].astype(np.int64))
+    first.close()
+
+    t0 = time.perf_counter()
+    cfg, model = hf_import.load_hf_checkpoint(
+        hf, max_seq_len=seq, device='cuda', param_dtype=torch.float32)
+    load_s = time.perf_counter() - t0
+    files = {}
+    for name in os.listdir(hf):
+        if name.endswith('.safetensors'):
+            files.update(hf_import.read_safetensors(os.path.join(hf, name)))
+    ours = dict(model.state_dict())
+    masters = (len(ours) == len(files) and all(
+        v.dtype == torch.float32 for v in ours.values()))
+    names = {'tok_embed': 'model.embed_tokens.weight',
+             'lm_head': 'lm_head.weight', 'final_norm.scale':
+             'model.norm.weight'}
+    for i in range(cfg.num_layers):
+        names[f'layers.{i}.attn.wq.weight'] = \
+            f'model.layers.{i}.self_attn.q_proj.weight'
+        names[f'layers.{i}.mlp.w_down.weight'] = \
+            f'model.layers.{i}.mlp.down_proj.weight'
+        names[f'layers.{i}.attn_norm.scale'] = \
+            f'model.layers.{i}.input_layernorm.weight'
+    masters = masters and all(
+        files[theirs].dtype == torch.bfloat16
+        and torch.equal(ours[k], files[theirs].float().cuda())
+        for k, theirs in names.items())
+    check(masters, '--init-from-hf: f32 masters differ from the checkpoint')
+    with torch.no_grad():
+        api_loss = train.ShardedTrainer(model)._compute_loss(
+            dict(model.named_parameters()), tokens.cuda()).item()
+    del model, ours, files
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    root = os.path.join(WORK, 'train_guard', 'hf_run')
+    shutil.rmtree(root, ignore_errors=True)
+    metrics, prof = os.path.join(root, 'steps.jsonl'), os.path.join(root,
+                                                                    'prof')
+    child = Child('hf_native', [
+        '--init-from-hf', hf, '--lora', '16', '--seq', str(seq),
+        '--global-batch', str(batch), '--steps', str(steps), '--log-every',
+        '1', '--data', data, '--ckpt-dir', os.path.join(root, 'ckpt'),
+        '--ckpt-interval', '30', '--profile', prof, '--profile-steps', '1:3',
+        '--metrics-file', metrics], counts=True)
+    check(child.rc == 0 and 'training done' in child.out,
+          f'--init-from-hf run rc {child.rc}:\n{child.tail()}')
+    _, reader = child.first('data: ')
+    _, cadence = child.first('ckpt cadence: ')
+    check(reader is not None and 'native reader' in reader,
+          f'the run did not read through the native reader: {reader}')
+    check(cadence is not None, 'no checkpoint cadence was fixed')
+    records = read_jsonl(metrics)
+    loss1 = records[0]['loss']
+    check(abs(loss1 - api_loss) <= TRAIN_TOL * abs(api_loss),
+          f'first step loss {loss1} vs the trainer API\'s {api_loss}')
+    with open(os.path.join(root, 'ckpt', 'adapter',
+                           'adapter_config.json')) as f:
+        base_model = json.load(f)['base_model']
+    check(base_model == hf, f'adapter base_model {base_model}')
+    traces = os.listdir(prof)
+    trace_bytes = os.path.getsize(os.path.join(prof, traces[0]))
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f)['traceEvents']
+    # Kernel names may carry '(anonymous namespace)::' and a signature.
+    kernels = {k: sum(1 for ev in events if ev.get('cat') == 'kernel'
+                      and k in ev.get('name', ''))
+               for k in ('flash_fwd_bf16', 'flash_bwd_bf16')}
+    check(len(traces) == 1 and all(n == 2 * 2 for n in kernels.values()),
+          f'profile trace {traces}: flash kernel events {kernels} (want 4 '
+          f'each: 2 layers x steps 1..2)')
+    counts = child.counts
+    check(counts == {'flash_fwd': 2 * steps, 'flash_bwd': 2 * steps,
+                     'plain_calls': 0}, f'--init-from-hf launches {counts}')
+    step_s = [r['step_time_s'] for r in records]
+    emit('train_guard_hf', card=card, layers=2, lora_rank=16, batch=batch,
+         seq=seq, hf_load_s=load_s, masters_equal=masters,
+         first_loss=loss1, trainer_api_loss=api_loss, reader=reader,
+         native_equals_numpy=same, cadence=cadence,
+         step_time_s=step_s, profiled_steps=[2, 3],
+         profiled_over_unprofiled=float(np.mean(step_s[1:3])
+                                        / np.mean(step_s[3:])),
+         trace_bytes=trace_bytes, trace_kernel_events=kernels,
+         run_s=child.seconds, launches=counts)
+    shutil.rmtree(prof, ignore_errors=True)
+    return {k: counts[k] for k in ('flash_fwd', 'flash_bwd')}
+
+
+def sigterm_run(hf, card):
+    """(b) SIGTERM after the first logged step: exit 83 with a checkpoint
+    at the step in flight."""
+    root = os.path.join(WORK, 'train_guard', 'sigterm')
+    shutil.rmtree(root, ignore_errors=True)
+    sent = {}
+
+    def on_line(line, child):
+        if line.startswith('step 1/') and not sent:
+            sent['t'] = time.perf_counter() - child.t0
+            child.proc.send_signal(signal.SIGTERM)
+
+    child = Child('sigterm', [
+        '--init-from-hf', hf, '--lora', '16', '--seq', '2048',
+        '--global-batch', '8', '--steps', '50', '--log-every', '1',
+        '--guard', '--ckpt-dir', os.path.join(root, 'ckpt'),
+        '--ckpt-every', '1000'], on_line=on_line)
+    t_notice, notice = child.first('preemption notice')
+    check(child.rc == 83 and notice is not None
+          and 'notice (sigterm) at step ' in notice,
+          f'SIGTERM run rc {child.rc}:\n{child.tail()}')
+    at = int(notice.split('at step ')[1].split(':')[0])
+    logged = child.logged_steps()
+    saved = ckpt_steps(os.path.join(root, 'ckpt'))
+    check(logged[-1] == at and saved == [at],
+          f'SIGTERM: notice at step {at}, logged {logged}, saved {saved}')
+    emit('train_guard_sigterm', card=card, layers=2, notice_step=at,
+         logged_steps=logged, saved_steps=saved,
+         signal_to_exit_s=child.seconds - sent['t'],
+         notice_to_exit_s=child.seconds - t_notice)
+
+
+def watchdog_run(hf, card):
+    """(c) A stalled batch fetch with --watchdog-deadline 5: exit 84
+    within the deadline plus 10 s, the dump naming next_tokens."""
+    deadline = 5.0
+    child = Child('watchdog', [
+        '--init-from-hf', hf, '--lora', '16', '--seq', '2048',
+        '--global-batch', '8', '--steps', '10', '--log-every', '1',
+        '--guard', '--watchdog-deadline', str(deadline)],
+        plan={'rules': [{'point': 'train.data_next', 'action': 'delay',
+                         'delay_s': 300.0, 'after': 2, 'times': 1}]})
+    t_last, _ = child.first('step 2/')
+    check(child.rc == 84 and t_last is not None
+          and "step-watchdog: phase 'data' stalled" in child.out
+          and 'next_tokens' in child.out,
+          f'watchdog run rc {child.rc}:\n{child.tail()}')
+    stalled_s = child.seconds - t_last
+    check(stalled_s <= deadline + 10.0,
+          f'watchdog exit {stalled_s:.1f}s after the last step')
+    emit('train_guard_watchdog', card=card, layers=2, deadline_s=deadline,
+         last_step_to_exit_s=stalled_s)
+
+
+def chaos_run(card):
+    """(a) `train_lm --model llama3-8b --lora 16 --seq 2048 --remat
+    --guard` at full depth under a plan with NaN at the 5th-7th steps and
+    a notice, both scoped to the first launch (resume 0), the notice late
+    enough to fall after the rollback: three
+    skips, a rollback to step 4, exit 83 with a fresh checkpoint; the
+    same command relaunched resumes there and finishes."""
+    from skypilot_tpu_torch.observability.step_metrics import read_jsonl
+    root = os.path.join(WORK, 'train_guard', 'chaos')
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt, metrics = os.path.join(root, 'ckpt'), os.path.join(root,
+                                                             'steps.jsonl')
+    steps, layers = 24, 32
+    plan = {'seed': 2026, 'rules': [
+        {'point': 'train.step', 'action': 'drop', 'at': [5, 6, 7],
+         'scope': {'resume': '0'}},
+        {'point': 'train.preempt_notice', 'action': 'drop',
+         'scope': {'resume': '0'}, 'after': 55}]}
+    argv = ['--model', 'llama3-8b', '--lora', '16', '--seq', '2048',
+            '--remat', '--guard', '--guard-warmup', '1', '--rollback-after',
+            '3', '--preempt-poll', '1', '--ckpt-dir', ckpt, '--ckpt-every',
+            '4', '--log-every', '1', '--metrics-file', metrics, '--steps',
+            str(steps)]
+    first = Child('chaos', argv, plan=plan, counts=True)
+    t_back, _ = first.first('train-guard: rolled back to last checkpoint '
+                            '(step 4)')
+    t_notice, notice = first.first('preemption notice (injected) at step ')
+    check(first.rc == 83 and first.out.count('injected NaN into step') == 3
+          and t_back is not None and t_notice is not None
+          and t_notice > t_back,
+          f'chaos run rc {first.rc}:\n{first.tail(40)}')
+    at = int(notice.split('at step ')[1].split(':')[0])
+    logged = first.logged_steps()
+    # The last step logged since the rollback rewound to step 4: the
+    # notice may cost at most the one step in flight.
+    last = max([int(l.split()[1].split('/')[0]) for t, l in first.lines
+                if t > t_back and l.startswith('step ')] or [4])
+    check(at in ckpt_steps(ckpt) and last - 1 <= at <= last,
+          f'chaos: notice at {at}, logged {logged}, saved '
+          f'{ckpt_steps(ckpt)}')
+    second = Child('chaos_relaunch', argv, plan=plan, counts=True)
+    t_first_step, _ = second.first('step ', has=' loss=')
+    relogged = second.logged_steps()
+    check(second.rc == 0 and f'resumed from checkpoint step {at}'
+          in second.out and relogged[0] == at + 1
+          and relogged[-1] == steps and 'injected NaN' not in second.out,
+          f'chaos relaunch rc {second.rc}:\n{second.tail()}')
+    records = read_jsonl(metrics)
+    poisoned = [i for i, r in enumerate(records)
+                if not math.isfinite(r['loss'])]
+    after = records[poisoned[-1] + 1:] if poisoned else []
+    check(len(poisoned) == 3 and after
+          and all(math.isfinite(r['loss']) for r in after),
+          f'losses around the poisoned streak: '
+          f'{[r["loss"] for r in records]}')
+    # Every dispatched step logs a line but the one each rollback drops.
+    runs = len(logged) + 1 + len(relogged)
+    want = {'flash_fwd': layers * runs * 2, 'flash_bwd': layers * runs}
+    counts = {k: first.counts[k] + second.counts[k] for k in want}
+    check(counts == want and first.counts['plain_calls'] == 0
+          and second.counts['plain_calls'] == 0,
+          f'chaos launches {counts}, want {want}')
+    saves = {4 * k for k in range(1, steps // 4 + 1)}
+    plain_steps = [r['step_time_s'] for r in records
+                   if r['step'] not in saves and r['step'] > 1
+                   and math.isfinite(r['loss'])]
+    emit('train_guard_chaos', card=card, layers=layers, lora_rank=16,
+         batch=8, seq=2048, remat=True, steps=steps,
+         rollback_s=t_back, notice_s=t_notice, notice_step=at,
+         logged_first=logged, logged_relaunch=relogged,
+         notice_to_exit_s=first.seconds - t_notice,
+         relaunch_to_first_step_s=t_first_step,
+         guarded_step_s=plain_steps,
+         guarded_step_s_median=float(np.median(plain_steps)),
+         first_run_s=first.seconds, relaunch_s=second.seconds,
+         launches=counts)
+    return counts
+
+
+def phase_train_guard(fk, card):
+    """The recovery contract of train_lm on the card: (d) the guarded
+    step at the trainer API; a 2-layer Llama-3-8B-width HF checkpoint and
+    token shards, then (e)+(f), (b) and (c) as train_lm processes on
+    them; (a) the full-depth chaos run and its relaunch. Returns the
+    flash launches of the phase's main-path steps."""
+    from skypilot_tpu_torch.models import convert, registry
+    gc.collect()
+    torch.cuda.empty_cache()
+    # What this process holds on the card while the children run.
+    emit('train_guard_parent', card=card,
+         allocated_gb=torch.cuda.memory_allocated() / 1e9,
+         reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    counts = guarded_step_cost(fk, card)
+    root = os.path.join(WORK, 'train_guard')
+    hf, data = os.path.join(root, 'hf_llama'), os.path.join(root, 'tokens')
+    shutil.rmtree(hf, ignore_errors=True)
+    cfg = dataclasses.replace(registry.model_config('llama3-8b', 2048),
+                              num_layers=2)
+    model = convert.init_params(cfg, seed=5, device='cuda')
+    write_hf_checkpoint(hf, model)
+    del model
+    torch.cuda.empty_cache()
+    write_token_shards(data, cfg.vocab_size, (150_000, 90_001), seed=6)
+    try:
+        hf_counts = hf_and_native_run(fk, hf, data, card)
+        sigterm_run(hf, card)
+        watchdog_run(hf, card)
+    finally:
+        shutil.rmtree(hf, ignore_errors=True)
+    chaos_counts = chaos_run(card)
+    return {k: counts[k] + hf_counts[k] + chaos_counts[k] for k in counts}
 
 
 # -- serving ---------------------------------------------------------------
@@ -1386,8 +1988,12 @@ def phase_serve_lora(model, pk, lk, card):
 # with graphs, (d) --decode-chunk 4; int8 and LoRA runtimes run (a) and
 # (c); (e) --speculative 4. The 4096 runs hold (d) to (a) on one slot at
 # --max-total-len 4096, where the split route cuts a row into 32 splits
-# of 128 tokens and the prompts' rows cross several of them.
-LONG_WIDTH = ('--num-slots', '1', '--max-total-len', '4096')
+# of 128 tokens and the prompts' rows cross several of them. Prefix
+# caching is off there: the one slot takes the 3 concurrent requests in
+# arrival order, and a prefix cached by whichever came first would change
+# the later ones' prefill chunks, and with them their bf16 tokens.
+LONG_WIDTH = ('--num-slots', '1', '--max-total-len', '4096',
+              '--no-prefix-caching')
 DECODE_MODES = (
     ('a_bf16', 'bf16', ('--no-pipeline-decode',), False, False),
     ('b_bf16', 'bf16', (), False, False),
@@ -2437,6 +3043,8 @@ def main() -> int:
     full_counts = phase_train_full(fk, pk, card)
     torch.cuda.empty_cache()
     lora_counts = phase_train_lora(fk, lk, card)
+    torch.cuda.empty_cache()
+    guard_counts = phase_train_guard(fk, card)
 
     for row in paged_rows:
         row['launches'] = (verify_launches
@@ -2444,7 +3052,8 @@ def main() -> int:
                            else routes[row['kernel_route']])
     lora_kernel['launches'] = lora_launches
     for name, row in flash_rows.items():
-        row['launches'] = full_counts[name] + lora_counts[name]
+        row['launches'] = (full_counts[name] + lora_counts[name]
+                           + guard_counts[name])
     print(card, flush=True)
     print(json.dumps({'kernels': [*paged_rows, lora_kernel,
                                   *flash_rows.values()]}), flush=True)

@@ -12,7 +12,8 @@ managed-jobs controller's `ckpt_integrity.preflight`
 A step is written into a temporary directory, fsynced and renamed into
 place, so a step directory that exists is complete; its manifest
 follows. Saves are synchronous (the reference's are async orbax
-saves), so there is nothing to wait for or close. `restore()` verifies
+saves): `wait_until_finished()` and `close()` return at once, kept so
+the train loop reads as the reference's. `restore()` verifies
 the candidate step against its manifest and falls back to the newest
 step that verifies; failures are typed (`CheckpointNotFoundError`,
 `CheckpointCorruptionError`). `max_to_keep` prunes the oldest steps and
@@ -122,6 +123,12 @@ class CheckpointManager:
         self._prune()
         return True
 
+    def wait_until_finished(self) -> None:
+        """Saves are synchronous: nothing is in flight."""
+
+    def close(self) -> None:
+        """Nothing to release: no background saver."""
+
     def _prune(self) -> None:
         steps = self.all_steps()
         for step in steps[:-self.max_to_keep] if self.max_to_keep else []:
@@ -209,7 +216,7 @@ class CheckpointManager:
         for key in ('mu', 'nu'):
             _copy_into(opt[key], payload['opt_state'][key],
                        f'step {step} {key}')
-        opt['count'] = int(payload['opt_state']['count'])
+        opt['count'].fill_(int(payload['opt_state']['count']))
         state.step = int(payload['step'])
         if len(opt['mu']) != len(trainable_leaves(state.params)):
             raise ValueError(f'checkpoint step {step}: optimizer state does '

@@ -22,6 +22,17 @@ not `torch.optim.AdamW` / `clip_grad_norm_`, which differ from it:
 With `lora=` the base is frozen (no grads, and no optimizer moments:
 optax's `multi_transform(..., set_to_zero)` allocates none for it) and
 only the A/B factors train.
+
+The optimizer's count is a device int tensor, and the learning rate and
+the bias corrections come from a table (the schedule's own f32 values,
+computed on the host once) indexed by it: so a guarded step that skips
+its update can leave the count where it was without a host sync.
+`ShardedTrainer(guard=True)` makes that step (the reference's
+`_step_body` with `ctl`): `(state, tokens, max_grad_norm, loss_scale)
+-> (state, (loss, gnorm, bad))`, `bad` computed on the device; a bad
+step keeps every parameter and moment (bit for bit, in place) and
+the count, and still advances `state.step`; on a good step it computes
+what the unguarded step computes.
 """
 from __future__ import annotations
 
@@ -105,47 +116,93 @@ class ClippedAdamW:
 
     # The reference's adamw(b1=0.9, b2=0.95) with optax's default eps.
     b1, b2, eps = 0.9, 0.95, 1e-8
+    #: Counts past the schedule's end that the table covers: lr is
+    #: constant there, and 1 - b^c reaches 1.0 in f32 (b2 = 0.95 by
+    #: c = 339), so a count past the table reads its last row exactly.
+    TABLE_TAIL = 1024
 
     def __init__(self, learning_rate, weight_decay: float = 0.1,
                  grad_clip: float = 1.0) -> None:
         self.learning_rate = learning_rate      # a float or a schedule
         self.weight_decay, self.grad_clip = weight_decay, grad_clip
+        self._tables: Dict[torch.device, torch.Tensor] = {}
 
     def lr(self, count: int) -> float:
         lr = self.learning_rate
         return float(lr(count) if callable(lr) else _f32(lr))
 
+    def table(self, device: torch.device) -> torch.Tensor:
+        """[n, 3] f32 on `device`: row c holds lr(c), 1 - b1^(c+1) and
+        1 - b2^(c+1), the values a step at count c reads."""
+        tab = self._tables.get(device)
+        if tab is None:
+            n = getattr(self.learning_rate, 'decay_steps', 0) \
+                + self.TABLE_TAIL
+            rows = [(self.lr(c),
+                     _f32(1) - _f32(self.b1) ** _f32(c + 1),
+                     _f32(1) - _f32(self.b2) ** _f32(c + 1))
+                    for c in range(n)]
+            tab = torch.tensor(rows, dtype=torch.float32, device=device)
+            self._tables[device] = tab
+        return tab
+
     def init(self, leaves: List[torch.Tensor]) -> Dict[str, Any]:
-        return {'count': 0,
+        device = leaves[0].device if leaves else torch.device('cpu')
+        return {'count': torch.zeros((), dtype=torch.int64, device=device),
                 'mu': [torch.zeros_like(p) for p in leaves],
                 'nu': [torch.zeros_like(p) for p in leaves]}
 
     @torch.no_grad()
     def update(self, leaves: List[torch.Tensor], grads: List[torch.Tensor],
-               state: Dict[str, Any]) -> torch.Tensor:
+               state: Dict[str, Any], norm: Optional[torch.Tensor] = None,
+               bad: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step on `leaves` (in place); returns the global grad norm
-        (before clipping), a device scalar."""
+        (before clipping; computed here unless given), a device scalar.
+        With `bad` (a device bool scalar) the step is guarded: where it
+        is true every leaf, moment and the count keep their values."""
         grads = [g.float() for g in grads]
-        norm = torch.sqrt(sum(g.square().sum() for g in grads))
+        if norm is None:
+            norm = global_norm(grads)
         keep = norm < self.grad_clip
         one = torch.ones((), dtype=torch.float32, device=norm.device)
         # optax: g if |g| < max else (g / |g|) * max.
         div = torch.where(keep, one, norm)
         mul = torch.where(keep, one, one * self.grad_clip)
         count = state['count']
-        count_inc = count + 1
-        bc1 = float(_f32(1) - _f32(self.b1) ** _f32(count_inc))
-        bc2 = float(_f32(1) - _f32(self.b2) ** _f32(count_inc))
-        lr = self.lr(count)
+        tab = self.table(count.device)
+        # index_select, not tab[count]: indexing with a 0-dim tensor
+        # would read it on the host.
+        row = tab.index_select(0, count.clamp(max=tab.shape[0] - 1)
+                               .reshape(1))
+        lr, bc1, bc2 = row[0].unbind()
+        neg_lr, b1, b2 = -lr, self.b1, self.b2
+        if bad is not None:
+            # A bad step leaves every leaf and moment as it was, bit for
+            # bit, with no temporaries beyond the unguarded step's: its
+            # gradients and updates become -0.0, the moments' decay
+            # factors 1 and the step size +0.0, so each in-place op below
+            # adds -0.0 (x + -0.0 is x for every x, signed zeros too).
+            b1 = torch.where(bad, one, one * self.b1)
+            b2 = torch.where(bad, one, one * self.b2)
+            neg_lr = torch.where(bad, torch.zeros_like(lr), neg_lr)
         for p, g, mu, nu in zip(leaves, grads, state['mu'], state['nu']):
             g = g.div_(div).mul_(mul)
-            mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
-            nu.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
+            if bad is not None:
+                g.masked_fill_(bad, -0.0)
+            mu.mul_(b1).add_(g, alpha=1 - self.b1)
+            nu.mul_(b2).addcmul_(g, g, value=1 - self.b2)
             update = (mu / bc1).div_((nu / bc2).sqrt_().add_(self.eps))
             update.add_(p, alpha=self.weight_decay)
-            p.add_(update, alpha=-lr)
-        state['count'] = count_inc
+            if bad is not None:
+                update.masked_fill_(bad, -0.0)
+            p.addcmul_(update, neg_lr)
+        count.add_(1 if bad is None else (~bad).long())
         return norm
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: sqrt of the sum of squares, f32."""
+    return torch.sqrt(sum(g.float().square().sum() for g in grads))
 
 
 def default_optimizer(learning_rate: float = 3e-4,
@@ -174,13 +231,16 @@ class ShardedTrainer:
     (models/lora.py LoraSpec) makes the run a LoRA finetune: params
     become {'base', 'lora'}, the base is frozen and only the factors
     train (and are what a checkpoint holds, with the step and the
-    moments; see parallel/checkpoints.py).
+    moments; see parallel/checkpoints.py). `guard` makes the guarded
+    step (module doc; `train_lm --guard`), which needs the grad norm
+    and so collects it.
     """
 
     def __init__(self, model, tx: Optional[ClippedAdamW] = None,
                  fused_xent: Optional[bool] = None,
                  collect_grad_norm: bool = False,
-                 lora: Optional[lora_lib.LoraSpec] = None) -> None:
+                 lora: Optional[lora_lib.LoraSpec] = None,
+                 guard: bool = False) -> None:
         if not model.config.trainable:
             raise ValueError('the trainer needs f32 master parameters: '
                              'build the model with param_dtype='
@@ -191,7 +251,8 @@ class ShardedTrainer:
         if lora is not None and not lora_lib.supports(model):
             raise ValueError(f'{type(model).__name__} has no LoRA forward '
                              f'path; --lora supports the Llama family')
-        self.collect_grad_norm = collect_grad_norm
+        self.guard = guard
+        self.collect_grad_norm = collect_grad_norm or guard
         self.fused_xent = fused_xent is not False
 
     # -- init ---------------------------------------------------------------
@@ -233,9 +294,13 @@ class ShardedTrainer:
         return next_token_loss(self.model(tokens, **extra), tokens)
 
     def make_train_step(self) -> Callable:
-        """`(state, tokens) -> (state, aux)`, aux the loss (a device
-        scalar) or (loss, grad_norm) with `collect_grad_norm`. Updates
-        `state` in place and returns it."""
+        """Unguarded: `(state, tokens) -> (state, aux)`, aux the loss (a
+        device scalar) or (loss, grad_norm) with `collect_grad_norm`.
+        With `guard`: `(state, tokens, max_grad_norm=inf, loss_scale=1.0)
+        -> (state, (loss, gnorm, bad))`, three device scalars; the scale
+        multiplies the loss inside autograd, so a NaN scale poisons the
+        loss and every gradient. Both update `state` in place and return
+        it."""
 
         def step(state: TrainState, tokens: torch.Tensor):
             leaves = trainable_leaves(state.params)
@@ -247,7 +312,24 @@ class ShardedTrainer:
             return state, ((loss, gnorm) if self.collect_grad_norm
                            else loss)
 
-        return step
+        def guarded(state: TrainState, tokens: torch.Tensor,
+                    max_grad_norm: float = math.inf,
+                    loss_scale: float = 1.0):
+            leaves = trainable_leaves(state.params)
+            loss = self._compute_loss(state.params, tokens) * loss_scale
+            grads = torch.autograd.grad(loss, leaves)
+            loss = loss.detach()
+            gnorm = global_norm(grads)
+            # Non-finite loss or norm, or a spike past the host's ceiling:
+            # the update never happens, but the batch is consumed.
+            bad = (~torch.isfinite(loss) | ~torch.isfinite(gnorm)
+                   | (gnorm > max_grad_norm))
+            self.tx.update(leaves, list(grads), state.opt_state,
+                           norm=gnorm, bad=bad)
+            state.step += 1
+            return state, (loss, gnorm, bad)
+
+        return guarded if self.guard else step
 
     def make_eval_step(self) -> Callable:
 
@@ -257,3 +339,33 @@ class ShardedTrainer:
             return self._compute_loss(state.params, tokens)
 
         return evaluate
+
+
+class HostScalars:
+    """Device scalars on their way to the host, fetched without waiting
+    for work queued after them.
+
+    `float(t)` on a CUDA tensor is a copy ordered on the stream, so read
+    after step N+1 is queued it waits for N+1 too, and the card idles
+    while the host then dispatches N+2. Here the values are copied into
+    a pinned host buffer right after they are queued (`non_blocking`),
+    an event marks the copy, and `values()` waits for that event only:
+    the guarded loop's lagged observation of step N overlaps step N+1.
+    On the CPU the values are read as they are."""
+
+    def __init__(self, *scalars: torch.Tensor) -> None:
+        vals = torch.stack([s.detach().float().reshape(()) for s in scalars])
+        self._event = None
+        if vals.is_cuda:
+            self._host = torch.empty(vals.shape, dtype=torch.float32,
+                                     pin_memory=True)
+            self._host.copy_(vals, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = vals
+
+    def values(self) -> List[float]:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.tolist()

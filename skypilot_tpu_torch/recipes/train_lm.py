@@ -5,17 +5,31 @@ step in --ckpt-dir.
 
 Takes the reference's flags and prints its log lines (`step i/N
 loss=... tokens/s=...`, `resumed from checkpoint step N`, `adapter
-artifact -> ...`, `training done`). One card: the flags for meshes,
-pipelines and the reference's other trainer features exit at startup
+artifact -> ...`, `training done`, and the guard's). One card: the
+flags for meshes, pipelines and data-parallel training exit at startup
 naming themselves and their ROADMAP item, as do the GPT, Mixtral and
 DeepSeek model names (ROADMAP A12), the reference's default `--model
 gpt2-124m` among them: name a ported model. Weights are a seeded init
-on the device. Runs on the GPU unless --cpu is given.
+on the device, or a local HF checkpoint (--init-from-hf). Runs on the
+GPU unless --cpu is given.
+
+The managed-jobs recovery contract is the reference's (--guard,
+robustness/train_guard.py): a preemption notice (SIGTERM, the GCE
+metadata endpoint, or an injected `train.preempt_notice`) checkpoints at
+the next step boundary and exits 83; a hung step or loader dumps every
+thread's stack and exits 84; a NaN or spike step is skipped on the
+device, and after --rollback-after of them in a row the run rolls back
+to the newest verified checkpoint. STPU_FAULT_PLAN injects each
+(robustness/faults.py). --ckpt-interval SECONDS|auto turns a wall-time
+cadence (auto: the Young/Daly optimum, jobs/policy.py) into steps after
+the first logged window.
 
   python -m skypilot_tpu_torch.recipes.train_lm --model llama3-8b \\
-      --seq 2048 --steps 100 --lora 16 --remat --ckpt-dir ckpts/
-  python -m skypilot_tpu_torch.recipes.train_lm --cpu --model llama-tiny \\
-      --steps 20 --seq 64        # a local run on the CPU
+      --seq 2048 --steps 100 --lora 16 --remat --ckpt-dir ckpts/ --guard
+  STPU_FAULT_PLAN=examples/fault_plans/train_guard_chaos.json \\
+      python -m skypilot_tpu_torch.recipes.train_lm --cpu \\
+      --model llama-tiny --steps 20 --seq 64 --guard --guard-warmup 1 \\
+      --ckpt-dir /tmp/ck --ckpt-every 4 --log-every 1
 """
 from __future__ import annotations
 
@@ -37,23 +51,9 @@ _REFUSED = (
     ('--pipeline-schedule', 'pipeline_schedule', 'gpipe', 'A13'),
     ('--virtual-stages', 'virtual_stages', 0, 'A13'),
     ('--microbatches', 'microbatches', 0, 'A13'),
+    # Data-parallel training: more than one card.
     ('--zero1', 'zero1', False, 'A11'),
     ('--overlap', 'overlap', False, 'A11'),
-    ('--guard', 'guard', False, 'A11'),
-    ('--spike-factor', 'spike_factor', 10.0, 'A11'),
-    ('--guard-warmup', 'guard_warmup', 10, 'A11'),
-    ('--rollback-after', 'rollback_after', 3, 'A11'),
-    ('--watchdog-deadline', 'watchdog_deadline', 300.0, 'A11'),
-    ('--watchdog-compile-deadline', 'watchdog_compile_deadline', 1800.0,
-     'A11'),
-    ('--preempt-poll', 'preempt_poll', 5.0, 'A11'),
-    ('--ckpt-interval', 'ckpt_interval', None, 'A11'),
-    ('--preemption-rate', 'preemption_rate', None, 'A11'),
-    ('--ckpt-overhead', 'ckpt_overhead', None, 'A11'),
-    ('--init-from-hf', 'init_from_hf', None, 'A11'),
-    ('--profile', 'profile', None, 'A11'),
-    ('--profile-steps', 'profile_steps', '4:8', 'A11'),
-    ('--trace-file', 'trace_file', None, 'A11'),
 )
 
 
@@ -63,15 +63,61 @@ def build_parser() -> argparse.ArgumentParser:
     # The reference's default, whose GPT family this port refuses (ROADMAP
     # A12): name one of the ported models.
     p.add_argument('--model', default='gpt2-124m',
-                   help='llama3-8b, llama-tiny, qwen2-7b or qwen-tiny')
+                   help='llama3-8b, llama-tiny, qwen2-7b or qwen-tiny '
+                        '(ignored with --init-from-hf)')
     p.add_argument('--steps', type=int, default=100)
     p.add_argument('--seq', type=int, default=1024)
     p.add_argument('--global-batch', type=int, default=0,
                    help='0 = 8 per device')
     p.add_argument('--data', default='synthetic',
-                   help='"synthetic" or a dir/glob of token .bin shards')
+                   help='"synthetic" or a dir/glob of token .bin shards '
+                        '(read by the native reader, native/'
+                        'token_loader.cpp, where it builds)')
     p.add_argument('--ckpt-dir', default=None)
+    p.add_argument('--init-from-hf', default=None, metavar='DIR',
+                   help='initialize from a local HF checkpoint dir (llama, '
+                        'mistral, qwen2) as f32 masters with fresh '
+                        'moments; --model is ignored; with --lora only '
+                        'the frozen base comes from it')
     p.add_argument('--ckpt-every', type=int, default=50)
+    p.add_argument('--ckpt-interval', default=None, metavar='auto|SECONDS',
+                   help='checkpoint cadence as wall time: seconds, or '
+                        '"auto" for the Young/Daly optimum from '
+                        '--preemption-rate and --ckpt-overhead; fixed in '
+                        'steps from the first logged window')
+    p.add_argument('--preemption-rate', type=float, default=None,
+                   metavar='PER_HOUR',
+                   help='zone spot preemption rate for --ckpt-interval '
+                        'auto (default: SKYPILOT_PREEMPTION_RATE_PER_HOUR)')
+    p.add_argument('--ckpt-overhead', type=float, default=None,
+                   metavar='SECONDS',
+                   help='checkpoint write overhead for --ckpt-interval '
+                        'auto (default 60 s)')
+    p.add_argument('--guard', action='store_true',
+                   help='preemption notice -> checkpoint and exit 83; '
+                        'NaN/spike steps skipped on the device, rollback '
+                        'after --rollback-after in a row; a step watchdog '
+                        'exits 84 on a hang')
+    p.add_argument('--spike-factor', type=float, default=10.0,
+                   help='grad-norm spike threshold as a multiple of its '
+                        'EMA (guard)')
+    p.add_argument('--guard-warmup', type=int, default=10,
+                   help='good steps of EMA warmup before spike detection '
+                        'arms (guard)')
+    p.add_argument('--rollback-after', type=int, default=3,
+                   help='consecutive bad steps before rolling back to the '
+                        'last checkpoint (guard)')
+    p.add_argument('--watchdog-deadline', type=float, default=300.0,
+                   metavar='SECONDS',
+                   help='per-phase step-watchdog deadline; 0 disables it '
+                        '(guard)')
+    p.add_argument('--watchdog-compile-deadline', type=float,
+                   default=1800.0, metavar='SECONDS',
+                   help='watchdog deadline for the first step (kernel '
+                        'builds and warm-up)')
+    p.add_argument('--preempt-poll', type=float, default=5.0,
+                   metavar='SECONDS',
+                   help='preemption-notice metadata poll interval (guard)')
     p.add_argument('--lora', type=int, default=0, metavar='RANK',
                    help='LoRA finetune: freeze the base and train rank-RANK '
                         'A/B factors; the trained factors are saved as a '
@@ -93,6 +139,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--log-every', type=int, default=10)
     p.add_argument('--metrics-file', default=None, metavar='PATH',
                    help='append one JSONL record per --log-every window')
+    p.add_argument('--trace-file', default=None, metavar='PATH',
+                   help='write a Chrome-trace timeline of the run\'s '
+                        'phases (init, data, step, checkpoint)')
+    p.add_argument('--profile', default=None, metavar='DIR',
+                   help='torch.profiler trace (CPU and CUDA activity) of '
+                        'the --profile-steps window, as a Chrome trace in '
+                        'DIR')
+    p.add_argument('--profile-steps', default='4:8', metavar='START:STOP',
+                   help='step window to trace (default 4:8)')
     p.add_argument('--cpu', action='store_true',
                    help='run on the CPU (default: the GPU)')
     # The reference's flags for features this port does not have yet.
@@ -106,20 +161,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--microbatches', type=int, default=0)
     p.add_argument('--zero1', action='store_true')
     p.add_argument('--overlap', action='store_true')
-    p.add_argument('--guard', action='store_true')
-    p.add_argument('--spike-factor', type=float, default=10.0)
-    p.add_argument('--guard-warmup', type=int, default=10)
-    p.add_argument('--rollback-after', type=int, default=3)
-    p.add_argument('--watchdog-deadline', type=float, default=300.0)
-    p.add_argument('--watchdog-compile-deadline', type=float, default=1800.0)
-    p.add_argument('--preempt-poll', type=float, default=5.0)
-    p.add_argument('--ckpt-interval', default=None)
-    p.add_argument('--preemption-rate', type=float, default=None)
-    p.add_argument('--ckpt-overhead', type=float, default=None)
-    p.add_argument('--init-from-hf', default=None, metavar='DIR')
-    p.add_argument('--profile', default=None, metavar='DIR')
-    p.add_argument('--profile-steps', default='4:8')
-    p.add_argument('--trace-file', default=None, metavar='PATH')
     return p
 
 
@@ -136,11 +177,35 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if args.ckpt_dir and args.ckpt_dir.startswith(('gs://', 's3://')):
         parser.error(f'--ckpt-dir {args.ckpt_dir}: remote checkpoint dirs '
                      f'are not ported yet (ROADMAP A11)')
-    from skypilot_tpu_torch.models import registry
+    if args.ckpt_interval is not None:
+        if not args.ckpt_dir:
+            parser.error('--ckpt-interval needs --ckpt-dir')
+        if args.ckpt_interval != 'auto':
+            try:
+                if float(args.ckpt_interval) <= 0:
+                    raise ValueError
+            except ValueError:
+                parser.error('--ckpt-interval takes "auto" or a positive '
+                             'number of seconds')
+        elif args.preemption_rate is None and not os.environ.get(
+                'SKYPILOT_PREEMPTION_RATE_PER_HOUR'):
+            parser.error('--ckpt-interval auto needs the zone preemption '
+                         'rate: pass --preemption-rate or set '
+                         'SKYPILOT_PREEMPTION_RATE_PER_HOUR')
     try:
-        registry.train_config(args.model, args.seq)
-    except ValueError as e:
-        parser.error(f'--model: {e}')
+        args.profile_window = tuple(int(x) for x in
+                                    args.profile_steps.split(':'))
+        if len(args.profile_window) != 2:
+            raise ValueError
+    except ValueError:
+        parser.error(f'--profile-steps {args.profile_steps!r}: want '
+                     f'START:STOP')
+    if not args.init_from_hf:
+        from skypilot_tpu_torch.models import registry
+        try:
+            registry.train_config(args.model, args.seq)
+        except ValueError as e:
+            parser.error(f'--model: {e}')
     return args
 
 
@@ -150,20 +215,42 @@ def main(argv: Optional[List[str]] = None) -> None:
     import torch
 
     from skypilot_tpu_torch.device import NoCudaDeviceError, resolve_device
+    from skypilot_tpu_torch.errors import CheckpointNotFoundError
     from skypilot_tpu_torch.models import convert, registry
     from skypilot_tpu_torch.models import lora as lora_lib
-    from skypilot_tpu_torch.parallel.train import (ShardedTrainer,
+    from skypilot_tpu_torch.parallel.train import (HostScalars,
+                                                   ShardedTrainer,
                                                    default_optimizer)
+    from skypilot_tpu_torch.robustness import faults, train_guard
+    from skypilot_tpu_torch.utils import timeline
     try:
         device = resolve_device(cpu=args.cpu)
     except NoCudaDeviceError as e:
         print(f'train_lm: {e}', file=sys.stderr, flush=True)
         sys.exit(1)
+    if args.trace_file:
+        timeline.enable(args.trace_file)
     n_dev = 1
     print(f'devices={n_dev} device={device}', flush=True)
 
-    cfg = registry.train_config(args.model, args.seq, args.remat)
-    model = convert.init_params(cfg, seed=0, device=device)
+    if args.init_from_hf:
+        from skypilot_tpu_torch.models import hf_import
+        # f32 masters of the checkpoint's tensors; the trainer's fresh
+        # moments are right for a finetune start, and with --lora the
+        # checkpoint is the frozen base under fresh factors.
+        cfg, model = hf_import.load_hf_checkpoint(
+            args.init_from_hf, max_seq_len=max(args.seq, 128),
+            device=device, param_dtype=torch.float32, remat=args.remat)
+        base_source = ('HF checkpoint '
+                       + os.path.abspath(os.path.expanduser(
+                           args.init_from_hf)))
+        print(f'initializing from HF checkpoint {args.init_from_hf} '
+              f'({type(model).__name__}, vocab={cfg.vocab_size})',
+              flush=True)
+    else:
+        cfg = registry.train_config(args.model, args.seq, args.remat)
+        model = convert.init_params(cfg, seed=0, device=device)
+        base_source = f'seeded init (seed 0) of {args.model}'
     vocab_size = cfg.vocab_size
     batch = args.global_batch or 8 * n_dev
     lora_spec = None
@@ -175,19 +262,25 @@ def main(argv: Optional[List[str]] = None) -> None:
                            total_steps=max(args.steps, 20))
     trainer = ShardedTrainer(
         model, tx=tx, fused_xent=False if args.no_fused_xent else None,
-        collect_grad_norm=args.metrics_file is not None, lora=lora_spec)
+        collect_grad_norm=args.metrics_file is not None, lora=lora_spec,
+        guard=args.guard)
     print(f'fused_xent={trainer.fused_xent} zero1=False overlap=False '
           f'lora={args.lora or "off"}', flush=True)
-    state = trainer.init(seed=7)
+    with timeline.Event('train/init'):
+        state = trainer.init(seed=7)
     step_fn = trainer.make_train_step()
 
-    # Checkpoint resume (preemption recovery path).
+    # Checkpoint resume (preemption recovery path). Interval mode gates
+    # the cadence here (it is fixed once the step cost is measured), so
+    # the manager must not filter steps itself.
     mgr = None
     if args.ckpt_dir:
         from skypilot_tpu_torch.parallel.checkpoints import CheckpointManager
         mgr = CheckpointManager(
-            args.ckpt_dir, save_interval_steps=args.ckpt_every,
-            base_source=f'seeded init (seed 0) of {args.model}')
+            args.ckpt_dir,
+            save_interval_steps=(1 if args.ckpt_interval is not None
+                                 else args.ckpt_every),
+            base_source=base_source)
         latest = mgr.latest_step()
         if latest is not None:
             state = mgr.restore(state, latest)
@@ -200,20 +293,46 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     loader = None
     if args.data != 'synthetic':
-        from skypilot_tpu_torch.data.token_loader import TokenLoader
+        from skypilot_tpu_torch.data.token_loader import (
+            TokenLoader, native_unavailable_reason)
         paths = sorted(glob.glob(os.path.join(args.data, '*.bin'))
                        if os.path.isdir(args.data) else glob.glob(args.data))
         loader = TokenLoader(paths, batch=batch, seq=args.seq)
+        reader = ('native reader (native/token_loader.cpp)' if loader.native
+                  else f'numpy reader (native unavailable: '
+                       f'{native_unavailable_reason()})')
+        print(f'data: {reader}, {len(paths)} shards, '
+              f'{loader.total_tokens:,} tokens', flush=True)
 
     rng = np.random.default_rng(0)
+    start_step = state.step
+    # Fire-site context for the train.* fault points: scoped rules can
+    # target the first launch ({"resume": "0"}) and spare the resumed run.
+    resume_ctx = {'resume': '1' if start_step > 0 else '0'}
 
     def next_tokens() -> torch.Tensor:
+        # Chaos: a delay rule here is a stalled data loader, which the
+        # step watchdog must abort past its deadline.
+        faults.point('train.data_next', **resume_ctx)
         if loader is not None:
             arr = loader.next_batch()[:, :-1].astype(np.int64)
         else:
             arr = rng.integers(0, vocab_size, (batch, args.seq),
                                dtype=np.int32).astype(np.int64)
         return torch.from_numpy(arr).to(device)
+
+    prof_start, prof_stop = args.profile_window if args.profile else (-1, -1)
+    profiler = None
+
+    def stop_profile() -> None:
+        # Synchronize first, so the trace holds whole device timelines
+        # for the window, not just dispatches.
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+        profiler.stop()
+        os.makedirs(args.profile, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(
+            args.profile, f'train_lm.{os.getpid()}.pt.trace.json'))
 
     emitter = None
     if args.metrics_file:
@@ -231,18 +350,168 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f'step metrics -> {args.metrics_file} '
               f'(n_params={n_params:,})', flush=True)
 
+    # Self-supervising guards (--guard): preemption-notice watcher,
+    # on-device NaN/spike skip + rollback, step watchdog.
+    sup = None
+    if args.guard:
+        sup = train_guard.TrainSupervisor(
+            spike_factor=args.spike_factor,
+            warmup_steps=args.guard_warmup,
+            rollback_after=args.rollback_after,
+            watchdog_deadline_s=args.watchdog_deadline,
+            compile_deadline_s=args.watchdog_compile_deadline,
+            notice_poll_s=args.preempt_poll,
+            ctx=resume_ctx)
+        sup.start()
+        wd = (f'{args.watchdog_deadline:.0f}s'
+              if args.watchdog_deadline > 0 else 'off')
+        print(f'train-guard armed: spike_factor={args.spike_factor} '
+              f'warmup={args.guard_warmup} '
+              f'rollback_after={args.rollback_after} watchdog={wd} '
+              f'preempt_poll={args.preempt_poll:.1f}s', flush=True)
+
+    # Checkpoint cadence: steps (--ckpt-every) or wall time
+    # (--ckpt-interval SECONDS | auto), converted to steps from the mean
+    # step time of the first logged window (its warm-up errs toward
+    # checkpointing too often: the safe side).
+    ckpt_every_steps = args.ckpt_every
+    ckpt_interval_s = None
+    if args.ckpt_interval == 'auto':
+        from skypilot_tpu_torch.jobs import policy as jobs_policy
+        rate = (args.preemption_rate if args.preemption_rate is not None
+                else float(os.environ['SKYPILOT_PREEMPTION_RATE_PER_HOUR']))
+        overhead = (args.ckpt_overhead if args.ckpt_overhead is not None
+                    else jobs_policy.DEFAULT_CKPT_OVERHEAD_S)
+        ckpt_interval_s = jobs_policy.optimal_checkpoint_interval(
+            rate, overhead)
+        print(f'ckpt-interval auto: lambda={rate}/hr '
+              f'delta={overhead:.0f}s -> tau*={ckpt_interval_s:.0f}s (step '
+              f'cadence fixed after the first logged window)', flush=True)
+    elif args.ckpt_interval is not None:
+        ckpt_interval_s = float(args.ckpt_interval)
+    cadence_fixed = ckpt_interval_s is None
+
     t0 = time.perf_counter()
     window_tokens = window_steps = 0
-    step = state.step
+    step = start_step
+    pending = None  # guard: the last dispatched step's verdict, in flight
     while step < args.steps:
-        tokens = next_tokens()
-        state, aux = step_fn(state, tokens)
-        loss, gnorm = aux if emitter is not None else (aux, None)
+        if sup is not None and sup.preempted:
+            # Preemption notice (metadata, SIGTERM, or injected):
+            # checkpoint NOW and exit with the typed code the managed-jobs
+            # controller maps to recovery; the resumed run loses at most
+            # the step that was in flight.
+            if sup.watchdog is not None:
+                sup.watchdog.stop()  # a slow save must not trip it
+            print(f'preemption notice ({sup.preempt_reason}) at step '
+                  f'{step}: checkpointing and exiting '
+                  f'rc={train_guard.EXIT_PREEMPTED_GRACEFUL}', flush=True)
+            if mgr is not None:
+                with timeline.Event('train/checkpoint', 'preempt'):
+                    mgr.save(step, state, force=True)
+                    mgr.wait_until_finished()
+                    mgr.close()
+            if emitter is not None:
+                emitter.close()
+            if args.trace_file:
+                timeline.save()
+            sup.stop()
+            sys.exit(train_guard.EXIT_PREEMPTED_GRACEFUL)
+        # >= not ==: a checkpoint resume may land past prof_start.
+        if profiler is None and prof_start <= step < prof_stop:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == 'cuda':
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.start()
+        first = step == start_step
+        if sup is not None:
+            sup.beat('data', first_step=first)
+        with timeline.Event('train/data'):
+            tokens = next_tokens()
+        if sup is not None:
+            sup.beat('step', first_step=first)
+        with timeline.Event('train/step', f'step {step}'):
+            if sup is not None:
+                max_gnorm, loss_scale = sup.step_ctl(step)
+                state, aux = step_fn(state, tokens, max_gnorm, loss_scale)
+            else:
+                faults.point('train.step', step=str(step), **resume_ctx)
+                state, aux = step_fn(state, tokens)
+        if sup is not None:
+            loss, gnorm, bad_flag = aux
+            verdict_in_flight = HostScalars(loss, gnorm, bad_flag)
+        elif emitter is not None:
+            loss, gnorm = aux
+        else:
+            loss, gnorm = aux, None
+        if profiler is not None and step + 1 >= prof_stop:
+            stop_profile()
+            # One window a run: a rollback into it does not trace again.
+            profiler, prof_start, prof_stop = None, -1, -1
+            print(f'profile: steps {args.profile_window[0]}..'
+                  f'{args.profile_window[1]} traced to {args.profile}',
+                  flush=True)
         window_tokens += batch * args.seq
         window_steps += 1
-        if mgr is not None:
-            mgr.save(step + 1, state)
-        if (step + 1) % args.log_every == 0:
+        if sup is not None:
+            # Lagged observation: read the PREVIOUS step's verdict while
+            # this one runs (a rollback discards at most the one step
+            # dispatched since).
+            if pending is not None:
+                p_step, p_scalars = pending
+                pending = None
+                p_loss, p_gnorm, p_bad = p_scalars.values()
+                verdict = sup.observe(p_step, p_loss, p_gnorm, bool(p_bad))
+                if verdict == 'rollback':
+                    restored = False
+                    if mgr is not None:
+                        try:
+                            state = mgr.restore(state)
+                            restored = True
+                        except CheckpointNotFoundError:
+                            pass
+                    if restored:
+                        sup.guard.reset_after_rollback()
+                        step = state.step
+                        t0 = time.perf_counter()
+                        window_tokens = window_steps = 0
+                        print(f'train-guard: rolled back to last '
+                              f'checkpoint (step {step})', flush=True)
+                        continue
+                    # Nothing to roll back to. The params are still clean
+                    # (every bad step was skipped on the device): reset
+                    # the escalation counter and keep skipping.
+                    sup.guard.consecutive_bad = 0
+                    print('train-guard: rollback requested but no '
+                          'checkpoint available; continuing with per-step '
+                          'skips', flush=True)
+            pending = (step, verdict_in_flight)
+        if mgr is not None and (ckpt_interval_s is None or
+                                (step + 1) % ckpt_every_steps == 0):
+            with timeline.Event('train/checkpoint', f'step {step + 1}'):
+                mgr.save(step + 1, state)
+        if profiler is not None and step + 1 >= args.steps:
+            # The window ran past the final step: still flush the trace.
+            stop_profile()
+            profiler, prof_start, prof_stop = None, -1, -1
+            print(f'profile: traced through final step {step + 1} to '
+                  f'{args.profile}', flush=True)
+        boundary = (step + 1) % args.log_every == 0
+        if boundary and not cadence_fixed:
+            if sup is not None:
+                sup.beat('commit')
+            float(loss)         # waits for the step to finish
+            mean_step = (time.perf_counter() - t0) / max(window_steps, 1)
+            ckpt_every_steps = max(1, round(ckpt_interval_s /
+                                            max(mean_step, 1e-9)))
+            cadence_fixed = True
+            print(f'ckpt cadence: interval {ckpt_interval_s:.0f}s / '
+                  f'measured step {mean_step:.3f}s -> checkpoint every '
+                  f'{ckpt_every_steps} steps', flush=True)
+        if boundary:
+            if sup is not None:
+                sup.beat('commit')
             loss_val = float(loss)      # waits for the step to finish
             dt = time.perf_counter() - t0
             print(f'step {step + 1}/{args.steps} loss={loss_val:.4f} '
@@ -250,12 +519,23 @@ def main(argv: Optional[List[str]] = None) -> None:
             if emitter is not None:
                 emitter.log(step + 1, step_time_s=dt / max(window_steps, 1),
                             tokens=batch * args.seq, loss=loss_val,
-                            grad_norm=float(gnorm))
+                            grad_norm=(float(gnorm) if gnorm is not None
+                                       else None))
             t0 = time.perf_counter()
             window_tokens = window_steps = 0
         step += 1
+    if sup is not None:
+        if pending is not None:
+            p_step, p_scalars = pending
+            p_loss, p_gnorm, p_bad = p_scalars.values()
+            sup.observe(p_step, p_loss, p_gnorm, bool(p_bad))
+        sup.stop()  # before the final save: it can be slow
+        print(f'train-guard summary: {sup.summary()}', flush=True)
     if mgr is not None:
-        mgr.save(args.steps, state, force=True)
+        with timeline.Event('train/checkpoint', 'final'):
+            mgr.save(args.steps, state, force=True)
+            mgr.wait_until_finished()
+            mgr.close()
     if lora_spec is not None:
         # The produce half of the fine-tune-and-serve loop: the trained
         # factors become an artifact serve_lm --adapter-dir loads.
@@ -264,13 +544,18 @@ def main(argv: Optional[List[str]] = None) -> None:
             else 'adapter_out')
         lora_lib.save_adapter(
             out_dir, convert.lora_params_to_numpy(state.params['lora']),
-            lora_spec, base_model=args.model, step=state.step)
+            lora_spec, base_model=args.init_from_hf or args.model,
+            step=state.step)
         print(f'adapter artifact -> {out_dir} (rank={lora_spec.rank} '
               f'alpha={lora_spec.alpha} targets={list(lora_spec.targets)})',
               flush=True)
     if emitter is not None:
         emitter.close()
+    if loader is not None:
+        loader.close()
     print('training done', flush=True)
+    if args.trace_file:
+        timeline.save()
 
 
 if __name__ == '__main__':

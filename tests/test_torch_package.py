@@ -117,6 +117,9 @@ def test_train_lm_imports_without_jax():
             'import skypilot_tpu_torch.observability.step_metrics\n'
             'import skypilot_tpu_torch.ops.flash_kernel\n'
             'import skypilot_tpu_torch.ops.fused_xent\n'
+            'import skypilot_tpu_torch.robustness.train_guard\n'
+            'import skypilot_tpu_torch.jobs.policy\n'
+            'import skypilot_tpu_torch.utils.timeline\n'
             'print("ok")\n')
     out = _run(code)
     assert out.returncode == 0, out.stderr

@@ -25,7 +25,9 @@ CPU, f32:
   - `train_lm --cpu` runs, writes metrics, resumes; `--lora` writes an
     adapter the reference's lora.load_adapter reads and the port's
     AdapterRegistry serves; refused flags and model families exit
-    naming themselves; MFU's N leaves the embedding table out;
+    naming themselves, and the recovery-contract flags (--guard,
+    --ckpt-interval, --init-from-hf, --profile, --trace-file) run
+    through the loop; MFU's N leaves the embedding table out;
   - serving's parameter storage is unchanged by the training layout;
   - whole-prompt prefill of a 2100-token prompt (prefill_chunk=0) on
     llama-tiny with its context grown gives the reference engine's
@@ -380,7 +382,7 @@ def test_token_loader_matches_reference_numpy_path(tmp_path, shuffle, rank,
     kw = dict(batch=3, seq=64, seed=5, rank=rank, world=world,
               shuffle=shuffle)
     ref = JaxTokenLoader(paths, use_native=False, **kw)
-    port = TokenLoader(paths, **kw)
+    port = TokenLoader(paths, use_native=False, **kw)
     for _ in range(4):
         np.testing.assert_array_equal(port.next_batch(), ref.next_batch())
 
@@ -454,16 +456,11 @@ def test_train_lm_lora_adapter_loads_in_both_packages(tmp_path):
 
 
 @pytest.mark.parametrize('argv,name', [
-    (['--zero1'], '--zero1'),
-    (['--guard'], '--guard'),
-    (['--overlap'], '--overlap'),
+    (['--zero1'], '--zero1 (ROADMAP A11)'),
+    (['--overlap'], '--overlap (ROADMAP A11)'),
     (['--tensor', '2'], '--tensor'),
     (['--pipeline-stages', '2'], '--pipeline-stages'),
     (['--microbatches', '4'], '--microbatches'),
-    (['--ckpt-interval', 'auto'], '--ckpt-interval'),
-    (['--init-from-hf', 'dir'], '--init-from-hf'),
-    (['--profile', 'dir'], '--profile'),
-    (['--trace-file', 't.json'], '--trace-file'),
     (['--model', 'gpt2-124m'], 'gpt2-124m'),
     (['--model', 'mixtral-tiny'], 'mixtral-tiny'),
     (['--model', 'deepseek-v2-lite'], 'deepseek-v2-lite'),
@@ -475,6 +472,62 @@ def test_refused_flags_and_models_exit_naming_themselves(argv, name,
         train_lm.parse_args(['--cpu'] + argv)
     assert exc.value.code != 0
     assert name in capsys.readouterr().err
+
+
+@pytest.fixture(scope='module')
+def hf_dir(tmp_path_factory):
+    import transformers
+    path = tmp_path_factory.mktemp('hf_llama')
+    torch.manual_seed(0)
+    transformers.LlamaForCausalLM(transformers.LlamaConfig(
+        vocab_size=512, hidden_size=128, intermediate_size=384,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=256)).save_pretrained(
+            str(path), safe_serialization=True)
+    return path
+
+
+# Flags refused until the recovery-contract slice, each now parsed and
+# run through the loop: (argv, lines the run prints).
+PORTED_FLAGS = {
+    '--guard': (['--guard'], ['train-guard armed:', 'train-guard summary:']),
+    '--ckpt-interval': (['--ckpt-interval', 'auto', '--preemption-rate',
+                         '0.5', '--ckpt-dir', '{tmp}/ckpt'],
+                        ['ckpt-interval auto: lambda=0.5/hr delta=60s -> '
+                         'tau*=930s', 'ckpt cadence: interval 930s']),
+    '--init-from-hf': (['--init-from-hf', '{hf}'],
+                       ['initializing from HF checkpoint']),
+    '--profile': (['--profile', '{tmp}/prof', '--profile-steps', '0:1'],
+                  ['profile: steps 0..1 traced to']),
+    '--trace-file': (['--trace-file', '{tmp}/t.json'], []),
+}
+
+
+@pytest.mark.parametrize('flag', sorted(PORTED_FLAGS))
+def test_ported_flags_parse_and_reach_the_loop(flag, tmp_path, hf_dir,
+                                               capsys, monkeypatch):
+    from skypilot_tpu_torch.robustness import train_guard
+    from skypilot_tpu_torch.utils import timeline
+    # The notice's metadata probe goes to a closed port on this host.
+    monkeypatch.setenv(train_guard.METADATA_URL_ENV, 'http://127.0.0.1:9/')
+    monkeypatch.setattr(timeline, '_enabled_path', None)
+    monkeypatch.setattr(timeline, '_events', [])
+    argv, lines = PORTED_FLAGS[flag]
+    argv = [a.format(tmp=tmp_path, hf=hf_dir) for a in argv]
+    train_lm.main(['--cpu', '--model', 'llama-tiny', '--seq', '32',
+                   '--global-batch', '2', '--steps', '2', '--log-every',
+                   '1', *argv])
+    out = capsys.readouterr().out
+    assert 'step 2/2 loss=' in out and 'training done' in out
+    for line in lines:
+        assert line in out, (line, out)
+    if flag == '--profile':
+        traces = os.listdir(tmp_path / 'prof')
+        assert len(traces) == 1 and traces[0].endswith('.pt.trace.json')
+    if flag == '--trace-file':
+        names = [e['name'] for e in json.loads(
+            (tmp_path / 't.json').read_text())['traceEvents']]
+        assert names.count('train/step') == 2 and 'train/init' in names
 
 
 def test_bare_recipe_refuses_the_reference_default_naming_a12(capsys):

@@ -6,7 +6,9 @@
 Drives the port's main paths (`serve_lm --continuous-batching` on a
 paged KV pool, base model and multi-LoRA, whole-prompt long prefill,
 SSE streams, text and chat endpoints, logprobs, `--hf` checkpoints and
-the one-shot engine; training through the trainer API and `train_lm
+the one-shot engine; KV page chains: export / import, the host and cold
+spill tiers, disaggregated prefill / decode roles and live migration;
+training through the trainer API and `train_lm
 --lora`, and train_lm's recovery contract: --guard, --init-from-hf, the
 native token reader, --ckpt-interval, --profile) through the
 entry points a user calls, at the full width of Llama-3-8B with seeded
@@ -145,6 +147,49 @@ failure exits non-zero before the result lines:
                  part from them only at a top-2 margin <= 0.5 (bf16
                  routes that sum in other orders; exact in f32, see
                  greedy_parity)
+  kv_chain       per pool (bf16, int8), two runtimes of serve_lm's flags
+                 (--max-total-len 2048) sharing the weights: engine A
+                 serves P (2003 tokens: 125 pages of 16 and a 3-token
+                 tail) cold, then warm, 32 greedy tokens each; A's
+                 export of P imports into B as {pages: 125, imported:
+                 125, already_cached: 0, dropped: 0}; B serves P with A's
+                 warm tokens exactly (both prefill one tail chunk at
+                 offset 2000 over the same page bytes), its prefix hits
+                 grow by 125, and its re-export equals A's export whole
+                 (header included); the paged split and chunk routes
+                 launched, no plain call; export (gather, device-to-host,
+                 pack) and import (unpack, host-to-device, scatter) ms and
+                 GB/s on the scheduler thread, cold / warm / imported
+                 TTFT, and the first index where cold and warm tokens
+                 part (bf16 chunking; not gated)
+  kv_spill       a ~300-page bf16 pool with --kv-spill-bytes 512 MiB: P
+                 served cold and warm, prompts of 1000 tokens fill the
+                 pool until every page of P is evicted, P again: the
+                 restored pages number P's 125 spilled ones (none
+                 dropped) and the tokens equal the warm ones exactly;
+                 then a host tier of 8 MiB (4 pages) with --kv-cold-dir
+                 under build/: the same gates, cold reads > 0; the
+                 restore's ms (on the scheduler thread) beside the cold
+                 prefill's TTFT
+  disagg         two make_servers, --role decode and --role prefill
+                 --decode-peers <decode>: 4 greedy /generate requests of
+                 1990-2005 tokens and one SSE stream through the prefill
+                 replica; each answer equals the decode replica's answer
+                 to the same request sent to it directly; handoffs == 5,
+                 failures == 0 on the prefill side, kv_imports == 5 on
+                 the decode side; then /kv/peers to a closed port: the
+                 same answers served locally, one failure each; handoff
+                 seconds and bytes, TTFT through the prefill replica vs a
+                 cold prompt's straight to the decode replica
+  migration      replicas A and B: a 64-token greedy stream on A, POST
+                 /kv/evacuate {reason: drain, target: B} after 8 tokens:
+                 the stream ends with 64 tokens (its terminal row equal
+                 to them) and no error, A counts migrations{drain} >= 1
+                 and B migrations_in >= 1, the tokens before the
+                 evacuation equal an undisturbed run's; the first index
+                 parting from it after the evacuation is printed (B
+                 recomputes the sub-page tail as a chunk where A decoded
+                 it token by token: exact only in f32, held in tier-1)
   serve_hf       a Llama-3-8B-width checkpoint cut to 2 layers, written
                  here in HF's layout (two bf16 safetensors shards and an
                  index), served through serve_lm --hf: weights on the card
@@ -2970,6 +3015,305 @@ def phase_one_shot(model, pk, lk, fk, card):
                   f'{margin} > {PART_MARGIN_TOL}')
 
 
+# -- KV page chains ------------------------------------------------------------
+CHAIN_FLAGS = ['--max-total-len', '2048']
+CHAIN_PROMPT = 2003      # 125 full pages of 16 and a 3-token tail
+PAGE_MIB = 2             # a bf16 page: 32 layers x K, V x 8 x 16 x 128 x 2 B
+
+
+def chain_prompt(seed, n=CHAIN_PROMPT):
+    return np.random.default_rng(seed).integers(1, 128256, n).tolist()
+
+
+def first_part(a, b):
+    """The first index where two token rows part (None if they agree)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def timed_tokens(eng, prompt, n=32):
+    """(prompt ++ n greedy tokens, seconds to the first committed token)
+    of one request on `eng`."""
+    t0 = time.perf_counter()
+    first = []
+    out = eng.submit(prompt, max_new_tokens=n, temperature=0.0,
+                     on_token=lambda t: first or first.append(
+                         time.perf_counter() - t0)).result(timeout=600)
+    check(len(out) == len(prompt) + n and out[:len(prompt)] == prompt,
+          'bad answer')
+    return out, first[0]
+
+
+def on_scheduler_ms(eng, fn):
+    """(fn(), ms) with fn run on the engine's scheduler thread (where a
+    chain op runs inline) and timed there, to its last device write:
+    the op alone, not the wait for an idle scheduler to pick it up."""
+    def op():
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+    return eng.run_on_scheduler(op)
+
+
+def paged_window(pk):
+    """Zero the paged kernel's counts; returns a reader of them."""
+    zero_paged(pk)
+    pk.launches = pk.plain_calls = 0
+
+    def read():
+        routes = dict(pk.route_launches)
+        check(routes['split'] > 0 and routes['chunk'] > 0
+              and routes['scalar'] == 0 and pk.plain_calls == 0,
+              f'paged launches by route {routes}, {pk.plain_calls} plain '
+              f'calls')
+        return {'route_launches': routes, 'plain_calls': pk.plain_calls}
+    return read
+
+
+def phase_kv_chain(model, pk, card):
+    """Engine A serves P cold then warm; its chain imports into engine B
+    (its own pool), which serves P with A's warm tokens and re-exports
+    the same bytes; for a bf16 and an int8 pool."""
+    prompt = chain_prompt(11)
+    for kv in ('bf16', 'int8'):
+        made = [serve_runtime(model, kv, CHAIN_FLAGS) for _ in range(2)]
+        (rt_a, *_), (rt_b, *_) = made
+        a, b = rt_a.engine, rt_b.engine
+        try:
+            read = paged_window(pk)
+            cold, cold_ttft = timed_tokens(a, prompt)
+            warm, warm_ttft = timed_tokens(a, prompt)
+            data, export_ms = on_scheduler_ms(
+                a, lambda: a.export_chain(prompt))
+            summary, import_ms = on_scheduler_ms(
+                b, lambda: b.import_chain(data))
+            check(summary == {'pages': 125, 'imported': 125,
+                              'already_cached': 0, 'dropped': 0},
+                  f'import summary {summary}')
+            h0 = b.prefix_cache.hits
+            got, b_ttft = timed_tokens(b, prompt)
+            hits = b.prefix_cache.hits - h0
+            again = b.export_chain(prompt)
+            counts = read()
+        finally:
+            for m in made:
+                stop_runtime(*m[:3])
+        check(got == warm, f'{kv}: B parts from A\'s warm tokens at '
+                           f'{first_part(got, warm)}')
+        check(hits == 125, f'{kv}: B prefix hits grew by {hits}')
+        check(again == data, f'{kv}: B\'s re-export differs from A\'s')
+        emit('kv_chain', card=card, pool=kv, prompt_tokens=len(prompt),
+             pages=125, bytes=len(data), export_ms=export_ms,
+             import_ms=import_ms,
+             export_gb_per_s=len(data) / export_ms / 1e6,
+             import_gb_per_s=len(data) / import_ms / 1e6,
+             cold_ttft_ms=1e3 * cold_ttft, warm_ttft_ms=1e3 * warm_ttft,
+             imported_ttft_ms=1e3 * b_ttft,
+             cold_vs_warm_first_part=first_part(cold[len(prompt):],
+                                                warm[len(prompt):]),
+             b_equals_a_warm=True, reexport_bytes_equal=True,
+             prefix_hits=hits, **counts)
+
+
+def spill_run(model, pk, extra, label, card):
+    """P served cold and warm on a ~300-page pool; prompts of 1000
+    tokens fill the pool until every page of P is evicted (and
+    spilled); P again restores them: the warm tokens, exactly."""
+    prompt = chain_prompt(12)
+    rt, server, thread, _, _ = serve_runtime(
+        model, 'bf16', CHAIN_FLAGS + ['--kv-pool-bytes',
+                                      str(300 * PAGE_MIB << 20)] + extra)
+    eng = rt.engine
+    keys = eng.prefix_cache.chain_keys(prompt, eng.page_size)
+    restore_s = []
+    real = eng._restore_from_spill
+
+    def timed_restore(*a):   # the restore alone: lookups, H2D, scatter
+        t0 = time.perf_counter()
+        real(*a)
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - t0)
+
+    eng._restore_from_spill = timed_restore
+    try:
+        read = paged_window(pk)
+        _, cold_ttft = timed_tokens(eng, prompt)
+        warm, warm_ttft = timed_tokens(eng, prompt)
+        fills = 0
+        while any(k in eng.prefix_cache.by_key for k in keys):
+            check(fills < 12, 'the fills never evicted P')
+            timed_tokens(eng, chain_prompt(100 + fills, 1000), n=8)
+            fills += 1
+        spilled = eng.prefix_cache.spilled_pages
+        tier0 = eng.spill_tier.stats()
+        restored0 = eng.kv_restored_pages
+        restore_s.clear()
+        got, restored_ttft = timed_tokens(eng, prompt)
+        restored = eng.kv_restored_pages - restored0
+        tier = eng.spill_tier.stats()
+        counts = read()
+    finally:
+        stop_runtime(rt, server, thread)
+    check(got == warm, f'{label}: restored run parts from the warm '
+                       f'tokens at {first_part(got, warm)}')
+    check(restored == len(keys) and tier0['dropped_pages'] == 0,
+          f'{label}: restored {restored} of {len(keys)} spilled pages '
+          f'({tier0})')
+    if 'cold' in tier:
+        check(tier['cold']['reads'] > 0, f'{label}: no cold reads {tier}')
+    emit('kv_spill', card=card, tier=label, pool_pages=eng.total_pages,
+         fills=fills, spilled_pages=spilled, restored_pages=restored,
+         restore_ms=1e3 * sum(restore_s), restore_calls=len(restore_s),
+         restore_gb_per_s=(restored * (PAGE_MIB << 20) / sum(restore_s)
+                           / 1e9 if restore_s else None),
+         cold_ttft_ms=1e3 * cold_ttft, warm_ttft_ms=1e3 * warm_ttft,
+         restored_ttft_ms=1e3 * restored_ttft, tokens_equal_warm=True,
+         tier_stats=tier, **counts)
+
+
+def phase_kv_spill(model, pk, card):
+    spill_run(model, pk, ['--kv-spill-bytes', str(512 << 20)], 'host', card)
+    cold = os.path.join(WORK, 'kv_cold')
+    shutil.rmtree(cold, ignore_errors=True)
+    try:
+        spill_run(model, pk, ['--kv-spill-bytes', str(4 * PAGE_MIB << 20),
+                              '--kv-cold-dir', cold], 'host+cold', card)
+    finally:
+        shutil.rmtree(cold, ignore_errors=True)
+
+
+def phase_disagg(model, pk, card):
+    """A prefill replica hands 4 /generate requests and an SSE stream of
+    ~2000 tokens to a decode replica; each answer equals the decode
+    replica's own (warm) answer to the same request; then a dead peer:
+    every request serves locally with the same answers."""
+    dec = serve_runtime(model, 'bf16', CHAIN_FLAGS + ['--role', 'decode'])
+    pre = serve_runtime(model, 'bf16', CHAIN_FLAGS + [
+        '--role', 'prefill', '--decode-peers', f'127.0.0.1:{dec[3]}'])
+    d_port, p_port = dec[3], pre[3]
+    ps = [chain_prompt(20 + i, 1990 + 5 * i) for i in range(5)]
+    try:
+        read = paged_window(pk)
+        outs, e2e = [], []
+        for p in ps[:4]:
+            t0 = time.perf_counter()
+            outs.append(post(p_port, '/generate', {
+                'tokens': [p], 'max_new_tokens': 32})['tokens'][0])
+            e2e.append(time.perf_counter() - t0)
+        events, handoff_ttft, _ = sse(p_port, '/generate', {
+            'tokens': [ps[4]], 'max_new_tokens': 32, 'stream': True})
+        check(events[-1] == '[DONE]' and events[-2].get('done'),
+              'handoff stream did not end')
+        outs.append(ps[4] + [e['token'] for e in events
+                             if isinstance(e, dict) and 'token' in e])
+        pre_stats = post_stats(p_port)['handoff']
+        dec_stats = post_stats(d_port)['handoff']
+        direct = [post(d_port, '/generate', {'tokens': [p],
+                                             'max_new_tokens': 32}
+                       )['tokens'][0] for p in ps]
+        # A unified replica's TTFT: a cold prompt straight to the decode
+        # replica (the role is a label there).
+        _, unified_ttft, _ = sse(d_port, '/generate', {
+            'tokens': [chain_prompt(30, 2000)], 'max_new_tokens': 32,
+            'stream': True})
+        post(p_port, '/kv/peers', {'decode': ['127.0.0.1:9']})
+        local = [post(p_port, '/generate', {'tokens': [p],
+                                            'max_new_tokens': 32}
+                      )['tokens'][0] for p in ps[:2]]
+        dead = post_stats(p_port)['handoff']
+        counts = read()
+    finally:
+        stop_runtime(*pre[:3])
+        stop_runtime(*dec[:3])
+    for i, (o, d) in enumerate(zip(outs, direct)):
+        check(o == d, f'request {i}: the handoff answer parts from the '
+                      f'decode replica\'s at {first_part(o, d)}')
+    check(pre_stats['handoffs'] == 5 and pre_stats['failures'] == 0
+          and dec_stats['kv_imports'] == 5,
+          f'handoff counts {pre_stats} {dec_stats}')
+    check(local == direct[:2], 'a dead peer changed the answers')
+    check(dead['handoffs'] == 7 and dead['failures'] == 2,
+          f'dead-peer counts {dead}')
+    emit('disagg', card=card, prompt_tokens=[len(p) for p in ps],
+         handoffs=pre_stats['handoffs'], failures=pre_stats['failures'],
+         kv_imports=dec_stats['kv_imports'],
+         handoff_bytes=pre_stats['bytes'],
+         handoff_s_mean=pre_stats['seconds'] / pre_stats['handoffs'],
+         e2e_s=e2e, ttft_through_prefill_s=handoff_ttft,
+         ttft_unified_s=unified_ttft, answers_equal_direct=True,
+         dead_peer_failures=dead['failures'], **counts)
+
+
+def post_stats(port):
+    with urllib.request.urlopen(f'http://127.0.0.1:{port}/stats',
+                                timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def phase_migration(model, pk, card):
+    """A 64-token greedy stream on replica A; after 8 tokens POST
+    /kv/evacuate to A with B as the target: the stream ends with 64
+    tokens through B, with the undisturbed run's tokens before the
+    evacuation."""
+    rep_b = serve_runtime(model, 'bf16', CHAIN_FLAGS)
+    rep_a = serve_runtime(model, 'bf16', CHAIN_FLAGS)
+    prompt = chain_prompt(40, 1000)
+    body = {'tokens': [prompt], 'max_new_tokens': 64, 'stream': True}
+    try:
+        read = paged_window(pk)
+        undisturbed = post(rep_b[3], '/generate', dict(
+            body, stream=False))['tokens'][0][len(prompt):]
+        import http.client
+        conn = http.client.HTTPConnection('127.0.0.1', rep_a[3],
+                                          timeout=600)
+        conn.request('POST', '/generate', json.dumps(body),
+                     {'Content-Type': 'application/json'})
+        resp = conn.getresponse()
+        toks, done, evac, at = [], None, None, None
+        t_evac = None
+        for line in resp:
+            if not line.startswith(b'data: '):
+                continue
+            data = line[6:].strip()
+            if data == b'[DONE]':
+                break
+            frame = json.loads(data)
+            if 'token' in frame:
+                toks.append(frame['token'])
+            if frame.get('done'):
+                done = frame
+            if len(toks) == 8 and evac is None:
+                t_evac = time.perf_counter()
+                evac = post(rep_a[3], '/kv/evacuate', {
+                    'reason': 'drain', 'target': f'127.0.0.1:{rep_b[3]}'})
+                at = len(toks)
+        conn.close()
+        stats_a, stats_b = post_stats(rep_a[3]), post_stats(rep_b[3])
+        counts = read()
+    finally:
+        stop_runtime(*rep_a[:3])
+        stop_runtime(*rep_b[:3])
+    mig_a, mig_b = stats_a.get('migration', {}), stats_b.get('migration', {})
+    check(len(toks) == 64 and done is not None
+          and done['tokens'][0][len(prompt):] == toks,
+          f'migrated stream: {len(toks)} tokens, terminal {done is not None}')
+    check(evac['evacuated'] == 1 and evac['chains'] == 1, f'{evac}')
+    check(mig_a['migrations'].get('drain', 0) >= 1
+          and mig_b['migrations_in'] >= 1, f'{mig_a} {mig_b}')
+    check(toks[:at] == undisturbed[:at],
+          'tokens before the evacuation part from the undisturbed run')
+    emit('migration', card=card, prompt_tokens=len(prompt), new_tokens=64,
+         evacuated_after=at, evacuate=evac,
+         first_part_from_undisturbed=first_part(toks, undisturbed),
+         migration_s=mig_a['seconds'], migrations=mig_a['migrations'],
+         migrations_in=mig_b['migrations_in'],
+         tokens_recomputed=mig_b['tokens_recomputed'],
+         imported_pages=stats_b['handoff']['kv_imported_pages'],
+         stream_wall_after_evacuate_s=time.perf_counter() - t_evac,
+         **counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
@@ -3033,6 +3377,12 @@ def main() -> int:
     phase_serve_stream(model, pk, lk, fk, card)
     phase_serve_text(model, pk, lk, fk, card)
     phase_one_shot(model, pk, lk, fk, card)
+    # KV page chains: export / import, the spill tiers, disaggregated
+    # roles and live migration, each counted from zero.
+    phase_kv_chain(model, pk, card)
+    phase_kv_spill(model, pk, card)
+    phase_disagg(model, pk, card)
+    phase_migration(model, pk, card)
     del model
     torch.cuda.empty_cache()
     phase_serve_hf(pk, lk, fk, card)

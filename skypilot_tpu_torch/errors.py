@@ -1,7 +1,8 @@
 """Error types of the port: its own copies of the ones that
 `skypilot_tpu/robustness/errors.py` defines for the continuous-batching
-engine and the adapter registry (the HTTP layer maps each to a status)
-and for checkpoint restore (parallel/checkpoints.py)."""
+engine, the adapter registry and live KV-chain migration (the HTTP
+layer maps each to a status) and for checkpoint restore
+(parallel/checkpoints.py)."""
 
 
 class DeadlineExceededError(Exception):
@@ -34,6 +35,25 @@ class AdapterLoadError(Exception):
     """A registered adapter failed to load onto the device (corrupt
     artifact, shape/rank mismatch with the serving store). The request
     fails 503; the engine and every other adapter keep serving."""
+
+
+class SessionMigratedError(Exception):
+    """The engine evacuated this request's slot (drain, preemption
+    notice or rebalance): the future resolves with this instead of a
+    result, carrying in `record` what the HTTP layer needs to finish
+    the session elsewhere: the committed tokens (prompt + generated so
+    far), the generation budget, the sampling knobs and the packed KV
+    chain of the committed full pages. The HTTP thread that owns the
+    client ships the chain to a peer and proxies the tail; any failure
+    resumes locally on the still-warm pages (HTTP 503 only when both
+    fail)."""
+
+    def __init__(self, record: dict) -> None:
+        super().__init__(
+            f'session migrated after '
+            f'{len(record.get("tokens") or []) - int(record.get("prompt_len", 0))}'
+            f' generated tokens (reason: {record.get("reason", "")})')
+        self.record = record
 
 
 class CheckpointNotFoundError(Exception):

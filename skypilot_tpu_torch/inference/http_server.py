@@ -25,6 +25,16 @@ skypilot_tpu/inference/http_server.py `make_server` / `serve`):
                                token-id prompts (each choice then
                                carries its ids in "tokens")
   POST /v1/chat/completions    OpenAI chat (+SSE, n > 1)
+  POST /kv/import              decode side of a handoff: a packed KV
+                               chain ({"payload": base64}), and
+                               optionally the request to serve on it
+                               ({"path", "request"})
+  POST /kv/peers               the fleet's push of the decode pool
+                               ({"decode": ["host:port", ...]})
+  POST /kv/evacuate            evacuate the sessions ({"reason",
+                               "target", "max_sessions"}); their HTTP
+                               threads ship the chains to a peer
+  POST /kv/migrate             receiving side of a live migration
 
 The `model` field selects a LoRA adapter by name (the base model's
 name, 'base', 'default' or no field = the base model); an unknown
@@ -33,29 +43,47 @@ to load a 503. SSE streams end with `data: [DONE]`; a client that
 disconnects mid-stream cancels its rows, freeing their slots. Without
 --continuous-batching, /generate and the text endpoints run the
 one-shot engine; streams and adapter requests run on the runtime's
-stream engine. /metrics and the /kv/* endpoints are not ported yet
-(ROADMAP A6).
+stream engine.
+
+Disaggregated serving and live migration (the reference's contract):
+a prefill-role replica prefills each single-row /generate prompt with
+one local token, exports the prompt's KV chain, POSTs it with the
+request to the decode peer the ring picks, and proxies the answer
+(JSON body or SSE tail); any failure serves the request locally from
+the warm pages. An evacuated session (POST /kv/evacuate, SIGTERM or a
+preemption notice) ships its committed chain and the continuation to a
+peer's /kv/migrate and proxies the tail; a failed ship resumes locally.
+Peer POSTs go through http.client (connect timeout 3 s, read timeout
+the request deadline + 60 s); 429, 500, 502 and 503 fail a handoff.
+/metrics waits for ROADMAP A6(e).
 """
 from __future__ import annotations
 
+import base64
+import binascii
+import http.client
 import json
 import os
+import re
 import signal
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 from skypilot_tpu_torch.errors import (AdapterLoadError,
                                        AdapterNotFoundError,
                                        DeadlineExceededError,
-                                       EngineDeadError, QueueSaturatedError)
+                                       EngineDeadError, QueueSaturatedError,
+                                       SessionMigratedError)
+from skypilot_tpu_torch.inference import affinity, sse
 from skypilot_tpu_torch.inference import openai_compat as oai
 from skypilot_tpu_torch.inference.runtime import (FirstTokenLatch,
                                                   InferenceRuntime,
                                                   iter_interleaved)
 from skypilot_tpu_torch.ops import lora_kernel, paged_kernel
+from skypilot_tpu_torch.robustness import faults, train_guard
 
 
 #: The environment variable through which the replica plane hands a
@@ -74,6 +102,10 @@ def classify_error(e: Exception):
         return 429, e.retry_after_s
     if isinstance(e, DeadlineExceededError):
         return 504, None
+    if isinstance(e, SessionMigratedError):
+        # The peer ship and the local resume both failed: 503 is
+        # retryable, so the load balancer resubmits elsewhere.
+        return 503, 0.5
     if isinstance(e, (EngineDeadError, AdapterLoadError)):
         return 503, None
     if isinstance(e, AdapterNotFoundError):
@@ -99,11 +131,13 @@ def _submit_all(engine, rows: List[List[int]], **kw):
 def _run_rows(rt: InferenceRuntime, rows: List[List[int]], *,
               max_new: int, temperature: float, top_k: int, top_p: float,
               stop_ids: List[int], deadline_s: float,
-              adapter: Optional[str]) -> Tuple[List[List[int]],
-                                                Optional[float]]:
+              adapter: Optional[str],
+              resume: Callable[[dict], List[int]]
+              ) -> Tuple[List[List[int]], Optional[float]]:
     """(rows of prompt ++ generated, TTFT) of ragged rows: on the
     engine that serves them, or each alone through the one-shot
-    buckets (no TTFT then)."""
+    buckets (no TTFT then). A row whose slot was evacuated is finished
+    by `resume(record)` (on a peer, or locally on the warm pages)."""
     eng = rt.engine_for(adapter)
     if eng is None:
         return rt.one_shot_rows(rows, max_new, temperature), None
@@ -113,8 +147,79 @@ def _run_rows(rt: InferenceRuntime, rows: List[List[int]], *,
                        stop_token_ids=stop_ids, on_token=latch,
                        deadline_s=deadline_s, adapter=adapter)
     # The engine reaps expired requests; the host timeout is a backstop.
-    out = [f.result(timeout=deadline_s + 30.0) for f in futs]
+    out = []
+    for f in futs:
+        try:
+            out.append(f.result(timeout=deadline_s + 30.0))
+        except SessionMigratedError as me:
+            out.append(resume(me.record))
     return out, latch.first_token_s
+
+
+#: Peer POSTs (handoff, migration): the reference's connect timeout.
+PEER_CONNECT_TIMEOUT_S = 3.0
+#: Decode-peer answers that fail a handoff (the request then serves
+#: locally).
+HANDOFF_REFUSED = (429, 500, 502, 503)
+
+
+def chain_body(data: Optional[bytes], rest: dict) -> bytes:
+    """`json.dumps({'payload': base64(data), **rest})`, byte for byte
+    (the reference's /kv/import and /kv/migrate bodies), spliced around
+    the base64 payload: JSON-encoding a chain's ~350 MB string takes
+    seconds, and base64 needs no escaping. No data: no payload key."""
+    if not data:
+        return json.dumps(rest).encode()
+    tail = json.dumps(rest).encode()
+    return b''.join([b'{"payload": "',
+                     binascii.b2a_base64(data, newline=False),
+                     b'", ' + tail[1:] if rest else b'"}'])
+
+
+_PAYLOAD_KEY = re.compile(rb'"payload"\s*:\s*"')
+
+
+def split_chain_body(body: bytes) -> Tuple[dict, bytes]:
+    """Inverse of `chain_body` for any JSON object: (the object without
+    its payload, the decoded payload, b'' when absent). The payload is
+    cut out of the raw body (base64 holds no quote) and decoded from
+    bytes; the rest must parse with the payload's value emptied, else
+    the whole body is parsed."""
+    m = _PAYLOAD_KEY.search(body)
+    if m is not None:
+        end = body.find(b'"', m.end())
+        if end >= 0:
+            try:
+                rest = json.loads(body[:m.end()] + body[end:])
+            except ValueError:
+                rest = None
+            if isinstance(rest, dict) and rest.get('payload') == '':
+                rest.pop('payload')
+                return rest, binascii.a2b_base64(
+                    memoryview(body)[m.end():end])
+    req = json.loads(body)
+    payload = req.pop('payload', None) if isinstance(req, dict) else None
+    return req, base64.b64decode(payload) if payload else b''
+
+
+def post_peer(peer: str, path: str, body: bytes,
+              read_timeout: float) -> http.client.HTTPResponse:
+    """POST the JSON `body` to http://`peer``path` and return the open
+    response (headers read, body not; a response that closes the
+    connection takes its socket over): the connection gets
+    PEER_CONNECT_TIMEOUT_S, every later read `read_timeout`."""
+    host, _, port = peer.rpartition(':')
+    conn = http.client.HTTPConnection(host, int(port),
+                                      timeout=PEER_CONNECT_TIMEOUT_S)
+    try:
+        conn.connect()
+        conn.sock.settimeout(read_timeout)
+        conn.request('POST', path, body=body,
+                     headers={'Content-Type': 'application/json'})
+        return conn.getresponse()
+    except BaseException:
+        conn.close()
+        raise
 
 
 def _token_rows(value, field: str) -> List[List[int]]:
@@ -251,15 +356,15 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
             live = rt.live_engines()
             body = {
                 # The keys ReplicaManager scrapes, at the top level as
-                # the reference serves them. This port serves unified
-                # replicas only: its role is ''.
+                # the reference serves them.
                 'instance_uuid': INSTANCE_UUID,
                 'queued': sum(e.queued_requests() for e in live),
                 'prefill_backlog_tokens': sum(e.prefill_backlog_tokens()
                                               for e in live),
                 'requests_shed': sum(e.requests_shed for e in live),
                 'healthy': all(e.healthy() for e in live),
-                'role': '',
+                # Disaggregated serving: '' = a unified replica.
+                'role': rt.role,
                 'model': rt.model_name,
                 'device': str(rt.model.device),
                 'zone': rt.zone,
@@ -270,6 +375,14 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                              'plain_calls': lora_kernel.plain_calls},
                 'requests': rt.metrics.snapshot(),
             }
+            if rt.role or rt.handoffs_total or rt.kv_imports_total:
+                body['handoff'] = rt.handoff_stats()
+            mig = rt.migration_stats()
+            if mig['sessions_evacuated'] or mig['migrations'] or \
+                    mig['migrations_in']:
+                # Out / in counts, recompute cost, and the migrated-in
+                # affinity keys the fleet pins at the load balancer.
+                body['migration'] = mig
             if rt.adapters is not None:
                 body['adapters'] = rt.adapters.stats()
             eng = rt.engine
@@ -306,34 +419,378 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                                                     1), 3),
                     'evictions': pc.evictions,
                     'resident_unreferenced': len(pc.lru)}
+            if eng.spill_tier is not None:
+                # The tier's own accounting and the engine-level restore
+                # outcome.
+                spill = eng.spill_tier.stats()
+                spill.update({'restore_lookups': eng.kv_restore_lookups,
+                              'restore_hits': eng.kv_restore_hits,
+                              'restored_into_pool': eng.kv_restored_pages})
+                body['kv_spill'] = spill
             return body
 
         # -- POST ---------------------------------------------------------
         def do_POST(self):  # noqa: N802
             self._sse_open = False
+            self._injected_body = None
+            self._body_error = None
             with inflight_lock:
                 inflight['n'] += 1
             try:
-                handler = {
-                    '/generate': self._generate,
-                    '/v1/generate': self._generate,
-                    '/generate_text': self._generate_text,
-                    '/v1/generate_text': self._generate_text,
-                    '/v1/completions': self._openai_completions,
-                    '/v1/chat/completions': self._openai_chat,
-                }.get(self.path)
-                if handler is None:
-                    self._json({'error': 'POST /generate, /generate_text, '
-                                         'or /v1/completions'}, 404)
-                else:
-                    handler()
+                self._dispatch_post()
             finally:
                 with inflight_lock:
                     inflight['n'] -= 1
 
         def _read_body(self):
-            length = int(self.headers.get('Content-Length', 0))
-            return json.loads(self.rfile.read(length))
+            # The handoff paths re-dispatch a body already read (or an
+            # embedded request) into the normal handlers.
+            if self._body_error is not None:
+                raise self._body_error
+            injected = self._injected_body
+            if injected is not None:
+                self._injected_body = None
+                return injected
+            return json.loads(self._read_raw())
+
+        def _read_raw(self) -> bytes:
+            return self.rfile.read(int(self.headers.get('Content-Length',
+                                                        0)))
+
+        def _route_generation(self, path):
+            """The generation handler of `path`, or None: shared by the
+            POST dispatch and the /kv/import and /kv/migrate embedded
+            requests."""
+            return {
+                '/generate': self._generate,
+                '/v1/generate': self._generate,
+                '/generate_text': self._generate_text,
+                '/v1/generate_text': self._generate_text,
+                '/v1/completions': self._openai_completions,
+                '/v1/chat/completions': self._openai_chat,
+            }.get(path)
+
+        def _dispatch_post(self):
+            kv = {'/kv/import': self._kv_import,
+                  '/kv/peers': self._kv_peers,
+                  '/kv/evacuate': self._kv_evacuate,
+                  '/kv/migrate': self._kv_migrate}.get(self.path)
+            if kv is not None:
+                kv()
+                return
+            handler = self._route_generation(self.path)
+            if handler is None:
+                self._json({'error': 'POST /generate, /generate_text, '
+                                     'or /v1/completions'}, 404)
+                return
+            if rt.role == 'prefill':
+                try:
+                    body = self._read_body()
+                except (ValueError, OSError) as e:
+                    # Malformed: the handler's 400 to give.
+                    self._body_error = e
+                    body = None
+                if body is not None:
+                    if self._maybe_handoff(self.path, body):
+                        return
+                    self._injected_body = body
+            handler()
+
+        def _serve_embedded(self, req, what: str):
+            """Serve the request a /kv/import or /kv/migrate body
+            embeds ({"path", "request"}) through its handler."""
+            inner_path = str(req.get('path') or '/generate')
+            handler = self._route_generation(inner_path)
+            if handler is None:
+                self._json({'error': f'unroutable {what} path '
+                                     f'{inner_path!r}'}, 400)
+                return
+            self.path = inner_path
+            self._injected_body = req['request']
+            handler()
+
+        # -- disaggregated prefill / decode handoff -----------------------
+        def _kv_peers(self):
+            """The fleet controller's push of the decode pool this
+            prefill replica hands off to."""
+            try:
+                req = self._read_body()
+                peers = [str(p) for p in (req.get('decode') or [])]
+                rt.set_decode_peers(peers)
+                self._json({'decode': peers})
+            except Exception as e:  # pylint: disable=broad-except
+                self._json({'error': f'{type(e).__name__}: {e}'}, 400)
+
+        def _kv_import(self):
+            """Decode side of a handoff: scatter the POSTed chain into
+            the pool and prefix cache, and serve the embedded request
+            (if any) at once: its admission finds every full prompt
+            page resident, so only the sub-page tail prefills."""
+            try:
+                req, data = split_chain_body(self._read_raw())
+                summary = rt.stream_engine().import_chain(data)
+                rt.record_kv_import(summary)
+            except Exception as e:  # pylint: disable=broad-except
+                self._plain_error(e)
+                return
+            if not req.get('request'):
+                self._json({'imported': summary})
+                return
+            self._serve_embedded(req, 'handoff')
+
+        def _maybe_handoff(self, path, req) -> bool:
+            """Prefill role: prefill the prompt locally (one generated
+            token promotes its full pages into the prefix cache), export
+            the chain, POST it with the request to the ring's decode
+            peer and proxy the answer. True = the client was answered
+            from the decode pool. Any failure (an injected kv.handoff
+            fault, an unreachable peer, a peer's 429/500/502/503)
+            returns False, and the request serves locally from the
+            warm pages."""
+            peers = rt.decode_peers()
+            eng = rt.engine
+            if not peers or eng is None or not eng.prefix_caching:
+                return False
+            if path not in ('/generate', '/v1/generate'):
+                # Text endpoints have no token ids here: they serve
+                # locally on the prefill replica.
+                return False
+            rows = req.get('tokens') or []
+            if not rows or not isinstance(rows[0], list) or len(rows) != 1:
+                return False   # batch rows: local (no chain per row)
+            t0 = time.monotonic()
+            nbytes = 0
+            try:
+                if faults.point('kv.handoff') is faults.DROP:
+                    raise RuntimeError('injected kv.handoff drop')
+                row = [int(t) for t in rows[0]]
+                adapter = rt.resolve_model(req.get('model'))
+                deadline_s = rt.deadline_for(req)
+                if len(row) >= rt.limit_for(0.0, streaming=True):
+                    return False   # the handler's 400 to give
+                eng.submit(row, max_new_tokens=1, temperature=0.0,
+                           deadline_s=deadline_s, adapter=adapter).result(
+                               timeout=deadline_s + 30.0)
+                data = eng.export_chain(row, adapter=adapter)
+                if not data:
+                    return False   # a sub-page prompt: nothing to ship
+                key = affinity.token_affinity_key(
+                    row, eng.page_size,
+                    salt=affinity.adapter_salt(req.get('model')))
+                peer = rt.pick_decode_peer(key)
+                if peer is None:
+                    return False
+                nbytes = len(data)
+                upstream = post_peer(
+                    peer, '/kv/import',
+                    chain_body(data, {'path': path, 'request': req}),
+                    read_timeout=deadline_s + 60.0)
+                if upstream.status in HANDOFF_REFUSED:
+                    code = upstream.status
+                    upstream.close()
+                    raise RuntimeError(f'decode replica {peer} answered '
+                                       f'{code}')
+            except Exception as e:  # pylint: disable=broad-except
+                rt.record_handoff(time.monotonic() - t0, nbytes, ok=False)
+                print(f'kv handoff failed ({type(e).__name__}: {e}); '
+                      f'serving locally', flush=True)
+                return False
+            # Headers out = the handoff is committed: a mid-stream death
+            # truncates as a direct replica death would.
+            rt.record_handoff(time.monotonic() - t0, nbytes, ok=True)
+            with upstream:
+                self.send_response(upstream.status)
+                ctype = upstream.getheader('Content-Type',
+                                           'application/json')
+                self.send_header('Content-Type', ctype)
+                body_bytes = None
+                if 'text/event-stream' not in ctype:
+                    body_bytes = upstream.read()
+                    self.send_header('Content-Length', str(len(body_bytes)))
+                self.end_headers()
+                if body_bytes is not None:
+                    self.wfile.write(body_bytes)
+                    return True
+                self._sse_open = True
+                eof, _first = sse.pipe(upstream, self.wfile)
+                if not eof:
+                    print('kv handoff stream truncated', flush=True)
+            return True
+
+        # -- live KV-chain migration --------------------------------------
+        def _kv_evacuate(self):
+            """Controller-initiated evacuation: a scale-down drain POSTs
+            {reason: 'drain'} before SIGTERM, a rebalance {reason:
+            'rebalance', target, max_sessions}. Every evacuated
+            session's future resolves with SessionMigratedError and its
+            HTTP thread ships the chain (to `target`, else the ring's
+            pick); this answers with the counts at once."""
+            try:
+                req = self._read_body()
+            except (ValueError, OSError):
+                req = {}
+            reason = str(req.get('reason') or 'drain')
+            max_sessions = req.get('max_sessions')
+            if max_sessions is not None:
+                max_sessions = int(max_sessions)
+            rt.set_evacuation_hint(reason, req.get('target') or None)
+            total = {'evacuated': 0, 'chains': 0, 'queued': 0}
+            try:
+                for eng in rt.live_engines():
+                    got = eng.evacuate_chains(max_sessions=max_sessions,
+                                              reason=reason)
+                    for k in total:
+                        total[k] += int(got.get(k, 0))
+                rt.record_evacuation(total)
+            except Exception as e:  # pylint: disable=broad-except
+                self._json({'error': f'{type(e).__name__}: {e}'}, 500)
+                return
+            self._json(dict(total, reason=reason))
+
+        def _kv_migrate(self):
+            """Receiving side of a live migration: import the committed
+            chain (when one shipped), count the recompute and the
+            session's affinity key, then serve the continuation:
+            admission finds the committed full pages resident, so only
+            the sub-page tail prefills."""
+            try:
+                req, data = split_chain_body(self._read_raw())
+                inner = req.get('request') or {}
+                rows = inner.get('tokens') or []
+                row = ([int(t) for t in rows[0]]
+                       if rows and isinstance(rows[0], list) else [])
+                eng = rt.stream_engine()
+                summary = {'pages': 0, 'imported': 0, 'already_cached': 0,
+                           'dropped': 0}
+                if data:
+                    summary = eng.import_chain(data)
+                    rt.record_kv_import(summary)
+                covered = (summary['imported'] + summary['already_cached']
+                           ) * eng.page_size
+                recomputed = max(0, len(row) - covered) if row else 0
+                key = (affinity.token_affinity_key(
+                    row, eng.page_size,
+                    salt=affinity.adapter_salt(inner.get('model')))
+                    if row else None)
+                rt.record_migrated_in(key, recomputed)
+            except Exception as e:  # pylint: disable=broad-except
+                self._plain_error(e)
+                return
+            if not inner:
+                self._json({'imported': summary})
+                return
+            self._serve_embedded(req, 'migration')
+
+        def _migrate_record(self, rec,
+                            stream) -> Optional[http.client.HTTPResponse]:
+            """Ship one evacuated session to a peer: POST the chain and
+            the continuation request to /kv/migrate and return the open
+            response (the caller proxies its body or SSE tail). None on
+            any failure (an injected kv.migrate fault, no peer, a
+            refusal): the caller resumes locally on the warm pages."""
+            reason = str(rec.get('reason') or 'drain')
+            _hint_reason, target = rt.evacuation_hint()
+            t0 = time.monotonic()
+            try:
+                if faults.point('kv.migrate', reason=reason) is faults.DROP:
+                    raise RuntimeError('injected kv.migrate drop')
+                tokens = [int(t) for t in rec.get('tokens') or []]
+                if not tokens:
+                    raise RuntimeError('empty migration record')
+                remaining = int(rec.get('limit', 0)) - len(tokens)
+                if remaining <= 0:
+                    raise RuntimeError('no generation budget left')
+                peer = target
+                if peer is None:
+                    eng = next(iter(rt.live_engines()), None)
+                    key = (affinity.token_affinity_key(
+                        tokens, eng.page_size,
+                        salt=affinity.adapter_salt(rec.get('adapter')))
+                        if eng is not None else None)
+                    peer = rt.pick_decode_peer(key)
+                if not peer:
+                    raise RuntimeError('no migration peer available')
+                inner = {'tokens': [tokens], 'max_new_tokens': remaining,
+                         'temperature': rec.get('temperature', 0.0),
+                         'top_k': rec.get('top_k', 0),
+                         'top_p': rec.get('top_p', 1.0),
+                         'stop_token_ids': rec.get('stop_token_ids') or [],
+                         'stream': bool(stream)}
+                if rec.get('adapter'):
+                    inner['model'] = rec['adapter']
+                if rec.get('deadline_s'):
+                    inner['timeout'] = rec['deadline_s']
+                body = chain_body(rec.get('payload'),
+                                  {'path': '/generate', 'request': inner,
+                                   'reason': reason})
+                read_timeout = float(rec.get('deadline_s') or
+                                     rt.request_timeout) + 60.0
+                upstream = post_peer(peer, '/kv/migrate', body,
+                                     read_timeout=read_timeout)
+                if upstream.status != 200:
+                    code = upstream.status
+                    upstream.close()
+                    raise RuntimeError(f'migration peer {peer} answered '
+                                       f'{code}')
+            except Exception as e:  # pylint: disable=broad-except
+                rt.record_migration(reason, time.monotonic() - t0, ok=False)
+                print(f'kv migrate failed ({type(e).__name__}: {e}); '
+                      f'resuming locally', flush=True)
+                return None
+            rt.record_migration(reason, time.monotonic() - t0, ok=True)
+            return upstream
+
+        def _resume_record(self, rec, depth: int = 0) -> List[int]:
+            """Finish one evacuated (non-streamed) row: the peer ship,
+            else a local warm resume. Returns prompt ++ generated."""
+            upstream = self._migrate_record(rec, stream=False)
+            if upstream is not None:
+                try:
+                    with upstream:
+                        rows = json.loads(upstream.read()).get('tokens') or []
+                    if rows and isinstance(rows[0], list):
+                        return [int(t) for t in rows[0]]
+                except Exception as e:  # pylint: disable=broad-except
+                    print(f'kv migrate response unusable '
+                          f'({type(e).__name__}: {e}); resuming locally',
+                          flush=True)
+            return self._resume_locally(rec, depth=depth)
+
+        def _continuation(self, rec) -> Tuple[List[int], int, float]:
+            """(committed tokens, tokens left to generate, deadline s) of
+            an evacuated session's record."""
+            tokens = [int(t) for t in rec.get('tokens') or []]
+            return (tokens, max(int(rec.get('limit', 0)) - len(tokens), 1),
+                    float(rec.get('deadline_s') or 0) or rt.request_timeout)
+
+        def _resume_locally(self, rec, depth: int = 0) -> List[int]:
+            """Local warm resume: resubmit the committed tokens (their
+            full pages were promoted at evacuation, so admission is a
+            prefix-cache hit and only the sub-page tail recomputes). A
+            second evacuation mid-resume retries the whole ladder
+            (bounded); success counts as a 'local_fallback' migration."""
+            tokens, remaining, deadline_s = self._continuation(rec)
+            adapter = rec.get('adapter')
+            eng = rt.engine_for(adapter)
+            if eng is None:
+                return tokens   # one-shot runtime: nothing to resume
+            t0 = time.monotonic()
+            try:
+                row = eng.submit(
+                    tokens, max_new_tokens=remaining,
+                    temperature=rec.get('temperature', 0.0),
+                    top_k=rec.get('top_k', 0),
+                    top_p=rec.get('top_p', 1.0),
+                    stop_token_ids=list(rec.get('stop_token_ids') or []),
+                    deadline_s=deadline_s, adapter=adapter).result(
+                        timeout=deadline_s + 30.0)
+            except SessionMigratedError as me:
+                if depth >= 2:
+                    raise
+                return self._resume_record(me.record, depth=depth + 1)
+            rt.record_migration('local_fallback', time.monotonic() - t0,
+                                ok=True)
+            return row
 
         def _generate(self):
             try:
@@ -364,7 +821,7 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                         rt, tokens, max_new=max_new,
                         temperature=temperature, top_k=top_k, top_p=top_p,
                         stop_ids=stop_ids, deadline_s=deadline_s,
-                        adapter=adapter)
+                        adapter=adapter, resume=self._resume_record)
                 else:
                     # One-shot: the rows run together ([batch, prompt
                     # len]) and come back as the whole bucket.
@@ -404,20 +861,98 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
             self.sse_start()
             n_gen = 0
             ttft = None
+            migrated = False
             # ITL is recorded at commit time by the handles' on_token.
             try:
-                for i, t in iter_interleaved(handles):
-                    if ttft is None:
-                        ttft = time.monotonic() - t0
-                    n_gen += 1
-                    self.sse_send({'index': i, 'token': t})
+                try:
+                    for i, t in iter_interleaved(handles):
+                        if ttft is None:
+                            ttft = time.monotonic() - t0
+                        n_gen += 1
+                        self.sse_send({'index': i, 'token': t})
+                except SessionMigratedError:
+                    # The engine evacuated the slots mid-stream, after
+                    # the interleaver drained every committed token: the
+                    # client is caught up; the tail comes from a peer
+                    # (or from here) below.
+                    migrated = True
             finally:
                 rt.cancel_streams(handles)   # no-op when completed
-            final_rows = [h.future.result() for h in handles]
+            if migrated:
+                final_rows = self._finish_migrated_stream(handles)
+                if final_rows is None:
+                    # Proxied whole: the peer's SSE tail (terminal event
+                    # and [DONE] included) already went out.
+                    rt.metrics.record(time.monotonic() - t0, n_gen,
+                                      sum(len(row) for row in tokens),
+                                      ttft)
+                    return
+            else:
+                final_rows = [h.future.result() for h in handles]
             self.sse_send({'done': True, 'tokens': final_rows})
             self.sse_done()
             rt.metrics.record(time.monotonic() - t0, n_gen,
                               sum(len(row) for row in tokens), ttft)
+
+        def _finish_migrated_stream(self, handles):
+            """Finish an SSE /generate stream whose slots were evacuated.
+            A single-row stream proxies the peer's SSE tail (the same
+            {'index': 0, ...} frames, terminal event included) and
+            returns None. Multi-row streams, and a failed ship, resume
+            locally: new tokens stream under their rows' indices and the
+            full rows come back for the terminal event."""
+            outcomes = []
+            for h in handles:
+                try:
+                    outcomes.append(('done', h.future.result(timeout=0.001)))
+                except SessionMigratedError as me:
+                    outcomes.append(('rec', me.record))
+            recs = [(i, o[1]) for i, o in enumerate(outcomes)
+                    if o[0] == 'rec']
+            if len(handles) == 1 and recs:
+                upstream = self._migrate_record(recs[0][1], stream=True)
+                if upstream is not None:
+                    with upstream:
+                        eof, _first = sse.pipe(upstream, self.wfile)
+                        if not eof:
+                            print('migration stream truncated', flush=True)
+                    return None
+            rows = [o[1] if o[0] == 'done' else None for o in outcomes]
+            for i, rec in recs:
+                rows[i] = self._resume_stream_locally(i, rec)
+            return rows
+
+        def _resume_stream_locally(self, index, rec) -> List[int]:
+            """Local warm resume of one evacuated streamed row: resubmit
+            the committed tokens and stream the new ones under the row's
+            index. Returns the full row; a failure returns the committed
+            row (the stream truncates there, as at a replica death)."""
+            tokens, remaining, deadline_s = self._continuation(rec)
+            t0 = time.monotonic()
+            try:
+                h = rt.submit_stream(
+                    tokens, remaining, rec.get('temperature', 0.0),
+                    top_k=rec.get('top_k', 0), top_p=rec.get('top_p', 1.0),
+                    stop_token_ids=list(rec.get('stop_token_ids') or []),
+                    deadline_s=deadline_s, adapter=rec.get('adapter'))
+            except Exception as e:  # pylint: disable=broad-except
+                print(f'local stream resume failed to submit '
+                      f'({type(e).__name__}: {e}); stream truncates at '
+                      f'the committed point', flush=True)
+                return tokens
+            try:
+                for _j, t in iter_interleaved([h]):
+                    self.sse_send({'index': index, 'token': t})
+                row = h.future.result(timeout=deadline_s + 30.0)
+            except Exception as e:  # pylint: disable=broad-except
+                print(f'local stream resume failed ({type(e).__name__}: '
+                      f'{e}); stream truncates at the committed point',
+                      flush=True)
+                rt.cancel_streams([h])
+                return tokens
+            rt.record_migration('local_fallback', time.monotonic() - t0,
+                                ok=True)
+            return row
 
         def _generate_text(self):
             try:
@@ -451,7 +986,8 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                 rows, ttft = _run_rows(
                     rt, encoded, max_new=max_new, temperature=temperature,
                     top_k=top_k, top_p=top_p, stop_ids=[],
-                    deadline_s=deadline_s, adapter=adapter)
+                    deadline_s=deadline_s, adapter=adapter,
+                    resume=self._resume_record)
                 texts = [oai.trim_stops(tok.decode(
                     row[len(ids):], skip_special_tokens=True),
                     stop_strings)[0] for ids, row in zip(encoded, rows)]
@@ -477,18 +1013,37 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
             scans = [oai.StopStringScanner(stop_strings) for _ in encoded]
             n_gen = 0
             ttft = None
+            migrated = False
             try:
-                for i, t in iter_interleaved(handles):
-                    if ttft is None:
-                        ttft = time.monotonic() - t0
-                    n_gen += 1
-                    if scans[i].hit:
-                        continue
-                    out = scans[i].push(decs[i].push(t))
-                    if out:
-                        self.sse_send({'index': i, 'delta': out})
+                try:
+                    for i, t in iter_interleaved(handles):
+                        if ttft is None:
+                            ttft = time.monotonic() - t0
+                        n_gen += 1
+                        if scans[i].hit:
+                            continue
+                        out = scans[i].push(decs[i].push(t))
+                        if out:
+                            self.sse_send({'index': i, 'delta': out})
+                except SessionMigratedError:
+                    migrated = True
             finally:
                 rt.cancel_streams(handles)   # no-op when completed
+            if migrated:
+                # Evacuated mid-stream: the committed deltas went out;
+                # each migrated row finishes here on the warm pages
+                # (text requests never ship: the peer path takes token
+                # requests only).
+                for i, h in enumerate(handles):
+                    try:
+                        h.future.result(timeout=0.001)
+                    except SessionMigratedError as me:
+                        self._resume_text_stream_locally(i, me.record, decs,
+                                                         scans)
+                    except Exception as e:  # pylint: disable=broad-except
+                        print(f'text stream row {i} failed during '
+                              f'evacuation ({type(e).__name__}: {e})',
+                              flush=True)
             for i in range(len(handles)):
                 if not scans[i].hit:
                     out = scans[i].push(decs[i].flush()) + scans[i].flush()
@@ -498,12 +1053,57 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
             rt.metrics.record(time.monotonic() - t0, n_gen,
                               sum(len(ids) for ids in encoded), ttft)
 
+        def _resume_text_stream_locally(self, index, rec, decs, scans):
+            """Local warm resume of one evacuated text-stream row: the
+            continuation runs through the row's incremental decoder and
+            stop scanner, so the deltas pick up where they stopped."""
+            tokens, remaining, deadline_s = self._continuation(rec)
+            t0 = time.monotonic()
+            try:
+                h = rt.submit_stream(
+                    tokens, remaining, rec.get('temperature', 0.0),
+                    top_k=rec.get('top_k', 0), top_p=rec.get('top_p', 1.0),
+                    deadline_s=deadline_s, adapter=rec.get('adapter'))
+            except Exception as e:  # pylint: disable=broad-except
+                print(f'local text-stream resume failed to submit '
+                      f'({type(e).__name__}: {e}); row {index} truncates '
+                      f'at the committed point', flush=True)
+                return
+            try:
+                for _j, t in iter_interleaved([h]):
+                    if scans[index].hit:
+                        continue
+                    out = scans[index].push(decs[index].push(t))
+                    if out:
+                        self.sse_send({'index': index, 'delta': out})
+            except Exception as e:  # pylint: disable=broad-except
+                print(f'local text-stream resume failed '
+                      f'({type(e).__name__}: {e}); row {index} truncates '
+                      f'at the committed point', flush=True)
+                rt.cancel_streams([h])
+                return
+            rt.record_migration('local_fallback', time.monotonic() - t0,
+                                ok=True)
+
+        def _replaying(self, run: Callable[[], None]) -> None:
+            """Run an OpenAI request; evacuated before its headers went
+            out, replay it on the promoted warm pages (its prefill is a
+            prefix-cache hit). Mid-stream there is no replay: the error
+            handler truncates the stream."""
+            try:
+                run()
+            except SessionMigratedError:
+                if self._sse_open:
+                    raise
+                run()
+
         def _openai_completions(self):
             try:
                 body = self._read_body()
                 prompts = body.get('prompt', '')
                 if _is_token_prompt(prompts):
-                    self._token_completions(body, prompts)
+                    self._replaying(
+                        lambda: self._token_completions(body, prompts))
                     return
                 if isinstance(prompts, str):
                     prompts = [prompts]
@@ -521,9 +1121,11 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                     adapter=rt.resolve_model(body.get('model')),
                     model=body.get('model'))
                 if req.stream:
-                    oai.stream_completion(rt, req, self)
+                    self._replaying(
+                        lambda: oai.stream_completion(rt, req, self))
                 else:
-                    self._json(oai.run_completion(rt, req))
+                    self._replaying(
+                        lambda: self._json(oai.run_completion(rt, req)))
             except Exception as e:  # pylint: disable=broad-except
                 self._oai_error(e)
 
@@ -553,7 +1155,8 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
             rows, ttft = _run_rows(
                 rt, fanned, max_new=max_new, temperature=temperature,
                 top_k=0, top_p=float(body.get('top_p', 1.0)), stop_ids=[],
-                deadline_s=rt.deadline_for(body), adapter=adapter)
+                deadline_s=rt.deadline_for(body), adapter=adapter,
+                resume=self._resume_record)
             choices = []
             n_gen = 0
             for i, (ids, row) in enumerate(zip(fanned, rows)):
@@ -599,10 +1202,11 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                     adapter=adapter,
                     model=body.get('model'))
                 if req.stream:
-                    oai.stream_completion(rt, req, self, chat=True)
+                    self._replaying(lambda: oai.stream_completion(
+                        rt, req, self, chat=True))
                 else:
-                    self._json(oai.to_chat_response(
-                        oai.run_completion(rt, req)))
+                    self._replaying(lambda: self._json(
+                        oai.to_chat_response(oai.run_completion(rt, req))))
             except Exception as e:  # pylint: disable=broad-except
                 self._oai_error(e)
 
@@ -614,12 +1218,66 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
     return server
 
 
+class ServePreemptionNotice(train_guard.PreemptionNotice):
+    """Serving-side preemption watcher: the trainer's metadata poll and
+    injectable notice (robustness/train_guard.py), firing the
+    `serve.preempt_notice` fault point instead of the trainer's. SIGTERM
+    stays with serve()'s own drain handler (install_sigterm=False),
+    which evacuates too; this covers the notice a spot VM gets BEFORE
+    its SIGTERM."""
+
+    def _poll_loop(self) -> None:
+        while not self._stop.is_set() and not self.notice.is_set():
+            self.polls += 1
+            if faults.point('serve.preempt_notice',
+                            **self.ctx) is faults.DROP:
+                self.trigger('injected')
+                break
+            if self._probe_metadata():
+                self.trigger('metadata')
+                break
+            self._stop.wait(self.poll_interval_s)
+
+
+def evacuate_for_exit(rt: InferenceRuntime, reason: str = 'drain') -> dict:
+    """Evacuate every live engine's sessions ahead of an exit (SIGTERM
+    drain or preemption notice): their futures resolve with
+    SessionMigratedError, and their HTTP threads ship the chains to
+    peers or finish locally on the promoted pages. Failures are logged,
+    never raised: a broken engine must not stop the drain."""
+    total = {'evacuated': 0, 'chains': 0, 'queued': 0}
+    for eng in rt.live_engines():
+        try:
+            got = eng.evacuate_chains(reason=reason)
+        except Exception as e:  # pylint: disable=broad-except
+            print(f'evacuation failed on an engine ({type(e).__name__}: '
+                  f'{e}); its sessions finish locally', flush=True)
+            continue
+        for k in total:
+            total[k] += int(got.get(k, 0))
+    if total['evacuated'] or total['queued']:
+        rt.record_evacuation(total)
+        print(f'serve_lm: evacuated {total["evacuated"]} active + '
+              f'{total["queued"]} queued sessions ({total["chains"]} KV '
+              f'chains packed, reason={reason})', flush=True)
+    return total
+
+
 def drain(server: ThreadingHTTPServer, rt: InferenceRuntime,
-          drain_grace: float, exit_fn=os._exit) -> None:
-    """Graceful drain: /readyz turns 503, the accept loop stops,
-    in-flight POSTs get up to `drain_grace` seconds, then exit 0."""
+          drain_grace: float, straggler_grace: float = 0.5,
+          exit_fn=os._exit) -> None:
+    """Graceful drain: /readyz turns 503, every active KV chain is
+    evacuated (the owning HTTP threads migrate the sessions to peers or
+    finish them here), the accept loop takes stragglers for
+    `straggler_grace` seconds and stops, in-flight POSTs get up to
+    `drain_grace` seconds, then exit 0. `exit_fn` is injectable, so the
+    contract is testable without killing the process."""
     server.draining.set()
     print('serve_lm: SIGTERM — draining in-flight requests', flush=True)
+    # Idempotent: a controller that already POSTed /kv/evacuate left the
+    # engines empty, and this finds nothing.
+    evacuate_for_exit(rt, reason='drain')
+    time.sleep(straggler_grace)
     server.shutdown()
     deadline = time.monotonic() + drain_grace
     while time.monotonic() < deadline:
@@ -631,9 +1289,13 @@ def drain(server: ThreadingHTTPServer, rt: InferenceRuntime,
     exit_fn(0)
 
 
-def serve(rt: InferenceRuntime, port: int,
-          drain_grace: float = 630.0) -> None:
-    """Run the HTTP server until killed; SIGTERM drains first."""
+def serve(rt: InferenceRuntime, port: int, drain_grace: float = 630.0,
+          zone: str = '', watch_preemption: bool = True) -> None:
+    """Run the HTTP server until killed. SIGTERM drains first; the
+    preemption watcher turns a spot notice (or an injected
+    `serve.preempt_notice` drop, scoped by `zone`) into a mass chain
+    evacuation followed by the same drain. The watcher polls the GCE
+    metadata server unless STPU_PREEMPT_METADATA_URL points elsewhere."""
     server = make_server(rt, port)
     term = threading.Event()
 
@@ -643,6 +1305,21 @@ def serve(rt: InferenceRuntime, port: int,
 
     threading.Thread(target=_drain_loop, daemon=True).start()
     signal.signal(signal.SIGTERM, lambda *_: term.set())
+    if watch_preemption:
+        notice = ServePreemptionNotice(poll_interval_s=2.0,
+                                       install_sigterm=False,
+                                       ctx={'zone': zone} if zone else {})
+        notice.start()
+
+        def _preempt_watch():
+            notice.notice.wait()
+            print(f'serve_lm: preemption notice ({notice.reason}) — '
+                  f'evacuating active sessions', flush=True)
+            rt.set_evacuation_hint('preempt', None)
+            evacuate_for_exit(rt, reason='preempt')
+            term.set()   # the drain loop finishes the exit
+
+        threading.Thread(target=_preempt_watch, daemon=True).start()
     print(f'serve_lm listening on :{port} model={rt.model_name} '
           f'device={rt.model.device}', flush=True)
     server.serve_forever()

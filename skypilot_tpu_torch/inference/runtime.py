@@ -11,6 +11,15 @@ dense per-request cache, in power-of-two length buckets, and streamed
 or adapter requests run on a small slot engine built at their first
 use (`stream_engine`, sharing the weights). Text endpoints take the
 tokenizer of the `--hf` checkpoint (`get_tokenizer`).
+
+Disaggregated serving and live migration: the runtime carries the
+replica's `role` ('' unified, 'prefill' or 'decode'), the decode peers a
+prefill replica hands prompts off to (pushed by the fleet through
+POST /kv/peers or set by --decode-peers; picked through the load
+balancer's consistent-hash ring), the evacuation hint a controller's
+POST /kv/evacuate leaves, and the handoff and migration counts /stats
+serves. The reference also feeds them to Prometheus series, which wait
+for ROADMAP A6(e).
 """
 from __future__ import annotations
 
@@ -28,7 +37,7 @@ import torch
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.errors import AdapterNotFoundError
-from skypilot_tpu_torch.inference import quant
+from skypilot_tpu_torch.inference import affinity, kv_transfer, quant
 from skypilot_tpu_torch.inference.adapters import AdapterRegistry
 from skypilot_tpu_torch.models import convert, registry
 from skypilot_tpu_torch.models import generate as gen
@@ -207,10 +216,47 @@ class InferenceRuntime:
                  max_queue_requests: int = 0, max_queue_tokens: int = 0,
                  request_timeout: float = 600.0, zone: str = '',
                  adapters: Optional[AdapterRegistry] = None,
-                 cuda_graphs: bool = True) -> None:
+                 cuda_graphs: bool = True, role: str = '',
+                 decode_peers: Optional[List[str]] = None) -> None:
         if engine is None and model is None:
             raise ValueError('pass the continuous engine or, for the '
                              'one-shot mode, the model')
+        # '' = a unified replica, 'decode' labels a decode-pool member,
+        # 'prefill' also hands finished prompts' KV chains to a decode
+        # peer instead of decoding them.
+        if role not in ('', 'unified', 'prefill', 'decode'):
+            raise ValueError(f'unknown serving role {role!r}')
+        self.role = '' if role == 'unified' else role
+        self._peers_lock = threading.Lock()
+        self._decode_peers: List[str] = []
+        self._peer_ring: Optional[affinity.PeerRing] = None
+        self._handoff_lock = threading.Lock()
+        self.handoffs_total = 0
+        self.handoff_failures = 0
+        self.handoff_bytes_total = 0
+        self.handoff_seconds_total = 0.0
+        self.kv_imports_total = 0
+        self.kv_imported_pages_total = 0
+        # Live migration: out-migrations by trigger reason, evacuation
+        # totals, and the bounded ring of affinity keys migrated IN
+        # (/stats serves it, so the fleet pins those sessions' follow-ups
+        # to this replica).
+        self._migration_lock = threading.Lock()
+        self.migrations_by_reason: Dict[str, int] = {}
+        self.migration_failures = 0
+        self.migration_seconds_total = 0.0
+        self.sessions_evacuated_total = 0
+        self.chains_evacuated_total = 0
+        self.tokens_recomputed_total = 0
+        self.migrations_in_total = 0
+        self._migrated_in_keys: 'collections.OrderedDict[str, None]' = \
+            collections.OrderedDict()
+        # Set by POST /kv/evacuate (reason, controller's target), read by
+        # the HTTP threads whose futures resolve with
+        # SessionMigratedError moments later; it expires.
+        self._evac_hint: Optional[Dict[str, object]] = None
+        if decode_peers:
+            self.set_decode_peers(decode_peers)
         self.engine = engine
         self.adapters = adapters
         self.model = engine.model if engine is not None else model
@@ -262,6 +308,128 @@ class InferenceRuntime:
         if self.speculative > 0 and temperature == 0.0:
             return self.spec_total
         return self.max_total_len
+
+    # -- disaggregated prefill/decode ---------------------------------------
+    def set_decode_peers(self, peers: List[str]) -> None:
+        """Install the decode pool this replica hands off (and migrates)
+        to ('host:port' strings), over the load balancer's ring."""
+        peers = list(dict.fromkeys(str(p) for p in peers if p))
+        ring = affinity.PeerRing(peers) if peers else None
+        with self._peers_lock:
+            self._decode_peers = peers
+            self._peer_ring = ring
+
+    def decode_peers(self) -> List[str]:
+        with self._peers_lock:
+            return list(self._decode_peers)
+
+    def pick_decode_peer(self, key: Optional[str]) -> Optional[str]:
+        """The ring's owner of an affinity key (the replica the load
+        balancer would pick for the session), else the first peer."""
+        with self._peers_lock:
+            peers = list(self._decode_peers)
+            ring = self._peer_ring
+        if not peers:
+            return None
+        if key is not None and ring is not None:
+            target = ring.affinity_target(key)
+            if target is not None:
+                return target
+        return peers[0]
+
+    def record_handoff(self, seconds: float, nbytes: int,
+                       ok: bool) -> None:
+        with self._handoff_lock:
+            self.handoffs_total += 1
+            if not ok:
+                self.handoff_failures += 1
+            self.handoff_bytes_total += nbytes
+            self.handoff_seconds_total += seconds
+
+    def record_kv_import(self, summary: Dict[str, int]) -> None:
+        with self._handoff_lock:
+            self.kv_imports_total += 1
+            self.kv_imported_pages_total += int(summary.get('imported', 0))
+
+    def handoff_stats(self) -> Dict[str, object]:
+        with self._handoff_lock:
+            return {'decode_peers': self.decode_peers(),
+                    'handoffs': self.handoffs_total,
+                    'failures': self.handoff_failures,
+                    'bytes': self.handoff_bytes_total,
+                    'seconds': round(self.handoff_seconds_total, 6),
+                    'kv_imports': self.kv_imports_total,
+                    'kv_imported_pages': self.kv_imported_pages_total}
+
+    # -- live KV-chain migration ----------------------------------------------
+    #: migrated-in affinity keys retained for the fleet's pins
+    MIGRATED_KEYS_MAX = 1024
+    #: how long an evacuation hint stays actionable
+    EVAC_HINT_TTL_S = 30.0
+
+    def set_evacuation_hint(self, reason: str,
+                            target: Optional[str]) -> None:
+        """Why the engines are about to evacuate, and where the
+        controller wants the chains to go; expires after
+        EVAC_HINT_TTL_S, so a stale rebalance target cannot redirect a
+        later drain."""
+        with self._migration_lock:
+            self._evac_hint = {'reason': str(reason or 'drain'),
+                               'target': target or None,
+                               'expires': time.monotonic() +
+                               self.EVAC_HINT_TTL_S}
+
+    def evacuation_hint(self) -> Tuple[str, Optional[str]]:
+        """(reason, target) of the live hint; ('drain', None) (the ring
+        picks) when none is set."""
+        with self._migration_lock:
+            hint = self._evac_hint
+            if hint and time.monotonic() < float(hint['expires']):
+                return str(hint['reason']), hint['target']
+        return 'drain', None
+
+    def record_evacuation(self, summary: Dict[str, int]) -> None:
+        """Account one engine's evacuate_chains() result."""
+        with self._migration_lock:
+            self.sessions_evacuated_total += (int(summary.get('evacuated', 0))
+                                              + int(summary.get('queued', 0)))
+            self.chains_evacuated_total += int(summary.get('chains', 0))
+
+    def record_migration(self, reason: str, seconds: float,
+                         ok: bool) -> None:
+        """One out-migration attempt (chain POST + tail proxy), counted
+        under its reason; a failed ship also counts a failure (the local
+        resume that follows counts as 'local_fallback')."""
+        with self._migration_lock:
+            self.migrations_by_reason[reason] = \
+                self.migrations_by_reason.get(reason, 0) + 1
+            if not ok:
+                self.migration_failures += 1
+            self.migration_seconds_total += seconds
+
+    def record_migrated_in(self, affinity_key: Optional[str],
+                           tokens_recomputed: int) -> None:
+        """One migrated-in session: the committed tokens its imported
+        pages did not cover, and its affinity key."""
+        with self._migration_lock:
+            self.migrations_in_total += 1
+            self.tokens_recomputed_total += int(tokens_recomputed)
+            if affinity_key:
+                self._migrated_in_keys.pop(affinity_key, None)
+                self._migrated_in_keys[affinity_key] = None
+                while len(self._migrated_in_keys) > self.MIGRATED_KEYS_MAX:
+                    self._migrated_in_keys.popitem(last=False)
+
+    def migration_stats(self) -> Dict[str, object]:
+        with self._migration_lock:
+            return {'migrations': dict(self.migrations_by_reason),
+                    'failures': self.migration_failures,
+                    'seconds': round(self.migration_seconds_total, 6),
+                    'sessions_evacuated': self.sessions_evacuated_total,
+                    'chains_evacuated': self.chains_evacuated_total,
+                    'migrations_in': self.migrations_in_total,
+                    'tokens_recomputed': self.tokens_recomputed_total,
+                    'migrated_in_keys': list(self._migrated_in_keys)}
 
     def deadline_for(self, req: dict) -> float:
         """The request's `timeout` field clamped into
@@ -463,14 +631,39 @@ class InferenceRuntime:
 #: serve_lm flags this port does not implement yet, with the value
 #: that means "not asked for". --fault-plan, --trace-sample /
 #: --trace-seed and --slo wait for ROADMAP A6(e) (tracing, SLOs and
-#: metrics), the others for A6(c) (KV chains), A8 (int8 weights) and
-#: A10 (tensor x pipeline serving).
+#: metrics), the others for A8 (int8 weights) and A10 (tensor x
+#: pipeline serving).
 _UNSUPPORTED_DEFAULTS = (
-    ('tensor', 1), ('stages', 1), ('weight_dtype', 'bf16'), ('role', ''),
-    ('decode_peers', None), ('kv_spill_bytes', 0), ('kv_cold_dir', None),
+    ('tensor', 1), ('stages', 1), ('weight_dtype', 'bf16'),
     ('fault_plan', None), ('trace_sample', 0.0), ('trace_seed', None),
     ('slo', None),
 )
+
+#: The reference's refusals of the KV-chain flags without the slot
+#: engine (skypilot_tpu/recipes/serve_lm.py:308-317), word for word.
+SPILL_NEEDS_CONTINUOUS = (
+    '--kv-spill-bytes/--kv-cold-dir require '
+    '--continuous-batching (the spill tier stores '
+    'evicted prefix-cache pages of the paged slot '
+    'engine)')
+PREFILL_NEEDS_CONTINUOUS = (
+    '--role prefill requires --continuous-batching '
+    '(the handoff exports KV page chains from the '
+    'slot engine\'s prefix cache)')
+
+
+def kv_chain_refusal(args) -> Optional[str]:
+    """The refusal of --role / --kv-spill-bytes / --kv-cold-dir as
+    given, or None: the spill flags and the prefill role need the slot
+    engine, and a cold dir must be local."""
+    if (args.kv_spill_bytes or args.kv_cold_dir) and \
+            not args.continuous_batching:
+        return SPILL_NEEDS_CONTINUOUS
+    if args.role == 'prefill' and not args.continuous_batching:
+        return PREFILL_NEEDS_CONTINUOUS
+    if args.kv_cold_dir and args.kv_cold_dir.startswith('gs://'):
+        return kv_transfer.REMOTE_COLD_DIR
+    return None
 
 #: The reference's refusal of int8 KV pages in the one-shot mode
 #: (skypilot_tpu/inference/runtime.py:798-802), word for word.
@@ -599,6 +792,9 @@ def build_runtime(args, model=None,
                          + ', '.join(bad))
     if args.kv_dtype == 'int8' and not args.continuous_batching:
         raise SystemExit(INT8_NEEDS_CONTINUOUS)
+    refusal = kv_chain_refusal(args)
+    if refusal:
+        raise SystemExit(refusal)
     device = resolve_device(cpu=args.cpu)
     model, tokenizer_dir = _source_model(args, model, device)
     cfg = model.config
@@ -637,7 +833,9 @@ def build_runtime(args, model=None,
             max_queue_requests=args.max_queue_requests,
             max_queue_tokens=args.max_queue_tokens, adapter_store=adapters,
             speculative_k=args.speculative, decode_chunk=args.decode_chunk,
-            pipeline_decode=pipeline_decode, cuda_graphs=cuda_graphs)
+            pipeline_decode=pipeline_decode, cuda_graphs=cuda_graphs,
+            kv_spill_bytes=args.kv_spill_bytes, kv_cold_dir=args.kv_cold_dir)
+    decode_peers = [p for p in (args.decode_peers or '').split(',') if p]
     return InferenceRuntime(
         engine=engine, model=model,
         model_name=(f'hf:{os.path.basename(args.hf)}' if args.hf
@@ -649,4 +847,5 @@ def build_runtime(args, model=None,
         max_queue_requests=args.max_queue_requests,
         max_queue_tokens=args.max_queue_tokens,
         request_timeout=args.request_timeout, zone=args.zone,
-        adapters=adapters, cuda_graphs=cuda_graphs)
+        adapters=adapters, cuda_graphs=cuda_graphs, role=args.role,
+        decode_peers=decode_peers)

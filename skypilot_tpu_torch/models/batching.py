@@ -19,9 +19,17 @@ steps a dispatch) and `speculative_k` (prompt-lookup drafts verified in
 one [slots, K+1] chunk). Single-token rounds run on the static buffers
 of `models/decode_graph.py`, one CUDA-graph replay a step on the card
 (`cuda_graphs=False` runs them eagerly); the verify chunk runs eagerly.
-Not ported yet (the constructor raises when asked for them): meshes and
-pipeline stages, spill/cold tiers and chain export/import/evacuation,
-and the flight recorder and Prometheus metrics.
+KV page chains: `export_chain` / `import_chain` move a prompt's
+full-page chain between engines in the reference's wire format
+(inference/kv_transfer.py), `evacuate_chains` hands every session's
+committed chain back to its HTTP thread for live migration, and with
+`kv_spill_bytes` / `kv_cold_dir` evicted prefix-cache pages spill to
+host RAM (and a local directory) and restore on a later hit. All of it
+runs on the scheduler thread between rounds (`run_on_scheduler`), on
+the stream the rounds run on, so a gather follows the KV writes of
+every round dispatched before it. Not ported yet (the constructor
+raises when asked for them): meshes and pipeline stages, and the flight
+recorder and Prometheus metrics.
 
 The reference donated its cache to each jitted call; here the pool is
 preallocated once (`PagedKVCache`) and updated in place.
@@ -29,7 +37,6 @@ preallocated once (`PagedKVCache`) and updated in place.
 from __future__ import annotations
 
 import collections
-import hashlib
 import queue
 import threading
 import time
@@ -42,7 +49,9 @@ import torch
 
 from skypilot_tpu_torch.errors import (AdapterNotFoundError,
                                        DeadlineExceededError,
-                                       EngineDeadError, QueueSaturatedError)
+                                       EngineDeadError, QueueSaturatedError,
+                                       SessionMigratedError)
+from skypilot_tpu_torch.inference import affinity, kv_transfer
 from skypilot_tpu_torch.models import decode_graph
 from skypilot_tpu_torch.models.llama import PagedKVCache
 from skypilot_tpu_torch.ops import paged_attention as paged_ops
@@ -75,7 +84,9 @@ class PrefixCache:
     page.
     """
 
-    def __init__(self, page_size: int) -> None:
+    def __init__(self, page_size: int,
+                 spill: Optional[kv_transfer.HostSpillTier] = None,
+                 fetch_pages: Optional[Callable] = None) -> None:
         self.page_size = page_size
         self.by_key: Dict[bytes, int] = {}
         self.key_of: Dict[int, bytes] = {}
@@ -86,23 +97,18 @@ class PrefixCache:
         self.hits = 0       # pages served from cache
         self.misses = 0     # full prompt pages that had to be computed
         self.evictions = 0  # cached pages returned under pool pressure
+        # Tiered cache: evicted pages spill (their exact device bytes,
+        # fetched by the engine's `fetch_pages(pages) -> {leaf path:
+        # page-major tensor}`) and restore on a later chain-key hit.
+        # None keeps the drop-on-evict behavior.
+        self.spill = spill
+        self._fetch_pages = fetch_pages
+        self.spilled_pages = 0
 
-    @staticmethod
-    def chain_keys(tokens, page_size: int,
-                   salt: bytes = b'') -> List[bytes]:
-        """One key per FULL page; key_i commits to ALL tokens through
-        page i (sha256 over int32 bytes, optionally salted). Byte for
-        byte the keys of skypilot_tpu/inference/affinity.py, which the
-        load balancer routes on."""
-        keys = []
-        h = hashlib.sha256()
-        if salt:
-            h.update(salt)
-        for i in range(len(tokens) // page_size):
-            chunk = tokens[i * page_size:(i + 1) * page_size]
-            h.update(np.asarray(chunk, np.int32).tobytes())
-            keys.append(h.digest())
-        return keys
+    #: One key per FULL page; key_i commits to ALL tokens through page i
+    #: (sha256 over int32 bytes, optionally salted): the keys the load
+    #: balancer routes on (inference/affinity.py).
+    chain_keys = staticmethod(affinity.chain_keys)
 
     def lookup_acquire(self, keys: List[bytes],
                        record: bool = True) -> List[int]:
@@ -124,6 +130,14 @@ class PrefixCache:
         self.hits += n_hits
         self.misses += n_misses
 
+    def acquire_page(self, key: bytes, page: int) -> None:
+        """Adopt and reference a page the engine just restored into the
+        pool under `key` (insert then acquire, minus the LRU trip)."""
+        if not self.insert(key, page):
+            raise ValueError(f'key already cached: {key.hex()[:12]}')
+        self.lru.pop(page, None)
+        self.refs[page] = self.refs.get(page, 0) + 1
+
     def release(self, pages: List[int]) -> None:
         for page in pages:
             self.refs[page] -= 1
@@ -143,10 +157,36 @@ class PrefixCache:
 
     def evict_into(self, allocator, need: int) -> None:
         """Return unreferenced cached pages to the allocator until it
-        can serve `need` pages (or nothing evictable is left)."""
-        while allocator.free_pages < need and self.lru:
+        can serve `need` pages (or nothing evictable is left). With a
+        spill tier the victims' device bytes are fetched in ONE batched
+        gather and spilled before their pages are released, so a later
+        restore is bit-identical to the fresh compute."""
+        deficit = need - allocator.free_pages
+        if deficit <= 0:
+            return
+        victims = []
+        while len(victims) < deficit and self.lru:
             page, _ = self.lru.popitem(last=False)
-            del self.by_key[self.key_of.pop(page)]
+            key = self.key_of.pop(page)
+            del self.by_key[key]
+            victims.append((key, page))
+        if not victims:
+            return
+        if self.spill is not None and self._fetch_pages is not None:
+            try:
+                blobs = self._fetch_pages([p for _, p in victims])
+                per_page = kv_transfer.split_pages(blobs, len(victims))
+                for (key, _page), blob in zip(victims, per_page):
+                    self.spill.put(key, blob)
+                    self.spilled_pages += 1
+            except Exception as e:  # pylint: disable=broad-except
+                # Spilling is an optimization: a failed gather degrades
+                # to drop-on-evict and never blocks the admission that
+                # triggered the eviction.
+                print(f'prefix cache: spill of {len(victims)} pages '
+                      f'failed ({type(e).__name__}: {e}); dropping them '
+                      f'instead', flush=True)
+        for _, page in victims:
             allocator.release([page])
             self.evictions += 1
 
@@ -172,12 +212,14 @@ class ContinuousBatchingEngine:
                  kv_cold_dir: Optional[str] = None,
                  mesh=None,
                  cuda_graphs: bool = True) -> None:
-        asked = [name for name, on in (
-            ('kv_spill_bytes', kv_spill_bytes), ('kv_cold_dir', kv_cold_dir),
-            ('mesh', mesh is not None)) if on]
-        if asked:
-            raise ValueError(f'not supported by the PyTorch engine yet: '
-                             f'{", ".join(asked)}')
+        if mesh is not None:
+            raise ValueError('not supported by the PyTorch engine yet: '
+                             'mesh')
+        if (kv_spill_bytes or kv_cold_dir) and not prefix_caching:
+            raise ValueError(
+                'kv_spill_bytes/kv_cold_dir need the paged engine '
+                'with prefix caching enabled (the spill tier stores '
+                'evicted prefix-cache pages)')
         cfg = model.config
         if max_total_len > cfg.max_seq_len:
             raise ValueError(f'max_total_len {max_total_len} > model '
@@ -262,6 +304,17 @@ class ContinuousBatchingEngine:
                                // self.page_size)
         self.prefix_caching = bool(prefix_caching)
         self.prefix_cache: Optional[PrefixCache] = None  # set per reset
+        # Tiered prefix cache: it outlives engine resets (content-
+        # addressed host bytes stay valid across a pool rebuild).
+        self.spill_tier = kv_transfer.make_spill_tier(kv_spill_bytes,
+                                                      kv_cold_dir)
+        # The engine-level restore outcome (the tier counts its own
+        # host lookups).
+        self.kv_restored_pages = 0
+        self.kv_restore_lookups = 0
+        self.kv_restore_hits = 0
+        self.sessions_evacuated = 0
+        self.chains_evacuated = 0
         self.cache = PagedKVCache(cfg, self.device)
         self._generator = torch.Generator(self.device).manual_seed(seed)
         self._reset_paging()
@@ -329,6 +382,10 @@ class ContinuousBatchingEngine:
         self._cancel_requests: set = set()
         self._cancel_lock = threading.Lock()
         self._queue: 'queue.Queue' = queue.Queue()
+        # Control operations (chain export / import / evacuation) hop
+        # onto the scheduler thread here: all pool reads and writes run
+        # between rounds on the thread that owns the slots.
+        self._control: 'queue.Queue' = queue.Queue()
         # FCFS admission order, owned by the scheduler thread; stalled
         # or preempted requests return to the HEAD.
         self._ready: 'collections.deque' = collections.deque()
@@ -350,8 +407,12 @@ class ContinuousBatchingEngine:
         self.owned_pages: List[List[int]] = [
             [] for _ in range(self.num_slots)]
         self.allocated_tokens = np.zeros((self.num_slots,), np.int32)
-        self.prefix_cache = (PrefixCache(self.page_size)
-                             if self.prefix_caching else None)
+        # Spilled blobs live on in the tier: pageable host memory.
+        self.prefix_cache = (PrefixCache(
+            self.page_size, spill=self.spill_tier,
+            fetch_pages=lambda pages: self._gather_page_blobs(
+                pages, pinned=False))
+            if self.prefix_caching else None)
         self.shared_pages: List[List[int]] = [
             [] for _ in range(self.num_slots)]
         self.slot_keys: List[List[bytes]] = [
@@ -489,9 +550,410 @@ class ContinuousBatchingEngine:
             'steady_decode_rounds': self.steady_decode_rounds,
             'steady_decode_tokens': self.steady_decode_tokens,
             'prefix_cache': ({'hits': pc.hits, 'misses': pc.misses,
-                              'evictions': pc.evictions}
+                              'evictions': pc.evictions,
+                              'spilled_pages': pc.spilled_pages}
                              if pc is not None else None),
+            'kv_restore_lookups': self.kv_restore_lookups,
+            'kv_restore_hits': self.kv_restore_hits,
+            'kv_restored_pages': self.kv_restored_pages,
+            'sessions_evacuated': self.sessions_evacuated,
+            'chains_evacuated': self.chains_evacuated,
         }
+
+    # -- KV page chains -------------------------------------------------------
+    def run_on_scheduler(self, fn, timeout: float = 120.0):
+        """Run `fn()` on the scheduler thread between rounds and return
+        its result (exceptions re-raise here): the one way other threads
+        touch the pool. Calls made on the scheduler thread run inline."""
+        if threading.current_thread() is self._thread:
+            return fn()
+        if self._dead.is_set():
+            raise EngineDeadError(
+                'engine scheduler thread is dead; restart the server')
+        fut: Future = Future()
+        self._control.put((fn, fut))
+        return fut.result(timeout=timeout)
+
+    def _run_control_ops(self) -> bool:
+        """Drain pending control operations (the top of each iteration).
+        An op's failure resolves only its caller's future: the pool is
+        written in place, and a failed scatter wrote only pages it had
+        allocated (and releases)."""
+        ran = False
+        while True:
+            try:
+                fn, fut = self._control.get_nowait()
+            except queue.Empty:
+                return ran
+            ran = True
+            try:
+                fut.set_result(fn())
+            except Exception as e:  # pylint: disable=broad-except
+                fut.set_exception(e)
+
+    def _cache_leaves(self) -> List:
+        """(path, pool tensor) for every cache leaf, under the
+        reference's keystr paths (`['layer_{i}']['attn']['k_pages']`,
+        and k_scales / v_scales for int8), so chains cross frameworks."""
+        return [(f"['layer_{i}']['attn']['{name}']", t)
+                for i, layer in enumerate(self.cache.layers)
+                for name, t in layer.items()]
+
+    def _gather_page_blobs(self, pages: List[int], pinned: bool = True
+                           ) -> Dict[str, torch.Tensor]:
+        """Exact pool bytes of physical pages `pages`, as {leaf path:
+        page-major CPU tensor}: the export side of handoff, spill and
+        migration. int8 pools gather the int8 payload and the f32
+        scales; nothing is dequantized. Every leaf's rows go to the
+        host in ONE copy (pinned memory, which the caching allocator
+        reuses, for a transient export; pageable for blobs the spill
+        tier keeps). Scheduler thread only: the gathers queue on the
+        rounds' stream behind every dispatched KV write."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        leaves = self._cache_leaves()
+        rows = [paged_ops.gather_page_rows(leaf, idx) for _, leaf in leaves]
+        flat = torch.cat([r.reshape(-1).view(torch.uint8) for r in rows])
+        cuda = self.device.type == 'cuda'
+        host = torch.empty(flat.shape, dtype=torch.uint8,
+                           pin_memory=cuda and pinned)
+        host.copy_(flat, non_blocking=cuda and pinned)
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        out, off = {}, 0
+        for (path, _), r in zip(leaves, rows):
+            nbytes = r.numel() * r.element_size()
+            out[path] = host[off:off + nbytes].view(r.dtype).view(r.shape)
+            off += nbytes
+        return out
+
+    def _scatter_page_blobs(self, pages: List[int],
+                            blobs: Dict[str, torch.Tensor]) -> None:
+        """Write page-major host blobs into physical pages `pages`
+        (import / restore), in place. The chain pads to a power of two
+        (the reference's compile ladder); pad rows go to trash page 0.
+        Scheduler thread only."""
+        leaves = self._cache_leaves()
+        paths = sorted(path for path, _ in leaves)
+        if paths != sorted(blobs):
+            raise ValueError(
+                f'KV chain leaves do not match this engine\'s cache '
+                f'layout (chain: {sorted(blobs)[:3]}..., cache: '
+                f'{paths[:3]}...)')
+        n = len(pages)
+        m = 1
+        while m < n:
+            m *= 2
+        idx = torch.zeros(m, dtype=torch.long)
+        idx[:n] = torch.tensor(pages, dtype=torch.long)
+        idx = idx.to(self.device)
+        staged = []
+        for path, leaf in leaves:
+            arr = blobs[path]
+            if leaf.ndim == 4:
+                want = (n, leaf.shape[0], leaf.shape[2], leaf.shape[3])
+            else:
+                want = (n, leaf.shape[1])
+            if tuple(arr.shape) != want or arr.dtype != leaf.dtype:
+                raise ValueError(
+                    f'KV chain leaf {path} is '
+                    f'{kv_transfer.dtype_name(arr.dtype)}{tuple(arr.shape)}'
+                    f', pool expects '
+                    f'{kv_transfer.dtype_name(leaf.dtype)}{want}')
+            rows = arr.to(self.device)
+            if m != n:
+                rows = torch.cat([rows, rows.new_zeros(
+                    (m - n,) + tuple(rows.shape[1:]))])
+            staged.append((leaf, rows))
+        # Every leaf validated before the first write.
+        for leaf, rows in staged:
+            paged_ops.scatter_page_rows(leaf, idx, rows)
+
+    def _chain_meta(self, keys: List[bytes], salt: bytes
+                    ) -> Dict[str, object]:
+        cfg = self.model.config
+        return {'kind': 'kv_chain', 'kv_dtype': self.kv_dtype,
+                'page_size': self.page_size,
+                'num_kv_heads': int(cfg.num_kv_heads),
+                'head_dim': int(cfg.head_dim),
+                'num_layers': int(cfg.num_layers),
+                'keys': [k.hex() for k in keys], 'salt': salt.hex()}
+
+    def _salt(self, adapter: Optional[str]) -> bytes:
+        if adapter is None:
+            return b''
+        if self.adapter_store is None:
+            raise AdapterNotFoundError(
+                f'adapter {adapter!r} requested for export but this '
+                f'engine has no adapter store')
+        return self.adapter_store.cache_salt(adapter)
+
+    def export_chain(self, tokens: List[int],
+                     adapter: Optional[str] = None) -> Optional[bytes]:
+        """The prompt's cached full-page KV chain (payload, scales,
+        adapter-salted chain keys, geometry), packed for another
+        replica: the longest cached prefix of its chain, or None when
+        nothing is cached or prefix caching is off. Thread-safe; the
+        chain is reference-pinned during the gather."""
+        if not self.prefix_caching:
+            return None
+        toks = [int(t) for t in tokens]
+
+        def op():
+            cache = self.prefix_cache
+            salt = self._salt(adapter)
+            keys = PrefixCache.chain_keys(toks, self.page_size, salt=salt)
+            if not keys:
+                return None
+            pages = cache.lookup_acquire(keys, record=False)
+            try:
+                if not pages:
+                    return None
+                blobs = self._gather_page_blobs(pages)
+            finally:
+                cache.release(pages)
+            return kv_transfer.pack_pages(
+                blobs, self._chain_meta(keys[:len(pages)], salt))
+
+        return self.run_on_scheduler(op)
+
+    def import_chain(self, data: bytes) -> Dict[str, int]:
+        """Scatter a packed chain into this pool and register it in the
+        prefix cache: the next submit of the same prompt (same adapter
+        salt) admits against the imported pages. Pages already cached
+        are skipped; pages that do not fit, after eviction and beside
+        the pages decoding slots reserve for their next dispatch
+        (`_growth_reserve`), are dropped in chain order and counted.
+        Raises ValueError on a geometry or dtype mismatch. Thread-safe."""
+        if not self.prefix_caching:
+            raise ValueError('import_chain needs the paged engine with '
+                             'prefix caching enabled')
+
+        def op():
+            meta, blobs = kv_transfer.unpack_pages(data)
+            if meta.get('kind') != 'kv_chain':
+                raise ValueError('not a KV chain payload')
+            if meta.get('kv_dtype') != self.kv_dtype:
+                raise ValueError(
+                    f'kv_dtype mismatch: chain is '
+                    f'{meta.get("kv_dtype")!r}, pool is {self.kv_dtype!r}')
+            if int(meta.get('page_size', 0)) != self.page_size:
+                raise ValueError(
+                    f'page_size mismatch: chain is '
+                    f'{meta.get("page_size")}, pool is {self.page_size}')
+            cfg = self.model.config
+            for field, want in (('num_kv_heads', cfg.num_kv_heads),
+                                ('head_dim', cfg.head_dim),
+                                ('num_layers', cfg.num_layers)):
+                got = meta.get(field)
+                if got is not None and int(got) and want and \
+                        int(got) != want:
+                    raise ValueError(f'{field} mismatch: chain is {got}, '
+                                     f'pool is {want}')
+            keys = [bytes.fromhex(k) for k in meta.get('keys', [])]
+            if len(keys) != int(meta.get('n_pages', -1)):
+                raise ValueError('chain key count != page count')
+            cache = self.prefix_cache
+            todo = [(i, key) for i, key in enumerate(keys)
+                    if key not in cache.by_key]
+            already = len(keys) - len(todo)
+            reserve = self._growth_reserve()
+            if todo:
+                cache.evict_into(self.allocator, len(todo) + reserve)
+            fit = todo[:max(self.allocator.free_pages - reserve, 0)]
+            dropped = len(todo) - len(fit)
+            if fit:
+                pages = self.allocator.allocate(len(fit))
+                rows = blobs
+                if len(fit) < len(keys):
+                    sel = torch.tensor([i for i, _ in fit], dtype=torch.long)
+                    rows = {path: arr.index_select(0, sel)
+                            for path, arr in blobs.items()}
+                try:
+                    self._scatter_page_blobs(pages, rows)
+                except Exception:
+                    self.allocator.release(pages)
+                    raise
+                for (_i, key), page in zip(fit, pages):
+                    cache.insert(key, page)
+            return {'pages': len(keys), 'imported': len(fit),
+                    'already_cached': already, 'dropped': dropped}
+
+        return self.run_on_scheduler(op)
+
+    def _evacuate_slot(self, slot: int, reason: str) -> Dict[str, object]:
+        """Evacuate one occupied slot (scheduler thread): pack its
+        committed-token KV chain, tear the slot down, and resolve its
+        future with SessionMigratedError carrying what a peer needs to
+        finish the session. The chain is gathered from the slot's live
+        page table (prompt + generated), and `slot_keys` is rewritten
+        to the full committed chain first, so the teardown promotes
+        every exported page into the local prefix cache: a failed ship
+        resumes on warm pages. Mid-prefill slots ship no payload and
+        promote nothing (pages past the frontier are unwritten).
+
+        Pipelined decode: a round may be in flight. Its token for this
+        slot is dropped by `_commit_round` (the slot's future is no
+        longer the one it was dispatched for), so it is neither emitted
+        nor committed; its KV write lands at the first uncommitted
+        position, past every page exported here, and the gather queues
+        behind it on the same stream."""
+        committed = [int(t) for t in self.outputs[slot]]
+        adapter = self.slot_adapter_name[slot]
+        was_prefilling = bool(self.prefilling[slot])
+        payload = None
+        n_chain = 0
+        if self.prefix_cache is not None and not was_prefilling:
+            salt = self._salt(adapter)
+            keys = PrefixCache.chain_keys(committed, self.page_size,
+                                          salt=salt)
+            if keys:
+                try:
+                    phys = [int(p) for p in self.page_table[slot, :len(keys)]]
+                    payload = kv_transfer.pack_pages(
+                        self._gather_page_blobs(phys),
+                        self._chain_meta(keys, salt))
+                    n_chain = len(keys)
+                except Exception:  # pylint: disable=broad-except
+                    payload = None   # ship nothing; the peer re-prefills
+                self.slot_keys[slot] = keys
+        deadline = float(self.deadlines[slot])
+        record = {
+            'reason': reason,
+            'tokens': committed,
+            'prompt_len': int(self.prompt_len[slot]),
+            'limit': int(self.limits[slot]),
+            'temperature': float(self.temps[slot]),
+            'top_k': int(self.top_ks[slot]),
+            'top_p': float(self.top_ps[slot]),
+            'stop_token_ids': sorted(self.stop_ids[slot]),
+            'adapter': adapter,
+            'deadline_s': (max(deadline - time.monotonic(), 0.5)
+                           if deadline else 0.0),
+            'payload': payload,
+            'pages': n_chain,
+        }
+        fut = self.futures[slot]
+        self.futures[slot] = None
+        self.active[slot] = False
+        self.on_tokens[slot] = None
+        self.deadlines[slot] = 0.0
+        self._release_adapter(slot)
+        if was_prefilling:
+            self.prefilling[slot] = False
+            try:
+                self._prefill_order.remove(slot)
+            except ValueError:
+                pass
+        self._release_slot_pages(slot, promote=not was_prefilling)
+        self.sessions_evacuated += 1
+        if payload is not None:
+            self.chains_evacuated += 1
+        if fut is not None:
+            fut.set_exception(SessionMigratedError(record))
+        return record
+
+    def _evacuate_queued(self, reason: str) -> int:
+        """Fail every queued (not yet admitted) request with a
+        payload-less SessionMigratedError, so its caller resubmits
+        elsewhere at once. Scheduler thread only."""
+        while True:
+            try:
+                self._ready.append(self._queue.get_nowait())
+            except queue.Empty:
+                break
+        n = 0
+        while self._ready:
+            (prompt, max_new, temp, top_k, top_p, stops, adapter,
+             _on_token, deadline, fut) = self._ready.popleft()
+            self._queued_tokens_sub(len(prompt))
+            fut.set_exception(SessionMigratedError({
+                'reason': reason,
+                'tokens': [int(t) for t in prompt],
+                'prompt_len': len(prompt),
+                'limit': min(len(prompt) + int(max_new),
+                             self.max_total_len),
+                'temperature': float(temp),
+                'top_k': int(top_k),
+                'top_p': float(top_p),
+                'stop_token_ids': sorted(stops),
+                'adapter': adapter,
+                'deadline_s': (max(deadline - time.monotonic(), 0.5)
+                               if deadline else 0.0),
+                'payload': None,
+                'pages': 0,
+            }))
+            n += 1
+        return n
+
+    def evacuate_chains(self, max_sessions: Optional[int] = None,
+                        reason: str = 'drain') -> Dict[str, int]:
+        """Evacuate sessions for live migration (drain, preemption
+        notice or rebalance): each occupied slot's committed tokens and
+        packed chain go back to its waiting HTTP thread as a
+        SessionMigratedError record, and its pages stay promoted in the
+        local prefix cache. `max_sessions=None` evacuates everything,
+        the queue included; a bound (rebalance) takes the deepest
+        chains first (the most recompute saved) and leaves the queue.
+        Thread-safe. Returns {'evacuated', 'chains', 'queued'}."""
+
+        def op():
+            evacuated = chains = 0
+            limit_n = (self.num_slots if max_sessions is None
+                       else max(int(max_sessions), 0))
+            order = sorted((s for s in range(self.num_slots)
+                            if self.active[s] or self.prefilling[s]),
+                           key=lambda s: -len(self.outputs[s]))
+            for slot in order[:limit_n]:
+                rec = self._evacuate_slot(slot, reason)
+                evacuated += 1
+                if rec['payload'] is not None:
+                    chains += 1
+            queued = (self._evacuate_queued(reason)
+                      if max_sessions is None else 0)
+            return {'evacuated': evacuated, 'chains': chains,
+                    'queued': queued}
+
+        return self.run_on_scheduler(op)
+
+    def _restore_from_spill(self, keys: List[bytes], shared: List[int],
+                            reserve: int) -> None:
+        """Extend the resident chain prefix `shared` from the spill tier,
+        in place: for each key past it (in chain order, to the first
+        miss), allocate a page, scatter the spilled bytes back and
+        acquire it like a resident hit. Only what can land is fetched:
+        free pages plus the evictable LRU, less the pages decoding
+        slots reserve for their next dispatch."""
+        cache = self.prefix_cache
+        budget = self.allocator.free_pages + len(cache.lru) - reserve
+        found_blobs = []
+        found_keys = []
+        for key in keys[len(shared):]:
+            if len(found_blobs) >= budget:
+                break
+            self.kv_restore_lookups += 1
+            blob = self.spill_tier.get(key)
+            if blob is None:
+                break
+            self.kv_restore_hits += 1
+            found_blobs.append(blob)
+            found_keys.append(key)
+        if not found_blobs:
+            return
+        cache.evict_into(self.allocator, len(found_blobs) + reserve)
+        n_fit = min(len(found_blobs), self.allocator.free_pages - reserve)
+        if n_fit <= 0:
+            return
+        pages = self.allocator.allocate(n_fit)
+        try:
+            self._scatter_page_blobs(
+                pages, kv_transfer.join_pages(found_blobs[:n_fit]))
+        except Exception:
+            self.allocator.release(pages)
+            raise
+        for key, page in zip(found_keys[:n_fit], pages):
+            cache.acquire_page(key, page)
+        shared.extend(pages)
+        self.kv_restored_pages += n_fit
 
     # -- scheduler thread ---------------------------------------------------
     def _loop(self) -> None:
@@ -519,12 +981,19 @@ class ContinuousBatchingEngine:
                     if fut is not None and not fut.done():
                         fut.set_exception(died)
                 self._fail_all_pending(died)
+                while True:
+                    try:
+                        _fn, cfut = self._control.get_nowait()
+                    except queue.Empty:
+                        break
+                    cfut.set_exception(died)
 
     def _iterate(self) -> None:
-        """Admit (host only) -> apply cancellations -> reap deadlines ->
-        up to `prefill_budget` tokens of chunked prefill -> one decode
-        round for the active slots."""
-        progressed = self._admit()
+        """Control ops -> admit (host only) -> apply cancellations ->
+        reap deadlines -> up to `prefill_budget` tokens of chunked
+        prefill -> one decode round for the active slots."""
+        progressed = self._run_control_ops()
+        progressed = self._admit() or progressed
         self._apply_cancellations()
         self._reap_deadlines()
         prefilled = bool(self._prefill_order)
@@ -720,7 +1189,15 @@ class ContinuousBatchingEngine:
             if self.prefix_cache is not None:
                 keys = PrefixCache.chain_keys(prompt, self.page_size,
                                               salt=salt)
-                shared = self.prefix_cache.lookup_acquire(keys)
+                shared = self.prefix_cache.lookup_acquire(keys,
+                                                          record=False)
+                # Tiered cache: spilled pages extend the resident prefix
+                # before the hit / miss accounting (a restored page saved
+                # the recompute exactly as a resident hit does).
+                if self.spill_tier is not None and len(shared) < len(keys):
+                    self._restore_from_spill(keys, shared, reserve)
+                self.prefix_cache.record_lookup(len(shared),
+                                                len(keys) - len(shared))
                 # At least ONE token must prefill (the continuation
                 # samples from its logits).
                 if len(shared) * self.page_size >= plen:

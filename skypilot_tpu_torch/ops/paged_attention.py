@@ -215,6 +215,36 @@ def write_kv_chunk_quant(k_pages: torch.Tensor, v_pages: torch.Tensor,
     v_scales[physical, slot] = sv.reshape(-1)
 
 
+def gather_page_rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Whole physical pages out of a pool-shaped cache leaf (the export
+    side of KV-page handoff, spill and migration).
+
+    Page arrays [Hkv, total_pages, page_size, D] come back page-major
+    ([n, Hkv, page_size, D]: one leading row per page, the wire layout);
+    scale arrays [total_pages, page_size] come back as [n, page_size].
+    Pure indexing: int8 stays int8 and bf16 stays bf16, so the gathered
+    bytes are the pool's bytes."""
+    if arr.ndim == 4:
+        return arr.index_select(1, idx).transpose(0, 1).contiguous()
+    assert arr.ndim == 2, arr.shape
+    return arr.index_select(0, idx)
+
+
+def scatter_page_rows(arr: torch.Tensor, idx: torch.Tensor,
+                      rows: torch.Tensor) -> None:
+    """Inverse of `gather_page_rows`: write page-major rows into the
+    leaf at physical pages `idx` (the import / restore side), IN PLACE:
+    the pool tensors are the ones the captured decode graphs read, so
+    the storage must never be rebound. Same dtype-preserving contract;
+    rows aimed at one page more than once (pad rows to the trash page)
+    land in an unspecified order."""
+    if arr.ndim == 4:
+        arr.index_copy_(1, idx, rows.transpose(0, 1).to(arr.dtype))
+        return
+    assert arr.ndim == 2, arr.shape
+    arr.index_copy_(0, idx, rows.to(arr.dtype))
+
+
 class PageAllocator:
     """Host-side free-list over the fixed physical page pool: the
     engine calls it between steps to grow a sequence's page list or

@@ -21,6 +21,25 @@ exits with an error.
       --continuous-batching --adapter-dir adapters/ --max-adapters 4
   python -m skypilot_tpu_torch.recipes.serve_lm --model llama3-8b \\
       --continuous-batching --speculative 4     # or --decode-chunk 4
+  # disaggregated serving: a decode replica, and a prefill replica that
+  # hands each prompt's KV page chain to it (falling back to local
+  # serving when the transfer fails)
+  python -m skypilot_tpu_torch.recipes.serve_lm --model llama3-8b \\
+      --continuous-batching --role decode --port 8001
+  python -m skypilot_tpu_torch.recipes.serve_lm --model llama3-8b \\
+      --continuous-batching --role prefill --decode-peers 127.0.0.1:8001
+  # tiered prefix cache: evicted pages spill to 4 GB of host RAM, and
+  # from there to a local directory
+  python -m skypilot_tpu_torch.recipes.serve_lm --model llama3-8b \\
+      --continuous-batching --kv-spill-bytes 4000000000 \\
+      --kv-cold-dir /var/cache/kv
+
+POST /kv/import, /kv/peers, /kv/evacuate and /kv/migrate serve the
+fleet's handoffs and live migrations; on SIGTERM or a spot preemption
+notice the replica evacuates its sessions' KV chains to its peers
+before it exits. A fault plan in the STPU_FAULT_PLAN environment
+variable arms the `kv.handoff`, `kv.migrate` and `serve.preempt_notice`
+points (--fault-plan waits for ROADMAP A6(e)).
 
 Without --continuous-batching the server runs the one-shot engine, as
 the reference does: each request alone, every step of its power-of-two
@@ -125,16 +144,35 @@ def build_parser() -> argparse.ArgumentParser:
                    default='bf16',
                    help='weight storage; f32 keeps f32 weights, cast to '
                         'bf16 where they are used')
+    p.add_argument('--role', choices=['', 'prefill', 'decode'], default='',
+                   help='disaggregated serving role. "prefill": prefill '
+                        'prompts and hand the KV page chain to a decode '
+                        'peer (POST /kv/import) instead of decoding '
+                        'locally, falling back to local serving when the '
+                        'transfer fails; "decode": a label (pool '
+                        'membership). Default: unified. prefill needs '
+                        '--continuous-batching')
+    p.add_argument('--decode-peers', default=None, metavar='HOST:PORT,...',
+                   help='static decode pool for --role prefill (the '
+                        'fleet controller pushes the live set through '
+                        'POST /kv/peers instead)')
+    p.add_argument('--kv-spill-bytes', type=int, default=0, metavar='B',
+                   help='tiered prefix cache: spill evicted KV pages '
+                        '(payload + scales + chain key) into a host-RAM '
+                        'LRU of at most B bytes instead of dropping '
+                        'them; a later chain-key hit restores the exact '
+                        'bytes. 0 = off. Needs --continuous-batching')
+    p.add_argument('--kv-cold-dir', default=None, metavar='DIR',
+                   help='cold tier behind --kv-spill-bytes: pages '
+                        'LRU-evicted from host RAM land in the local '
+                        'directory DIR and survive restarts (gs:// '
+                        'prefixes are not ported yet)')
     # The reference's flags for features this port does not have yet:
     # parsed so the command line stays the same, refused if used.
     p.add_argument('--tensor', type=int, default=1)
     p.add_argument('--stages', type=int, default=1)
     p.add_argument('--weight-dtype', choices=['bf16', 'int8'],
                    default='bf16')
-    p.add_argument('--role', choices=['', 'prefill', 'decode'], default='')
-    p.add_argument('--decode-peers', default=None, metavar='HOST:PORT,...')
-    p.add_argument('--kv-spill-bytes', type=int, default=0, metavar='B')
-    p.add_argument('--kv-cold-dir', default=None, metavar='DIR')
     p.add_argument('--fault-plan', default=None, metavar='JSON')
     p.add_argument('--trace-sample', type=float, default=0.0, metavar='P')
     p.add_argument('--trace-seed', type=int, default=None)
@@ -144,9 +182,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     """Parse and validate: exits (status 2) naming every flag this port
-    cannot honor, and on the reference's refusal of int8 KV pages in
-    the one-shot mode."""
+    cannot honor, and on the reference's refusals of int8 KV pages, the
+    spill tier and the prefill role in the one-shot mode (and of a
+    remote cold tier)."""
     from skypilot_tpu_torch.inference.runtime import (INT8_NEEDS_CONTINUOUS,
+                                                      kv_chain_refusal,
                                                       unsupported_flags)
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -156,6 +196,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                      + ', '.join(bad))
     if args.kv_dtype == 'int8' and not args.continuous_batching:
         parser.error(INT8_NEEDS_CONTINUOUS)
+    refusal = kv_chain_refusal(args)
+    if refusal:
+        parser.error(refusal)
     return args
 
 
@@ -169,7 +212,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     except NoCudaDeviceError as e:
         print(f'serve_lm: {e}', file=sys.stderr, flush=True)
         sys.exit(1)
-    serve(rt, args.port, drain_grace=args.drain_grace)
+    serve(rt, args.port, drain_grace=args.drain_grace, zone=args.zone)
 
 
 if __name__ == '__main__':

@@ -1,5 +1,6 @@
 """Deterministic fault injection at named points (port of
-skypilot_tpu/robustness/faults.py, the parts the trainer fires).
+skypilot_tpu/robustness/faults.py, the parts the trainer and the
+replica's KV-chain paths fire).
 
 Production code declares injection points (`faults.point('train.step',
 step='4')`) that are no-ops by default: one module-global read per
@@ -68,6 +69,26 @@ KNOWN_POINTS: Dict[str, str] = {
         'stalled data loader: the step watchdog dumps all thread '
         'stacks and aborts with the typed code 84 past its '
         'deadline; context: resume=<0|1>',
+    'kv.handoff':
+        'prefill-role inference server, start of each prefill->'
+        'decode KV page-chain handoff (raise OR drop fails the '
+        'transfer: the prefill replica falls back to serving the '
+        'request locally from its already-warm pages — the '
+        'disaggregation degradation path, never an error to the '
+        'client)',
+    'kv.migrate':
+        'inference server, start of each live session migration '
+        'ship (the /kv/migrate POST of an evacuated chain + '
+        'continuation request) — raise OR drop fails the ship: the '
+        'session finishes locally on the pages the evacuation '
+        'promoted into the prefix cache, never an error to the '
+        'client; context carries reason=<drain|preempt|rebalance>',
+    'serve.preempt_notice':
+        'serving preemption-notice poll loop (http_server.'
+        'ServePreemptionNotice) — a DROP is a synthetic spot '
+        'preemption: the replica mass-evacuates every active KV '
+        'chain to peers and drains inside the grace window; '
+        'fire-site context carries zone=<zone>',
 }
 
 _WINDOW_KEYS = ('start_s', 'start_range', 'duration_s')

@@ -2,7 +2,7 @@
 
   - neither the package nor chip_smoke.py / profile_*.py imports
     jax, flax, optax, orbax,
-    ml_dtypes or skypilot_tpu (an AST scan), and serve_lm and train_lm
+    ml_dtypes, requests or skypilot_tpu (an AST scan), and serve_lm and train_lm
     import with those made unimportable;
   - entry points default to CUDA and raise without it unless the CPU
     was asked for; serve_lm without --cpu exits non-zero saying so;
@@ -11,7 +11,11 @@
     transformers when it is called);
   - impl='cuda' on CPU tensors raises; unsupported serve_lm flags exit
     naming the flag, and int8 KV pages without --continuous-batching
-    exit with the reference's message; train_lm without --cpu exits
+    exit with the reference's message; the KV-chain flags (--role,
+    --decode-peers, --kv-spill-bytes, --kv-cold-dir) parse under
+    --continuous-batching, and without it the spill flags and the
+    prefill role exit with the reference's messages (a gs:// cold dir
+    exits naming ROADMAP A6(c)); train_lm without --cpu exits
     on a GPU-less box;
   - kv pool sizing by bytes matches the reference's arithmetic.
 """
@@ -35,7 +39,8 @@ from skypilot_tpu_torch.ops import paged_kernel as pk
 from skypilot_tpu_torch.recipes import serve_lm
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ('jax', 'flax', 'optax', 'orbax', 'ml_dtypes', 'skypilot_tpu')
+FORBIDDEN = ('jax', 'flax', 'optax', 'orbax', 'ml_dtypes', 'requests',
+             'skypilot_tpu')
 
 
 def _sources():
@@ -174,11 +179,7 @@ def test_cuda_impl_on_cpu_tensors_raises():
 @pytest.mark.parametrize('argv,flag', [
     (['--stages', '2'], '--stages'),
     (['--tensor', '2'], '--tensor'),
-    (['--kv-spill-bytes', '1024'], '--kv-spill-bytes'),
     (['--weight-dtype', 'int8'], '--weight-dtype'),
-    (['--role', 'prefill'], '--role'),
-    (['--decode-peers', 'h:1'], '--decode-peers'),
-    (['--kv-cold-dir', '/x'], '--kv-cold-dir'),
     (['--fault-plan', '{}'], '--fault-plan'),
     (['--trace-sample', '0.5'], '--trace-sample'),
     (['--trace-seed', '3'], '--trace-seed'),
@@ -189,6 +190,55 @@ def test_unsupported_flag_exits_with_its_name(argv, flag, capsys):
         serve_lm.parse_args(['--cpu', '--continuous-batching'] + argv)
     assert exc.value.code != 0
     assert flag in capsys.readouterr().err
+
+
+@pytest.mark.parametrize('argv,want', [
+    (['--role', 'prefill'], {'role': 'prefill'}),
+    (['--role', 'decode'], {'role': 'decode'}),
+    (['--decode-peers', 'h:1,h:2'], {'decode_peers': 'h:1,h:2'}),
+    (['--kv-spill-bytes', '1024'], {'kv_spill_bytes': 1024}),
+    (['--kv-cold-dir', '/x', '--kv-spill-bytes', '8'],
+     {'kv_cold_dir': '/x', 'kv_spill_bytes': 8}),
+])
+def test_kv_chain_flags_parse_under_continuous_batching(argv, want):
+    args = serve_lm.parse_args(['--cpu', '--continuous-batching'] + argv)
+    assert {k: getattr(args, k) for k in want} == want
+
+
+@pytest.mark.parametrize('argv,message', [
+    (['--kv-spill-bytes', '1024'], 'SPILL_NEEDS_CONTINUOUS'),
+    (['--kv-cold-dir', '/x'], 'SPILL_NEEDS_CONTINUOUS'),
+    (['--role', 'prefill'], 'PREFILL_NEEDS_CONTINUOUS'),
+    (['--continuous-batching', '--kv-cold-dir', 'gs://b/kv'],
+     'REMOTE_COLD_DIR'),
+])
+def test_kv_chain_refusals(argv, message, capsys):
+    """The reference's two refusals without --continuous-batching, word
+    for word (its serve_lm's parser errors), and a remote cold tier
+    refused naming ROADMAP A6(c)."""
+    from skypilot_tpu_torch.inference import kv_transfer, runtime
+    text = getattr(runtime, message, None) or getattr(kv_transfer, message)
+    with pytest.raises(SystemExit) as exc:
+        serve_lm.parse_args(['--cpu'] + argv)
+    assert exc.value.code != 0
+    err = capsys.readouterr().err
+    assert text in err
+    if message == 'REMOTE_COLD_DIR':
+        assert 'A6(c)' in err
+
+
+def test_kv_chain_refusals_are_the_references_words():
+    """The refusal strings are the messages of the reference serve_lm's
+    parser.error calls (read from its source with the AST)."""
+    from skypilot_tpu_torch.inference import runtime
+    tree = ast.parse((ROOT / 'skypilot_tpu' / 'recipes' /
+                      'serve_lm.py').read_text())
+    messages = {ast.literal_eval(node.args[0]) for node in ast.walk(tree)
+                if isinstance(node, ast.Call)
+                and getattr(node.func, 'attr', '') == 'error'
+                and isinstance(node.args[0], ast.Constant)}
+    assert runtime.SPILL_NEEDS_CONTINUOUS in messages
+    assert runtime.PREFILL_NEEDS_CONTINUOUS in messages
 
 
 def test_continuous_batching_is_required(capsys):

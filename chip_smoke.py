@@ -72,6 +72,35 @@ failure exits non-zero before the result lines:
                  prefix); then prefix hits only within a tenant, a 4th
                  adapter hot-loads with one eviction, an unknown model
                  is a 404; both kernels launched, no plain call
+  observability  serve_lora's weights, adapters and flags plus
+                 --trace-sample 1.0 --trace-seed 0 --slo
+                 p99_ttft_ms=5000,p99_itl_ms=500,error_rate=0.05
+                 --fault-plan (engine.decode_step at its 5th hit, a
+                 20 ms engine.device_get delay at the 9th, the first
+                 adapters.load), STPU_FLIGHT_DIR under build/: the 8
+                 prompts (2 base, 2 per adapter, request 2 with a made-up
+                 x-skypilot-trace header) after one attn8 request whose
+                 load fails: that one answers 503 AdapterLoadError (the
+                 reference's answer), every other answer equals the same
+                 requests' on a runtime without the four flags; /stats
+                 has the repaired keys, engine_restarts 0 and the slo
+                 block; /debug/flight one soft_error (strikes 1), no
+                 reset; /metrics parses line by line as exposition 0.0.4
+                 and this engine's tokens_committed_total and
+                 decode_steps_total equal /stats', decode_step_seconds
+                 has one sample a round, the adapter series are there;
+                 /debug/trace/<id> holds replica.request under the
+                 header, engine.queue_wait, engine.admit, prefill chunks
+                 and 31+ engine.decode_round spans, each parent in the
+                 trace; split and chunk routes and QKV LoRA launched, no
+                 plain call; then a 2-layer engine at the same width
+                 under engine.decode_step at hits 3-5: one reset, the
+                 batch failed with the injected error, a `reset`
+                 snapshot file, engine_restarts 1, and the next request
+                 equals a fresh engine's from graph replays on the same
+                 pool storage. Cost lines: steady round ms with tracing
+                 at 0 and 1.0 in turns (0, 1, 1, 0), the ms of a
+                 /metrics scrape, the phase's seconds
   flash_kernels  the flash forward and fused backward (dQ, dK, dV)
                  kernels vs their plain versions (D=128) at training's
                  shape (bf16 B=8 S=2048 Hq=32 Hkv=8), a long prefill's
@@ -1900,8 +1929,8 @@ def burst(rt, port, ps, models, kernels):
         'prompt_tokens': sum(len(p) for p in ps), 'new_tokens': 32,
         'kv_pages': rt.engine.total_pages, 'wall_s': wall,
         'tokens_per_s': 32 * len(ps) / wall,
-        'ttft_p50_s': metrics['ttft_p50_s'],
-        'ttft_max_s': metrics['ttft_p99_s'],
+        'ttft_p50_s': metrics['ttft_ms_p50'] / 1e3,
+        'ttft_max_s': max(rt.metrics.ttft_ms) / 1e3,
         'e2e_p50_s': float(np.median(lat)), 'e2e_max_s': max(lat),
         'decode_tokens_per_s': (delta('steady_decode_tokens') / steady_s
                                 if steady_s else None),
@@ -2025,6 +2054,348 @@ def phase_serve_lora(model, pk, lk, card):
          adapters={k: adapters[k] for k in (
              'loaded', 'rank', 'targets', 'loads', 'evictions',
              'requests', 'bytes_per_adapter')})
+
+
+# -- observability -----------------------------------------------------------
+OBS_PLAN = {'seed': 0, 'rules': [
+    {'point': 'engine.decode_step', 'at': [5]},
+    {'point': 'engine.device_get', 'action': 'delay', 'delay_s': 0.02,
+     'at': [9]},
+    {'point': 'adapters.load', 'at': [1]}]}
+OBS_SLO = 'p99_ttft_ms=5000,p99_itl_ms=500,error_rate=0.05'
+OBS_FLAGS = ('--trace-sample', '1.0', '--trace-seed', '0', '--slo', OBS_SLO,
+             '--fault-plan', json.dumps(OBS_PLAN))
+# The trace header the phase makes up for request OBS_TRACED.
+OBS_TRACE_ID, OBS_TRACE_PARENT, OBS_TRACED = '00c0ffee00c0ffee', 'feedbeef', 2
+# /stats keys of the reference's body that C4 repaired.
+C4_KEYS = ('serving', 'storage', 'page_pool', 'pid', 'num_slots',
+           'active_slots', 'preemptions', 'deadline_exceeded',
+           'engine_restarts', 'queued_tokens', 'max_queue_requests',
+           'max_queue_tokens', 'prefill_token_budget', 'pipeline_stages',
+           'prefill_bubble_fraction', 'attention_impl',
+           'attention_bytes_per_token')
+# The first adapter load fails (the plan's adapters.load rule): this
+# request alone, before the burst; its prompt shares nothing cached.
+OBS_FAILED_LOAD = 'attn8'
+
+
+def get_raw(port, path, timeout=60):
+    with urllib.request.urlopen(f'http://127.0.0.1:{port}{path}',
+                                timeout=timeout) as resp:
+        return resp.read()
+
+
+def post_with(port, path, body, headers=None, timeout=600):
+    """(status, JSON body) of a POST, HTTP errors included."""
+    req = urllib.request.Request(
+        f'http://127.0.0.1:{port}{path}', data=json.dumps(body).encode(),
+        headers={'Content-Type': 'application/json', **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def parse_exposition(text):
+    """{sample (name + labels): value} of a text exposition 0.0.4 body;
+    fails the run on a line that does not parse."""
+    samples, typed = {}, set()
+    for line in text.splitlines():
+        if line.startswith('# HELP '):
+            check(len(line.split(' ', 3)) == 4, f'bad HELP line {line!r}')
+            continue
+        if line.startswith('# TYPE '):
+            parts = line.split(' ')
+            check(len(parts) == 4 and parts[3] in (
+                'counter', 'gauge', 'histogram', 'untyped'),
+                f'bad TYPE line {line!r}')
+            typed.add(parts[2])
+            continue
+        head, _, value = line.rpartition(' ')
+        name = head.partition('{')[0]
+        check(head and (name in typed or name.rpartition('_')[0] in typed)
+              and (head.count('{') == head.count('}') <= 1),
+              f'bad sample line {line!r}')
+        samples[head] = float(value)
+    return samples
+
+
+def obs_burst(port, ps, headers_for=None):
+    """The 8 prompts as concurrent greedy /generate requests of 32 new
+    tokens under LORA_MODELS: [(status, tokens)]."""
+    def one(i):
+        body = {'tokens': [ps[i]], 'max_new_tokens': 32, 'temperature': 0.0}
+        if LORA_MODELS[i] is not None:
+            body['model'] = LORA_MODELS[i]
+        code, out = post_with(port, '/generate', body,
+                              headers=(headers_for or {}).get(i))
+        return code, out.get('tokens', [None])[0]
+    return concurrently(one, len(ps))
+
+
+def steady_round_ms(rt, port, ps, sample):
+    """Steady decode round ms (rounds with no prefill queued) over a
+    burst of the 8 prompts, base model, with tracing at `sample`."""
+    from skypilot_tpu_torch.observability import tracing
+    tracing.configure(sample=sample)
+    s0 = rt.engine.stats()
+    concurrently(lambda i: post(port, '/generate', {
+        'tokens': [ps[i]], 'max_new_tokens': 32}), len(ps))
+    s1 = rt.engine.stats()
+    rounds = s1['steady_decode_rounds'] - s0['steady_decode_rounds']
+    return 1e3 * (s1['steady_decode_s'] - s0['steady_decode_s']) / rounds
+
+
+def escalation(card):
+    """A 2-layer engine at Llama-3-8B width under engine.decode_step at
+    hits 3, 4, 5: one reset, the batch failed with the injected error, a
+    snapshot file with reason 'reset', engine_restarts 1 on /stats; the
+    next request equals a fresh engine's tokens, from graph replays, on
+    the same pool storage."""
+    import glob
+    from skypilot_tpu_torch.inference.http_server import make_server
+    from skypilot_tpu_torch.inference.runtime import InferenceRuntime
+    from skypilot_tpu_torch.models import convert, registry
+    from skypilot_tpu_torch.models.batching import ContinuousBatchingEngine
+    from skypilot_tpu_torch.robustness import faults
+    cfg = dataclasses.replace(registry.model_config('llama3-8b', 1024),
+                              num_layers=2, kv_total_pages=600)
+    model = convert.init_params(cfg, seed=1, device='cuda')
+    ps = prompts(seed=5, n=4)
+    kw = dict(num_slots=8, max_total_len=1024, prefill_chunk=256)
+    fresh = ContinuousBatchingEngine(model, **kw)
+    try:
+        want = fresh.submit(ps[3], max_new_tokens=16).result(timeout=300)
+    finally:
+        fresh.stop()
+    eng = ContinuousBatchingEngine(model, **kw)
+    rt = InferenceRuntime(engine=eng, model_name='llama3-8b-2-layers')
+    server = make_server(rt, 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    ptr = eng.cache.layers[0]['k_pages'].data_ptr()
+    try:
+        faults.install_plan({'rules': [
+            {'point': 'engine.decode_step', 'at': [3, 4, 5]}]})
+        futs = [eng.submit(p, max_new_tokens=16) for p in ps[:3]]
+        errors = []
+        for f in futs:
+            try:
+                f.result(timeout=300)
+                errors.append(None)
+            except Exception as e:  # pylint: disable=broad-except
+                errors.append(f'{type(e).__name__}: {e}')
+        faults.clear()
+        replays0 = eng.stats()['graph_replays']
+        code, after = post_with(port, '/generate', {
+            'tokens': [ps[3]], 'max_new_tokens': 16})
+        replays = eng.stats()['graph_replays'] - replays0
+        stats = post_stats(port)
+        events = eng.flight.events()
+        snaps = glob.glob(os.path.join(os.environ['STPU_FLIGHT_DIR'],
+                                       f'stpu-flight-{eng.flight.name}-*'
+                                       f'-reset-*.json'))
+        snap = json.load(open(snaps[0], encoding='utf-8')) if snaps else {}
+        same_pool = eng.cache.layers[0]['k_pages'].data_ptr() == ptr
+    finally:
+        faults.clear()
+        stop_runtime(rt, server, thread)
+    resets = [e for e in events if e['kind'] == 'reset']
+    softs = [e['strikes'] for e in events if e['kind'] == 'soft_error']
+    check(softs == [1, 2, 3] and len(resets) == 1,
+          f'escalation: soft strikes {softs}, {len(resets)} resets')
+    check(all(e == 'InjectedFault: injected fault at engine.decode_step'
+              for e in errors), f'escalation: futures gave {errors}')
+    check(len(snaps) == 1 and snap.get('reason') == 'reset',
+          f'escalation: snapshots {snaps}')
+    check(stats['engine_restarts'] == 1,
+          f'escalation: engine_restarts {stats["engine_restarts"]}')
+    check(code == 200 and after['tokens'][0] == want,
+          'escalation: the next request differs from a fresh engine')
+    check(replays > 0 and same_pool,
+          f'escalation: {replays} graph replays, same pool {same_pool}')
+    return {'soft_strikes': softs, 'resets': len(resets),
+            'failed_futures': len(errors), 'snapshot': os.path.basename(
+                snaps[0]), 'engine_restarts': stats['engine_restarts'],
+            'replays_after_reset': replays, 'same_pool_storage': same_pool}
+
+
+def phase_observability(model, pk, lk, card):
+    """serve_lora's weights, adapters and flags plus --trace-sample 1.0
+    --trace-seed 0 --slo --fault-plan (a soft error at the 5th decode
+    step, a 20 ms delay at the 9th token fetch, the first adapter load
+    failing) against the same flags without the four: the same tokens
+    on every request, the failed load answered 503 as the reference
+    answers it and the next request to that adapter served; /stats'
+    repaired keys and slo block, /debug/flight's one soft error and no
+    reset, /metrics parsed line by line and agreeing with /stats, the
+    made-up trace's spans linked to their parents; then the escalation
+    (three strikes reset a 2-layer engine); cost lines: steady round ms
+    with tracing off and on in turns, one scrape's ms, the phase's
+    seconds."""
+    from skypilot_tpu_torch.observability import tracing
+    from skypilot_tpu_torch.robustness import faults
+    t_phase = time.perf_counter()
+    flight_dir = os.path.join(WORK, 'flight')
+    shutil.rmtree(flight_dir, ignore_errors=True)
+    os.makedirs(flight_dir)
+    os.environ['STPU_FLIGHT_DIR'] = flight_dir
+    root = os.path.join(WORK, 'adapters')
+    flags = ['--adapter-dir', root, '--max-adapters', '3']
+    ps = prompts()
+    failed_prompt = ps[2][:64]
+    # The same requests without the observability flags.
+    rt, server, thread, port, _ = serve_runtime(model, 'bf16', flags)
+    try:
+        first = post_with(port, '/generate', {
+            'tokens': [failed_prompt], 'max_new_tokens': 4,
+            'model': OBS_FAILED_LOAD})
+        plain = obs_burst(port, ps)
+    finally:
+        stop_runtime(rt, server, thread)
+    headers = {OBS_TRACED: {'x-skypilot-trace':
+                            f'{OBS_TRACE_ID}:{OBS_TRACE_PARENT}:1'}}
+    pk.launches = pk.plain_calls = lk.launches = lk.plain_calls = 0
+    zero_paged(pk)
+    rt, server, thread, port, setup_s = serve_runtime(
+        model, 'bf16', flags + list(OBS_FLAGS))
+    try:
+        eng = rt.engine
+        failed = post_with(port, '/generate', {
+            'tokens': [failed_prompt], 'max_new_tokens': 4,
+            'model': OBS_FAILED_LOAD})
+        observed = obs_burst(port, ps, headers)
+        launches, plain_calls = pk.launches, pk.plain_calls
+        routes = dict(pk.route_launches)
+        lora_launches, lora_plain = lk.launches, lk.plain_calls
+        fired = faults.stats()
+        stats = post_stats(port)
+        flight = json.loads(get_raw(port, '/debug/flight'))
+        t0 = time.perf_counter()
+        text = get_raw(port, '/metrics').decode()
+        first_scrape_ms = 1e3 * (time.perf_counter() - t0)
+        v1_text = get_raw(port, '/v1/metrics').decode()
+        trace = json.loads(get_raw(port, f'/debug/trace/{OBS_TRACE_ID}'))
+        try:
+            get_raw(port, '/debug/trace/deadbeef')
+            unknown_trace = 200
+        except urllib.error.HTTPError as e:
+            unknown_trace = e.code
+        faults.clear()
+        # Cost: steady round ms with tracing off and on in turns, then
+        # the ms of one scrape.
+        turns = [(sample, steady_round_ms(rt, port, ps, sample))
+                 for sample in (0.0, 1.0, 1.0, 0.0)]
+        scrape_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            get_raw(port, '/metrics')
+            scrape_ms.append(1e3 * (time.perf_counter() - t0))
+    finally:
+        faults.clear()
+        tracing.reset()
+        stop_runtime(rt, server, thread)
+    # Tokens: every answer equals the unobserved runtime's.
+    check(first[0] == 200, f'unobserved first adapter request: {first}')
+    check(failed[0] == 503 and failed[1]['error'].startswith(
+        'AdapterLoadError: loading adapter') and 'InjectedFault' in
+        failed[1]['error'], f'the injected load failure answered {failed}')
+    check(all(c == 200 for c, _ in observed + plain),
+          f'observability burst codes {[c for c, _ in observed]}')
+    for i, ((_, got), (_, want)) in enumerate(zip(observed, plain)):
+        check(got == want, f'observability: request {i} ({LORA_MODELS[i]}) '
+                           f'differs from the unobserved runtime')
+    check(fired.get('engine.decode_step', {}).get('fired') == 1
+          and fired.get('engine.device_get', {}).get('fired') == 1
+          and fired.get('adapters.load', {}).get('fired') == 1,
+          f'fault plan fired {fired}')
+    # Kernels: the slice's path ran on them.
+    check(routes['split'] > 0 and routes['chunk'] > 0
+          and routes['scalar'] == 0 and plain_calls == 0
+          and lora_launches > 0 and lora_plain == 0,
+          f'observability: paged {routes}, {plain_calls} plain; LoRA '
+          f'{lora_launches} launches, {lora_plain} plain')
+    # /stats.
+    missing = [k for k in C4_KEYS if k not in stats]
+    check(not missing and stats['engine'] == 'continuous'
+          and 'engine_stats' in stats, f'/stats lacks {missing}')
+    check(stats['engine_restarts'] == 0, 'observability: engine reset')
+    check(stats['attention_impl'] == 'cuda' and stats['storage'][
+        'attention_kernel_unavailable_reason'] is None,
+        f'attention_impl {stats["attention_impl"]}')
+    check('slo' in stats and stats['slo']['targets'] == {
+        'p99_ttft_ms': 5000.0, 'p99_itl_ms': 500.0, 'error_rate': 0.05},
+        'no slo block')
+    # /debug/flight.
+    (dump,) = flight['engines']
+    kinds = [e['kind'] for e in dump['events']]
+    softs = [e for e in dump['events'] if e['kind'] == 'soft_error']
+    check(dump['dropped'] == 0 and len(softs) == 1
+          and softs[0]['strikes'] == 1 and 'reset' not in kinds
+          and kinds.count('round_commit') > 0,
+          f'flight: dropped {dump["dropped"]}, soft errors '
+          f'{[e["strikes"] for e in softs]}, reset {"reset" in kinds}')
+    # /metrics against /stats (this engine's labeled series).
+    samples = parse_exposition(text)
+    check(text == v1_text or len(parse_exposition(v1_text)) ==
+          len(samples), '/v1/metrics differs')
+    lab = f'{{engine="{eng.engine_id}"}}'
+    check(samples[f'skypilot_serving_tokens_committed_total{lab}'] ==
+          stats['tokens_committed'], 'tokens_committed_total != /stats')
+    check(samples[f'skypilot_serving_decode_steps_total{lab}'] ==
+          stats['decode_calls'], 'decode_steps_total != /stats')
+    check(samples[f'skypilot_serving_decode_step_seconds_count{lab}'] ==
+          kinds.count('round_commit'),
+          'decode_step_seconds: not one sample a round')
+    for name in ('attn8', 'attn16', 'mlp16'):
+        check(samples.get('skypilot_serving_adapter_requests_total'
+                          f'{{adapter="{name}"}}', 0) >= 2,
+              f'adapter series of {name} missing')
+    check(samples['skypilot_serving_adapter_load_failures_total'] >= 1,
+          'adapter load failure not counted')
+    # /debug/trace.
+    events = trace['traceEvents']
+    names = [e['name'] for e in events]
+    ids = {e['args']['span_id'] for e in events}
+    root_span = [e for e in events if e['name'] == 'replica.request']
+    check(len(root_span) == 1 and root_span[0]['args']['parent_id'] ==
+          OBS_TRACE_PARENT, 'trace: no replica.request under the header')
+    check(names.count('engine.queue_wait') == 1
+          and names.count('engine.admit') == 1
+          and names.count('engine.prefill_chunk') >= 1
+          and names.count('engine.decode_round') >= 31,
+          f'trace spans: {sorted(set(names))}, '
+          f'{names.count("engine.decode_round")} decode rounds')
+    check(all(e['args']['trace_id'] == OBS_TRACE_ID and
+              e['args']['parent_id'] in ids | {OBS_TRACE_PARENT}
+              for e in events), 'trace: a span without its parent')
+    check(unknown_trace == 404, f'unknown trace answered {unknown_trace}')
+    esc = escalation(card)
+    del os.environ['STPU_FLIGHT_DIR']
+    phase_s = time.perf_counter() - t_phase
+    off = [ms for sample, ms in turns if sample == 0.0]
+    on = [ms for sample, ms in turns if sample == 1.0]
+    emit('observability', card=card, setup_s=setup_s,
+         failed_load_status=failed[0], requests=len(observed),
+         answers_equal_unobserved=True, faults_fired=fired,
+         paged_launches=launches, paged_route_launches=routes,
+         lora_launches=lora_launches, soft_errors=len(softs),
+         flight_recorded=dump['recorded'], metric_samples=len(samples),
+         trace_spans=len(events),
+         trace_decode_rounds=names.count('engine.decode_round'),
+         slo_ok=stats['slo']['ok'],
+         attention_bytes_per_token=stats['attention_bytes_per_token'][
+             'total_bytes_per_token'], escalation=esc)
+    emit('observability_round_ms', card=card, trace_sample_turns=[
+        s for s, _ in turns], round_ms_turns=[ms for _, ms in turns],
+         trace_off_round_ms=off, trace_on_round_ms=on,
+         on_over_off=sum(on) / sum(off))
+    emit('observability_scrape_ms', card=card, first_scrape_ms=
+         first_scrape_ms, scrape_ms=scrape_ms, families=text.count(
+             '# TYPE '), bytes=len(text))
+    emit('observability_seconds', card=card, seconds=phase_s)
 
 
 # -- decode modes ------------------------------------------------------------
@@ -2564,6 +2935,7 @@ def phase_serve_stream(model, pk, lk, fk, card):
         routes = dict(pk.route_launches)
         lora_launches, lora_plain = lk.launches, lk.plain_calls
         metrics = rt.metrics.snapshot()
+        ttft_max_ms = max(rt.metrics.ttft_ms)
         # A client that hangs up after 4 tokens: its slot frees and
         # nothing more is committed for it.
         eng = rt.engine
@@ -2602,7 +2974,8 @@ def phase_serve_stream(model, pk, lk, fk, card):
          models=STREAM_MODELS, new_tokens=32,
          ttft_client_p50_s=float(np.median(firsts)),
          ttft_client_max_s=max(firsts),
-         ttft_p50_s=metrics['ttft_p50_s'], ttft_max_s=metrics['ttft_p99_s'],
+         ttft_p50_s=metrics['ttft_ms_p50'] / 1e3,
+         ttft_max_s=ttft_max_ms / 1e3,
          itl_ms_n=metrics['itl_ms_n'], itl_ms_p50=metrics['itl_ms_p50'],
          itl_ms_p99=metrics['itl_ms_p99'],
          e2e_max_s=max(t for _, _, t in streams),
@@ -3370,6 +3743,8 @@ def main() -> int:
     lora_launches, lora_plain = lk.launches, lk.plain_calls
     check(lora_launches > 0 and lora_plain == 0 and pk.plain_calls == 0,
           f'LoRA path: {lora_launches} LoRA launches, {lora_plain} plain')
+    # The observability plane on the multi-LoRA path, counted from zero.
+    phase_observability(model, pk, lk, card)
     phase_serve_long(model, fk, pk, card)
     phase_graph_round(model, pk, card)
     verify_launches = phase_decode_modes(model, pk, lk, card)

@@ -24,9 +24,12 @@ Artifacts of rank < the store rank are zero-padded; `alpha/rank` is
 folded into B in f32 before the cast to the store dtype, so the engine
 applies scale 1 and the stacks are byte-identical to the reference's.
 
-Not ported yet: the `adapters.load` fault point (with `--fault-plan`),
-Prometheus series (the counters are plain ints), tensor-parallel
-replication (the registry takes no `mesh=`; the engine refuses one).
+Every load runs the `adapters.load` fault point first (raise or drop
+fails that load as AdapterLoadError, 503 for that request only), and
+loads, evictions, load failures, requests and tokens per adapter feed
+the catalog's `skypilot_serving_adapter*` series, as the reference's
+do. Not ported yet: tensor-parallel replication (the registry takes no
+`mesh=`; the engine refuses one).
 """
 from __future__ import annotations
 
@@ -44,6 +47,8 @@ import torch
 from skypilot_tpu_torch.errors import AdapterLoadError, AdapterNotFoundError
 from skypilot_tpu_torch.inference import affinity
 from skypilot_tpu_torch.models import lora as lora_lib
+from skypilot_tpu_torch.observability import catalog as _obs
+from skypilot_tpu_torch.robustness import faults
 
 
 class AdapterRegistry:
@@ -79,6 +84,9 @@ class AdapterRegistry:
         self.load_failures = 0
         self.requests: Dict[str, int] = {}
         self.tokens: Dict[str, int] = {}
+        self._m_loaded = _obs.gauge('skypilot_serving_adapters_loaded')
+        self._m_load_failures = _obs.counter(
+            'skypilot_serving_adapter_load_failures_total')
         with self._lock:
             self._scan_locked()
 
@@ -186,8 +194,12 @@ class AdapterRegistry:
 
     def _load_locked(self, name: str, slot: int) -> None:
         """Read the artifact and write stack row `slot`. Any failure
-        surfaces as AdapterLoadError without touching the other rows."""
+        (an injected `adapters.load` fault too) surfaces as
+        AdapterLoadError without touching the other rows."""
         try:
+            if faults.point('adapters.load', adapter=name) is faults.DROP:
+                raise AdapterLoadError(
+                    f'injected adapters.load drop for {name!r}')
             config, path = self._read_config(name)
             spec = lora_lib.load_spec(config)
             self._ensure_stack_locked()
@@ -236,13 +248,17 @@ class AdapterRegistry:
                 dst.copy_(torch.from_numpy(src).to(dst.dtype))
         except AdapterLoadError:
             self.load_failures += 1
+            self._m_load_failures.inc()
             raise
         except Exception as e:  # pylint: disable=broad-except
             self.load_failures += 1
+            self._m_load_failures.inc()
             raise AdapterLoadError(
                 f'loading adapter {name!r} failed: '
                 f'{type(e).__name__}: {e}') from e
         self.loads += 1
+        _obs.counter('skypilot_serving_adapter_loads_total').labels(
+            adapter=name).inc()
 
     def acquire(self, name: str) -> Optional[int]:
         """Pin `name` and return its device slot id (1-based; 0 is the
@@ -272,6 +288,8 @@ class AdapterRegistry:
                 del self._slot_name[freed]
                 self._free.append(freed)
                 self.evictions += 1
+                _obs.counter('skypilot_serving_adapter_evictions_total'
+                             ).labels(adapter=evictee).inc()
             slot = self._free[-1]
             self._load_locked(name, slot)   # raises on failure
             self._free.pop()
@@ -279,6 +297,7 @@ class AdapterRegistry:
             self._slot_name[slot] = name
             self._refs[slot] = 1
             self._count_request_locked(name)
+            self._m_loaded.set(len(self._loaded))
             return slot
 
     def release(self, slot: int, tokens: int = 0) -> None:
@@ -296,9 +315,13 @@ class AdapterRegistry:
                 self._lru[name] = None
             if tokens > 0:
                 self.tokens[name] = self.tokens.get(name, 0) + tokens
+                _obs.counter('skypilot_serving_adapter_tokens_total'
+                             ).labels(adapter=name).inc(tokens)
 
     def _count_request_locked(self, name: str) -> None:
         self.requests[name] = self.requests.get(name, 0) + 1
+        _obs.counter('skypilot_serving_adapter_requests_total').labels(
+            adapter=name).inc()
 
     # -- observability ------------------------------------------------------
     def loaded_names(self) -> List[str]:

@@ -5,11 +5,22 @@ skypilot_tpu/inference/http_server.py `make_server` / `serve`):
   GET  /healthz                liveness
   GET  /readyz                 readiness (503 while draining, engine
                                dead or queue saturated, with reasons)
-  GET  /stats                  slots, queue, KV pool, kernel launches,
-                               adapters, request metrics (TTFT, ITL);
-                               the top-level keys the replica plane's
-                               ReplicaManager scrapes, as the
-                               reference names them
+  GET  /stats                  the reference's body (serving
+                               percentiles, storage, page_pool, the
+                               engine's counters top-level, adapters,
+                               slo under --slo), plus the port's
+                               kernel launch counts (paged_attention,
+                               qkv_lora), engine_stats, device, zone
+                               and model
+  GET  /metrics, /v1/metrics   Prometheus text exposition 0.0.4 of the
+                               process registry (observability/
+                               catalog.py); snapshot gauges refresh
+                               from the engines first
+  GET  /debug/trace/<id>       the spans this process recorded for a
+                               trace, as Chrome-trace JSON (404 with
+                               the `known` ids otherwise)
+  GET  /debug/flight           every live engine's flight-recorder
+                               dump
   GET  /v1/models              the base model plus the adapters
   POST /generate               token ids in/out ({"tokens": [[...]],
                                "max_new_tokens", "temperature",
@@ -55,7 +66,14 @@ preemption notice) ships its committed chain and the continuation to a
 peer's /kv/migrate and proxies the tail; a failed ship resumes locally.
 Peer POSTs go through http.client (connect timeout 3 s, read timeout
 the request deadline + 60 s); 429, 500, 502 and 503 fail a handoff.
-/metrics waits for ROADMAP A6(e).
+
+Tracing and chaos (the reference's): every POST first runs the
+`http.handler` fault point, then adopts the `x-skypilot-trace` header
+(or takes the head-sampling decision) and, when traced, runs under a
+`replica.request` span whose context the engine spans and the
+`kv.export` / `kv.post` / `kv.import` / `kv.migrate` spans parent to;
+handoff and migration POSTs forward the header, so one trace id
+crosses the prefill and decode replicas.
 """
 from __future__ import annotations
 
@@ -79,9 +97,11 @@ from skypilot_tpu_torch.errors import (AdapterLoadError,
                                        SessionMigratedError)
 from skypilot_tpu_torch.inference import affinity, sse
 from skypilot_tpu_torch.inference import openai_compat as oai
-from skypilot_tpu_torch.inference.runtime import (FirstTokenLatch,
-                                                  InferenceRuntime,
+from skypilot_tpu_torch.inference.runtime import (InferenceRuntime,
                                                   iter_interleaved)
+from skypilot_tpu_torch.observability import catalog as obs_catalog
+from skypilot_tpu_torch.observability import tracing
+from skypilot_tpu_torch.observability.metrics import REGISTRY
 from skypilot_tpu_torch.ops import lora_kernel, paged_kernel
 from skypilot_tpu_torch.robustness import faults, train_guard
 
@@ -132,20 +152,23 @@ def _run_rows(rt: InferenceRuntime, rows: List[List[int]], *,
               max_new: int, temperature: float, top_k: int, top_p: float,
               stop_ids: List[int], deadline_s: float,
               adapter: Optional[str],
-              resume: Callable[[dict], List[int]]
+              resume: Callable[[dict], List[int]],
+              trace_ctx: Optional[tracing.Ctx] = None
               ) -> Tuple[List[List[int]], Optional[float]]:
     """(rows of prompt ++ generated, TTFT) of ragged rows: on the
     engine that serves them, or each alone through the one-shot
     buckets (no TTFT then). A row whose slot was evacuated is finished
-    by `resume(record)` (on a peer, or locally on the warm pages)."""
+    by `resume(record)` (on a peer, or locally on the warm pages).
+    `trace_ctx` parents the rows' engine spans."""
     eng = rt.engine_for(adapter)
     if eng is None:
         return rt.one_shot_rows(rows, max_new, temperature), None
-    latch = FirstTokenLatch()
+    latch = obs_catalog.FirstTokenLatch()
     futs = _submit_all(eng, rows, max_new_tokens=max_new,
                        temperature=temperature, top_k=top_k, top_p=top_p,
                        stop_token_ids=stop_ids, on_token=latch,
-                       deadline_s=deadline_s, adapter=adapter)
+                       deadline_s=deadline_s, adapter=adapter,
+                       trace_ctx=trace_ctx)
     # The engine reaps expired requests; the host timeout is a backstop.
     out = []
     for f in futs:
@@ -202,20 +225,24 @@ def split_chain_body(body: bytes) -> Tuple[dict, bytes]:
     return req, base64.b64decode(payload) if payload else b''
 
 
-def post_peer(peer: str, path: str, body: bytes,
-              read_timeout: float) -> http.client.HTTPResponse:
+def post_peer(peer: str, path: str, body: bytes, read_timeout: float,
+              trace_ctx: Optional[tracing.Ctx] = None
+              ) -> http.client.HTTPResponse:
     """POST the JSON `body` to http://`peer``path` and return the open
     response (headers read, body not; a response that closes the
     connection takes its socket over): the connection gets
-    PEER_CONNECT_TIMEOUT_S, every later read `read_timeout`."""
+    PEER_CONNECT_TIMEOUT_S, every later read `read_timeout`. A traced
+    request forwards its context in the trace header."""
     host, _, port = peer.rpartition(':')
     conn = http.client.HTTPConnection(host, int(port),
                                       timeout=PEER_CONNECT_TIMEOUT_S)
+    headers = {'Content-Type': 'application/json'}
+    if trace_ctx is not None:
+        headers[tracing.HEADER] = tracing.format_header(trace_ctx)
     try:
         conn.connect()
         conn.sock.settimeout(read_timeout)
-        conn.request('POST', path, body=body,
-                     headers={'Content-Type': 'application/json'})
+        conn.request('POST', path, body=body, headers=headers)
         return conn.getresponse()
     except BaseException:
         conn.close()
@@ -278,9 +305,17 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
             self.wfile.flush()
 
         def _accounted(self, e: Exception):
-            """(code, headers) of a failed request; counts the error."""
+            """(code, headers) of a failed request, with the shed and
+            deadline counters (windows and series); a 503 (engine dead,
+            adapter load failure) burns SLO error budget, a client error
+            does not."""
             code, retry_after = classify_error(e)
-            rt.metrics.record_error()
+            if code == 429:
+                rt.metrics.record_shed()
+            elif code == 504:
+                rt.metrics.record_deadline_exceeded()
+            elif code == 503 and rt.metrics.slo is not None:
+                rt.metrics.slo.record_request(error=True)
             headers = ({'Retry-After': str(max(1, int(retry_after)))}
                        if retry_after is not None else None)
             return code, headers
@@ -333,6 +368,23 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                            200 if not reasons else 503)
             elif self.path in ('/stats', '/v1/stats'):
                 self._json(self._stats())
+            elif self.path in ('/metrics', '/v1/metrics'):
+                self._prometheus_metrics()
+            elif self.path.startswith('/debug/trace/'):
+                trace_id = self.path[len('/debug/trace/'):].strip('/')
+                body = tracing.get_trace(trace_id)
+                if body is None:
+                    self._json({'error': f'unknown trace {trace_id!r}',
+                                'known': tracing.trace_ids()[-16:]}, 404)
+                else:
+                    self._json(body)
+            elif self.path == '/debug/flight':
+                # The last scheduler events of every live engine: the
+                # post-mortem readout when a replica wedges or dies.
+                self._json({'instance_uuid': INSTANCE_UUID,
+                            'pid': os.getpid(), 'role': rt.role,
+                            'engines': [eng.flight.dump()
+                                        for eng in rt.live_engines()]})
             elif self.path == '/v1/models':
                 names = [rt.model_name]
                 if rt.adapters is not None:
@@ -352,19 +404,43 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                 self._json({'error': f'GET {self.path} is not served '
                                      f'by this port'}, 404)
 
+        def _prometheus_metrics(self):
+            """Text exposition of the process registry. The snapshot
+            gauges (queue depth, slots, page pool) refresh from live
+            engine state first; counters and histograms tick at their
+            event sites."""
+            for eng in rt.live_engines():
+                eng.update_metric_gauges()
+            body = REGISTRY.render().encode()
+            self.send_response(200)
+            self.send_header('Content-Type', REGISTRY.CONTENT_TYPE)
+            self.send_header('Content-Length', str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
         def _stats(self):
-            live = rt.live_engines()
+            """The reference's /stats body, key for key (serving window
+            percentiles, storage, the engine's counters top-level,
+            page_pool, prefix_cache, kv_spill, handoff, migration,
+            adapters, slo), plus the port's own keys: the kernels'
+            launch counts, the engine's full stats() dict, the device,
+            the zone and the model name."""
             body = {
-                # The keys ReplicaManager scrapes, at the top level as
-                # the reference serves them.
+                'serving': rt.metrics.snapshot(),
                 'instance_uuid': INSTANCE_UUID,
-                'queued': sum(e.queued_requests() for e in live),
-                'prefill_backlog_tokens': sum(e.prefill_backlog_tokens()
-                                              for e in live),
-                'requests_shed': sum(e.requests_shed for e in live),
-                'healthy': all(e.healthy() for e in live),
+                'pid': os.getpid(),
                 # Disaggregated serving: '' = a unified replica.
                 'role': rt.role,
+                'storage': {
+                    'kv_dtype': rt.kv_dtype,
+                    'weight_dtype': rt.weight_dtype,
+                    'weight_bytes': rt.weight_bytes,
+                    'mesh_devices': rt.mesh_devices,
+                    'stages': rt.stages,
+                    # Why the CUDA kernel cannot run here, or None.
+                    'attention_kernel_unavailable_reason':
+                        paged_kernel.unavailable_reason(),
+                },
                 'model': rt.model_name,
                 'device': str(rt.model.device),
                 'zone': rt.zone,
@@ -373,7 +449,6 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                     'plain_calls': paged_kernel.plain_calls},
                 'qkv_lora': {'kernel_launches': lora_kernel.launches,
                              'plain_calls': lora_kernel.plain_calls},
-                'requests': rt.metrics.snapshot(),
             }
             if rt.role or rt.handoffs_total or rt.kv_imports_total:
                 body['handoff'] = rt.handoff_stats()
@@ -385,32 +460,68 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                 body['migration'] = mig
             if rt.adapters is not None:
                 body['adapters'] = rt.adapters.stats()
+            if rt.slo_tracker is not None:
+                body['slo'] = rt.slo_tracker.snapshot()
             eng = rt.engine
             if eng is None:
                 # One-shot mode; the stream engine, once built, serves
-                # streamed and adapter requests.
-                body['engine'] = 'simple'
+                # streamed and adapter requests. The fleet's scrape keys
+                # come from it.
+                live = rt.live_engines()
+                body.update({
+                    'engine': 'simple',
+                    'queued': sum(e.queued_requests() for e in live),
+                    'prefill_backlog_tokens': sum(
+                        e.prefill_backlog_tokens() for e in live),
+                    'requests_shed': sum(e.requests_shed for e in live),
+                    'healthy': all(e.healthy() for e in live)})
                 return body
-            cfg = eng.model.config
+            eng.update_metric_gauges()
+            free = int(eng.allocator.free_pages)
             body.update({
-                # The decode loop's health, top-level as the reference
-                # serves it (skypilot_tpu/inference/http_server.py:313-333).
+                'engine': 'continuous',
+                'num_slots': eng.num_slots,
+                'active_slots': int(eng.active.sum()),
+                'queued': eng.queued_requests(),
                 'decode_calls': eng.decode_calls,
                 'tokens_committed': eng.tokens_committed,
                 'tokens_per_call': round(
                     eng.tokens_committed / max(eng.decode_calls, 1), 3),
                 'speculative_k': eng.spec_k,
-                'pipeline_decode': eng.pipeline_decode,
+                'preemptions': eng.preemptions,
                 'prefill_chunk': eng.prefill_chunk,
+                'prefill_token_budget': eng.prefill_budget,
+                'pipeline_decode': eng.pipeline_decode,
                 'prefill_chunks_run': eng.prefill_chunks_run,
+                'prefill_backlog_tokens': eng.prefill_backlog_tokens(),
                 'decode_stall_s': round(eng.decode_stall_s, 4),
-                'engine': eng.stats(),
-                'kv_pool': {'dtype': eng.kv_dtype,
-                            'pages': eng.total_pages,
-                            'free_pages': eng.allocator.free_pages,
-                            'page_size': eng.page_size,
-                            'bytes': eng.kv_cache_bytes(),
-                            'layers': cfg.num_layers}})
+                # One device, one stage: no fill/drain bubble.
+                'pipeline_stages': 1,
+                'prefill_bubble_fraction': 0.0,
+                # The kernel route and the analytic roofline inputs.
+                'attention_impl': eng.attention_impl(),
+                'attention_bytes_per_token':
+                    eng.attention_bytes_per_token(),
+                'healthy': eng.healthy(),
+                'requests_shed': eng.requests_shed,
+                'deadline_exceeded': eng.deadline_exceeded,
+                'engine_restarts': eng.engine_restarts,
+                'queued_tokens': eng.queued_tokens(),
+                'max_queue_requests': eng.max_queue_requests,
+                'max_queue_tokens': eng.max_queue_tokens,
+                'engine_stats': eng.stats(),
+                'page_pool': {
+                    'total': eng.total_pages,
+                    'free': free,
+                    'used': eng.total_pages - free,
+                    'utilization': round((eng.total_pages - free) /
+                                         max(eng.total_pages, 1), 3),
+                    'kv_dtype': eng.kv_dtype,
+                    'pool_bytes': eng.kv_cache_bytes(),
+                    'pool_bytes_per_device': eng.kv_cache_bytes(),
+                    'shard_ways': 1,
+                },
+            })
             pc = eng.prefix_cache
             if pc is not None:
                 body['prefix_cache'] = {
@@ -434,13 +545,33 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
             self._sse_open = False
             self._injected_body = None
             self._body_error = None
+            self._trace_ctx = None
             with inflight_lock:
                 inflight['n'] += 1
             try:
-                self._dispatch_post()
+                self._do_post()
             finally:
                 with inflight_lock:
                     inflight['n'] -= 1
+
+        def _do_post(self):
+            if faults.point('http.handler') is faults.DROP:
+                return   # an injected blackhole: the client sees a reset
+            # Adopt the caller's trace (a load balancer or a prefill peer
+            # sent the header) or take the head-sampling decision here;
+            # an unsampled request costs one float compare.
+            ctx = tracing.parse_header(self.headers.get(tracing.HEADER))
+            if ctx is None:
+                ctx = tracing.new_ctx()
+            if ctx is None:
+                self._dispatch_post()
+                return
+            with tracing.span('replica.request', ctx,
+                              process=rt.role or 'replica',
+                              path=self.path) as root:
+                # Engine and handoff spans parent to this request root.
+                self._trace_ctx = root.ctx
+                self._dispatch_post()
 
         def _read_body(self):
             # The handoff paths re-dispatch a body already read (or an
@@ -528,7 +659,9 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
             page resident, so only the sub-page tail prefills."""
             try:
                 req, data = split_chain_body(self._read_raw())
-                summary = rt.stream_engine().import_chain(data)
+                with tracing.span('kv.import', self._trace_ctx,
+                                  bytes=len(data)):
+                    summary = rt.stream_engine().import_chain(data)
                 rt.record_kv_import(summary)
             except Exception as e:  # pylint: disable=broad-except
                 self._plain_error(e)
@@ -558,6 +691,7 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
             rows = req.get('tokens') or []
             if not rows or not isinstance(rows[0], list) or len(rows) != 1:
                 return False   # batch rows: local (no chain per row)
+            ctx = self._trace_ctx
             t0 = time.monotonic()
             nbytes = 0
             try:
@@ -569,9 +703,11 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                 if len(row) >= rt.limit_for(0.0, streaming=True):
                     return False   # the handler's 400 to give
                 eng.submit(row, max_new_tokens=1, temperature=0.0,
-                           deadline_s=deadline_s, adapter=adapter).result(
-                               timeout=deadline_s + 30.0)
-                data = eng.export_chain(row, adapter=adapter)
+                           deadline_s=deadline_s, adapter=adapter,
+                           trace_ctx=ctx).result(timeout=deadline_s + 30.0)
+                with tracing.span('kv.export', ctx) as sp:
+                    data = eng.export_chain(row, adapter=adapter)
+                    sp.add(bytes=len(data) if data else 0)
                 if not data:
                     return False   # a sub-page prompt: nothing to ship
                 key = affinity.token_affinity_key(
@@ -581,10 +717,13 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                 if peer is None:
                     return False
                 nbytes = len(data)
-                upstream = post_peer(
-                    peer, '/kv/import',
-                    chain_body(data, {'path': path, 'request': req}),
-                    read_timeout=deadline_s + 60.0)
+                # The trace rides the handoff: the decode peer's root
+                # span adopts this trace id.
+                with tracing.span('kv.post', ctx, peer=peer, bytes=nbytes):
+                    upstream = post_peer(
+                        peer, '/kv/import',
+                        chain_body(data, {'path': path, 'request': req}),
+                        read_timeout=deadline_s + 60.0, trace_ctx=ctx)
                 if upstream.status in HANDOFF_REFUSED:
                     code = upstream.status
                     upstream.close()
@@ -663,7 +802,9 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                 summary = {'pages': 0, 'imported': 0, 'already_cached': 0,
                            'dropped': 0}
                 if data:
-                    summary = eng.import_chain(data)
+                    with tracing.span('kv.import', self._trace_ctx,
+                                      bytes=len(data)):
+                        summary = eng.import_chain(data)
                     rt.record_kv_import(summary)
                 covered = (summary['imported'] + summary['already_cached']
                            ) * eng.page_size
@@ -725,8 +866,12 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                                    'reason': reason})
                 read_timeout = float(rec.get('deadline_s') or
                                      rt.request_timeout) + 60.0
-                upstream = post_peer(peer, '/kv/migrate', body,
-                                     read_timeout=read_timeout)
+                ctx = self._trace_ctx
+                with tracing.span('kv.migrate', ctx, peer=peer,
+                                  reason=reason):
+                    upstream = post_peer(peer, '/kv/migrate', body,
+                                         read_timeout=read_timeout,
+                                         trace_ctx=ctx)
                 if upstream.status != 200:
                     code = upstream.status
                     upstream.close()
@@ -782,7 +927,8 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                     top_k=rec.get('top_k', 0),
                     top_p=rec.get('top_p', 1.0),
                     stop_token_ids=list(rec.get('stop_token_ids') or []),
-                    deadline_s=deadline_s, adapter=adapter).result(
+                    deadline_s=deadline_s, adapter=adapter,
+                    trace_ctx=self._trace_ctx).result(
                         timeout=deadline_s + 30.0)
             except SessionMigratedError as me:
                 if depth >= 2:
@@ -821,7 +967,8 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                         rt, tokens, max_new=max_new,
                         temperature=temperature, top_k=top_k, top_p=top_p,
                         stop_ids=stop_ids, deadline_s=deadline_s,
-                        adapter=adapter, resume=self._resume_record)
+                        adapter=adapter, resume=self._resume_record,
+                        trace_ctx=self._trace_ctx)
                 else:
                     # One-shot: the rows run together ([batch, prompt
                     # len]) and come back as the whole bucket.
@@ -831,8 +978,9 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                 # one-shot bucket's tail.
                 n_gen = sum(min(max(len(r) - len(p), 0), max_new)
                             for r, p in zip(rows, tokens))
-                rt.metrics.record(time.monotonic() - t0, n_gen,
-                                  sum(len(p) for p in tokens), ttft)
+                rt.metrics.record(time.monotonic() - t0, n_gen, ttft_s=ttft,
+                                  n_prompt_tokens=sum(len(p)
+                                                      for p in tokens))
                 self._json({'tokens': rows})
             except Exception as e:  # pylint: disable=broad-except
                 self._plain_error(e)
@@ -841,8 +989,9 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
             handles = []
             try:
                 for row in rows:
-                    handles.append(rt.submit_stream(row, max_new,
-                                                    temperature, **kw))
+                    handles.append(rt.submit_stream(
+                        row, max_new, temperature,
+                        trace_ctx=self._trace_ctx, **kw))
             except Exception:
                 rt.cancel_streams(handles)
                 raise
@@ -884,15 +1033,17 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                     # Proxied whole: the peer's SSE tail (terminal event
                     # and [DONE] included) already went out.
                     rt.metrics.record(time.monotonic() - t0, n_gen,
-                                      sum(len(row) for row in tokens),
-                                      ttft)
+                                      ttft_s=ttft,
+                                      n_prompt_tokens=sum(
+                                          len(row) for row in tokens))
                     return
             else:
                 final_rows = [h.future.result() for h in handles]
             self.sse_send({'done': True, 'tokens': final_rows})
             self.sse_done()
-            rt.metrics.record(time.monotonic() - t0, n_gen,
-                              sum(len(row) for row in tokens), ttft)
+            rt.metrics.record(time.monotonic() - t0, n_gen, ttft_s=ttft,
+                              n_prompt_tokens=sum(len(row)
+                                                  for row in tokens))
 
         def _finish_migrated_stream(self, handles):
             """Finish an SSE /generate stream whose slots were evacuated.
@@ -934,7 +1085,8 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                     tokens, remaining, rec.get('temperature', 0.0),
                     top_k=rec.get('top_k', 0), top_p=rec.get('top_p', 1.0),
                     stop_token_ids=list(rec.get('stop_token_ids') or []),
-                    deadline_s=deadline_s, adapter=rec.get('adapter'))
+                    deadline_s=deadline_s, adapter=rec.get('adapter'),
+                    trace_ctx=self._trace_ctx)
             except Exception as e:  # pylint: disable=broad-except
                 print(f'local stream resume failed to submit '
                       f'({type(e).__name__}: {e}); stream truncates at '
@@ -987,13 +1139,14 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                     rt, encoded, max_new=max_new, temperature=temperature,
                     top_k=top_k, top_p=top_p, stop_ids=[],
                     deadline_s=deadline_s, adapter=adapter,
-                    resume=self._resume_record)
+                    resume=self._resume_record, trace_ctx=self._trace_ctx)
                 texts = [oai.trim_stops(tok.decode(
                     row[len(ids):], skip_special_tokens=True),
                     stop_strings)[0] for ids, row in zip(encoded, rows)]
                 n_gen = sum(len(r) - len(p) for r, p in zip(rows, encoded))
-                rt.metrics.record(time.monotonic() - t0, n_gen,
-                                  sum(len(p) for p in encoded), ttft)
+                rt.metrics.record(time.monotonic() - t0, n_gen, ttft_s=ttft,
+                                  n_prompt_tokens=sum(len(p)
+                                                      for p in encoded))
                 self._json({'texts': texts})
             except Exception as e:  # pylint: disable=broad-except
                 self._plain_error(e)
@@ -1050,8 +1203,9 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                     if out:
                         self.sse_send({'index': i, 'delta': out})
             self.sse_done()
-            rt.metrics.record(time.monotonic() - t0, n_gen,
-                              sum(len(ids) for ids in encoded), ttft)
+            rt.metrics.record(time.monotonic() - t0, n_gen, ttft_s=ttft,
+                              n_prompt_tokens=sum(len(ids)
+                                                  for ids in encoded))
 
         def _resume_text_stream_locally(self, index, rec, decs, scans):
             """Local warm resume of one evacuated text-stream row: the
@@ -1063,7 +1217,8 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                 h = rt.submit_stream(
                     tokens, remaining, rec.get('temperature', 0.0),
                     top_k=rec.get('top_k', 0), top_p=rec.get('top_p', 1.0),
-                    deadline_s=deadline_s, adapter=rec.get('adapter'))
+                    deadline_s=deadline_s, adapter=rec.get('adapter'),
+                    trace_ctx=self._trace_ctx)
             except Exception as e:  # pylint: disable=broad-except
                 print(f'local text-stream resume failed to submit '
                       f'({type(e).__name__}: {e}); row {index} truncates '
@@ -1156,7 +1311,7 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                 rt, fanned, max_new=max_new, temperature=temperature,
                 top_k=0, top_p=float(body.get('top_p', 1.0)), stop_ids=[],
                 deadline_s=rt.deadline_for(body), adapter=adapter,
-                resume=self._resume_record)
+                resume=self._resume_record, trace_ctx=self._trace_ctx)
             choices = []
             n_gen = 0
             for i, (ids, row) in enumerate(zip(fanned, rows)):
@@ -1169,7 +1324,8 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
             # Each prompt counts once, however many choices it fans out
             # to (the OpenAI usage contract).
             n_prompt = sum(len(p) for p in prompts)
-            rt.metrics.record(time.monotonic() - t0, n_gen, n_prompt, ttft)
+            rt.metrics.record(time.monotonic() - t0, n_gen, ttft_s=ttft,
+                              n_prompt_tokens=n_prompt)
             self._json({'object': 'text_completion',
                         'model': body.get('model') or rt.model_name,
                         'choices': choices,

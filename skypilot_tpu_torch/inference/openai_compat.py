@@ -23,10 +23,10 @@ import sys
 import time
 from typing import Dict, List, Optional, Tuple
 
-from skypilot_tpu_torch.inference.runtime import (FirstTokenLatch,
-                                                  InferenceRuntime,
+from skypilot_tpu_torch.inference.runtime import (InferenceRuntime,
                                                   bucket_len,
                                                   iter_interleaved)
+from skypilot_tpu_torch.observability import catalog as obs_catalog
 
 
 class IncrementalDecoder:
@@ -225,7 +225,7 @@ def run_completion(rt: InferenceRuntime, req: CompletionRequest
                 rows.append(list(ids))
                 row_prompt.append(ids)
     elif engine is not None:
-        latch = FirstTokenLatch()
+        latch = obs_catalog.FirstTokenLatch()
         futs = []
         try:
             for ids in encoded:
@@ -279,7 +279,7 @@ def run_completion(rt: InferenceRuntime, req: CompletionRequest
     # choices it fans out to.
     total_prompt = sum(len(ids) for ids in encoded)
     rt.metrics.record(time.monotonic() - t0, total_completion,
-                      total_prompt, ttft)
+                      ttft_s=ttft, n_prompt_tokens=total_prompt)
     return {
         'object': 'text_completion',
         'model': req.model or rt.model_name,
@@ -357,7 +357,8 @@ def stream_completion(rt: InferenceRuntime, req: CompletionRequest, writer,
                   else 'length' if n_gen[i] >= req.max_new else 'stop')
         writer.sse_send(chunk(i, None, finish))
     writer.sse_done()
-    rt.metrics.record(time.monotonic() - t0, sum(n_gen), len(ids), ttft)
+    rt.metrics.record(time.monotonic() - t0, sum(n_gen), ttft_s=ttft,
+                      n_prompt_tokens=len(ids))
 
 
 _warned_no_template = False

@@ -1,6 +1,7 @@
-"""KV pool sizing by bytes (the port's copy of the pure arithmetic of
-skypilot_tpu/inference/quant.py `kv_page_bytes` / `pool_pages_for_bytes`,
-single device). Weight quantization is not ported yet."""
+"""KV pool sizing by bytes and the weight footprint (the port's copy of
+the pure arithmetic of skypilot_tpu/inference/quant.py `kv_page_bytes` /
+`pool_pages_for_bytes` / `weight_num_bytes`, single device). Weight
+quantization is not ported yet."""
 from __future__ import annotations
 
 import torch
@@ -32,3 +33,11 @@ def pool_pages_for_bytes(cfg, kv_dtype: str, pool_bytes: int) -> int:
             f'({kv_page_bytes(cfg, kv_dtype)} bytes/page across layers, '
             f'kv_dtype={kv_dtype}); need >= 2 (page 0 is the trash page)')
     return int(pages)
+
+
+def weight_num_bytes(model) -> int:
+    """Device bytes of a model's parameters (the
+    skypilot_serving_weight_bytes gauge): numel x element size of each,
+    host metadata only, no device read."""
+    return int(sum(p.numel() * p.element_size()
+                   for p in model.parameters()))

@@ -18,8 +18,14 @@ prefill replica hands prompts off to (pushed by the fleet through
 POST /kv/peers or set by --decode-peers; picked through the load
 balancer's consistent-hash ring), the evacuation hint a controller's
 POST /kv/evacuate leaves, and the handoff and migration counts /stats
-serves. The reference also feeds them to Prometheus series, which wait
-for ROADMAP A6(e).
+serves, also fed to the catalog's KV-chain series as the reference's.
+
+Observability (the reference's): `ServingMetrics` keeps the rolling
+windows /stats reports (linear-interpolated percentiles) and feeds the
+process registry's request series and, under --slo, the SLO tracker;
+`build_runtime` sets the weight-bytes and storage-info gauges,
+configures head-sampled tracing (--trace-sample / --trace-seed) and
+builds the `SloTracker`.
 """
 from __future__ import annotations
 
@@ -42,50 +48,95 @@ from skypilot_tpu_torch.inference.adapters import AdapterRegistry
 from skypilot_tpu_torch.models import convert, registry
 from skypilot_tpu_torch.models import generate as gen
 from skypilot_tpu_torch.models.batching import ContinuousBatchingEngine
+from skypilot_tpu_torch.observability import catalog as obs_catalog
+from skypilot_tpu_torch.observability import slo as slo_lib
+from skypilot_tpu_torch.observability import tracing
+from skypilot_tpu_torch.robustness import faults
 
 
 class ServingMetrics:
-    """Request-path counters and rolling windows of latencies. TTFT is
-    a request's first committed token; inter-token gaps (ITL) come from
-    streamed rows, measured at engine commit time."""
+    """Request metrics, thread-safe, exported twice (the reference's):
 
-    WINDOW = 1024
+      - /stats percentiles over a ROLLING WINDOW of the last `window`
+        (default 1024) requests, linear-interpolated;
+      - the process registry's histograms and counters on GET /metrics
+        (observability/catalog.py `RequestMetrics`), over the process
+        lifetime.
 
-    def __init__(self) -> None:
+    TTFT is the first COMMITTED token: streamed requests latch it at
+    the first streamed token, non-streamed engine requests at the first
+    decode commit (catalog.FirstTokenLatch); one-shot requests record
+    none. Inter-token gaps come from streamed rows, measured at engine
+    commit time. With --slo, `slo` is the SloTracker every record also
+    feeds."""
+
+    def __init__(self, window: int = 1024) -> None:
         self._lock = threading.Lock()
+        self.window = window
+        self.ttft_ms: 'collections.deque' = collections.deque(
+            maxlen=window)
+        self.itl_ms: 'collections.deque' = collections.deque(
+            maxlen=window)
+        self.latency_ms: 'collections.deque' = collections.deque(
+            maxlen=window)
+        self.completion_tokens: 'collections.deque' = collections.deque(
+            maxlen=window)
         self.requests = 0
-        self.errors = 0
-        self.prompt_tokens = 0
-        self.generated_tokens = 0
-        self._e2e = collections.deque(maxlen=self.WINDOW)
-        self._ttft = collections.deque(maxlen=self.WINDOW)
-        self._itl_ms = collections.deque(maxlen=self.WINDOW)
+        self.requests_shed = 0
+        self.deadline_exceeded = 0
+        self.prom = obs_catalog.RequestMetrics()
+        self.slo = None
 
-    def record(self, e2e_s: float, n_generated: int, n_prompt: int,
-               ttft_s: Optional[float]) -> None:
+    def record(self, latency_s: float, n_tokens: int,
+               ttft_s: Optional[float] = None,
+               n_prompt_tokens: int = 0) -> None:
         with self._lock:
             self.requests += 1
-            self.prompt_tokens += n_prompt
-            self.generated_tokens += n_generated
-            self._e2e.append(e2e_s)
+            self.latency_ms.append(latency_s * 1000.0)
+            self.completion_tokens.append(n_tokens)
             if ttft_s is not None:
-                self._ttft.append(ttft_s)
+                self.ttft_ms.append(ttft_s * 1000.0)
+        self.prom.requests.inc()
+        self.prom.e2e_latency_seconds.observe(latency_s)
+        self.prom.completion_tokens.inc(max(n_tokens, 0))
+        self.prom.prompt_tokens.inc(max(n_prompt_tokens, 0))
+        if ttft_s is not None:
+            self.prom.ttft_seconds.observe(ttft_s)
+        if self.slo is not None:
+            self.slo.record_request(
+                ttft_ms=(ttft_s * 1000.0 if ttft_s is not None
+                         else None))
 
-    def record_error(self) -> None:
+    def record_shed(self) -> None:
+        """One request refused 429 by admission control."""
         with self._lock:
-            self.errors += 1
+            self.requests_shed += 1
+        self.prom.requests_shed.inc()
+        if self.slo is not None:
+            self.slo.record_request(shed=True)
+
+    def record_deadline_exceeded(self) -> None:
+        """One request answered 504 (expired queued or mid-decode)."""
+        with self._lock:
+            self.deadline_exceeded += 1
+        self.prom.deadline_exceeded.inc()
+        if self.slo is not None:
+            self.slo.record_request(error=True)
 
     def record_inter_token(self, gap_s: float) -> None:
         """One gap between consecutive committed tokens of a streamed
         row, taken on the scheduler thread as the engine commits
         (`StreamHandle.on_token`), not at SSE delivery."""
         with self._lock:
-            self._itl_ms.append(gap_s * 1000.0)
+            self.itl_ms.append(gap_s * 1000.0)
+        self.prom.inter_token_seconds.observe(gap_s)
+        if self.slo is not None:
+            self.slo.record_itl(gap_s * 1000.0)
 
     @staticmethod
-    def _pct_ms(values: List[float], q: float) -> Optional[float]:
-        """Linear-interpolated percentile, rounded to 0.01 ms (the
-        reference's `ServingMetrics._pct`)."""
+    def _pct(values: List[float], q: float) -> Optional[float]:
+        """Linear-interpolated percentile (numpy's default method),
+        rounded to 0.01."""
         if not values:
             return None
         s = sorted(values)
@@ -96,40 +147,38 @@ class ServingMetrics:
         return round(s[lo] * (1.0 - frac) + s[hi] * frac, 2)
 
     def snapshot(self) -> Dict[str, object]:
-        def pct(xs, q):
-            if not xs:
-                return None
-            xs = sorted(xs)
-            return xs[min(len(xs) - 1, int(q * len(xs)))]
+        """The /stats `serving` block, the reference's keys: the
+        percentiles and `gen_tokens_per_sec` cover the last `window`
+        requests, `requests` the process lifetime."""
         with self._lock:
-            itl = list(self._itl_ms)
-            return {'requests': self.requests, 'errors': self.errors,
-                    'prompt_tokens': self.prompt_tokens,
-                    'generated_tokens': self.generated_tokens,
-                    'window': len(self._e2e),
-                    'e2e_p50_s': pct(self._e2e, 0.5),
-                    'e2e_p99_s': pct(self._e2e, 0.99),
-                    'ttft_p50_s': pct(self._ttft, 0.5),
-                    'ttft_p99_s': pct(self._ttft, 0.99),
-                    # Under the reference's names.
-                    'itl_ms_n': len(itl),
-                    'itl_ms_p50': self._pct_ms(itl, 0.50),
-                    'itl_ms_p95': self._pct_ms(itl, 0.95),
-                    'itl_ms_p99': self._pct_ms(itl, 0.99)}
-
-
-class FirstTokenLatch:
-    """TTFT of a non-streamed engine request: the engine's `on_token`
-    callback, latching the time of the first committed token (any
-    row); written only by the scheduler thread."""
-
-    def __init__(self) -> None:
-        self.t0 = time.monotonic()
-        self.first_token_s: Optional[float] = None
-
-    def __call__(self, _tok: int) -> None:
-        if self.first_token_s is None:
-            self.first_token_s = time.monotonic() - self.t0
+            lat = list(self.latency_ms)
+            ttft = list(self.ttft_ms)
+            itl = list(self.itl_ms)
+            toks = list(self.completion_tokens)
+            n = self.requests
+            shed = self.requests_shed
+            expired = self.deadline_exceeded
+        total_s = sum(lat) / 1000.0
+        return {
+            'requests': n,
+            'requests_shed': shed,
+            'deadline_exceeded': expired,
+            'window': self.window,
+            'ttft_ms_n': len(ttft),
+            'itl_ms_n': len(itl),
+            'latency_ms_n': len(lat),
+            'ttft_ms_p50': self._pct(ttft, 0.50),
+            'ttft_ms_p95': self._pct(ttft, 0.95),
+            'ttft_ms_p99': self._pct(ttft, 0.99),
+            'itl_ms_p50': self._pct(itl, 0.50),
+            'itl_ms_p95': self._pct(itl, 0.95),
+            'itl_ms_p99': self._pct(itl, 0.99),
+            'latency_ms_p50': self._pct(lat, 0.50),
+            'latency_ms_p95': self._pct(lat, 0.95),
+            'completion_tokens_total': sum(toks),
+            'gen_tokens_per_sec': round(sum(toks) / total_s, 2)
+            if total_s > 0 else None,
+        }
 
 
 class StreamHandle:
@@ -237,6 +286,16 @@ class InferenceRuntime:
         self.handoff_seconds_total = 0.0
         self.kv_imports_total = 0
         self.kv_imported_pages_total = 0
+        self._handoff_seconds = obs_catalog.histogram(
+            'skypilot_serving_kv_handoff_seconds')
+        self._handoff_bytes = obs_catalog.counter(
+            'skypilot_serving_kv_handoff_bytes_total')
+        self._migration_seconds = obs_catalog.histogram(
+            'skypilot_serving_migration_seconds')
+        self._chains_evacuated = obs_catalog.counter(
+            'skypilot_serving_chains_evacuated_total')
+        self._tokens_recomputed = obs_catalog.counter(
+            'skypilot_serving_tokens_recomputed_total')
         # Live migration: out-migrations by trigger reason, evacuation
         # totals, and the bounded ring of affinity keys migrated IN
         # (/stats serves it, so the fleet pins those sessions' follow-ups
@@ -264,6 +323,14 @@ class InferenceRuntime:
         self.model_name = model_name
         self.vocab_size = cfg.vocab_size
         self.kv_dtype = cfg.kv_dtype
+        # /stats `storage`: the reference's keys on one device (weights
+        # are stored unquantized; the mesh is one device, one stage).
+        self.weight_dtype = 'bf16'
+        self.weight_bytes = quant.weight_num_bytes(self.model)
+        self.mesh_devices = 1
+        self.stages = 1
+        # Built by build_runtime under --slo (also wired into metrics).
+        self.slo_tracker: Optional[slo_lib.SloTracker] = None
         self.max_total_len = (max_total_len if max_total_len is not None
                               else engine.max_total_len)
         self.speculative = int(speculative)
@@ -345,6 +412,9 @@ class InferenceRuntime:
                 self.handoff_failures += 1
             self.handoff_bytes_total += nbytes
             self.handoff_seconds_total += seconds
+        self._handoff_seconds.observe(seconds)
+        if nbytes:
+            self._handoff_bytes.inc(nbytes)
 
     def record_kv_import(self, summary: Dict[str, int]) -> None:
         with self._handoff_lock:
@@ -390,10 +460,13 @@ class InferenceRuntime:
 
     def record_evacuation(self, summary: Dict[str, int]) -> None:
         """Account one engine's evacuate_chains() result."""
+        n_chains = int(summary.get('chains', 0))
         with self._migration_lock:
             self.sessions_evacuated_total += (int(summary.get('evacuated', 0))
                                               + int(summary.get('queued', 0)))
-            self.chains_evacuated_total += int(summary.get('chains', 0))
+            self.chains_evacuated_total += n_chains
+        if n_chains:
+            self._chains_evacuated.inc(n_chains)
 
     def record_migration(self, reason: str, seconds: float,
                          ok: bool) -> None:
@@ -406,6 +479,10 @@ class InferenceRuntime:
             if not ok:
                 self.migration_failures += 1
             self.migration_seconds_total += seconds
+        if ok:
+            obs_catalog.counter('skypilot_serving_migrations_total').labels(
+                reason=reason).inc()
+        self._migration_seconds.observe(seconds)
 
     def record_migrated_in(self, affinity_key: Optional[str],
                            tokens_recomputed: int) -> None:
@@ -419,6 +496,8 @@ class InferenceRuntime:
                 self._migrated_in_keys[affinity_key] = None
                 while len(self._migrated_in_keys) > self.MIGRATED_KEYS_MAX:
                     self._migrated_in_keys.popitem(last=False)
+        if tokens_recomputed:
+            self._tokens_recomputed.inc(int(tokens_recomputed))
 
     def migration_stats(self) -> Dict[str, object]:
         with self._migration_lock:
@@ -595,7 +674,9 @@ class InferenceRuntime:
                       top_p: float = 1.0,
                       stop_token_ids: Optional[List[int]] = None,
                       deadline_s: Optional[float] = None,
-                      adapter: Optional[str] = None) -> StreamHandle:
+                      adapter: Optional[str] = None,
+                      trace_ctx: Optional[tracing.Ctx] = None
+                      ) -> StreamHandle:
         eng = self.stream_engine()
         handle = StreamHandle(metrics=self.metrics)
         handle.future = eng.submit(
@@ -604,7 +685,7 @@ class InferenceRuntime:
             on_token=handle.on_token,
             deadline_s=(self.request_timeout if deadline_s is None
                         else deadline_s),
-            adapter=adapter)
+            adapter=adapter, trace_ctx=trace_ctx)
         return handle
 
     def cancel_streams(self, handles: List[StreamHandle]) -> None:
@@ -629,14 +710,10 @@ class InferenceRuntime:
 
 
 #: serve_lm flags this port does not implement yet, with the value
-#: that means "not asked for". --fault-plan, --trace-sample /
-#: --trace-seed and --slo wait for ROADMAP A6(e) (tracing, SLOs and
-#: metrics), the others for A8 (int8 weights) and A10 (tensor x
-#: pipeline serving).
+#: that means "not asked for": --weight-dtype int8 waits for ROADMAP A8,
+#: --tensor and --stages for A10 (tensor x pipeline serving).
 _UNSUPPORTED_DEFAULTS = (
     ('tensor', 1), ('stages', 1), ('weight_dtype', 'bf16'),
-    ('fault_plan', None), ('trace_sample', 0.0), ('trace_seed', None),
-    ('slo', None),
 )
 
 #: The reference's refusals of the KV-chain flags without the slot
@@ -777,10 +854,12 @@ def _source_model(args, model, device: torch.device):
 
 def build_runtime(args, model=None,
                   cuda_graphs: bool = True) -> InferenceRuntime:
-    """Construct the runtime from serve_lm CLI args: the weights
-    (`_source_model`), the KV pool sized by --kv-dtype /
-    --kv-pool-bytes, the adapter registry of --adapter-dir, and the
-    continuous engine (--continuous-batching) or the one-shot mode.
+    """Construct the runtime from serve_lm CLI args: the fault plan of
+    --fault-plan (installed first), the weights (`_source_model`), the
+    KV pool sized by --kv-dtype / --kv-pool-bytes, the adapter registry
+    of --adapter-dir, the continuous engine (--continuous-batching) or
+    the one-shot mode, then tracing (--trace-sample / --trace-seed) and
+    the SLO tracker (--slo).
     `model`'s weight tensors are shared when given (two runtimes that
     differ only in their KV pool need one copy of the weights).
     `cuda_graphs=False` runs the decode rounds eagerly on the card
@@ -795,6 +874,12 @@ def build_runtime(args, model=None,
     refusal = kv_chain_refusal(args)
     if refusal:
         raise SystemExit(refusal)
+    if getattr(args, 'fault_plan', None):
+        # Armed before the engine starts (serve_lm's --fault-plan, as the
+        # reference's serve_lm arms it); a bad plan raises ValueError.
+        faults.install_plan(args.fault_plan)
+        print(f'serve_lm: FAULT PLAN ARMED ({sorted(faults.stats())}) — '
+              f'chaos mode', flush=True)
     device = resolve_device(cpu=args.cpu)
     model, tokenizer_dir = _source_model(args, model, device)
     cfg = model.config
@@ -836,7 +921,7 @@ def build_runtime(args, model=None,
             pipeline_decode=pipeline_decode, cuda_graphs=cuda_graphs,
             kv_spill_bytes=args.kv_spill_bytes, kv_cold_dir=args.kv_cold_dir)
     decode_peers = [p for p in (args.decode_peers or '').split(',') if p]
-    return InferenceRuntime(
+    rt = InferenceRuntime(
         engine=engine, model=model,
         model_name=(f'hf:{os.path.basename(args.hf)}' if args.hf
                     else args.model),
@@ -849,3 +934,20 @@ def build_runtime(args, model=None,
         request_timeout=args.request_timeout, zone=args.zone,
         adapters=adapters, cuda_graphs=cuda_graphs, role=args.role,
         decode_peers=decode_peers)
+    obs_catalog.gauge('skypilot_serving_weight_bytes').set(rt.weight_bytes)
+    obs_catalog.gauge('skypilot_serving_storage_info').labels(
+        kv_dtype=rt.kv_dtype, weight_dtype=rt.weight_dtype).set(1)
+    # Head-sampled tracing at the configured rate; the process tag makes
+    # this node's spans a row of their own in a merged trace.
+    trace_sample = float(getattr(args, 'trace_sample', 0.0) or 0.0)
+    if trace_sample > 0.0:
+        tracing.configure(sample=trace_sample,
+                          seed=getattr(args, 'trace_seed', None),
+                          process=rt.role or 'replica')
+    # One SLO tracker feeds /stats' `slo` block and the
+    # skypilot_serving_slo_* gauges, through the ServingMetrics hooks.
+    slo_spec = getattr(args, 'slo', None)
+    if slo_spec:
+        rt.slo_tracker = slo_lib.SloTracker(slo_lib.parse_slo(slo_spec))
+        rt.metrics.slo = rt.slo_tracker
+    return rt

@@ -27,9 +27,32 @@ committed chain back to its HTTP thread for live migration, and with
 host RAM (and a local directory) and restore on a later hit. All of it
 runs on the scheduler thread between rounds (`run_on_scheduler`), on
 the stream the rounds run on, so a gather follows the KV writes of
-every round dispatched before it. Not ported yet (the constructor
-raises when asked for them): meshes and pipeline stages, and the flight
-recorder and Prometheus metrics.
+every round dispatched before it.
+
+Observability, as the reference's: each engine has its catalog bundle
+(`EngineMetrics`, label engine=<id>, unique in the process), counters
+and histograms tick at their event sites on the scheduler thread and
+`update_metric_gauges()` refreshes the snapshot gauges from host state
+at scrape time; a flight recorder (`flight`) keeps the last scheduler
+events; a request submitted with a trace context gets the spans
+engine.queue_wait, engine.admit, engine.prefill_chunk,
+engine.decode_round and engine.device_get. The fault points
+engine.prefill_chunk, engine.decode_step and engine.device_get fire on
+the host, before a chunk's dispatch, before a round's graph replay and
+at the token fetch (never inside a graph capture).
+
+Errors are contained in two tiers, as the reference's: an error raised
+while the pool is intact is a soft error (logged, counted, recorded;
+every slot goes on serving), and a third in a row or one raised while
+the pool may be half-written resets the engine. On the card a pool
+cannot be checked for that (it is never donated, and a CUDA fault is
+sticky for the whole context), so the engine marks the interval from a
+round's or a chunk's dispatch to its commit (`_pool_at_risk`): an
+exception inside it counts as a lost pool. A reset zeroes the pool in
+place (its storage stays, so the captured graphs replay on it).
+
+Not ported yet (the constructor raises when asked for them): meshes and
+pipeline stages.
 
 The reference donated its cache to each jitted call; here the pool is
 preallocated once (`PagedKVCache`) and updated in place.
@@ -37,6 +60,7 @@ preallocated once (`PagedKVCache`) and updated in place.
 from __future__ import annotations
 
 import collections
+import itertools
 import queue
 import threading
 import time
@@ -51,10 +75,16 @@ from skypilot_tpu_torch.errors import (AdapterNotFoundError,
                                        DeadlineExceededError,
                                        EngineDeadError, QueueSaturatedError,
                                        SessionMigratedError)
-from skypilot_tpu_torch.inference import affinity, kv_transfer
+from skypilot_tpu_torch.inference import affinity, kv_transfer, quant
 from skypilot_tpu_torch.models import decode_graph
+from skypilot_tpu_torch.models import lora as lora_lib
 from skypilot_tpu_torch.models.llama import PagedKVCache
+from skypilot_tpu_torch.observability import catalog as _obs
+from skypilot_tpu_torch.observability import flight as flight_lib
+from skypilot_tpu_torch.observability import tracing
 from skypilot_tpu_torch.ops import paged_attention as paged_ops
+from skypilot_tpu_torch.ops import paged_kernel
+from skypilot_tpu_torch.robustness import faults
 
 #: Prompt-lookup drafting for --speculative: the n-gram matched, and how
 #: many trailing tokens the match is searched over (the reference
@@ -86,8 +116,14 @@ class PrefixCache:
 
     def __init__(self, page_size: int,
                  spill: Optional[kv_transfer.HostSpillTier] = None,
-                 fetch_pages: Optional[Callable] = None) -> None:
+                 fetch_pages: Optional[Callable] = None,
+                 metrics: Optional[_obs.EngineMetrics] = None,
+                 flight: Optional[flight_lib.FlightRecorder] = None
+                 ) -> None:
         self.page_size = page_size
+        # The owning engine's catalog bundle and flight recorder.
+        self._metrics = metrics
+        self._flight = flight
         self.by_key: Dict[bytes, int] = {}
         self.key_of: Dict[int, bytes] = {}
         self.refs: Dict[int, int] = {}
@@ -129,6 +165,9 @@ class PrefixCache:
     def record_lookup(self, n_hits: int, n_misses: int) -> None:
         self.hits += n_hits
         self.misses += n_misses
+        if self._metrics is not None:
+            self._metrics.prefix_hits.inc(n_hits)
+            self._metrics.prefix_misses.inc(n_misses)
 
     def acquire_page(self, key: bytes, page: int) -> None:
         """Adopt and reference a page the engine just restored into the
@@ -179,6 +218,10 @@ class PrefixCache:
                 for (key, _page), blob in zip(victims, per_page):
                     self.spill.put(key, blob)
                     self.spilled_pages += 1
+                    if self._metrics is not None:
+                        self._metrics.kv_spill_pages.inc()
+                if self._flight is not None:
+                    self._flight.record('spill', pages=len(per_page))
             except Exception as e:  # pylint: disable=broad-except
                 # Spilling is an optimization: a failed gather degrades
                 # to drop-on-evict and never blocks the admission that
@@ -189,11 +232,18 @@ class PrefixCache:
         for _, page in victims:
             allocator.release([page])
             self.evictions += 1
+            if self._metrics is not None:
+                self._metrics.prefix_evictions.inc()
+        if self._flight is not None:
+            self._flight.record('evict', pages=len(victims))
 
 
 class ContinuousBatchingEngine:
     """Slot engine over a port `Llama` (which owns its weights; the
     pool is allocated on the model's device)."""
+
+    #: Engine ids of this process: each engine's metric label.
+    _instance_ids = itertools.count()
 
     def __init__(self, model, *, num_slots: int = 8,
                  max_total_len: int = 256, temperature: float = 0.0,
@@ -315,6 +365,16 @@ class ContinuousBatchingEngine:
         self.kv_restore_hits = 0
         self.sessions_evacuated = 0
         self.chains_evacuated = 0
+        # Catalog instruments labeled by engine id: counters tick at the
+        # event sites, gauges refresh in update_metric_gauges().
+        self.engine_id = str(next(self._instance_ids))
+        self.metrics = _obs.EngineMetrics(self.engine_id)
+        self.metrics.num_slots.set(num_slots)
+        self._weight_bytes: Optional[int] = None   # lazy (roofline)
+        # Every scheduler decision lands in this bounded ring, served at
+        # /debug/flight and written to a file on a reset or a death.
+        self.flight = flight_lib.FlightRecorder(
+            name=f'engine{self.engine_id}')
         self.cache = PagedKVCache(cfg, self.device)
         self._generator = torch.Generator(self.device).manual_seed(seed)
         self._reset_paging()
@@ -361,6 +421,9 @@ class ContinuousBatchingEngine:
         self.slot_adapter = np.zeros((num_slots,), np.int32)
         self.slot_adapter_name: List[Optional[str]] = [None] * num_slots
         self._prefill_order: 'collections.deque' = collections.deque()
+        self._prefill_t0 = [0.0] * num_slots
+        # Per-slot tracing context (None = the request is not sampled).
+        self._slot_ctx: List[Optional[tracing.Ctx]] = [None] * num_slots
 
         self.decode_calls = 0
         self.tokens_committed = 0
@@ -378,6 +441,12 @@ class ContinuousBatchingEngine:
         self.requests_shed = 0
         self.deadline_exceeded = 0
         self.engine_restarts = 0
+        # Two-tier error containment: consecutive soft errors (the fuse
+        # resets the engine at 3), and whether the pool may be
+        # half-written (a round or a chunk is between its dispatch and
+        # its commit).
+        self._soft_errors = 0
+        self._pool_at_risk = False
         self._dead = threading.Event()
         self._cancel_requests: set = set()
         self._cancel_lock = threading.Lock()
@@ -411,7 +480,8 @@ class ContinuousBatchingEngine:
         self.prefix_cache = (PrefixCache(
             self.page_size, spill=self.spill_tier,
             fetch_pages=lambda pages: self._gather_page_blobs(
-                pages, pinned=False))
+                pages, pinned=False),
+            metrics=self.metrics, flight=self.flight)
             if self.prefix_caching else None)
         self.shared_pages: List[List[int]] = [
             [] for _ in range(self.num_slots)]
@@ -425,7 +495,8 @@ class ContinuousBatchingEngine:
                stop_token_ids: Optional[List[int]] = None,
                on_token: Optional[Callable[[int], None]] = None,
                deadline_s: Optional[float] = None,
-               adapter: Optional[str] = None) -> 'Future':
+               adapter: Optional[str] = None,
+               trace_ctx: Optional[tracing.Ctx] = None) -> 'Future':
         """Queue a request; the Future resolves to prompt ++ generated
         tokens. `temperature` overrides the engine default (0 =
         greedy); `top_k`/`top_p` filter sampling (0 / 1.0 = off);
@@ -436,7 +507,9 @@ class ContinuousBatchingEngine:
         names a LoRA adapter of the engine's adapter store (None = the
         base model): its factors join the shared forward, its KV pages
         are keyed per adapter in the prefix cache, and it stays pinned
-        in the store while the request holds a slot. Raises
+        in the store while the request holds a slot. `trace_ctx` (a
+        sampled request's tracing context) makes the scheduler record
+        the request's engine spans under it. Raises
         AdapterNotFoundError for an unknown adapter,
         QueueSaturatedError when the bounded queue is full and
         EngineDeadError when the scheduler thread died."""
@@ -478,12 +551,16 @@ class ContinuousBatchingEngine:
         deadline = (time.monotonic() + float(deadline_s)
                     if deadline_s is not None else 0.0)
         fut: Future = Future()
-        # item[0] is the prompt, item[-2] the deadline, item[-1] the
-        # future: the rest of the scheduler relies on those positions.
+        # `tref` = (ctx, enqueue perf_counter) for the queue-wait span,
+        # None for an unsampled request (no clock read). item[0] is the
+        # prompt, item[-2] the deadline, item[-1] the future: the rest
+        # of the scheduler relies on those positions.
+        tref = ((trace_ctx, time.perf_counter())
+                if trace_ctx is not None else None)
         self._queue.put((list(prompt), int(max_new_tokens), float(temp),
                          int(top_k), float(top_p),
                          frozenset(stop_token_ids or ()), adapter,
-                         on_token, deadline, fut))
+                         tref, on_token, deadline, fut))
         return fut
 
     def cancel(self, futs) -> None:
@@ -523,6 +600,69 @@ class ContinuousBatchingEngine:
 
     def kv_cache_bytes(self) -> int:
         return self.cache.num_bytes()
+
+    def attention_impl(self) -> str:
+        """The paged-attention implementation this engine's calls
+        resolve to ('cuda' on the card, 'torch' on the CPU or under an
+        `impl_scope('torch')`): the attention_impl_info gauge and /stats.
+        """
+        return paged_kernel.resolve_impl('auto', self.device)
+
+    def attention_bytes_per_token(self) -> Dict[str, object]:
+        """Modeled HBM bytes one decode step moves per generated token at
+        the current decode batch (`paged_kernel.bytes_per_token_model`
+        fed this engine's page geometry, dtypes and adapter store): the
+        serving roofline's denominator. Host state only: the weight
+        bytes are counted once from tensor metadata, the batch from the
+        numpy `active`."""
+        cfg = self.model.config
+        if self._weight_bytes is None:
+            self._weight_bytes = quant.weight_num_bytes(self.model)
+        lora_bytes = 0
+        store = self.adapter_store
+        if store is not None:
+            rank = int(getattr(store, '_rank', 0) or 0)
+            targets = tuple(getattr(store, '_targets', ()) or ())
+            if rank > 0 and targets:
+                lora_bytes = lora_lib.adapter_num_bytes(cfg, rank, targets)
+        quantized = self.kv_dtype == 'int8'
+        return paged_kernel.bytes_per_token_model(
+            num_layers=cfg.num_layers,
+            num_kv_heads=cfg.num_kv_heads,
+            num_q_heads=cfg.num_heads,
+            head_dim=cfg.head_dim,
+            page_size=self.page_size,
+            pages_per_seq=self.pages_per_seq,
+            kv_elem_bytes=1 if quantized else cfg.dtype.itemsize,
+            quantized=quantized,
+            impl=self.attention_impl(),
+            weight_bytes=self._weight_bytes,
+            batch=max(int(self.active.sum()), 1),
+            lora_bytes_per_row=lora_bytes)
+
+    def update_metric_gauges(self) -> None:
+        """Refresh the snapshot gauges from live engine state (the
+        /metrics and /stats handlers call it). Reads race the scheduler
+        thread harmlessly: numpy and allocator counts, one round old at
+        worst; nothing reads the device."""
+        m = self.metrics
+        m.queue_depth.set(self._queue.qsize() + len(self._ready))
+        m.active_slots.set(int(self.active.sum()))
+        m.num_slots.set(self.num_slots)
+        m.prefill_backlog.set(self.prefill_backlog_tokens())
+        m.kv_pool_bytes.set(self.kv_cache_bytes())
+        m.kv_pool_bytes_per_device.set(self.kv_cache_bytes())
+        free = int(self.allocator.free_pages)
+        m.pages_free.set(free)
+        m.pages_used.set(self.total_pages - free)
+        if self.kv_restore_lookups:
+            m.kv_restore_hit_ratio.set(self.kv_restore_hits /
+                                       self.kv_restore_lookups)
+        m.pipeline_stages.set(1)
+        m.prefill_bubble_fraction.set(0.0)
+        m.set_attention_info(self.attention_impl(), self.kv_dtype)
+        m.attention_bytes_per_token.set(
+            self.attention_bytes_per_token()['total_bytes_per_token'])
 
     def stats(self) -> Dict[str, object]:
         """Racy snapshot of the counters (read from other threads)."""
@@ -711,8 +851,11 @@ class ContinuousBatchingEngine:
                 blobs = self._gather_page_blobs(pages)
             finally:
                 cache.release(pages)
-            return kv_transfer.pack_pages(
+            packed = kv_transfer.pack_pages(
                 blobs, self._chain_meta(keys[:len(pages)], salt))
+            self.flight.record('handoff_export', pages=len(pages),
+                               bytes=len(packed))
+            return packed
 
         return self.run_on_scheduler(op)
 
@@ -775,6 +918,9 @@ class ContinuousBatchingEngine:
                     raise
                 for (_i, key), page in zip(fit, pages):
                     cache.insert(key, page)
+            self.flight.record('kv_import', pages=len(keys),
+                               imported=len(fit), already_cached=already,
+                               dropped=dropped)
             return {'pages': len(keys), 'imported': len(fit),
                     'already_cached': already, 'dropped': dropped}
 
@@ -837,6 +983,7 @@ class ContinuousBatchingEngine:
         self.active[slot] = False
         self.on_tokens[slot] = None
         self.deadlines[slot] = 0.0
+        self._slot_ctx[slot] = None
         self._release_adapter(slot)
         if was_prefilling:
             self.prefilling[slot] = False
@@ -848,6 +995,9 @@ class ContinuousBatchingEngine:
         self.sessions_evacuated += 1
         if payload is not None:
             self.chains_evacuated += 1
+        self.flight.record('evacuate', slot=slot, reason=reason,
+                           pages=n_chain,
+                           bytes=len(payload) if payload else 0)
         if fut is not None:
             fut.set_exception(SessionMigratedError(record))
         return record
@@ -864,7 +1014,7 @@ class ContinuousBatchingEngine:
         n = 0
         while self._ready:
             (prompt, max_new, temp, top_k, top_p, stops, adapter,
-             _on_token, deadline, fut) = self._ready.popleft()
+             _tref, _on_token, deadline, fut) = self._ready.popleft()
             self._queued_tokens_sub(len(prompt))
             fut.set_exception(SessionMigratedError({
                 'reason': reason,
@@ -944,16 +1094,20 @@ class ContinuousBatchingEngine:
         if n_fit <= 0:
             return
         pages = self.allocator.allocate(n_fit)
+        self._pool_at_risk = True    # the scatter writes the pool
         try:
             self._scatter_page_blobs(
                 pages, kv_transfer.join_pages(found_blobs[:n_fit]))
         except Exception:
             self.allocator.release(pages)
             raise
+        self._pool_at_risk = False
         for key, page in zip(found_keys[:n_fit], pages):
             cache.acquire_page(key, page)
         shared.extend(pages)
         self.kv_restored_pages += n_fit
+        self.metrics.kv_restore_pages.inc(n_fit)
+        self.flight.record('restore', pages=n_fit)
 
     # -- scheduler thread ---------------------------------------------------
     def _loop(self) -> None:
@@ -967,11 +1121,14 @@ class ContinuousBatchingEngine:
                 while not self._stop.is_set():
                     try:
                         self._iterate()
+                        self._soft_errors = 0
                     except Exception as e:  # pylint: disable=broad-except
                         self._recover_from_error(e)
         finally:
             if not self._stop.is_set():
                 self._dead.set()
+                self.flight.record('death')
+                self.flight.snapshot('death')
                 died = EngineDeadError('engine scheduler thread died')
                 for slot in range(self.num_slots):
                     fut = self.futures[slot]
@@ -1004,9 +1161,17 @@ class ContinuousBatchingEngine:
             t0 = time.perf_counter()
             committed = self.tokens_committed
             self._decode_step()
+            dt = time.perf_counter() - t0
+            self.metrics.decode_step_seconds.observe(dt)
+            self.flight.record('round_commit',
+                               tokens=self.tokens_committed - committed,
+                               active=int(self.active.sum()))
+            if tracing.enabled():
+                self._trace_decode_round(dt)
             if not prefilled:
                 # Rounds with no prefill chunk queued before them: the
-                # inter-token time a decoding request sees.
+                # inter-token time a decoding request sees (the round's
+                # metrics, flight record and spans included).
                 self.steady_decode_s += time.perf_counter() - t0
                 self.steady_decode_rounds += 1
                 self.steady_decode_tokens += \
@@ -1020,12 +1185,62 @@ class ContinuousBatchingEngine:
             except queue.Empty:
                 pass
 
+    def _trace_decode_round(self, dur: float) -> None:
+        """One 'engine.decode_round' span for each traced slot riding
+        this round (a slot that finished inside it already cleared its
+        context)."""
+        batch = int(self.active.sum())
+        for slot in range(self.num_slots):
+            ctx = self._slot_ctx[slot]
+            if ctx is None or not (self.active[slot] or
+                                   self.prefilling[slot]):
+                continue
+            tracing.record_span('engine.decode_round', ctx, dur,
+                                slot=slot, pos=int(self.pos[slot]),
+                                batch=batch)
+
+    def _cache_lost(self) -> bool:
+        """True when the error came between a dispatch and its commit:
+        the pool may be half-written (or the device context broken) and
+        only a reset can continue. False means it was raised before any
+        device work of the round or chunk (an injected fault, a host
+        error): the state is consistent."""
+        return self._pool_at_risk
+
     def _recover_from_error(self, e: Exception) -> None:
-        """A failed device call may have left the pool half-written:
-        fail every in-flight and queued request loudly, reset the slots
-        and the pool, keep serving."""
+        """Two-tier error containment (the reference's).
+
+        POOL INTACT: log, count, record a soft_error; every slot goes on
+        serving and nothing is failed (a pipelined round in flight stays
+        in `_inflight`, so the next iteration commits it). Three soft
+        errors in a row escalate, so a deterministic host failure cannot
+        spin the loop forever.
+
+        POOL LOST (or the third strike): record the reset and write a
+        flight snapshot, fail every in-flight and queued request with
+        the error, reset the slots and zero the pool in place (its
+        storage stays, so the captured graphs replay on it), count the
+        restart and keep serving."""
         traceback.print_exc()
+        self._soft_errors += 1
+        victims = [s for s in range(self.num_slots)
+                   if self.active[s] or self.prefilling[s]]
+        self.flight.record('soft_error', error=type(e).__name__,
+                           message=str(e)[:200],
+                           strikes=self._soft_errors, slots=victims)
+        if not self._cache_lost() and self._soft_errors < 3:
+            print(f'engine {self.engine_id}: transient scheduler error '
+                  f'({type(e).__name__}: {e}); state intact, continuing',
+                  flush=True)
+            return
+        self.flight.record('reset', error=type(e).__name__,
+                           strikes=self._soft_errors, slots=victims,
+                           restarts=self.engine_restarts + 1)
+        self.flight.snapshot('reset')
         self.engine_restarts += 1
+        self.metrics.engine_restarts.inc()
+        self._soft_errors = 0
+        self._pool_at_risk = False
         self._inflight = None
         for slot in range(self.num_slots):
             self._release_adapter(slot)
@@ -1034,6 +1249,7 @@ class ContinuousBatchingEngine:
             self.active[slot] = False
             self.prefilling[slot] = False
             self.on_tokens[slot] = None
+            self._slot_ctx[slot] = None
             if fut is not None and not fut.done():
                 fut.set_exception(e)
         self._prefill_order.clear()
@@ -1043,7 +1259,10 @@ class ContinuousBatchingEngine:
             arr[:] = 0
         self.top_ps[:] = 1.0
         self._fail_all_pending(e)
-        self.cache.zero_()
+        try:
+            self.cache.zero_()
+        except Exception:  # pylint: disable=broad-except
+            traceback.print_exc()   # the device is truly gone
         self._reset_paging()
 
     def _fail_all_pending(self, e: Exception) -> None:
@@ -1100,6 +1319,7 @@ class ContinuousBatchingEngine:
         self.active[slot] = False
         self.on_tokens[slot] = None
         self.deadlines[slot] = 0.0
+        self._slot_ctx[slot] = None
         self._release_adapter(slot)
         if self.prefilling[slot]:
             self.prefilling[slot] = False
@@ -1153,7 +1373,8 @@ class ContinuousBatchingEngine:
         while self._ready and not self._occupied().all():
             item = self._ready.popleft()
             (prompt, max_new, temp, top_k, top_p, stops, adapter,
-             on_token, deadline, fut) = item
+             tref, on_token, deadline, fut) = item
+            t_adm = time.perf_counter() if tref is not None else 0.0
             self._queued_tokens_sub(len(prompt))
             if deadline and time.monotonic() > deadline:
                 self.deadline_exceeded += 1
@@ -1195,7 +1416,14 @@ class ContinuousBatchingEngine:
                 # before the hit / miss accounting (a restored page saved
                 # the recompute exactly as a resident hit does).
                 if self.spill_tier is not None and len(shared) < len(keys):
+                    n_res0 = len(shared)
+                    t_res = time.perf_counter()
                     self._restore_from_spill(keys, shared, reserve)
+                    if tref is not None and len(shared) > n_res0:
+                        tracing.record_span(
+                            'engine.kv_restore', tref[0],
+                            time.perf_counter() - t_res,
+                            pages=len(shared) - n_res0)
                 self.prefix_cache.record_lookup(len(shared),
                                                 len(keys) - len(shared))
                 # At least ONE token must prefill (the continuation
@@ -1208,7 +1436,7 @@ class ContinuousBatchingEngine:
             need = self.allocator.pages_needed(plen + 1, self.page_size) \
                 - len(shared)
             if self.prefix_cache is not None:
-                self.prefix_cache.evict_into(self.allocator, need + reserve)
+                self._evict_for(need + reserve, tref)
             if not self.allocator.can_allocate(need + reserve):
                 # Pool exhausted: back to the HEAD, stop admitting.
                 if self.prefix_cache is not None:
@@ -1249,8 +1477,38 @@ class ContinuousBatchingEngine:
             self.slot_adapter_name[slot] = adapter if aid else None
             self.prefilling[slot] = True
             self._prefill_order.append(slot)
+            self._prefill_t0[slot] = time.perf_counter()
+            self._slot_ctx[slot] = tref[0] if tref is not None else None
+            if tref is not None:
+                tracing.record_span('engine.queue_wait', tref[0],
+                                    t_adm - tref[1], slot=slot)
+                tracing.record_span('engine.admit', tref[0],
+                                    time.perf_counter() - t_adm,
+                                    slot=slot, prompt_len=plen,
+                                    cached_tokens=n_cached)
+            self.flight.record('admit', slot=slot, prompt_len=plen,
+                               cached_tokens=n_cached,
+                               queued=len(self._ready))
+            self.metrics.admissions.inc()
             admitted = True
         return admitted
+
+    def _evict_for(self, need: int, tref) -> None:
+        """Prefix-cache eviction for an admission, with an
+        'engine.kv_spill' span when the admitting request is traced and
+        the eviction ran (an untraced request reads no clock)."""
+        cache = self.prefix_cache
+        if tref is None:
+            cache.evict_into(self.allocator, need)
+            return
+        ev0, sp0 = cache.evictions, cache.spilled_pages
+        t0 = time.perf_counter()
+        cache.evict_into(self.allocator, need)
+        if cache.evictions > ev0:
+            tracing.record_span(
+                'engine.kv_spill', tref[0], time.perf_counter() - t0,
+                evicted=cache.evictions - ev0,
+                spilled=cache.spilled_pages - sp0)
 
     # -- chunked prefill ----------------------------------------------------
     def _chunk_shape(self, n: int, offset: int) -> int:
@@ -1271,7 +1529,9 @@ class ContinuousBatchingEngine:
         """One prefill chunk: n real tokens of the slot's prompt at
         absolute position `offset`. Returns the f32 logits of the
         chunk's last real token. The first chunk (offset 0) attends its
-        own K/V; later ones the row's paged history."""
+        own K/V; later ones the row's paged history. The
+        `engine.prefill_chunk` point fires before any device work."""
+        faults.point('engine.prefill_chunk')
         shape = self._chunk_shape(n, offset)
         chunk = self.outputs[slot][offset:offset + n] + [0] * (shape - n)
         dev = self.device
@@ -1279,12 +1539,15 @@ class ContinuousBatchingEngine:
         positions = torch.arange(offset, offset + shape, dtype=torch.int32,
                                  device=dev)[None]
         page_row = torch.from_numpy(self.page_table[slot:slot + 1]).to(dev)
+        self._pool_at_risk = True    # the chunk writes the pool from here
         hidden = self.model.hidden(tokens, positions, self.cache, page_row,
                                    prefill=offset == 0,
                                    attend_len=self.max_total_len,
                                    **self._slot_lora_args(slot))
+        last = self.model.logits(hidden[0, n - 1])
+        self._pool_at_risk = False
         self.prefill_chunks_run += 1
-        return self.model.logits(hidden[0, n - 1])
+        return last
 
     def _sample_first(self, slot: int, last_logits: torch.Tensor
                       ) -> torch.Tensor:
@@ -1323,16 +1586,25 @@ class ContinuousBatchingEngine:
                 n = min(n, self.prefill_chunk)
             if budget is not None and spent + n > budget:
                 break   # budget spent: decode steps run first
+            self.flight.record('chunk_dispatch', slot=slot, offset=offset,
+                               n=n)
+            t0 = time.perf_counter()
             try:
                 last = self._run_prefill_chunk(slot, offset, n)
             except Exception as e:  # pylint: disable=broad-except
-                # Only this slot's own pages (and the trash page) were
-                # written: fail just its request.
-                print(f'engine: prefill chunk for slot {slot} failed '
-                      f'({type(e).__name__}: {e}); failing only that '
-                      f'request', flush=True)
+                if self._cache_lost():
+                    raise   # the pool may be half-written: reset
+                # Raised before the chunk's dispatch (an injected
+                # engine.prefill_chunk fault): fail just its request.
+                print(f'engine {self.engine_id}: prefill chunk for slot '
+                      f'{slot} failed ({type(e).__name__}: {e}); failing '
+                      f'only that request', flush=True)
                 self._fail_slot(slot, e)
                 continue
+            dt = time.perf_counter() - t0
+            self.metrics.prefill_chunk_seconds.observe(dt)
+            tracing.record_span('engine.prefill_chunk', self._slot_ctx[slot],
+                                dt, slot=slot, offset=offset, n=n)
             spent += n
             offset += n
             self.prefill_frontier[slot] = offset
@@ -1340,14 +1612,22 @@ class ContinuousBatchingEngine:
             if offset >= plen:
                 self._prefill_order.popleft()
                 done.append((slot, self._sample_first(slot, last)))
+        if budget:
+            self.metrics.prefill_budget_utilization.set(spent / budget)
         if not done:
             return
+        # The one host fetch of the chunks' first tokens is where a
+        # device fault in them surfaces.
+        self._pool_at_risk = True
         firsts = torch.stack([first for _, first in done]).cpu().tolist()
+        self._pool_at_risk = False
         for (slot, _), first in zip(done, firsts):
             self.cur_token[slot] = int(first)
             self.pos[slot] = int(self.prompt_len[slot])
             self.prefilling[slot] = False
             self.active[slot] = True
+            self.metrics.prefill_seconds.observe(
+                time.perf_counter() - self._prefill_t0[slot])
 
     # -- paging -------------------------------------------------------------
     def _grow_pages(self, lookahead=1) -> None:
@@ -1388,16 +1668,27 @@ class ContinuousBatchingEngine:
             self.futures[slot] = None
             self.active[slot] = False
             self.preemptions += 1
+            self.metrics.preemptions.inc()
+            self.flight.record(
+                'preempt', slot=slot,
+                generated=len(self.outputs[slot]) -
+                int(self.prompt_len[slot]))
+            ctx = self._slot_ctx[slot]
+            self._slot_ctx[slot] = None
             self._release_adapter(slot)
             self._release_slot_pages(slot, promote=False)
             if fut is not None:
+                # The trace context rides the re-queued request: its
+                # re-admission records a second queue-wait span.
+                tref = ((ctx, time.perf_counter())
+                        if ctx is not None else None)
                 preempted.append((list(self.outputs[slot]),
                                   max(remaining, 1),
                                   float(self.temps[slot]),
                                   int(self.top_ks[slot]),
                                   float(self.top_ps[slot]),
                                   self.stop_ids[slot], adapter_name,
-                                  self.on_tokens[slot],
+                                  tref, self.on_tokens[slot],
                                   float(self.deadlines[slot]), fut))
                 self._queued_tokens_add(len(self.outputs[slot]))
         # Back to the HEAD in pass order.
@@ -1499,6 +1790,7 @@ class ContinuousBatchingEngine:
         self.active[slot] = False
         self.on_tokens[slot] = None
         self.deadlines[slot] = 0.0
+        self._slot_ctx[slot] = None
         self._release_adapter(slot)
         was_prefilling = bool(self.prefilling[slot])
         if was_prefilling:
@@ -1520,6 +1812,7 @@ class ContinuousBatchingEngine:
         self.outputs[slot].append(tok)
         self._emit(slot, tok)
         self.tokens_committed += 1
+        self.metrics.tokens_committed.inc()
         self.pos[slot] += 1
         self.cur_token[slot] = int(next_tok)
         done = len(self.outputs[slot]) >= int(self.limits[slot])
@@ -1534,13 +1827,27 @@ class ContinuousBatchingEngine:
     def _fetch_tokens(self, pending) -> np.ndarray:
         """Wait for a dispatched round's tokens (a `decode_graph.Pending`,
         or a device tensor), accounting the wall time the host spends
-        blocked: the serial host/device bubble pipelining hides."""
+        blocked: the serial host/device bubble pipelining hides. The
+        `engine.device_get` point fires first (a delay there models a
+        host/device stall)."""
+        faults.point('engine.device_get')
         t0 = time.perf_counter()
         if isinstance(pending, decode_graph.Pending):
             out = pending.wait()
         else:
             out = pending.cpu().numpy()
-        self.decode_stall_s += time.perf_counter() - t0
+        stall = time.perf_counter() - t0
+        self.decode_stall_s += stall
+        self.metrics.decode_stall_seconds.inc(stall)
+        if tracing.enabled():
+            # The stall is the whole round's: one span, on the first
+            # traced active slot.
+            for slot in range(self.num_slots):
+                ctx = self._slot_ctx[slot]
+                if ctx is not None and self.active[slot]:
+                    tracing.record_span('engine.device_get', ctx, stall,
+                                        stall_ms=round(stall * 1e3, 3))
+                    break
         return out
 
     def _round_lora(self, ids: np.ndarray) -> Optional[dict]:
@@ -1569,6 +1876,18 @@ class ContinuousBatchingEngine:
             lora=self._round_lora(ids), steps=steps)
 
     def _decode_step(self) -> None:
+        """One decode round in the engine's mode. The
+        `engine.decode_step` point fires before any dispatch and before
+        the round draws from the generator: a raised fault leaves the
+        state as it was (with a pipelined round still in flight), so the
+        retried round gives the same tokens. From the dispatch to the
+        commit the pool may be half-written (`_pool_at_risk`)."""
+        faults.point('engine.decode_step')
+        self._pool_at_risk = True
+        self._decode_round()
+        self._pool_at_risk = False
+
+    def _decode_round(self) -> None:
         if self.spec_k:
             self._spec_decode_step()
             return
@@ -1584,6 +1903,7 @@ class ContinuousBatchingEngine:
         pending = self._dispatch(np.zeros(self.num_slots, bool))
         sampled = self._fetch_tokens(pending)[0]   # the one host fetch
         self.decode_calls += 1
+        self.metrics.decode_steps.inc()
         for slot in range(self.num_slots):
             if self.active[slot]:
                 self._commit_token(slot, int(sampled[slot]))
@@ -1610,6 +1930,7 @@ class ContinuousBatchingEngine:
             cont, inflight['pos'] + 1, self.pos).astype(np.int32))
         pending = self._dispatch(cont)
         self.decode_calls += 1
+        self.metrics.decode_steps.inc()
         return {'pending': pending, 'mask': self.active.copy(),
                 'pos': pos, 'futs': list(self.futures)}
 
@@ -1664,6 +1985,7 @@ class ContinuousBatchingEngine:
         toks = self._fetch_tokens(
             self._dispatch(np.zeros(self.num_slots, bool), steps=n))
         self.decode_calls += 1
+        self.metrics.decode_steps.inc()
         for slot in range(self.num_slots):
             if not was_active[slot]:
                 continue
@@ -1725,6 +2047,7 @@ class ContinuousBatchingEngine:
                              self.top_ps[live]))
         y = self._fetch_tokens(y)                      # [slots, K+1]
         self.decode_calls += 1
+        self.metrics.decode_steps.inc()
         for slot in range(self.num_slots):
             if not self.active[slot]:
                 continue

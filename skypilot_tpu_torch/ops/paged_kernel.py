@@ -457,3 +457,43 @@ def fused_paged_attention_split_reference(
     out = (w[..., None] * acc).sum(0) / torch.where(
         total > 0, total, torch.ones_like(total))[..., None]
     return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+# -- analytic HBM roofline (the port's copy of
+# skypilot_tpu/ops/pallas_paged.py `bytes_per_token_model`) --------------
+def bytes_per_token_model(*, num_layers: int, num_kv_heads: int,
+                          num_q_heads: int, head_dim: int,
+                          page_size: int, pages_per_seq: int,
+                          kv_elem_bytes: int, quantized: bool,
+                          impl: str, weight_bytes: int = 0,
+                          batch: int = 1,
+                          lora_bytes_per_row: int = 0
+                          ) -> Dict[str, float]:
+    """Modeled HBM bytes one decode step moves PER SEQUENCE (= per
+    generated token), from the engine's page geometry: both pools walked
+    over the row's whole page table (and the f32 scale rows for int8),
+    the weights amortized over the decode batch, each row's LoRA factor
+    rows. The dequantize-and-expand term applies to the reference's
+    'xla' gather route only; this port's impls ('cuda', 'torch') never
+    take it. Plain arithmetic on host ints: no device read."""
+    tokens_walked = pages_per_seq * page_size
+    pool = (2 * tokens_walked * num_kv_heads * head_dim
+            * kv_elem_bytes * num_layers)
+    scales = (2 * tokens_walked * 4 * num_layers) if quantized else 0
+    dequant = 0
+    if impl == 'xla':
+        elem = 4 if quantized else kv_elem_bytes
+        dequant = (2 * 2 * tokens_walked * num_q_heads * head_dim
+                   * elem * num_layers)
+    weights = weight_bytes / max(batch, 1)
+    total = pool + scales + dequant + weights + lora_bytes_per_row
+    return {
+        'impl': impl,
+        'context_tokens_walked': tokens_walked,
+        'kv_pool_bytes': pool,
+        'kv_scale_bytes': scales,
+        'dequant_materialize_bytes': dequant,
+        'weight_bytes_amortized': round(weights, 1),
+        'lora_bytes': lora_bytes_per_row,
+        'total_bytes_per_token': round(total + 0.0, 1),
+    }

@@ -16,8 +16,11 @@ saves): `wait_until_finished()` and `close()` return at once, kept so
 the train loop reads as the reference's. `restore()` verifies
 the candidate step against its manifest and falls back to the newest
 step that verifies; failures are typed (`CheckpointNotFoundError`,
-`CheckpointCorruptionError`). `max_to_keep` prunes the oldest steps and
-their manifests. Remote (gs://, s3://) directories are refused.
+`CheckpointCorruptionError`; each corrupt step counts in
+`skypilot_checkpoint_integrity_failures_total`). `max_to_keep` prunes
+the oldest steps and their manifests. The `checkpoint.save` and
+`checkpoint.restore` fault points fire before a save and a restore, as
+the reference's do. Remote (gs://, s3://) directories are refused.
 
 What a step holds: the step count, the trainable parameters and the
 optimizer state. A LoRA finetune's frozen base is not written (the
@@ -37,8 +40,10 @@ import torch
 
 from skypilot_tpu_torch.errors import (CheckpointCorruptionError,
                                        CheckpointNotFoundError)
+from skypilot_tpu_torch.observability import catalog
 from skypilot_tpu_torch.parallel import ckpt_integrity
 from skypilot_tpu_torch.parallel.train import TrainState, trainable_leaves
+from skypilot_tpu_torch.robustness import faults
 
 STATE_FILE = 'state.pt'
 
@@ -95,6 +100,7 @@ class CheckpointManager:
         """Write `state` as step `step`; returns whether it was written.
         A step that exists, or (without `force`) one off the save
         interval, is skipped."""
+        faults.point('checkpoint.save')   # chaos: lost or failed saves
         if os.path.isdir(self._step_dir(step)):
             return False
         if not force and step % self.save_interval_steps:
@@ -169,6 +175,7 @@ class CheckpointManager:
     def _verified_step(self, step: Optional[int]) -> int:
         """The step to read: `step` (default: newest) or, past corrupt
         ones, the next-newest that verifies."""
+        faults.point('checkpoint.restore')   # chaos: unreadable storage
         steps = sorted(self.all_steps(), reverse=True)
         candidates = steps if step is None else \
             [step] + [s for s in steps if s < step]
@@ -181,6 +188,8 @@ class CheckpointManager:
             try:
                 verified = self.verify_step(candidate)
             except CheckpointCorruptionError as e:
+                catalog.counter(
+                    'skypilot_checkpoint_integrity_failures_total').inc()
                 _log(f'checkpoint step {candidate} failed integrity '
                      f'verification ({e}); falling back to the previous '
                      f'step.')

@@ -37,9 +37,21 @@ exits with an error.
 POST /kv/import, /kv/peers, /kv/evacuate and /kv/migrate serve the
 fleet's handoffs and live migrations; on SIGTERM or a spot preemption
 notice the replica evacuates its sessions' KV chains to its peers
-before it exits. A fault plan in the STPU_FAULT_PLAN environment
-variable arms the `kv.handoff`, `kv.migrate` and `serve.preempt_notice`
-points (--fault-plan waits for ROADMAP A6(e)).
+before it exits.
+
+Observability and chaos, as the reference's: GET /metrics (Prometheus
+text), /debug/trace/<id> and /debug/flight; `--trace-sample P`
+(`--trace-seed S`) head-samples requests into spans, `--slo SPEC` adds
+/stats' `slo` block and the skypilot_serving_slo_* gauges, and
+`--fault-plan JSON` (or the STPU_FAULT_PLAN environment variable) arms
+the fault points (engine.*, http.handler, kv.*, adapters.load,
+serve.preempt_notice) before the engine starts:
+
+  python -m skypilot_tpu_torch.recipes.serve_lm --model llama3-8b \
+      --continuous-batching --trace-sample 0.1 --trace-seed 0 \
+      --slo p99_ttft_ms=500,p99_itl_ms=100,error_rate=0.01 \
+      --fault-plan '{"seed":0,"rules":[{"point":"engine.decode_step",
+      "at":[5]}]}'
 
 Without --continuous-batching the server runs the one-shot engine, as
 the reference does: each request alone, every step of its power-of-two
@@ -167,24 +179,51 @@ def build_parser() -> argparse.ArgumentParser:
                         'LRU-evicted from host RAM land in the local '
                         'directory DIR and survive restarts (gs:// '
                         'prefixes are not ported yet)')
+    # Observability and chaos: the reference's flags and help text.
+    p.add_argument('--fault-plan', default=None, metavar='JSON',
+                   help='chaos testing: a fault plan (inline '
+                        'JSON or a path to a JSON file) arming '
+                        'the skypilot_tpu_torch.robustness.faults '
+                        'injection points in this process; see '
+                        'docs/guides.md "Serving robustness". '
+                        'Equivalent to the STPU_FAULT_PLAN env '
+                        'var. Never set this in production')
+    p.add_argument('--trace-sample', type=float, default=0.0,
+                   metavar='P',
+                   help='distributed request tracing: sample '
+                        'this fraction of requests (0..1) into '
+                        'Chrome-trace spans, served at GET '
+                        '/debug/trace/<id> and merged across '
+                        'processes by `stpu trace`. Requests '
+                        'arriving with an x-skypilot-trace '
+                        'header are always traced (the caller '
+                        'already paid the sampling decision). '
+                        '0 = off (zero overhead)')
+    p.add_argument('--trace-seed', type=int, default=None,
+                   help='seed the trace sampler: the sampled '
+                        'set and its ids become reproducible')
+    p.add_argument('--slo', default=None, metavar='SPEC',
+                   help='declarative serving SLOs, e.g. '
+                        '"p99_ttft_ms=500,p99_itl_ms=100,'
+                        'error_rate=0.01,shed_rate=0.05": '
+                        '/stats grows an `slo` section with '
+                        'multi-window burn rates and the '
+                        'skypilot_serving_slo_* gauges go live '
+                        '(docs/guides.md "Tracing & SLOs")')
     # The reference's flags for features this port does not have yet:
     # parsed so the command line stays the same, refused if used.
     p.add_argument('--tensor', type=int, default=1)
     p.add_argument('--stages', type=int, default=1)
     p.add_argument('--weight-dtype', choices=['bf16', 'int8'],
                    default='bf16')
-    p.add_argument('--fault-plan', default=None, metavar='JSON')
-    p.add_argument('--trace-sample', type=float, default=0.0, metavar='P')
-    p.add_argument('--trace-seed', type=int, default=None)
-    p.add_argument('--slo', default=None, metavar='SPEC')
     return p
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     """Parse and validate: exits (status 2) naming every flag this port
-    cannot honor, and on the reference's refusals of int8 KV pages, the
-    spill tier and the prefill role in the one-shot mode (and of a
-    remote cold tier)."""
+    cannot honor, on an --slo spec the reference refuses (its message),
+    and on the reference's refusals of int8 KV pages, the spill tier and
+    the prefill role in the one-shot mode (and of a remote cold tier)."""
     from skypilot_tpu_torch.inference.runtime import (INT8_NEEDS_CONTINUOUS,
                                                       kv_chain_refusal,
                                                       unsupported_flags)
@@ -194,6 +233,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if bad:
         parser.error('not supported by the PyTorch port yet: '
                      + ', '.join(bad))
+    if args.slo:
+        # Fail fast at startup, not at the first scrape.
+        from skypilot_tpu_torch.observability import slo as slo_lib
+        try:
+            slo_lib.parse_slo(args.slo)
+        except ValueError as e:
+            parser.error(str(e))
     if args.kv_dtype == 'int8' and not args.continuous_batching:
         parser.error(INT8_NEEDS_CONTINUOUS)
     refusal = kv_chain_refusal(args)

@@ -1,42 +1,28 @@
-"""Deterministic fault injection at named points (port of
-skypilot_tpu/robustness/faults.py, the parts the trainer and the
-replica's KV-chain paths fire).
+"""Deterministic fault injection at named points (the port's copy of
+skypilot_tpu/robustness/faults.py, pinned to it by
+tests/test_torch_fault_plan.py).
 
-Production code declares injection points (`faults.point('train.step',
-step='4')`) that are no-ops by default: one module-global read per
-call. Under a fault plan (JSON through the `STPU_FAULT_PLAN`
-environment variable, read once at import, or `install_plan()`) a point
-perturbs its code path: raise an exception, delay, or return `DROP` so
-the site skips or poisons the guarded operation.
+Production code declares injection points (`faults.point(
+'engine.decode_step')`) that are no-ops by default: one module-global
+read per call. Under a fault plan (JSON through the `STPU_FAULT_PLAN`
+environment variable, read once at import, serve_lm's `--fault-plan`,
+or `install_plan()`) a point perturbs its code path: raise an
+exception, delay, or return `DROP` so the site skips or poisons the
+guarded operation.
 
-Plan format, as the reference's:
-
-    {"seed": 2026,
-     "rules": [
-       {"point": "train.step", "action": "drop", "at": [5, 6, 7]},
-       {"point": "train.data_next", "action": "delay", "delay_s": 300,
-        "after": 12, "times": 1, "scope": {"resume": "0"}},
-       {"point": "train.preempt_notice", "action": "drop",
-        "scope": {"resume": "0"}, "after": 60}]}
-
-Rule semantics (the reference's): every `point(name, **ctx)` call
-counts one hit on each matching rule (first call = hit 1). A rule with
-a `scope` matches only calls whose context carries every scoped key
-with that exact value; other calls are not hits of it. A rule fires
-when hits > `after` (default 0), its trigger matches (`every_nth`:
-every Nth eligible hit; `at`: exact hit numbers; `prob`: a coin flip
-from the rule's own `random.Random`, seeded from the plan seed, the
-rule's index and its point; none: every eligible hit), and it has fired
-fewer than `times` (default unlimited) times. Rules evaluate in plan
-order: `delay` fires and evaluation continues, `drop` and `raise` end
-it. So a plan replays the same firings in the port and the reference.
-
-The catalog is closed, and holds the points the port fires: a plan
-naming another point fails at install rather than never firing. Time
-windows (`start_s`, `start_range`, `duration_s`) and the derived
-`jobs.preempt_storm` point serve the fleet simulator and the serving
-plane, and wait for ROADMAP A6(e)'s `--fault-plan`; a rule that sets a
-window is refused.
+Plan format, rule semantics, seeded draws, time windows (`start_s` or
+a seeded `start_range`, plus `duration_s`, on the plan's clock) and
+the derived `jobs.preempt_storm` point are the reference's, so a plan
+replays the same firings in both packages. The catalog is the
+reference's whole closed catalog: a plan naming an unknown point fails
+at install. A point the port has no call site for (the managed-jobs
+controller's, the fleet's) is accepted and never fires, as in a
+reference replica. The port fires: engine.decode_step,
+engine.prefill_chunk, engine.device_get (models/batching.py),
+http.handler, kv.handoff, kv.migrate, serve.preempt_notice
+(inference/http_server.py), adapters.load (inference/adapters.py),
+checkpoint.save, checkpoint.restore (parallel/checkpoints.py) and the
+train.* points (robustness/train_guard.py, recipes/train_lm.py).
 """
 from __future__ import annotations
 
@@ -49,9 +35,63 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Union
 
-# The injection points wired into the port, with what a firing rule
-# perturbs (the reference's descriptions).
+# Every injection point wired into the codebase, with the behavior a
+# firing rule perturbs (also rendered in docs/internals.md).
 KNOWN_POINTS: Dict[str, str] = {
+    'engine.decode_step':
+        'continuous-batching engine, start of one decode round '
+        '(before the device dispatch and before the round consumes '
+        'RNG — a raised fault retries the round with identical '
+        'outputs)',
+    'engine.prefill_chunk':
+        'engine, start of one prefill-chunk dispatch for one slot (a '
+        'raised fault fails only that slot\'s request)',
+    'engine.device_get':
+        'engine, before fetching sampled tokens from the device '
+        '(delay here models host/device interconnect stalls)',
+    'jobs.monitor_probe':
+        'managed-job controller, before each agent liveness probe '
+        '(DROP makes the probe count as unreachable — a synthetic '
+        'preemption; fire-site context carries zone=<zone> and '
+        'job=<job id> for scoped rules)',
+    'jobs.preempt_storm':
+        'derived point: a windowed drop rule on jobs.monitor_probe '
+        'scoped to a set of jobs (e.g. {"zone": ...}) — one rule '
+        'models a zone-wide spot storm hitting every job placed '
+        'there during a seeded time window',
+    'jobs.launch':
+        'recovery-strategy executor, before each cluster launch '
+        'attempt (raise ResourcesUnavailableError to exercise '
+        'retry/backoff/failover)',
+    'http.handler':
+        'inference HTTP server, start of each POST handler',
+    'kv.handoff':
+        'prefill-role inference server, start of each prefill->'
+        'decode KV page-chain handoff (raise OR drop fails the '
+        'transfer: the prefill replica falls back to serving the '
+        'request locally from its already-warm pages — the '
+        'disaggregation degradation path, never an error to the '
+        'client)',
+    'adapters.load':
+        'adapter registry (inference/adapters.py), inside each LoRA '
+        'artifact load into the device store — raise OR drop makes '
+        'the load fail as AdapterLoadError (HTTP 503) for that '
+        'request only; the engine, the base model, and every other '
+        'adapter keep serving; fire-site context carries '
+        'adapter=<name> for scoped rules',
+    'fleet.tick':
+        'replica-plane fleet controller, start of each control-loop '
+        'tick (a raised fault exercises the tick-error fuse: 3 '
+        'consecutive failures flip the controller-degraded gauge; '
+        'a SIGKILL-shaped chaos run restarts the controller and '
+        'adopts the fleet from the journal)',
+    'checkpoint.save':
+        'CheckpointManager.save, before the orbax save is issued',
+    'checkpoint.restore':
+        'CheckpointManager.restore, before integrity verification '
+        'and the orbax read (raise to model unreadable checkpoint '
+        'storage; manifest-verification fallback is separate and '
+        'driven by on-disk corruption)',
     'train.preempt_notice':
         'trainer preemption-notice poll loop (train_guard.py) — a '
         'DROP is a synthetic preemption notice: the trainer '
@@ -69,13 +109,14 @@ KNOWN_POINTS: Dict[str, str] = {
         'stalled data loader: the step watchdog dumps all thread '
         'stacks and aborts with the typed code 84 past its '
         'deadline; context: resume=<0|1>',
-    'kv.handoff':
-        'prefill-role inference server, start of each prefill->'
-        'decode KV page-chain handoff (raise OR drop fails the '
-        'transfer: the prefill replica falls back to serving the '
-        'request locally from its already-warm pages — the '
-        'disaggregation degradation path, never an error to the '
-        'client)',
+    'serve.preempt_notice':
+        'serving preemption-notice poll loop (http_server.'
+        'ServePreemptionNotice + the stub replica) — a DROP is a '
+        'synthetic spot preemption: the replica mass-evacuates every '
+        'active KV chain to peers and drains inside the grace '
+        'window; fire-site context carries zone=<zone>, so a '
+        'windowed scoped rule is a zone-wide decode-pool storm '
+        '(examples/fault_plans/decode_zone_storm.json)',
     'kv.migrate':
         'inference server, start of each live session migration '
         'ship (the /kv/migrate POST of an evacuated chain + '
@@ -83,15 +124,7 @@ KNOWN_POINTS: Dict[str, str] = {
         'session finishes locally on the pages the evacuation '
         'promoted into the prefix cache, never an error to the '
         'client; context carries reason=<drain|preempt|rebalance>',
-    'serve.preempt_notice':
-        'serving preemption-notice poll loop (http_server.'
-        'ServePreemptionNotice) — a DROP is a synthetic spot '
-        'preemption: the replica mass-evacuates every active KV '
-        'chain to peers and drains inside the grace window; '
-        'fire-site context carries zone=<zone>',
 }
-
-_WINDOW_KEYS = ('start_s', 'start_range', 'duration_s')
 
 #: Sentinel returned by `point()` when a drop rule fires; sites that
 #: support dropping compare with `is`.
@@ -111,10 +144,23 @@ def _resolve_exc(name: Optional[str]):
         cls = getattr(importlib.import_module(module_name), attr)
     else:
         cls = getattr(builtins, name, None)
-    if not (isinstance(cls, type) and issubclass(cls, BaseException)):
-        raise ValueError(f'fault plan: exc {name!r} is not an exception '
-                         f'type')
+    if not (isinstance(cls, type) and
+            issubclass(cls, BaseException)):
+        raise ValueError(f'fault plan: exc {name!r} is not an '
+                         f'exception type')
     return cls
+
+
+#: Derived points: not called by production code; a rule naming one
+#: is rewritten at parse time onto the real point it perturbs, with
+#: the listed defaults forced.
+_DERIVED_POINTS: Dict[str, Dict[str, Any]] = {
+    'jobs.preempt_storm': {
+        'target': 'jobs.monitor_probe',
+        'action': 'drop',
+        'window_required': True,
+    },
+}
 
 
 class FaultRule:
@@ -122,24 +168,25 @@ class FaultRule:
 
     _ACTIONS = ('raise', 'delay', 'drop')
 
-    def __init__(self, spec: Dict[str, Any], index: int, seed: int) -> None:
+    def __init__(self, spec: Dict[str, Any], index: int,
+                 seed: int) -> None:
         self.point = spec.get('point')
         if self.point not in KNOWN_POINTS:
             raise ValueError(
-                f'fault plan: unknown point {self.point!r}; the port '
-                f'fires: {sorted(KNOWN_POINTS)}')
-        windowed = [k for k in _WINDOW_KEYS if spec.get(k) is not None]
-        if windowed:
-            raise ValueError(
-                f'fault plan: rule {index} ({self.point}) sets {windowed}: '
-                f'time windows are not ported yet (ROADMAP A6(e))')
-        self.action = spec.get('action', 'raise')
+                f'fault plan: unknown point {self.point!r}; known '
+                f'points: {sorted(KNOWN_POINTS)}')
+        derived = _DERIVED_POINTS.get(self.point, {})
+        #: The point this rule is evaluated at (== `point` unless
+        #: derived); plans index rules by target, stats by `point`.
+        self.target = derived.get('target', self.point)
+        self.action = spec.get('action', derived.get('action', 'raise'))
         if self.action not in self._ACTIONS:
-            raise ValueError(f'fault plan: unknown action {self.action!r} '
-                             f'(use one of {self._ACTIONS})')
+            raise ValueError(f'fault plan: unknown action '
+                             f'{self.action!r} (use one of '
+                             f'{self._ACTIONS})')
         self.exc = _resolve_exc(spec.get('exc'))
-        self.message = str(spec.get('message',
-                                    f'injected fault at {self.point}'))
+        self.message = str(spec.get('message', f'injected fault at '
+                                               f'{self.point}'))
         self.delay_s = float(spec.get('delay_s', 0.0))
         self.every_nth = spec.get('every_nth')
         self.at = [int(x) for x in spec.get('at', [])]
@@ -150,20 +197,49 @@ class FaultRule:
         for key, value in self.scope.items():
             if not isinstance(key, str) or not isinstance(value, str):
                 raise ValueError(
-                    f'fault plan: scope must map string keys to string '
-                    f'values, got {self.scope!r}')
+                    f'fault plan: scope must map string keys to '
+                    f'string values, got {self.scope!r}')
         # Per-rule deterministic stream: same plan -> same firings.
+        # The window draw (if any) consumes the first value, so
+        # `prob` streams stay aligned whether or not a range is set.
         self._rng = random.Random(f'{seed}:{index}:{self.point}')
+        self.start_s: Optional[float] = None
+        self.duration_s: Optional[float] = None
+        start_range = spec.get('start_range')
+        if start_range is not None:
+            lo, hi = (float(start_range[0]), float(start_range[1]))
+            self.start_s = self._rng.uniform(lo, hi)
+        elif spec.get('start_s') is not None:
+            self.start_s = float(spec['start_s'])
+        if spec.get('duration_s') is not None:
+            self.duration_s = float(spec['duration_s'])
+        if (self.start_s is None) != (self.duration_s is None):
+            raise ValueError(
+                f'fault plan: rule {index} ({self.point}) has a '
+                f'partial window — set both start_s/start_range and '
+                f'duration_s, or neither')
+        if derived.get('window_required') and self.start_s is None:
+            raise ValueError(
+                f'fault plan: {self.point} requires a window '
+                f'(start_s or start_range, plus duration_s)')
         self.hits = 0
         self.fired = 0
 
-    def matches(self, ctx: Dict[str, str]) -> bool:
-        """A call outside the rule's scope is invisible to it."""
-        return all(ctx.get(k) == v for k, v in self.scope.items())
+    def matches(self, ctx: Dict[str, str], elapsed_s: float) -> bool:
+        """Eligibility filters that precede hit counting: a call
+        outside the rule's scope or time window is invisible to it."""
+        if self.start_s is not None and not (
+                self.start_s <= elapsed_s <
+                self.start_s + self.duration_s):
+            return False
+        for key, value in self.scope.items():
+            if ctx.get(key) != value:
+                return False
+        return True
 
     def check(self) -> bool:
-        """Register one hit; True when the rule fires this hit. Caller
-        holds the plan lock."""
+        """Register one hit; True when the rule fires this hit.
+        Caller holds the plan lock."""
         self.hits += 1
         if self.times is not None and self.fired >= int(self.times):
             return False
@@ -184,18 +260,43 @@ class FaultRule:
 
 
 class FaultPlan:
-    """A parsed plan: rules indexed by point, thread-safe firing."""
+    """A parsed plan: rules indexed by target point, thread-safe
+    firing. `clock` (default `time.monotonic`) anchors rule windows:
+    elapsed time is measured from plan construction, so a fleet
+    simulator can pass its virtual clock and replay storms in
+    virtual seconds."""
 
-    def __init__(self, spec: Dict[str, Any]) -> None:
+    def __init__(self, spec: Dict[str, Any], clock=None) -> None:
         self.seed = int(spec.get('seed', 0))
         rules = spec.get('rules')
         if not isinstance(rules, list) or not rules:
-            raise ValueError('fault plan: "rules" must be a non-empty list')
+            raise ValueError('fault plan: "rules" must be a '
+                             'non-empty list')
+        self._clock = clock if clock is not None else time.monotonic
+        self._epoch = self._clock()
         self._lock = threading.Lock()
         self._by_point: Dict[str, List[FaultRule]] = {}
         for i, rule_spec in enumerate(rules):
             rule = FaultRule(rule_spec, i, self.seed)
-            self._by_point.setdefault(rule.point, []).append(rule)
+            self._by_point.setdefault(rule.target, []).append(rule)
+
+    def elapsed(self) -> float:
+        return self._clock() - self._epoch
+
+    def windows(self, point_name: str) -> List[Dict[str, Any]]:
+        """Resolved {scope, start_s, end_s, action} for every
+        windowed rule evaluated at `point_name` (storm geometry —
+        the fleet simulator aligns cluster death with probe loss
+        from this)."""
+        out = []
+        for rule in self._by_point.get(point_name, []):
+            if rule.start_s is None:
+                continue
+            out.append({'scope': dict(rule.scope),
+                        'start_s': rule.start_s,
+                        'end_s': rule.start_s + rule.duration_s,
+                        'action': rule.action})
+        return out
 
     def fire(self, name: str,
              ctx: Optional[Dict[str, str]] = None) -> Optional[object]:
@@ -203,12 +304,15 @@ class FaultPlan:
         if not rules:
             return None
         ctx = ctx or {}
+        elapsed = self.elapsed()
         delay = 0.0
         outcome: Optional[object] = None
         raise_rule: Optional[FaultRule] = None
         with self._lock:
             for rule in rules:
-                if not rule.matches(ctx) or not rule.check():
+                if not rule.matches(ctx, elapsed):
+                    continue
+                if not rule.check():
                     continue
                 if rule.action == 'delay':
                     delay += rule.delay_s
@@ -218,7 +322,7 @@ class FaultPlan:
                     break
                 raise_rule = rule
                 break
-        # Sleep and raise outside the lock: a delayed point must not
+        # Sleep/raise outside the lock: a delayed point must not
         # serialize every other thread's injection checks.
         if delay > 0.0:
             time.sleep(delay)
@@ -227,22 +331,29 @@ class FaultPlan:
         return outcome
 
     def stats(self) -> Dict[str, Dict[str, int]]:
-        """{point: {hits, fired}} over the point's rules."""
+        """{point: {hits, fired}} aggregated over the point's rules.
+        Derived rules (jobs.preempt_storm) report under their OWN
+        name, not the target they were installed against."""
+        grouped: Dict[str, List[FaultRule]] = {}
         with self._lock:
+            for rules in self._by_point.values():
+                for r in rules:
+                    grouped.setdefault(r.point, []).append(r)
             return {name: {'hits': max(r.hits for r in rules),
                            'fired': sum(r.fired for r in rules)}
-                    for name, rules in self._by_point.items()}
+                    for name, rules in grouped.items()}
 
 
 _plan: Optional[FaultPlan] = None
 _install_lock = threading.Lock()
 
 
-def install_plan(spec: Union[None, str, Dict[str, Any], FaultPlan]
-                 ) -> Optional[FaultPlan]:
-    """Install the process-wide plan. `spec` is a dict, a JSON string, a
-    path to a JSON file, an already-built FaultPlan, or None (clears).
-    Returns the installed plan."""
+def install_plan(spec: Union[None, str, Dict[str, Any], FaultPlan],
+                 clock=None) -> Optional[FaultPlan]:
+    """Install the process-wide plan. `spec` is a dict, a JSON string,
+    a path to a JSON file, an already-built FaultPlan, or None
+    (clears). `clock` (ignored for a pre-built FaultPlan) anchors
+    rule windows — see FaultPlan. Returns the installed plan."""
     global _plan
     if spec is None:
         with _install_lock:
@@ -259,8 +370,9 @@ def install_plan(spec: Union[None, str, Dict[str, Any], FaultPlan]
             try:
                 spec = json.loads(text)
             except json.JSONDecodeError as e:
-                raise ValueError(f'fault plan: invalid JSON: {e}') from e
-        plan = FaultPlan(spec)
+                raise ValueError(f'fault plan: invalid JSON: {e}') \
+                    from e
+        plan = FaultPlan(spec, clock=clock)
     with _install_lock:
         _plan = plan
     return plan
@@ -274,14 +386,27 @@ def get_plan() -> Optional[FaultPlan]:
     return _plan
 
 
+def active() -> bool:
+    return _plan is not None
+
+
 def point(name: str, **ctx: str) -> Optional[object]:
     """THE injection point. No plan installed: returns None after one
-    global read. With a plan: may raise, sleep, or return `DROP`.
-    Keyword args are the fire-site context scoped rules match."""
+    global read (the zero-cost default every production call site
+    pays). With a plan: may raise, sleep, or return `DROP`. Keyword
+    args are the fire-site context scoped rules match against (e.g.
+    `point('jobs.monitor_probe', zone='us-east5-b', job='12')`)."""
     plan = _plan
     if plan is None:
         return None
     return plan.fire(name, ctx)
+
+
+def windows(point_name: str) -> List[Dict[str, Any]]:
+    """Resolved windows of the installed plan's rules at
+    `point_name`; empty with no plan."""
+    plan = _plan
+    return plan.windows(point_name) if plan is not None else []
 
 
 def stats() -> Dict[str, Dict[str, int]]:
@@ -289,8 +414,8 @@ def stats() -> Dict[str, Dict[str, int]]:
     return plan.stats() if plan is not None else {}
 
 
-# Operators enable chaos on a live process tree through the environment;
-# read once at import, as the reference does.
+# Operators enable chaos on a live process tree via the environment
+# (serve replicas, spawned job controllers); loaded once at import.
 _env_spec = os.environ.get('STPU_FAULT_PLAN')
 if _env_spec:
     install_plan(_env_spec)

@@ -24,11 +24,12 @@ All three are chaos-testable through the fault points
 (robustness/faults.py); the fire-site context carries `resume=<0|1>`
 so a plan can scope an injection to the first launch.
 
-Two places differ from the reference: the metadata probe uses
-`urllib.request` (the card's machine has no `requests`), and the
-counts the reference adds to its metrics catalog (notices, skipped
-steps, watchdog aborts) live here in `summary()` and the objects'
-attributes, until the port has a catalog (ROADMAP A6(e)).
+Notices, skipped steps and watchdog aborts count in the catalog's
+`skypilot_train_preempt_notices_total`,
+`skypilot_train_guard_skipped_steps_total` and
+`skypilot_train_watchdog_aborts_total` at the reference's sites. One
+place differs from the reference: the metadata probe uses
+`urllib.request` (the card's machine has no `requests`).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ import urllib.error
 import urllib.request
 from typing import Callable, Dict, Optional, TextIO, Tuple
 
+from skypilot_tpu_torch.observability import catalog
 from skypilot_tpu_torch.robustness import faults
 
 #: Trainer exited after a preemption notice, with a fresh checkpoint
@@ -118,6 +120,7 @@ class PreemptionNotice:
         if not self.notice.is_set():
             self.reason = reason
             self.notice.set()
+            catalog.counter('skypilot_train_preempt_notices_total').inc()
 
     def _handle_sigterm(self, signum, frame):  # noqa: ARG002
         self.trigger('sigterm')
@@ -207,6 +210,7 @@ class SpikeGuard:
         if bad:
             self.skipped_total += 1
             self.consecutive_bad += 1
+            catalog.counter('skypilot_train_guard_skipped_steps_total').inc()
             if self.consecutive_bad >= self.rollback_after:
                 return 'rollback'
             return 'skipped'
@@ -283,6 +287,7 @@ class StepWatchdog:
 
     def _abort(self, phase: str, stalled: float, deadline: float) -> None:
         self.fired = True
+        catalog.counter('skypilot_train_watchdog_aborts_total').inc()
         stream = self.stream if self.stream is not None else sys.stderr
         print(f'step-watchdog: phase {phase!r} stalled {stalled:.1f}s '
               f'(deadline {deadline:.1f}s); dumping thread stacks and '

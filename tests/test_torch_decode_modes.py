@@ -330,7 +330,7 @@ def test_stats_keys_match_reference_replica(mode):
         {k: ref_body[k] for k in STATS_KEYS}
     assert body['tokens_committed'] == sum(MAX_NEW)
     assert body['decode_stall_s'] >= 0.0
-    assert body['engine']['graph_replays'] == 0    # no graphs on the CPU
+    assert body['engine_stats']['graph_replays'] == 0    # no graphs on the CPU
 
 
 def _plain_step(engine):

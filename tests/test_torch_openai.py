@@ -412,7 +412,7 @@ def test_disconnect_frees_the_slot_and_itl_is_reported(servers):
         assert events[-2]['tokens'][0][:6] == body['tokens'][0]
         with urllib.request.urlopen(f'http://127.0.0.1:{port}/stats',
                                     timeout=30) as resp:
-            stats = json.loads(resp.read())['requests']
+            stats = json.loads(resp.read())['serving']
         for key in ('itl_ms_n', 'itl_ms_p50', 'itl_ms_p95', 'itl_ms_p99'):
             assert key in stats
         assert stats['itl_ms_n'] >= 5 + 3

@@ -180,16 +180,80 @@ def test_cuda_impl_on_cpu_tensors_raises():
     (['--stages', '2'], '--stages'),
     (['--tensor', '2'], '--tensor'),
     (['--weight-dtype', 'int8'], '--weight-dtype'),
-    (['--fault-plan', '{}'], '--fault-plan'),
-    (['--trace-sample', '0.5'], '--trace-sample'),
-    (['--trace-seed', '3'], '--trace-seed'),
-    (['--slo', 'ttft_p99_ms=100'], '--slo'),
 ])
 def test_unsupported_flag_exits_with_its_name(argv, flag, capsys):
     with pytest.raises(SystemExit) as exc:
         serve_lm.parse_args(['--cpu', '--continuous-batching'] + argv)
     assert exc.value.code != 0
     assert flag in capsys.readouterr().err
+
+
+def _reference_serve_lm_flags():
+    """{option: (default, help)} of the reference serve_lm parser's
+    add_argument calls, read from its source with the AST."""
+    def literal(node):
+        try:
+            return ast.literal_eval(node)
+        except ValueError:   # computed (e.g. from the environment)
+            return None
+
+    tree = ast.parse((ROOT / 'skypilot_tpu' / 'recipes' /
+                      'serve_lm.py').read_text())
+    flags = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and \
+                getattr(node.func, 'attr', '') == 'add_argument':
+            kw = {k.arg: k.value for k in node.keywords}
+            flags[ast.literal_eval(node.args[0])] = (
+                literal(kw['default']) if 'default' in kw else None,
+                literal(kw['help']) if 'help' in kw else None)
+    return flags
+
+
+@pytest.mark.parametrize('argv,want', [
+    (['--fault-plan', '{"rules": [{"point": "engine.decode_step"}]}'],
+     {'fault_plan': '{"rules": [{"point": "engine.decode_step"}]}'}),
+    (['--trace-sample', '0.5'], {'trace_sample': 0.5}),
+    (['--trace-seed', '3'], {'trace_seed': 3}),
+    (['--slo', 'p99_ttft_ms=500,p99_itl_ms=100,error_rate=0.01'],
+     {'slo': 'p99_ttft_ms=500,p99_itl_ms=100,error_rate=0.01'}),
+])
+def test_observability_flags_parse(argv, want):
+    """The fleet forwards these four to every replica: the port takes
+    them, with the reference's defaults when absent."""
+    args = serve_lm.parse_args(['--cpu', '--continuous-batching'] + argv)
+    assert {k: getattr(args, k) for k in want} == want
+    bare = serve_lm.parse_args(['--cpu', '--continuous-batching'])
+    ref = _reference_serve_lm_flags()
+    for key in want:
+        assert getattr(bare, key) == ref['--' + key.replace('_', '-')][0]
+
+
+@pytest.mark.parametrize('flag', ['--fault-plan', '--trace-sample',
+                                  '--trace-seed', '--slo'])
+def test_observability_flag_help_is_the_references(flag):
+    """Help text word for word (the fault plan's module named as the
+    port's)."""
+    ref_help = _reference_serve_lm_flags()[flag][1].replace(
+        'skypilot_tpu.robustness', 'skypilot_tpu_torch.robustness')
+    port = {a.option_strings[0]: a.help
+            for a in serve_lm.build_parser()._actions}
+    assert port[flag] == ref_help
+
+
+@pytest.mark.parametrize('spec', ['ttft_p99_ms=100', 'p99_ttft_ms=-1',
+                                  'error_rate=2', 'p99_itl_ms'])
+def test_slo_refusals_are_the_references_words(spec, capsys):
+    """A spec the reference's parse_slo refuses exits at startup with
+    its message."""
+    from skypilot_tpu.observability import slo as ref_slo
+    with pytest.raises(ValueError) as ref_err:
+        ref_slo.parse_slo(spec)
+    with pytest.raises(SystemExit) as exc:
+        serve_lm.parse_args(['--cpu', '--continuous-batching', '--slo',
+                             spec])
+    assert exc.value.code != 0
+    assert str(ref_err.value) in capsys.readouterr().err
 
 
 @pytest.mark.parametrize('argv,want', [

@@ -39,6 +39,7 @@ from skypilot_tpu_torch.inference.runtime import InferenceRuntime
 from skypilot_tpu_torch.models import batching as pt_batching
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import llama as pt_llama
+from skypilot_tpu_torch.observability import catalog as obs_catalog
 
 ENGINE_KW = dict(num_slots=2, max_total_len=96, prefill_chunk=16)
 MAX_NEW = (4, 12, 8)    # the first request finishes first
@@ -141,8 +142,8 @@ def test_http_server_answers_with_reference_tokens(served):
         with urllib.request.urlopen(
                 f'http://127.0.0.1:{port}/stats', timeout=30) as resp:
             stats = json.loads(resp.read())
-        assert stats['kv_pool']['dtype'] == kv_dtype
-        assert stats['engine']['tokens_committed'] == \
+        assert stats['page_pool']['kv_dtype'] == kv_dtype
+        assert stats['engine_stats']['tokens_committed'] == \
             MAX_NEW[0] + MAX_NEW[1]
         with urllib.request.urlopen(
                 f'http://127.0.0.1:{port}/readyz', timeout=30) as resp:
@@ -273,6 +274,9 @@ def test_completions_count_each_prompt_once(served):
     server, thread = _serving(rt, make_server)
     port = server.server_address[1]
     prompt = _prompts()[1]
+    prompt_tokens = obs_catalog.counter(
+        'skypilot_serving_prompt_tokens_total')
+    prompt_tokens0 = prompt_tokens.value
     try:
         comp = _post(port, '/v1/completions',
                      {'prompt': prompt, 'max_tokens': 3, 'n': 2,
@@ -284,5 +288,5 @@ def test_completions_count_each_prompt_once(served):
         thread.join(timeout=10)
     assert len(comp['choices']) == 2
     assert comp['usage']['prompt_tokens'] == len(prompt)
-    assert stats['requests']['prompt_tokens'] == len(prompt)
-    assert stats['requests']['requests'] == 1
+    assert prompt_tokens.value - prompt_tokens0 == len(prompt)
+    assert stats['serving']['requests'] == 1

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's main paths (`serve_lm --continuous-batching` on a
-paged KV pool, base model and multi-LoRA, whole-prompt long prefill,
+paged KV pool, base model and multi-LoRA, int8 projection weights
+(`--weight-dtype int8`), whole-prompt long prefill,
 SSE streams, text and chat endpoints, logprobs, `--hf` checkpoints and
 the one-shot engine; KV page chains: export / import, the host and cold
 spill tiers, disaggregated prefill / decode roles and live migration;
@@ -58,6 +59,17 @@ failure exits non-zero before the result lines:
                  timings (bf16, r 16 and 64, decode B=8, B=32 over 9
                  slots, chunk of 256) vs the bound, the plain version,
                  the gathered-bmm route and one near-empty launch
+  int8_linear_kernels
+                 the W8A16 linear kernel vs its plain version (dequantize,
+                 then F.linear) at Llama-3-8B's seven projections and
+                 Qwen2-7B's (q/k/v with biases), M in {1, 8, 32, 40, 256,
+                 2048}, bf16 and f32 x: the worst output row's
+                 |y - plain| / |plain| within 6e-3 (bf16) or 1e-5 (f32),
+                 the scale-0 channel exactly the bias, two calls
+                 bit-identical; one call captured in a CUDA graph replays
+                 right on new x; the perturbed control fails; L2-cold
+                 timings at M 8 and 256 of each Llama shape vs the bound,
+                 the plain version and F.linear on bf16 weights
   serve_bf16,    build_runtime with serve_lm's flags, make_server on an
   serve_int8     ephemeral port, 8 concurrent greedy /generate requests
                  (300-700 prompt tokens, two sharing a 256-token
@@ -72,6 +84,23 @@ failure exits non-zero before the result lines:
                  prefix); then prefix hits only within a tenant, a 4th
                  adapter hot-loads with one eviction, an unknown model
                  is a 404; both kernels launched, no plain call
+  serve_int8_weights
+                 the int8 model of the serving seed (projections quantized
+                 from its f32 draws; embedding, norms and head shared with
+                 the bf16 model) through serve_lm --weight-dtype int8: (a)
+                 the 8-prompt burst on a bf16 and an int8 pool, (b)
+                 serve_lora's adapters and request mix; int8_linear, both
+                 paged routes and (b) QKV LoRA launched, no plain call,
+                 graph replays; each int8 continuation's mean log-prob
+                 under the bf16 model's scoring pass (with the request's
+                 adapter in (b)) within 0.1 nats of the bf16 model's own
+                 continuation; every adapter changes the int8 base's
+                 answer to at least one of its prompts; /stats storage
+                 weight_dtype int8 and weight_bytes the int8 tensors'
+                 bytes, ~6.98 GB under bf16's. Cost lines: steady round
+                 ms in turns (bf16, int8, int8 through the dequantize
+                 route (int8_linear alone on its plain version), twice
+                 each), the weights' bytes, the phase's seconds
   observability  serve_lora's weights, adapters and flags plus
                  --trace-sample 1.0 --trace-seed 0 --slo
                  p99_ttft_ms=5000,p99_itl_ms=500,error_rate=0.05
@@ -145,7 +174,10 @@ failure exits non-zero before the result lines:
                  --speculative 4 and --decode-chunk 4 engines give the
                  plain engine's tokens exactly; so do the one-shot
                  generate functions (plain and speculative K=4, dense
-                 cache) on the first two base requests
+                 cache) on the first two base requests; and the same
+                 width with int8 projections: 4 base requests through the
+                 int8_linear kernel (its f32 route) give the plain
+                 version's tokens
   serve_stream   serve_lora's weights, flags and adapters: the 8 prompts
                  as concurrent /generate SSE streams of 32 tokens (two
                  under adapters); each row's streamed tokens equal its
@@ -289,9 +321,10 @@ there), its verify row those of decode_modes' (e) run;
 the flash kernels' launch counts are those of the three training phases
 (train_full, train_lora, and train_guard's trainer-API steps, its
 --init-from-hf run and its chaos run and relaunch), each counted from
-zero. Then, as the last three lines: the card (`nvidia-smi
---query-gpu=name,power.limit --format=csv,noheader`), the kernels JSON
-line, and {"ok": true, "device": {...}}. Exits non-zero, printing no
+zero; int8_linear's those of serve_int8_weights. Then, as the last
+three lines: the card (`nvidia-smi --query-gpu=name,power.limit
+--format=csv,noheader`), the kernels JSON line, and {"ok": true,
+"device": {...}}. Exits non-zero, printing no
 result, without CUDA or outside a checkout of the repository.
 """
 import contextlib
@@ -1129,6 +1162,160 @@ def phase_flash_kernels(fk):
             'plain': ('flash_forward_reference' if fwd else
                       'flash_backward_reference (dQ, dK and dV together)')}
     return rows
+
+
+# -- the int8 linear kernel ---------------------------------------------------
+# (out, in) of each projection, by name: Llama-3-8B's seven and Qwen2-7B's
+# (q/k/v with biases, as the model has them).
+INT8_SHAPES = {
+    'llama3_8b': {'wq_wo': (4096, 4096), 'wk_wv': (1024, 4096),
+                  'w_gate_w_up': (14336, 4096), 'w_down': (4096, 14336)},
+    'qwen2_7b': {'wq_wo': (3584, 3584), 'wk_wv': (512, 3584),
+                 'w_gate_w_up': (18944, 3584), 'w_down': (3584, 18944)}}
+INT8_BIASED = {('qwen2_7b', 'wq_wo'), ('qwen2_7b', 'wk_wv')}
+INT8_ROWS = (1, 8, 32, 40, 256, 2048)
+# |y - plain| / |plain| (Frobenius) of the worst output row: both sum the
+# same bf16 (or f32) products in f32, in another order; bf16 rounds the
+# output.
+INT8_TOL = {'bf16': 6e-3, 'f32': 1e-5}
+INT8_REPLACES = ('no Pallas kernel; stands for XLA\'s fusion of '
+                 'skypilot_tpu/inference/quant.py:86 into Dense')
+# The all-zero output channel of every case (its scale is 0).
+INT8_ZERO_COL = 3
+
+
+def int8_case(n, k, dtype, biased, seed):
+    g = torch.Generator('cuda').manual_seed(seed)
+    q = torch.randint(-127, 128, (n, k), generator=g, device='cuda',
+                      dtype=torch.int8)
+    scale = torch.rand(n, generator=g, device='cuda') * 0.002
+    q[INT8_ZERO_COL] = 0
+    scale[INT8_ZERO_COL] = 0.0
+    bias = ((torch.randn(n, generator=g, device='cuda') * 0.1).to(dtype)
+            if biased else None)
+    return q, scale, bias, g
+
+
+def int8_row_err(y, ref):
+    ref = ref.float()
+    return ((y.float() - ref).norm(dim=-1)
+            / ref.norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def int8_bound_ms(m, n, k, x_bytes, il):
+    t_bytes = il.bytes_bound(m, n, k, x_bytes) / HBM_BYTES_PER_S
+    t_ops = 2.0 * m * n * k / (BF16_FLOPS if x_bytes == 2 else F32_FLOPS)
+    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def int8_graph_replay(il):
+    """One call captured in a CUDA graph, replayed on new x."""
+    q, scale, _, g = int8_case(1024, 4096, torch.bfloat16, False, seed=7)
+    x = torch.randn((8, 4096), generator=g, device='cuda').bfloat16()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        il.int8_linear(x, q, scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = il.int8_linear(x, q, scale)
+    x.copy_(torch.randn((8, 4096), generator=g, device='cuda').bfloat16())
+    graph.replay()
+    torch.cuda.synchronize()
+    return bool(torch.equal(y, il.int8_linear(x, q, scale))), int8_row_err(
+        y, il.int8_linear_reference(x, q, scale))
+
+
+def phase_int8_linear_kernels(il):
+    import torch.nn.functional as F
+    cases, seed = [], 0
+    worst = {'bf16': 0.0, 'f32': 0.0}
+    for model_name, shapes in INT8_SHAPES.items():
+        for proj, (n, k) in shapes.items():
+            for label, dtype in (('bf16', torch.bfloat16),
+                                 ('f32', torch.float32)):
+                biased = (model_name, proj) in INT8_BIASED
+                q, scale, bias, g = int8_case(n, k, dtype, biased, seed)
+                seed += 1
+                for m in INT8_ROWS:
+                    x = torch.randn((m, k), generator=g,
+                                    device='cuda').to(dtype)
+                    y = il.int8_linear(x, q, scale, bias)
+                    again = il.int8_linear(x, q, scale, bias)
+                    ref = il.int8_linear_reference(x, q, scale, bias)
+                    torch.cuda.synchronize()
+                    err = int8_row_err(y, ref)
+                    zero = (bias[INT8_ZERO_COL].expand(m) if biased
+                            else torch.zeros(m, dtype=dtype, device='cuda'))
+                    case = {'model': model_name, 'proj': proj, 'n': n,
+                            'k': k, 'm': m, 'dtype': label, 'bias': biased,
+                            'plan': il.plan(m, n, k, torch.cuda.
+                                            get_device_properties(0).
+                                            multi_processor_count),
+                            'row_rel_err': err,
+                            'max_abs_err': (y.float() - ref.float()).abs()
+                            .max().item(),
+                            'zero_channel_is_bias': bool(torch.equal(
+                                y[:, INT8_ZERO_COL], zero)),
+                            'bit_identical': bool(torch.equal(y, again))}
+                    cases.append(case)
+                    worst[label] = max(worst[label], err)
+                    check(err <= INT8_TOL[label],
+                          f'int8_linear {case}: error over {INT8_TOL}')
+                    check(case['zero_channel_is_bias'],
+                          f'int8_linear {case}: the scale-0 channel is not '
+                          f'the bias')
+                    check(case['bit_identical'],
+                          f'int8_linear {case}: two calls differ')
+                    del x, y, again, ref
+    q, scale, _, g = int8_case(4096, 4096, torch.bfloat16, False, seed=99)
+    x = torch.randn((8, 4096), generator=g, device='cuda').bfloat16()
+    perturb_err = int8_row_err(il.int8_linear(x, q, scale, perturb=0.01),
+                               il.int8_linear_reference(x, q, scale))
+    check(perturb_err > INT8_TOL['bf16'],
+          f'perturbed int8_linear passed the pin (err {perturb_err})')
+    graph_equal, graph_err = int8_graph_replay(il)
+    check(graph_equal and graph_err <= INT8_TOL['bf16'],
+          f'CUDA-graph replay of int8_linear: equal {graph_equal}, error '
+          f'{graph_err}')
+    timings = {}
+    for proj, (n, k) in INT8_SHAPES['llama3_8b'].items():
+        q, scale, _, g = int8_case(n, k, torch.bfloat16, False, seed=200)
+        w_bf16 = il.dequantize(q, scale, torch.bfloat16)
+        for m in (8, 256):
+            x = torch.randn((m, k), generator=g, device='cuda').bfloat16()
+            b_ms, b_by = int8_bound_ms(m, n, k, 2, il)
+            timings[f'{proj}_m{m}'] = {
+                'ms': time_cold_ms(lambda: il.int8_linear(x, q, scale)),
+                'plain_ms': time_cold_ms(
+                    lambda: il.int8_linear_reference(x, q, scale)),
+                'library_ms': time_cold_ms(lambda: F.linear(x, w_bf16)),
+                'library': 'F.linear on bf16 weights (--weight-dtype bf16)',
+                'bound_ms': b_ms, 'bound_by': b_by,
+                'bytes': il.bytes_bound(m, n, k, 2),
+                'plan': il.plan(m, n, k, torch.cuda.get_device_properties(
+                    0).multi_processor_count)}
+        del w_bf16
+    main = timings['wq_wo_m8']
+    main_case = next(c for c in cases if c['model'] == 'llama3_8b'
+                     and c['proj'] == 'wq_wo' and c['m'] == 8
+                     and c['dtype'] == 'bf16')
+    emit('int8_linear_kernels', cases=len(cases), worst_row_rel_err=worst,
+         tolerance=INT8_TOL, all_bit_identical=True,
+         zero_channel_is_bias=True, perturb_err=perturb_err,
+         perturb_fails=True, graph_replay_equal=graph_equal,
+         graph_replay_row_rel_err=graph_err, timings=timings,
+         worst_cases=sorted(cases, key=lambda c: -c['row_rel_err'])[:4])
+    return {'name': 'int8_linear', 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/int8_linear.cu',
+            'replaces': INT8_REPLACES, 'timed': 'bf16 M=8 at wq (4096, 4096)',
+            'max_abs_err': main_case['max_abs_err'],
+            'ms': main['ms'], 'plain_ms': main['plain_ms'],
+            'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+            'library_ms': main['library_ms'], 'library': main['library'],
+            'plain': 'int8_linear_reference (dequantize, then F.linear)'}
 
 
 def zero_paged(pk):
@@ -1984,6 +2171,11 @@ def seed_adapters(root, cfg, specs, seed0, amplify=1.0):
                           base_model='llama3-8b')
 
 
+# serve_lora's request mix (None = the base model).
+SERVE_LORA_MODELS = ['attn8', 'attn16', None, 'mlp16', None, 'attn8',
+                     'mlp16', 'attn16']
+
+
 def phase_serve_lora(model, pk, lk, card):
     """Multi-LoRA serving through serve_lm's flags at Llama-3-8B width."""
     from skypilot_tpu_torch.models import registry
@@ -1999,8 +2191,7 @@ def phase_serve_lora(model, pk, lk, card):
     try:
         ps = prompts()
         # Requests 0 and 1 share a 256-token prefix under two adapters.
-        models = ['attn8', 'attn16', None, 'mlp16', None, 'attn8',
-                  'mlp16', 'attn16']
+        models = SERVE_LORA_MODELS
         _, out = burst(rt, port, ps, models, (pk, lk))
         (pa_launches, pa_plain), (lora_launches, lora_plain) = \
             out.pop('counts')
@@ -2054,6 +2245,285 @@ def phase_serve_lora(model, pk, lk, card):
          adapters={k: adapters[k] for k in (
              'loaded', 'rank', 'targets', 'loads', 'evictions',
              'requests', 'bytes_per_adapter')})
+
+
+# -- int8 projection weights -------------------------------------------------
+# The reference's contract (tests/unit_tests/test_quantized_serving.py:42):
+# a quantized greedy continuation's mean per-token log-prob, scored by the
+# unquantized model, within this of the unquantized model's own. Here it
+# holds the kernel route to the dequantize route (the reference's own
+# arithmetic, `route_scope('torch')`), pooled over a burst's tokens; the
+# int8-vs-bf16 numbers of the reference's form are reported beside it
+# with their noise floors (bf16 run again on other prefill chunks, and
+# int8 KV pages under the same tolerance).
+INT8_LOGPROB_TOL = 0.1
+# Parameters of Llama-3-8B's seven projections (32 layers): what int8
+# storage saves one byte of, each.
+LLAMA3_8B_PROJ_PARAMS = 6.98e9
+
+
+def int8_model(model):
+    """The int8 model of `model`'s seed: projections quantized from that
+    seed's f32 draws (`init_params(weight_dtype='int8')`); its embedding,
+    norms and head ARE `model`'s tensors (no copy), after checking that
+    the seed drew them alike."""
+    from skypilot_tpu_torch.models import convert
+    drawn = convert.init_params(model.config, seed=0, device='cuda',
+                                weight_dtype='int8')
+    dense = model.state_dict()
+    state = {}
+    for key, t in drawn.state_dict().items():
+        if key.endswith(('.weight_q', '.weight_scale')):
+            state[key] = t
+        else:
+            check(torch.equal(t, dense[key]),
+                  f'{key}: the int8 draw differs from the bf16 model\'s')
+            state[key] = dense[key]
+    del drawn, t
+    return convert.assemble(model.config, state)
+
+
+def tensor_bytes(model):
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers()))
+
+
+def mean_logprob(rt, row, n_prompt):
+    """Mean log-prob of row[n_prompt:] under rt's scoring pass (the
+    /v1/completions echo + logprobs quantity)."""
+    chosen, _, _ = rt.score_logprobs(list(row))
+    return float(np.mean(chosen[n_prompt - 1:]))
+
+
+def adapter_scorer(model, root, name):
+    """The scoring pass of `model` with adapter `name` (its factors
+    applied in single-adapter mode): row, n_prompt -> mean log-prob of
+    row[n_prompt:]."""
+    from skypilot_tpu_torch.models import lora
+    config, params = lora.load_adapter(os.path.join(root, name))
+    factors = lora.as_model_lora(
+        {ln: {t: {k: torch.tensor(v, device='cuda') for k, v in f.items()}
+              for t, f in layer.items()} for ln, layer in params.items()},
+        lora.load_spec(config).scale)
+
+    def score(row, n_prompt):
+        tokens = torch.tensor([list(row)], device='cuda')
+        with torch.no_grad():
+            lp = torch.log_softmax(model(tokens, lora=factors).float(),
+                                   dim=-1)[0]
+        nxt = tokens[0, n_prompt:, None]
+        return lp[n_prompt - 1:-1].gather(-1, nxt).mean().item()
+
+    return score
+
+
+def int8_burst_gates(label, out, plain_route=False):
+    """The kernel gates of one int8-weight burst; returns its counts.
+    On the dequantize route int8_linear must never launch."""
+    (pa, pa_plain), (lo, lo_plain), (i8, i8_plain) = out.pop('counts')
+    routes = out['paged_route_launches']
+    if plain_route:
+        check(i8 == 0 and i8_plain > 0,
+              f'{label}: int8_linear launched {i8} times, {i8_plain} plain')
+    else:
+        check(i8 > 0 and i8_plain == 0,
+              f'{label}: int8_linear launched {i8} times, {i8_plain} plain '
+              f'calls')
+    check(routes['split'] > 0 and routes['chunk'] > 0 and pa_plain == 0,
+          f'{label}: paged routes {routes}, {pa_plain} plain calls')
+    check(out['graph_replays'] > 0, f'{label}: no graph replay')
+    return {'int8_linear_launches': i8, 'int8_linear_plain_calls': i8_plain,
+            'paged_launches': pa, 'paged_plain_calls': pa_plain,
+            'lora_launches': lo, 'lora_plain_calls': lo_plain}
+
+
+def steady_turn(rt, port, ps):
+    """(steady decode round ms, rows) of the 8 prompts, 32 greedy tokens
+    each, base model, tracing off."""
+    from skypilot_tpu_torch.observability import tracing
+    tracing.configure(sample=0.0)
+    s0 = rt.engine.stats()
+    rows = concurrently(lambda i: post(port, '/generate', {
+        'tokens': [ps[i]], 'max_new_tokens': 32})['tokens'][0], len(ps))
+    s1 = rt.engine.stats()
+    rounds = s1['steady_decode_rounds'] - s0['steady_decode_rounds']
+    return 1e3 * (s1['steady_decode_s'] - s0['steady_decode_s']) / rounds, \
+        rows
+
+
+def contract_summary(scores, against):
+    """Per-run mean log-prob over the burst and its least per-request
+    difference from run `against`'s."""
+    return {label: {'mean': float(np.mean(v)),
+                    'mean_diff': float(np.mean(v) - np.mean(scores[against])),
+                    'min_request_diff': float(min(
+                        a - b for a, b in zip(v, scores[against])))}
+            for label, v in scores.items()}
+
+
+def phase_serve_int8_weights(model, pk, lk, il, card):
+    """serve_lm --weight-dtype int8 at Llama-3-8B width: (a) the 8-prompt
+    burst on a bf16 and an int8 pool, (b) serve_lora's adapters and mix
+    on the int8 base; each beside the same burst through the dequantize
+    route and on bf16 weights, all scored by the bf16 model; steady
+    round ms of bf16 weights, int8 through the kernel and int8 through
+    the dequantize route in turns."""
+    t_phase = time.perf_counter()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model_q = int8_model(model)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    int8_alloc = torch.cuda.memory_allocated() - mem0
+    ps = prompts()
+    pool = ['--kv-pool-bytes', '4000000000']
+    int8_flag = ['--weight-dtype', 'int8']
+    kernels = (pk, lk, il)
+    rows, outs = {}, {}
+    rt_b, srv_b, th_b, port_b, _ = serve_runtime(model, 'bf16', pool)
+    try:
+        rt_q, srv_q, th_q, port_q, setup_q = serve_runtime(
+            model_q, 'bf16', [*int8_flag, *pool])
+        with il.route_scope('torch'):    # graphs captured on the plain route
+            rt_d, srv_d, th_d, port_d, _ = serve_runtime(
+                model_q, 'bf16', [*int8_flag, *pool])
+        try:
+            rows['int8'], outs['int8'] = burst(rt_q, port_q, ps, [None] * 8,
+                                               kernels)
+            with il.route_scope('torch'):
+                rows['int8_dequant'], outs['int8_dequant'] = burst(
+                    rt_d, port_d, ps, [None] * 8, kernels)
+            rows['bf16'], outs['bf16'] = burst(rt_b, port_b, ps, [None] * 8,
+                                               kernels)
+            turns = []
+            for label, rt, port in (('bf16', rt_b, port_b),
+                                    ('int8', rt_q, port_q),
+                                    ('int8_dequant', rt_d, port_d),
+                                    ('int8_dequant', rt_d, port_d),
+                                    ('int8', rt_q, port_q),
+                                    ('bf16', rt_b, port_b)):
+                scope = (il.route_scope('torch') if label == 'int8_dequant'
+                         else contextlib.nullcontext())
+                with scope:
+                    ms, turn_rows = steady_turn(rt, port, ps)
+                turns.append([label, ms])
+                # bf16 again on other prefill chunks (its prefixes are
+                # cached now): the contract's bf16 noise floor.
+                rows.setdefault('bf16_again', turn_rows)
+            stats_q = json.loads(get_raw(port_q, '/stats'))
+            weight_bytes = {'bf16': rt_b.weight_bytes,
+                            'int8': rt_q.weight_bytes}
+        finally:
+            stop_runtime(rt_d, srv_d, th_d)
+            stop_runtime(rt_q, srv_q, th_q)
+        for label, m, kv, extra in (
+                ('int8_int8_pool', model_q, 'int8', int8_flag),
+                ('bf16_int8_pool', model, 'int8', [])):
+            rt, srv, th, port, _ = serve_runtime(m, kv, extra)
+            try:
+                rows[label], outs[label] = burst(rt, port, ps, [None] * 8,
+                                                 kernels)
+            finally:
+                stop_runtime(rt, srv, th)
+        scores = {label: [mean_logprob(rt_b, r, len(p))
+                          for r, p in zip(rs, ps)]
+                  for label, rs in rows.items()}
+    finally:
+        stop_runtime(rt_b, srv_b, th_b)
+    counts = {'int8': int8_burst_gates('int8 weights, bf16 pool',
+                                       outs['int8']),
+              'int8_int8_pool': int8_burst_gates('int8 weights, int8 pool',
+                                                 outs['int8_int8_pool']),
+              'int8_dequant': int8_burst_gates(
+                  'int8 weights, dequantize route', outs['int8_dequant'],
+                  plain_route=True)}
+    for label in ('bf16', 'bf16_int8_pool'):
+        outs[label].pop('counts')
+    contract = contract_summary(scores, 'int8_dequant')
+    for label in ('int8', 'int8_int8_pool'):
+        check(contract[label]['mean_diff'] >= -INT8_LOGPROB_TOL,
+              f'{label}: mean log-prob {contract[label]} against the '
+              f'dequantize route (tolerance {INT8_LOGPROB_TOL})')
+    reference_form = contract_summary(scores, 'bf16')
+    check(stats_q['storage']['weight_dtype'] == 'int8',
+          f'/stats storage {stats_q["storage"]}')
+    want = weight_bytes['bf16'] - LLAMA3_8B_PROJ_PARAMS
+    check(abs(stats_q['storage']['weight_bytes'] - want) <= 0.01 * want
+          and stats_q['storage']['weight_bytes'] == tensor_bytes(model_q),
+          f'/stats weight_bytes {stats_q["storage"]["weight_bytes"]}: want '
+          f'~{want} and {tensor_bytes(model_q)}')
+
+    # (b) serve_lora's adapters and request mix on the int8 base (kernel
+    # and dequantize routes), then on the bf16 base, whose scoring pass
+    # (with each request's adapter) scores all three.
+    root = os.path.join(WORK, 'adapters')
+    lora_flags = ['--adapter-dir', root, '--max-adapters', '3']
+    models = SERVE_LORA_MODELS
+    lora_rows = {}
+    for label in ('int8', 'int8_dequant'):
+        plain_route = label == 'int8_dequant'
+        with (il.route_scope('torch') if plain_route
+              else contextlib.nullcontext()):
+            rt, srv, th, port, _ = serve_runtime(
+                model_q, 'bf16', [*int8_flag, *lora_flags])
+            try:
+                lora_rows[label], out = burst(rt, port, ps, models, kernels)
+            finally:
+                stop_runtime(rt, srv, th)
+        counts[f'adapters_{label}'] = int8_burst_gates(
+            f'int8 weights with adapters ({label})', out,
+            plain_route=plain_route)
+        outs[f'adapters_{label}'] = out
+    check(counts['adapters_int8']['lora_launches'] > 0 and
+          counts['adapters_int8']['lora_plain_calls'] == 0,
+          f'int8 weights with adapters: QKV LoRA {counts["adapters_int8"]}')
+    rt_a, srv_a, th_a, port_a, _ = serve_runtime(model, 'bf16', lora_flags)
+    try:
+        lora_rows['bf16'], outs['adapters_bf16'] = burst(
+            rt_a, port_a, ps, models, kernels)
+        base = [i for i, m in enumerate(models) if m is None]
+        lora_scores = {label: {i: mean_logprob(rt_a, r[i], len(ps[i]))
+                               for i in base}
+                       for label, r in lora_rows.items()}
+    finally:
+        stop_runtime(rt_a, srv_a, th_a)
+    outs['adapters_bf16'].pop('counts')
+    bites = {}
+    for name in sorted({m for m in models if m is not None}):
+        score = adapter_scorer(model, root, name)
+        mine = [i for i, m in enumerate(models) if m == name]
+        # The adapter bites: its answers are not the int8 base's answers
+        # to the same prompts.
+        bites[name] = [lora_rows['int8'][i] != rows['int8'][i]
+                       for i in mine]
+        check(any(bites[name]), f'adapter {name} changed none of the int8 '
+                                f'base\'s answers {mine}')
+        for label, r in lora_rows.items():
+            for i in mine:
+                lora_scores[label][i] = score(r[i], len(ps[i]))
+        del score
+    lora_scores = {label: [v[i] for i in range(len(models))]
+                   for label, v in lora_scores.items()}
+    lora_contract = contract_summary(lora_scores, 'int8_dequant')
+    check(lora_contract['int8']['mean_diff'] >= -INT8_LOGPROB_TOL,
+          f'adapters: mean log-prob {lora_contract["int8"]} against the '
+          f'dequantize route (tolerance {INT8_LOGPROB_TOL})')
+    lora_reference_form = contract_summary(lora_scores, 'bf16')
+    del model_q
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit('serve_int8_weights', card=card, build_s=build_s,
+         int8_alloc_bytes=int8_alloc, weight_bytes=weight_bytes,
+         weight_bytes_saved=weight_bytes['bf16'] - weight_bytes['int8'],
+         setup_s=setup_q, stats_storage=stats_q['storage'], bursts=outs,
+         counts=counts, logprob_tolerance=INT8_LOGPROB_TOL,
+         contract_vs_dequantize=contract,
+         reference_form_vs_bf16=reference_form,
+         scores=scores, adapters_contract_vs_dequantize=lora_contract,
+         adapters_reference_form_vs_bf16=lora_reference_form,
+         adapter_scores=lora_scores, adapter_changes_answer=bites,
+         steady_round_ms_turns=turns,
+         phase_s=time.perf_counter() - t_phase)
 
 
 # -- observability -----------------------------------------------------------
@@ -2132,6 +2602,17 @@ def obs_burst(port, ps, headers_for=None):
                               headers=(headers_for or {}).get(i))
         return code, out.get('tokens', [None])[0]
     return concurrently(one, len(ps))
+
+
+def wait_engine_idle(eng, tries=200):
+    """Return once the engine's scheduler has no round in flight and no
+    active slot. The probe runs as a control op, at the top of an
+    iteration, so every earlier round has been observed and recorded."""
+    for _ in range(tries):
+        if eng.run_on_scheduler(
+                lambda: eng._inflight is None and not eng.active.any()):
+            return
+    raise AssertionError(f'engine not idle after {tries} iterations')
 
 
 def steady_round_ms(rt, port, ps, sample):
@@ -2267,6 +2748,10 @@ def phase_observability(model, pk, lk, card):
             'tokens': [failed_prompt], 'max_new_tokens': 4,
             'model': OBS_FAILED_LOAD})
         observed = obs_burst(port, ps, headers)
+        # A pipelined engine commits its trailing round after the last
+        # answer went out: read /stats, /debug/flight and /metrics only
+        # once the scheduler is idle, so all three see the same rounds.
+        wait_engine_idle(eng)
         launches, plain_calls = pk.launches, pk.plain_calls
         routes = dict(pk.route_launches)
         lora_launches, lora_plain = lk.launches, lk.plain_calls
@@ -2348,7 +2833,9 @@ def phase_observability(model, pk, lk, card):
           stats['decode_calls'], 'decode_steps_total != /stats')
     check(samples[f'skypilot_serving_decode_step_seconds_count{lab}'] ==
           kinds.count('round_commit'),
-          'decode_step_seconds: not one sample a round')
+          'decode_step_seconds: not one sample a round ('
+          f'{samples[f"skypilot_serving_decode_step_seconds_count{lab}"]}'
+          f' samples, {kinds.count("round_commit")} round_commit events)')
     for name in ('attn8', 'attn16', 'mlp16'):
         check(samples.get('skypilot_serving_adapter_requests_total'
                           f'{{adapter="{name}"}}', 0) >= 2,
@@ -2786,6 +3273,33 @@ def phase_greedy_parity(pk, lk, fk):
             [0].tolist() == o for p, o in zip(ps[:2], outs['cuda'][:2]))
     del model
     torch.cuda.empty_cache()
+    # The same 2-layer width with int8 projections (f32 x: the kernel's
+    # CUDA-core route): the kernel's greedy tokens equal the plain
+    # route's.
+    from skypilot_tpu_torch.ops import int8_linear as il
+    model_q = convert.init_params(cfg, seed=1, device='cuda',
+                                  weight_dtype='int8')
+    int8_outs = {}
+    for impl in ('cuda', 'torch'):
+        counts0 = (il.launches, il.plain_calls)
+        with il.route_scope(impl):
+            engine = ContinuousBatchingEngine(
+                model_q, num_slots=4, max_total_len=1024, prefill_chunk=256)
+            try:
+                futs = [engine.submit(p, max_new_tokens=16) for p in ps[:4]]
+                int8_outs[impl] = [f.result(timeout=600) for f in futs]
+            finally:
+                engine.stop()
+        routed = (il.launches - counts0[0] if impl == 'cuda'
+                  else il.plain_calls - counts0[1])
+        check(routed > 0, f'impl {impl} of int8_linear was never taken')
+        check(impl == 'torch' or il.plain_calls == counts0[1],
+              'int8 parity: plain calls of int8_linear on the kernel route')
+        del engine
+        gc.collect()
+    int8_same = int8_outs['cuda'] == int8_outs['torch']
+    del model_q
+    torch.cuda.empty_cache()
     long_outs = long_parity(fk, pk)
     long_same = long_outs['cuda'] == long_outs['torch']
     emit('greedy_parity', requests=len(ps), new_tokens=16, layers=2,
@@ -2795,8 +3309,13 @@ def phase_greedy_parity(pk, lk, fk):
          long_prompt_tokens=[len(o) - 8 for o in long_outs['cuda']],
          long_equal=long_same,
          long_tokens_cuda=[o[-8:] for o in long_outs['cuda']],
-         long_tokens_torch=[o[-8:] for o in long_outs['torch']])
+         long_tokens_torch=[o[-8:] for o in long_outs['torch']],
+         int8_equal=int8_same,
+         int8_tokens_cuda=[o[-16:] for o in int8_outs['cuda']],
+         int8_tokens_torch=[o[-16:] for o in int8_outs['torch']])
     check(same, 'greedy tokens differ between the kernel and plain routes')
+    check(int8_same, 'int8 weights: greedy tokens differ between the '
+                     'int8_linear kernel and its plain version')
     check(all(modes_same.values()), f'speculative / chunked / one-shot '
                                     f'greedy tokens differ from the plain '
                                     f'engine\'s: {modes_same}')
@@ -3696,6 +4215,7 @@ def main() -> int:
     from skypilot_tpu_torch.models import convert, registry
     from skypilot_tpu_torch.ops import _build
     from skypilot_tpu_torch.ops import flash_kernel as fk
+    from skypilot_tpu_torch.ops import int8_linear as il
     from skypilot_tpu_torch.ops import lora_kernel as lk
     from skypilot_tpu_torch.ops import paged_kernel as pk
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3709,7 +4229,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build_all()
-    ptxas = [line.strip() for log in _build.build_logs.values()
+    ptxas = [f'{name}: {line.strip()}'
+             for name, log in _build.build_logs.items()
              for line in log.splitlines()
              if 'registers' in line or 'spill' in line]
     emit('build', seconds=time.perf_counter() - t0, ptxas=ptxas)
@@ -3717,6 +4238,7 @@ def main() -> int:
     paged_rows = phase_kernels(pk)
     lora_kernel = phase_lora_kernels(lk)
     flash_rows = phase_flash_kernels(fk)
+    int8_row = phase_int8_linear_kernels(il)
 
     # The main paths, each driven with the counts zeroed just before and
     # read just after: base serving (bf16 and int8 pools), then
@@ -3743,6 +4265,10 @@ def main() -> int:
     lora_launches, lora_plain = lk.launches, lk.plain_calls
     check(lora_launches > 0 and lora_plain == 0 and pk.plain_calls == 0,
           f'LoRA path: {lora_launches} LoRA launches, {lora_plain} plain')
+    # int8 projection weights (--weight-dtype int8), counted from zero.
+    il.launches = il.plain_calls = 0
+    phase_serve_int8_weights(model, pk, lk, il, card)
+    int8_launches = il.launches
     # The observability plane on the multi-LoRA path, counted from zero.
     phase_observability(model, pk, lk, card)
     phase_serve_long(model, fk, pk, card)
@@ -3776,12 +4302,14 @@ def main() -> int:
                            if row['name'] == 'paged_attention_verify'
                            else routes[row['kernel_route']])
     lora_kernel['launches'] = lora_launches
+    int8_row['launches'] = int8_launches
     for name, row in flash_rows.items():
         row['launches'] = (full_counts[name] + lora_counts[name]
                            + guard_counts[name])
     print(card, flush=True)
     print(json.dumps({'kernels': [*paged_rows, lora_kernel,
-                                  *flash_rows.values()]}), flush=True)
+                                  *flash_rows.values(), int8_row]}),
+          flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

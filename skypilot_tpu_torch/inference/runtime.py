@@ -323,9 +323,9 @@ class InferenceRuntime:
         self.model_name = model_name
         self.vocab_size = cfg.vocab_size
         self.kv_dtype = cfg.kv_dtype
-        # /stats `storage`: the reference's keys on one device (weights
-        # are stored unquantized; the mesh is one device, one stage).
-        self.weight_dtype = 'bf16'
+        # /stats `storage`: the reference's keys on one device (the mesh
+        # is one device, one stage).
+        self.weight_dtype = getattr(self.model, 'weight_dtype', 'bf16')
         self.weight_bytes = quant.weight_num_bytes(self.model)
         self.mesh_devices = 1
         self.stages = 1
@@ -710,11 +710,24 @@ class InferenceRuntime:
 
 
 #: serve_lm flags this port does not implement yet, with the value
-#: that means "not asked for": --weight-dtype int8 waits for ROADMAP A8,
-#: --tensor and --stages for A10 (tensor x pipeline serving).
+#: that means "not asked for": --tensor and --stages wait for ROADMAP A10
+#: (tensor x pipeline serving).
 _UNSUPPORTED_DEFAULTS = (
-    ('tensor', 1), ('stages', 1), ('weight_dtype', 'bf16'),
+    ('tensor', 1), ('stages', 1),
 )
+
+#: The reference's refusals around int8 projection weights
+#: (skypilot_tpu/inference/runtime.py:866-877), word for word.
+INT8_WEIGHTS_NO_CKPT = (
+    '--weight-dtype int8 does not compose with '
+    '--ckpt-dir (the restore template predates '
+    'quantization); restore bf16 or convert first')
+
+
+def int8_weights_none_found(targets) -> str:
+    return (f'--weight-dtype int8 found no quantizable '
+            f'projection kernels ({targets}) in '
+            f'this model; the Llama family is supported')
 
 #: The reference's refusals of the KV-chain flags without the slot
 #: engine (skypilot_tpu/recipes/serve_lm.py:308-317), word for word.
@@ -805,7 +818,9 @@ def _source_model(args, model, device: torch.device):
     `model`'s tensors (shared, not copied), or the seeded init; then
     --ckpt-dir's newest full-parameter step, when it has one. Weights
     are stored as --param-dtype says (f32: f32 masters cast to the
-    compute dtype per use)."""
+    compute dtype per use); with --weight-dtype int8 the projections
+    are quantized from the source's f32 values and --param-dtype
+    applies to the leaves that stay dense."""
     param_dtype = torch.float32 if args.param_dtype == 'f32' else None
     tokenizer_dir = None
     if args.hf:
@@ -814,7 +829,7 @@ def _source_model(args, model, device: torch.device):
         from skypilot_tpu_torch.models import hf_import
         cfg, model = hf_import.load_hf_checkpoint(
             args.hf, max_seq_len=args.max_total_len, device=device,
-            param_dtype=param_dtype)
+            weight_dtype=args.weight_dtype, param_dtype=param_dtype)
         print(f'loaded HF checkpoint from {args.hf} (Llama, '
               f'vocab={cfg.vocab_size})', flush=True)
         if any(os.path.exists(os.path.join(args.hf, f))
@@ -824,14 +839,17 @@ def _source_model(args, model, device: torch.device):
         cfg = dataclasses.replace(
             registry.model_config(args.model, args.max_total_len),
             param_dtype=param_dtype)
-        model = convert.init_params(cfg, seed=0, device=device)
+        model = convert.init_params(cfg, seed=0, device=device,
+                                    weight_dtype=args.weight_dtype)
     else:
         want = registry.model_config(args.model, args.max_total_len)
         widths = dataclasses.replace(model.config, kv_dtype=want.kv_dtype,
                                      kv_total_pages=want.kv_total_pages)
-        if widths != want or model.device != device:
+        if widths != want or model.device != device or \
+                model.weight_dtype != args.weight_dtype:
             raise ValueError(f'the given model does not match --model '
-                             f'{args.model} on {device}')
+                             f'{args.model} --weight-dtype '
+                             f'{args.weight_dtype} on {device}')
     if args.ckpt_dir:
         from skypilot_tpu_torch.parallel.checkpoints import \
             CheckpointManager
@@ -871,6 +889,8 @@ def build_runtime(args, model=None,
                          + ', '.join(bad))
     if args.kv_dtype == 'int8' and not args.continuous_batching:
         raise SystemExit(INT8_NEEDS_CONTINUOUS)
+    if args.weight_dtype == 'int8' and args.ckpt_dir:
+        raise SystemExit(INT8_WEIGHTS_NO_CKPT)
     refusal = kv_chain_refusal(args)
     if refusal:
         raise SystemExit(refusal)
@@ -882,6 +902,11 @@ def build_runtime(args, model=None,
               f'chaos mode', flush=True)
     device = resolve_device(cpu=args.cpu)
     model, tokenizer_dir = _source_model(args, model, device)
+    if args.weight_dtype == 'int8':
+        if convert.weight_dtype_of(model.state_dict()) != 'int8':
+            raise SystemExit(int8_weights_none_found(quant.WEIGHT_TARGETS))
+        print('weights: int8 per-output-channel projections '
+              '(dequant-on-read)', flush=True)
     cfg = model.config
     pages = (quant.pool_pages_for_bytes(cfg, args.kv_dtype,
                                         args.kv_pool_bytes)

@@ -14,6 +14,14 @@ any source dtype (an HF import, a `train_lm` checkpoint) as a config's
 layout says. `init_params` is the seeded init the card uses:
 normal(0, 0.02) for Dense kernels, the embedding and the head, ones for
 norms, zeros for biases. Nothing is downloaded.
+
+int8 projection weights (`weight_dtype='int8'`): `params_from_jax` takes
+a tree the reference's `quantize_params` wrote (`kernel_q` /
+`kernel_scale` leaves become `weight_q` = kernel_q.T and `weight_scale`,
+byte for byte), and `params_from_jax`, `init_params` and the HF importer
+quantize an f32 source (`quantize_state`) from its f32 values, before any
+cast to the compute dtype, one tensor at a time, as the reference
+quantizes its f32 tree.
 """
 from __future__ import annotations
 
@@ -23,21 +31,57 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.models.llama import Llama, LlamaConfig
+from skypilot_tpu_torch.inference import quant
+from skypilot_tpu_torch.models.llama import DENSE_CLASSES, Llama, LlamaConfig
 
 _DENSE = {'attn': ('wq', 'wk', 'wv', 'wo'),
           'mlp': ('w_gate', 'w_up', 'w_down')}
 _QKV = ('wq', 'wk', 'wv')
 
 
+def weight_dtype_of(state: Mapping[str, torch.Tensor]) -> str:
+    """'int8' when the state holds int8 projections, else 'bf16'."""
+    return ('int8' if any(k.endswith('.weight_q') for k in state)
+            else 'bf16')
+
+
 def assemble(cfg: LlamaConfig, state: Mapping[str, torch.Tensor]) -> Llama:
-    """A `Llama` whose parameters ARE the given tensors (no copy): the
-    module is built on the meta device and the tensors assigned. Also
+    """A `Llama` whose weights ARE the given tensors (no copy): the
+    module is built on the meta device and the tensors assigned,
+    parameters and (int8 projections) buffers, under strict=True. Also
     how two configs that differ only in their KV pool share weights."""
     with torch.device('meta'):
-        model = Llama(cfg)
+        model = Llama(cfg, weight_dtype=weight_dtype_of(state))
     model.load_state_dict(dict(state), strict=True, assign=True)
     return model
+
+
+def _store_int8(state: Dict[str, torch.Tensor], key: str,
+                kernel: torch.Tensor) -> None:
+    """Module `key`'s `weight_q` ([out, in] int8) and `weight_scale`
+    (f32 [out]) from its f32 [in, out] kernel, into `state`."""
+    q, scale = quant.quantize_kernel(kernel)
+    state[f'{key}.weight_q'] = q.T.contiguous()
+    state[f'{key}.weight_scale'] = scale
+
+
+def quantize_state(state: Mapping[str, torch.Tensor],
+                   device: Optional[torch.device] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """`state` with each projection's `.weight` ([out, in], any float
+    dtype) replaced by `.weight_q` (int8 [out, in]) and `.weight_scale`
+    (f32 [out]), quantized from its values upcast to f32
+    (`quant.quantize_kernel` on the [in, out] kernel), one tensor at a
+    time on `device`; every other tensor passes through."""
+    targets = tuple(f'.{t}.weight' for t in quant.WEIGHT_TARGETS)
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in state.items():
+        if not name.endswith(targets):
+            out[name] = t
+            continue
+        w = t.to(device) if device is not None else t
+        _store_int8(out, name[:-len('.weight')], w.float().T)
+    return out
 
 
 def _head(w: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
@@ -56,7 +100,9 @@ def cast_to_layout(cfg: LlamaConfig, state: Mapping[str, torch.Tensor],
     out: Dict[str, torch.Tensor] = {}
     for name, t in state.items():
         t = t.to(device) if device is not None else t
-        if name.endswith('.scale') or cfg.trainable:
+        if name.endswith(('.weight_q', '.weight_scale')):
+            out[name] = t              # int8 projections keep their dtypes
+        elif name.endswith('.scale') or cfg.trainable:
             out[name] = t.float()
         elif name == 'lm_head':
             out[name] = _head(t, cfg)
@@ -66,9 +112,13 @@ def cast_to_layout(cfg: LlamaConfig, state: Mapping[str, torch.Tensor],
 
 
 def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig,
-                    device: Optional[torch.device] = None) -> Llama:
+                    device: Optional[torch.device] = None,
+                    weight_dtype: Optional[str] = None) -> Llama:
     """Port `Llama` with the weights of a reference param tree, stored
-    as `cfg.param_dtype` says (None: serving's layout)."""
+    as `cfg.param_dtype` says (None: serving's layout). A tree of the
+    reference's `quantize_params` gives int8 projections as they are;
+    `weight_dtype='int8'` quantizes an f32 tree's kernels (default: the
+    tree's own storage)."""
     trainable = cfg.trainable
     flat: Dict[str, np.ndarray] = {}
 
@@ -77,10 +127,19 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig,
             path = f'{prefix}{key}'
             if isinstance(val, Mapping):
                 walk(val, path + '/')
+            elif key == quant.QUANT_KEY:
+                flat[path] = np.asarray(val)
             else:
                 flat[path] = np.asarray(val, np.float32)
 
     walk(tree, '')
+    quantized = any(p.endswith('/' + quant.QUANT_KEY) for p in flat)
+    if weight_dtype is None:
+        weight_dtype = 'int8' if quantized else 'bf16'
+    if weight_dtype not in DENSE_CLASSES or (quantized and
+                                              weight_dtype != 'int8'):
+        raise ValueError(f'weight_dtype {weight_dtype!r} for a '
+                         f'{"quantized" if quantized else "dense"} tree')
 
     def take(path: str) -> torch.Tensor:
         if path not in flat:
@@ -102,12 +161,20 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig,
             state[f'{dst}.{norm}.scale'] = take(f'{src}/{norm}/scale')
         for group, names in _DENSE.items():
             for name in names:
-                kernel = take(f'{src}/{group}/{name}/kernel')
-                state[f'{dst}.{group}.{name}.weight'] = \
-                    store(kernel.T.contiguous())
+                leaf, key = f'{src}/{group}/{name}', f'{dst}.{group}.{name}'
+                if quantized:
+                    state[f'{key}.weight_q'] = take(
+                        f'{leaf}/{quant.QUANT_KEY}').T.contiguous()
+                    state[f'{key}.weight_scale'] = take(
+                        f'{leaf}/{quant.SCALE_KEY}')
+                else:
+                    kernel = take(f'{leaf}/kernel')
+                    if weight_dtype == 'int8':
+                        _store_int8(state, key, kernel)
+                    else:
+                        state[f'{key}.weight'] = store(kernel.T.contiguous())
                 if cfg.qkv_bias and name in _QKV:
-                    state[f'{dst}.{group}.{name}.bias'] = store(take(
-                        f'{src}/{group}/{name}/bias'))
+                    state[f'{key}.bias'] = store(take(f'{leaf}/bias'))
     if flat:
         raise ValueError(f'param tree leaves not consumed: {sorted(flat)}')
     return assemble(cfg, state)
@@ -206,10 +273,15 @@ def lora_from_jax(tree: Mapping[str, Any], scale: float = 1.0
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0,
-                device: Optional[torch.device] = None) -> Llama:
+                device: Optional[torch.device] = None,
+                weight_dtype: str = 'bf16') -> Llama:
     """Seeded random weights, generated on `device` with one
     torch.Generator (not the reference's numbers: jax.random and
-    torch generators differ), stored as `cfg.param_dtype` says."""
+    torch generators differ), stored as `cfg.param_dtype` says. With
+    `weight_dtype='int8'` each projection is quantized from its f32
+    draw (the same draws as the bf16 model of this seed)."""
+    if weight_dtype not in DENSE_CLASSES:
+        raise ValueError(f'unsupported weight_dtype {weight_dtype!r}')
     gen = torch.Generator(device=device).manual_seed(seed)
     store_dtype = cfg.param_dtype or cfg.dtype
 
@@ -231,8 +303,12 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
         state[f'{dst}.mlp_norm.scale'] = ones(d)
         for group, names in _DENSE.items():
             for name in names:
-                state[f'{dst}.{group}.{name}.weight'] = \
-                    normal(*out_in[name]).to(store_dtype)
+                w = normal(*out_in[name])
+                if weight_dtype == 'int8':
+                    _store_int8(state, f'{dst}.{group}.{name}', w.T)
+                else:
+                    state[f'{dst}.{group}.{name}.weight'] = w.to(store_dtype)
+                del w
                 if cfg.qkv_bias and name in _QKV:
                     state[f'{dst}.{group}.{name}.bias'] = torch.zeros(
                         out_in[name][0], dtype=store_dtype, device=device)

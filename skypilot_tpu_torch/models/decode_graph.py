@@ -31,9 +31,10 @@ the same buffers, so the CPU tests exercise the data flow the card
 replays. A capture that fails raises; nothing falls back to eager
 rounds.
 
-Kernel launch counts (ops/paged_kernel.py, ops/lora_kernel.py) are
-Python increments that a replay does not run: each graph keeps the
-counts its capture made and adds them at every replay.
+Kernel launch counts (ops/paged_kernel.py, ops/lora_kernel.py,
+ops/int8_linear.py) are Python increments that a replay does not run:
+each graph keeps the counts its capture made and adds them at every
+replay.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.models.generate import sample_tokens
-from skypilot_tpu_torch.ops import lora_kernel, paged_kernel
+from skypilot_tpu_torch.ops import int8_linear, lora_kernel, paged_kernel
 
 #: How a round picks its tokens: argmax everywhere; a draw where a
 #: lane's temperature is > 0; the same after the top-k / top-p filter.
@@ -82,7 +83,9 @@ def _kernel_counts() -> Dict[Tuple, int]:
     counts = {('paged', 'launches'): paged_kernel.launches,
               ('paged', 'plain_calls'): paged_kernel.plain_calls,
               ('lora', 'launches'): lora_kernel.launches,
-              ('lora', 'plain_calls'): lora_kernel.plain_calls}
+              ('lora', 'plain_calls'): lora_kernel.plain_calls,
+              ('int8', 'launches'): int8_linear.launches,
+              ('int8', 'plain_calls'): int8_linear.plain_calls}
     counts.update({('route', r): n
                    for r, n in paged_kernel.route_launches.items()})
     counts.update({('shape', k): n
@@ -103,6 +106,8 @@ def _add_kernel_counts(delta: Dict[Tuple, int], sign: int = 1) -> None:
             setattr(paged_kernel, name, getattr(paged_kernel, name) + d)
         elif kind == 'lora':
             setattr(lora_kernel, name, getattr(lora_kernel, name) + d)
+        elif kind == 'int8':
+            setattr(int8_linear, name, getattr(int8_linear, name) + d)
         elif kind == 'route':
             paged_kernel.route_launches[name] += d
         else:

@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.models import convert
-from skypilot_tpu_torch.models.llama import Llama, LlamaConfig, RopeScaling
+from skypilot_tpu_torch.models.llama import (DENSE_CLASSES, Llama, LlamaConfig,
+                                             RopeScaling)
 
 
 class HfImportError(Exception):
@@ -199,15 +200,21 @@ def _convert_llama_like(cfg_json: Dict[str, Any],
 
 def load_hf_checkpoint(model_dir: str, *, max_seq_len: Optional[int] = None,
                        device: Optional[torch.device] = None,
+                       weight_dtype: str = 'bf16',
                        **config_overrides) -> Tuple[LlamaConfig, Llama]:
     """(config, model) from a local HF model directory, the weights on
     `device` stored as the config's layout says (serving's by default;
-    `param_dtype=torch.float32` keeps f32 masters).
+    `param_dtype=torch.float32` keeps f32 masters). `weight_dtype='int8'`
+    quantizes each projection from the checkpoint's values upcast to
+    f32, before the cast to the layout (the reference quantizes its raw
+    f32 `hf_params`).
 
     `max_seq_len` overrides the checkpoint's max_position_embeddings
     (serve_lm passes its --max-total-len). `config_overrides` go into
     the LlamaConfig (e.g. `dtype=torch.float32` for CPU parity runs,
     `kv_dtype`, `kv_total_pages`)."""
+    if weight_dtype not in DENSE_CLASSES:
+        raise ValueError(f'unsupported weight_dtype {weight_dtype!r}')
     cfg_json = read_config(model_dir)
     model_type = cfg_json.get('model_type')
     if model_type in DEFERRED_MODEL_TYPES:
@@ -234,6 +241,8 @@ def load_hf_checkpoint(model_dir: str, *, max_seq_len: Optional[int] = None,
                                      **config_overrides)
     _validate_against_init(cfg, state)
     del sd
+    if weight_dtype == 'int8':
+        state = convert.quantize_state(state, device)
     return cfg, convert.assemble(cfg, convert.cast_to_layout(cfg, state,
                                                              device))
 

@@ -35,6 +35,14 @@ an f32 master, trainable, cast to `dtype` where it is used, as Flax
 `Dense(dtype=...)` does with its f32 params; `remat` recomputes each
 block in the backward. Serving keeps `param_dtype=None`: weights stored
 in `dtype`, frozen.
+
+int8 projection weights (`Llama(cfg, weight_dtype='int8')`, serve_lm
+`--weight-dtype int8`): the seven projections are `Int8Dense`, int8
+[out, in] buffers with one f32 scale per output channel (the reference's
+`quantize_params` layout, transposed), run through
+`ops/int8_linear.py`; the embedding, the norms, the biases and the head
+stay as the config's layout says. The choice lives outside
+`LlamaConfig`, as the reference keeps it in its `QuantizedModel` wrapper.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ from torch.utils import checkpoint
 from skypilot_tpu_torch.models import lora as lora_lib
 from skypilot_tpu_torch.ops import attention as attention_ops
 from skypilot_tpu_torch.ops import fused_xent
+from skypilot_tpu_torch.ops import int8_linear
 from skypilot_tpu_torch.ops import lora_kernel
 from skypilot_tpu_torch.ops import paged_attention as paged_ops
 
@@ -255,18 +264,50 @@ class Dense(nn.Linear):
         return F.linear(x, weight, bias)
 
 
+class Int8Dense(nn.Module):
+    """A projection stored as int8: buffers `weight_q` [out, in] int8
+    and `weight_scale` [out] f32 (W ~= weight_q * weight_scale per
+    output channel), and an unquantized `bias` stored as the config's
+    layout says. `forward` is `int8_linear` in the compute dtype: the
+    CUDA kernel on the card, the plain dequantize-then-linear on the
+    CPU."""
+
+    def __init__(self, d_in: int, d_out: int, config: LlamaConfig,
+                 bias: bool = False) -> None:
+        super().__init__()
+        self.compute_dtype = config.dtype
+        self.register_buffer('weight_q', torch.empty(d_out, d_in,
+                                                     dtype=torch.int8))
+        self.register_buffer('weight_scale', torch.empty(
+            d_out, dtype=torch.float32))
+        self.bias = (nn.Parameter(torch.empty(
+            d_out, dtype=config.param_dtype or config.dtype),
+            requires_grad=False) if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = self.bias
+        if bias is not None and bias.dtype != self.compute_dtype:
+            bias = bias.to(self.compute_dtype)   # f32 masters only
+        return int8_linear.int8_linear(x, self.weight_q, self.weight_scale,
+                                       bias)
+
+
+#: The projection class of each weight storage (`Llama(weight_dtype=)`).
+DENSE_CLASSES = {'bf16': Dense, 'int8': Int8Dense}
+
+
 class Attention(nn.Module):
 
-    def __init__(self, config: LlamaConfig) -> None:
+    def __init__(self, config: LlamaConfig, dense=Dense) -> None:
         super().__init__()
         self.config = config
         cfg, hd = config, config.head_dim
-        self.wq = Dense(cfg.embed_dim, cfg.num_heads * hd, cfg, cfg.qkv_bias)
-        self.wk = Dense(cfg.embed_dim, cfg.num_kv_heads * hd, cfg,
+        self.wq = dense(cfg.embed_dim, cfg.num_heads * hd, cfg, cfg.qkv_bias)
+        self.wk = dense(cfg.embed_dim, cfg.num_kv_heads * hd, cfg,
                         cfg.qkv_bias)
-        self.wv = Dense(cfg.embed_dim, cfg.num_kv_heads * hd, cfg,
+        self.wv = dense(cfg.embed_dim, cfg.num_kv_heads * hd, cfg,
                         cfg.qkv_bias)
-        self.wo = Dense(cfg.num_heads * hd, cfg.embed_dim, cfg)
+        self.wo = dense(cfg.num_heads * hd, cfg.embed_dim, cfg)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 kv: Optional[dict] = None,
@@ -350,12 +391,12 @@ class Attention(nn.Module):
 
 class FeedForward(nn.Module):
 
-    def __init__(self, config: LlamaConfig) -> None:
+    def __init__(self, config: LlamaConfig, dense=Dense) -> None:
         super().__init__()
         cfg = config
-        self.w_gate = Dense(cfg.embed_dim, cfg.mlp_dim, cfg)
-        self.w_up = Dense(cfg.embed_dim, cfg.mlp_dim, cfg)
-        self.w_down = Dense(cfg.mlp_dim, cfg.embed_dim, cfg)
+        self.w_gate = dense(cfg.embed_dim, cfg.mlp_dim, cfg)
+        self.w_up = dense(cfg.embed_dim, cfg.mlp_dim, cfg)
+        self.w_down = dense(cfg.mlp_dim, cfg.embed_dim, cfg)
 
     def forward(self, x: torch.Tensor, lora: Optional[dict] = None,
                 adapter_ids: Optional[torch.Tensor] = None,
@@ -370,15 +411,15 @@ class FeedForward(nn.Module):
 
 class Block(nn.Module):
 
-    def __init__(self, config: LlamaConfig) -> None:
+    def __init__(self, config: LlamaConfig, dense=Dense) -> None:
         super().__init__()
         cfg = config
         self.attn_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, cfg.dtype,
                                  cfg.trainable)
-        self.attn = Attention(cfg)
+        self.attn = Attention(cfg, dense)
         self.mlp_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, cfg.dtype,
                                 cfg.trainable)
-        self.mlp = FeedForward(cfg)
+        self.mlp = FeedForward(cfg, dense)
 
     def forward(self, x, positions, kv=None, page_indices=None,
                 prefill=False, lora=None, adapter_ids=None, lora_scale=1.0,
@@ -401,17 +442,26 @@ class Llama(nn.Module):
     (for a bf16 config), so the head's product is bf16 operands with an
     f32 result. With `param_dtype` set (training) both are f32 masters
     cast to `dtype` per use, which is the same product.
+
+    `weight_dtype` 'int8' makes the seven projections `Int8Dense`
+    (serving only: int8 buffers take no gradient).
     """
 
-    def __init__(self, config: LlamaConfig) -> None:
+    def __init__(self, config: LlamaConfig,
+                 weight_dtype: str = 'bf16') -> None:
         super().__init__()
+        if weight_dtype not in DENSE_CLASSES:
+            raise ValueError(f'unsupported weight_dtype {weight_dtype!r} '
+                             f'(choices: {", ".join(DENSE_CLASSES)})')
         cfg = config
         self.config = cfg
+        self.weight_dtype = weight_dtype
         self.tok_embed = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.embed_dim,
                         dtype=cfg.param_dtype or cfg.dtype),
             requires_grad=cfg.trainable)
-        self.layers = nn.ModuleList(Block(cfg)
+        dense = DENSE_CLASSES[weight_dtype]
+        self.layers = nn.ModuleList(Block(cfg, dense)
                                     for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, cfg.dtype,
                                   cfg.trainable)

@@ -98,7 +98,8 @@ def projection_shapes(cfg) -> Dict[str, Tuple[int, int]]:
 def supports(model) -> bool:
     """True when `model` threads the `lora` argument through its
     forward AND its config has the Llama-family projection geometry
-    (`projection_shapes`)."""
+    (`projection_shapes`). An int8 model is one: deltas apply to the
+    projections' outputs, whatever stores their weights."""
     try:
         sig = inspect.signature(type(model).forward)
     except (TypeError, ValueError):
@@ -195,8 +196,13 @@ def merge_lora(model, lora_params, spec: LoraSpec):
     """A copy of the port `Llama` `model` whose adapted weights are
     W + (a @ b * scale)^T, summed in f32 and cast back to the weight's
     dtype: the parity oracle for the batched per-slot path. Other
-    tensors are shared with `model`, not copied."""
+    tensors are shared with `model`, not copied. An int8 model has no
+    dense weight to merge into: build the oracle from the unquantized
+    model."""
     from skypilot_tpu_torch.models import convert
+    if getattr(model, 'weight_dtype', 'bf16') != 'bf16':
+        raise ValueError('merge_lora merges into dense weights; pass the '
+                         'unquantized model')
     state = dict(model.state_dict())
     for layer_name, layer in lora_params.items():
         idx = int(layer_name.split('_')[1])

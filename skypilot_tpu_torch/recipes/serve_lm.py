@@ -21,6 +21,10 @@ exits with an error.
       --continuous-batching --adapter-dir adapters/ --max-adapters 4
   python -m skypilot_tpu_torch.recipes.serve_lm --model llama3-8b \\
       --continuous-batching --speculative 4     # or --decode-chunk 4
+  # int8 projection weights (per-output-channel scales), served through
+  # the W8A16 kernel of ops/int8_linear.py
+  python -m skypilot_tpu_torch.recipes.serve_lm --model llama3-8b \\
+      --continuous-batching --weight-dtype int8
   # disaggregated serving: a decode replica, and a prefill replica that
   # hands each prompt's KV page chain to it (falling back to local
   # serving when the transfer fails)
@@ -210,12 +214,22 @@ def build_parser() -> argparse.ArgumentParser:
                         'multi-window burn rates and the '
                         'skypilot_serving_slo_* gauges go live '
                         '(docs/guides.md "Tracing & SLOs")')
-    # The reference's flags for features this port does not have yet:
+    p.add_argument('--weight-dtype', choices=['bf16', 'int8'],
+                   default='bf16',
+                   help='serving storage for the projection '
+                        'weights (wq/wk/wv/wo, w_gate/w_up/'
+                        'w_down). int8 = per-output-channel '
+                        'symmetric quantization, dequantized on '
+                        'read inside the jitted fns — halves '
+                        'weight-streaming HBM bandwidth; '
+                        'embeddings/norms/head stay bf16. '
+                        'Composes with --tensor (scales shard '
+                        'with their channel) and LoRA (deltas '
+                        'ride the dequantized base)')
+    # The reference's flags for tensor x pipeline serving (ROADMAP A10):
     # parsed so the command line stays the same, refused if used.
     p.add_argument('--tensor', type=int, default=1)
     p.add_argument('--stages', type=int, default=1)
-    p.add_argument('--weight-dtype', choices=['bf16', 'int8'],
-                   default='bf16')
     return p
 
 
@@ -223,8 +237,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     """Parse and validate: exits (status 2) naming every flag this port
     cannot honor, on an --slo spec the reference refuses (its message),
     and on the reference's refusals of int8 KV pages, the spill tier and
-    the prefill role in the one-shot mode (and of a remote cold tier)."""
+    the prefill role in the one-shot mode (and of a remote cold tier),
+    and of int8 weights with --ckpt-dir."""
     from skypilot_tpu_torch.inference.runtime import (INT8_NEEDS_CONTINUOUS,
+                                                      INT8_WEIGHTS_NO_CKPT,
                                                       kv_chain_refusal,
                                                       unsupported_flags)
     parser = build_parser()
@@ -242,6 +258,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
             parser.error(str(e))
     if args.kv_dtype == 'int8' and not args.continuous_batching:
         parser.error(INT8_NEEDS_CONTINUOUS)
+    if args.weight_dtype == 'int8' and args.ckpt_dir:
+        parser.error(INT8_WEIGHTS_NO_CKPT)
     refusal = kv_chain_refusal(args)
     if refusal:
         parser.error(refusal)

@@ -11,7 +11,9 @@
     transformers when it is called);
   - impl='cuda' on CPU tensors raises; unsupported serve_lm flags exit
     naming the flag, and int8 KV pages without --continuous-batching
-    exit with the reference's message; the KV-chain flags (--role,
+    exit with the reference's message; --weight-dtype int8 parses with
+    and without --continuous-batching, and with --ckpt-dir exits with
+    the reference's message; the KV-chain flags (--role,
     --decode-peers, --kv-spill-bytes, --kv-cold-dir) parse under
     --continuous-batching, and without it the spill flags and the
     prefill role exit with the reference's messages (a gs:// cold dir
@@ -179,13 +181,45 @@ def test_cuda_impl_on_cpu_tensors_raises():
 @pytest.mark.parametrize('argv,flag', [
     (['--stages', '2'], '--stages'),
     (['--tensor', '2'], '--tensor'),
-    (['--weight-dtype', 'int8'], '--weight-dtype'),
 ])
 def test_unsupported_flag_exits_with_its_name(argv, flag, capsys):
     with pytest.raises(SystemExit) as exc:
         serve_lm.parse_args(['--cpu', '--continuous-batching'] + argv)
     assert exc.value.code != 0
     assert flag in capsys.readouterr().err
+
+
+@pytest.mark.parametrize('argv', [
+    ['--continuous-batching', '--weight-dtype', 'int8'],
+    ['--weight-dtype', 'int8'],
+])
+def test_weight_dtype_int8_parses(argv):
+    """The fleet forwards --weight-dtype to every replica: int8 parses
+    with the slot engine and with the one-shot engine, with the
+    reference's default when absent."""
+    assert serve_lm.parse_args(['--cpu'] + argv).weight_dtype == 'int8'
+    bare = serve_lm.parse_args(['--cpu'])
+    assert bare.weight_dtype == \
+        _reference_serve_lm_flags()['--weight-dtype'][0]
+
+
+def test_weight_dtype_int8_refuses_ckpt_dir_in_the_references_words(
+        capsys):
+    """--weight-dtype int8 with --ckpt-dir exits with the message of
+    the reference's build_runtime (read from its source with the AST)."""
+    from skypilot_tpu_torch.inference import runtime
+    tree = ast.parse((ROOT / 'skypilot_tpu' / 'inference' /
+                      'runtime.py').read_text())
+    messages = {node.args[0].value for node in ast.walk(tree)
+                if isinstance(node, ast.Call)
+                and getattr(node.func, 'id', '') == 'SystemExit'
+                and node.args and isinstance(node.args[0], ast.Constant)}
+    assert runtime.INT8_WEIGHTS_NO_CKPT in messages
+    with pytest.raises(SystemExit) as exc:
+        serve_lm.parse_args(['--cpu', '--continuous-batching',
+                             '--weight-dtype', 'int8', '--ckpt-dir', '/x'])
+    assert exc.value.code != 0
+    assert runtime.INT8_WEIGHTS_NO_CKPT in capsys.readouterr().err
 
 
 def _reference_serve_lm_flags():

@@ -4,13 +4,14 @@
     python3 chip_smoke.py
 
 Drives the port's main paths (`serve_lm --continuous-batching` on a
-paged KV pool, base model and multi-LoRA, int8 projection weights
+paged KV pool, base model and multi-LoRA, the GPT-2 and Mixtral
+families, int8 projection weights
 (`--weight-dtype int8`), whole-prompt long prefill,
 SSE streams, text and chat endpoints, logprobs, `--hf` checkpoints and
 the one-shot engine; KV page chains: export / import, the host and cold
 spill tiers, disaggregated prefill / decode roles and live migration;
-training through the trainer API and `train_lm
---lora`, and train_lm's recovery contract: --guard, --init-from-hf, the
+training through the trainer API, `train_lm --lora` and `train_lm`
+on GPT-2 and Mixtral, and train_lm's recovery contract: --guard, --init-from-hf, the
 native token reader, --ckpt-interval, --profile) through the
 entry points a user calls, at the full width of Llama-3-8B with seeded
 random weights and adapters, and holds every CUDA kernel of those paths
@@ -44,6 +45,16 @@ failure exits non-zero before the result lines:
                  offset 768 and the verify chunk vs the bound, the plain
                  version and scaled_dot_product_attention on gathered
                  K/V (a boolean mask for the chunks)
+  gpt2_kernels   paged attention at GPT-2 124M's head shape (Hq = Hkv =
+                 12, G = 1, D = 64: the kernel's head_dim-64 instance) vs
+                 its plain version on bf16 and f32 pools: decode B=8
+                 (rows ending mid-page, on a page's last and first slot,
+                 at full length, and a row that sees nothing), chunks of
+                 256 at offsets 300 and 768, a verify chunk B=8 S=5 (the
+                 split route at G = 1); the same error measure and limits
+                 as `kernels`, the perturbed control failing both routes;
+                 timings of decode B=8 and the chunk at 768 vs the bound,
+                 the plain version and SDPA on gathered K/V
   lora_kernels   QKV LoRA at Llama-3-8B width (d=4096, q 4096, k/v
                  1024), ranks {8, 16, 64} x {bf16, f32} x {decode B=8
                  S=1 with ids [0,1,1,2,3,0,2,1], chunk B=1 S=256} vs its
@@ -172,7 +183,9 @@ failure exits non-zero before the result lines:
                  adapter requests x 16; and 2 prompts of 2100 / 2600
                  tokens prefilled whole, through the flash forward), and
                  --speculative 4 and --decode-chunk 4 engines give the
-                 plain engine's tokens exactly; so do the one-shot
+                 plain engine's tokens exactly; GPT-2 124M and Mixtral 8x7B
+                 widths cut to 2 layers (f32): 4 requests x 16 tokens
+                 through the kernel equal those through the plain version; so do the one-shot
                  generate functions (plain and speculative K=4, dense
                  cache) on the first two base requests; and the same
                  width with int8 projections: 4 base requests through the
@@ -251,6 +264,24 @@ failure exits non-zero before the result lines:
                  parting from it after the evacuation is printed (B
                  recomputes the sub-page tail as a chunk where A decoded
                  it token by token: exact only in f32, held in tier-1)
+  serve_gpt2     gpt2-124m (full width and depth, seeded) through
+                 build_runtime with serve_lm's flags (--max-total-len 1024
+                 --prefill-chunk 256, 8 slots, the config's 128-page
+                 pool): 8 concurrent greedy /generate requests of 100-200
+                 prompt tokens (two sharing a 64-token prefix that the
+                 warm-up request caches), 32 new tokens; every answer
+                 prompt + 32, the split and chunk routes launched (never
+                 the scalar one), no plain call, graph replays; the same
+                 requests on an eager, unpipelined runtime give the same
+                 tokens bit for bit. Cost lines: steady round ms, the
+                 device ms of a decode dispatch (CUDA events around it)
+                 and the device-busy share
+  serve_mixtral  mixtral-8x7b at full width cut to 16 of its 32 layers
+                 (~47 GB bf16), seeded on the card, the same flags, burst
+                 and gates; cost lines: steady round ms beside the bound
+                 of the bytes a round reads (every weight but the
+                 embedding table: dense dispatch reads every expert),
+                 the weights' bytes, the phase's seconds; freed after
   serve_hf       a Llama-3-8B-width checkpoint cut to 2 layers, written
                  here in HF's layout (two bf16 safetensors shards and an
                  index), served through serve_lm --hf: weights on the card
@@ -270,6 +301,16 @@ failure exits non-zero before the result lines:
                  = 32 x 6 x 2 (remat), backward 32 x 6; then
                  serve_lm --adapter-dir answers a request with the
                  trained adapter
+  train_gpt2     `train_lm --model gpt2-124m --seq 1024 --global-batch 8
+                 --steps 20` (nanogpt.yaml's model and sequence): losses,
+                 grad norms and MFU finite in --metrics-file, peak
+                 memory; no flash launch (S < 2048)
+  train_mixtral  `train_lm --model mixtral-8x7b --seq 2048 --global-batch
+                 1 --remat --steps 5` at full width cut to 2 layers (the
+                 registry's train config patched): flash forward 2 x 2 x 5
+                 (remat), backward 2 x 5; losses, grad norms, MFU and the
+                 router aux loss of every step finite; step time and peak
+                 memory
   train_guard    train_lm's recovery contract, each train_lm run a child
                  process after this one has freed its models (its own
                  card memory is reported first, `train_guard_parent`)
@@ -317,11 +358,12 @@ failure exits non-zero before the result lines:
 The paged kernel's split and chunk rows in the kernels line count their
 launches in the base-serving window (serve_bf16 + serve_int8, counted
 from zero, graph replays included; no scalar-route launch may occur
-there), its verify row those of decode_modes' (e) run;
-the flash kernels' launch counts are those of the three training phases
-(train_full, train_lora, and train_guard's trainer-API steps, its
---init-from-hf run and its chaos run and relaunch), each counted from
-zero; int8_linear's those of serve_int8_weights. Then, as the last
+there), its verify row those of decode_modes' (e) run, the GPT-2 rows
+(decode: split, chunk) those of serve_gpt2's window;
+the flash kernels' launch counts are those of the four training phases
+(train_full, train_lora, train_mixtral, and train_guard's trainer-API
+steps, its --init-from-hf run and its chaos run and relaunch), each
+counted from zero; int8_linear's those of serve_int8_weights. Then, as the last
 three lines: the card (`nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`), the kernels JSON line, and {"ok": true,
 "device": {...}}. Exits non-zero, printing no
@@ -400,17 +442,17 @@ def check(cond, msg):
 
 # -- kernels ---------------------------------------------------------------
 def paged_case(kind, batch, seq, ctx_end, pps, seed, masked_rows=0,
-               page=PAGE, heads=(HQ, HKV)):
-    """Inputs at a head shape (q heads, kv heads; Llama-3-8B's by
-    default). Row b's queries sit at positions ctx_end[b] - seq + 1 ..
-    ctx_end[b]; the first `masked_rows` queries of row 0 see nothing
+               page=PAGE, heads=(HQ, HKV), head_dim=D):
+    """Inputs at a head shape (q heads, kv heads, head dim; Llama-3-8B's
+    by default). Row b's queries sit at positions ctx_end[b] - seq + 1
+    .. ctx_end[b]; the first `masked_rows` queries of row 0 see nothing
     (position -1)."""
     hq, hkv = heads
     dev = 'cuda'
     rng = np.random.default_rng(seed)
     total = batch * pps + 1
     tbl = (1 + rng.permutation(total - 1)[:batch * pps]).reshape(batch, pps)
-    shape = (hkv, total, page, D)
+    shape = (hkv, total, page, head_dim)
     g = torch.Generator(dev).manual_seed(seed)
     if kind == 'int8':
         k = torch.randint(-127, 128, shape, generator=g, device=dev,
@@ -426,7 +468,8 @@ def paged_case(kind, batch, seq, ctx_end, pps, seed, masked_rows=0,
         v = torch.randn(shape, generator=g, device=dev).to(dt)
         ks = vs = None
         qdt = dt
-    q = torch.randn((batch, seq, hq, D), generator=g, device=dev).to(qdt)
+    q = torch.randn((batch, seq, hq, head_dim), generator=g,
+                    device=dev).to(qdt)
     pos = np.stack([np.arange(e - seq + 1, e + 1) for e in ctx_end])
     pos[0, :masked_rows] = -1
     pos = np.maximum(pos, -1).astype(np.int32)
@@ -455,7 +498,7 @@ def must_bytes(c):
     pos = c['positions'].cpu().numpy()
     visible = int(np.maximum(pos.max(axis=1) + 1, 0).sum())  # tokens
     kv = c['k_pages']
-    per_token = 2 * kv.shape[0] * D * kv.element_size()
+    per_token = 2 * kv.shape[0] * kv.shape[-1] * kv.element_size()
     if c['k_scales'] is not None:
         per_token += 2 * 4
     io = 2 * c['q'].numel() * c['q'].element_size()
@@ -467,7 +510,8 @@ def must_flops(c):
     """4 * D flops (q.k and p.v) per query head per (query, visible
     token) pair."""
     pos = c['positions'].cpu().numpy()
-    return 4.0 * D * c['q'].shape[2] * float(np.maximum(pos + 1, 0).sum())
+    return (4.0 * c['q'].shape[-1] * c['q'].shape[2]
+            * float(np.maximum(pos + 1, 0).sum()))
 
 
 def bound_ms(c):
@@ -499,16 +543,17 @@ def time_ms(fns, iters=60, warmup=6):
     return e0.elapsed_time(e1) / iters
 
 
-def paged_timing_sets(kind, batch, seq):
+def paged_timing_sets(kind, batch, seq, heads=(HQ, HKV), head_dim=D):
     """Input sets of one timed shape (context 1024, queries ending at
     position 1023; a verify chunk's rows end 61 positions apart from
     1023 down), enough that their K/V exceed the L2 together."""
     elt = 1 if kind == 'int8' else 2
-    kv_bytes = batch * 1024 * HKV * D * elt * 2
+    kv_bytes = batch * 1024 * heads[1] * head_dim * elt * 2
     n_sets = max(2, math.ceil(L2_FLUSH_BYTES / kv_bytes))
     ends = ([1023 - 61 * i for i in range(batch)] if seq == VERIFY_S
             else [1023] * batch)
-    return [paged_case(kind, batch, seq, ends, 64, seed=100 + i)
+    return [paged_case(kind, batch, seq, ends, 64, seed=100 + i,
+                       heads=heads, head_dim=head_dim)
             for i in range(n_sets)]
 
 
@@ -516,8 +561,8 @@ def dense_kv(c):
     """K/V of the case gathered dense (bf16, [B, Hkv, T, D]) for the
     library yardstick; int8 pages are dequantized first."""
     from skypilot_tpu_torch.ops.paged_attention import _gather_kv
-    k, v = _gather_kv(HKV, c['k_pages'], c['v_pages'], c['page_indices'],
-                      c['k_scales'], c['v_scales'])
+    k, v = _gather_kv(c['k_pages'].shape[0], c['k_pages'], c['v_pages'],
+                      c['page_indices'], c['k_scales'], c['v_scales'])
     return (k.to(torch.bfloat16).transpose(1, 2).contiguous(),
             v.to(torch.bfloat16).transpose(1, 2).contiguous())
 
@@ -749,6 +794,106 @@ def phase_kernels(pk):
                      'replaces': PAGED_ATTENTION_TPU,
                      'kernel_route': route, 'timed': key,
                      'max_abs_err': worst[err_key], 'ms': t['ms'],
+                     'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+                     'bound_by': t['bound_by'],
+                     'library_ms': t['library_ms'], 'library': library})
+    return rows
+
+
+# GPT-2 124M's heads: multi-head attention, Hq = Hkv = 12 (G = 1), D = 64,
+# the kernel's head_dim-64 instance.
+GPT2_HEADS, GPT2_D = (12, 12), 64
+# (label, batch, S, context ends, pages per row, masked queries of row
+# 0): decode rows ending mid-page (999, 776), on a page's last slot (15,
+# 1023: full length) and on its first (16, 512), row 0 seeing nothing;
+# chunks of 256 at offsets 300 and 768; a verify chunk B=8 S=5 (S x G =
+# 5: the split route).
+GPT2_CASES = (
+    ('decode', 8, 1, [999, 1023, 15, 16, 512, 776, 300, 1022], 64, 1),
+    ('chunk_offset300', 1, 256, [555], 48, 0),
+    ('chunk_offset768', 1, 256, [1023], 64, 0),
+    ('verify_k4', 8, 5, VERIFY_ENDS, 64, 0))
+GPT2_TIMED = (('decode_b8', 8, 1), ('chunk_offset768', 1, 256))
+
+
+def phase_gpt2_kernels(pk):
+    """The paged kernel at GPT-2's head shape (D = 64, G = 1) on bf16
+    and f32 pools against its plain version, the perturbed control, and
+    timings of decode B=8 and the chunk at offset 768 (bf16)."""
+    cases, worst = [], {'split': 0.0, 'chunk': 0.0, 'scalar': 0.0}
+    for kind in ('bf16', 'f32'):
+        for label, batch, seq, ends, pps, masked in GPT2_CASES:
+            c = paged_case(kind, batch, seq, ends, pps, seed=200 + len(cases),
+                           masked_rows=masked, heads=GPT2_HEADS,
+                           head_dim=GPT2_D)
+            routes0 = dict(pk.route_launches)
+            out = call(pk, c)
+            ref = plain(pk, c)
+            torch.cuda.synchronize()
+            route = [r for r in pk.ROUTES
+                     if pk.route_launches[r] != routes0[r]]
+            rel, err = paged_errors(out, ref, 1 if seq <= VERIFY_S
+                                    else PAGED_TILE)
+            pos = c['positions']
+            case = {'pool': kind, 'shape': label, 'batch': batch, 'seq': seq,
+                    'hq': GPT2_HEADS[0], 'hkv': GPT2_HEADS[1],
+                    'head_dim': GPT2_D, 'route': route,
+                    'unit_rel_err': rel, 'tol': PAGED_TOL[kind],
+                    'max_abs_err': err,
+                    'masked_rows_zero': bool((out[pos < 0].float() == 0)
+                                             .all()),
+                    'finite': bool(torch.isfinite(out.float()).all())}
+            cases.append(case)
+            check(route == [expected_route(kind, seq, GPT2_HEADS)],
+                  f'paged attention (GPT-2 heads) took the wrong route: '
+                  f'{case}')
+            check(rel <= PAGED_TOL[kind] and case['masked_rows_zero']
+                  and case['finite'],
+                  f'kernel disagrees with its plain version at GPT-2\'s '
+                  f'heads: {case}')
+            worst[route[0]] = max(worst[route[0]], err)
+    perturb = {}
+    for label, batch, seq, ends, pps, masked in GPT2_CASES[:2]:
+        c = paged_case('bf16', batch, seq, ends, pps, seed=299,
+                       masked_rows=masked, heads=GPT2_HEADS, head_dim=GPT2_D)
+        perturb[expected_route('bf16', seq, GPT2_HEADS)] = paged_errors(
+            call(pk, c, perturb=0.5), plain(pk, c),
+            1 if seq == 1 else PAGED_TILE)[0]
+    check(sorted(perturb) == ['chunk', 'split']
+          and all(e > PAGED_TOL['bf16'] for e in perturb.values()),
+          f'perturbed kernel passed the pin at GPT-2\'s heads: {perturb}')
+    timings = {}
+    for label, batch, seq in GPT2_TIMED:
+        sets = paged_timing_sets('bf16', batch, seq, GPT2_HEADS, GPT2_D)
+        ms = time_ms([lambda c=c: call(pk, c) for c in sets],
+                     iters=max(60, 3 * len(sets)))
+        plain_ms = time_ms([lambda c=c: plain(pk, c) for c in sets[:2]],
+                           iters=6, warmup=2)
+        lib = [paged_library_fn(c) for c in sets]
+        library_ms = time_ms(lib, iters=max(60, 3 * len(sets)))
+        b_ms, b_by = bound_ms(sets[0])
+        timings[f'bf16_{label}'] = {
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+            'bound_by': b_by, 'bytes': must_bytes(sets[0]),
+            'flops': must_flops(sets[0]), 'library_ms': library_ms,
+            'input_sets': len(sets)}
+        del sets, lib
+        torch.cuda.empty_cache()
+    emit('gpt2_kernels', cases=cases, perturb_unit_rel_err=perturb,
+         perturb_fails=True, timings=timings)
+    rows = []
+    for name, route, key, library in (
+            ('paged_attention_gpt2_decode', 'split', 'bf16_decode_b8',
+             'scaled_dot_product_attention on gathered K/V'),
+            ('paged_attention_gpt2_chunk', 'chunk', 'bf16_chunk_offset768',
+             'scaled_dot_product_attention with a boolean mask on '
+             'gathered K/V')):
+        t = timings[key]
+        rows.append({'name': name, 'route': 'cuda',
+                     'source': 'skypilot_tpu_torch/csrc/paged_attention.cu',
+                     'replaces': PAGED_ATTENTION_TPU,
+                     'kernel_route': route, 'timed': key,
+                     'max_abs_err': worst[route], 'ms': t['ms'],
                      'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
                      'bound_by': t['bound_by'],
                      'library_ms': t['library_ms'], 'library': library})
@@ -3302,6 +3447,7 @@ def phase_greedy_parity(pk, lk, fk):
     torch.cuda.empty_cache()
     long_outs = long_parity(fk, pk)
     long_same = long_outs['cuda'] == long_outs['torch']
+    families = family_parity(pk)
     emit('greedy_parity', requests=len(ps), new_tokens=16, layers=2,
          models=models, equal=same, decode_modes_equal=modes_same,
          tokens_cuda=[o[-16:] for o in outs['cuda']],
@@ -3312,8 +3458,12 @@ def phase_greedy_parity(pk, lk, fk):
          long_tokens_torch=[o[-8:] for o in long_outs['torch']],
          int8_equal=int8_same,
          int8_tokens_cuda=[o[-16:] for o in int8_outs['cuda']],
-         int8_tokens_torch=[o[-16:] for o in int8_outs['torch']])
+         int8_tokens_torch=[o[-16:] for o in int8_outs['torch']],
+         families=families)
     check(same, 'greedy tokens differ between the kernel and plain routes')
+    check(all(f['equal'] for f in families.values()),
+          f'GPT-2 / Mixtral greedy tokens differ between the kernel and '
+          f'plain routes: {families}')
     check(int8_same, 'int8 weights: greedy tokens differ between the '
                      'int8_linear kernel and its plain version')
     check(all(modes_same.values()), f'speculative / chunked / one-shot '
@@ -4206,6 +4356,317 @@ def phase_migration(model, pk, card):
          **counts)
 
 
+# -- GPT-2 and Mixtral ----------------------------------------------------------
+# serve_lm's flags for both families: the configs' own 128-page pool.
+FAMILY_FLAGS = ('--continuous-batching', '--num-slots', '8',
+                '--max-total-len', '1024', '--prefill-chunk', '256',
+                '--port', '0')
+# Mixtral 8x7B does not fit one card at full depth (46.7e9 parameters):
+# serving keeps 16 of its 32 layers (~47 GB in bf16), training 2 (f32
+# masters, grads and Adam moments: ~51 GB).
+MIXTRAL_SERVE_LAYERS = 16
+MIXTRAL_TRAIN_LAYERS = 2
+
+
+def family_prompts(vocab, seed=0, n=8):
+    """n prompts of 100-200 tokens, the second sharing the first's 64
+    tokens (4 pages: the burst's warm-up request caches them, so both
+    prefill their suffix as a paged chunk at offset 64)."""
+    rng = np.random.default_rng(seed)
+    out = [rng.integers(1, vocab, int(n_tok)).tolist()
+           for n_tok in rng.integers(100, 201, n)]
+    out[1] = out[0][:64] + out[1][64:]
+    return out
+
+
+def family_runtime(name, model, extra=(), cuda_graphs=True):
+    """build_runtime with serve_lm's flags for `--model name`, sharing
+    `model`'s weights, and make_server on an ephemeral port."""
+    from skypilot_tpu_torch.inference.http_server import make_server
+    from skypilot_tpu_torch.inference.runtime import build_runtime
+    from skypilot_tpu_torch.recipes import serve_lm
+    args = serve_lm.parse_args(['--model', name, *FAMILY_FLAGS, *extra])
+    t0 = time.perf_counter()
+    rt = build_runtime(args, model=model, cuda_graphs=cuda_graphs)
+    setup_s = time.perf_counter() - t0
+    server = make_server(rt, 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return rt, server, thread, server.server_address[1], setup_s
+
+
+@contextlib.contextmanager
+def dispatch_device_ms(engine):
+    """Device ms of each decode dispatch of `engine`: CUDA events
+    recorded on the stream just before and after it. A graph round is
+    one replay the host enqueues at once, so the interval between the
+    two events is the round's device time; the list is filled when the
+    block exits (after a synchronize)."""
+    rnd = engine._round    # pylint: disable=protected-access
+    orig = rnd.dispatch
+    events, out = [], []
+
+    def timed(**kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        pending = orig(**kw)
+        e1.record()
+        events.append((e0, e1))
+        return pending
+
+    rnd.dispatch = timed
+    try:
+        yield out
+    finally:
+        rnd.dispatch = orig
+        torch.cuda.synchronize()
+        out.extend(e0.elapsed_time(e1) for e0, e1 in events)
+
+
+def serve_family(label, name, model, pk, card):
+    """The 8-prompt burst through serve_lm's flags (pipelined, graph
+    rounds), then on an eager, unpipelined runtime: the same tokens bit
+    for bit, every answer prompt + 32, both paged routes launched (the
+    scalar one never), no plain call, graph replays. Returns the emitted
+    numbers."""
+    t_phase = time.perf_counter()
+    cfg = model.config
+    ps = family_prompts(cfg.vocab_size)
+    rt, server, thread, port, setup_s = family_runtime(name, model)
+    try:
+        with dispatch_device_ms(rt.engine) as device_ms:
+            rows, out = burst(rt, port, ps, [None] * len(ps), (pk,))
+        weight_bytes = rt.weight_bytes
+    finally:
+        stop_runtime(rt, server, thread)
+    del rt, server, thread
+    gc.collect()
+    [(launches, plain_calls)] = out.pop('counts')
+    routes = out['paged_route_launches']
+    eager = family_runtime(name, model, ['--no-pipeline-decode'],
+                           cuda_graphs=False)
+    try:
+        eager_rows, eager_out = burst(eager[0], eager[3], ps,
+                                      [None] * len(ps), (pk,))
+    finally:
+        stop_runtime(*eager[:3])
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(launches > 0 and plain_calls == 0
+          and eager_out['counts'][0][1] == 0,
+          f'{label}: {launches} kernel launches, plain calls '
+          f'{plain_calls} / {eager_out["counts"][0][1]}')
+    check(routes['split'] > 0 and routes['chunk'] > 0
+          and routes['scalar'] == 0, f'{label}: routes {routes}')
+    check(out['graph_replays'] > 0 and out['cuda_graphs']
+          and out['pipeline_decode'], f'{label}: no graph rounds {out}')
+    check(not eager_out['cuda_graphs'] and not eager_out['pipeline_decode'],
+          f'{label}: the eager runtime ran {eager_out}')
+    check(rows == eager_rows, f'{label}: graph-replayed, pipelined tokens '
+                              f'differ from eager, unpipelined ones')
+    steady = sorted(device_ms)[len(device_ms) // 2] if device_ms else None
+    return dict(
+        card=card, model=name, layers=cfg.num_layers,
+        embed_dim=cfg.embed_dim, setup_s=setup_s, **out, kernel_launches=launches,
+        plain_calls=plain_calls, eager_equal=True,
+        eager_decode_round_ms=eager_out['decode_round_ms'],
+        device_round_ms=steady, device_dispatches=len(device_ms),
+        device_busy_share=(steady / out['decode_round_ms']
+                           if steady and out['decode_round_ms'] else None),
+        weight_bytes=weight_bytes,
+        phase_s=time.perf_counter() - t_phase), routes
+
+
+def phase_serve_gpt2(pk, card):
+    """gpt2-124m at full width and depth, seeded on the card."""
+    from skypilot_tpu_torch.models import convert, registry
+    model = convert.init_params(registry.model_config('gpt2-124m', 1024),
+                                seed=0, device='cuda')
+    out, routes = serve_family('serve_gpt2', 'gpt2-124m', model, pk, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit('serve_gpt2', **out)
+    return routes
+
+
+def phase_serve_mixtral(pk, card):
+    """mixtral-8x7b at full width, cut to MIXTRAL_SERVE_LAYERS, seeded on
+    the card; freed before the phase returns. Its decode round reads
+    every expert (dense dispatch over E), so the bound of a round is the
+    bytes of every weight but the embedding table (8 rows of it)."""
+    from skypilot_tpu_torch.models import convert, registry
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(registry.model_config('mixtral-8x7b', 1024),
+                              num_layers=MIXTRAL_SERVE_LAYERS)
+    model = convert.init_params(cfg, seed=0, device='cuda')
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    round_bytes = sum(t.numel() * t.element_size()
+                      for n, t in model.state_dict().items()
+                      if n != 'tok_embed')
+    out, routes = serve_family('serve_mixtral', 'mixtral-8x7b', model, pk,
+                               card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    bound = 1e3 * round_bytes / HBM_BYTES_PER_S
+    emit('serve_mixtral', **out, reduced={'num_layers': [32, cfg.num_layers]},
+         init_s=init_s, round_bytes=round_bytes, round_bound_ms=bound,
+         round_over_bound=(out['decode_round_ms'] / bound
+                           if out['decode_round_ms'] else None))
+    return routes
+
+
+@contextlib.contextmanager
+def depth_cut(name, layers):
+    """`train_lm --model name` builds `layers` layers of its config (the
+    registry's train_config, which train_lm reads, patched)."""
+    from skypilot_tpu_torch.models import registry
+    orig = registry.train_config
+
+    def cut(model, seq, remat=False):
+        cfg = orig(model, seq, remat)
+        return (dataclasses.replace(cfg, num_layers=layers)
+                if model == name else cfg)
+
+    registry.train_config = cut
+    try:
+        yield
+    finally:
+        registry.train_config = orig
+
+
+def train_family(label, argv, fk, card):
+    """`train_lm argv --metrics-file ...` in this process: (its output,
+    its metric records, the flash launches, peak GB, seconds)."""
+    from skypilot_tpu_torch.observability.step_metrics import read_jsonl
+    root = os.path.join(WORK, label)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    metrics = os.path.join(root, 'metrics.jsonl')
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash(fk)
+    t0 = time.perf_counter()
+    text = run_train_lm([*argv, '--metrics-file', metrics])
+    seconds = time.perf_counter() - t0
+    counts = flash_counts(fk)
+    records = read_jsonl(metrics)
+    check('training done' in text, f'{label}: train_lm did not finish')
+    check(records and all(np.isfinite(r['loss'])
+                          and np.isfinite(r['grad_norm'])
+                          and r['mfu'] is not None for r in records),
+          f'{label}: metric records {records}')
+    check(fk.plain_calls == 0, f'{label}: flash plain calls')
+    gc.collect()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    return text, records, counts, peak, seconds
+
+
+def phase_train_gpt2(fk, card):
+    """train_lm --model gpt2-124m with nanogpt.yaml's model and sequence
+    (1024): 20 steps of B=8; S < 2048, so no flash launch."""
+    argv = ['--model', 'gpt2-124m', '--seq', '1024', '--global-batch', '8',
+            '--steps', '20', '--log-every', '5']
+    _, records, counts, peak, seconds = train_family('train_gpt2', argv,
+                                                     fk, card)
+    check(counts == {'flash_fwd': 0, 'flash_bwd': 0},
+          f'train_gpt2 launched flash at S=1024: {counts}')
+    emit('train_gpt2', card=card, argv=argv,
+         steps=[r['step'] for r in records],
+         losses=[r['loss'] for r in records],
+         grad_norms=[r['grad_norm'] for r in records],
+         step_time_s=[r['step_time_s'] for r in records],
+         tokens_per_s=[r['tokens_per_sec'] for r in records],
+         mfu=[r['mfu'] for r in records], peak_mem_gb=peak,
+         launches=counts, seconds=seconds)
+
+
+def phase_train_mixtral(fk, card):
+    """train_lm --model mixtral-8x7b at full width, cut to
+    MIXTRAL_TRAIN_LAYERS, B=1 S=2048 --remat, 5 steps: flash forward
+    2 x layers a step (remat), backward once a layer; loss, grad norm and
+    the router aux loss (read from each step's forward) finite."""
+    from skypilot_tpu_torch.models import mixtral
+    layers, steps = MIXTRAL_TRAIN_LAYERS, 5
+    argv = ['--model', 'mixtral-8x7b', '--seq', '2048', '--global-batch',
+            '1', '--remat', '--steps', str(steps), '--log-every', '1']
+    aux = []
+    orig = mixtral.Mixtral.forward
+
+    def spy(self, *a, **kw):
+        out = orig(self, *a, **kw)
+        if isinstance(out, tuple):
+            aux.append(out[1].detach())
+        return out
+
+    mixtral.Mixtral.forward = spy
+    try:
+        with depth_cut('mixtral-8x7b', layers):
+            _, records, counts, peak, seconds = train_family(
+                'train_mixtral', argv, fk, card)
+    finally:
+        mixtral.Mixtral.forward = orig
+    aux = [float(a) for a in aux]
+    check(counts == {'flash_fwd': layers * steps * 2,
+                     'flash_bwd': layers * steps},
+          f'train_mixtral flash launches {counts}')
+    check(len(aux) == steps and all(np.isfinite(aux)) and min(aux) > 0,
+          f'train_mixtral aux losses {aux}')
+    emit('train_mixtral', card=card, argv=argv,
+         reduced={'num_layers': [32, layers]},
+         steps=[r['step'] for r in records],
+         losses=[r['loss'] for r in records], aux_losses=aux,
+         grad_norms=[r['grad_norm'] for r in records],
+         step_time_s=[r['step_time_s'] for r in records],
+         tokens_per_s=[r['tokens_per_sec'] for r in records],
+         mfu=[r['mfu'] for r in records], peak_mem_gb=peak,
+         launches=counts, seconds=seconds)
+    return counts
+
+
+def family_parity(pk):
+    """GPT-2 and Mixtral at full width, cut to 2 layers, f32 weights and
+    pool: the engine's greedy tokens through the kernel (its f32 route)
+    equal those through the plain version."""
+    from skypilot_tpu_torch.models import convert, registry
+    from skypilot_tpu_torch.models.batching import ContinuousBatchingEngine
+    out = {}
+    for name in ('gpt2-124m', 'mixtral-8x7b'):
+        cfg = dataclasses.replace(registry.model_config(name, 1024),
+                                  num_layers=2, dtype=torch.float32)
+        model = convert.init_params(cfg, seed=3, device='cuda')
+        ps = family_prompts(cfg.vocab_size, seed=4, n=4)
+        toks = {}
+        for impl in ('cuda', 'torch'):
+            counts0 = (pk.launches, pk.plain_calls)
+            with pk.impl_scope(impl):
+                engine = ContinuousBatchingEngine(
+                    model, num_slots=4, max_total_len=1024,
+                    prefill_chunk=64)
+                try:
+                    futs = [engine.submit(p, max_new_tokens=16) for p in ps]
+                    toks[impl] = [f.result(timeout=600) for f in futs]
+                finally:
+                    engine.stop()
+            routed = (pk.launches - counts0[0] if impl == 'cuda'
+                      else pk.plain_calls - counts0[1])
+            check(routed > 0, f'{name} parity: impl {impl} never taken')
+            del engine
+            gc.collect()
+        out[name] = {'equal': toks['cuda'] == toks['torch'],
+                     'tokens_cuda': [t[-16:] for t in toks['cuda']],
+                     'tokens_torch': [t[-16:] for t in toks['torch']]}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
@@ -4236,6 +4697,7 @@ def main() -> int:
     emit('build', seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     paged_rows = phase_kernels(pk)
+    gpt2_rows = phase_gpt2_kernels(pk)
     lora_kernel = phase_lora_kernels(lk)
     flash_rows = phase_flash_kernels(fk)
     int8_row = phase_int8_linear_kernels(il)
@@ -4286,6 +4748,13 @@ def main() -> int:
     phase_migration(model, pk, card)
     del model
     torch.cuda.empty_cache()
+    # GPT-2 and Mixtral through serve_lm, each counted from zero.
+    zero_paged(pk)
+    pk.launches = pk.plain_calls = 0
+    gpt2_routes = phase_serve_gpt2(pk, card)
+    zero_paged(pk)
+    pk.launches = pk.plain_calls = 0
+    phase_serve_mixtral(pk, card)
     phase_serve_hf(pk, lk, fk, card)
 
     phase_greedy_parity(pk, lk, fk)
@@ -4295,19 +4764,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     lora_counts = phase_train_lora(fk, lk, card)
     torch.cuda.empty_cache()
+    phase_train_gpt2(fk, card)
+    mixtral_counts = phase_train_mixtral(fk, card)
     guard_counts = phase_train_guard(fk, card)
 
     for row in paged_rows:
         row['launches'] = (verify_launches
                            if row['name'] == 'paged_attention_verify'
                            else routes[row['kernel_route']])
+    for row in gpt2_rows:
+        row['launches'] = gpt2_routes[row['kernel_route']]
     lora_kernel['launches'] = lora_launches
     int8_row['launches'] = int8_launches
     for name, row in flash_rows.items():
         row['launches'] = (full_counts[name] + lora_counts[name]
-                           + guard_counts[name])
+                           + mixtral_counts[name] + guard_counts[name])
     print(card, flush=True)
-    print(json.dumps({'kernels': [*paged_rows, lora_kernel,
+    print(json.dumps({'kernels': [*paged_rows, *gpt2_rows, lora_kernel,
                                   *flash_rows.values(), int8_row]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {

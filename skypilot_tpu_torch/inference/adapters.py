@@ -57,6 +57,11 @@ class AdapterRegistry:
 
     def __init__(self, adapter_dir: str, model, *,
                  max_adapters: int = 8, max_rank: int = 0) -> None:
+        if not lora_lib.supports(model):
+            raise ValueError(
+                f'{type(model).__name__} has no LoRA forward path; '
+                f'multi-LoRA serving supports the Llama family '
+                f'(models/lora.py)')
         if max_adapters < 1:
             raise ValueError(
                 f'max_adapters must be >= 1, got {max_adapters}')

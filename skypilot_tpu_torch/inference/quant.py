@@ -25,6 +25,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.models.llama import kv_heads
+
 #: Projection modules quantized by default: the Llama-family big
 #: matmuls (the GQA attention block + SwiGLU MLP), the same surfaces
 #: LoRA covers (models/lora.py ALL_TARGETS).
@@ -107,7 +109,7 @@ def kv_page_bytes(cfg, kv_dtype: str) -> int:
     values, plus two f32 scale rows for int8 — the unit
     `--kv-pool-bytes` divides by, so a byte budget maps to the same
     memory for either storage format."""
-    per_layer = 2 * cfg.num_kv_heads * cfg.kv_page_size * cfg.head_dim
+    per_layer = 2 * kv_heads(cfg) * cfg.kv_page_size * cfg.head_dim
     if kv_dtype == 'int8':
         value_bytes = per_layer
         scale_bytes = 2 * cfg.kv_page_size * 4

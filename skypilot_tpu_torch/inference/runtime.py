@@ -48,6 +48,8 @@ from skypilot_tpu_torch.inference.adapters import AdapterRegistry
 from skypilot_tpu_torch.models import convert, registry
 from skypilot_tpu_torch.models import generate as gen
 from skypilot_tpu_torch.models.batching import ContinuousBatchingEngine
+from skypilot_tpu_torch.models.llama import LlamaConfig, kv_dtype_of
+from skypilot_tpu_torch.models.mixtral import MixtralConfig
 from skypilot_tpu_torch.observability import catalog as obs_catalog
 from skypilot_tpu_torch.observability import slo as slo_lib
 from skypilot_tpu_torch.observability import tracing
@@ -322,7 +324,7 @@ class InferenceRuntime:
         cfg = self.model.config
         self.model_name = model_name
         self.vocab_size = cfg.vocab_size
-        self.kv_dtype = cfg.kv_dtype
+        self.kv_dtype = kv_dtype_of(cfg)
         # /stats `storage`: the reference's keys on one device (the mesh
         # is one device, one stage).
         self.weight_dtype = getattr(self.model, 'weight_dtype', 'bf16')
@@ -617,7 +619,10 @@ class InferenceRuntime:
 
                 @torch.no_grad()
                 def score(tokens: torch.Tensor) -> torch.Tensor:
-                    return torch.log_softmax(model(tokens).float(), dim=-1)
+                    # hidden, then logits: Mixtral's training forward
+                    # would return (logits, aux).
+                    logits = model.logits(model.hidden(tokens))
+                    return torch.log_softmax(logits.float(), dim=-1)
 
                 self._fns[key] = score
             return self._fns[key]
@@ -763,6 +768,58 @@ INT8_NEEDS_CONTINUOUS = (
     'cache, which has no scale storage')
 
 
+#: The reference's refusal of KV-pool flags for a config without a
+#: kv_dtype field (skypilot_tpu/inference/runtime.py:790-797), word for
+#: word but for the config's name.
+def kv_flags_need_kv_dtype(config_name: str) -> str:
+    return (f'--kv-dtype/--kv-pool-bytes need a paged-KV model '
+            f'config with a kv_dtype field (the Llama family); '
+            f'{config_name} has none')
+
+
+#: Mixtral's int8 weights: the reference quantizes its attention kernels
+#: and keeps the stacked experts in bf16 (inference/quant.py:56-72).
+MIXTRAL_INT8_DEFERRED = (
+    '--weight-dtype int8 on the Mixtral family (int8 attention '
+    'projections beside bf16 expert stacks, as the reference quantizes '
+    'them) is not ported yet (ROADMAP A14)')
+
+
+def source_config_type(args) -> type:
+    """The config class of the model `args` asks for: the --hf
+    checkpoint's model_type, else --model's registry entry."""
+    if args.hf:
+        from skypilot_tpu_torch.models import hf_import
+        return hf_import.config_type(args.hf)
+    return type(registry.model_config(args.model, args.max_total_len))
+
+
+def family_refusal(args, config_type: type) -> Optional[str]:
+    """The refusal of a flag the model's family lacks, or None: the
+    KV-pool flags and int8 weights need the Llama family, as in the
+    reference (GPT names no quantizable projection; Mixtral's split is
+    deferred). --adapter-dir on these families is refused by
+    `AdapterRegistry`, with the reference's message."""
+    if config_type is LlamaConfig:
+        return None
+    if args.kv_dtype != 'bf16' or args.kv_pool_bytes:
+        return kv_flags_need_kv_dtype(config_type.__name__)
+    if args.weight_dtype == 'int8':
+        if config_type is MixtralConfig:
+            return MIXTRAL_INT8_DEFERRED
+        return int8_weights_none_found(quant.WEIGHT_TARGETS)
+    return None
+
+
+def _pool_fields(cfg, kv_dtype: str, pages: int) -> dict:
+    """The config fields that size a KV pool: kv_total_pages, and
+    kv_dtype where the config has the field (the Llama family)."""
+    fields = {'kv_total_pages': pages}
+    if isinstance(cfg, LlamaConfig):
+        fields['kv_dtype'] = kv_dtype
+    return fields
+
+
 def unsupported_flags(args) -> List[str]:
     """The `serve_lm` flags in `args` that this port cannot honor (as
     `--flag` names); empty when everything asked for is supported."""
@@ -830,8 +887,9 @@ def _source_model(args, model, device: torch.device):
         cfg, model = hf_import.load_hf_checkpoint(
             args.hf, max_seq_len=args.max_total_len, device=device,
             weight_dtype=args.weight_dtype, param_dtype=param_dtype)
-        print(f'loaded HF checkpoint from {args.hf} (Llama, '
-              f'vocab={cfg.vocab_size})', flush=True)
+        print(f'loaded HF checkpoint from {args.hf} '
+              f'({type(model).__name__}, vocab={cfg.vocab_size})',
+              flush=True)
         if any(os.path.exists(os.path.join(args.hf, f))
                for f in _TOKENIZER_FILES):
             tokenizer_dir = args.hf
@@ -842,9 +900,14 @@ def _source_model(args, model, device: torch.device):
         model = convert.init_params(cfg, seed=0, device=device,
                                     weight_dtype=args.weight_dtype)
     else:
-        want = registry.model_config(args.model, args.max_total_len)
-        widths = dataclasses.replace(model.config, kv_dtype=want.kv_dtype,
-                                     kv_total_pages=want.kv_total_pages)
+        # A model cut in depth (fewer layers of --model's widths) is
+        # served as given: configurations too deep for one card run so.
+        want = dataclasses.replace(
+            registry.model_config(args.model, args.max_total_len),
+            num_layers=model.config.num_layers)
+        widths = dataclasses.replace(model.config,
+                                     **_pool_fields(want, kv_dtype_of(want),
+                                                    want.kv_total_pages))
         if widths != want or model.device != device or \
                 model.weight_dtype != args.weight_dtype:
             raise ValueError(f'the given model does not match --model '
@@ -879,7 +942,8 @@ def build_runtime(args, model=None,
     the one-shot mode, then tracing (--trace-sample / --trace-seed) and
     the SLO tracker (--slo).
     `model`'s weight tensors are shared when given (two runtimes that
-    differ only in their KV pool need one copy of the weights).
+    differ only in their KV pool need one copy of the weights); it must
+    have --model's widths, and may have fewer layers.
     `cuda_graphs=False` runs the decode rounds eagerly on the card
     (serve_lm never sets it; the chip_smoke.py and profile_decode.py
     A/Bs do)."""
@@ -900,6 +964,9 @@ def build_runtime(args, model=None,
         faults.install_plan(args.fault_plan)
         print(f'serve_lm: FAULT PLAN ARMED ({sorted(faults.stats())}) — '
               f'chaos mode', flush=True)
+    refusal = family_refusal(args, source_config_type(args))
+    if refusal:
+        raise SystemExit(refusal)
     device = resolve_device(cpu=args.cpu)
     model, tokenizer_dir = _source_model(args, model, device)
     if args.weight_dtype == 'int8':
@@ -911,8 +978,7 @@ def build_runtime(args, model=None,
     pages = (quant.pool_pages_for_bytes(cfg, args.kv_dtype,
                                         args.kv_pool_bytes)
              if args.kv_pool_bytes else cfg.kv_total_pages)
-    cfg = dataclasses.replace(cfg, kv_dtype=args.kv_dtype,
-                              kv_total_pages=pages)
+    cfg = dataclasses.replace(cfg, **_pool_fields(cfg, args.kv_dtype, pages))
     # Serving never takes gradients, f32 masters included.
     model = convert.assemble(cfg, model.state_dict()).requires_grad_(False)
     print(f'kv cache: dtype={args.kv_dtype} pages={pages} '

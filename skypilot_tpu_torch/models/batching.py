@@ -78,7 +78,8 @@ from skypilot_tpu_torch.errors import (AdapterNotFoundError,
 from skypilot_tpu_torch.inference import affinity, kv_transfer, quant
 from skypilot_tpu_torch.models import decode_graph
 from skypilot_tpu_torch.models import lora as lora_lib
-from skypilot_tpu_torch.models.llama import PagedKVCache
+from skypilot_tpu_torch.models.llama import (PagedKVCache, kv_dtype_of,
+                                             kv_heads, wire_kv_heads)
 from skypilot_tpu_torch.observability import catalog as _obs
 from skypilot_tpu_torch.observability import flight as flight_lib
 from skypilot_tpu_torch.observability import tracing
@@ -239,8 +240,9 @@ class PrefixCache:
 
 
 class ContinuousBatchingEngine:
-    """Slot engine over a port `Llama` (which owns its weights; the
-    pool is allocated on the model's device)."""
+    """Slot engine over a port model (`Llama`, `GPT` or `Mixtral`,
+    which owns its weights; the pool is allocated on the model's
+    device, [kv heads, pages, page size, head dim] a layer)."""
 
     #: Engine ids of this process: each engine's metric label.
     _instance_ids = itertools.count()
@@ -334,7 +336,8 @@ class ContinuousBatchingEngine:
                 f'{cfg.kv_page_size} cannot hold one max_total_len='
                 f'{max_total_len} sequence (+{self._write_lookahead} '
                 f'chunk-write headroom; usable {usable} tokens; page 0 is '
-                f'reserved)')
+                f'reserved); the reference\'s dense slot fallback for such '
+                f'a pool is not ported yet (ROADMAP A15)')
         self.model = model
         self.device = model.device
         # Multi-LoRA serving (inference/adapters.py): each slot may carry
@@ -347,7 +350,7 @@ class ContinuousBatchingEngine:
         self.prefill_chunk = prefill_chunk
         self.prefill_budget = ((prefill_budget or prefill_chunk)
                                if prefill_chunk else 0)
-        self.kv_dtype = cfg.kv_dtype
+        self.kv_dtype = kv_dtype_of(cfg)
         self.page_size = cfg.kv_page_size
         self.total_pages = cfg.kv_total_pages
         self.pages_per_seq = -(-(max_total_len + self._write_lookahead)
@@ -628,7 +631,7 @@ class ContinuousBatchingEngine:
         quantized = self.kv_dtype == 'int8'
         return paged_kernel.bytes_per_token_model(
             num_layers=cfg.num_layers,
-            num_kv_heads=cfg.num_kv_heads,
+            num_kv_heads=kv_heads(cfg),
             num_q_heads=cfg.num_heads,
             head_dim=cfg.head_dim,
             page_size=self.page_size,
@@ -734,8 +737,10 @@ class ContinuousBatchingEngine:
     def _cache_leaves(self) -> List:
         """(path, pool tensor) for every cache leaf, under the
         reference's keystr paths (`['layer_{i}']['attn']['k_pages']`,
-        and k_scales / v_scales for int8), so chains cross frameworks."""
-        return [(f"['layer_{i}']['attn']['{name}']", t)
+        GPT's `['h_{i}']...`, and k_scales / v_scales for int8), so
+        chains cross frameworks."""
+        prefix = self.model.CACHE_PREFIX
+        return [(f"['{prefix}{i}']['attn']['{name}']", t)
                 for i, layer in enumerate(self.cache.layers)
                 for name, t in layer.items()]
 
@@ -813,7 +818,7 @@ class ContinuousBatchingEngine:
         cfg = self.model.config
         return {'kind': 'kv_chain', 'kv_dtype': self.kv_dtype,
                 'page_size': self.page_size,
-                'num_kv_heads': int(cfg.num_kv_heads),
+                'num_kv_heads': wire_kv_heads(cfg),
                 'head_dim': int(cfg.head_dim),
                 'num_layers': int(cfg.num_layers),
                 'keys': [k.hex() for k in keys], 'salt': salt.hex()}
@@ -884,7 +889,7 @@ class ContinuousBatchingEngine:
                     f'page_size mismatch: chain is '
                     f'{meta.get("page_size")}, pool is {self.page_size}')
             cfg = self.model.config
-            for field, want in (('num_kv_heads', cfg.num_kv_heads),
+            for field, want in (('num_kv_heads', wire_kv_heads(cfg)),
                                 ('head_dim', cfg.head_dim),
                                 ('num_layers', cfg.num_layers)):
                 got = meta.get(field)

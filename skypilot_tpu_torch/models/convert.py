@@ -1,5 +1,6 @@
-"""Weights for the port's `Llama`: from a Flax param tree, or a seeded
-init on the device.
+"""Weights for the port's models (`Llama`, `GPT`, `Mixtral`): from a
+Flax param tree, or a seeded init on the device. Each function takes any
+family's config and dispatches on its type (`model_class`).
 
 `params_from_jax` maps the tree that the reference's
 `model.init(...)['params']` gives (every leaf as a float32 numpy array;
@@ -13,7 +14,16 @@ reference's names. `cast_to_layout` stores a {name: tensor} state of
 any source dtype (an HF import, a `train_lm` checkpoint) as a config's
 layout says. `init_params` is the seeded init the card uses:
 normal(0, 0.02) for Dense kernels, the embedding and the head, ones for
-norms, zeros for biases. Nothing is downloaded.
+norms, zeros for biases (GPT's `wpe` normal(0, 0.01), as the
+reference's). Nothing is downloaded.
+
+Trees of the other families: GPT's `wte`, `wpe`, `h_i/{ln_1, attn/c_attn,
+attn/c_proj, ln_2, mlp/c_fc, mlp/c_proj}` and `ln_f` (LayerNorms with
+`scale` and `bias`, Dense kernels [in, out] with biases); Mixtral's
+`tok_embed`, `layer_i/{attn_norm, attn/{wq,wk,wv,wo}, moe_norm,
+moe/{router, w_gate, w_up, w_down}}`, `final_norm` and `lm_head`
+(the router a bias-free [embed, E] kernel, the expert stacks kept in the
+reference's [E, in, out] layout). Neither family has int8 projections.
 
 int8 projection weights (`weight_dtype='int8'`): `params_from_jax` takes
 a tree the reference's `quantize_params` wrote (`kernel_q` /
@@ -32,7 +42,9 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.inference import quant
+from skypilot_tpu_torch.models.gpt import GPT, GPTConfig
 from skypilot_tpu_torch.models.llama import DENSE_CLASSES, Llama, LlamaConfig
+from skypilot_tpu_torch.models.mixtral import Mixtral, MixtralConfig
 
 _DENSE = {'attn': ('wq', 'wk', 'wv', 'wo'),
           'mlp': ('w_gate', 'w_up', 'w_down')}
@@ -45,13 +57,25 @@ def weight_dtype_of(state: Mapping[str, torch.Tensor]) -> str:
             else 'bf16')
 
 
-def assemble(cfg: LlamaConfig, state: Mapping[str, torch.Tensor]) -> Llama:
-    """A `Llama` whose weights ARE the given tensors (no copy): the
-    module is built on the meta device and the tensors assigned,
+_MODEL_CLASSES = {LlamaConfig: Llama, GPTConfig: GPT,
+                  MixtralConfig: Mixtral}
+
+
+def model_class(cfg):
+    """The port's model class of a config (`Llama`, `GPT`, `Mixtral`)."""
+    try:
+        return _MODEL_CLASSES[type(cfg)]
+    except KeyError:
+        raise TypeError(f'no port model for {type(cfg).__name__}') from None
+
+
+def assemble(cfg, state: Mapping[str, torch.Tensor]):
+    """The config's model whose weights ARE the given tensors (no copy):
+    the module is built on the meta device and the tensors assigned,
     parameters and (int8 projections) buffers, under strict=True. Also
     how two configs that differ only in their KV pool share weights."""
     with torch.device('meta'):
-        model = Llama(cfg, weight_dtype=weight_dtype_of(state))
+        model = model_class(cfg)(cfg, weight_dtype=weight_dtype_of(state))
     model.load_state_dict(dict(state), strict=True, assign=True)
     return model
 
@@ -90,19 +114,25 @@ def _head(w: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     return w.to(cfg.dtype).float()
 
 
-def cast_to_layout(cfg: LlamaConfig, state: Mapping[str, torch.Tensor],
+#: Tensors every layout stores in f32: norm scales, GPT's LayerNorm
+#: biases and Mixtral's router (an f32 Dense in the reference).
+_F32_SUFFIXES = ('.scale', 'ln_1.bias', 'ln_2.bias', 'ln_f.bias', '.router')
+
+
+def cast_to_layout(cfg, state: Mapping[str, torch.Tensor],
                    device: Optional[torch.device] = None
                    ) -> Dict[str, torch.Tensor]:
     """`state` ({port parameter name: tensor}, any float dtype) stored
-    as `cfg.param_dtype` says: norm scales in f32; with param_dtype
-    None (serving) the rest in `dtype` and the head in f32 holding
-    `dtype`-rounded values, else every tensor an f32 master."""
+    as `cfg.param_dtype` says: norm scales (and the other
+    `_F32_SUFFIXES`) in f32; with param_dtype None (serving) the rest in
+    `dtype` and an untied head in f32 holding `dtype`-rounded values,
+    else every tensor an f32 master."""
     out: Dict[str, torch.Tensor] = {}
     for name, t in state.items():
         t = t.to(device) if device is not None else t
         if name.endswith(('.weight_q', '.weight_scale')):
             out[name] = t              # int8 projections keep their dtypes
-        elif name.endswith('.scale') or cfg.trainable:
+        elif name.endswith(_F32_SUFFIXES) or cfg.trainable:
             out[name] = t.float()
         elif name == 'lm_head':
             out[name] = _head(t, cfg)
@@ -111,15 +141,9 @@ def cast_to_layout(cfg: LlamaConfig, state: Mapping[str, torch.Tensor],
     return out
 
 
-def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig,
-                    device: Optional[torch.device] = None,
-                    weight_dtype: Optional[str] = None) -> Llama:
-    """Port `Llama` with the weights of a reference param tree, stored
-    as `cfg.param_dtype` says (None: serving's layout). A tree of the
-    reference's `quantize_params` gives int8 projections as they are;
-    `weight_dtype='int8'` quantizes an f32 tree's kernels (default: the
-    tree's own storage)."""
-    trainable = cfg.trainable
+def _flatten(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """{'a/b/c': numpy leaf} of a nested param tree; int8 leaves keep
+    their dtype, every other leaf becomes float32."""
     flat: Dict[str, np.ndarray] = {}
 
     def walk(node, prefix):
@@ -133,6 +157,83 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig,
                 flat[path] = np.asarray(val, np.float32)
 
     walk(tree, '')
+    return flat
+
+
+def _taker(flat: Dict[str, np.ndarray], device):
+    def take(path: str) -> torch.Tensor:
+        if path not in flat:
+            raise KeyError(f'param tree has no leaf {path!r}')
+        return torch.tensor(flat.pop(path), device=device)
+    return take
+
+
+#: GPT's dense layers: (group, name) under each `h_i`.
+_GPT_DENSE = (('attn', 'c_attn'), ('attn', 'c_proj'), ('mlp', 'c_fc'),
+              ('mlp', 'c_proj'))
+_GPT_NORMS = ('ln_1', 'ln_2')
+_MOE_STACKS = ('w_gate', 'w_up', 'w_down')
+
+
+def _gpt_state(take, cfg: GPTConfig) -> Dict[str, torch.Tensor]:
+    """GPT's {port name: f32 tensor} from a reference tree (`take`)."""
+    state = {'wte': take('wte'), 'wpe': take('wpe'),
+             'ln_f.scale': take('ln_f/scale'), 'ln_f.bias': take('ln_f/bias')}
+    for i in range(cfg.num_layers):
+        src, dst = f'h_{i}', f'h.{i}'
+        for norm in _GPT_NORMS:
+            for leaf in ('scale', 'bias'):
+                state[f'{dst}.{norm}.{leaf}'] = take(f'{src}/{norm}/{leaf}')
+        for group, name in _GPT_DENSE:
+            leaf = f'{src}/{group}/{name}'
+            state[f'{dst}.{group}.{name}.weight'] = \
+                take(f'{leaf}/kernel').T.contiguous()
+            state[f'{dst}.{group}.{name}.bias'] = take(f'{leaf}/bias')
+    return state
+
+
+def _mixtral_state(take, cfg: MixtralConfig) -> Dict[str, torch.Tensor]:
+    """Mixtral's {port name: f32 tensor} from a reference tree."""
+    state = {'tok_embed': take('tok_embed'),
+             'lm_head': take('lm_head').T.contiguous(),
+             'final_norm.scale': take('final_norm/scale')}
+    for i in range(cfg.num_layers):
+        src, dst = f'layer_{i}', f'layers.{i}'
+        for norm in ('attn_norm', 'moe_norm'):
+            state[f'{dst}.{norm}.scale'] = take(f'{src}/{norm}/scale')
+        for name in _DENSE['attn']:
+            state[f'{dst}.attn.{name}.weight'] = \
+                take(f'{src}/attn/{name}/kernel').T.contiguous()
+        state[f'{dst}.moe.router'] = \
+            take(f'{src}/moe/router/kernel').T.contiguous()
+        for name in _MOE_STACKS:
+            state[f'{dst}.moe.{name}'] = take(f'{src}/moe/{name}')
+    return state
+
+
+def params_from_jax(tree: Mapping[str, Any], cfg,
+                    device: Optional[torch.device] = None,
+                    weight_dtype: Optional[str] = None):
+    """The config's port model with the weights of a reference param
+    tree, stored as `cfg.param_dtype` says (None: serving's layout). A
+    Llama tree of the reference's `quantize_params` gives int8
+    projections as they are; `weight_dtype='int8'` quantizes an f32
+    Llama tree's kernels (default: the tree's own storage). Raises on
+    any leaf it did not consume."""
+    flat = _flatten(tree)
+    if not isinstance(cfg, LlamaConfig):
+        if weight_dtype not in (None, 'bf16'):
+            raise ValueError(f'weight_dtype {weight_dtype!r}: '
+                             f'{type(cfg).__name__} has no int8 '
+                             f'projections')
+        take = _taker(flat, device)
+        state = (_gpt_state(take, cfg) if isinstance(cfg, GPTConfig)
+                 else _mixtral_state(take, cfg))
+        if flat:
+            raise ValueError(f'param tree leaves not consumed: '
+                             f'{sorted(flat)}')
+        return assemble(cfg, cast_to_layout(cfg, state))
+    trainable = cfg.trainable
     quantized = any(p.endswith('/' + quant.QUANT_KEY) for p in flat)
     if weight_dtype is None:
         weight_dtype = 'int8' if quantized else 'bf16'
@@ -141,10 +242,7 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig,
         raise ValueError(f'weight_dtype {weight_dtype!r} for a '
                          f'{"quantized" if quantized else "dense"} tree')
 
-    def take(path: str) -> torch.Tensor:
-        if path not in flat:
-            raise KeyError(f'param tree has no leaf {path!r}')
-        return torch.tensor(flat.pop(path), device=device)
+    take = _taker(flat, device)
 
     def store(t: torch.Tensor) -> torch.Tensor:
         return t if trainable else t.to(cfg.dtype)
@@ -180,41 +278,83 @@ def params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig,
     return assemble(cfg, state)
 
 
-def train_params_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig,
-                          device: Optional[torch.device] = None) -> Llama:
-    """Port `Llama` in training's layout (every leaf an f32 master,
-    trainable) with the weights of a reference param tree; raises on a
-    stray leaf."""
+def train_params_from_jax(tree: Mapping[str, Any], cfg,
+                          device: Optional[torch.device] = None):
+    """The config's port model in training's layout (every leaf an f32
+    master, trainable) with the weights of a reference param tree;
+    raises on a stray leaf."""
     return params_from_jax(
         tree, dataclasses.replace(cfg, param_dtype=torch.float32), device)
 
 
-def train_params_to_jax(model: Llama) -> Dict[str, Any]:
-    """The reference's param tree (float32 numpy leaves, Dense kernels
-    [in, out], `lm_head` [embed, vocab]) of a port `Llama`: the inverse
-    of `train_params_from_jax`."""
-    cfg = model.config
+def _np32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
 
-    def np32(t: torch.Tensor) -> np.ndarray:
-        return t.detach().float().cpu().numpy()
 
+def _gpt_tree(model: GPT) -> Dict[str, Any]:
     tree: Dict[str, Any] = {
-        'tok_embed': np32(model.tok_embed),
-        'lm_head': np32(model.lm_head).T.copy(),
-        'final_norm': {'scale': np32(model.final_norm.scale)},
+        'wte': _np32(model.wte), 'wpe': _np32(model.wpe),
+        'ln_f': {'scale': _np32(model.ln_f.scale),
+                 'bias': _np32(model.ln_f.bias)}}
+    for i, block in enumerate(model.h):
+        layer: Dict[str, Any] = {
+            norm: {'scale': _np32(getattr(block, norm).scale),
+                   'bias': _np32(getattr(block, norm).bias)}
+            for norm in _GPT_NORMS}
+        for group, name in _GPT_DENSE:
+            dense = getattr(getattr(block, group), name)
+            layer.setdefault(group, {})[name] = {
+                'kernel': _np32(dense.weight).T.copy(),
+                'bias': _np32(dense.bias)}
+        tree[f'h_{i}'] = layer
+    return tree
+
+
+def _mixtral_tree(model: Mixtral) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {
+        'tok_embed': _np32(model.tok_embed),
+        'lm_head': _np32(model.lm_head).T.copy(),
+        'final_norm': {'scale': _np32(model.final_norm.scale)}}
+    for i, block in enumerate(model.layers):
+        moe = block.moe
+        tree[f'layer_{i}'] = {
+            'attn_norm': {'scale': _np32(block.attn_norm.scale)},
+            'moe_norm': {'scale': _np32(block.moe_norm.scale)},
+            'attn': {name: {'kernel': _np32(getattr(block.attn, name)
+                                            .weight).T.copy()}
+                     for name in _DENSE['attn']},
+            'moe': {'router': {'kernel': _np32(moe.router).T.copy()},
+                    **{name: _np32(getattr(moe, name))
+                       for name in _MOE_STACKS}}}
+    return tree
+
+
+def train_params_to_jax(model) -> Dict[str, Any]:
+    """The reference's param tree (float32 numpy leaves, Dense kernels
+    [in, out], `lm_head` [embed, vocab]) of a port model: the inverse
+    of `train_params_from_jax`."""
+    if isinstance(model, GPT):
+        return _gpt_tree(model)
+    if isinstance(model, Mixtral):
+        return _mixtral_tree(model)
+    cfg = model.config
+    tree: Dict[str, Any] = {
+        'tok_embed': _np32(model.tok_embed),
+        'lm_head': _np32(model.lm_head).T.copy(),
+        'final_norm': {'scale': _np32(model.final_norm.scale)},
     }
     for i, block in enumerate(model.layers):
         layer: Dict[str, Any] = {
-            'attn_norm': {'scale': np32(block.attn_norm.scale)},
-            'mlp_norm': {'scale': np32(block.mlp_norm.scale)}}
+            'attn_norm': {'scale': _np32(block.attn_norm.scale)},
+            'mlp_norm': {'scale': _np32(block.mlp_norm.scale)}}
         for group, names in _DENSE.items():
             module = getattr(block, group)
             layer[group] = {}
             for name in names:
                 dense = getattr(module, name)
-                leaf = {'kernel': np32(dense.weight).T.copy()}
+                leaf = {'kernel': _np32(dense.weight).T.copy()}
                 if cfg.qkv_bias and name in _QKV:
-                    leaf['bias'] = np32(dense.bias)
+                    leaf['bias'] = _np32(dense.bias)
                 layer[group][name] = leaf
         tree[f'layer_{i}'] = layer
     return tree
@@ -272,36 +412,67 @@ def lora_from_jax(tree: Mapping[str, Any], scale: float = 1.0
     return {'scale': float(scale), 'layers': layers}
 
 
-def init_params(cfg: LlamaConfig, seed: int = 0,
+def init_params(cfg, seed: int = 0,
                 device: Optional[torch.device] = None,
-                weight_dtype: str = 'bf16') -> Llama:
-    """Seeded random weights, generated on `device` with one
-    torch.Generator (not the reference's numbers: jax.random and
-    torch generators differ), stored as `cfg.param_dtype` says. With
-    `weight_dtype='int8'` each projection is quantized from its f32
-    draw (the same draws as the bf16 model of this seed)."""
+                weight_dtype: str = 'bf16'):
+    """Seeded random weights of the config's model, generated on
+    `device` with one torch.Generator (not the reference's numbers:
+    jax.random and torch generators differ), stored as
+    `cfg.param_dtype` says. With `weight_dtype='int8'` (Llama only) each
+    projection is quantized from its f32 draw (the same draws as the
+    bf16 model of this seed)."""
     if weight_dtype not in DENSE_CLASSES:
         raise ValueError(f'unsupported weight_dtype {weight_dtype!r}')
+    if weight_dtype != 'bf16' and not isinstance(cfg, LlamaConfig):
+        raise ValueError(f'weight_dtype {weight_dtype!r}: '
+                         f'{type(cfg).__name__} has no int8 projections')
     gen = torch.Generator(device=device).manual_seed(seed)
     store_dtype = cfg.param_dtype or cfg.dtype
 
-    def normal(*shape):
+    def normal(*shape, std=0.02):
         w = torch.empty(shape, dtype=torch.float32, device=device)
-        return w.normal_(0.0, 0.02, generator=gen)
+        return w.normal_(0.0, std, generator=gen)
 
+    ones = lambda n: torch.ones(n, dtype=torch.float32, device=device)
+    zeros = lambda n: torch.zeros(n, dtype=torch.float32, device=device)
+    d = cfg.embed_dim
+    if isinstance(cfg, GPTConfig):
+        state: Dict[str, torch.Tensor] = {
+            'wte': normal(cfg.vocab_size, d),
+            'wpe': normal(cfg.block_size, d, std=0.01),
+            'ln_f.scale': ones(d), 'ln_f.bias': zeros(d)}
+        out_in = {'c_attn': (3 * d, d), 'c_fc': (4 * d, d)}
+        for i in range(cfg.num_layers):
+            for norm in _GPT_NORMS:
+                state[f'h.{i}.{norm}.scale'] = ones(d)
+                state[f'h.{i}.{norm}.bias'] = zeros(d)
+            for group, name in _GPT_DENSE:
+                shape = out_in.get(name, (d, 4 * d if group == 'mlp'
+                                          else d))
+                state[f'h.{i}.{group}.{name}.weight'] = normal(*shape)
+                state[f'h.{i}.{group}.{name}.bias'] = zeros(shape[0])
+        return assemble(cfg, cast_to_layout(cfg, state))
     hd = cfg.head_dim
-    d, f = cfg.embed_dim, cfg.mlp_dim
+    f = cfg.mlp_dim
     out_in = {'wq': (cfg.num_heads * hd, d), 'wk': (cfg.num_kv_heads * hd, d),
               'wv': (cfg.num_kv_heads * hd, d), 'wo': (d, cfg.num_heads * hd),
               'w_gate': (f, d), 'w_up': (f, d), 'w_down': (d, f)}
-    ones = lambda n: torch.ones(n, dtype=torch.float32, device=device)
-    state: Dict[str, torch.Tensor] = {
-        'tok_embed': normal(cfg.vocab_size, d).to(store_dtype)}
+    moe = isinstance(cfg, MixtralConfig)
+    state = {'tok_embed': normal(cfg.vocab_size, d).to(store_dtype)}
     for i in range(cfg.num_layers):
         dst = f'layers.{i}'
         state[f'{dst}.attn_norm.scale'] = ones(d)
-        state[f'{dst}.mlp_norm.scale'] = ones(d)
+        state[f'{dst}.{"moe" if moe else "mlp"}_norm.scale'] = ones(d)
         for group, names in _DENSE.items():
+            if moe and group == 'mlp':
+                e = cfg.num_experts
+                state[f'{dst}.moe.router'] = normal(e, d)
+                for name, shape in (('w_gate', (e, d, f)),
+                                    ('w_up', (e, d, f)),
+                                    ('w_down', (e, f, d))):
+                    state[f'{dst}.moe.{name}'] = \
+                        normal(*shape).to(store_dtype)
+                continue
             for name in names:
                 w = normal(*out_in[name])
                 if weight_dtype == 'int8':
@@ -309,7 +480,7 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
                 else:
                     state[f'{dst}.{group}.{name}.weight'] = w.to(store_dtype)
                 del w
-                if cfg.qkv_bias and name in _QKV:
+                if getattr(cfg, 'qkv_bias', False) and name in _QKV:
                     state[f'{dst}.{group}.{name}.bias'] = torch.zeros(
                         out_in[name][0], dtype=store_dtype, device=device)
     state['final_norm.scale'] = ones(d)

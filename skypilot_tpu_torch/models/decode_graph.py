@@ -16,7 +16,7 @@ skypilot_tpu/models/batching.py:980-1007, and of its `--decode-chunk`
 
 `step` is the round: its prologue takes each lane's token and position
 from the previous step (`cont` lanes: the token it sampled, at position
-+1) or from the host, it runs `Llama.hidden` in decode mode over the
++1) or from the host, it runs the model's `hidden` in decode mode over the
 paged pool, selects the next tokens (greedy, sampled, or sampled with
 the top-k / top-p filter), and its epilogue writes them into `out`,
 feeds them back (token, position, cont = 1) and advances the step

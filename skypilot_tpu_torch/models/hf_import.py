@@ -1,13 +1,19 @@
 """HuggingFace checkpoint import: a local HF model directory -> the
-port's `Llama` (port of skypilot_tpu/models/hf_import.py).
+port's `Llama`, `GPT` or `Mixtral` (port of
+skypilot_tpu/models/hf_import.py).
 
 Reads `config.json` and the weights (`model.safetensors`, shards listed
 in `model.safetensors.index.json`, or `pytorch_model.bin` through
 `torch.load(weights_only=True)`) and maps HF's tensor names onto the
 port's modules for the model types `llama`, `mistral` and `qwen2`
 (the Llama backbone; Qwen2 adds q/k/v biases, usually with tied
-embeddings). `mixtral`, `gpt2` and `deepseek_v2` wait for their model
-families (ROADMAP A12). Nothing is downloaded.
+embeddings), `mixtral` (the same backbone with a routed MoE: each
+expert's w1 / w3 / w2 stacked into [E, in, out], and capacity_factor
+E / K by default, so no routed token is dropped, as the reference
+imports it) and `gpt2` (HF's Conv1D weights are [in, out], transposed
+to the port's [out, in]; `wpe` cut to the block size, which may not
+exceed n_positions). `deepseek_v2` waits for its model family (ROADMAP
+A12). Nothing is downloaded.
 
 Safetensors files are read by this module's own reader
 (`read_safetensors`: an 8-byte little-endian header length, a JSON
@@ -35,17 +41,23 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.models import convert
-from skypilot_tpu_torch.models.llama import (DENSE_CLASSES, Llama, LlamaConfig,
+from skypilot_tpu_torch.models.gpt import GPTConfig
+from skypilot_tpu_torch.models.llama import (DENSE_CLASSES, LlamaConfig,
                                              RopeScaling)
+from skypilot_tpu_torch.models.mixtral import MixtralConfig
 
 
 class HfImportError(Exception):
     """Unsupported or malformed HF checkpoint."""
 
 
-#: model types the port imports, and those that wait for their family.
-SUPPORTED_MODEL_TYPES = ('llama', 'mistral', 'qwen2')
-DEFERRED_MODEL_TYPES = ('deepseek_v2', 'gpt2', 'mixtral')
+#: model types the port imports (and the config class of each), and
+#: those that wait for their family.
+_CONFIG_TYPES = {'llama': LlamaConfig, 'mistral': LlamaConfig,
+                 'qwen2': LlamaConfig, 'mixtral': MixtralConfig,
+                 'gpt2': GPTConfig}
+SUPPORTED_MODEL_TYPES = tuple(_CONFIG_TYPES)
+DEFERRED_MODEL_TYPES = ('deepseek_v2',)
 
 _ST_DTYPES = {'BF16': (np.int16, torch.bfloat16),
               'F16': (np.float16, torch.float16),
@@ -198,11 +210,122 @@ def _convert_llama_like(cfg_json: Dict[str, Any],
     return LlamaConfig(**common), state
 
 
+def _convert_mixtral(cfg_json: Dict[str, Any], sd: Dict[str, torch.Tensor],
+                     max_seq_len: Optional[int], **config_overrides
+                     ) -> Tuple[MixtralConfig, Dict[str, torch.Tensor]]:
+    """(config, state) of a mixtral checkpoint: the Llama backbone's
+    attention and norms, `block_sparse_moe.gate` as the router, experts
+    w1 (gate), w3 (up) and w2 (down) transposed and stacked."""
+    n_exp = cfg_json['num_local_experts']
+    top_k = cfg_json['num_experts_per_tok']
+    common = dict(
+        vocab_size=cfg_json['vocab_size'],
+        max_seq_len=max_seq_len or cfg_json['max_position_embeddings'],
+        num_layers=cfg_json['num_hidden_layers'],
+        num_heads=cfg_json['num_attention_heads'],
+        num_kv_heads=cfg_json.get('num_key_value_heads',
+                                  cfg_json['num_attention_heads']),
+        embed_dim=cfg_json['hidden_size'],
+        mlp_dim=cfg_json['intermediate_size'],
+        rope_theta=float(cfg_json.get('rope_theta', 10000.0)),
+        rope_scaling=_parse_rope_scaling(cfg_json),
+        norm_eps=float(cfg_json.get('rms_norm_eps', 1e-5)),
+        num_experts=n_exp, experts_per_token=top_k,
+        # Capacity = seq: no routed token is dropped (the reference's
+        # inference default for imported checkpoints).
+        capacity_factor=float(n_exp) / float(top_k))
+    common.update(config_overrides)
+    state: Dict[str, torch.Tensor] = {
+        'tok_embed': sd['model.embed_tokens.weight'],
+        'final_norm.scale': sd['model.norm.weight'],
+        'lm_head': (sd['model.embed_tokens.weight']
+                    if cfg_json.get('tie_word_embeddings')
+                    else sd['lm_head.weight']),
+    }
+    attn = {'wq': 'q_proj', 'wk': 'k_proj', 'wv': 'v_proj', 'wo': 'o_proj'}
+    for i in range(common['num_layers']):
+        src, dst = f'model.layers.{i}.', f'layers.{i}.'
+        state[dst + 'attn_norm.scale'] = sd[src + 'input_layernorm.weight']
+        state[dst + 'moe_norm.scale'] = \
+            sd[src + 'post_attention_layernorm.weight']
+        for ours, theirs in attn.items():
+            state[f'{dst}attn.{ours}.weight'] = \
+                sd[f'{src}self_attn.{theirs}.weight']
+        moe = src + 'block_sparse_moe.'
+        state[dst + 'moe.router'] = sd[moe + 'gate.weight']
+        for ours, theirs in (('w_gate', 'w1'), ('w_up', 'w3'),
+                             ('w_down', 'w2')):
+            state[f'{dst}moe.{ours}'] = torch.stack([
+                sd[f'{moe}experts.{j}.{theirs}.weight'].T
+                for j in range(n_exp)])
+    return MixtralConfig(**common), state
+
+
+def _convert_gpt2(cfg_json: Dict[str, Any], sd: Dict[str, torch.Tensor],
+                  max_seq_len: Optional[int], **config_overrides
+                  ) -> Tuple[GPTConfig, Dict[str, torch.Tensor]]:
+    """(config, state) of a gpt2 checkpoint (tensor names with or
+    without the 'transformer.' prefix)."""
+    cfg = GPTConfig(
+        vocab_size=cfg_json['vocab_size'],
+        block_size=max_seq_len or cfg_json['n_positions'],
+        num_layers=cfg_json['n_layer'],
+        num_heads=cfg_json['n_head'],
+        embed_dim=cfg_json['n_embd'],
+        norm_eps=float(cfg_json.get('layer_norm_epsilon', 1e-5)),
+        **config_overrides)
+
+    def g(key: str) -> torch.Tensor:
+        val = sd.get('transformer.' + key, sd.get(key))
+        if val is None:
+            raise HfImportError(
+                f'checkpoint is missing tensor {key!r} (tried '
+                f'"transformer.{key}" and "{key}")')
+        return val
+
+    state: Dict[str, torch.Tensor] = {
+        'wte': g('wte.weight'), 'wpe': g('wpe.weight')[:cfg.block_size],
+        'ln_f.scale': g('ln_f.weight'), 'ln_f.bias': g('ln_f.bias')}
+    for i in range(cfg.num_layers):
+        src, dst = f'h.{i}.', f'h.{i}.'
+        for norm in ('ln_1', 'ln_2'):
+            state[f'{dst}{norm}.scale'] = g(f'{src}{norm}.weight')
+            state[f'{dst}{norm}.bias'] = g(f'{src}{norm}.bias')
+        for name in ('attn.c_attn', 'attn.c_proj', 'mlp.c_fc',
+                     'mlp.c_proj'):
+            # Conv1D stores [in, out]; the port's Dense is [out, in].
+            state[f'{dst}{name}.weight'] = \
+                g(f'{src}{name}.weight').T.contiguous()
+            state[f'{dst}{name}.bias'] = g(f'{src}{name}.bias')
+    return cfg, state
+
+
+_CONVERTERS = {LlamaConfig: _convert_llama_like,
+               MixtralConfig: _convert_mixtral, GPTConfig: _convert_gpt2}
+
+
+def config_type(model_dir: str) -> type:
+    """The port's config class for a checkpoint's model_type (reads
+    config.json only); raises HfImportError on a type not imported."""
+    model_type = read_config(model_dir).get('model_type')
+    if model_type in DEFERRED_MODEL_TYPES:
+        raise HfImportError(
+            f'model_type {model_type!r} is not ported yet: its model '
+            f'family waits for ROADMAP A12; this port imports '
+            f'{", ".join(SUPPORTED_MODEL_TYPES)}')
+    if model_type not in _CONFIG_TYPES:
+        raise HfImportError(
+            f'unsupported model_type {model_type!r}; supported: '
+            f'{", ".join(SUPPORTED_MODEL_TYPES)}')
+    return _CONFIG_TYPES[model_type]
+
+
 def load_hf_checkpoint(model_dir: str, *, max_seq_len: Optional[int] = None,
                        device: Optional[torch.device] = None,
                        weight_dtype: str = 'bf16',
-                       **config_overrides) -> Tuple[LlamaConfig, Llama]:
-    """(config, model) from a local HF model directory, the weights on
+                       **config_overrides) -> Tuple[Any, Any]:
+    """(config, model) from a local HF model directory (`Llama`, `GPT`
+    or `Mixtral` by its model_type), the weights on
     `device` stored as the config's layout says (serving's by default;
     `param_dtype=torch.float32` keeps f32 masters). `weight_dtype='int8'`
     quantizes each projection from the checkpoint's values upcast to
@@ -211,24 +334,22 @@ def load_hf_checkpoint(model_dir: str, *, max_seq_len: Optional[int] = None,
 
     `max_seq_len` overrides the checkpoint's max_position_embeddings
     (serve_lm passes its --max-total-len). `config_overrides` go into
-    the LlamaConfig (e.g. `dtype=torch.float32` for CPU parity runs,
-    `kv_dtype`, `kv_total_pages`)."""
+    the config (e.g. `dtype=torch.float32` for CPU parity runs,
+    `kv_dtype`, `kv_total_pages`, Mixtral's `capacity_factor`)."""
     if weight_dtype not in DENSE_CLASSES:
         raise ValueError(f'unsupported weight_dtype {weight_dtype!r}')
+    cfg_type = config_type(model_dir)
     cfg_json = read_config(model_dir)
-    model_type = cfg_json.get('model_type')
-    if model_type in DEFERRED_MODEL_TYPES:
-        raise HfImportError(
-            f'model_type {model_type!r} is not ported yet: its model '
-            f'family waits for ROADMAP A12; this port imports '
-            f'{", ".join(SUPPORTED_MODEL_TYPES)}')
-    if model_type not in SUPPORTED_MODEL_TYPES:
-        raise HfImportError(
-            f'unsupported model_type {model_type!r}; supported: '
-            f'{", ".join(SUPPORTED_MODEL_TYPES)}')
-    trained_ctx = cfg_json.get('max_position_embeddings')
+    trained_ctx = (cfg_json.get('n_positions')
+                   or cfg_json.get('max_position_embeddings'))
     if max_seq_len is not None and trained_ctx and \
             max_seq_len > trained_ctx:
+        if cfg_type is GPTConfig:
+            raise HfImportError(
+                f'max_seq_len={max_seq_len} exceeds the checkpoint\'s '
+                f'trained context (n_positions={trained_ctx}) — GPT-2\'s '
+                f'absolute position embeddings cannot extrapolate. '
+                f'Serve with --max-total-len <= {trained_ctx}.')
         warnings.warn(
             f'max_seq_len={max_seq_len} exceeds the checkpoint\'s '
             f'trained context ({trained_ctx}): rope positions beyond '
@@ -237,8 +358,8 @@ def load_hf_checkpoint(model_dir: str, *, max_seq_len: Optional[int] = None,
     # Refuse unsupported scalings before reading gigabytes of weights.
     _parse_rope_scaling(cfg_json)
     sd = load_state_dict(model_dir)
-    cfg, state = _convert_llama_like(cfg_json, sd, max_seq_len,
-                                     **config_overrides)
+    cfg, state = _CONVERTERS[cfg_type](cfg_json, sd, max_seq_len,
+                                       **config_overrides)
     _validate_against_init(cfg, state)
     del sd
     if weight_dtype == 'int8':
@@ -247,13 +368,13 @@ def load_hf_checkpoint(model_dir: str, *, max_seq_len: Optional[int] = None,
                                                              device))
 
 
-def _validate_against_init(cfg: LlamaConfig,
-                           state: Dict[str, torch.Tensor]) -> None:
+def _validate_against_init(cfg, state: Dict[str, torch.Tensor]) -> None:
     """The converted state must have exactly the model's parameter
     names and shapes: mapping drift fails loudly here, not at run
     time."""
     with torch.device('meta'):
-        ref = {k: tuple(v.shape) for k, v in Llama(cfg).state_dict().items()}
+        ref = {k: tuple(v.shape) for k, v in
+               convert.model_class(cfg)(cfg).state_dict().items()}
     got = {k: tuple(v.shape) for k, v in state.items()}
     missing = sorted(set(ref) - set(got))
     extra = sorted(set(got) - set(ref))

@@ -163,19 +163,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return out.to(x.dtype)
 
 
+def kv_heads(config) -> int:
+    """KV heads of a config's pools: `num_kv_heads`, or `num_heads` for
+    a multi-head family whose config has no such field (GPT)."""
+    return int(getattr(config, 'num_kv_heads', 0) or config.num_heads)
+
+
+def wire_kv_heads(config) -> int:
+    """`num_kv_heads` as a KV chain's header carries it: 0 for a config
+    without the field, as the reference writes it
+    (`int(getattr(cfg, 'num_kv_heads', 0) or 0)`), so a GPT chain has
+    the same bytes in both packages."""
+    return int(getattr(config, 'num_kv_heads', 0) or 0)
+
+
+def kv_dtype_of(config) -> str:
+    """A config's KV page storage: its `kv_dtype`, or 'bf16' for a
+    family whose config has no such field (GPT, Mixtral)."""
+    return getattr(config, 'kv_dtype', 'bf16')
+
+
 class PagedKVCache:
     """Per-layer page pools [Hkv, pages, page_size, D] (plus f32
     [pages, page_size] scale arrays for int8), preallocated on one
-    device and updated in place by the model."""
+    device and updated in place by the model. Any family's config:
+    `kv_heads` and `kv_dtype_of` read the fields it has."""
 
-    def __init__(self, config: LlamaConfig,
-                 device: Optional[torch.device] = None) -> None:
-        if config.kv_dtype not in ('bf16', 'int8'):
-            raise ValueError(f'unsupported kv_dtype {config.kv_dtype!r} '
+    def __init__(self, config, device: Optional[torch.device] = None
+                 ) -> None:
+        kv_dtype = kv_dtype_of(config)
+        if kv_dtype not in ('bf16', 'int8'):
+            raise ValueError(f'unsupported kv_dtype {kv_dtype!r} '
                              f"(choices: 'bf16', 'int8')")
-        self.quantized = config.kv_dtype == 'int8'
+        self.quantized = kv_dtype == 'int8'
         dtype = torch.int8 if self.quantized else config.dtype
-        shape = (config.num_kv_heads, config.kv_total_pages,
+        shape = (kv_heads(config), config.kv_total_pages,
                  config.kv_page_size, config.head_dim)
         sshape = (config.kv_total_pages, config.kv_page_size)
         self.layers: List[dict] = []
@@ -206,9 +228,9 @@ class DenseKVCache:
     `cached_key` / `cached_value` [batch, max_seq_len, Hkv, D] in the
     compute dtype, zeroed (the reference's `cached_key` variables)."""
 
-    def __init__(self, config: LlamaConfig, batch: int,
+    def __init__(self, config, batch: int,
                  device: Optional[torch.device] = None) -> None:
-        shape = (batch, config.max_seq_len, config.num_kv_heads,
+        shape = (batch, config.max_seq_len, kv_heads(config),
                  config.head_dim)
         self.layers: List[dict] = [
             {'cached_key': torch.zeros(shape, dtype=config.dtype,
@@ -216,6 +238,64 @@ class DenseKVCache:
              'cached_value': torch.zeros(shape, dtype=config.dtype,
                                          device=device)}
             for _ in range(config.num_layers)]
+
+
+def cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    positions: torch.Tensor, kv: Optional[dict],
+                    page_indices: Optional[torch.Tensor], prefill: bool,
+                    attend_len: Optional[int], dtype: torch.dtype
+                    ) -> torch.Tensor:
+    """Causal attention of q [B, S, H, D] over this call's k / v
+    [B, S, Hkv, D] and the layer's cache `kv`, in the mode the cache
+    selects (module doc): none, dense, a paged chunk (S > 1) or one
+    paged decode token per row. K/V are written into the cache first.
+    Returns [B, S, H, D] in `dtype`. Every family's attention block
+    (Llama, GPT, Mixtral) ends here."""
+    seq = q.shape[1]
+    if kv is None:
+        return attention_ops.dot_product_attention(q, k, v, causal=True)
+    if 'cached_key' in kv:
+        if seq > 1:
+            out = attention_ops.chunked_cache_attention(
+                q, k, v, kv['cached_key'], kv['cached_value'], positions,
+                chunk_only=prefill)
+        else:
+            out = attention_ops.cached_decode_attention(
+                q, k, v, kv['cached_key'], kv['cached_value'],
+                positions[:, 0])
+        return out.to(dtype)
+    if seq > 1:
+        # A chunk of S tokens per row: write all of them, then either
+        # attend chunk-locally (the sequence starts empty; reads the
+        # chunk's own unquantized K/V) or the full paged history.
+        if 'k_scales' in kv:
+            paged_ops.write_kv_chunk_quant(
+                kv['k_pages'], kv['v_pages'], kv['k_scales'],
+                kv['v_scales'], k, v, positions, page_indices)
+        else:
+            paged_ops.write_kv_chunk(kv['k_pages'], kv['v_pages'], k, v,
+                                     positions, page_indices)
+        if prefill:
+            return attention_ops.dot_product_attention(q, k, v,
+                                                       causal=True)
+        return paged_ops.paged_chunk_attention(
+            q, kv['k_pages'], kv['v_pages'], positions, page_indices,
+            k_scales=kv.get('k_scales'), v_scales=kv.get('v_scales'),
+            attend_len=attend_len).to(dtype)
+    # One decode token per row, each at its own position.
+    if 'k_scales' in kv:
+        paged_ops.write_kv_quant(
+            kv['k_pages'], kv['v_pages'], kv['k_scales'], kv['v_scales'],
+            k[:, 0], v[:, 0], positions[:, 0], page_indices)
+    else:
+        paged_ops.write_kv(kv['k_pages'], kv['v_pages'], k[:, 0], v[:, 0],
+                           positions[:, 0], page_indices)
+    out = paged_ops.paged_decode_attention(
+        q[:, 0], kv['k_pages'], kv['v_pages'],
+        lengths=positions[:, 0] + 1, page_indices=page_indices,
+        k_scales=kv.get('k_scales'), v_scales=kv.get('v_scales'),
+        attend_len=attend_len)
+    return out[:, None].to(dtype)
 
 
 class RMSNorm(nn.Module):
@@ -337,54 +417,8 @@ class Attention(nn.Module):
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
 
-        if kv is None:
-            out = attention_ops.dot_product_attention(q, k, v, causal=True)
-        elif 'cached_key' in kv:
-            if seq > 1:
-                out = attention_ops.chunked_cache_attention(
-                    q, k, v, kv['cached_key'], kv['cached_value'],
-                    positions, chunk_only=prefill)
-            else:
-                out = attention_ops.cached_decode_attention(
-                    q, k, v, kv['cached_key'], kv['cached_value'],
-                    positions[:, 0])
-            out = out.to(cfg.dtype)
-        elif seq > 1:
-            # A chunk of S tokens per row: write all of them, then either
-            # attend chunk-locally (the sequence starts empty; reads the
-            # chunk's own unquantized K/V) or the full paged history.
-            if 'k_scales' in kv:
-                paged_ops.write_kv_chunk_quant(
-                    kv['k_pages'], kv['v_pages'], kv['k_scales'],
-                    kv['v_scales'], k, v, positions, page_indices)
-            else:
-                paged_ops.write_kv_chunk(kv['k_pages'], kv['v_pages'], k,
-                                         v, positions, page_indices)
-            if prefill:
-                out = attention_ops.dot_product_attention(q, k, v,
-                                                          causal=True)
-            else:
-                out = paged_ops.paged_chunk_attention(
-                    q, kv['k_pages'], kv['v_pages'], positions,
-                    page_indices, k_scales=kv.get('k_scales'),
-                    v_scales=kv.get('v_scales'),
-                    attend_len=attend_len).to(cfg.dtype)
-        else:
-            # One decode token per row, each at its own position.
-            if 'k_scales' in kv:
-                paged_ops.write_kv_quant(
-                    kv['k_pages'], kv['v_pages'], kv['k_scales'],
-                    kv['v_scales'], k[:, 0], v[:, 0], positions[:, 0],
-                    page_indices)
-            else:
-                paged_ops.write_kv(kv['k_pages'], kv['v_pages'], k[:, 0],
-                                   v[:, 0], positions[:, 0], page_indices)
-            out = paged_ops.paged_decode_attention(
-                q[:, 0], kv['k_pages'], kv['v_pages'],
-                lengths=positions[:, 0] + 1, page_indices=page_indices,
-                k_scales=kv.get('k_scales'), v_scales=kv.get('v_scales'),
-                attend_len=attend_len)
-            out = out[:, None].to(cfg.dtype)
+        out = cache_attention(q, k, v, positions, kv, page_indices, prefill,
+                              attend_len, cfg.dtype)
         out = out.reshape(batch, seq, cfg.num_heads * hd)
         return _lora('wo', self.wo(out), out, lora, adapter_ids, lora_scale)
 
@@ -446,6 +480,10 @@ class Llama(nn.Module):
     `weight_dtype` 'int8' makes the seven projections `Int8Dense`
     (serving only: int8 buffers take no gradient).
     """
+
+    #: Name of layer i's scope in the reference's cache tree (the KV
+    #: chain's leaf paths, `['layer_{i}']['attn']['k_pages']`).
+    CACHE_PREFIX = 'layer_'
 
     def __init__(self, config: LlamaConfig,
                  weight_dtype: str = 'bf16') -> None:

@@ -1,0 +1,324 @@
+"""Mixtral-family sparse-MoE decoder in PyTorch (port of
+skypilot_tpu/models/mixtral.py).
+
+The Llama backbone (the port's `llama.Attention` and `RMSNorm`, on
+`MixtralConfig.as_llama()`) with a top-k routed SwiGLU MoE in place of
+the MLP. `MoEFeedForward` is the reference's arithmetic, dtypes
+included:
+  - the router runs in f32 on x cast to f32; softmax, then the top-k
+    probabilities, renormalized. The top-k is a stable descending sort,
+    so equal probabilities pick the lower expert first, as
+    `jax.lax.top_k` does;
+  - capacity = max(int(capacity_factor * S * top_k / E), top_k), a
+    Python int from the CALL's (padded) S;
+  - each (token, k) assignment's slot in its expert's queue is the
+    count of earlier assignments to that expert over the [B, S * K]
+    flattening (token-major, k-minor); an assignment at or past
+    capacity is dropped, so its token gets nothing from that expert;
+  - dispatch and combine are dense einsums over [B, S, E, C]: the
+    expert inputs gathered in f32 and cast to `dtype`, the SwiGLU
+    experts in `dtype` on stacked [E, in, out] weights, the combine in
+    f32;
+  - the Switch load-balancing loss E * sum(assign_frac * prob_frac) / K.
+Nothing in it has a data-dependent shape or reads a device value on the
+host, so a decode round stays capturable in a CUDA graph. Dropping
+follows the padded chunk length: chunked prefill, speculative verify
+chunks and prefix hits give other tokens than whole-prompt prefill, in
+the reference as well; a decode round (S = 1, capacity 2 >= top_k)
+drops nothing.
+
+`forward` returns (logits, aux) in training (no cache), where aux is
+`router_aux_loss_weight * sum over layers / num_layers`, and with
+`return_hidden` (hidden, aux); with a cache (serving) it returns logits
+or hidden states alone. `hidden` and `logits` are the serving engines'
+interface, as `Llama`'s. Layouts (serving and training) are Llama's,
+with the router stored f32 in both (the reference's router is an f32
+Dense) and the expert stacks `[E, embed, mlp]` (`w_gate`, `w_up`) and
+`[E, mlp, embed]` (`w_down`) as the reference stores them. No LoRA and
+no int8 projections: the reference's Mixtral takes no `lora`, and its
+int8 weights are deferred here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple, Union
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+from torch.utils import checkpoint
+
+from skypilot_tpu_torch.models.llama import (Attention, DenseKVCache,
+                                             LlamaConfig, PagedKVCache,
+                                             RMSNorm, RopeScaling)
+from skypilot_tpu_torch.ops import fused_xent
+
+
+@dataclasses.dataclass(frozen=True)
+class MixtralConfig:
+    vocab_size: int = 32000
+    max_seq_len: int = 8192
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    embed_dim: int = 4096
+    mlp_dim: int = 14336
+    num_experts: int = 8
+    experts_per_token: int = 2
+    capacity_factor: float = 1.25
+    router_aux_loss_weight: float = 0.02
+    rope_theta: float = 1_000_000.0
+    rope_scaling: Optional[RopeScaling] = None
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    # LM-head logits precision; None = f32 (see llama.LlamaConfig).
+    logits_dtype: Optional[torch.dtype] = None
+    remat: bool = False
+    # Paged KV cache for serving (see llama.LlamaConfig).
+    kv_page_size: int = 16
+    kv_total_pages: int = 128
+    # Storage dtype of the parameters (see llama.LlamaConfig).
+    param_dtype: Optional[torch.dtype] = None
+
+    @property
+    def trainable(self) -> bool:
+        return self.param_dtype is not None
+
+    @classmethod
+    def mixtral_8x7b(cls, **kw) -> 'MixtralConfig':
+        return cls(**kw)
+
+    @classmethod
+    def tiny(cls, **kw) -> 'MixtralConfig':
+        return cls(vocab_size=512, max_seq_len=256, num_layers=2,
+                   num_heads=4, num_kv_heads=2, embed_dim=128, mlp_dim=256,
+                   num_experts=4, experts_per_token=2, **kw)
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    def as_llama(self) -> LlamaConfig:
+        return LlamaConfig(
+            vocab_size=self.vocab_size, max_seq_len=self.max_seq_len,
+            num_layers=self.num_layers, num_heads=self.num_heads,
+            num_kv_heads=self.num_kv_heads, embed_dim=self.embed_dim,
+            mlp_dim=self.mlp_dim, rope_theta=self.rope_theta,
+            rope_scaling=self.rope_scaling,
+            norm_eps=self.norm_eps, dtype=self.dtype, remat=self.remat,
+            kv_page_size=self.kv_page_size,
+            kv_total_pages=self.kv_total_pages,
+            param_dtype=self.param_dtype)
+
+
+class MoEFeedForward(nn.Module):
+    """Top-k routed SwiGLU experts through capacity-bounded dispatch
+    (module doc). Parameters: `router` [E, embed] f32 (an nn.Linear's
+    layout), `w_gate` / `w_up` [E, embed, mlp], `w_down` [E, mlp,
+    embed]."""
+
+    def __init__(self, config: MixtralConfig) -> None:
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        e, d, f = cfg.num_experts, cfg.embed_dim, cfg.mlp_dim
+        store = cfg.param_dtype or cfg.dtype
+
+        def param(*shape, dtype=store):
+            return nn.Parameter(torch.empty(shape, dtype=dtype),
+                                requires_grad=cfg.trainable)
+
+        self.router = param(e, d, dtype=torch.float32)
+        self.w_gate = param(e, d, f)
+        self.w_up = param(e, d, f)
+        self.w_down = param(e, f, d)
+
+    def route(self, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
+        """(dispatch, combine [B, S, E, C] f32, the one-hot picks
+        [B, S, K, E], the router probabilities [B, S, E]) of x
+        [B, S, embed]."""
+        cfg = self.config
+        batch, seq, _ = x.shape
+        num_exp, top_k = cfg.num_experts, cfg.experts_per_token
+        probs = torch.softmax(F.linear(x.float(), self.router), dim=-1)
+        top_w, top_idx = torch.sort(probs, dim=-1, descending=True,
+                                    stable=True)
+        top_w, top_idx = top_w[..., :top_k], top_idx[..., :top_k]
+        top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+        capacity = max(int(cfg.capacity_factor * seq * top_k / num_exp),
+                       top_k)
+        picks = (top_idx[..., None] == torch.arange(
+            num_exp, device=x.device)).float()                 # [B,S,K,E]
+        flat = picks.reshape(batch, seq * top_k, num_exp)
+        queue = (torch.cumsum(flat, dim=1) - flat).reshape(
+            batch, seq, top_k, num_exp)
+        kept = picks * (queue < capacity).float()
+        slot = (queue * picks).sum(dim=-1).long()              # [B,S,K]
+        slot_onehot = (slot[..., None] == torch.arange(
+            capacity, device=x.device)).float()                # [B,S,K,C]
+        dispatch = torch.einsum('bske,bskc->bsec', kept, slot_onehot)
+        combine = torch.einsum('bsk,bske,bskc->bsec', top_w, kept,
+                               slot_onehot)
+        return dispatch, combine, picks, probs
+
+    def forward(self, x: torch.Tensor, with_aux: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(out [B, S, embed] in `dtype`, the layer's aux loss or None)."""
+        cfg = self.config
+        dt = cfg.dtype
+        dispatch, combine, picks, probs = self.route(x)
+        expert_in = torch.einsum('bsec,bsd->ebcd', dispatch,
+                                 x.float()).to(dt)
+        h = F.silu(torch.einsum('ebcd,edf->ebcf', expert_in,
+                                self.w_gate.to(dt))) * \
+            torch.einsum('ebcd,edf->ebcf', expert_in, self.w_up.to(dt))
+        expert_out = torch.einsum('ebcf,efd->ebcd', h, self.w_down.to(dt))
+        out = torch.einsum('bsec,ebcd->bsd', combine,
+                           expert_out.float()).to(dt)
+        if not with_aux:
+            return out, None
+        assign_frac = picks.sum(dim=2).mean(dim=(0, 1))        # [E]
+        prob_frac = probs.mean(dim=(0, 1))                     # [E]
+        aux = (cfg.num_experts * (assign_frac * prob_frac).sum()
+               / cfg.experts_per_token)
+        return out, aux
+
+
+class Block(nn.Module):
+
+    def __init__(self, config: MixtralConfig) -> None:
+        super().__init__()
+        cfg = config
+        self.attn_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, cfg.dtype,
+                                 cfg.trainable)
+        self.attn = Attention(cfg.as_llama())
+        self.moe_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, cfg.dtype,
+                                cfg.trainable)
+        self.moe = MoEFeedForward(cfg)
+
+    def forward(self, x, positions, kv=None, page_indices=None,
+                prefill=False, attend_len=None, with_aux=False):
+        x = x + self.attn(self.attn_norm(x), positions, kv, page_indices,
+                          prefill, attend_len=attend_len)
+        out, aux = self.moe(self.moe_norm(x), with_aux)
+        return x + out, aux
+
+
+class Mixtral(nn.Module):
+    """Mixtral decoder (module doc). Parameters: `tok_embed` [vocab,
+    embed], `layers.i.{attn_norm, attn.{wq,wk,wv,wo}, moe_norm,
+    moe.{router,w_gate,w_up,w_down}}`, `final_norm`, `lm_head` [vocab,
+    embed] (f32 holding `dtype`-rounded values in serving's layout, as
+    Llama's)."""
+
+    #: Name of layer i's scope in the reference's cache tree.
+    CACHE_PREFIX = 'layer_'
+
+    def __init__(self, config: MixtralConfig,
+                 weight_dtype: str = 'bf16') -> None:
+        super().__init__()
+        if weight_dtype != 'bf16':
+            raise ValueError(f'unsupported weight_dtype {weight_dtype!r} '
+                             f'for Mixtral (int8 weights wait for '
+                             f'ROADMAP A14)')
+        cfg = config
+        self.config = cfg
+        self.weight_dtype = weight_dtype
+        self.tok_embed = nn.Parameter(
+            torch.empty(cfg.vocab_size, cfg.embed_dim,
+                        dtype=cfg.param_dtype or cfg.dtype),
+            requires_grad=cfg.trainable)
+        self.layers = nn.ModuleList(Block(cfg)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, cfg.dtype,
+                                  cfg.trainable)
+        self.lm_head = nn.Parameter(
+            torch.empty(cfg.vocab_size, cfg.embed_dim,
+                        dtype=torch.float32), requires_grad=cfg.trainable)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_embed.device
+
+    def hidden(self, tokens: torch.Tensor,
+               positions: Optional[torch.Tensor] = None,
+               cache: Optional[Union[PagedKVCache, DenseKVCache]] = None,
+               page_indices: Optional[torch.Tensor] = None,
+               prefill: bool = False, attend_len: Optional[int] = None,
+               with_aux: bool = False):
+        """Final-norm hidden states [B, S, embed] in `dtype` (the cache
+        modes and `attend_len` are Llama.hidden's); with `with_aux`,
+        (hidden, the layers' summed aux losses)."""
+        cfg = self.config
+        batch, seq = tokens.shape
+        if positions is None:
+            positions = torch.arange(seq, dtype=torch.int32,
+                                     device=tokens.device).expand(batch, seq)
+        if isinstance(cache, DenseKVCache):
+            if page_indices is not None:
+                raise ValueError('a dense cache takes no page_indices')
+        elif (cache is None) != (page_indices is None):
+            raise ValueError('pass the paged cache and page_indices '
+                             'together (or neither, for no-cache mode)')
+        x = self.tok_embed[tokens].to(cfg.dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
+        total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, block in enumerate(self.layers):
+            args = (x, positions,
+                    cache.layers[i] if cache is not None else None,
+                    page_indices, prefill, attend_len, with_aux)
+            x, aux = (checkpoint.checkpoint(block, *args,
+                                            use_reentrant=False)
+                      if remat else block(*args))
+            if with_aux:
+                total_aux = total_aux + aux
+        hidden = self.final_norm(x)
+        return (hidden, total_aux) if with_aux else hidden
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits of hidden states x [..., embed]: `dtype` operands,
+        an f32 result (rounded to `logits_dtype` when one is set)."""
+        cfg = self.config
+        if not cfg.trainable:
+            out = F.linear(x.float(), self.lm_head)
+        else:
+            dt = cfg.dtype
+            out = fused_xent.mm_f32(x.to(dt).reshape(-1, x.shape[-1]),
+                                    self.lm_head.to(dt).T)
+            out = out.reshape(*x.shape[:-1], -1)
+        if cfg.logits_dtype is not None:
+            out = out.to(cfg.logits_dtype).float()
+        return out
+
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[Union[PagedKVCache, DenseKVCache]] = None,
+                page_indices: Optional[torch.Tensor] = None,
+                prefill: bool = False, return_hidden: bool = False):
+        """Training (no cache): (logits, aux_loss), or with
+        `return_hidden` (hidden, aux_loss). Serving (a cache): logits,
+        or hidden states, alone."""
+        cfg = self.config
+        if cache is not None:
+            hidden = self.hidden(tokens, positions, cache, page_indices,
+                                 prefill)
+            return hidden if return_hidden else self.logits(hidden)
+        hidden, total_aux = self.hidden(tokens, positions, prefill=prefill,
+                                        with_aux=True)
+        aux_loss = cfg.router_aux_loss_weight * total_aux / cfg.num_layers
+        return (hidden if return_hidden else self.logits(hidden)), aux_loss
+
+
+def moe_next_token_loss(outputs, tokens: torch.Tensor) -> torch.Tensor:
+    """The trainer's loss for Mixtral: next-token CE plus the router
+    aux loss (outputs = (logits, aux_loss))."""
+    from skypilot_tpu_torch.parallel.train import next_token_loss
+    logits, aux_loss = outputs
+    return next_token_loss(logits, tokens) + aux_loss
+
+
+# The fused blockwise-xent path handles the (hidden, aux) output, so the
+# trainer keeps Mixtral on it.
+moe_next_token_loss.fused_ok = True

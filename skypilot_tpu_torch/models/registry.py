@@ -1,22 +1,32 @@
-"""Named model configurations (port of the Llama-family entries of
-skypilot_tpu/recipes/train_lm.py:37-98 `_build_model`)."""
+"""Named model configurations (port of skypilot_tpu/recipes/train_lm.py:37-98
+`_build_model`): the Llama family, GPT-2 and Mixtral."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
 
+from skypilot_tpu_torch.models.gpt import GPTConfig
 from skypilot_tpu_torch.models.llama import LlamaConfig
+from skypilot_tpu_torch.models.mixtral import MixtralConfig
 
-MODELS = ('llama3-8b', 'llama-tiny', 'qwen2-7b', 'qwen-tiny')
-#: The reference's train_lm names of the GPT, Mixtral and DeepSeek
-#: families, which wait for ROADMAP A12.
-OTHER_FAMILIES = ('gpt2-124m', 'tiny', 'mixtral-8x7b', 'mixtral-tiny',
-                  'deepseek-v2-lite', 'deepseek-tiny')
+MODELS = ('llama3-8b', 'llama-tiny', 'qwen2-7b', 'qwen-tiny',
+          'gpt2-124m', 'tiny', 'mixtral-8x7b', 'mixtral-tiny')
+#: The reference's train_lm names of the DeepSeek family, which waits
+#: for ROADMAP A12 (rest).
+OTHER_FAMILIES = ('deepseek-v2-lite', 'deepseek-tiny')
 
 
-def model_config(name: str, seq: int) -> LlamaConfig:
+def model_config(name: str, seq: int):
     """The config `serve_lm --model name --max-total-len seq` serves."""
+    if name == 'gpt2-124m':
+        return GPTConfig.gpt2_124m()
+    if name == 'tiny':
+        return GPTConfig.tiny()
+    if name == 'mixtral-8x7b':
+        return MixtralConfig.mixtral_8x7b()
+    if name == 'mixtral-tiny':
+        return MixtralConfig.tiny()
     if name == 'llama3-8b':
         return LlamaConfig.llama3_8b(max_seq_len=max(seq, 2048))
     if name == 'llama-tiny':
@@ -36,16 +46,16 @@ def model_config(name: str, seq: int) -> LlamaConfig:
                            max_seq_len=max(seq, 2048), qkv_bias=True)
     if name == 'qwen-tiny':
         return LlamaConfig.tiny(qkv_bias=True)
-    raise ValueError(f'unknown model {name!r} (this port serves: '
+    if name in OTHER_FAMILIES:
+        raise ValueError(f'model {name!r}: the DeepSeek family is not '
+                         f'ported yet (ROADMAP A12); this port runs: '
+                         f'{", ".join(MODELS)}')
+    raise ValueError(f'unknown model {name!r} (this port runs: '
                      f'{", ".join(MODELS)})')
 
 
-def train_config(name: str, seq: int, remat: bool = False) -> LlamaConfig:
+def train_config(name: str, seq: int, remat: bool = False):
     """The config `train_lm --model name --seq seq [--remat]` trains:
     the serving config's geometry with f32 master parameters."""
-    if name in OTHER_FAMILIES:
-        raise ValueError(f'model {name!r}: its family (GPT, Mixtral, '
-                         f'DeepSeek) is not ported yet (ROADMAP A12); this '
-                         f'port trains: {", ".join(MODELS)}')
     return dataclasses.replace(model_config(name, seq),
                                param_dtype=torch.float32, remat=remat)

@@ -11,7 +11,9 @@ MFU model: achieved = 6 * n_params * tokens/s (the dense-transformer
 train-FLOPs estimate, forward and backward) over the card's dense bf16
 peak, looked up from its name. `matmul_params` gives the N to pass: the
 token-embedding table is a lookup and does no matmul work, so it is left
-out (the LM head stays in). Unknown hardware (the CPU) reports
+out, as is GPT's position table `wpe` (GPT's tied `wte` is its LM
+head and stays in, as does every expert of a Mixtral layer: N counts
+all experts, not the routed ones). Unknown hardware (the CPU) reports
 mfu = null rather than a made-up number.
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ import time
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 # Parameters 6N leaves out: looked up by row, not multiplied.
-_LOOKUP_PARAMS = ('tok_embed',)
+_LOOKUP_PARAMS = ('tok_embed', 'wpe')
 
 
 def matmul_params(named_parameters: Iterable[Tuple[str, Any]]) -> int:

@@ -43,13 +43,16 @@ def pick_block(vocab_size: int) -> int:
 
 def find_lm_head(params: Mapping[str, Any]) -> Tuple[Any, bool]:
     """(weight, vocab_in_rows) of a model's LM head in its top-level
-    params. The port's Llama keeps an untied `lm_head` [V, H] (vocab in
-    rows, unlike the reference's [H, V]); the reference's tied GPT `wte`
-    waits for the GPT family (ROADMAP A12)."""
+    params. The port's Llama and Mixtral keep an untied `lm_head`
+    [V, H] (vocab in rows, unlike the reference's [H, V]); GPT ties its
+    head to the token embedding `wte` [V, H], vocab in rows in both
+    packages."""
     if 'lm_head' in params:
         return params['lm_head'], True
+    if 'wte' in params:
+        return params['wte'], True
     raise ValueError("no LM head found in params (expected top-level "
-                     "'lm_head')")
+                     "'lm_head' or tied 'wte')")
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

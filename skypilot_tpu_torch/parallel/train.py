@@ -223,10 +223,14 @@ def default_optimizer(learning_rate: float = 3e-4,
 class ShardedTrainer:
     """Train and eval steps for a port LM on one device.
 
-    The loss is the next-token CE. `fused_xent` (None = auto, which is
-    on: the port's Llama has a `return_hidden` forward) routes it
-    through the blockwise LM-head cross-entropy (ops/fused_xent.py);
-    False takes `next_token_loss` over the full logits.
+    The loss is `loss_fn(outputs, tokens)`, the next-token CE by default
+    (Mixtral's `moe_next_token_loss` adds its router aux loss).
+    `fused_xent` (None = auto: on when the loss is the CE or flagged
+    `fused_ok`; every port model has a `return_hidden` forward) routes
+    it through the blockwise LM-head cross-entropy (ops/fused_xent.py),
+    adding the aux loss of a model whose forward returns (hidden, aux),
+    as the reference's trainer does; False takes `loss_fn` over the full
+    logits.
     `collect_grad_norm` makes the step return (loss, grad_norm). `lora`
     (models/lora.py LoraSpec) makes the run a LoRA finetune: params
     become {'base', 'lora'}, the base is frozen and only the factors
@@ -237,6 +241,7 @@ class ShardedTrainer:
     """
 
     def __init__(self, model, tx: Optional[ClippedAdamW] = None,
+                 loss_fn: Optional[Callable] = None,
                  fused_xent: Optional[bool] = None,
                  collect_grad_norm: bool = False,
                  lora: Optional[lora_lib.LoraSpec] = None,
@@ -253,7 +258,13 @@ class ShardedTrainer:
                              f'path; --lora supports the Llama family')
         self.guard = guard
         self.collect_grad_norm = collect_grad_norm or guard
-        self.fused_xent = fused_xent is not False
+        self.loss_fn = loss_fn if loss_fn is not None else next_token_loss
+        supported = (self.loss_fn is next_token_loss
+                     or bool(getattr(self.loss_fn, 'fused_ok', False)))
+        if fused_xent and not supported:
+            raise ValueError('fused_xent=True but the loss_fn is not '
+                             'next_token_loss (nor flagged fused_ok)')
+        self.fused_xent = supported if fused_xent is None else fused_xent
 
     # -- init ---------------------------------------------------------------
     def init(self, lora_params: Optional[Dict[str, Any]] = None,
@@ -286,12 +297,16 @@ class ShardedTrainer:
             extra['lora'] = lora_lib.as_model_lora(params['lora'],
                                                    self.lora.scale)
         if self.fused_xent:
-            hidden = self.model(tokens, return_hidden=True, **extra)
+            out = self.model(tokens, return_hidden=True, **extra)
+            aux = None
+            if isinstance(out, tuple):
+                out, aux = out
             head, vocab_in_rows = fused_xent.find_lm_head(
                 dict(self.model.named_parameters()))
-            return fused_xent.fused_next_token_loss(
-                hidden, head, tokens, vocab_in_rows=vocab_in_rows)
-        return next_token_loss(self.model(tokens, **extra), tokens)
+            loss = fused_xent.fused_next_token_loss(
+                out, head, tokens, vocab_in_rows=vocab_in_rows)
+            return loss if aux is None else loss + aux
+        return self.loss_fn(self.model(tokens, **extra), tokens)
 
     def make_train_step(self) -> Callable:
         """Unguarded: `(state, tokens) -> (state, aux)`, aux the loss (a

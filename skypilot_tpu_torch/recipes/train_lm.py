@@ -6,12 +6,14 @@ step in --ckpt-dir.
 Takes the reference's flags and prints its log lines (`step i/N
 loss=... tokens/s=...`, `resumed from checkpoint step N`, `adapter
 artifact -> ...`, `training done`, and the guard's). One card: the
-flags for meshes, pipelines and data-parallel training exit at startup
-naming themselves and their ROADMAP item, as do the GPT, Mixtral and
-DeepSeek model names (ROADMAP A12), the reference's default `--model
-gpt2-124m` among them: name a ported model. Weights are a seeded init
-on the device, or a local HF checkpoint (--init-from-hf). Runs on the
-GPU unless --cpu is given.
+flags for meshes, pipelines, expert parallelism and data-parallel
+training exit at startup naming themselves and their ROADMAP item, as
+do the DeepSeek model names (ROADMAP A12). The Llama family, GPT-2
+(`tiny`, `gpt2-124m`, the reference's default) and Mixtral
+(`mixtral-tiny`, `mixtral-8x7b`, whose loss adds the router aux loss)
+train; `--lora` takes the Llama family only, as in the reference.
+Weights are a seeded init on the device, or a local HF checkpoint
+(--init-from-hf). Runs on the GPU unless --cpu is given.
 
 The managed-jobs recovery contract is the reference's (--guard,
 robustness/train_guard.py): a preemption notice (SIGTERM, the GCE
@@ -45,7 +47,8 @@ from typing import List, Optional
 # other than the default exits at startup naming the flag.
 _REFUSED = (
     ('--tensor', 'tensor', 1, 'A10/A13'),
-    ('--expert', 'expert', 1, 'A12'),
+    # Expert parallelism: more than one card.
+    ('--expert', 'expert', 1, 'A16'),
     ('--seq-parallel', 'seq_parallel', 1, 'A13'),
     ('--pipeline-stages', 'pipeline_stages', 1, 'A13'),
     ('--pipeline-schedule', 'pipeline_schedule', 'gpipe', 'A13'),
@@ -60,11 +63,10 @@ _REFUSED = (
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog='python -m skypilot_tpu_torch.recipes.train_lm')
-    # The reference's default, whose GPT family this port refuses (ROADMAP
-    # A12): name one of the ported models.
     p.add_argument('--model', default='gpt2-124m',
-                   help='llama3-8b, llama-tiny, qwen2-7b or qwen-tiny '
-                        '(ignored with --init-from-hf)')
+                   help='gpt2-124m, tiny, llama3-8b, llama-tiny, qwen2-7b, '
+                        'qwen-tiny, mixtral-8x7b or mixtral-tiny (ignored '
+                        'with --init-from-hf)')
     p.add_argument('--steps', type=int, default=100)
     p.add_argument('--seq', type=int, default=1024)
     p.add_argument('--global-batch', type=int, default=0,
@@ -76,9 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--ckpt-dir', default=None)
     p.add_argument('--init-from-hf', default=None, metavar='DIR',
                    help='initialize from a local HF checkpoint dir (llama, '
-                        'mistral, qwen2) as f32 masters with fresh '
-                        'moments; --model is ignored; with --lora only '
-                        'the frozen base comes from it')
+                        'mistral, qwen2, gpt2, mixtral) as f32 masters with '
+                        'fresh moments; --model is ignored; with --lora '
+                        'only the frozen base comes from it')
     p.add_argument('--ckpt-every', type=int, default=50)
     p.add_argument('--ckpt-interval', default=None, metavar='auto|SECONDS',
                    help='checkpoint cadence as wall time: seconds, or '
@@ -201,11 +203,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         parser.error(f'--profile-steps {args.profile_steps!r}: want '
                      f'START:STOP')
     if not args.init_from_hf:
-        from skypilot_tpu_torch.models import registry
+        from skypilot_tpu_torch.models import convert, registry
         try:
-            registry.train_config(args.model, args.seq)
+            cfg = registry.train_config(args.model, args.seq)
         except ValueError as e:
             parser.error(f'--model: {e}')
+        name = convert.model_class(cfg).__name__
+        if args.lora and name != 'Llama':
+            # The reference trainer's refusal (models take no `lora`).
+            parser.error(f'--lora: {name} has no LoRA forward path; --lora '
+                         f'supports the Llama family (models/lora.py)')
     return args
 
 
@@ -260,8 +267,12 @@ def main(argv: Optional[List[str]] = None) -> None:
             targets=lora_lib.targets_from_name(args.lora_targets))
     tx = default_optimizer(learning_rate=args.lr, warmup_steps=10,
                            total_steps=max(args.steps, 20))
+    from skypilot_tpu_torch.models.mixtral import (Mixtral,
+                                                   moe_next_token_loss)
     trainer = ShardedTrainer(
-        model, tx=tx, fused_xent=False if args.no_fused_xent else None,
+        model, tx=tx,
+        loss_fn=moe_next_token_loss if isinstance(model, Mixtral) else None,
+        fused_xent=False if args.no_fused_xent else None,
         collect_grad_norm=args.metrics_file is not None, lora=lora_spec,
         guard=args.guard)
     print(f'fused_xent={trainer.fused_xent} zero1=False overlap=False '

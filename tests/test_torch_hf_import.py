@@ -10,8 +10,9 @@ f32:
   - a sharded checkpoint (model.safetensors.index.json) and a
     pytorch_model.bin import the same weights as one safetensors file;
   - llama3 and linear RoPE scaling match transformers; unsupported
-    scalings and model types are refused (deferred families naming
-    ROADMAP A12);
+    scalings and model types are refused (deepseek_v2 naming ROADMAP
+    A12; mixtral and gpt2 pass the type gate and are refused on a bad
+    scaling or no weights);
   - the port's safetensors reader equals safetensors.torch.load_file for
     bf16, f16 and f32;
   - control: q/k rows permuted as if HF stored interleaved pairs (the
@@ -196,8 +197,9 @@ def test_tied_llama_embeddings(tmp_path, tokens):
     ({'model_type': 'llama', 'rope_scaling': {'rope_type': 'llama3',
                                               'factor': 8.0}},
      'original_max_position_embeddings'),
-    ({'model_type': 'mixtral'}, 'A12'),
-    ({'model_type': 'gpt2'}, 'A12'),
+    ({'model_type': 'mixtral', 'rope_scaling': {'rope_type': 'yarn',
+                                                'factor': 4.0}}, 'yarn'),
+    ({'model_type': 'gpt2'}, 'no model.safetensors'),
     ({'model_type': 'deepseek_v2'}, 'A12'),
     ({'model_type': 'bert'}, 'unsupported model_type'),
 ])

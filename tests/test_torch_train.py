@@ -25,7 +25,8 @@ CPU, f32:
   - `train_lm --cpu` runs, writes metrics, resumes; `--lora` writes an
     adapter the reference's lora.load_adapter reads and the port's
     AdapterRegistry serves; refused flags and model families exit
-    naming themselves, and the recovery-contract flags (--guard,
+    naming themselves (the bare recipe trains the reference's default,
+    gpt2-124m), and the recovery-contract flags (--guard,
     --ckpt-interval, --init-from-hf, --profile, --trace-file) run
     through the loop; MFU's N leaves the embedding table out;
   - serving's parameter storage is unchanged by the training layout;
@@ -461,8 +462,9 @@ def test_train_lm_lora_adapter_loads_in_both_packages(tmp_path):
     (['--tensor', '2'], '--tensor'),
     (['--pipeline-stages', '2'], '--pipeline-stages'),
     (['--microbatches', '4'], '--microbatches'),
-    (['--model', 'gpt2-124m'], 'gpt2-124m'),
-    (['--model', 'mixtral-tiny'], 'mixtral-tiny'),
+    (['--expert', '2'], '--expert (ROADMAP A16)'),
+    (['--model', 'mixtral-tiny', '--lora', '4'],
+     'Mixtral has no LoRA forward path'),
     (['--model', 'deepseek-v2-lite'], 'deepseek-v2-lite'),
     (['--ckpt-dir', 's3://b/c'], 's3://b/c'),
 ])
@@ -531,12 +533,23 @@ def test_ported_flags_parse_and_reach_the_loop(flag, tmp_path, hf_dir,
 
 
 def test_bare_recipe_refuses_the_reference_default_naming_a12(capsys):
+    """The reference's default model (gpt2-124m) now trains: the bare
+    recipe's command line, run as a user runs it, exits 0 after two
+    steps; what still names A12 is the DeepSeek family."""
     assert train_lm.build_parser().parse_args([]).model == 'gpt2-124m'
+    assert train_lm.parse_args([]).model == 'gpt2-124m'
+    proc = subprocess.run(
+        [sys.executable, '-m', 'skypilot_tpu_torch.recipes.train_lm',
+         '--cpu', '--steps', '2', '--seq', '64', '--global-batch', '2'],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, 'PYTHONPATH': str(ROOT)})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert 'training done' in proc.stdout
     with pytest.raises(SystemExit) as exc:
-        train_lm.parse_args([])
+        train_lm.parse_args(['--model', 'deepseek-tiny'])
     assert exc.value.code != 0
     err = capsys.readouterr().err
-    assert 'gpt2-124m' in err and 'ROADMAP A12' in err
+    assert 'deepseek-tiny' in err and 'ROADMAP A12' in err
 
 
 def _add_argument_defaults(path):
@@ -573,8 +586,13 @@ def test_recipe_defaults_agree_with_the_reference_flag_for_flag():
 
 
 def test_train_config_refuses_other_families():
-    with pytest.raises(ValueError, match='A12'):
-        registry.train_config('tiny', 64)
+    """DeepSeek still waits for A12; GPT-2 and Mixtral give their
+    training configs (f32 masters)."""
+    for name in registry.OTHER_FAMILIES:
+        with pytest.raises(ValueError, match='A12'):
+            registry.train_config(name, 64)
+    for name in ('tiny', 'gpt2-124m', 'mixtral-tiny'):
+        assert registry.train_config(name, 64).param_dtype == torch.float32
 
 
 # -- model layouts ----------------------------------------------------------

@@ -4,14 +4,15 @@
     python3 chip_smoke.py
 
 Drives the port's main paths (`serve_lm --continuous-batching` on a
-paged KV pool, base model and multi-LoRA, the GPT-2 and Mixtral
-families, int8 projection weights
-(`--weight-dtype int8`), whole-prompt long prefill,
+paged KV pool, base model and multi-LoRA, the GPT-2, Mixtral and
+DeepSeek families, the dense slot path, int8 projection weights
+(`--weight-dtype int8`, on Llama, Mixtral and DeepSeek), whole-prompt
+long prefill,
 SSE streams, text and chat endpoints, logprobs, `--hf` checkpoints and
 the one-shot engine; KV page chains: export / import, the host and cold
 spill tiers, disaggregated prefill / decode roles and live migration;
 training through the trainer API, `train_lm --lora` and `train_lm`
-on GPT-2 and Mixtral, and train_lm's recovery contract: --guard, --init-from-hf, the
+on GPT-2, Mixtral and DeepSeek, and train_lm's recovery contract: --guard, --init-from-hf, the
 native token reader, --ckpt-interval, --profile) through the
 entry points a user calls, at the full width of Llama-3-8B with seeded
 random weights and adapters, and holds every CUDA kernel of those paths
@@ -73,14 +74,19 @@ failure exits non-zero before the result lines:
   int8_linear_kernels
                  the W8A16 linear kernel vs its plain version (dequantize,
                  then F.linear) at Llama-3-8B's seven projections and
-                 Qwen2-7B's (q/k/v with biases), M in {1, 8, 32, 40, 256,
-                 2048}, bf16 and f32 x: the worst output row's
+                 Qwen2-7B's (q/k/v with biases) and DeepSeek-V2-Lite's
+                 (wq 3072 x 2048, wo, w_gate / w_up 10944 x 2048, w_down
+                 2048 x 10944: K not a multiple of the 128-k stage), M in
+                 {1, 8, 32, 40, 256, 2048}, bf16 and f32 x: the worst
+                 output row's
                  |y - plain| / |plain| within 6e-3 (bf16) or 1e-5 (f32),
                  the scale-0 channel exactly the bias, two calls
                  bit-identical; one call captured in a CUDA graph replays
                  right on new x; the perturbed control fails; L2-cold
-                 timings at M 8 and 256 of each Llama shape vs the bound,
-                 the plain version and F.linear on bf16 weights
+                 timings at M 8 and 256 of each Llama shape and of
+                 DeepSeek's w_down (rows of their own in the kernels
+                 line) vs the bound, the plain version and F.linear on
+                 bf16 weights
   serve_bf16,    build_runtime with serve_lm's flags, make_server on an
   serve_int8     ephemeral port, 8 concurrent greedy /generate requests
                  (300-700 prompt tokens, two sharing a 256-token
@@ -112,6 +118,17 @@ failure exits non-zero before the result lines:
                  ms in turns (bf16, int8, int8 through the dequantize
                  route (int8_linear alone on its plain version), twice
                  each), the weights' bytes, the phase's seconds
+  serve_dense    Llama-3-8B through the examples' serve line
+                 (--max-total-len 2048 --continuous-batching --num-slots
+                 16, no --kv-pool-bytes: the 128-page pool holds 2032
+                 tokens, so the engine runs dense): the 8-prompt burst,
+                 engine.paged False, no paged-attention call, graph
+                 rounds == eager unpipelined rounds; serve_lora's
+                 adapters and mix on a dense runtime: the QKV LoRA kernel
+                 launched in dense graph rounds, no plain call, base rows
+                 unchanged, adapters change answers. Cost lines: steady
+                 round ms beside the paged engine's (serve_bf16's flags)
+                 in turns, the dense cache's bytes, the device-busy share
   observability  serve_lora's weights, adapters and flags plus
                  --trace-sample 1.0 --trace-seed 0 --slo
                  p99_ttft_ms=5000,p99_itl_ms=500,error_rate=0.05
@@ -183,7 +200,11 @@ failure exits non-zero before the result lines:
                  adapter requests x 16; and 2 prompts of 2100 / 2600
                  tokens prefilled whole, through the flash forward), and
                  --speculative 4 and --decode-chunk 4 engines give the
-                 plain engine's tokens exactly; GPT-2 124M and Mixtral 8x7B
+                 plain engine's tokens exactly; so does a dense engine
+                 (paged=False) with the adapters; DeepSeek-V2-Lite's
+                 width cut to 2 layers on the dense path gives the same
+                 tokens from graph rounds and eager rounds; GPT-2 124M
+                 and Mixtral 8x7B
                  widths cut to 2 layers (f32): 4 requests x 16 tokens
                  through the kernel equal those through the plain version; so do the one-shot
                  generate functions (plain and speculative K=4, dense
@@ -282,6 +303,31 @@ failure exits non-zero before the result lines:
                  of the bytes a round reads (every weight but the
                  embedding table: dense dispatch reads every expert),
                  the weights' bytes, the phase's seconds; freed after
+  serve_mixtral_int8
+                 mixtral-8x7b at full width cut to 4 layers with
+                 --weight-dtype int8: Int8Dense on wq / wk / wv / wo only,
+                 the expert stacks bf16; the burst through int8_linear
+                 (launches a multiple of the 16 int8 projections of a
+                 forward, no plain call), graph == eager unpipelined
+                 tokens, and the reference's 0.1-nat contract against the
+                 dequantize route, scored by the bf16 model. Cost lines:
+                 steady round ms of bf16 and int8 in turns, weight bytes
+  serve_deepseek deepseek-v2-lite at full width and depth, seeded, through
+                 serve_lm's flags (--max-total-len 1024 --prefill-chunk
+                 256, 8 slots): the dense slot path (paged False,
+                 attention_impl 'dense', no paged-attention call), the
+                 serving burst (300-700 prompt tokens, 32 new), graph
+                 rounds == eager unpipelined rounds; --speculative 4
+                 gives the plain engine's tokens but where a row parts
+                 at a near tie (top-2 margin <= 0.5: the verify chunk's
+                 bf16 sums run in another order). Cost lines: steady
+                 round ms and device-busy share beside the bound of a
+                 round's bytes (weights but the embedding table, and the
+                 whole latent cache), latent-cache and weight bytes, TTFT
+  serve_deepseek_int8
+                 the same with --weight-dtype int8 (wq, wo, w_gate, w_up,
+                 w_down): the gates of serve_mixtral_int8 (135 int8
+                 projections a forward); freed after
   serve_hf       a Llama-3-8B-width checkpoint cut to 2 layers, written
                  here in HF's layout (two bf16 safetensors shards and an
                  index), served through serve_lm --hf: weights on the card
@@ -311,6 +357,12 @@ failure exits non-zero before the result lines:
                  (remat), backward 2 x 5; losses, grad norms, MFU and the
                  router aux loss of every step finite; step time and peak
                  memory
+  train_deepseek `train_lm --model deepseek-v2-lite --seq 4096
+                 --global-batch 2 --remat --steps 5` at full depth
+                 (examples/deepseek_mla.yaml's model and sequence, the
+                 batch cut from 8): losses, grad norms and MFU finite, no
+                 flash launch (MLA's unequal dims take the plain route);
+                 step time and peak memory
   train_guard    train_lm's recovery contract, each train_lm run a child
                  process after this one has freed its models (its own
                  card memory is reported first, `train_guard_parent`)
@@ -1310,13 +1362,18 @@ def phase_flash_kernels(fk):
 
 
 # -- the int8 linear kernel ---------------------------------------------------
-# (out, in) of each projection, by name: Llama-3-8B's seven and Qwen2-7B's
-# (q/k/v with biases, as the model has them).
+# (out, in) of each projection, by name: Llama-3-8B's seven, Qwen2-7B's
+# (q/k/v with biases, as the model has them) and DeepSeek-V2-Lite's five
+# (w_down's K = 10944 is 85.5 stages of 128: a ragged last stage and
+# slices of 21 and 22 stages).
 INT8_SHAPES = {
     'llama3_8b': {'wq_wo': (4096, 4096), 'wk_wv': (1024, 4096),
                   'w_gate_w_up': (14336, 4096), 'w_down': (4096, 14336)},
     'qwen2_7b': {'wq_wo': (3584, 3584), 'wk_wv': (512, 3584),
-                 'w_gate_w_up': (18944, 3584), 'w_down': (3584, 18944)}}
+                 'w_gate_w_up': (18944, 3584), 'w_down': (3584, 18944)},
+    'deepseek_v2_lite': {'wq': (3072, 2048), 'wo': (2048, 2048),
+                         'w_gate_w_up': (10944, 2048),
+                         'w_down': (2048, 10944)}}
 INT8_BIASED = {('qwen2_7b', 'wq_wo'), ('qwen2_7b', 'wk_wv')}
 INT8_ROWS = (1, 8, 32, 40, 256, 2048)
 # |y - plain| / |plain| (Frobenius) of the worst output row: both sum the
@@ -1426,13 +1483,19 @@ def phase_int8_linear_kernels(il):
           f'CUDA-graph replay of int8_linear: equal {graph_equal}, error '
           f'{graph_err}')
     timings = {}
-    for proj, (n, k) in INT8_SHAPES['llama3_8b'].items():
+    timed = [('llama3_8b', proj, shape)
+             for proj, shape in INT8_SHAPES['llama3_8b'].items()]
+    timed.append(('deepseek_v2_lite', 'w_down',
+                  INT8_SHAPES['deepseek_v2_lite']['w_down']))
+    for model_name, proj, (n, k) in timed:
         q, scale, _, g = int8_case(n, k, torch.bfloat16, False, seed=200)
         w_bf16 = il.dequantize(q, scale, torch.bfloat16)
         for m in (8, 256):
             x = torch.randn((m, k), generator=g, device='cuda').bfloat16()
             b_ms, b_by = int8_bound_ms(m, n, k, 2, il)
-            timings[f'{proj}_m{m}'] = {
+            key = (f'{proj}_m{m}' if model_name == 'llama3_8b'
+                   else f'{model_name}_{proj}_m{m}')
+            timings[key] = {
                 'ms': time_cold_ms(lambda: il.int8_linear(x, q, scale)),
                 'plain_ms': time_cold_ms(
                     lambda: il.int8_linear_reference(x, q, scale)),
@@ -1453,14 +1516,30 @@ def phase_int8_linear_kernels(il):
          perturb_fails=True, graph_replay_equal=graph_equal,
          graph_replay_row_rel_err=graph_err, timings=timings,
          worst_cases=sorted(cases, key=lambda c: -c['row_rel_err'])[:4])
-    return {'name': 'int8_linear', 'route': 'cuda',
-            'source': 'skypilot_tpu_torch/csrc/int8_linear.cu',
-            'replaces': INT8_REPLACES, 'timed': 'bf16 M=8 at wq (4096, 4096)',
-            'max_abs_err': main_case['max_abs_err'],
-            'ms': main['ms'], 'plain_ms': main['plain_ms'],
-            'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
-            'library_ms': main['library_ms'], 'library': main['library'],
-            'plain': 'int8_linear_reference (dequantize, then F.linear)'}
+    rows = [{'name': 'int8_linear', 'route': 'cuda',
+             'source': 'skypilot_tpu_torch/csrc/int8_linear.cu',
+             'replaces': INT8_REPLACES,
+             'timed': 'bf16 M=8 at wq (4096, 4096)',
+             'max_abs_err': main_case['max_abs_err'],
+             'ms': main['ms'], 'plain_ms': main['plain_ms'],
+             'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+             'library_ms': main['library_ms'], 'library': main['library'],
+             'plain': 'int8_linear_reference (dequantize, then F.linear)'}]
+    # DeepSeek-V2-Lite's w_down (the ragged K), on the DeepSeek path.
+    n, k = INT8_SHAPES['deepseek_v2_lite']['w_down']
+    for m in (8, 256):
+        t = timings[f'deepseek_v2_lite_w_down_m{m}']
+        case = next(c for c in cases if c['model'] == 'deepseek_v2_lite'
+                    and c['proj'] == 'w_down' and c['m'] == m
+                    and c['dtype'] == 'bf16')
+        rows.append({**rows[0], 'name': f'int8_linear_w_down_k{k}_m{m}',
+                     'timed': f'bf16 M={m} at DeepSeek-V2-Lite w_down '
+                              f'({n}, {k})',
+                     'max_abs_err': case['max_abs_err'], 'ms': t['ms'],
+                     'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+                     'bound_by': t['bound_by'],
+                     'library_ms': t['library_ms']})
+    return rows
 
 
 def zero_paged(pk):
@@ -3407,6 +3486,7 @@ def phase_greedy_parity(pk, lk, fk):
     same = outs['cuda'] == outs['torch']
     modes_same = {label: outs[label] == outs['cuda']
                   for label in ('spec4', 'chunk4')}
+    dense = dense_parity(model, ps, models, root, outs['cuda'])
     # The one-shot engine's functions on the first two base requests:
     # each alone, its whole bucket (prompt + 16).
     from skypilot_tpu_torch.models import generate as gen
@@ -3459,7 +3539,12 @@ def phase_greedy_parity(pk, lk, fk):
          int8_equal=int8_same,
          int8_tokens_cuda=[o[-16:] for o in int8_outs['cuda']],
          int8_tokens_torch=[o[-16:] for o in int8_outs['torch']],
-         families=families)
+         families=families, dense=dense)
+    check(dense['llama_dense_vs_paged'],
+          'the dense slot engine\'s greedy tokens differ from the paged '
+          'engine\'s (kernel route)')
+    check(dense['deepseek_graphs_vs_eager'],
+          'DeepSeek dense engine: graph rounds differ from eager rounds')
     check(same, 'greedy tokens differ between the kernel and plain routes')
     check(all(f['equal'] for f in families.values()),
           f'GPT-2 / Mixtral greedy tokens differ between the kernel and '
@@ -4424,42 +4509,59 @@ def dispatch_device_ms(engine):
         out.extend(e0.elapsed_time(e1) for e0, e1 in events)
 
 
-def serve_family(label, name, model, pk, card):
-    """The 8-prompt burst through serve_lm's flags (pipelined, graph
-    rounds), then on an eager, unpipelined runtime: the same tokens bit
-    for bit, every answer prompt + 32, both paged routes launched (the
-    scalar one never), no plain call, graph replays. Returns the emitted
-    numbers."""
+def serve_family(label, name, model, kernels, card, extra=(), ps=None,
+                 dense=False):
+    """The burst (`ps`, by default 8 prompts of 100-200 tokens) through
+    serve_lm's flags (+ `extra`; pipelined, graph rounds), then on an
+    eager, unpipelined runtime: the same tokens bit for bit, every answer
+    prompt + 32, graph replays. The paged kernel (kernels[0]): both
+    routes launched, never the scalar one nor a plain call; on a `dense`
+    engine (the dense slot path, attention_impl 'dense') never at all.
+    Returns (the emitted numbers, the paged routes, the rows, each
+    kernel's (launches, plain calls) over the graph burst)."""
+    pk = kernels[0]
     t_phase = time.perf_counter()
     cfg = model.config
-    ps = family_prompts(cfg.vocab_size)
-    rt, server, thread, port, setup_s = family_runtime(name, model)
+    ps = ps or family_prompts(cfg.vocab_size)
+    rt, server, thread, port, setup_s = family_runtime(name, model, extra)
     try:
+        paged, impl = rt.engine.paged, rt.engine.attention_impl()
         with dispatch_device_ms(rt.engine) as device_ms:
-            rows, out = burst(rt, port, ps, [None] * len(ps), (pk,))
+            rows, out = burst(rt, port, ps, [None] * len(ps), kernels)
         weight_bytes = rt.weight_bytes
+        cache_bytes = rt.engine.kv_cache_bytes()
     finally:
         stop_runtime(rt, server, thread)
     del rt, server, thread
     gc.collect()
-    [(launches, plain_calls)] = out.pop('counts')
+    counts = out.pop('counts')
+    launches, plain_calls = counts[0]
     routes = out['paged_route_launches']
-    eager = family_runtime(name, model, ['--no-pipeline-decode'],
+    eager = family_runtime(name, model, [*extra, '--no-pipeline-decode'],
                            cuda_graphs=False)
     try:
         eager_rows, eager_out = burst(eager[0], eager[3], ps,
-                                      [None] * len(ps), (pk,))
+                                      [None] * len(ps), kernels)
     finally:
         stop_runtime(*eager[:3])
     del eager
     gc.collect()
     torch.cuda.empty_cache()
-    check(launches > 0 and plain_calls == 0
-          and eager_out['counts'][0][1] == 0,
-          f'{label}: {launches} kernel launches, plain calls '
-          f'{plain_calls} / {eager_out["counts"][0][1]}')
-    check(routes['split'] > 0 and routes['chunk'] > 0
-          and routes['scalar'] == 0, f'{label}: routes {routes}')
+    if dense:
+        check(not paged and impl == 'dense',
+              f'{label}: paged {paged}, attention_impl {impl}')
+        check(launches == plain_calls == 0
+              and eager_out['counts'][0] == (0, 0)
+              and not any(routes.values()),
+              f'{label}: the dense path ran paged attention ({launches} '
+              f'launches, {plain_calls} plain calls, {routes})')
+    else:
+        check(paged and launches > 0 and plain_calls == 0
+              and eager_out['counts'][0][1] == 0,
+              f'{label}: {launches} kernel launches, plain calls '
+              f'{plain_calls} / {eager_out["counts"][0][1]}')
+        check(routes['split'] > 0 and routes['chunk'] > 0
+              and routes['scalar'] == 0, f'{label}: routes {routes}')
     check(out['graph_replays'] > 0 and out['cuda_graphs']
           and out['pipeline_decode'], f'{label}: no graph rounds {out}')
     check(not eager_out['cuda_graphs'] and not eager_out['pipeline_decode'],
@@ -4469,14 +4571,16 @@ def serve_family(label, name, model, pk, card):
     steady = sorted(device_ms)[len(device_ms) // 2] if device_ms else None
     return dict(
         card=card, model=name, layers=cfg.num_layers,
-        embed_dim=cfg.embed_dim, setup_s=setup_s, **out, kernel_launches=launches,
-        plain_calls=plain_calls, eager_equal=True,
+        embed_dim=cfg.embed_dim, setup_s=setup_s, **out,
+        kernel_launches=launches, plain_calls=plain_calls,
+        paged=paged, attention_impl=impl, kv_cache_bytes=cache_bytes,
+        eager_equal=True,
         eager_decode_round_ms=eager_out['decode_round_ms'],
         device_round_ms=steady, device_dispatches=len(device_ms),
         device_busy_share=(steady / out['decode_round_ms']
                            if steady and out['decode_round_ms'] else None),
         weight_bytes=weight_bytes,
-        phase_s=time.perf_counter() - t_phase), routes
+        phase_s=time.perf_counter() - t_phase), routes, rows, counts
 
 
 def phase_serve_gpt2(pk, card):
@@ -4484,7 +4588,8 @@ def phase_serve_gpt2(pk, card):
     from skypilot_tpu_torch.models import convert, registry
     model = convert.init_params(registry.model_config('gpt2-124m', 1024),
                                 seed=0, device='cuda')
-    out, routes = serve_family('serve_gpt2', 'gpt2-124m', model, pk, card)
+    out, routes, _, _ = serve_family('serve_gpt2', 'gpt2-124m', model, (pk,),
+                                     card)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4507,8 +4612,8 @@ def phase_serve_mixtral(pk, card):
     round_bytes = sum(t.numel() * t.element_size()
                       for n, t in model.state_dict().items()
                       if n != 'tok_embed')
-    out, routes = serve_family('serve_mixtral', 'mixtral-8x7b', model, pk,
-                               card)
+    out, routes, _, _ = serve_family('serve_mixtral', 'mixtral-8x7b', model,
+                                     (pk,), card)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4667,6 +4772,397 @@ def family_parity(pk):
     return out
 
 
+# -- the DeepSeek family, int8 on DeepSeek and Mixtral, the dense path -------
+# DeepSeek-V2-Lite is served at full width and depth (5.2 GB in bf16) from
+# the dense slot path: MLA's latent cache has no pages.
+DEEPSEEK_VOCAB = 102400
+# Mixtral's int8 phase keeps 4 of its 32 layers (~11.7 GB bf16, the
+# attention in int8 beside bf16 experts).
+MIXTRAL_INT8_LAYERS = 4
+# The examples' serve line (examples/serve_hf_llama.yaml and two more):
+# the config's 128-page pool holds 2032 tokens < 2048, so the engine runs
+# dense.
+DENSE_FLAGS = ('--model', 'llama3-8b', '--max-total-len', '2048',
+               '--continuous-batching', '--num-slots', '16', '--port', '0')
+
+
+def proj_forward_count(model):
+    """int8_linear calls one forward of `model` makes (its Int8Dense
+    modules)."""
+    from skypilot_tpu_torch.models.llama import Int8Dense
+    return sum(isinstance(m, Int8Dense) for m in model.modules())
+
+
+def round_bytes(model, cache_bytes):
+    """Bytes a decode round reads at least: every weight but the
+    embedding table (8 rows of it), and the cache it attends."""
+    return cache_bytes + sum(t.numel() * t.element_size()
+                             for n, t in model.state_dict().items()
+                             if n != 'tok_embed')
+
+
+def int8_family(label, name, model, pk, il, card, ps):
+    """serve_lm --weight-dtype int8 for `--model name` beside bf16: the
+    int8 burst through the kernel (every call of a forward on the card:
+    launches a multiple of the model's Int8Dense count), the same burst
+    on an eager unpipelined int8 runtime (bit for bit) and through the
+    dequantize route (int8_linear alone on its plain version, captured
+    so), all scored by the bf16 model's scoring pass: the reference's
+    0.1-nat contract against the dequantize route; steady round ms of
+    bf16 and int8 in turns (bf16, int8, int8, bf16)."""
+    t_phase = time.perf_counter()
+    model_q = int8_model(model)
+    per_forward = proj_forward_count(model_q)
+    kernels = (pk, il)
+    flag = ['--weight-dtype', 'int8']
+    rows, outs = {}, {}
+    rt_b, srv_b, th_b, port_b, _ = family_runtime(name, model)
+    try:
+        rt_q, srv_q, th_q, port_q, setup_q = family_runtime(name, model_q,
+                                                            flag)
+        with il.route_scope('torch'):    # graphs captured on the plain route
+            rt_d, srv_d, th_d, port_d, _ = family_runtime(name, model_q,
+                                                          flag)
+        try:
+            rows['int8'], outs['int8'] = burst(rt_q, port_q, ps,
+                                               [None] * len(ps), kernels)
+            with il.route_scope('torch'):
+                rows['int8_dequant'], outs['int8_dequant'] = burst(
+                    rt_d, port_d, ps, [None] * len(ps), kernels)
+            rows['bf16'], outs['bf16'] = burst(rt_b, port_b, ps,
+                                               [None] * len(ps), kernels)
+            turns = []
+            for tag, rt, port in (('bf16', rt_b, port_b),
+                                  ('int8', rt_q, port_q),
+                                  ('int8', rt_q, port_q),
+                                  ('bf16', rt_b, port_b)):
+                turns.append([tag, steady_turn(rt, port, ps)[0]])
+            weight_bytes = {'bf16': rt_b.weight_bytes,
+                            'int8': rt_q.weight_bytes}
+            stats_q = json.loads(get_raw(port_q, '/stats'))
+        finally:
+            stop_runtime(rt_d, srv_d, th_d)
+            stop_runtime(rt_q, srv_q, th_q)
+        eager = family_runtime(name, model_q, [*flag, '--no-pipeline-decode'],
+                               cuda_graphs=False)
+        try:
+            rows['int8_eager'], outs['int8_eager'] = burst(
+                eager[0], eager[3], ps, [None] * len(ps), kernels)
+        finally:
+            stop_runtime(*eager[:3])
+        scores = {tag: [mean_logprob(rt_b, r, len(p))
+                        for r, p in zip(rs, ps)]
+                  for tag, rs in rows.items()}
+    finally:
+        stop_runtime(rt_b, srv_b, th_b)
+    counts = {tag: outs[tag].pop('counts')
+              for tag in ('int8', 'int8_dequant', 'bf16', 'int8_eager')}
+    (_, pa_plain), (i8, i8_plain) = counts['int8']
+    check(i8 > 0 and i8_plain == 0 and i8 % per_forward == 0,
+          f'{label}: int8_linear {i8} launches ({per_forward} a forward), '
+          f'{i8_plain} plain calls')
+    check(counts['int8_dequant'][1][0] == 0
+          and counts['int8_dequant'][1][1] > 0,
+          f'{label}: the dequantize route launched int8_linear '
+          f'{counts["int8_dequant"]}')
+    check(pa_plain == 0 and counts['bf16'][1] == (0, 0),
+          f'{label}: plain paged calls, or int8 code on bf16 weights '
+          f'{counts}')
+    check(outs['int8']['graph_replays'] > 0, f'{label}: no graph replay')
+    check(rows['int8'] == rows['int8_eager'],
+          f'{label}: int8 graph-replayed, pipelined tokens differ from '
+          f'eager, unpipelined ones')
+    contract = contract_summary(scores, 'int8_dequant')
+    check(contract['int8']['mean_diff'] >= -INT8_LOGPROB_TOL,
+          f'{label}: mean log-prob {contract["int8"]} against the '
+          f'dequantize route (tolerance {INT8_LOGPROB_TOL})')
+    check(stats_q['storage']['weight_dtype'] == 'int8'
+          and stats_q['storage']['weight_bytes'] == tensor_bytes(model_q),
+          f'{label}: /stats storage {stats_q["storage"]}')
+    out = dict(
+        card=card, model=name, layers=model.config.num_layers,
+        int8_projections_a_forward=per_forward, setup_s=setup_q,
+        bursts=outs, counts=counts, weight_bytes=weight_bytes,
+        weight_bytes_saved=weight_bytes['bf16'] - weight_bytes['int8'],
+        logprob_tolerance=INT8_LOGPROB_TOL,
+        contract_vs_dequantize=contract,
+        reference_form_vs_bf16=contract_summary(scores, 'bf16'),
+        scores=scores, eager_equal=True, steady_round_ms_turns=turns,
+        phase_s=time.perf_counter() - t_phase)
+    del model_q
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, i8
+
+
+def phase_serve_deepseek(pk, il, card):
+    """deepseek-v2-lite at full width and depth, seeded on the card,
+    through serve_lm's flags on the dense slot path: the serving burst
+    (graph rounds == eager unpipelined rounds), --speculative 4 against
+    the plain engine, then the same with --weight-dtype int8. Returns
+    int8_linear's launches on the int8 burst; the model is freed."""
+    from skypilot_tpu_torch.models import convert, registry
+    t0 = t_phase = time.perf_counter()
+    cfg = registry.model_config('deepseek-v2-lite', 1024)
+    model = convert.init_params(cfg, seed=0, device='cuda')
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ps = prompts(vocab=DEEPSEEK_VOCAB)
+    out, _, rows, _ = serve_family('serve_deepseek', 'deepseek-v2-lite',
+                                   model, (pk,), card, ps=ps, dense=True)
+    # --speculative 4: the verify chunk's einsums sum in another order
+    # than the single-token round's, so at bf16 a row may part from the
+    # plain engine's only at a near tie (top-2 margin <= PART_MARGIN_TOL).
+    spec = family_runtime('deepseek-v2-lite', model, ['--speculative', '4'])
+    try:
+        spec_rows, spec_out = burst(spec[0], spec[3], ps, [None] * len(ps),
+                                    (pk,))
+        parts = [part_margin(spec[0], a, b) for a, b in zip(rows, spec_rows)]
+    finally:
+        stop_runtime(*spec[:3])
+    del spec
+    spec_out.pop('counts')
+    for pos, margin in parts:
+        check(pos is None or margin <= PART_MARGIN_TOL,
+              f'serve_deepseek: --speculative 4 parts from the plain '
+              f'engine at {pos} with top-2 margin {margin}')
+    read = round_bytes(model, out['kv_cache_bytes'])
+    bound = 1e3 * read / HBM_BYTES_PER_S
+    out['phase_s'] = time.perf_counter() - t_phase
+    emit('serve_deepseek', **out, init_s=init_s,
+         parameters=sum(p.numel() for p in model.parameters()),
+         latent_cache_bytes=out['kv_cache_bytes'], round_bytes=read,
+         round_bound_ms=bound,
+         round_over_bound=(out['decode_round_ms'] / bound
+                           if out['decode_round_ms'] else None),
+         speculative={'tokens_equal': spec_rows == rows,
+                      'parts': parts, 'part_margin_tol': PART_MARGIN_TOL,
+                      'tokens_per_call': spec_out['tokens_per_call'],
+                      'decode_rounds': spec_out['decode_rounds'],
+                      'wall_s': spec_out['wall_s']})
+    int8_out, int8_launches = int8_family(
+        'serve_deepseek_int8', 'deepseek-v2-lite', model, pk, il, card, ps)
+    emit('serve_deepseek_int8', **int8_out)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return int8_launches
+
+
+def phase_serve_mixtral_int8(pk, il, card):
+    """mixtral-8x7b at full width cut to MIXTRAL_INT8_LAYERS, serve_lm
+    --weight-dtype int8: int8_linear on the four attention projections
+    only, the expert stacks bf16; the gates of `int8_family`."""
+    from skypilot_tpu_torch.models import convert, registry
+    from skypilot_tpu_torch.models.llama import Int8Dense
+    cfg = dataclasses.replace(registry.model_config('mixtral-8x7b', 1024),
+                              num_layers=MIXTRAL_INT8_LAYERS)
+    model = convert.init_params(cfg, seed=0, device='cuda')
+    model_q = int8_model(model)
+    int8_names = sorted(n for n, m in model_q.named_modules()
+                        if isinstance(m, Int8Dense))
+    want = sorted(f'layers.{i}.attn.{p}' for i in range(cfg.num_layers)
+                  for p in ('wq', 'wk', 'wv', 'wo'))
+    experts = {n: str(t.dtype) for n, t in model_q.state_dict().items()
+               if '.moe.w_' in n}
+    del model_q
+    check(int8_names == want, f'serve_mixtral_int8: int8 modules '
+                              f'{int8_names[:6]}')
+    check(set(experts.values()) == {'torch.bfloat16'},
+          f'serve_mixtral_int8: expert stacks {set(experts.values())}')
+    out, _ = int8_family('serve_mixtral_int8', 'mixtral-8x7b', model, pk,
+                         il, card, family_prompts(cfg.vocab_size))
+    emit('serve_mixtral_int8', **out,
+         reduced={'num_layers': [32, cfg.num_layers]},
+         int8_modules=len(int8_names), expert_stack_dtypes=experts)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dense_runtime(model, extra=(), cuda_graphs=True):
+    """build_runtime with the examples' serve line (DENSE_FLAGS), sharing
+    `model`'s weights, and make_server on an ephemeral port."""
+    from skypilot_tpu_torch.inference.http_server import make_server
+    from skypilot_tpu_torch.inference.runtime import build_runtime
+    from skypilot_tpu_torch.recipes import serve_lm
+    t0 = time.perf_counter()
+    rt = build_runtime(serve_lm.parse_args([*DENSE_FLAGS, *extra]),
+                       model=model, cuda_graphs=cuda_graphs)
+    setup_s = time.perf_counter() - t0
+    server = make_server(rt, 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return rt, server, thread, server.server_address[1], setup_s
+
+
+def phase_serve_dense(model, pk, lk, card):
+    """Llama-3-8B through the examples' serve line, no --kv-pool-bytes:
+    the dense slot path. The serving burst (graph rounds == eager
+    unpipelined rounds, no paged kernel), steady round ms beside the
+    paged engine's (serve_bf16's flags) in turns, then serve_lora's
+    adapters and request mix with the QKV LoRA kernel in dense graph
+    rounds."""
+    t_phase = time.perf_counter()
+    ps = prompts()
+    kernels = (pk, lk)
+    rt, server, thread, port, setup_s = dense_runtime(model)
+    try:
+        eng = rt.engine
+        check(eng.paged is False and eng.attention_impl() == 'dense'
+              and eng.prefix_caching is False,
+              f'serve_dense: paged {eng.paged}, {eng.attention_impl()}')
+        cache_bytes = eng.kv_cache_bytes()
+        with dispatch_device_ms(eng) as device_ms:
+            rows, out = burst(rt, port, ps, [None] * len(ps), kernels)
+        paged = serve_runtime(model, 'bf16')
+        try:
+            turns = []
+            for tag, r, p in (('dense', rt, port), ('paged', paged[0],
+                                                    paged[3]),
+                              ('paged', paged[0], paged[3]),
+                              ('dense', rt, port)):
+                turns.append([tag, steady_turn(r, p, ps)[0]])
+        finally:
+            stop_runtime(*paged[:3])
+        del paged
+    finally:
+        stop_runtime(rt, server, thread)
+    del rt, server, thread
+    gc.collect()
+    eager = dense_runtime(model, ['--no-pipeline-decode'], cuda_graphs=False)
+    try:
+        eager_rows, eager_out = burst(eager[0], eager[3], ps,
+                                      [None] * len(ps), kernels)
+    finally:
+        stop_runtime(*eager[:3])
+    del eager
+    gc.collect()
+    root = os.path.join(WORK, 'adapters')
+    lora = dense_runtime(model, ['--adapter-dir', root, '--max-adapters',
+                                 '3'])
+    try:
+        check(lora[0].engine.paged is False, 'serve_dense: LoRA runtime is '
+                                             'paged')
+        lora_rows, lora_out = burst(lora[0], lora[3], ps, SERVE_LORA_MODELS,
+                                    kernels)
+    finally:
+        stop_runtime(*lora[:3])
+    del lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = {'base': out.pop('counts'), 'eager': eager_out.pop('counts'),
+              'adapters': lora_out.pop('counts')}
+    check(all(c[0] == (0, 0) for c in counts.values()),
+          f'serve_dense: paged attention ran on the dense path {counts}')
+    check(counts['base'][1] == (0, 0),
+          f'serve_dense: base-only serving ran LoRA code {counts}')
+    check(out['graph_replays'] > 0 and lora_out['graph_replays'] > 0,
+          'serve_dense: no graph rounds')
+    check(rows == eager_rows, 'serve_dense: graph-replayed, pipelined '
+                              'tokens differ from eager, unpipelined ones')
+    (lora_launches, lora_plain) = counts['adapters'][1]
+    # A LoRA graph round carries the QKV LoRA launches of its capture:
+    # more launches than the prefill chunks' alone means decode rounds
+    # replayed it.
+    check(lora_launches > 32 * lora_out['prefill_chunks'] and
+          lora_plain == 0 and lora_out['graph_captures'] > 0,
+          f'serve_dense adapters: QKV LoRA {counts["adapters"]}, '
+          f'{lora_out["prefill_chunks"]} prefill chunks, '
+          f'{lora_out["graph_captures"]} captures')
+    base = [i for i, m in enumerate(SERVE_LORA_MODELS) if m is None]
+    check(all(lora_rows[i] == rows[i] for i in base),
+          'serve_dense: base requests beside adapters differ from the '
+          'base burst')
+    check(any(lora_rows[i] != rows[i] for i, m in
+              enumerate(SERVE_LORA_MODELS) if m is not None),
+          'serve_dense: no adapter changed an answer')
+    steady = sorted(device_ms)[len(device_ms) // 2] if device_ms else None
+    dense_ms = [ms for tag, ms in turns if tag == 'dense']
+    paged_ms = [ms for tag, ms in turns if tag == 'paged']
+    emit('serve_dense', card=card, flags=list(DENSE_FLAGS), setup_s=setup_s,
+         **out, dense_cache_bytes=cache_bytes, eager_equal=True,
+         eager_decode_round_ms=eager_out['decode_round_ms'],
+         device_round_ms=steady, device_dispatches=len(device_ms),
+         device_busy_share=(steady / out['decode_round_ms']
+                            if steady and out['decode_round_ms'] else None),
+         steady_round_ms_turns=turns,
+         dense_over_paged=(float(np.mean(dense_ms)) / float(np.mean(paged_ms))
+                           if paged_ms else None),
+         adapters={'models': SERVE_LORA_MODELS, **lora_out,
+                   'qkv_lora_launches': lora_launches,
+                   'qkv_lora_plain_calls': lora_plain},
+         counts=counts, phase_s=time.perf_counter() - t_phase)
+
+
+def dense_parity(llama_model, ps, models, root, want):
+    """Greedy parity on the dense path, f32: the 2-layer Llama-width
+    model (with the parity adapters) on a dense engine gives the paged
+    engine's tokens `want` (the kernel route), and DeepSeek-V2-Lite's
+    width cut to 2 layers gives the same tokens from graph rounds and
+    eager rounds."""
+    from skypilot_tpu_torch.inference.adapters import AdapterRegistry
+    from skypilot_tpu_torch.models import convert, registry
+    from skypilot_tpu_torch.models.batching import ContinuousBatchingEngine
+    t0 = time.perf_counter()
+
+    def run(model, prompts_, models_, **kw):
+        engine = ContinuousBatchingEngine(model, num_slots=4,
+                                          max_total_len=1024,
+                                          prefill_chunk=256, **kw)
+        try:
+            check(engine.paged is False, 'dense parity: paged engine')
+            futs = [engine.submit(p, max_new_tokens=16, adapter=m)
+                    for p, m in zip(prompts_, models_)]
+            return [f.result(timeout=600) for f in futs]
+        finally:
+            engine.stop()
+
+    out = {'llama_dense_vs_paged': run(
+        llama_model, ps, models, paged=False,
+        adapter_store=AdapterRegistry(root, llama_model,
+                                      max_adapters=2)) == want}
+    cfg = dataclasses.replace(registry.model_config('deepseek-v2-lite',
+                                                    1024),
+                              num_layers=2, dtype=torch.float32)
+    model = convert.init_params(cfg, seed=3, device='cuda')
+    ds_ps = [p[:400] for p in prompts(seed=5, n=4, vocab=DEEPSEEK_VOCAB)]
+    toks = {label: run(model, ds_ps, [None] * 4, cuda_graphs=graphs)
+            for label, graphs in (('graphs', True), ('eager', False))}
+    out['deepseek_graphs_vs_eager'] = toks['graphs'] == toks['eager']
+    out['deepseek_tokens'] = [t[-16:] for t in toks['graphs']]
+    out['seconds'] = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_deepseek(fk, card):
+    """train_lm --model deepseek-v2-lite --seq 4096 (examples/
+    deepseek_mla.yaml's model and sequence) --global-batch 2 --remat, 5
+    steps at full depth: loss, grad norm and MFU finite; MLA's unequal
+    q/v dims never reach the flash kernels."""
+    steps = 5
+    argv = ['--model', 'deepseek-v2-lite', '--seq', '4096',
+            '--global-batch', '2', '--remat', '--steps', str(steps),
+            '--log-every', '1']
+    _, records, counts, peak, seconds = train_family('train_deepseek', argv,
+                                                     fk, card)
+    check(counts == {'flash_fwd': 0, 'flash_bwd': 0},
+          f'train_deepseek launched flash: {counts}')
+    check(len(records) == steps, f'train_deepseek: {len(records)} records')
+    emit('train_deepseek', card=card, argv=argv,
+         reduced={'global_batch': [8, 2]},
+         steps=[r['step'] for r in records],
+         losses=[r['loss'] for r in records],
+         grad_norms=[r['grad_norm'] for r in records],
+         step_time_s=[r['step_time_s'] for r in records],
+         tokens_per_s=[r['tokens_per_sec'] for r in records],
+         mfu=[r['mfu'] for r in records], peak_mem_gb=peak,
+         launches=counts, seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
@@ -4700,7 +5196,7 @@ def main() -> int:
     gpt2_rows = phase_gpt2_kernels(pk)
     lora_kernel = phase_lora_kernels(lk)
     flash_rows = phase_flash_kernels(fk)
-    int8_row = phase_int8_linear_kernels(il)
+    int8_rows = phase_int8_linear_kernels(il)
 
     # The main paths, each driven with the counts zeroed just before and
     # read just after: base serving (bf16 and int8 pools), then
@@ -4731,6 +5227,10 @@ def main() -> int:
     il.launches = il.plain_calls = 0
     phase_serve_int8_weights(model, pk, lk, il, card)
     int8_launches = il.launches
+    # The dense slot path: the examples' serve line, counted from zero.
+    zero_paged(pk)
+    pk.launches = pk.plain_calls = lk.launches = lk.plain_calls = 0
+    phase_serve_dense(model, pk, lk, card)
     # The observability plane on the multi-LoRA path, counted from zero.
     phase_observability(model, pk, lk, card)
     phase_serve_long(model, fk, pk, card)
@@ -4755,6 +5255,14 @@ def main() -> int:
     zero_paged(pk)
     pk.launches = pk.plain_calls = 0
     phase_serve_mixtral(pk, card)
+    # int8 weights on Mixtral, then DeepSeek-V2-Lite (bf16 and int8), each
+    # counted from zero; both families are freed before training.
+    zero_paged(pk)
+    pk.launches = pk.plain_calls = il.launches = il.plain_calls = 0
+    phase_serve_mixtral_int8(pk, il, card)
+    zero_paged(pk)
+    pk.launches = pk.plain_calls = il.launches = il.plain_calls = 0
+    deepseek_int8_launches = phase_serve_deepseek(pk, il, card)
     phase_serve_hf(pk, lk, fk, card)
 
     phase_greedy_parity(pk, lk, fk)
@@ -4766,6 +5274,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_gpt2(fk, card)
     mixtral_counts = phase_train_mixtral(fk, card)
+    phase_train_deepseek(fk, card)
     guard_counts = phase_train_guard(fk, card)
 
     for row in paged_rows:
@@ -4775,13 +5284,15 @@ def main() -> int:
     for row in gpt2_rows:
         row['launches'] = gpt2_routes[row['kernel_route']]
     lora_kernel['launches'] = lora_launches
-    int8_row['launches'] = int8_launches
+    int8_rows[0]['launches'] = int8_launches
+    for row in int8_rows[1:]:
+        row['launches'] = deepseek_int8_launches
     for name, row in flash_rows.items():
         row['launches'] = (full_counts[name] + lora_counts[name]
                            + mixtral_counts[name] + guard_counts[name])
     print(card, flush=True)
     print(json.dumps({'kernels': [*paged_rows, *gpt2_rows, lora_kernel,
-                                  *flash_rows.values(), int8_row]}),
+                                  *flash_rows.values(), *int8_rows]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

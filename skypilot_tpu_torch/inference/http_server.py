@@ -477,7 +477,6 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                     'healthy': all(e.healthy() for e in live)})
                 return body
             eng.update_metric_gauges()
-            free = int(eng.allocator.free_pages)
             body.update({
                 'engine': 'continuous',
                 'num_slots': eng.num_slots,
@@ -510,7 +509,12 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                 'max_queue_requests': eng.max_queue_requests,
                 'max_queue_tokens': eng.max_queue_tokens,
                 'engine_stats': eng.stats(),
-                'page_pool': {
+            })
+            if eng.paged:
+                # A dense engine has no page pool (nor the reference's
+                # block for one).
+                free = int(eng.allocator.free_pages)
+                body['page_pool'] = {
                     'total': eng.total_pages,
                     'free': free,
                     'used': eng.total_pages - free,
@@ -520,8 +524,7 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                     'pool_bytes': eng.kv_cache_bytes(),
                     'pool_bytes_per_device': eng.kv_cache_bytes(),
                     'shard_ways': 1,
-                },
-            })
+                }
             pc = eng.prefix_cache
             if pc is not None:
                 body['prefix_cache'] = {

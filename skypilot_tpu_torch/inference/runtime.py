@@ -49,7 +49,7 @@ from skypilot_tpu_torch.models import convert, registry
 from skypilot_tpu_torch.models import generate as gen
 from skypilot_tpu_torch.models.batching import ContinuousBatchingEngine
 from skypilot_tpu_torch.models.llama import LlamaConfig, kv_dtype_of
-from skypilot_tpu_torch.models.mixtral import MixtralConfig
+from skypilot_tpu_torch.models.gpt import GPTConfig
 from skypilot_tpu_torch.observability import catalog as obs_catalog
 from skypilot_tpu_torch.observability import slo as slo_lib
 from skypilot_tpu_torch.observability import tracing
@@ -777,14 +777,6 @@ def kv_flags_need_kv_dtype(config_name: str) -> str:
             f'{config_name} has none')
 
 
-#: Mixtral's int8 weights: the reference quantizes its attention kernels
-#: and keeps the stacked experts in bf16 (inference/quant.py:56-72).
-MIXTRAL_INT8_DEFERRED = (
-    '--weight-dtype int8 on the Mixtral family (int8 attention '
-    'projections beside bf16 expert stacks, as the reference quantizes '
-    'them) is not ported yet (ROADMAP A14)')
-
-
 def source_config_type(args) -> type:
     """The config class of the model `args` asks for: the --hf
     checkpoint's model_type, else --model's registry entry."""
@@ -795,25 +787,27 @@ def source_config_type(args) -> type:
 
 
 def family_refusal(args, config_type: type) -> Optional[str]:
-    """The refusal of a flag the model's family lacks, or None: the
-    KV-pool flags and int8 weights need the Llama family, as in the
-    reference (GPT names no quantizable projection; Mixtral's split is
-    deferred). --adapter-dir on these families is refused by
-    `AdapterRegistry`, with the reference's message."""
+    """The refusal of a flag the model's family lacks, or None, as in
+    the reference: the KV-pool flags need a config with a kv_dtype field
+    (the Llama family), and int8 weights a family with quantizable
+    projections (GPT names none; Mixtral quantizes its attention,
+    DeepSeek wq / wo / the SwiGLU). --adapter-dir on the other families
+    is refused by `AdapterRegistry`, with the reference's message."""
     if config_type is LlamaConfig:
         return None
     if args.kv_dtype != 'bf16' or args.kv_pool_bytes:
         return kv_flags_need_kv_dtype(config_type.__name__)
-    if args.weight_dtype == 'int8':
-        if config_type is MixtralConfig:
-            return MIXTRAL_INT8_DEFERRED
+    if args.weight_dtype == 'int8' and config_type is GPTConfig:
         return int8_weights_none_found(quant.WEIGHT_TARGETS)
     return None
 
 
 def _pool_fields(cfg, kv_dtype: str, pages: int) -> dict:
     """The config fields that size a KV pool: kv_total_pages, and
-    kv_dtype where the config has the field (the Llama family)."""
+    kv_dtype where the config has the field (the Llama family); none
+    for a config without a pool (DeepSeek)."""
+    if not hasattr(cfg, 'kv_total_pages'):
+        return {}
     fields = {'kv_total_pages': pages}
     if isinstance(cfg, LlamaConfig):
         fields['kv_dtype'] = kv_dtype
@@ -905,9 +899,9 @@ def _source_model(args, model, device: torch.device):
         want = dataclasses.replace(
             registry.model_config(args.model, args.max_total_len),
             num_layers=model.config.num_layers)
-        widths = dataclasses.replace(model.config,
-                                     **_pool_fields(want, kv_dtype_of(want),
-                                                    want.kv_total_pages))
+        widths = dataclasses.replace(
+            model.config, **_pool_fields(want, kv_dtype_of(want),
+                                         getattr(want, 'kv_total_pages', 0)))
         if widths != want or model.device != device or \
                 model.weight_dtype != args.weight_dtype:
             raise ValueError(f'the given model does not match --model '
@@ -975,15 +969,21 @@ def build_runtime(args, model=None,
         print('weights: int8 per-output-channel projections '
               '(dequant-on-read)', flush=True)
     cfg = model.config
-    pages = (quant.pool_pages_for_bytes(cfg, args.kv_dtype,
-                                        args.kv_pool_bytes)
-             if args.kv_pool_bytes else cfg.kv_total_pages)
-    cfg = dataclasses.replace(cfg, **_pool_fields(cfg, args.kv_dtype, pages))
+    if hasattr(cfg, 'kv_total_pages'):
+        pages = (quant.pool_pages_for_bytes(cfg, args.kv_dtype,
+                                            args.kv_pool_bytes)
+                 if args.kv_pool_bytes else cfg.kv_total_pages)
+        cfg = dataclasses.replace(cfg, **_pool_fields(cfg, args.kv_dtype,
+                                                      pages))
+        print(f'kv cache: dtype={args.kv_dtype} pages={pages} '
+              f'({quant.kv_page_bytes(cfg, args.kv_dtype)} bytes/page '
+              f'across layers) on {device}', flush=True)
+    else:
+        print(f'kv cache: {type(cfg).__name__} declares no page pool; '
+              f'dense rows of max_seq_len={cfg.max_seq_len} on {device}',
+              flush=True)
     # Serving never takes gradients, f32 masters included.
     model = convert.assemble(cfg, model.state_dict()).requires_grad_(False)
-    print(f'kv cache: dtype={args.kv_dtype} pages={pages} '
-          f'({quant.kv_page_bytes(cfg, args.kv_dtype)} bytes/page across '
-          f'layers) on {device}', flush=True)
     # Multi-LoRA adapter registry: scanned at startup, hot-loaded on
     # demand; every engine of the runtime shares its store.
     adapters = None

@@ -1,9 +1,10 @@
 """Continuous batching: a slot-based decode engine for LM serving (port
 of skypilot_tpu/models/batching.py).
 
-A fixed pool of `num_slots` decode slots shares one paged KV pool.
-Requests are admitted into free slots (prefix-cache lookup + page
-allocation, host only), their prompt suffix prefills in
+A fixed pool of `num_slots` decode slots shares one paged KV pool, or,
+on the dense path, holds one dense cache row each. Requests are
+admitted into free slots (prefix-cache lookup + page allocation, host
+only), their prompt suffix prefills in
 `prefill_chunk`-token chunks under a per-iteration token budget, and
 they then ride the shared decode loop, leaving as they finish; new
 requests join without waiting for the batch to drain. One scheduler
@@ -50,6 +51,18 @@ sticky for the whole context), so the engine marks the interval from a
 round's or a chunk's dispatch to its commit (`_pool_at_risk`): an
 exception inside it counts as a lost pool. A reset zeroes the pool in
 place (its storage stays, so the captured graphs replay on it).
+
+The dense slot path (the reference's, `paged=False`): a config whose
+pool cannot hold one `max_total_len` sequence plus the write lookahead,
+or that declares no pool at all (DeepSeek's latent cache), runs from the
+model's dense cache (`model.dense_cache(num_slots)`: [num_slots,
+max_seq_len, ...] a layer, allocated once). A slot's prefill chunks run
+on its row view; the first zeroes the row and attends chunk-locally,
+later ones the row's whole history. Decode rounds run every slot at its
+own position (the captured round has no page table). No page allocator,
+prefix cache, spill tier or KV chain on this path: prefix caching turns
+itself off, the spill flags and `import_chain` raise as the reference's
+do, and `attention_impl()` is 'dense'.
 
 Not ported yet (the constructor raises when asked for them): meshes and
 pipeline stages.
@@ -240,9 +253,12 @@ class PrefixCache:
 
 
 class ContinuousBatchingEngine:
-    """Slot engine over a port model (`Llama`, `GPT` or `Mixtral`,
-    which owns its weights; the pool is allocated on the model's
-    device, [kv heads, pages, page size, head dim] a layer)."""
+    """Slot engine over a port model (`Llama`, `GPT`, `Mixtral` or
+    `Deepseek`, which owns its weights; the pool is allocated on the
+    model's device, [kv heads, pages, page size, head dim] a layer, or
+    the dense cache on the dense path). `paged` None picks the paged
+    pool when the config declares one that holds a `max_total_len`
+    sequence plus the write lookahead, as the reference does."""
 
     #: Engine ids of this process: each engine's metric label.
     _instance_ids = itertools.count()
@@ -263,15 +279,11 @@ class ContinuousBatchingEngine:
                  kv_spill_bytes: int = 0,
                  kv_cold_dir: Optional[str] = None,
                  mesh=None,
-                 cuda_graphs: bool = True) -> None:
+                 cuda_graphs: bool = True,
+                 paged: Optional[bool] = None) -> None:
         if mesh is not None:
             raise ValueError('not supported by the PyTorch engine yet: '
                              'mesh')
-        if (kv_spill_bytes or kv_cold_dir) and not prefix_caching:
-            raise ValueError(
-                'kv_spill_bytes/kv_cold_dir need the paged engine '
-                'with prefix caching enabled (the spill tier stores '
-                'evicted prefix-cache pages)')
         cfg = model.config
         if max_total_len > cfg.max_seq_len:
             raise ValueError(f'max_total_len {max_total_len} > model '
@@ -328,16 +340,37 @@ class ContinuousBatchingEngine:
         # Verify chunks write K tokens, and decode chunks N-1, past the
         # last committed one: the pool and each table row carry that.
         self._write_lookahead = max(self.spec_k, self.decode_chunk - 1)
-        # The pool must hold one full-depth sequence; page 0 is trash.
-        usable = (cfg.kv_total_pages - 1) * cfg.kv_page_size
-        if usable < max_total_len + self._write_lookahead:
+        # The paged pool must hold one full-depth sequence (page 0 is
+        # trash); otherwise, and for a config with no pool, the dense
+        # path serves with no such cap.
+        cfg_page = getattr(cfg, 'kv_page_size', 0)
+        cfg_pool = getattr(cfg, 'kv_total_pages', 0)
+        pool_ok = (cfg_page > 0 and cfg_pool > 0 and
+                   (cfg_pool - 1) * cfg_page >=
+                   max_total_len + self._write_lookahead)
+        if paged is None:
+            paged = pool_ok
+        elif paged and not pool_ok:
             raise ValueError(
-                f'kv_total_pages={cfg.kv_total_pages} x kv_page_size='
-                f'{cfg.kv_page_size} cannot hold one max_total_len='
-                f'{max_total_len} sequence (+{self._write_lookahead} '
-                f'chunk-write headroom; usable {usable} tokens; page 0 is '
-                f'reserved); the reference\'s dense slot fallback for such '
-                f'a pool is not ported yet (ROADMAP A15)')
+                f'paged=True but kv_total_pages={cfg_pool} x '
+                f'kv_page_size={cfg_page} cannot hold one '
+                f'max_total_len={max_total_len} sequence '
+                f'(+{self._write_lookahead} chunk-write headroom; '
+                f'usable {(max(cfg_pool - 1, 0)) * cfg_page} tokens; '
+                f'page 0 is reserved).')
+        self.paged = bool(paged)
+        self.kv_dtype = kv_dtype_of(cfg)
+        if self.kv_dtype == 'int8' and not self.paged:
+            raise ValueError(
+                'kv_dtype=int8 requires the paged KV cache: the '
+                'dense per-slot cache has no scale storage (size the '
+                'kv page pool to hold max_total_len, or serve bf16)')
+        self.prefix_caching = bool(prefix_caching) and self.paged
+        if (kv_spill_bytes or kv_cold_dir) and not self.prefix_caching:
+            raise ValueError(
+                'kv_spill_bytes/kv_cold_dir need the paged engine '
+                'with prefix caching enabled (the spill tier stores '
+                'evicted prefix-cache pages)')
         self.model = model
         self.device = model.device
         # Multi-LoRA serving (inference/adapters.py): each slot may carry
@@ -350,12 +383,11 @@ class ContinuousBatchingEngine:
         self.prefill_chunk = prefill_chunk
         self.prefill_budget = ((prefill_budget or prefill_chunk)
                                if prefill_chunk else 0)
-        self.kv_dtype = kv_dtype_of(cfg)
-        self.page_size = cfg.kv_page_size
-        self.total_pages = cfg.kv_total_pages
-        self.pages_per_seq = -(-(max_total_len + self._write_lookahead)
-                               // self.page_size)
-        self.prefix_caching = bool(prefix_caching)
+        self.page_size = cfg_page
+        self.total_pages = cfg_pool
+        # Dense rows carry no page table (a round's table is [B, 0]).
+        self.pages_per_seq = (-(-(max_total_len + self._write_lookahead)
+                                // self.page_size) if self.paged else 0)
         self.prefix_cache: Optional[PrefixCache] = None  # set per reset
         # Tiered prefix cache: it outlives engine resets (content-
         # addressed host bytes stay valid across a pool rebuild).
@@ -378,7 +410,8 @@ class ContinuousBatchingEngine:
         # /debug/flight and written to a file on a reset or a death.
         self.flight = flight_lib.FlightRecorder(
             name=f'engine{self.engine_id}')
-        self.cache = PagedKVCache(cfg, self.device)
+        self.cache = (PagedKVCache(cfg, self.device) if self.paged
+                      else model.dense_cache(num_slots))
         self._generator = torch.Generator(self.device).manual_seed(seed)
         self._reset_paging()
         # Single-token rounds (plain, pipelined, chunked) on static
@@ -467,13 +500,15 @@ class ContinuousBatchingEngine:
         self._thread.start()
 
     def _reset_paging(self) -> None:
-        self.allocator = paged_ops.PageAllocator(self.total_pages,
-                                                 self.pages_per_seq)
-        # Physical page 0 is the TRASH page: unallocated table entries
-        # point at it, so junk writes (inactive slots, padded prefill
-        # tails) never touch a live page.
-        trash = self.allocator.allocate(1)
-        assert trash == [0], trash
+        self.allocator = None
+        if self.paged:
+            self.allocator = paged_ops.PageAllocator(self.total_pages,
+                                                     self.pages_per_seq)
+            # Physical page 0 is the TRASH page: unallocated table
+            # entries point at it, so junk writes (inactive slots, padded
+            # prefill tails) never touch a live page.
+            trash = self.allocator.allocate(1)
+            assert trash == [0], trash
         self.page_table = np.zeros((self.num_slots, self.pages_per_seq),
                                    np.int32)
         self.owned_pages: List[List[int]] = [
@@ -602,22 +637,30 @@ class ContinuousBatchingEngine:
                     self.queued_tokens() >= self.max_queue_tokens)
 
     def kv_cache_bytes(self) -> int:
+        """Device bytes of the KV cache: the paged pool (scales
+        included), or the dense rows."""
         return self.cache.num_bytes()
 
     def attention_impl(self) -> str:
         """The paged-attention implementation this engine's calls
         resolve to ('cuda' on the card, 'torch' on the CPU or under an
-        `impl_scope('torch')`): the attention_impl_info gauge and /stats.
+        `impl_scope('torch')`), or 'dense' on the dense path (no paged
+        kernel in play): the attention_impl_info gauge and /stats.
         """
+        if not self.paged:
+            return 'dense'
         return paged_kernel.resolve_impl('auto', self.device)
 
     def attention_bytes_per_token(self) -> Dict[str, object]:
         """Modeled HBM bytes one decode step moves per generated token at
         the current decode batch (`paged_kernel.bytes_per_token_model`
         fed this engine's page geometry, dtypes and adapter store): the
-        serving roofline's denominator. Host state only: the weight
-        bytes are counted once from tensor metadata, the batch from the
-        numpy `active`."""
+        serving roofline's denominator. A dense engine walks
+        `max_total_len` tokens of its row, `values_per_token` values a
+        token a layer (2 x Hkv x D for K/V, d_c + d_rope for MLA's
+        latents), with no scales. Host state only: the weight bytes are
+        counted once from tensor metadata, the batch from the numpy
+        `active`."""
         cfg = self.model.config
         if self._weight_bytes is None:
             self._weight_bytes = quant.weight_num_bytes(self.model)
@@ -628,14 +671,20 @@ class ContinuousBatchingEngine:
             targets = tuple(getattr(store, '_targets', ()) or ())
             if rank > 0 and targets:
                 lora_bytes = lora_lib.adapter_num_bytes(cfg, rank, targets)
-        quantized = self.kv_dtype == 'int8'
+        quantized = self.paged and self.kv_dtype == 'int8'
+        if self.paged:
+            page_size, pages_per_seq = self.page_size, self.pages_per_seq
+            kv_values = 2 * kv_heads(cfg) * cfg.head_dim
+        else:
+            page_size, pages_per_seq = 1, self.max_total_len
+            kv_values = self.cache.values_per_token
         return paged_kernel.bytes_per_token_model(
             num_layers=cfg.num_layers,
-            num_kv_heads=kv_heads(cfg),
+            kv_values_per_token=kv_values,
             num_q_heads=cfg.num_heads,
-            head_dim=cfg.head_dim,
-            page_size=self.page_size,
-            pages_per_seq=self.pages_per_seq,
+            head_dim=getattr(cfg, 'head_dim', 0),
+            page_size=page_size,
+            pages_per_seq=pages_per_seq,
             kv_elem_bytes=1 if quantized else cfg.dtype.itemsize,
             quantized=quantized,
             impl=self.attention_impl(),
@@ -655,9 +704,10 @@ class ContinuousBatchingEngine:
         m.prefill_backlog.set(self.prefill_backlog_tokens())
         m.kv_pool_bytes.set(self.kv_cache_bytes())
         m.kv_pool_bytes_per_device.set(self.kv_cache_bytes())
-        free = int(self.allocator.free_pages)
-        m.pages_free.set(free)
-        m.pages_used.set(self.total_pages - free)
+        if self.paged:
+            free = int(self.allocator.free_pages)
+            m.pages_free.set(free)
+            m.pages_used.set(self.total_pages - free)
         if self.kv_restore_lookups:
             m.kv_restore_hit_ratio.set(self.kv_restore_hits /
                                        self.kv_restore_lookups)
@@ -1436,30 +1486,14 @@ class ContinuousBatchingEngine:
                 if len(shared) * self.page_size >= plen:
                     self.prefix_cache.release([shared.pop()])
             n_cached = len(shared) * self.page_size
-            # The real suffix needs pages (+1 for the first generated
-            # token); a padded tail past them hits the trash page.
-            need = self.allocator.pages_needed(plen + 1, self.page_size) \
-                - len(shared)
-            if self.prefix_cache is not None:
-                self._evict_for(need + reserve, tref)
-            if not self.allocator.can_allocate(need + reserve):
+            if self.paged and not self._allocate_slot(slot, plen, shared,
+                                                      keys, reserve, tref):
                 # Pool exhausted: back to the HEAD, stop admitting.
-                if self.prefix_cache is not None:
-                    self.prefix_cache.release(shared)
                 if aid:
                     self.adapter_store.release(aid)
                 self._queued_tokens_add(len(prompt))
                 self._ready.appendleft(item)
                 break
-            pages = self.allocator.allocate(need)
-            self.owned_pages[slot] = pages
-            self.shared_pages[slot] = shared
-            self.slot_keys[slot] = keys
-            self.page_table[slot, :] = 0
-            self.page_table[slot, :len(shared)] = shared
-            self.page_table[slot, len(shared):len(shared) + need] = pages
-            self.allocated_tokens[slot] = (len(shared) + need) * \
-                self.page_size
             # Claim the slot before any device work.
             self.futures[slot] = fut
             self.outputs[slot] = list(prompt)
@@ -1467,11 +1501,13 @@ class ContinuousBatchingEngine:
             self.prefill_frontier[slot] = n_cached
             self.pos[slot] = n_cached
             self.cur_token[slot] = 0
-            # The pool bounds the deepest a sequence can get, less the
-            # chunk-write lookahead.
-            self.limits[slot] = min(plen + max_new, self.max_total_len,
-                                    (self.total_pages - 1) * self.page_size
-                                    - self._write_lookahead)
+            limit = min(plen + max_new, self.max_total_len)
+            if self.paged:
+                # The pool bounds the deepest a sequence can get, less
+                # the chunk-write lookahead.
+                limit = min(limit, (self.total_pages - 1) * self.page_size
+                            - self._write_lookahead)
+            self.limits[slot] = limit
             self.temps[slot] = temp
             self.top_ks[slot] = top_k
             self.top_ps[slot] = top_p
@@ -1497,6 +1533,30 @@ class ContinuousBatchingEngine:
             self.metrics.admissions.inc()
             admitted = True
         return admitted
+
+    def _allocate_slot(self, slot: int, plen: int, shared: List[int],
+                       keys: List[bytes], reserve: int, tref) -> bool:
+        """Pages for an admission's prompt suffix (+1 for the first
+        generated token; a padded tail past them hits the trash page)
+        and the slot's page-table row. False (the shared prefix
+        released) when the pool cannot serve them beside `reserve`."""
+        need = self.allocator.pages_needed(plen + 1, self.page_size) \
+            - len(shared)
+        if self.prefix_cache is not None:
+            self._evict_for(need + reserve, tref)
+        if not self.allocator.can_allocate(need + reserve):
+            if self.prefix_cache is not None:
+                self.prefix_cache.release(shared)
+            return False
+        pages = self.allocator.allocate(need)
+        self.owned_pages[slot] = pages
+        self.shared_pages[slot] = shared
+        self.slot_keys[slot] = keys
+        self.page_table[slot, :] = 0
+        self.page_table[slot, :len(shared)] = shared
+        self.page_table[slot, len(shared):len(shared) + need] = pages
+        self.allocated_tokens[slot] = (len(shared) + need) * self.page_size
+        return True
 
     def _evict_for(self, need: int, tref) -> None:
         """Prefix-cache eviction for an admission, with an
@@ -1524,7 +1584,7 @@ class ContinuousBatchingEngine:
         a real page holding the prompt tail)."""
         cap = self.prefill_chunk or self.max_total_len
         shape = min(_bucket(n, cap), cap)
-        if offset:
+        if offset and self.paged:
             shape = min(shape, self.pages_per_seq * self.page_size - offset)
             assert shape >= n
         return shape
@@ -1534,8 +1594,10 @@ class ContinuousBatchingEngine:
         """One prefill chunk: n real tokens of the slot's prompt at
         absolute position `offset`. Returns the f32 logits of the
         chunk's last real token. The first chunk (offset 0) attends its
-        own K/V; later ones the row's paged history. The
-        `engine.prefill_chunk` point fires before any device work."""
+        own K/V; later ones the row's paged history. On the dense path
+        the chunk runs on the slot's row view, which the first chunk
+        zeroes. The `engine.prefill_chunk` point fires before any device
+        work."""
         faults.point('engine.prefill_chunk')
         shape = self._chunk_shape(n, offset)
         chunk = self.outputs[slot][offset:offset + n] + [0] * (shape - n)
@@ -1543,9 +1605,16 @@ class ContinuousBatchingEngine:
         tokens = torch.tensor([chunk], dtype=torch.long, device=dev)
         positions = torch.arange(offset, offset + shape, dtype=torch.int32,
                                  device=dev)[None]
-        page_row = torch.from_numpy(self.page_table[slot:slot + 1]).to(dev)
         self._pool_at_risk = True    # the chunk writes the pool from here
-        hidden = self.model.hidden(tokens, positions, self.cache, page_row,
+        if self.paged:
+            cache = self.cache
+            page_row = torch.from_numpy(
+                self.page_table[slot:slot + 1]).to(dev)
+        else:
+            cache, page_row = self.cache.row(slot), None
+            if offset == 0:
+                cache.zero_()
+        hidden = self.model.hidden(tokens, positions, cache, page_row,
                                    prefill=offset == 0,
                                    attend_len=self.max_total_len,
                                    **self._slot_lora_args(slot))
@@ -1641,7 +1710,10 @@ class ContinuousBatchingEngine:
         its position: an int, or one per slot). On pool exhaustion the
         slot is PREEMPTED: its pages are released and the request
         re-queued at the head with everything generated so far as its
-        prompt (recomputed on re-admission; greedy output unchanged)."""
+        prompt (recomputed on re-admission; greedy output unchanged).
+        Dense rows hold every position: nothing to do."""
+        if not self.paged:
+            return
         preempted = []
         for slot in range(self.num_slots):
             if not self.active[slot]:
@@ -1705,7 +1777,10 @@ class ContinuousBatchingEngine:
         continues a pipelined round). Admission leaves them free: a
         request it took them for would preempt a running slot, and a
         preempted request re-admitted straight away can take them back
-        from the other, round after round, with neither committing."""
+        from the other, round after round, with neither committing.
+        None on the dense path."""
+        if not self.paged:
+            return 0
         ahead = self._write_lookahead + 1 + int(self.pipeline_decode)
         cap = self.pages_per_seq * self.page_size
         need = 0
@@ -1718,7 +1793,10 @@ class ContinuousBatchingEngine:
     def _release_slot_pages(self, slot: int, promote: bool) -> None:
         """Return a slot's pages: shared refs drop, own PROMPT-full pages
         are promoted into the prefix cache when `promote` (their
-        contents are final), the rest go back to the allocator."""
+        contents are final), the rest go back to the allocator. Dense
+        rows have none."""
+        if not self.paged:
+            return
         cache = self.prefix_cache
         if cache is not None:
             own = self.owned_pages[slot]
@@ -2043,7 +2121,8 @@ class ContinuousBatchingEngine:
         hidden = self.model.hidden(
             torch.from_numpy(chunk).to(dev).long(),
             torch.from_numpy(positions).to(dev), self.cache,
-            torch.from_numpy(self.page_table).to(dev),
+            torch.from_numpy(self.page_table).to(dev) if self.paged
+            else None,
             attend_len=self.max_total_len, **self._lora_args())
         live = self.active
         y = self._select(self.model.logits(hidden), slice(None),

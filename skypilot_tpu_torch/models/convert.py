@@ -1,6 +1,7 @@
-"""Weights for the port's models (`Llama`, `GPT`, `Mixtral`): from a
-Flax param tree, or a seeded init on the device. Each function takes any
-family's config and dispatches on its type (`model_class`).
+"""Weights for the port's models (`Llama`, `GPT`, `Mixtral`,
+`Deepseek`): from a Flax param tree, or a seeded init on the device.
+Each function takes any family's config and dispatches on its type
+(`model_class`).
 
 `params_from_jax` maps the tree that the reference's
 `model.init(...)['params']` gives (every leaf as a float32 numpy array;
@@ -23,10 +24,15 @@ attn/c_proj, ln_2, mlp/c_fc, mlp/c_proj}` and `ln_f` (LayerNorms with
 `tok_embed`, `layer_i/{attn_norm, attn/{wq,wk,wv,wo}, moe_norm,
 moe/{router, w_gate, w_up, w_down}}`, `final_norm` and `lm_head`
 (the router a bias-free [embed, E] kernel, the expert stacks kept in the
-reference's [E, in, out] layout). Neither family has int8 projections.
+reference's [E, in, out] layout); DeepSeek's `tok_embed`,
+`layer_i/{attn_norm, attn/{wq | wq_a, q_norm, wq_b}, attn/{wkv_a,
+kv_norm, wkv_b, wo}, mlp_norm, mlp/{w_gate, w_up, w_down}}`,
+`final_norm` and `lm_head` (`wkv_b` a raw [d_c, H, nope + v] array).
 
-int8 projection weights (`weight_dtype='int8'`): `params_from_jax` takes
-a tree the reference's `quantize_params` wrote (`kernel_q` /
+int8 projection weights (`weight_dtype='int8'`; the Llama family,
+Mixtral's attention and DeepSeek's wq / wo / SwiGLU, the 2-D `{kernel}`
+leaves named in `quant.WEIGHT_TARGETS`; GPT has none): `params_from_jax`
+takes a tree the reference's `quantize_params` wrote (`kernel_q` /
 `kernel_scale` leaves become `weight_q` = kernel_q.T and `weight_scale`,
 byte for byte), and `params_from_jax`, `init_params` and the HF importer
 quantize an f32 source (`quantize_state`) from its f32 values, before any
@@ -42,6 +48,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.inference import quant
+from skypilot_tpu_torch.models.deepseek import Deepseek, DeepseekConfig
 from skypilot_tpu_torch.models.gpt import GPT, GPTConfig
 from skypilot_tpu_torch.models.llama import DENSE_CLASSES, Llama, LlamaConfig
 from skypilot_tpu_torch.models.mixtral import Mixtral, MixtralConfig
@@ -58,11 +65,12 @@ def weight_dtype_of(state: Mapping[str, torch.Tensor]) -> str:
 
 
 _MODEL_CLASSES = {LlamaConfig: Llama, GPTConfig: GPT,
-                  MixtralConfig: Mixtral}
+                  MixtralConfig: Mixtral, DeepseekConfig: Deepseek}
 
 
 def model_class(cfg):
-    """The port's model class of a config (`Llama`, `GPT`, `Mixtral`)."""
+    """The port's model class of a config (`Llama`, `GPT`, `Mixtral`,
+    `Deepseek`)."""
     try:
         return _MODEL_CLASSES[type(cfg)]
     except KeyError:
@@ -168,6 +176,20 @@ def _taker(flat: Dict[str, np.ndarray], device):
     return take
 
 
+def _dense_taker(flat: Dict[str, np.ndarray], take):
+    """dense(leaf, key) -> module `key`'s weight tensors from tree leaf
+    `leaf`: `.weight` [out, in] from an f32 `kernel`, or `.weight_q` /
+    `.weight_scale` from the reference's quantized leaves, byte for
+    byte."""
+    def dense(leaf: str, key: str) -> Dict[str, torch.Tensor]:
+        if f'{leaf}/{quant.QUANT_KEY}' in flat:
+            return {f'{key}.weight_q':
+                    take(f'{leaf}/{quant.QUANT_KEY}').T.contiguous(),
+                    f'{key}.weight_scale': take(f'{leaf}/{quant.SCALE_KEY}')}
+        return {f'{key}.weight': take(f'{leaf}/kernel').T.contiguous()}
+    return dense
+
+
 #: GPT's dense layers: (group, name) under each `h_i`.
 _GPT_DENSE = (('attn', 'c_attn'), ('attn', 'c_proj'), ('mlp', 'c_fc'),
               ('mlp', 'c_proj'))
@@ -175,7 +197,7 @@ _GPT_NORMS = ('ln_1', 'ln_2')
 _MOE_STACKS = ('w_gate', 'w_up', 'w_down')
 
 
-def _gpt_state(take, cfg: GPTConfig) -> Dict[str, torch.Tensor]:
+def _gpt_state(take, dense, cfg: GPTConfig) -> Dict[str, torch.Tensor]:
     """GPT's {port name: f32 tensor} from a reference tree (`take`)."""
     state = {'wte': take('wte'), 'wpe': take('wpe'),
              'ln_f.scale': take('ln_f/scale'), 'ln_f.bias': take('ln_f/bias')}
@@ -186,24 +208,26 @@ def _gpt_state(take, cfg: GPTConfig) -> Dict[str, torch.Tensor]:
                 state[f'{dst}.{norm}.{leaf}'] = take(f'{src}/{norm}/{leaf}')
         for group, name in _GPT_DENSE:
             leaf = f'{src}/{group}/{name}'
-            state[f'{dst}.{group}.{name}.weight'] = \
-                take(f'{leaf}/kernel').T.contiguous()
+            state.update(dense(leaf, f'{dst}.{group}.{name}'))
             state[f'{dst}.{group}.{name}.bias'] = take(f'{leaf}/bias')
     return state
 
 
-def _mixtral_state(take, cfg: MixtralConfig) -> Dict[str, torch.Tensor]:
-    """Mixtral's {port name: f32 tensor} from a reference tree."""
-    state = {'tok_embed': take('tok_embed'),
-             'lm_head': take('lm_head').T.contiguous(),
-             'final_norm.scale': take('final_norm/scale')}
+def _head_norm_state(take) -> Dict[str, torch.Tensor]:
+    return {'tok_embed': take('tok_embed'),
+            'lm_head': take('lm_head').T.contiguous(),
+            'final_norm.scale': take('final_norm/scale')}
+
+
+def _mixtral_state(take, dense, cfg: MixtralConfig) -> Dict[str, torch.Tensor]:
+    """Mixtral's {port name: tensor} from a reference tree."""
+    state = _head_norm_state(take)
     for i in range(cfg.num_layers):
         src, dst = f'layer_{i}', f'layers.{i}'
         for norm in ('attn_norm', 'moe_norm'):
             state[f'{dst}.{norm}.scale'] = take(f'{src}/{norm}/scale')
         for name in _DENSE['attn']:
-            state[f'{dst}.attn.{name}.weight'] = \
-                take(f'{src}/attn/{name}/kernel').T.contiguous()
+            state.update(dense(f'{src}/attn/{name}', f'{dst}.attn.{name}'))
         state[f'{dst}.moe.router'] = \
             take(f'{src}/moe/router/kernel').T.contiguous()
         for name in _MOE_STACKS:
@@ -211,27 +235,63 @@ def _mixtral_state(take, cfg: MixtralConfig) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _deepseek_state(take, dense,
+                    cfg: DeepseekConfig) -> Dict[str, torch.Tensor]:
+    """DeepSeek's {port name: tensor} from a reference tree."""
+    state = _head_norm_state(take)
+    for i in range(cfg.num_layers):
+        src, dst = f'layer_{i}', f'layers.{i}'
+        for norm in ('attn_norm', 'mlp_norm'):
+            state[f'{dst}.{norm}.scale'] = take(f'{src}/{norm}/scale')
+        attn, out = f'{src}/attn', f'{dst}.attn'
+        names = (('wq_a', 'wq_b') if cfg.q_lora_rank else ('wq',)) + \
+            ('wkv_a', 'wo')
+        for name in names:
+            state.update(dense(f'{attn}/{name}', f'{out}.{name}'))
+        if cfg.q_lora_rank:
+            state[f'{out}.q_norm.scale'] = take(f'{attn}/q_norm/scale')
+        state[f'{out}.kv_norm.scale'] = take(f'{attn}/kv_norm/scale')
+        state[f'{out}.wkv_b'] = take(f'{attn}/wkv_b')
+        for name in _DENSE['mlp']:
+            state.update(dense(f'{src}/mlp/{name}', f'{dst}.mlp.{name}'))
+    return state
+
+
+_TREE_READERS = {GPTConfig: _gpt_state, MixtralConfig: _mixtral_state,
+                 DeepseekConfig: _deepseek_state}
+
+
 def params_from_jax(tree: Mapping[str, Any], cfg,
                     device: Optional[torch.device] = None,
                     weight_dtype: Optional[str] = None):
     """The config's port model with the weights of a reference param
     tree, stored as `cfg.param_dtype` says (None: serving's layout). A
-    Llama tree of the reference's `quantize_params` gives int8
-    projections as they are; `weight_dtype='int8'` quantizes an f32
-    Llama tree's kernels (default: the tree's own storage). Raises on
-    any leaf it did not consume."""
+    tree of the reference's `quantize_params` gives int8 projections as
+    they are; `weight_dtype='int8'` quantizes an f32 tree's projection
+    kernels (default: the tree's own storage). Raises on any leaf it did
+    not consume."""
     flat = _flatten(tree)
     if not isinstance(cfg, LlamaConfig):
-        if weight_dtype not in (None, 'bf16'):
-            raise ValueError(f'weight_dtype {weight_dtype!r}: '
-                             f'{type(cfg).__name__} has no int8 '
-                             f'projections')
         take = _taker(flat, device)
-        state = (_gpt_state(take, cfg) if isinstance(cfg, GPTConfig)
-                 else _mixtral_state(take, cfg))
+        quantized = any(p.endswith('/' + quant.QUANT_KEY) for p in flat)
+        state = _TREE_READERS[type(cfg)](take, _dense_taker(flat, take),
+                                         cfg)
         if flat:
             raise ValueError(f'param tree leaves not consumed: '
                              f'{sorted(flat)}')
+        if weight_dtype is None:
+            weight_dtype = 'int8' if quantized else 'bf16'
+        if weight_dtype not in DENSE_CLASSES or (quantized and
+                                                  weight_dtype != 'int8'):
+            raise ValueError(f'weight_dtype {weight_dtype!r} for a '
+                             f'{"quantized" if quantized else "dense"} '
+                             f'tree')
+        if weight_dtype == 'int8' and not quantized:
+            state = quantize_state(state)
+        if weight_dtype_of(state) != weight_dtype:
+            raise ValueError(f'weight_dtype {weight_dtype!r}: '
+                             f'{type(cfg).__name__} has no int8 '
+                             f'projections')
         return assemble(cfg, cast_to_layout(cfg, state))
     trainable = cfg.trainable
     quantized = any(p.endswith('/' + quant.QUANT_KEY) for p in flat)
@@ -329,6 +389,33 @@ def _mixtral_tree(model: Mixtral) -> Dict[str, Any]:
     return tree
 
 
+def _deepseek_tree(model: Deepseek) -> Dict[str, Any]:
+    cfg = model.config
+    kernel = lambda dense: {'kernel': _np32(dense.weight).T.copy()}
+    tree: Dict[str, Any] = {
+        'tok_embed': _np32(model.tok_embed),
+        'lm_head': _np32(model.lm_head).T.copy(),
+        'final_norm': {'scale': _np32(model.final_norm.scale)}}
+    for i, block in enumerate(model.layers):
+        attn = block.attn
+        a: Dict[str, Any] = {
+            'wkv_a': kernel(attn.wkv_a),
+            'kv_norm': {'scale': _np32(attn.kv_norm.scale)},
+            'wkv_b': _np32(attn.wkv_b), 'wo': kernel(attn.wo)}
+        if cfg.q_lora_rank:
+            a.update(wq_a=kernel(attn.wq_a), wq_b=kernel(attn.wq_b),
+                     q_norm={'scale': _np32(attn.q_norm.scale)})
+        else:
+            a['wq'] = kernel(attn.wq)
+        tree[f'layer_{i}'] = {
+            'attn_norm': {'scale': _np32(block.attn_norm.scale)},
+            'mlp_norm': {'scale': _np32(block.mlp_norm.scale)},
+            'attn': a,
+            'mlp': {name: kernel(getattr(block.mlp, name))
+                    for name in _DENSE['mlp']}}
+    return tree
+
+
 def train_params_to_jax(model) -> Dict[str, Any]:
     """The reference's param tree (float32 numpy leaves, Dense kernels
     [in, out], `lm_head` [embed, vocab]) of a port model: the inverse
@@ -337,6 +424,8 @@ def train_params_to_jax(model) -> Dict[str, Any]:
         return _gpt_tree(model)
     if isinstance(model, Mixtral):
         return _mixtral_tree(model)
+    if isinstance(model, Deepseek):
+        return _deepseek_tree(model)
     cfg = model.config
     tree: Dict[str, Any] = {
         'tok_embed': _np32(model.tok_embed),
@@ -418,12 +507,13 @@ def init_params(cfg, seed: int = 0,
     """Seeded random weights of the config's model, generated on
     `device` with one torch.Generator (not the reference's numbers:
     jax.random and torch generators differ), stored as
-    `cfg.param_dtype` says. With `weight_dtype='int8'` (Llama only) each
-    projection is quantized from its f32 draw (the same draws as the
-    bf16 model of this seed)."""
+    `cfg.param_dtype` says. With `weight_dtype='int8'` (every family but
+    GPT) each projection named in `quant.WEIGHT_TARGETS` is quantized
+    from its f32 draw (the same draws as the bf16 model of this
+    seed)."""
     if weight_dtype not in DENSE_CLASSES:
         raise ValueError(f'unsupported weight_dtype {weight_dtype!r}')
-    if weight_dtype != 'bf16' and not isinstance(cfg, LlamaConfig):
+    if weight_dtype != 'bf16' and isinstance(cfg, GPTConfig):
         raise ValueError(f'weight_dtype {weight_dtype!r}: '
                          f'{type(cfg).__name__} has no int8 projections')
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -435,7 +525,19 @@ def init_params(cfg, seed: int = 0,
 
     ones = lambda n: torch.ones(n, dtype=torch.float32, device=device)
     zeros = lambda n: torch.zeros(n, dtype=torch.float32, device=device)
+
+    def proj(state, key: str, shape) -> None:
+        """Projection `key`'s [out, in] draw, stored or quantized."""
+        w = normal(*shape)
+        if weight_dtype == 'int8' and key.split('.')[-1] in \
+                quant.WEIGHT_TARGETS:
+            _store_int8(state, key, w.T)
+        else:
+            state[f'{key}.weight'] = w.to(store_dtype)
+
     d = cfg.embed_dim
+    if isinstance(cfg, DeepseekConfig):
+        return _init_deepseek(cfg, normal, ones, proj, store_dtype)
     if isinstance(cfg, GPTConfig):
         state: Dict[str, torch.Tensor] = {
             'wte': normal(cfg.vocab_size, d),
@@ -474,15 +576,43 @@ def init_params(cfg, seed: int = 0,
                         normal(*shape).to(store_dtype)
                 continue
             for name in names:
-                w = normal(*out_in[name])
-                if weight_dtype == 'int8':
-                    _store_int8(state, f'{dst}.{group}.{name}', w.T)
-                else:
-                    state[f'{dst}.{group}.{name}.weight'] = w.to(store_dtype)
-                del w
+                proj(state, f'{dst}.{group}.{name}', out_in[name])
                 if getattr(cfg, 'qkv_bias', False) and name in _QKV:
                     state[f'{dst}.{group}.{name}.bias'] = torch.zeros(
                         out_in[name][0], dtype=store_dtype, device=device)
+    state['final_norm.scale'] = ones(d)
+    head = normal(cfg.vocab_size, d)
+    state['lm_head'] = head if cfg.trainable else _head(head, cfg)
+    return assemble(cfg, state)
+
+
+def _init_deepseek(cfg: DeepseekConfig, normal, ones, proj, store_dtype):
+    """`init_params`' DeepSeek branch (its draws, its layout)."""
+    d, f, h = cfg.embed_dim, cfg.mlp_dim, cfg.num_heads
+    state: Dict[str, torch.Tensor] = {
+        'tok_embed': normal(cfg.vocab_size, d).to(store_dtype)}
+    for i in range(cfg.num_layers):
+        dst = f'layers.{i}'
+        attn = f'{dst}.attn'
+        state[f'{dst}.attn_norm.scale'] = ones(d)
+        state[f'{dst}.mlp_norm.scale'] = ones(d)
+        if cfg.q_lora_rank:
+            proj(state, f'{attn}.wq_a', (cfg.q_lora_rank, d))
+            state[f'{attn}.q_norm.scale'] = ones(cfg.q_lora_rank)
+            proj(state, f'{attn}.wq_b', (h * cfg.qk_head_dim,
+                                         cfg.q_lora_rank))
+        else:
+            proj(state, f'{attn}.wq', (h * cfg.qk_head_dim, d))
+        proj(state, f'{attn}.wkv_a', (cfg.kv_lora_rank + cfg.rope_head_dim,
+                                      d))
+        state[f'{attn}.kv_norm.scale'] = ones(cfg.kv_lora_rank)
+        state[f'{attn}.wkv_b'] = normal(
+            cfg.kv_lora_rank, h,
+            cfg.nope_head_dim + cfg.v_head_dim).to(store_dtype)
+        proj(state, f'{attn}.wo', (d, h * cfg.v_head_dim))
+        for name, shape in (('w_gate', (f, d)), ('w_up', (f, d)),
+                            ('w_down', (d, f))):
+            proj(state, f'{dst}.mlp.{name}', shape)
     state['final_norm.scale'] = ones(d)
     head = normal(cfg.vocab_size, d)
     state['lm_head'] = head if cfg.trainable else _head(head, cfg)

@@ -9,7 +9,9 @@ skypilot_tpu/models/batching.py:980-1007, and of its `--decode-chunk`
             pinned host staging per dispatch: the host's token and
             position per lane, the pipelined continue-mask, the adapter
             id, top-k, temperature and top-p (f32 bits), the chunk step
-            counter, and the page table [B, P];
+            counter, and the page table [B, P] (P = 0 on the engine's
+            dense path: the model's dense cache, one row a lane, takes
+            no page table);
   last_tok, last_pos   int32 [B]: the tokens the previous step sampled
             and the positions it ran at, written on the device;
   out       int32 [max_steps, B]: step i of a dispatch writes row i.
@@ -17,7 +19,7 @@ skypilot_tpu/models/batching.py:980-1007, and of its `--decode-chunk`
 `step` is the round: its prologue takes each lane's token and position
 from the previous step (`cont` lanes: the token it sampled, at position
 +1) or from the host, it runs the model's `hidden` in decode mode over the
-paged pool, selects the next tokens (greedy, sampled, or sampled with
+paged pool or the dense rows, selects the next tokens (greedy, sampled, or sampled with
 the top-k / top-p filter), and its epilogue writes them into `out`,
 feeds them back (token, position, cont = 1) and advances the step
 counter. So the pipelined loop dispatches round N+1 before it has
@@ -134,8 +136,9 @@ class Pending:
 
 class DecodeRound:
     """Static buffers, the round function and its captured graphs for
-    one engine (see module doc). `use_graphs` is honoured on CUDA only;
-    on the CPU every step runs eagerly."""
+    one engine (see module doc). `pages_per_seq` 0 is the dense
+    variant. `use_graphs` is honoured on CUDA only; on the CPU every
+    step runs eagerly."""
 
     def __init__(self, model, cache, num_slots: int, pages_per_seq: int,
                  max_steps: int, generator: torch.Generator,
@@ -148,6 +151,7 @@ class DecodeRound:
         self.generator = generator
         self.num_slots = num_slots
         self.max_steps = max_steps
+        self.paged = pages_per_seq > 0
         self.use_graphs = bool(use_graphs) and self.device.type == 'cuda'
         b = num_slots
         self._offsets = {name: i * b for i, name in enumerate(_FIELDS)}
@@ -196,7 +200,8 @@ class DecodeRound:
         kw = ({'lora': lora, 'adapter_ids': v['ids']} if lora is not None
               else {})
         hidden = self.model.hidden(tok[:, None].long(), pos[:, None],
-                                   self.cache, v['table'],
+                                   self.cache,
+                                   v['table'] if self.paged else None,
                                    attend_len=self.attend_len, **kw)
         logits = self.model.logits(hidden[:, 0])
         out = select_tokens(logits, selection, v['temp'], v['top_k'],

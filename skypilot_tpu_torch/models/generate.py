@@ -22,7 +22,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from skypilot_tpu_torch.models.llama import DenseKVCache
+from skypilot_tpu_torch.models.llama import SlotCache
 
 
 def filter_logits(logits: torch.Tensor, top_k: torch.Tensor,
@@ -80,7 +80,8 @@ def sample_tokens(logits: torch.Tensor, temps: torch.Tensor,
 
 # -- one-shot generation -----------------------------------------------------
 # The one-shot engine (serve_lm without --continuous-batching) runs each
-# request alone through a dense per-request cache (`DenseKVCache`). The
+# request alone through a dense per-request cache, the one the model
+# builds (`dense_cache`: K/V rows, or DeepSeek's latent rows). The
 # reference traces the step loop into one jitted scan; here it is a
 # host loop of eager steps, with the reference's output contract.
 
@@ -112,7 +113,7 @@ def make_generate_fn(model, max_total_len: int, temperature: float = 0.0,
         device = model.device
         prompt = torch.as_tensor(prompt, device=device).long()
         batch, prompt_len = prompt.shape
-        cache = DenseKVCache(model.config, batch, device)
+        cache = model.dense_cache(batch)
         temps = torch.full((batch,), float(temperature), device=device)
         off_k = torch.zeros((batch,), dtype=torch.int32, device=device)
         off_p = torch.ones((batch,), device=device)
@@ -152,7 +153,7 @@ def teacher_forced_logits(model, tokens: torch.Tensor
     tokens = torch.as_tensor(tokens, device=model.device).long()
     batch, seq = tokens.shape
     full = model(tokens)
-    cache = DenseKVCache(model.config, batch, model.device)
+    cache = model.dense_cache(batch)
     decoded = []
     for t in range(seq):
         positions = torch.full((batch, 1), t, dtype=torch.int32,
@@ -203,7 +204,7 @@ def make_speculative_generate_fn(model, max_total_len: int,
     pad = draft_k + 1   # scratch tail so chunk writes stay in bounds
 
     def greedy(tokens: torch.Tensor, positions: torch.Tensor,
-               cache: DenseKVCache) -> torch.Tensor:
+               cache: SlotCache) -> torch.Tensor:
         hidden = model.hidden(tokens, positions, cache)
         return torch.argmax(model.logits(hidden), dim=-1)
 
@@ -216,7 +217,7 @@ def make_speculative_generate_fn(model, max_total_len: int,
         prompt_np = np.asarray(torch.as_tensor(prompt).cpu(), np.int64)
         batch, prompt_len = prompt_np.shape
         total = max_total_len + pad
-        cache = DenseKVCache(model.config, batch, device)
+        cache = model.dense_cache(batch)
         tokens = np.zeros((batch, total), np.int64)
         tokens[:, :prompt_len] = prompt_np
         # Prefill: the whole prompt in one chunk, attending itself; its

@@ -213,6 +213,11 @@ class GPT(nn.Module):
     def device(self) -> torch.device:
         return self.wte.device
 
+    def dense_cache(self, batch: int) -> DenseKVCache:
+        """A zeroed dense cache of `batch` rows on the model's device:
+        the one-shot engine's, and the slot engine's dense path."""
+        return DenseKVCache(self.config, batch, self.device)
+
     def hidden(self, tokens: torch.Tensor,
                positions: Optional[torch.Tensor] = None,
                cache: Optional[Union[PagedKVCache, DenseKVCache]] = None,

@@ -1,5 +1,5 @@
 """HuggingFace checkpoint import: a local HF model directory -> the
-port's `Llama`, `GPT` or `Mixtral` (port of
+port's `Llama`, `GPT`, `Mixtral` or `Deepseek` (port of
 skypilot_tpu/models/hf_import.py).
 
 Reads `config.json` and the weights (`model.safetensors`, shards listed
@@ -12,8 +12,11 @@ expert's w1 / w3 / w2 stacked into [E, in, out], and capacity_factor
 E / K by default, so no routed token is dropped, as the reference
 imports it) and `gpt2` (HF's Conv1D weights are [in, out], transposed
 to the port's [out, in]; `wpe` cut to the block size, which may not
-exceed n_positions). `deepseek_v2` waits for its model family (ROADMAP
-A12). Nothing is downloaded.
+exceed n_positions) and `deepseek_v2` (MLA with dense SwiGLU layers: the
+rope rows of each q head and of kv_a's last d_rope rows de-interleaved,
+`kv_b_proj` reshaped to [d_c, H, nope + v]; a checkpoint with routed
+experts is refused before any weight is read, and `rope_scaling`
+refused, as the reference refuses them). Nothing is downloaded.
 
 Safetensors files are read by this module's own reader
 (`read_safetensors`: an 8-byte little-endian header length, a JSON
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.models import convert
+from skypilot_tpu_torch.models.deepseek import DeepseekConfig
 from skypilot_tpu_torch.models.gpt import GPTConfig
 from skypilot_tpu_torch.models.llama import (DENSE_CLASSES, LlamaConfig,
                                              RopeScaling)
@@ -51,13 +55,11 @@ class HfImportError(Exception):
     """Unsupported or malformed HF checkpoint."""
 
 
-#: model types the port imports (and the config class of each), and
-#: those that wait for their family.
+#: model types the port imports, and the config class of each.
 _CONFIG_TYPES = {'llama': LlamaConfig, 'mistral': LlamaConfig,
                  'qwen2': LlamaConfig, 'mixtral': MixtralConfig,
-                 'gpt2': GPTConfig}
+                 'gpt2': GPTConfig, 'deepseek_v2': DeepseekConfig}
 SUPPORTED_MODEL_TYPES = tuple(_CONFIG_TYPES)
-DEFERRED_MODEL_TYPES = ('deepseek_v2',)
 
 _ST_DTYPES = {'BF16': (np.int16, torch.bfloat16),
               'F16': (np.float16, torch.float16),
@@ -300,19 +302,85 @@ def _convert_gpt2(cfg_json: Dict[str, Any], sd: Dict[str, torch.Tensor],
     return cfg, state
 
 
+def _convert_deepseek(cfg_json: Dict[str, Any],
+                      sd: Dict[str, torch.Tensor],
+                      max_seq_len: Optional[int], **config_overrides
+                      ) -> Tuple[DeepseekConfig, Dict[str, torch.Tensor]]:
+    """(config, state) of a dense-MLP deepseek_v2 checkpoint (the
+    reference's `_convert_deepseek`)."""
+    if _parse_rope_scaling(cfg_json) is not None:
+        raise HfImportError(
+            'rope_scaling is not supported for deepseek_v2 imports yet')
+    num_layers = cfg_json['num_hidden_layers']
+    rope_dim = cfg_json['qk_rope_head_dim']
+    nope_dim = cfg_json['qk_nope_head_dim']
+    num_heads = cfg_json['num_attention_heads']
+    q_lora = cfg_json.get('q_lora_rank') or 0
+    common = dict(
+        vocab_size=cfg_json['vocab_size'],
+        max_seq_len=max_seq_len or cfg_json['max_position_embeddings'],
+        num_layers=num_layers, num_heads=num_heads,
+        embed_dim=cfg_json['hidden_size'],
+        mlp_dim=cfg_json['intermediate_size'],
+        kv_lora_rank=cfg_json['kv_lora_rank'], q_lora_rank=q_lora,
+        rope_head_dim=rope_dim, nope_head_dim=nope_dim,
+        v_head_dim=cfg_json['v_head_dim'],
+        rope_theta=float(cfg_json.get('rope_theta', 10000.0)),
+        norm_eps=float(cfg_json.get('rms_norm_eps', 1e-6)))
+    common.update(config_overrides)
+    cfg = DeepseekConfig(**common)
+
+    def fix_q(w: torch.Tensor) -> torch.Tensor:
+        """De-interleave the rope rows of each head of a q projection
+        ([H * (nope + rope), in])."""
+        heads = w.reshape(num_heads, nope_dim + rope_dim, -1)
+        return torch.stack([_deinterleave_rope_rows(h, rope_dim)
+                            for h in heads]).reshape(
+                                num_heads * (nope_dim + rope_dim), -1)
+
+    state: Dict[str, torch.Tensor] = {
+        'tok_embed': sd['model.embed_tokens.weight'],
+        'final_norm.scale': sd['model.norm.weight'],
+        'lm_head': (sd['model.embed_tokens.weight']
+                    if cfg_json.get('tie_word_embeddings')
+                    else sd['lm_head.weight']),
+    }
+    for i in range(num_layers):
+        src, dst = f'model.layers.{i}.', f'layers.{i}.'
+        attn, out = src + 'self_attn.', dst + 'attn.'
+        state[dst + 'attn_norm.scale'] = sd[src + 'input_layernorm.weight']
+        state[dst + 'mlp_norm.scale'] = \
+            sd[src + 'post_attention_layernorm.weight']
+        if q_lora:
+            state[out + 'wq_a.weight'] = sd[attn + 'q_a_proj.weight']
+            state[out + 'q_norm.scale'] = sd[attn + 'q_a_layernorm.weight']
+            state[out + 'wq_b.weight'] = fix_q(sd[attn + 'q_b_proj.weight'])
+        else:
+            state[out + 'wq.weight'] = fix_q(sd[attn + 'q_proj.weight'])
+        # kv_a's rope rows are the last d_rope of its output.
+        state[out + 'wkv_a.weight'] = _deinterleave_rope_rows(
+            sd[attn + 'kv_a_proj_with_mqa.weight'], rope_dim)
+        state[out + 'kv_norm.scale'] = sd[attn + 'kv_a_layernorm.weight']
+        # [H * (nope + v), d_c] -> [d_c, H, nope + v]
+        state[out + 'wkv_b'] = sd[attn + 'kv_b_proj.weight'].T.reshape(
+            cfg.kv_lora_rank, num_heads, nope_dim + cfg.v_head_dim)
+        state[out + 'wo.weight'] = sd[attn + 'o_proj.weight']
+        for ours, theirs in (('w_gate', 'gate_proj'), ('w_up', 'up_proj'),
+                             ('w_down', 'down_proj')):
+            state[f'{dst}mlp.{ours}.weight'] = \
+                sd[f'{src}mlp.{theirs}.weight']
+    return cfg, state
+
+
 _CONVERTERS = {LlamaConfig: _convert_llama_like,
-               MixtralConfig: _convert_mixtral, GPTConfig: _convert_gpt2}
+               MixtralConfig: _convert_mixtral, GPTConfig: _convert_gpt2,
+               DeepseekConfig: _convert_deepseek}
 
 
 def config_type(model_dir: str) -> type:
     """The port's config class for a checkpoint's model_type (reads
     config.json only); raises HfImportError on a type not imported."""
     model_type = read_config(model_dir).get('model_type')
-    if model_type in DEFERRED_MODEL_TYPES:
-        raise HfImportError(
-            f'model_type {model_type!r} is not ported yet: its model '
-            f'family waits for ROADMAP A12; this port imports '
-            f'{", ".join(SUPPORTED_MODEL_TYPES)}')
     if model_type not in _CONFIG_TYPES:
         raise HfImportError(
             f'unsupported model_type {model_type!r}; supported: '
@@ -324,8 +392,8 @@ def load_hf_checkpoint(model_dir: str, *, max_seq_len: Optional[int] = None,
                        device: Optional[torch.device] = None,
                        weight_dtype: str = 'bf16',
                        **config_overrides) -> Tuple[Any, Any]:
-    """(config, model) from a local HF model directory (`Llama`, `GPT`
-    or `Mixtral` by its model_type), the weights on
+    """(config, model) from a local HF model directory (`Llama`, `GPT`,
+    `Mixtral` or `Deepseek` by its model_type), the weights on
     `device` stored as the config's layout says (serving's by default;
     `param_dtype=torch.float32` keeps f32 masters). `weight_dtype='int8'`
     quantizes each projection from the checkpoint's values upcast to
@@ -357,6 +425,13 @@ def load_hf_checkpoint(model_dir: str, *, max_seq_len: Optional[int] = None,
             f'past {trained_ctx} tokens.', stacklevel=2)
     # Refuse unsupported scalings before reading gigabytes of weights.
     _parse_rope_scaling(cfg_json)
+    if cfg_type is DeepseekConfig and cfg_json.get('n_routed_experts'):
+        # Refused before any weight is read, as the reference does.
+        raise HfImportError(
+            'DeepSeek V2 checkpoints with routed-expert (MoE) layers '
+            'are not supported yet — the in-framework deepseek family '
+            'is MLA + dense SwiGLU. Use a dense-MLP export, or the '
+            'mixtral family for MoE serving.')
     sd = load_state_dict(model_dir)
     cfg, state = _CONVERTERS[cfg_type](cfg_json, sd, max_seq_len,
                                        **config_overrides)

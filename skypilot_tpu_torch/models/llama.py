@@ -13,8 +13,9 @@ Modes of `Llama.forward`:
     attends its own K/V (the pool is written for later steps);
   - paged, S > 1, prefill=False: the chunk attends the row's full
     history through the page table;
-  - dense (`DenseKVCache`, the one-shot engine's per-request cache
-    [B, max_seq_len, Hkv, D], reference `llama.py:284-340`): S == 1
+  - dense (`DenseKVCache`, the one-shot engine's per-request cache and
+    the slot engine's dense path, [B, max_seq_len, Hkv, D], reference
+    `llama.py:284-340`): S == 1
     decodes one token per row, S > 1 writes a chunk (prefill=True
     attends it alone, else the row's whole history), with the
     reference's plain einsum attention.
@@ -183,7 +184,23 @@ def kv_dtype_of(config) -> str:
     return getattr(config, 'kv_dtype', 'bf16')
 
 
-class PagedKVCache:
+class LayerCache:
+    """A model's cache: `layers`, one {name: tensor} dict a layer,
+    preallocated on one device and written in place by the model."""
+
+    layers: List[dict]
+
+    def zero_(self) -> None:
+        for layer in self.layers:
+            for t in layer.values():
+                t.zero_()
+
+    def num_bytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for layer in self.layers for t in layer.values())
+
+
+class PagedKVCache(LayerCache):
     """Per-layer page pools [Hkv, pages, page_size, D] (plus f32
     [pages, page_size] scale arrays for int8), preallocated on one
     device and updated in place by the model. Any family's config:
@@ -213,25 +230,35 @@ class PagedKVCache:
                                                 device=device)
             self.layers.append(layer)
 
-    def zero_(self) -> None:
-        for layer in self.layers:
-            for t in layer.values():
-                t.zero_()
 
-    def num_bytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for layer in self.layers for t in layer.values())
+class SlotCache(LayerCache):
+    """A dense per-row cache: {name: [batch, max_seq_len, ...]} a layer.
+    The one-shot engine holds one a request batch; the slot engine's
+    dense path (models/batching.py) holds one row per slot and runs a
+    slot's prefill on `row(slot)`, a view that writes through."""
+
+    #: Cached values a token, a layer (the bytes model's unit).
+    values_per_token: int
+
+    def row(self, slot: int) -> 'SlotCache':
+        """Row `slot` as a batch-1 cache of the same kind (views)."""
+        view = object.__new__(type(self))
+        view.__dict__.update(self.__dict__)
+        view.layers = [{name: t[slot:slot + 1] for name, t in layer.items()}
+                       for layer in self.layers]
+        return view
 
 
-class DenseKVCache:
-    """The one-shot engine's per-request cache: per layer
-    `cached_key` / `cached_value` [batch, max_seq_len, Hkv, D] in the
-    compute dtype, zeroed (the reference's `cached_key` variables)."""
+class DenseKVCache(SlotCache):
+    """Per layer `cached_key` / `cached_value` [batch, max_seq_len, Hkv,
+    D] in the compute dtype, zeroed (the reference's `cached_key`
+    variables)."""
 
     def __init__(self, config, batch: int,
                  device: Optional[torch.device] = None) -> None:
         shape = (batch, config.max_seq_len, kv_heads(config),
                  config.head_dim)
+        self.values_per_token = 2 * kv_heads(config) * config.head_dim
         self.layers: List[dict] = [
             {'cached_key': torch.zeros(shape, dtype=config.dtype,
                                        device=device),
@@ -510,6 +537,11 @@ class Llama(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.tok_embed.device
+
+    def dense_cache(self, batch: int) -> DenseKVCache:
+        """A zeroed dense cache of `batch` rows on the model's device:
+        the one-shot engine's, and the slot engine's dense path."""
+        return DenseKVCache(self.config, batch, self.device)
 
     def hidden(self, tokens: torch.Tensor,
                positions: Optional[torch.Tensor] = None,

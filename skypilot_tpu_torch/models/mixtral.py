@@ -34,9 +34,15 @@ or hidden states alone. `hidden` and `logits` are the serving engines'
 interface, as `Llama`'s. Layouts (serving and training) are Llama's,
 with the router stored f32 in both (the reference's router is an f32
 Dense) and the expert stacks `[E, embed, mlp]` (`w_gate`, `w_up`) and
-`[E, mlp, embed]` (`w_down`) as the reference stores them. No LoRA and
-no int8 projections: the reference's Mixtral takes no `lora`, and its
-int8 weights are deferred here.
+`[E, mlp, embed]` (`w_down`) as the reference stores them. No LoRA: the
+reference's Mixtral takes no `lora`.
+
+int8 projection weights (`Mixtral(cfg, weight_dtype='int8')`, serve_lm
+`--weight-dtype int8`): the four attention projections are
+`llama.Int8Dense`, run through `ops/int8_linear.py`; the expert stacks
+stay in `dtype`, as the reference's `quantize_params` leaves them (they
+are array leaves, not `{kernel}` dicts), and so do the router, the
+norms, the embedding and the head.
 """
 from __future__ import annotations
 
@@ -48,9 +54,11 @@ from torch import nn
 import torch.nn.functional as F
 from torch.utils import checkpoint
 
-from skypilot_tpu_torch.models.llama import (Attention, DenseKVCache,
-                                             LlamaConfig, PagedKVCache,
-                                             RMSNorm, RopeScaling)
+from skypilot_tpu_torch.models.llama import (DENSE_CLASSES, Attention,
+                                             Dense, DenseKVCache,
+                                             LlamaConfig,
+                                             PagedKVCache, RMSNorm,
+                                             RopeScaling)
 from skypilot_tpu_torch.ops import fused_xent
 
 
@@ -188,12 +196,12 @@ class MoEFeedForward(nn.Module):
 
 class Block(nn.Module):
 
-    def __init__(self, config: MixtralConfig) -> None:
+    def __init__(self, config: MixtralConfig, dense=Dense) -> None:
         super().__init__()
         cfg = config
         self.attn_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, cfg.dtype,
                                  cfg.trainable)
-        self.attn = Attention(cfg.as_llama())
+        self.attn = Attention(cfg.as_llama(), dense)
         self.moe_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, cfg.dtype,
                                 cfg.trainable)
         self.moe = MoEFeedForward(cfg)
@@ -219,10 +227,9 @@ class Mixtral(nn.Module):
     def __init__(self, config: MixtralConfig,
                  weight_dtype: str = 'bf16') -> None:
         super().__init__()
-        if weight_dtype != 'bf16':
+        if weight_dtype not in DENSE_CLASSES:
             raise ValueError(f'unsupported weight_dtype {weight_dtype!r} '
-                             f'for Mixtral (int8 weights wait for '
-                             f'ROADMAP A14)')
+                             f'(choices: {", ".join(DENSE_CLASSES)})')
         cfg = config
         self.config = cfg
         self.weight_dtype = weight_dtype
@@ -230,7 +237,8 @@ class Mixtral(nn.Module):
             torch.empty(cfg.vocab_size, cfg.embed_dim,
                         dtype=cfg.param_dtype or cfg.dtype),
             requires_grad=cfg.trainable)
-        self.layers = nn.ModuleList(Block(cfg)
+        dense = DENSE_CLASSES[weight_dtype]
+        self.layers = nn.ModuleList(Block(cfg, dense)
                                     for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.embed_dim, cfg.norm_eps, cfg.dtype,
                                   cfg.trainable)
@@ -241,6 +249,11 @@ class Mixtral(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.tok_embed.device
+
+    def dense_cache(self, batch: int) -> DenseKVCache:
+        """A zeroed dense cache of `batch` rows on the model's device:
+        the one-shot engine's, and the slot engine's dense path."""
+        return DenseKVCache(self.config, batch, self.device)
 
     def hidden(self, tokens: torch.Tensor,
                positions: Optional[torch.Tensor] = None,

@@ -1,20 +1,19 @@
 """Named model configurations (port of skypilot_tpu/recipes/train_lm.py:37-98
-`_build_model`): the Llama family, GPT-2 and Mixtral."""
+`_build_model`): the Llama family, GPT-2, Mixtral and DeepSeek."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
 
+from skypilot_tpu_torch.models.deepseek import DeepseekConfig
 from skypilot_tpu_torch.models.gpt import GPTConfig
 from skypilot_tpu_torch.models.llama import LlamaConfig
 from skypilot_tpu_torch.models.mixtral import MixtralConfig
 
 MODELS = ('llama3-8b', 'llama-tiny', 'qwen2-7b', 'qwen-tiny',
-          'gpt2-124m', 'tiny', 'mixtral-8x7b', 'mixtral-tiny')
-#: The reference's train_lm names of the DeepSeek family, which waits
-#: for ROADMAP A12 (rest).
-OTHER_FAMILIES = ('deepseek-v2-lite', 'deepseek-tiny')
+          'gpt2-124m', 'tiny', 'mixtral-8x7b', 'mixtral-tiny',
+          'deepseek-v2-lite', 'deepseek-tiny')
 
 
 def model_config(name: str, seq: int):
@@ -46,10 +45,10 @@ def model_config(name: str, seq: int):
                            max_seq_len=max(seq, 2048), qkv_bias=True)
     if name == 'qwen-tiny':
         return LlamaConfig.tiny(qkv_bias=True)
-    if name in OTHER_FAMILIES:
-        raise ValueError(f'model {name!r}: the DeepSeek family is not '
-                         f'ported yet (ROADMAP A12); this port runs: '
-                         f'{", ".join(MODELS)}')
+    if name == 'deepseek-v2-lite':
+        return DeepseekConfig.v2_lite(max_seq_len=max(seq, 4096))
+    if name == 'deepseek-tiny':
+        return DeepseekConfig.tiny()
     raise ValueError(f'unknown model {name!r} (this port runs: '
                      f'{", ".join(MODELS)})')
 

@@ -18,11 +18,15 @@ per-request cache [B, T, Hkv, D]; the reference computes them with
 einsum outside any Pallas kernel, and so does the port (in place: the
 cache tensors are written, not returned).
 
+Unequal q/v head dims (MLA: DeepSeek's qk_head_dim 192 beside v_head_dim
+128) are decided first, whatever `impl` says, as the reference decides
+them (`:47-63`): `_unequal_dims_attention` (reference `:94-110`) is the
+plain route's arithmetic with the value dim free, because the flash
+kernels need equal dims.
+
 The reference's SKYPILOT_TPU_FLASH_MIN_SEQ environment override is not
 carried over: the port selects its routes with arguments and
-`impl_scope`, never with environment variables. Its
-`_unequal_dims_attention` (MLA) waits for the model family that needs
-it.
+`impl_scope`, never with environment variables.
 """
 from __future__ import annotations
 
@@ -40,16 +44,21 @@ IMPLS = ('auto', 'flash', 'xla')
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
                           impl: str = 'auto') -> torch.Tensor:
-    """q: [B,S,H,D]; k/v: [B,S,Hkv,D] (GQA allowed). Returns [B,S,H,D].
+    """q: [B,S,H,D]; k/v: [B,S,Hkv,D] (GQA allowed; v may have another
+    head dim, Dv). Returns [B,S,H,Dv].
     impl: 'auto' (flash on CUDA tensors from _FLASH_MIN_SEQ tokens),
     'flash' (always the flash route; causal only) or 'xla' (the plain
-    route, named after the reference's)."""
+    route, named after the reference's). Unequal q/v dims take
+    `_unequal_dims_attention` whatever `impl` says."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f'expected 4-d q/k/v, got {tuple(q.shape)}, '
                          f'{tuple(k.shape)}, {tuple(v.shape)}')
     if impl not in IMPLS:
         raise ValueError(f'unknown attention impl {impl!r} (choices: '
                          f'{", ".join(IMPLS)})')
+    if v.shape[-1] != q.shape[-1]:
+        # Decided before the flash dispatch: its kernels need equal dims.
+        return _unequal_dims_attention(q, k, v, causal=causal)
     if impl == 'flash' and not causal:
         raise ValueError('the flash route is causal only')
     use_flash = impl == 'flash' or (
@@ -74,7 +83,31 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
-def _write_rows(cache: torch.Tensor, rows: torch.Tensor,
+def _unequal_dims_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool
+                            ) -> torch.Tensor:
+    """Attention for v_head_dim != qk_head_dim (MLA): GQA repeat, f32
+    scores scaled by 1/sqrt(q's head dim), the causal mask, f32 softmax
+    and f32 p.v, output in q.dtype. q/k: [B,S,H|Hkv,D]; v: [B,S,Hkv,Dv].
+    """
+    num_q_heads, num_kv_heads = q.shape[2], k.shape[2]
+    if num_kv_heads != num_q_heads:
+        rep = num_q_heads // num_kv_heads
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.einsum('bqhd,bkhd->bhqk', q.float(), k.float()) * scale
+    if causal:
+        seq_q, seq_k = q.shape[1], k.shape[1]
+        mask = (torch.arange(seq_k, device=q.device)[None, :]
+                <= torch.arange(seq_q, device=q.device)[:, None])
+        s = s.masked_fill(~mask, float('-inf'))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum('bhqk,bkhv->bqhv', p, v.float())
+    return out.to(q.dtype)
+
+
+def write_rows(cache: torch.Tensor, rows: torch.Tensor,
                 start: torch.Tensor) -> None:
     """cache[b, start[b]:start[b]+S] = rows[b], in place; the start is
     clamped so the rows fit, as `lax.dynamic_update_slice` clamps it."""
@@ -118,8 +151,8 @@ def chunked_cache_attention(q: torch.Tensor, k_new: torch.Tensor,
     q/k_new/v_new: [B, S, H|Hkv, D]; cached_k/v: [B, T, Hkv, D];
     positions: [B, S]. Returns out [B, S, H, D]."""
     start = positions[:, 0]
-    _write_rows(cached_k, k_new, start)
-    _write_rows(cached_v, v_new, start)
+    write_rows(cached_k, k_new, start)
+    write_rows(cached_v, v_new, start)
     if chunk_only:
         return dot_product_attention(q, k_new, v_new, causal=True)
     return _cache_attention(q, cached_k, cached_v, positions)
@@ -132,6 +165,6 @@ def cached_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     """One token per row at its own position pos[b]: write its K/V,
     attend the cache masked to t <= pos[b]. q/k_new/v_new:
     [B, 1, H|Hkv, D]; pos: [B]. Returns out [B, 1, H, D]."""
-    _write_rows(cached_k, k_new, pos)
-    _write_rows(cached_v, v_new, pos)
+    write_rows(cached_k, k_new, pos)
+    write_rows(cached_v, v_new, pos)
     return _cache_attention(q, cached_k, cached_v, pos[:, None])

@@ -43,8 +43,9 @@ def pick_block(vocab_size: int) -> int:
 
 def find_lm_head(params: Mapping[str, Any]) -> Tuple[Any, bool]:
     """(weight, vocab_in_rows) of a model's LM head in its top-level
-    params. The port's Llama and Mixtral keep an untied `lm_head`
-    [V, H] (vocab in rows, unlike the reference's [H, V]); GPT ties its
+    params. The port's Llama, Mixtral and DeepSeek keep an untied
+    `lm_head` [V, H] (vocab in rows, unlike the reference's [H, V]);
+    GPT ties its
     head to the token embedding `wte` [V, H], vocab in rows in both
     packages."""
     if 'lm_head' in params:

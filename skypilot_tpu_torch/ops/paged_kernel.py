@@ -461,7 +461,7 @@ def fused_paged_attention_split_reference(
 
 # -- analytic HBM roofline (the port's copy of
 # skypilot_tpu/ops/pallas_paged.py `bytes_per_token_model`) --------------
-def bytes_per_token_model(*, num_layers: int, num_kv_heads: int,
+def bytes_per_token_model(*, num_layers: int, kv_values_per_token: int,
                           num_q_heads: int, head_dim: int,
                           page_size: int, pages_per_seq: int,
                           kv_elem_bytes: int, quantized: bool,
@@ -470,15 +470,16 @@ def bytes_per_token_model(*, num_layers: int, num_kv_heads: int,
                           lora_bytes_per_row: int = 0
                           ) -> Dict[str, float]:
     """Modeled HBM bytes one decode step moves PER SEQUENCE (= per
-    generated token), from the engine's page geometry: both pools walked
-    over the row's whole page table (and the f32 scale rows for int8),
+    generated token), from the engine's page geometry: the cache walked
+    over the row's whole page table, `kv_values_per_token` values a
+    token a layer (2 x Hkv x D for K and V; the dense path's MLA latents
+    are d_c + d_rope), and the f32 scale rows for int8,
     the weights amortized over the decode batch, each row's LoRA factor
     rows. The dequantize-and-expand term applies to the reference's
     'xla' gather route only; this port's impls ('cuda', 'torch') never
     take it. Plain arithmetic on host ints: no device read."""
     tokens_walked = pages_per_seq * page_size
-    pool = (2 * tokens_walked * num_kv_heads * head_dim
-            * kv_elem_bytes * num_layers)
+    pool = tokens_walked * kv_values_per_token * kv_elem_bytes * num_layers
     scales = (2 * tokens_walked * 4 * num_layers) if quantized else 0
     dequant = 0
     if impl == 'xla':

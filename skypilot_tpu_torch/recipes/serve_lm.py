@@ -5,19 +5,27 @@ Takes the reference's flags, so a replica manager can spawn it with the
 same command line; the flags this port does not implement yet exit at
 startup with an error naming them (nothing is ignored silently).
 Weights come from a seeded init on the device, from a local HF
-checkpoint (`--hf DIR`: llama, mistral, qwen2, gpt2 or mixtral, with its
+checkpoint (`--hf DIR`: llama, mistral, qwen2, gpt2, mixtral or
+deepseek_v2, with its
 tokenizer when the directory has one, for the text endpoints), and / or
 from the newest full-parameter step `train_lm` wrote (`--ckpt-dir`).
 Runs on the GPU unless `--cpu` is given; without a GPU and without
 `--cpu` it exits with an error.
 
 Model families: the Llama family (llama3-8b, qwen2-7b and their tiny
-configs), GPT-2 (gpt2-124m, tiny) and Mixtral (mixtral-8x7b,
-mixtral-tiny). GPT-2 and Mixtral refuse, as the reference does,
---kv-dtype int8 and --kv-pool-bytes (their configs have no kv_dtype
-field), --adapter-dir (no LoRA forward path) and --weight-dtype int8
-(GPT names no quantizable projection; Mixtral's attention-only int8
-waits for ROADMAP A14).
+configs), GPT-2 (gpt2-124m, tiny), Mixtral (mixtral-8x7b, mixtral-tiny)
+and DeepSeek (deepseek-v2-lite, deepseek-tiny). GPT-2, Mixtral and
+DeepSeek refuse, as the reference does, --kv-dtype int8 and
+--kv-pool-bytes (their configs have no kv_dtype field) and
+--adapter-dir (no LoRA forward path); GPT-2 refuses --weight-dtype int8
+(it names no quantizable projection). On Mixtral int8 covers the
+attention projections, on DeepSeek wq, wo and the SwiGLU.
+
+The continuous engine runs its dense slot path (one dense cache row a
+slot) when the config's KV page pool cannot hold one --max-total-len
+sequence (llama3-8b at --max-total-len 2048: 127 usable pages of 16
+tokens) and always for DeepSeek, whose latent cache has no pages; it
+turns prefix caching off, and --kv-spill-bytes / --kv-cold-dir exit.
 
   python -m skypilot_tpu_torch.recipes.serve_lm --model llama3-8b \\
       --continuous-batching --kv-dtype int8 --kv-pool-bytes 8000000000
@@ -25,6 +33,8 @@ waits for ROADMAP A14).
       --continuous-batching       # a local probe on the CPU
   python -m skypilot_tpu_torch.recipes.serve_lm --model mixtral-8x7b \\
       --continuous-batching --max-total-len 1024
+  python -m skypilot_tpu_torch.recipes.serve_lm --cpu --model \\
+      deepseek-tiny --continuous-batching    # MLA on the dense path
   python -m skypilot_tpu_torch.recipes.serve_lm --hf ckpts/Llama-3-8B \\
       --continuous-batching       # text, chat and SSE endpoints
   python -m skypilot_tpu_torch.recipes.serve_lm --model llama3-8b \\
@@ -90,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog='python -m skypilot_tpu_torch.recipes.serve_lm')
     p.add_argument('--model', default='llama-tiny',
                    help='llama3-8b, llama-tiny, qwen2-7b, qwen-tiny, '
-                        'gpt2-124m, tiny, mixtral-8x7b or mixtral-tiny')
+                        'gpt2-124m, tiny, mixtral-8x7b, mixtral-tiny, '
+                        'deepseek-v2-lite or deepseek-tiny')
     p.add_argument('--max-total-len', type=int, default=256)
     p.add_argument('--continuous-batching', action='store_true',
                    help='slot-based engine (default: the one-shot '

@@ -7,11 +7,12 @@ Takes the reference's flags and prints its log lines (`step i/N
 loss=... tokens/s=...`, `resumed from checkpoint step N`, `adapter
 artifact -> ...`, `training done`, and the guard's). One card: the
 flags for meshes, pipelines, expert parallelism and data-parallel
-training exit at startup naming themselves and their ROADMAP item, as
-do the DeepSeek model names (ROADMAP A12). The Llama family, GPT-2
-(`tiny`, `gpt2-124m`, the reference's default) and Mixtral
-(`mixtral-tiny`, `mixtral-8x7b`, whose loss adds the router aux loss)
-train; `--lora` takes the Llama family only, as in the reference.
+training exit at startup naming themselves and their ROADMAP item. The
+Llama family, GPT-2 (`tiny`, `gpt2-124m`, the reference's default),
+Mixtral (`mixtral-tiny`, `mixtral-8x7b`, whose loss adds the router aux
+loss) and DeepSeek (`deepseek-tiny`, `deepseek-v2-lite`: MLA, whose
+attention takes the unequal-dims route, never the flash kernels) train;
+`--lora` takes the Llama family only, as in the reference.
 Weights are a seeded init on the device, or a local HF checkpoint
 (--init-from-hf). Runs on the GPU unless --cpu is given.
 
@@ -65,8 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog='python -m skypilot_tpu_torch.recipes.train_lm')
     p.add_argument('--model', default='gpt2-124m',
                    help='gpt2-124m, tiny, llama3-8b, llama-tiny, qwen2-7b, '
-                        'qwen-tiny, mixtral-8x7b or mixtral-tiny (ignored '
-                        'with --init-from-hf)')
+                        'qwen-tiny, mixtral-8x7b, mixtral-tiny, '
+                        'deepseek-v2-lite or deepseek-tiny (ignored with '
+                        '--init-from-hf)')
     p.add_argument('--steps', type=int, default=100)
     p.add_argument('--seq', type=int, default=1024)
     p.add_argument('--global-batch', type=int, default=0,

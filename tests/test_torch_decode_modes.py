@@ -225,12 +225,20 @@ def test_constructor_rules():
     with pytest.raises(ValueError, match='decode_chunk=4 writes'):
         pt_batching.ContinuousBatchingEngine(port, max_total_len=254,
                                              decode_chunk=4)
-    # The pool (6 usable pages of 8) must hold max_total_len + K.
+    # The pool (6 usable pages of 8) must hold max_total_len + K to be
+    # paged: paged=True on it raises, and by default the engine takes
+    # the dense slot path, as the reference's does.
     _, _, small = _models('bf16', kv_total_pages=7)
-    pt_batching.ContinuousBatchingEngine(small, max_total_len=48).stop()
+    eng = pt_batching.ContinuousBatchingEngine(small, max_total_len=48)
+    assert eng.paged is True
+    eng.stop()
     with pytest.raises(ValueError, match='chunk-write headroom'):
         pt_batching.ContinuousBatchingEngine(small, max_total_len=48,
-                                             speculative_k=2)
+                                             speculative_k=2, paged=True)
+    eng = pt_batching.ContinuousBatchingEngine(small, max_total_len=48,
+                                               speculative_k=2)
+    assert eng.paged is False and eng.attention_impl() == 'dense'
+    eng.stop()
     eng = make(speculative_k=4)
     # Table rows and limits carry the verify chunk's lookahead.
     assert eng.pages_per_seq == -(-(48 + 4) // 8)

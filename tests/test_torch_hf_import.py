@@ -10,9 +10,9 @@ f32:
   - a sharded checkpoint (model.safetensors.index.json) and a
     pytorch_model.bin import the same weights as one safetensors file;
   - llama3 and linear RoPE scaling match transformers; unsupported
-    scalings and model types are refused (deepseek_v2 naming ROADMAP
-    A12; mixtral and gpt2 pass the type gate and are refused on a bad
-    scaling or no weights);
+    scalings and model types are refused (a deepseek_v2 checkpoint with
+    routed experts before any weight is read; mixtral and gpt2 pass the
+    type gate and are refused on a bad scaling or no weights);
   - the port's safetensors reader equals safetensors.torch.load_file for
     bf16, f16 and f32;
   - control: q/k rows permuted as if HF stored interleaved pairs (the
@@ -200,7 +200,8 @@ def test_tied_llama_embeddings(tmp_path, tokens):
     ({'model_type': 'mixtral', 'rope_scaling': {'rope_type': 'yarn',
                                                 'factor': 4.0}}, 'yarn'),
     ({'model_type': 'gpt2'}, 'no model.safetensors'),
-    ({'model_type': 'deepseek_v2'}, 'A12'),
+    ({'model_type': 'deepseek_v2', 'n_routed_experts': 8},
+     'routed-expert'),
     ({'model_type': 'bert'}, 'unsupported model_type'),
 ])
 def test_unsupported_checkpoints_are_refused(config, match, tmp_path):

@@ -1,6 +1,7 @@
 """int8 projection weights (`--weight-dtype int8`) in the port against
 the reference (skypilot_tpu/inference/quant.py `quantize_params` and
-`QuantizedModel`), CPU, llama-tiny and qwen-tiny:
+`QuantizedModel`), CPU, llama-tiny and qwen-tiny (and the other
+families at the end):
 
   - bytes: the port's `quantize_params` and `quantize_kernel` give the
     reference's int8 values and f32 scales byte for byte on the same f32
@@ -29,7 +30,12 @@ the reference (skypilot_tpu/inference/quant.py `quantize_params` and
   - bytes counted (buffers included), /stats `storage`, the gauges, the
     refusal of --ckpt-dir in the reference's words, serve_lm
     --weight-dtype int8 serving through both engines, and --param-dtype
-    f32 applying to the leaves that stay dense.
+    f32 applying to the leaves that stay dense;
+  - DeepSeek and Mixtral (deepseek-tiny, mixtral-tiny): the quantized
+    leaves are exactly the reference's (wq / wo / the SwiGLU; the four
+    attention projections, expert stacks dense), bytes equal, the slot
+    engine's tokens equal the reference engine's on QuantizedModel, the
+    0.1-nat contract holds, and serve_lm --weight-dtype int8 serves.
 """
 import ast
 import dataclasses
@@ -617,5 +623,128 @@ def test_param_dtype_applies_to_the_dense_leaves():
         assert wq.weight_scale.dtype == torch.float32
         row = rt.engine.submit([5, 9, 2, 17], max_new_tokens=6).result(180)
         assert len(row) == 10
+    finally:
+        rt.stop()
+
+
+# -- DeepSeek and Mixtral ---------------------------------------------------
+#: The quantized leaves a layer of each family has under the reference's
+#: quantize_params: 2-D `{kernel}`s named in WEIGHT_TARGETS (DeepSeek's
+#: wkv_a / wq_a / wq_b and 3-D wkv_b, Mixtral's router and expert stacks
+#: stay dense).
+FAMILY_TARGETS = {'deepseek-tiny': ('attn/wq', 'attn/wo', 'mlp/w_down',
+                                    'mlp/w_gate', 'mlp/w_up'),
+                  'mixtral-tiny': ('attn/wk', 'attn/wo', 'attn/wq',
+                                   'attn/wv')}
+
+
+def _family_reference(name):
+    """(reference model, f32 numpy params, the port's f32 config) of a
+    tiny f32 DeepSeek or Mixtral."""
+    from skypilot_tpu_torch.models import registry
+    model, _, _ = _build_model(name, 64, remat=False)
+    cfg = dataclasses.replace(model.config, dtype=jnp.float32)
+    model = type(model)(cfg)
+    params = nn.meta.unbox(model.init(
+        jax.random.PRNGKey(0), jnp.ones((1, 8), jnp.int32))['params'])
+    port_cfg = dataclasses.replace(registry.model_config(name, 64),
+                                   dtype=torch.float32)
+    return model, _numpy(params), port_cfg
+
+
+@pytest.mark.parametrize('name', sorted(FAMILY_TARGETS))
+def test_other_families_quantize_the_references_leaves(name):
+    """quantize_params bytes == the reference's; the quantized leaf set
+    is exactly the reference's, and it is the set of the port model's
+    Int8Dense modules; the bridge of the quantized tree equals the
+    bridge's own quantization, buffer for buffer."""
+    _, params, port_cfg = _family_reference(name)
+    ref = jax_quant.quantize_params(params)
+    port = quant.quantize_params(params)
+    quantized = set()
+    for path, a, b in _walk_pairs(ref, port):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert a.tobytes() == b.tobytes(), path
+        if path.endswith(quant.QUANT_KEY):
+            quantized.add(path[1:-len(quant.QUANT_KEY) - 1])
+    want = {f'layer_{i}/{leaf}' for i in range(2)
+            for leaf in FAMILY_TARGETS[name]}
+    assert quantized == want
+    from_ref = convert.params_from_jax(ref, port_cfg)
+    from_f32 = convert.params_from_jax(params, port_cfg,
+                                       weight_dtype='int8')
+    assert from_ref.weight_dtype == from_f32.weight_dtype == 'int8'
+    modules = {n.replace('layers.', 'layer_').replace('.', '/')
+               for n, m in from_ref.named_modules()
+               if isinstance(m, pt_llama.Int8Dense)}
+    assert modules == want
+    a, b = from_ref.state_dict(), from_f32.state_dict()
+    assert a.keys() == b.keys()
+    for key in a:
+        assert a[key].dtype == b[key].dtype and torch.equal(a[key], b[key])
+    seeded = convert.init_params(port_cfg, seed=0, weight_dtype='int8')
+    assert {k: (v.dtype, tuple(v.shape))
+            for k, v in seeded.state_dict().items()} == \
+        {k: (v.dtype, tuple(v.shape)) for k, v in a.items()}
+
+
+@pytest.mark.parametrize('name', sorted(FAMILY_TARGETS))
+def test_other_families_int8_tokens_match_quantized_reference(name):
+    """Greedy tokens of the port's slot engine (the plain int8 route on
+    the CPU; DeepSeek on the dense path) == the reference engine's on
+    QuantizedModel, f32."""
+    model, params, port_cfg = _family_reference(name)
+    qparams = jax_quant.quantize_params(params)
+    port = convert.params_from_jax(qparams, port_cfg)
+    ref = jax_batching.ContinuousBatchingEngine(
+        jax_quant.QuantizedModel(model), jax.tree.map(jnp.asarray, qparams),
+        **ENGINE_KW)
+    plain0 = il.plain_calls
+    got = _run(pt_batching.ContinuousBatchingEngine(port, **ENGINE_KW))
+    assert il.plain_calls > plain0
+    assert got == _run(ref)
+    assert all(len(r) == len(p) + MAX_NEW for r, p in zip(got, PROMPTS))
+
+
+@pytest.mark.parametrize('name', sorted(FAMILY_TARGETS))
+def test_other_families_int8_within_logprob_tolerance(name):
+    """The reference's 0.1-nat contract on serving's bf16 layout: int8
+    continuations scored by the bf16 runtime's scoring pass."""
+    _, params, port_cfg = _family_reference(name)
+    cfg = dataclasses.replace(port_cfg, dtype=torch.bfloat16)
+    dense = convert.params_from_jax(params, cfg)
+    int8 = convert.params_from_jax(params, cfg, weight_dtype='int8')
+    rt = pt_runtime.InferenceRuntime(
+        engine=pt_batching.ContinuousBatchingEngine(dense, **ENGINE_KW),
+        model_name=name)
+    try:
+        a = _run(pt_batching.ContinuousBatchingEngine(dense, **ENGINE_KW))
+        b = _run(pt_batching.ContinuousBatchingEngine(int8, **ENGINE_KW))
+        for prompt, ra, rb in zip(PROMPTS, a, b):
+            lp_ref = _score(rt, ra, len(prompt))
+            lp_q = _score(rt, rb, len(prompt))
+            assert lp_q >= lp_ref - LOGPROB_TOL, (lp_q, lp_ref)
+    finally:
+        rt.stop()
+
+
+@pytest.mark.parametrize('name', sorted(FAMILY_TARGETS))
+def test_serve_lm_int8_serves_other_families(name, capsys):
+    """serve_lm --weight-dtype int8 on DeepSeek and Mixtral (once
+    refused for Mixtral) serves the seeded int8 model's tokens."""
+    rt = pt_runtime.build_runtime(serve_lm.parse_args(
+        ['--cpu', '--model', name, '--weight-dtype', 'int8',
+         '--max-total-len', '64', '--continuous-batching']))
+    try:
+        assert 'weights: int8 per-output-channel projections' in \
+            capsys.readouterr().out
+        assert rt.weight_dtype == 'int8'
+        seeded = convert.init_params(rt.model.config, seed=0,
+                                     weight_dtype='int8')
+        prompt = [5, 9, 2, 17]
+        want = pt_generate.make_generate_fn(seeded, 16)(
+            torch.tensor([prompt], dtype=torch.int32))[0].tolist()
+        assert rt.engine.submit(prompt, max_new_tokens=12).result(180) == \
+            want
     finally:
         rt.stop()

@@ -465,7 +465,8 @@ def test_train_lm_lora_adapter_loads_in_both_packages(tmp_path):
     (['--expert', '2'], '--expert (ROADMAP A16)'),
     (['--model', 'mixtral-tiny', '--lora', '4'],
      'Mixtral has no LoRA forward path'),
-    (['--model', 'deepseek-v2-lite'], 'deepseek-v2-lite'),
+    (['--model', 'deepseek-v2-lite', '--lora', '4'],
+     'Deepseek has no LoRA forward path'),
     (['--ckpt-dir', 's3://b/c'], 's3://b/c'),
 ])
 def test_refused_flags_and_models_exit_naming_themselves(argv, name,
@@ -535,7 +536,8 @@ def test_ported_flags_parse_and_reach_the_loop(flag, tmp_path, hf_dir,
 def test_bare_recipe_refuses_the_reference_default_naming_a12(capsys):
     """The reference's default model (gpt2-124m) now trains: the bare
     recipe's command line, run as a user runs it, exits 0 after two
-    steps; what still names A12 is the DeepSeek family."""
+    steps. The DeepSeek family, the last to name A12, parses too; what
+    it still refuses is --lora, as the reference does."""
     assert train_lm.build_parser().parse_args([]).model == 'gpt2-124m'
     assert train_lm.parse_args([]).model == 'gpt2-124m'
     proc = subprocess.run(
@@ -545,11 +547,13 @@ def test_bare_recipe_refuses_the_reference_default_naming_a12(capsys):
         env={**os.environ, 'PYTHONPATH': str(ROOT)})
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert 'training done' in proc.stdout
+    assert train_lm.parse_args(['--model', 'deepseek-tiny']).model == \
+        'deepseek-tiny'
     with pytest.raises(SystemExit) as exc:
-        train_lm.parse_args(['--model', 'deepseek-tiny'])
+        train_lm.parse_args(['--model', 'deepseek-tiny', '--lora', '4'])
     assert exc.value.code != 0
     err = capsys.readouterr().err
-    assert 'deepseek-tiny' in err and 'ROADMAP A12' in err
+    assert 'Deepseek has no LoRA forward path' in err and 'A12' not in err
 
 
 def _add_argument_defaults(path):
@@ -586,13 +590,21 @@ def test_recipe_defaults_agree_with_the_reference_flag_for_flag():
 
 
 def test_train_config_refuses_other_families():
-    """DeepSeek still waits for A12; GPT-2 and Mixtral give their
-    training configs (f32 masters)."""
-    for name in registry.OTHER_FAMILIES:
-        with pytest.raises(ValueError, match='A12'):
-            registry.train_config(name, 64)
-    for name in ('tiny', 'gpt2-124m', 'mixtral-tiny'):
+    """Every family of the reference's train_lm gives its training
+    config (f32 masters), DeepSeek's included (V2-Lite's context is
+    max(seq, 4096), as the reference builds it); a name outside the
+    reference's list is still refused."""
+    from skypilot_tpu_torch.models.deepseek import DeepseekConfig
+    for name in ('tiny', 'gpt2-124m', 'mixtral-tiny', 'deepseek-tiny',
+                 'deepseek-v2-lite'):
         assert registry.train_config(name, 64).param_dtype == torch.float32
+    lite = registry.train_config('deepseek-v2-lite', 8192, remat=True)
+    assert isinstance(lite, DeepseekConfig) and lite.remat
+    assert (lite.max_seq_len, lite.num_layers, lite.kv_lora_rank) == \
+        (8192, 27, 512)
+    assert registry.train_config('deepseek-v2-lite', 64).max_seq_len == 4096
+    with pytest.raises(ValueError, match='unknown model'):
+        registry.train_config('deepseek-v3', 64)
 
 
 # -- model layouts ----------------------------------------------------------

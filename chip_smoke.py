@@ -11,9 +11,11 @@ long prefill,
 SSE streams, text and chat endpoints, logprobs, `--hf` checkpoints and
 the one-shot engine; KV page chains: export / import, the host and cold
 spill tiers, disaggregated prefill / decode roles and live migration;
-training through the trainer API, `train_lm --lora` and `train_lm`
-on GPT-2, Mixtral and DeepSeek, and train_lm's recovery contract: --guard, --init-from-hf, the
-native token reader, --ckpt-interval, --profile) through the
+training through the trainer API, the sharded trainer (FSDP over a
+1-rank NCCL job, `--zero1` / `--overlap`), `train_lm --lora` and
+`train_lm` on GPT-2, Mixtral and DeepSeek, and train_lm's recovery
+contract: --guard, --init-from-hf, the native token reader,
+--ckpt-interval, --profile) through the
 entry points a user calls, at the full width of Llama-3-8B with seeded
 random weights and adapters, and holds every CUDA kernel of those paths
 against its plain PyTorch version. Phases, one JSON line each; any
@@ -341,6 +343,24 @@ failure exits non-zero before the result lines:
                  steps: flash launches = 4 layers x 4 steps per kernel;
                  step time, tokens/s, MFU (6 x tokens/s x every
                  parameter but the embedding table, over the bf16 peak)
+  train_fsdp     the sharded trainer (parallel/fsdp.py: FSDP2 units per
+                 block and a root unit with the loss) on a 1-rank NCCL
+                 job joined through parallel/distributed.py (the card
+                 holds one rank: more need more cards), on
+                 make_mesh(MeshConfig.auto(1)), at train_full's shape,
+                 seed and batches: step-1 loss and grad norm within 1e-5
+                 of train_full's, its 4 losses within 1e-4 (the one-card
+                 trainer is not bit-reproducible on the card; see
+                 FSDP_CURVE_TOL); flash launches = 4 layers x 4 steps per
+                 kernel, no plain call; its checkpoint (written through
+                 the collective save) restores into the one-card trainer
+                 bit for bit (step, count, every parameter and moment);
+                 then again with zero1=True, overlap=True: at data = 1
+                 the layout turns both off (checked), so this run takes
+                 the plain path again and measures no zero1: the same
+                 gates. Step ms, tokens/s, MFU, peak
+                 memory and the checkpoint's save / restore s beside
+                 train_full's
   train_lora     `train_lm --model llama3-8b --lora 16 --seq 2048
                  --remat` at full depth: 4 steps with checkpoints every
                  2, a relaunch to 6 resumes from step 4; forward launches
@@ -479,6 +499,16 @@ FLASH_TILE = 128
 # Step-1 loss and grad norm, kernel route vs plain route, relative: bf16
 # activations everywhere; only attention's rounding differs.
 TRAIN_TOL = 1e-3
+# The sharded trainer on one rank against the one-card trainer, relative:
+# the same kernels on the same values. Step 1 (loss, grad norm) within
+# FSDP_TOL; the 4-step curve within FSDP_CURVE_TOL: the one-card trainer
+# itself is not bit-reproducible on the card from run to run. Over six
+# runs (NVIDIA H100 80GB HBM3, 700.00 W) its steps 1-2 were bit-equal and
+# its step-3 loss spread over 3.3e-5 (7.2e-6 between the first two), as
+# Adam's m / sqrt(v) carries the first rounding differences onward; the
+# sharded trainer's largest gap to it in those runs was 3.4e-5.
+FSDP_TOL = 1e-5
+FSDP_CURVE_TOL = 1e-4
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
                     'chip_smoke')
 
@@ -1594,11 +1624,12 @@ def phase_train_full(fk, pk, card):
 
     zero_flash(fk)
     step = trainer.make_train_step()
-    losses, times = [], []
+    losses, norms, times = [], [], []
     for tokens in toks:
         t0 = time.perf_counter()
         state, (loss, gnorm) = step(state, tokens)
         losses.append(loss.item())
+        norms.append(gnorm.item())
         times.append(time.perf_counter() - t0)
     counts = flash_counts(fk)
     check(all(c == layers * steps for c in counts.values())
@@ -1606,15 +1637,145 @@ def phase_train_full(fk, pk, card):
     check(all(np.isfinite(losses)), f'losses {losses}')
     step_s = float(np.mean(times[1:]))
     tps = batch * seq / step_s
+    full = {'losses': losses, 'grad_norms': norms, 'step_s': step_s,
+            'matmul_params': n_matmul, 'tokens_per_s': tps,
+            'mfu': 6.0 * n_matmul * tps / BF16_FLOPS,
+            'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9}
     emit('train_full', card=card, layers=layers, steps=steps, batch=batch,
-         seq=seq, params=n_params, matmul_params=n_matmul,
+         seq=seq, params=n_params,
          loss_cuda=loss_cuda, loss_plain=loss_plain,
          grad_norm_cuda=norm_cuda, grad_norm_plain=norm_plain,
-         tol=TRAIN_TOL, losses=losses, step_times_s=times, step_s=step_s,
-         tokens_per_s=tps, mfu=6.0 * n_matmul * tps / BF16_FLOPS,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         launches=counts)
-    return counts
+         tol=TRAIN_TOL, step_times_s=times, launches=counts, **full)
+    return counts, full
+
+
+def sharded_run(fk, cfg, toks, mesh, **kw):
+    """train_full's steps through the sharded trainer on `mesh`: (model,
+    trainer, state, losses, norms, step times, flash counts); the counts
+    are zeroed just before the steps and read just after."""
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.parallel import train
+    model = convert.init_params(cfg, seed=0, device='cuda')
+    trainer = train.ShardedTrainer(
+        model, tx=train.default_optimizer(warmup_steps=10, total_steps=20),
+        collect_grad_norm=True, mesh=mesh, **kw)
+    state = trainer.init()
+    step = trainer.make_train_step()
+    zero_flash(fk)
+    losses, norms, times = [], [], []
+    for tokens in toks:
+        t0 = time.perf_counter()
+        state, (loss, gnorm) = step(state, tokens)
+        losses.append(loss.item())
+        norms.append(gnorm.item())
+        times.append(time.perf_counter() - t0)
+    counts = flash_counts(fk)
+    plain = fk.plain_calls
+    return model, trainer, state, losses, norms, times, counts, plain
+
+
+def phase_train_fsdp(fk, card, full):
+    """The sharded trainer over a 1-rank NCCL job at train_full's shape,
+    plain and with zero1 + overlap asked for (at data = 1 the layout
+    turns both off, so that run is the plain path again), held to
+    train_full's curve; its checkpoint restores into the one-card trainer
+    bit for bit."""
+    import shutil
+    from skypilot_tpu_torch.models import convert, registry
+    from skypilot_tpu_torch.parallel import distributed, train
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel.checkpoints import CheckpointManager
+    layers, steps, batch, seq = 4, 4, 8, 2048
+    cfg = dataclasses.replace(registry.train_config('llama3-8b', seq),
+                              num_layers=layers)
+    rng = np.random.default_rng(0)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+            .cuda() for _ in range(steps)]
+    job = distributed.jobs(cpu=False, workers=1)[0]
+    distributed.join(job)
+    ckpt = os.path.join(WORK, 'fsdp_ckpt')
+    try:
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig.auto(1))
+        check(mesh_lib.mesh_summary(mesh) == 'Mesh(single-device)'
+              and torch.distributed.get_backend() == 'nccl',
+              f'mesh {mesh}')
+        rows = mesh_lib.batch_rows(mesh, batch)
+        check((rows.start, rows.stop) == (0, batch), f'rows {rows}')
+        torch.cuda.reset_peak_memory_stats()
+        model, trainer, state, losses, norms, times, counts, plain = \
+            sharded_run(fk, cfg, toks, mesh)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(all(c == layers * steps for c in counts.values())
+              and plain == 0, f'train_fsdp launches {counts}, {plain} plain')
+
+        def close(losses, norms):
+            return all(abs(x - y) <= tol * abs(y) for got, want, tol in (
+                (losses[:1] + norms[:1],
+                 full['losses'][:1] + full['grad_norms'][:1], FSDP_TOL),
+                (losses, full['losses'], FSDP_CURVE_TOL))
+                for x, y in zip(got, want))
+
+        check(close(losses, norms),
+              f'sharded {losses} / {norms[0]} vs train_full '
+              f'{full["losses"]} / {full["grad_norms"][0]}')
+        # The checkpoint, restored into the one-card trainer.
+        shutil.rmtree(ckpt, ignore_errors=True)
+        t0 = time.perf_counter()
+        CheckpointManager(ckpt).save(state.step, state, force=True)
+        save_s = time.perf_counter() - t0
+        del trainer
+        torch.cuda.empty_cache()
+        one = train.ShardedTrainer(
+            convert.init_params(cfg, seed=1, device='cuda'),
+            tx=train.default_optimizer(warmup_steps=10, total_steps=20))
+        t0 = time.perf_counter()
+        restored = CheckpointManager(ckpt).restore(one.init())
+        restore_s = time.perf_counter() - t0
+        layout = state.layout
+        same = restored.step == state.step and int(
+            restored.opt_state['count']) == int(state.opt_state['count'])
+        for i, (t, u) in enumerate(zip(
+                train.trainable_leaves(state.params),
+                train.trainable_leaves(restored.params))):
+            same = same and torch.equal(layout.full(i, layout.local(t)), u)
+            for key in ('mu', 'nu'):
+                same = same and torch.equal(
+                    layout.full(i, state.opt_state[key][i], moment=True),
+                    restored.opt_state[key][i])
+        check(same, 'the sharded checkpoint did not restore bit for bit')
+        del model, state, one, restored, layout
+        torch.cuda.empty_cache()
+        _, z_trainer, _, z_losses, z_norms, _, z_counts, z_plain = \
+            sharded_run(fk, cfg, toks, mesh, zero1=True, overlap=True)
+        z_active = z_trainer.layout.zero1 or z_trainer.layout.overlap
+        del z_trainer
+        check(not z_active, 'zero1 / overlap active at data = 1')
+        check(all(c == layers * steps for c in z_counts.values())
+              and z_plain == 0 and close(z_losses, z_norms),
+              f'zero1+overlap {z_losses} / {z_counts}')
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        distributed.leave()
+        torch.cuda.empty_cache()
+    step_s = float(np.mean(times[1:]))
+    tps = batch * seq / step_s
+    ref = full['losses'] + full['grad_norms'][:1]
+    emit('train_fsdp', card=card, mesh='Mesh(single-device)', world=1,
+         backend='nccl', layers=layers, steps=steps, batch=batch, seq=seq,
+         tol=FSDP_TOL, curve_tol=FSDP_CURVE_TOL, losses=losses,
+         grad_norms=norms,
+         max_rel_diff=max(abs(x - y) / abs(y) for x, y in
+                          zip(losses + norms[:1], ref)),
+         zero1_overlap_max_rel_diff=max(abs(x - y) / abs(y) for x, y in
+                                        zip(z_losses + z_norms[:1], ref)),
+         zero1_overlap_losses=z_losses, zero1_overlap_active=z_active,
+         step_times_s=times, step_s=step_s,
+         tokens_per_s=tps,
+         mfu=6.0 * full['matmul_params'] * tps / BF16_FLOPS,
+         peak_mem_gb=peak, ckpt_save_s=save_s, ckpt_restore_s=restore_s,
+         launches=counts, zero1_overlap_launches=z_counts,
+         train_full=full)
+    return {name: counts[name] + z_counts[name] for name in counts}
 
 
 def run_train_lm(argv):
@@ -2299,6 +2460,7 @@ def burst(rt, port, ps, models, kernels):
     post(port, '/generate', {'tokens': [ps[0][:64]], 'max_new_tokens': 2})
     rt.metrics = type(rt.metrics)()
     counts0 = [(k.launches, k.plain_calls) for k in kernels]
+    by_rows0 = [dict(getattr(k, 'launches_by_rows', {})) for k in kernels]
     routes0 = dict(kernels[0].route_launches)
     verify0 = kernels[0].shape_launches[('chunk', VERIFY_S)]
     stats0 = rt.engine.stats()
@@ -2361,7 +2523,12 @@ def burst(rt, port, ps, models, kernels):
                             - verify0),
         'prefill_chunks': delta('prefill_chunks'),
         'counts': [(k.launches - l0, k.plain_calls - p0)
-                   for k, (l0, p0) in zip(kernels, counts0)]}
+                   for k, (l0, p0) in zip(kernels, counts0)],
+        'launches_by_rows': [
+            {m: n - r0.get(m, 0) for m, n in sorted(
+                getattr(k, 'launches_by_rows', {}).items())
+             if n > r0.get(m, 0)}
+            for k, r0 in zip(kernels, by_rows0)]}
 
 
 def phase_serve(kv_dtype, model, pk, lk, card):
@@ -4857,6 +5024,7 @@ def int8_family(label, name, model, pk, il, card, ps):
         stop_runtime(rt_b, srv_b, th_b)
     counts = {tag: outs[tag].pop('counts')
               for tag in ('int8', 'int8_dequant', 'bf16', 'int8_eager')}
+    by_rows = outs['int8'].pop('launches_by_rows')[1]
     (_, pa_plain), (i8, i8_plain) = counts['int8']
     check(i8 > 0 and i8_plain == 0 and i8 % per_forward == 0,
           f'{label}: int8_linear {i8} launches ({per_forward} a forward), '
@@ -4882,7 +5050,8 @@ def int8_family(label, name, model, pk, il, card, ps):
     out = dict(
         card=card, model=name, layers=model.config.num_layers,
         int8_projections_a_forward=per_forward, setup_s=setup_q,
-        bursts=outs, counts=counts, weight_bytes=weight_bytes,
+        bursts=outs, counts=counts, int8_launches_by_rows=by_rows,
+        weight_bytes=weight_bytes,
         weight_bytes_saved=weight_bytes['bf16'] - weight_bytes['int8'],
         logprob_tolerance=INT8_LOGPROB_TOL,
         contract_vs_dequantize=contract,
@@ -4900,7 +5069,8 @@ def phase_serve_deepseek(pk, il, card):
     through serve_lm's flags on the dense slot path: the serving burst
     (graph rounds == eager unpipelined rounds), --speculative 4 against
     the plain engine, then the same with --weight-dtype int8. Returns
-    int8_linear's launches on the int8 burst; the model is freed."""
+    int8_linear's launches on the int8 burst by row count M; the model
+    is freed."""
     from skypilot_tpu_torch.models import convert, registry
     t0 = t_phase = time.perf_counter()
     cfg = registry.model_config('deepseek-v2-lite', 1024)
@@ -4940,13 +5110,13 @@ def phase_serve_deepseek(pk, il, card):
                       'tokens_per_call': spec_out['tokens_per_call'],
                       'decode_rounds': spec_out['decode_rounds'],
                       'wall_s': spec_out['wall_s']})
-    int8_out, int8_launches = int8_family(
+    int8_out, _ = int8_family(
         'serve_deepseek_int8', 'deepseek-v2-lite', model, pk, il, card, ps)
     emit('serve_deepseek_int8', **int8_out)
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    return int8_launches
+    return int8_out['int8_launches_by_rows']
 
 
 def phase_serve_mixtral_int8(pk, il, card):
@@ -5262,14 +5432,15 @@ def main() -> int:
     phase_serve_mixtral_int8(pk, il, card)
     zero_paged(pk)
     pk.launches = pk.plain_calls = il.launches = il.plain_calls = 0
-    deepseek_int8_launches = phase_serve_deepseek(pk, il, card)
+    deepseek_by_rows = phase_serve_deepseek(pk, il, card)
     phase_serve_hf(pk, lk, fk, card)
 
     phase_greedy_parity(pk, lk, fk)
 
     # The training paths, each counted from zero.
-    full_counts = phase_train_full(fk, pk, card)
+    full_counts, full = phase_train_full(fk, pk, card)
     torch.cuda.empty_cache()
+    fsdp_counts = phase_train_fsdp(fk, card, full)
     lora_counts = phase_train_lora(fk, lk, card)
     torch.cuda.empty_cache()
     phase_train_gpt2(fk, card)
@@ -5285,11 +5456,20 @@ def main() -> int:
         row['launches'] = gpt2_routes[row['kernel_route']]
     lora_kernel['launches'] = lora_launches
     int8_rows[0]['launches'] = int8_launches
+    # The DeepSeek rows: the int8 burst's decode calls (M <= 8 rows, the
+    # smoke's slots) and its prefill chunks (M > 8).
     for row in int8_rows[1:]:
-        row['launches'] = deepseek_int8_launches
+        decode = row['name'].endswith('_m8')
+        row['launches'] = sum(n for m, n in deepseek_by_rows.items()
+                              if (m <= 8) == decode)
+        row['launch_window'] = ('serve_deepseek_int8 burst, decode calls '
+                                '(M <= 8)' if decode else
+                                'serve_deepseek_int8 burst, prefill chunks '
+                                '(M > 8)')
     for name, row in flash_rows.items():
-        row['launches'] = (full_counts[name] + lora_counts[name]
-                           + mixtral_counts[name] + guard_counts[name])
+        row['launches'] = (full_counts[name] + fsdp_counts[name]
+                           + lora_counts[name] + mixtral_counts[name]
+                           + guard_counts[name])
     print(card, flush=True)
     print(json.dumps({'kernels': [*paged_rows, *gpt2_rows, lora_kernel,
                                   *flash_rows.values(), *int8_rows]}),

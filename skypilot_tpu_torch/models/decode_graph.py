@@ -92,6 +92,8 @@ def _kernel_counts() -> Dict[Tuple, int]:
                    for r, n in paged_kernel.route_launches.items()})
     counts.update({('shape', k): n
                    for k, n in paged_kernel.shape_launches.items()})
+    counts.update({('int8_rows', m): n
+                   for m, n in int8_linear.launches_by_rows.items()})
     return counts
 
 
@@ -112,6 +114,8 @@ def _add_kernel_counts(delta: Dict[Tuple, int], sign: int = 1) -> None:
             setattr(int8_linear, name, getattr(int8_linear, name) + d)
         elif kind == 'route':
             paged_kernel.route_launches[name] += d
+        elif kind == 'int8_rows':
+            int8_linear.launches_by_rows[name] += d
         else:
             paged_kernel.shape_launches[name] += d
 

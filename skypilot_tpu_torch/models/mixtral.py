@@ -140,6 +140,9 @@ class MoEFeedForward(nn.Module):
         self.w_gate = param(e, d, f)
         self.w_up = param(e, d, f)
         self.w_down = param(e, f, d)
+        #: The process group a sharded trainer splits the batch over
+        #: (parallel/fsdp.py); None on one device.
+        self.batch_group = None
 
     def route(self, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
@@ -188,6 +191,15 @@ class MoEFeedForward(nn.Module):
         if not with_aux:
             return out, None
         assign_frac = picks.sum(dim=2).mean(dim=(0, 1))        # [E]
+        if self.batch_group is not None:
+            # The whole batch's fractions, as the reference computes them
+            # over its sharded batch. The router probabilities stay this
+            # rank's: the ranks' mean aux is then the batch's aux, and
+            # its gradient the batch's.
+            import torch.distributed as dist
+            assign_frac = assign_frac.clone()
+            dist.all_reduce(assign_frac, group=self.batch_group)
+            assign_frac = assign_frac / dist.get_world_size(self.batch_group)
         prob_frac = probs.mean(dim=(0, 1))                     # [E]
         aux = (cfg.num_experts * (assign_frac * prob_frac).sum()
                / cfg.experts_per_token)

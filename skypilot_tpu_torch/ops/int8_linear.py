@@ -28,13 +28,14 @@ dequantize-then-`F.linear` A/B); 'cuda' on CPU tensors raises. No
 environment switch, no fallback. `route_scope(impl)` overrides 'auto'
 for this kernel alone (the A/B of the dequantize route with the other
 kernels still on the card). `launches` counts kernel calls (one device
-launch each) and `plain_calls` plain-version calls made through the
-wrapper. x is flattened to [M, in]; a non-contiguous x (or one whose
+launch each), `launches_by_rows` the same calls by their row count M,
+and `plain_calls` plain-version calls made through the wrapper. x is flattened to [M, in]; a non-contiguous x (or one whose
 data is not 16-byte aligned) is copied first, which a contiguous one
 never is.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import functools
@@ -48,6 +49,9 @@ from skypilot_tpu_torch.ops.paged_kernel import (  # noqa: F401
 
 #: Kernel calls made by `int8_linear` in this process.
 launches = 0
+#: The same calls by their row count M (x's rows): decode rounds and
+#: prefill chunks apart.
+launches_by_rows = collections.Counter()
 #: Calls of the plain version made through `int8_linear`.
 plain_calls = 0
 #: Device launches per kernel call.
@@ -190,6 +194,7 @@ def _launch(x, q, scale, bias, perturb):
         raise RuntimeError(f'int8 linear kernel failed to launch: CUDA '
                            f'error {err} ({msg})')
     launches += 1
+    launches_by_rows[m] += 1
     return y.reshape(*lead, n)
 
 

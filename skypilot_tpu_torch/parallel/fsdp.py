@@ -1,0 +1,343 @@
+"""The sharded trainer's layout over a mesh (parallel/train.py
+`ShardedTrainer(mesh=...)`): what the reference's GSPMD shardings do
+for training (skypilot_tpu/parallel/train.py), with FSDP2 and explicit
+collectives.
+
+Parameters: FSDP2 (`fully_shard`) over the mesh's `fsdp` axis, one unit
+per block and one root unit that holds the rest (token embedding, final
+norm, LM head) and computes the loss, so the fused loss sees the whole
+head (and GPT-2 its tied table) inside the unit's forward. Each leaf
+shards on the dim the reference's logical axes call `embed`, as
+`DEFAULT_RULES` map it to `fsdp` (`_EMBED_DIM`, in the port's layout:
+Dense weights are nn.Linear's [out, in], the reference's [in, out]).
+The reference keeps some leaves whole: the embedding tables
+(`table_embed` -> None, parallel/mesh.py), the norms, the biases and
+DeepSeek's `wkv_b` (('kv', 'heads', None)). FSDP2 has no replicated
+placement, and the reason the reference keeps tables whole (GSPMD
+would reshard the lookup's scatter-add gradient) does not arise when
+the table is gathered before the lookup, so the port shards those on
+dim 0 (FSDP2's default, uneven sizes padded); so too an embed dim the
+fsdp size does not divide. LoRA factors are not module parameters:
+every rank holds them whole. Over `data` the parameters are
+replicated, as HSDP does.
+
+Gradients: FSDP2 reduce-scatters (and averages) each unit's gradients
+over `fsdp` as backward leaves the unit; frozen LoRA bases take none.
+The data axis is reduced here, leaf by leaf: summed over `data` and
+divided (replicated moments), or with `zero1` reduce-scattered onto the
+leaf's moment shard (the reference's `_zero1_opt_sharding` rule: the
+first dim the combined fsdp x data factor divides; scalars and odd
+vectors stay whole). LoRA factors are summed over every rank. With
+`overlap` the data-axis collective of each leaf is issued, async, from
+its post-accumulate-grad hook (FSDP2 runs those after the leaf's
+reduce-scatter), while backward goes on; the collectives and their
+inputs are the same, so no number changes.
+
+The optimizer (`ClippedAdamW`, optax's semantics) updates each rank's
+piece: the fsdp shard, cut to the moment shard under zero1, after which
+the updated pieces are all-gathered over `data`. The clip's global norm
+is the sum of squares of every piece, each counted on one rank only,
+all-reduced over the job (`global_sq`): optax.global_norm's value.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+
+# The single-tensor collectives under their newer names where torch has
+# them (the older ones warn there).
+_all_gather = getattr(dist, 'all_gather_single', None) \
+    or dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, 'reduce_scatter_single', None) \
+    or dist.reduce_scatter_tensor
+
+# The dim of a port leaf the reference's logical axes call 'embed', by
+# the end of its name.
+_EMBED_DIM = (
+    # [out, in] projections reading the residual stream, the head [V, D]
+    # and Mixtral's router [E, D] and input experts [E, D, F].
+    (('wq.weight', 'wk.weight', 'wv.weight', 'w_gate.weight',
+      'w_up.weight', 'c_attn.weight', 'c_fc.weight', 'wq_a.weight',
+      'wkv_a.weight', 'lm_head', 'moe.router', 'moe.w_gate', 'moe.w_up'),
+     1),
+    # [out, in] projections writing it.
+    (('wo.weight', 'w_down.weight', 'c_proj.weight'), 0),
+    # Mixtral's output experts [E, F, D].
+    (('moe.w_down',), 2),
+)
+
+
+def _gather_dim(x: torch.Tensor, dim: int, parts: int, group
+                ) -> torch.Tensor:
+    """x's equal pieces along `dim`, one on each of `parts` ranks of
+    `group` in rank order, whole."""
+    part = x.movedim(dim, 0).contiguous()
+    buf = torch.empty((parts * part.shape[0], *part.shape[1:]),
+                      dtype=part.dtype, device=part.device)
+    _all_gather(buf, part, group=group)
+    return buf.movedim(0, dim)
+
+
+def embed_dim_of(name: str) -> Optional[int]:
+    for suffixes, dim in _EMBED_DIM:
+        if name.endswith(suffixes):
+            return dim
+    return None
+
+
+def blocks_of(model) -> nn.ModuleList:
+    """The model's stack of decoder blocks (GPT-2's `h`, else
+    `layers`)."""
+    return model.h if hasattr(model, 'h') else model.layers
+
+
+def chunk_bounds(n: int, parts: int, index: int) -> Tuple[int, int]:
+    """(start, size) of part `index` of `n` rows cut as torch.chunk cuts
+    them (FSDP2's uneven dim-0 shards: ceil(n / parts) a part, the last
+    ones short or empty)."""
+    size = -(-n // parts)
+    start = min(index * size, n)
+    return start, max(0, min(size, n - start))
+
+
+@dataclasses.dataclass
+class Leaf:
+    """One trainable leaf: its whole shape, the dim FSDP2 shards (None:
+    every rank holds it whole) and the dim its moments shard over
+    `data` under zero1 (None: whole over data)."""
+    name: str
+    shape: Tuple[int, ...]
+    fsdp_dim: Optional[int]
+    zero1_dim: Optional[int]
+
+
+class _LossUnit(nn.Module):
+    """The root FSDP unit: the model and the trainer's loss, so that the
+    root's parameters (the head among them) are whole while the loss
+    reads them."""
+
+    def __init__(self, model: nn.Module, compute: Callable) -> None:
+        super().__init__()
+        self.model = model
+        self._compute = compute
+
+    def forward(self, params: Dict[str, Any], tokens: torch.Tensor):
+        return self._compute(params, tokens)
+
+
+class FSDPLayout:
+
+    def __init__(self, model: nn.Module, mesh, compute_loss: Callable,
+                 zero1: bool = False, overlap: bool = False) -> None:
+        from torch.distributed.fsdp import fully_shard
+        from torch.distributed.tensor import Shard
+        sizes = mesh_lib.mesh_shape(mesh)
+        if any(sizes[a] > 1 for a in ('stage', 'tensor', 'expert', 'seq')):
+            raise ValueError(f'the sharded trainer shards over data and '
+                             f'fsdp only, not {mesh_lib.mesh_summary(mesh)}')
+        self.data, self.fsdp = sizes['data'], sizes['fsdp']
+        coord = dict(zip(mesh_lib.AXIS_NAMES, mesh.get_coordinate()))
+        self.data_index, self.fsdp_index = coord['data'], coord['fsdp']
+        self.fsdp_mesh = mesh['fsdp']
+        self.data_group = mesh['data'].get_group()
+        self.fsdp_group = self.fsdp_mesh.get_group()
+        self.zero1 = zero1 and self.data > 1
+        self.overlap = overlap and self.zero1
+        if self.data * self.fsdp > 1:
+            # Batch statistics a model takes over the whole batch
+            # (Mixtral's router aux loss) are taken over every rank.
+            for module in model.modules():
+                if hasattr(module, 'batch_group'):
+                    module.batch_group = dist.group.WORLD
+        embed = model.config.embed_dim
+        names = {id(p): n for n, p in model.named_parameters()}
+
+        def placement(param: nn.Parameter):
+            dim = embed_dim_of(names[id(param)])
+            if dim is None or param.shape[dim] != embed or (
+                    dim and param.shape[dim] % self.fsdp):
+                return None                    # Shard(0)
+            return Shard(dim)
+
+        for block in blocks_of(model):
+            fully_shard(block, mesh=self.fsdp_mesh,
+                        shard_placement_fn=placement)
+        self.unit = _LossUnit(model, compute_loss)
+        fully_shard(self.unit, mesh=self.fsdp_mesh,
+                    shard_placement_fn=placement)
+        self.leaves: List[Leaf] = []
+        self._pending: Dict[int, Tuple[Any, torch.Tensor, Any]] = {}
+        self._hooks: List[Any] = []
+
+    # -- leaves ---------------------------------------------------------------
+    def bind(self, leaves: List[torch.Tensor], names: List[str]) -> None:
+        """Record the trainable leaves (in the optimizer's order) and,
+        with overlap, hook each one's data-axis collective."""
+        self.leaves = []
+        for name, t in zip(names, leaves):
+            fsdp_dim = (t.placements[0].dim if hasattr(t, 'placements')
+                        else None)
+            self.leaves.append(Leaf(name, tuple(t.shape), fsdp_dim,
+                                    self._zero1_dim(t.shape, fsdp_dim)))
+        for h in self._hooks:
+            h.remove()
+        self._hooks = []
+        if self.overlap:
+            for i, t in enumerate(leaves):
+                self._hooks.append(t.register_post_accumulate_grad_hook(
+                    lambda p, i=i: self._issue(i, p)))
+
+    def _zero1_dim(self, shape, fsdp_dim) -> Optional[int]:
+        """The reference's `_zero1_opt_sharding` rule on one leaf."""
+        if not self.zero1 or len(shape) == 0:
+            return None
+        for dim, size in enumerate(shape):
+            cur = self.fsdp if dim == fsdp_dim else 1
+            if size % (cur * self.data) == 0:
+                return dim
+        return None
+
+    @staticmethod
+    def local(t: torch.Tensor) -> torch.Tensor:
+        """This rank's tensor of a leaf (FSDP2's shard, or the whole
+        replicated tensor); in-place updates reach the leaf."""
+        if not hasattr(t, 'to_local'):
+            return t
+        with torch.no_grad():       # the local tensor itself, not a view
+            return t.to_local()
+
+    def piece(self, i: int, local: torch.Tensor) -> torch.Tensor:
+        """The part of leaf i's local tensor this rank's moments cover."""
+        dim = self.leaves[i].zero1_dim
+        if dim is None:
+            return local
+        return local.chunk(self.data, dim=dim)[self.data_index]
+
+    def pieces(self, leaves: List[torch.Tensor]) -> List[torch.Tensor]:
+        with torch.no_grad():
+            return [self.piece(i, self.local(t)) for i, t in
+                    enumerate(leaves)]
+
+    # -- gradients ------------------------------------------------------------
+    def _issue(self, i: int, t: torch.Tensor) -> None:
+        """Start leaf i's data-axis (or, replicated, job-wide) reduction
+        of its gradient; `reduce_grads` waits for it."""
+        grad = t.grad
+        t.grad = None
+        leaf = self.leaves[i]
+        local = (self.local(grad) if grad is not None
+                 else torch.zeros_like(self.local(t)))
+        if leaf.fsdp_dim is None:
+            # Replicated: every rank's gradient is partial.
+            work = dist.all_reduce(local, async_op=True)
+            self._pending[i] = (work, local, 'all')
+            return
+        if leaf.zero1_dim is None:
+            work = dist.all_reduce(local, group=self.data_group,
+                                   async_op=True) if self.data > 1 else None
+            self._pending[i] = (work, local, 'data')
+            return
+        src = local.movedim(leaf.zero1_dim, 0).contiguous()
+        out = torch.empty((src.shape[0] // self.data, *src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        work = _reduce_scatter(out, src, group=self.data_group,
+                               async_op=True)
+        self._pending[i] = (work, (out, src), 'scatter')
+
+    def reduce_grads(self, leaves: List[torch.Tensor]
+                     ) -> List[torch.Tensor]:
+        """Each leaf's gradient piece, averaged over the job (call after
+        backward; clears the leaves' .grad)."""
+        if not self.overlap:
+            for i, t in enumerate(leaves):
+                self._issue(i, t)
+        out = []
+        world = self.data * self.fsdp
+        for i, leaf in enumerate(self.leaves):
+            work, value, kind = self._pending.pop(i)
+            if work is not None:
+                work.wait()
+            if kind == 'all':
+                g = self.piece(i, value.div_(world))
+            elif kind == 'data':
+                g = value.div_(self.data) if self.data > 1 else value
+            else:
+                g = value[0].div_(self.data).movedim(0, leaf.zero1_dim)
+            out.append(g)
+        return out
+
+    def global_sq(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The sum of squares of the whole gradient: each piece counted
+        on the one rank that owns it, all-reduced over the job."""
+        total = 0
+        for leaf, g in zip(self.leaves, grads):
+            if leaf.fsdp_dim is None and self.fsdp_index:
+                continue            # a copy of fsdp rank 0's
+            if leaf.zero1_dim is None and self.data_index:
+                continue            # a copy of data rank 0's
+            total = total + g.float().square().sum()
+        if not torch.is_tensor(total):
+            total = torch.zeros((), dtype=torch.float32,
+                                device=grads[0].device)
+        dist.all_reduce(total)
+        return total
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The job-wide mean of a per-rank scalar (the local loss)."""
+        x = x.detach().clone()
+        dist.all_reduce(x)
+        return x.div_(self.data * self.fsdp)
+
+    @torch.no_grad()
+    def gather_updates(self, leaves: List[torch.Tensor]) -> None:
+        """zero1: all-gather each updated moment-shard piece over `data`
+        back into the rank's local tensor."""
+        for i, (leaf, t) in enumerate(zip(self.leaves, leaves)):
+            if leaf.zero1_dim is None:
+                continue
+            local = self.local(t)
+            local.copy_(_gather_dim(self.piece(i, local), leaf.zero1_dim,
+                                    self.data, self.data_group))
+
+    # -- whole leaves (checkpoints) -------------------------------------------
+    @torch.no_grad()
+    def full(self, i: int, local: torch.Tensor, moment: bool = False
+             ) -> torch.Tensor:
+        """Leaf i's whole value from this rank's `local` tensor (a
+        moment piece when `moment`); every rank calls it."""
+        leaf = self.leaves[i]
+        x = local
+        if moment and leaf.zero1_dim is not None:
+            x = _gather_dim(x, leaf.zero1_dim, self.data, self.data_group)
+        if leaf.fsdp_dim is None:
+            return x.contiguous()
+        dim, n = leaf.fsdp_dim, leaf.shape[leaf.fsdp_dim]
+        short = -(-n // self.fsdp) - x.shape[dim]
+        if short:            # an uneven dim-0 shard, padded as FSDP2 pads
+            x = torch.cat([x, x.new_zeros((short, *x.shape[1:]))])
+        return _gather_dim(x, dim, self.fsdp, self.fsdp_group).narrow(
+            dim, 0, n).contiguous()
+
+    @torch.no_grad()
+    def load(self, i: int, local: torch.Tensor, whole: torch.Tensor,
+             moment: bool = False) -> None:
+        """Copy this rank's part of leaf i's `whole` value into `local`
+        (a moment piece when `moment`)."""
+        leaf = self.leaves[i]
+        x = whole
+        if leaf.fsdp_dim is not None:
+            start, size = chunk_bounds(leaf.shape[leaf.fsdp_dim], self.fsdp,
+                                       self.fsdp_index)
+            x = x.narrow(leaf.fsdp_dim, start, size)
+        if moment:
+            x = self.piece(i, x)
+        if tuple(x.shape) != tuple(local.shape):
+            raise ValueError(f'{leaf.name}: part {tuple(x.shape)} does not '
+                             f'fit {tuple(local.shape)}')
+        local.copy_(x)

@@ -1,13 +1,19 @@
-"""Training harness on one device (port of skypilot_tpu/parallel/train.py:
+"""Training harness (port of skypilot_tpu/parallel/train.py:
 `TrainState`, `next_token_loss`, `default_optimizer`, `ShardedTrainer`).
 
-The reference jits its step over a mesh; the port runs one card eagerly,
-so `ShardedTrainer` keeps the reference's API (`init`,
-`make_train_step`, `make_eval_step`, `fused_xent` auto,
-`collect_grad_norm`, `lora=`) without the mesh. Parameters are the
-model's own f32 master tensors (`LlamaConfig.param_dtype`), and the
-optimizer updates them and its moments IN PLACE: JAX returns new arrays,
-the port saves a copy of every parameter and moment that way.
+The reference jits its step over a mesh; the port runs eagerly, on one
+card, or with `mesh=` (parallel/mesh.py `make_mesh`) on one rank of a
+job: FSDP over the mesh's `fsdp` axis, the parameters replicated over
+`data`, `zero1` and `overlap` as the reference defines them (the layout
+and its collectives: parallel/fsdp.py). `ShardedTrainer` keeps the
+reference's API (`init`, `make_train_step`, `make_eval_step`,
+`fused_xent` auto, `collect_grad_norm`, `lora=`, `guard=`). Parameters
+are the model's own f32 master tensors (`LlamaConfig.param_dtype`), and
+the optimizer updates them and its moments IN PLACE: JAX returns new
+arrays, the port saves a copy of every parameter and moment that way.
+Over a mesh each rank's step takes its own rows of the global batch
+(`mesh.batch_rows`) and returns the job-wide loss and grad norm, the
+same on every rank.
 
 `default_optimizer` is optax's `chain(clip_by_global_norm,
 adamw(warmup_cosine_decay_schedule))` written out to optax's semantics,
@@ -38,7 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,17 +63,27 @@ class TrainState:
     step: int
     params: Dict[str, Any]
     opt_state: Dict[str, Any]
+    #: Over a mesh, the trainer's parallel/fsdp.py layout: params are
+    #: then FSDP2's sharded parameters and the moments this rank's
+    #: pieces of them (parallel/checkpoints.py gathers whole leaves).
+    layout: Any = None
+
+
+def trainable_items(params: Dict[str, Any]) -> List[Tuple[str, Any]]:
+    """(name, tensor) of what the optimizer updates, in a fixed order:
+    every parameter, or in LoRA mode every factor (layer, target,
+    a/b)."""
+    if 'lora' in params:
+        return [(f'lora.{name}.{target}.{k}', factors[k])
+                for name, layer in sorted(params['lora'].items(),
+                                          key=_layer_key)
+                for target, factors in sorted(layer.items())
+                for k in ('a', 'b')]
+    return list(params.items())
 
 
 def trainable_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
-    """The tensors the optimizer updates, in a fixed order: every
-    parameter, or in LoRA mode every factor (layer, target, a/b)."""
-    if 'lora' in params:
-        return [factors[k] for _, layer in sorted(params['lora'].items(),
-                                                  key=_layer_key)
-                for _, factors in sorted(layer.items())
-                for k in ('a', 'b')]
-    return list(params.values())
+    return [t for _, t in trainable_items(params)]
 
 
 def _layer_key(item):
@@ -221,7 +237,7 @@ def default_optimizer(learning_rate: float = 3e-4,
 
 
 class ShardedTrainer:
-    """Train and eval steps for a port LM on one device.
+    """Train and eval steps for a port LM, on one device or over a mesh.
 
     The loss is `loss_fn(outputs, tokens)`, the next-token CE by default
     (Mixtral's `moe_next_token_loss` adds its router aux loss).
@@ -238,6 +254,13 @@ class ShardedTrainer:
     moments; see parallel/checkpoints.py). `guard` makes the guarded
     step (module doc; `train_lm --guard`), which needs the grad norm
     and so collects it.
+
+    `mesh` (a DeviceMesh from parallel/mesh.py `make_mesh`, every rank
+    of the job building its trainer alike) shards the model over the
+    mesh's `fsdp` axis in place (parallel/fsdp.py); `zero1` shards the
+    Adam moments over `data` too, and `overlap` issues that
+    reduce-scatter leaf by leaf during backward (it needs `zero1`, as in
+    the reference). At `data` = 1 both change nothing.
     """
 
     def __init__(self, model, tx: Optional[ClippedAdamW] = None,
@@ -245,7 +268,8 @@ class ShardedTrainer:
                  fused_xent: Optional[bool] = None,
                  collect_grad_norm: bool = False,
                  lora: Optional[lora_lib.LoraSpec] = None,
-                 guard: bool = False) -> None:
+                 guard: bool = False, mesh=None, zero1: bool = False,
+                 overlap: bool = False) -> None:
         if not model.config.trainable:
             raise ValueError('the trainer needs f32 master parameters: '
                              'build the model with param_dtype='
@@ -256,6 +280,11 @@ class ShardedTrainer:
         if lora is not None and not lora_lib.supports(model):
             raise ValueError(f'{type(model).__name__} has no LoRA forward '
                              f'path; --lora supports the Llama family')
+        if overlap and not zero1:
+            raise ValueError(
+                'overlap=True buckets the grad reduce-scatter onto '
+                'the ZeRO-1 moment layout; it needs zero1=True')
+        self.zero1, self.overlap = zero1, overlap
         self.guard = guard
         self.collect_grad_norm = collect_grad_norm or guard
         self.loss_fn = loss_fn if loss_fn is not None else next_token_loss
@@ -265,6 +294,17 @@ class ShardedTrainer:
             raise ValueError('fused_xent=True but the loss_fn is not '
                              'next_token_loss (nor flagged fused_ok)')
         self.fused_xent = supported if fused_xent is None else fused_xent
+        self.mesh = mesh
+        self.layout = None
+        if mesh is not None:
+            from skypilot_tpu_torch.parallel.fsdp import FSDPLayout
+            if lora is not None:
+                # Frozen before sharding: FSDP2 then reduces no base
+                # gradient (there is none).
+                for p in model.parameters():
+                    p.requires_grad_(False)
+            self.layout = FSDPLayout(model, mesh, self._loss, zero1=zero1,
+                                     overlap=overlap)
 
     # -- init ---------------------------------------------------------------
     def init(self, lora_params: Optional[Dict[str, Any]] = None,
@@ -286,12 +326,20 @@ class ShardedTrainer:
                     for t in factors.values():
                         t.requires_grad_(True)
             params = {'base': params, 'lora': lora_params}
+        if self.layout is None:
+            return TrainState(step=0, params=params,
+                              opt_state=self.tx.init(
+                                  trainable_leaves(params)))
+        items = trainable_items(params)
+        leaves = [t for _, t in items]
+        self.layout.bind(leaves, [n for n, _ in items])
         return TrainState(step=0, params=params,
-                          opt_state=self.tx.init(trainable_leaves(params)))
+                          opt_state=self.tx.init(self.layout.pieces(leaves)),
+                          layout=self.layout)
 
     # -- step ---------------------------------------------------------------
-    def _compute_loss(self, params: Dict[str, Any],
-                      tokens: torch.Tensor) -> torch.Tensor:
+    def _loss(self, params: Dict[str, Any],
+              tokens: torch.Tensor) -> torch.Tensor:
         extra = {}
         if self.lora is not None:
             extra['lora'] = lora_lib.as_model_lora(params['lora'],
@@ -308,6 +356,14 @@ class ShardedTrainer:
             return loss if aux is None else loss + aux
         return self.loss_fn(self.model(tokens, **extra), tokens)
 
+    def _compute_loss(self, params: Dict[str, Any],
+                      tokens: torch.Tensor) -> torch.Tensor:
+        """The loss of `tokens` (over a mesh: this rank's rows, through
+        the root FSDP unit)."""
+        if self.layout is None:
+            return self._loss(params, tokens)
+        return self.layout.unit(params, tokens)
+
     def make_train_step(self) -> Callable:
         """Unguarded: `(state, tokens) -> (state, aux)`, aux the loss (a
         device scalar) or (loss, grad_norm) with `collect_grad_norm`.
@@ -316,6 +372,8 @@ class ShardedTrainer:
         multiplies the loss inside autograd, so a NaN scale poisons the
         loss and every gradient. Both update `state` in place and return
         it."""
+        if self.layout is not None:
+            return self._make_sharded_step()
 
         def step(state: TrainState, tokens: torch.Tensor):
             leaves = trainable_leaves(state.params)
@@ -346,12 +404,52 @@ class ShardedTrainer:
 
         return guarded if self.guard else step
 
+    def _make_sharded_step(self) -> Callable:
+        """The step over a mesh: backward through FSDP2, this rank's
+        gradient pieces reduced over the job, the job-wide loss and norm
+        (so every rank computes the same `bad`), the update on this
+        rank's pieces and, under zero1, the pieces gathered back."""
+        layout = self.layout
+
+        def run(state, tokens, max_grad_norm, loss_scale, guarded):
+            leaves = trainable_leaves(state.params)
+            loss = self._compute_loss(state.params, tokens)
+            if guarded:
+                loss = loss * loss_scale
+            loss.backward()
+            grads = layout.reduce_grads(leaves)
+            gnorm = torch.sqrt(layout.global_sq(grads))
+            loss = layout.mean(loss)
+            bad = None
+            if guarded:
+                bad = (~torch.isfinite(loss) | ~torch.isfinite(gnorm)
+                       | (gnorm > max_grad_norm))
+            self.tx.update(layout.pieces(leaves), grads, state.opt_state,
+                           norm=gnorm, bad=bad)
+            layout.gather_updates(leaves)
+            state.step += 1
+            if guarded:
+                return state, (loss, gnorm, bad)
+            return state, ((loss, gnorm) if self.collect_grad_norm
+                           else loss)
+
+        def step(state: TrainState, tokens: torch.Tensor):
+            return run(state, tokens, None, None, False)
+
+        def guarded(state: TrainState, tokens: torch.Tensor,
+                    max_grad_norm: float = math.inf,
+                    loss_scale: float = 1.0):
+            return run(state, tokens, max_grad_norm, loss_scale, True)
+
+        return guarded if self.guard else step
+
     def make_eval_step(self) -> Callable:
 
         @torch.no_grad()
         def evaluate(state: TrainState, tokens: torch.Tensor
                      ) -> torch.Tensor:
-            return self._compute_loss(state.params, tokens)
+            loss = self._compute_loss(state.params, tokens)
+            return loss if self.layout is None else self.layout.mean(loss)
 
         return evaluate
 

@@ -3,12 +3,27 @@ skypilot_tpu/recipes/train_lm.py), the payload that Managed Jobs
 launches and recovers: on relaunch it resumes from the newest verified
 step in --ckpt-dir.
 
-Takes the reference's flags and prints its log lines (`step i/N
-loss=... tokens/s=...`, `resumed from checkpoint step N`, `adapter
-artifact -> ...`, `training done`, and the guard's). One card: the
-flags for meshes, pipelines, expert parallelism and data-parallel
-training exit at startup naming themselves and their ROADMAP item. The
-Llama family, GPT-2 (`tiny`, `gpt2-124m`, the reference's default),
+Takes the reference's flags and prints its log lines (`devices=N
+Mesh(...)`, `step i/N loss=... tokens/s=...`, `resumed from checkpoint
+step N`, `adapter artifact -> ...`, `training done`, and the guard's).
+
+One job over processes and cards, as the reference joins one: under the
+gang-exec env (`JAX_NUM_PROCESSES` > 1, `JAX_PROCESS_ID`,
+`JAX_COORDINATOR_ADDRESS`; parallel/distributed.py) and on a host with
+more than one card, every card runs a worker, rank p * k + i of
+`JAX_NUM_PROCESSES` x k (k cards a host, 1 with --cpu), NCCL on the
+card and gloo with --cpu. The mesh is `MeshConfig.auto(world)`: FSDP
+over every rank by default (parallel/mesh.py), with `--zero1` and
+`--overlap` as the reference defines them (parallel/fsdp.py). Each rank
+takes its rows of the global batch as the reference's devices take
+theirs; rank 0 alone logs, writes `--metrics-file`, `--profile`,
+`--trace-file` and the adapter artifact, and writes checkpoints (every
+rank gathers them). A peer that never arrives ends the run with exit 1
+naming the coordinator (after `distributed.TIMEOUT_S`, 300 s). The
+flags for tensor, sequence and expert parallelism and pipelines exit at
+startup naming themselves and their ROADMAP item.
+
+The Llama family, GPT-2 (`tiny`, `gpt2-124m`, the reference's default),
 Mixtral (`mixtral-tiny`, `mixtral-8x7b`, whose loss adds the router aux
 loss) and DeepSeek (`deepseek-tiny`, `deepseek-v2-lite`: MLA, whose
 attention takes the unequal-dims route, never the flash kernels) train;
@@ -55,9 +70,6 @@ _REFUSED = (
     ('--pipeline-schedule', 'pipeline_schedule', 'gpipe', 'A13'),
     ('--virtual-stages', 'virtual_stages', 0, 'A13'),
     ('--microbatches', 'microbatches', 0, 'A13'),
-    # Data-parallel training: more than one card.
-    ('--zero1', 'zero1', False, 'A11'),
-    ('--overlap', 'overlap', False, 'A11'),
 )
 
 
@@ -154,6 +166,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help='step window to trace (default 4:8)')
     p.add_argument('--cpu', action='store_true',
                    help='run on the CPU (default: the GPU)')
+    p.add_argument('--zero1', action='store_true',
+                   help='ZeRO-1: shard the Adam moments over the data mesh '
+                        'axis too (the same step math)')
+    p.add_argument('--overlap', action='store_true',
+                   help='with --zero1, issue the grad reduce-scatter leaf by '
+                        'leaf during backward')
     # The reference's flags for features this port does not have yet.
     p.add_argument('--tensor', type=int, default=1)
     p.add_argument('--expert', type=int, default=1)
@@ -163,8 +181,6 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=['gpipe', '1f1b', 'interleaved'])
     p.add_argument('--virtual-stages', type=int, default=0)
     p.add_argument('--microbatches', type=int, default=0)
-    p.add_argument('--zero1', action='store_true')
-    p.add_argument('--overlap', action='store_true')
     return p
 
 
@@ -178,6 +194,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if bad:
         parser.error('not supported by the PyTorch port yet: '
                      + ', '.join(bad))
+    if args.overlap and not args.zero1:
+        # The reference's refusal (its pipeline case is refused above).
+        parser.error('--overlap buckets the grad reduce-scatter onto the '
+                     'ZeRO-1 moment layout; add --zero1 (under '
+                     '--pipeline-stages it only sets the XLA '
+                     'latency-hiding flags)')
     if args.ckpt_dir and args.ckpt_dir.startswith(('gs://', 's3://')):
         parser.error(f'--ckpt-dir {args.ckpt_dir}: remote checkpoint dirs '
                      f'are not ported yet (ROADMAP A11)')
@@ -218,8 +240,51 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return args
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def main(argv: Optional[List[str]] = None,
+         workers: Optional[int] = None) -> None:
+    """Parse, then train: in this process when the job is one rank, else
+    as this host's `workers` ranks (default: 1 with --cpu, else one a
+    visible card), spawned here unless there is one."""
     args = parse_args(argv)
+    from skypilot_tpu_torch.parallel import distributed
+    if workers is None:
+        workers = 1 if args.cpu else _local_cards()
+    num_processes = distributed.gang()[0]
+    if num_processes * workers <= 1:
+        _train(args, None)
+        return
+    jobs = distributed.jobs(args.cpu, workers)
+    if workers == 1:
+        _run_worker(jobs[0], args)
+        return
+    code = distributed.launch(_run_worker, (args,), jobs)
+    if code:
+        sys.exit(code)
+
+
+def _local_cards() -> int:
+    import torch
+    return max(1, torch.cuda.device_count()) \
+        if torch.cuda.is_available() else 1
+
+
+def _run_worker(job, args: argparse.Namespace) -> None:
+    """One rank: join the job (exit 1 naming the coordinator when it does
+    not form in time), train, leave."""
+    from skypilot_tpu_torch.parallel import distributed
+    try:
+        distributed.join(job)
+    except distributed.JoinError as e:
+        print(f'train_lm: {e}', file=sys.stderr, flush=True)
+        sys.exit(1)
+    try:
+        _train(args, job)
+    finally:
+        distributed.leave()
+
+
+def _train(args: argparse.Namespace, job) -> None:
+    """The training run of one rank (`job` None: the only one)."""
     import numpy as np
     import torch
 
@@ -227,20 +292,33 @@ def main(argv: Optional[List[str]] = None) -> None:
     from skypilot_tpu_torch.errors import CheckpointNotFoundError
     from skypilot_tpu_torch.models import convert, registry
     from skypilot_tpu_torch.models import lora as lora_lib
+    from skypilot_tpu_torch.parallel import distributed
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
     from skypilot_tpu_torch.parallel.train import (HostScalars,
                                                    ShardedTrainer,
                                                    default_optimizer)
     from skypilot_tpu_torch.robustness import faults, train_guard
     from skypilot_tpu_torch.utils import timeline
     try:
-        device = resolve_device(cpu=args.cpu)
+        device = resolve_device(
+            None if job is None or args.cpu else f'cuda:{job.local_rank}',
+            cpu=args.cpu)
     except NoCudaDeviceError as e:
         print(f'train_lm: {e}', file=sys.stderr, flush=True)
         sys.exit(1)
-    if args.trace_file:
+    main_rank = job is None or job.is_main
+    if args.trace_file and main_rank:
         timeline.enable(args.trace_file)
-    n_dev = 1
-    print(f'devices={n_dev} device={device}', flush=True)
+    n_dev = 1 if job is None else job.world
+    mesh_cfg = mesh_lib.MeshConfig.auto(n_dev)
+    mesh = None if job is None else mesh_lib.make_mesh(mesh_cfg)
+    if main_rank:
+        print(f'devices={n_dev} {mesh_lib.mesh_summary(mesh or mesh_cfg)}',
+              flush=True)
+
+    def say(msg: str) -> None:
+        if main_rank:
+            print(msg, flush=True)
 
     if args.init_from_hf:
         from skypilot_tpu_torch.models import hf_import
@@ -253,15 +331,25 @@ def main(argv: Optional[List[str]] = None) -> None:
         base_source = ('HF checkpoint '
                        + os.path.abspath(os.path.expanduser(
                            args.init_from_hf)))
-        print(f'initializing from HF checkpoint {args.init_from_hf} '
-              f'({type(model).__name__}, vocab={cfg.vocab_size})',
-              flush=True)
+        say(f'initializing from HF checkpoint {args.init_from_hf} '
+            f'({type(model).__name__}, vocab={cfg.vocab_size})')
     else:
         cfg = registry.train_config(args.model, args.seq, args.remat)
         model = convert.init_params(cfg, seed=0, device=device)
         base_source = f'seeded init (seed 0) of {args.model}'
     vocab_size = cfg.vocab_size
     batch = args.global_batch or 8 * n_dev
+    rows = slice(None)
+    if mesh is not None:
+        try:
+            rows = mesh_lib.batch_rows(mesh, batch)
+        except ValueError as e:
+            print(f'train_lm: --global-batch: {e}', file=sys.stderr,
+                  flush=True)
+            sys.exit(2)
+    # MFU's N, counted before sharding (then leaves are shards).
+    from skypilot_tpu_torch.observability.step_metrics import matmul_params
+    n_params = matmul_params(model.named_parameters())
     lora_spec = None
     if args.lora:
         lora_spec = lora_lib.LoraSpec(
@@ -276,16 +364,18 @@ def main(argv: Optional[List[str]] = None) -> None:
         loss_fn=moe_next_token_loss if isinstance(model, Mixtral) else None,
         fused_xent=False if args.no_fused_xent else None,
         collect_grad_norm=args.metrics_file is not None, lora=lora_spec,
-        guard=args.guard)
-    print(f'fused_xent={trainer.fused_xent} zero1=False overlap=False '
-          f'lora={args.lora or "off"}', flush=True)
+        guard=args.guard, mesh=mesh, zero1=args.zero1,
+        overlap=args.overlap)
+    say(f'fused_xent={trainer.fused_xent} zero1={args.zero1} '
+        f'overlap={args.overlap} lora={args.lora or "off"}')
     with timeline.Event('train/init'):
         state = trainer.init(seed=7)
     step_fn = trainer.make_train_step()
 
-    # Checkpoint resume (preemption recovery path). Interval mode gates
-    # the cadence here (it is fixed once the step cost is measured), so
-    # the manager must not filter steps itself.
+    # Checkpoint resume (preemption recovery path; collective over a
+    # job). Interval mode gates the cadence here (it is fixed once the
+    # step cost is measured), so the manager must not filter steps
+    # itself.
     mgr = None
     if args.ckpt_dir:
         from skypilot_tpu_torch.parallel.checkpoints import CheckpointManager
@@ -310,12 +400,17 @@ def main(argv: Optional[List[str]] = None) -> None:
             TokenLoader, native_unavailable_reason)
         paths = sorted(glob.glob(os.path.join(args.data, '*.bin'))
                        if os.path.isdir(args.data) else glob.glob(args.data))
-        loader = TokenLoader(paths, batch=batch, seq=args.seq)
+        # The reference's reader: a window of the global batch for each
+        # process (host) of the gang; each rank keeps its rows of it.
+        loader = TokenLoader(
+            paths, batch=batch, seq=args.seq,
+            rank=0 if job is None else job.process_id,
+            world=1 if job is None else job.num_processes)
         reader = ('native reader (native/token_loader.cpp)' if loader.native
                   else f'numpy reader (native unavailable: '
                        f'{native_unavailable_reason()})')
-        print(f'data: {reader}, {len(paths)} shards, '
-              f'{loader.total_tokens:,} tokens', flush=True)
+        say(f'data: {reader}, {len(paths)} shards, '
+            f'{loader.total_tokens:,} tokens')
 
     rng = np.random.default_rng(0)
     start_step = state.step
@@ -330,11 +425,13 @@ def main(argv: Optional[List[str]] = None) -> None:
         if loader is not None:
             arr = loader.next_batch()[:, :-1].astype(np.int64)
         else:
+            # Every rank draws the same global batch.
             arr = rng.integers(0, vocab_size, (batch, args.seq),
                                dtype=np.int32).astype(np.int64)
-        return torch.from_numpy(arr).to(device)
+        return torch.from_numpy(arr[rows]).to(device)
 
-    prof_start, prof_stop = args.profile_window if args.profile else (-1, -1)
+    prof_start, prof_stop = (args.profile_window
+                             if args.profile and main_rank else (-1, -1))
     profiler = None
 
     def stop_profile() -> None:
@@ -348,10 +445,9 @@ def main(argv: Optional[List[str]] = None) -> None:
             args.profile, f'train_lm.{os.getpid()}.pt.trace.json'))
 
     emitter = None
-    if args.metrics_file:
+    if args.metrics_file and main_rank:
         from skypilot_tpu_torch.observability.step_metrics import (
-            StepMetrics, matmul_params, peak_flops_for)
-        n_params = matmul_params(model.named_parameters())
+            StepMetrics, peak_flops_for)
         if lora_spec is not None:
             n_params += sum(t.numel() for layer in state.params['lora']
                             .values() for f in layer.values()
@@ -378,10 +474,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         sup.start()
         wd = (f'{args.watchdog_deadline:.0f}s'
               if args.watchdog_deadline > 0 else 'off')
-        print(f'train-guard armed: spike_factor={args.spike_factor} '
-              f'warmup={args.guard_warmup} '
-              f'rollback_after={args.rollback_after} watchdog={wd} '
-              f'preempt_poll={args.preempt_poll:.1f}s', flush=True)
+        say(f'train-guard armed: spike_factor={args.spike_factor} '
+            f'warmup={args.guard_warmup} '
+            f'rollback_after={args.rollback_after} watchdog={wd} '
+            f'preempt_poll={args.preempt_poll:.1f}s')
 
     # Checkpoint cadence: steps (--ckpt-every) or wall time
     # (--ckpt-interval SECONDS | auto), converted to steps from the mean
@@ -397,9 +493,9 @@ def main(argv: Optional[List[str]] = None) -> None:
                     else jobs_policy.DEFAULT_CKPT_OVERHEAD_S)
         ckpt_interval_s = jobs_policy.optimal_checkpoint_interval(
             rate, overhead)
-        print(f'ckpt-interval auto: lambda={rate}/hr '
-              f'delta={overhead:.0f}s -> tau*={ckpt_interval_s:.0f}s (step '
-              f'cadence fixed after the first logged window)', flush=True)
+        say(f'ckpt-interval auto: lambda={rate}/hr '
+            f'delta={overhead:.0f}s -> tau*={ckpt_interval_s:.0f}s (step '
+            f'cadence fixed after the first logged window)')
     elif args.ckpt_interval is not None:
         ckpt_interval_s = float(args.ckpt_interval)
     cadence_fixed = ckpt_interval_s is None
@@ -409,16 +505,19 @@ def main(argv: Optional[List[str]] = None) -> None:
     step = start_step
     pending = None  # guard: the last dispatched step's verdict, in flight
     while step < args.steps:
-        if sup is not None and sup.preempted:
+        # A notice seen by any rank stops every rank at this boundary:
+        # the save is collective, so all must save the same step.
+        if sup is not None and (distributed.any_rank(sup.preempted)
+                                if job is not None else sup.preempted):
             # Preemption notice (metadata, SIGTERM, or injected):
             # checkpoint NOW and exit with the typed code the managed-jobs
             # controller maps to recovery; the resumed run loses at most
             # the step that was in flight.
             if sup.watchdog is not None:
                 sup.watchdog.stop()  # a slow save must not trip it
-            print(f'preemption notice ({sup.preempt_reason}) at step '
-                  f'{step}: checkpointing and exiting '
-                  f'rc={train_guard.EXIT_PREEMPTED_GRACEFUL}', flush=True)
+            say(f'preemption notice ({sup.preempt_reason or "another rank"})'
+                f' at step {step}: checkpointing and exiting '
+                f'rc={train_guard.EXIT_PREEMPTED_GRACEFUL}')
             if mgr is not None:
                 with timeline.Event('train/checkpoint', 'preempt'):
                     mgr.save(step, state, force=True)
@@ -426,7 +525,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                     mgr.close()
             if emitter is not None:
                 emitter.close()
-            if args.trace_file:
+            if args.trace_file and main_rank:
                 timeline.save()
             sup.stop()
             sys.exit(train_guard.EXIT_PREEMPTED_GRACEFUL)
@@ -454,7 +553,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         if sup is not None:
             loss, gnorm, bad_flag = aux
             verdict_in_flight = HostScalars(loss, gnorm, bad_flag)
-        elif emitter is not None:
+        elif trainer.collect_grad_norm:
             loss, gnorm = aux
         else:
             loss, gnorm = aux, None
@@ -489,16 +588,16 @@ def main(argv: Optional[List[str]] = None) -> None:
                         step = state.step
                         t0 = time.perf_counter()
                         window_tokens = window_steps = 0
-                        print(f'train-guard: rolled back to last '
-                              f'checkpoint (step {step})', flush=True)
+                        say(f'train-guard: rolled back to last '
+                            f'checkpoint (step {step})')
                         continue
                     # Nothing to roll back to. The params are still clean
                     # (every bad step was skipped on the device): reset
                     # the escalation counter and keep skipping.
                     sup.guard.consecutive_bad = 0
-                    print('train-guard: rollback requested but no '
-                          'checkpoint available; continuing with per-step '
-                          'skips', flush=True)
+                    say('train-guard: rollback requested but no '
+                        'checkpoint available; continuing with per-step '
+                        'skips')
             pending = (step, verdict_in_flight)
         if mgr is not None and (ckpt_interval_s is None or
                                 (step + 1) % ckpt_every_steps == 0):
@@ -516,24 +615,28 @@ def main(argv: Optional[List[str]] = None) -> None:
                 sup.beat('commit')
             float(loss)         # waits for the step to finish
             mean_step = (time.perf_counter() - t0) / max(window_steps, 1)
-            ckpt_every_steps = max(1, round(ckpt_interval_s /
-                                            max(mean_step, 1e-9)))
+            # Every rank fixes the cadence (saves are collective); rank
+            # 0's, so that clocks apart cannot split the schedule.
+            ckpt_every_steps = distributed.broadcast(
+                max(1, round(ckpt_interval_s / max(mean_step, 1e-9))))
             cadence_fixed = True
-            print(f'ckpt cadence: interval {ckpt_interval_s:.0f}s / '
-                  f'measured step {mean_step:.3f}s -> checkpoint every '
-                  f'{ckpt_every_steps} steps', flush=True)
+            say(f'ckpt cadence: interval {ckpt_interval_s:.0f}s / '
+                f'measured step {mean_step:.3f}s -> checkpoint every '
+                f'{ckpt_every_steps} steps')
         if boundary:
             if sup is not None:
                 sup.beat('commit')
-            loss_val = float(loss)      # waits for the step to finish
-            dt = time.perf_counter() - t0
-            print(f'step {step + 1}/{args.steps} loss={loss_val:.4f} '
-                  f'tokens/s={window_tokens / dt:,.0f}', flush=True)
-            if emitter is not None:
-                emitter.log(step + 1, step_time_s=dt / max(window_steps, 1),
-                            tokens=batch * args.seq, loss=loss_val,
-                            grad_norm=(float(gnorm) if gnorm is not None
-                                       else None))
+            if main_rank:
+                loss_val = float(loss)      # waits for the step to finish
+                dt = time.perf_counter() - t0
+                print(f'step {step + 1}/{args.steps} loss={loss_val:.4f} '
+                      f'tokens/s={window_tokens / dt:,.0f}', flush=True)
+                if emitter is not None:
+                    emitter.log(step + 1,
+                                step_time_s=dt / max(window_steps, 1),
+                                tokens=batch * args.seq, loss=loss_val,
+                                grad_norm=(float(gnorm) if gnorm is not None
+                                           else None))
             t0 = time.perf_counter()
             window_tokens = window_steps = 0
         step += 1
@@ -543,13 +646,13 @@ def main(argv: Optional[List[str]] = None) -> None:
             p_loss, p_gnorm, p_bad = p_scalars.values()
             sup.observe(p_step, p_loss, p_gnorm, bool(p_bad))
         sup.stop()  # before the final save: it can be slow
-        print(f'train-guard summary: {sup.summary()}', flush=True)
+        say(f'train-guard summary: {sup.summary()}')
     if mgr is not None:
         with timeline.Event('train/checkpoint', 'final'):
             mgr.save(args.steps, state, force=True)
             mgr.wait_until_finished()
             mgr.close()
-    if lora_spec is not None:
+    if lora_spec is not None and main_rank:
         # The produce half of the fine-tune-and-serve loop: the trained
         # factors become an artifact serve_lm --adapter-dir loads.
         out_dir = args.adapter_out or (
@@ -566,8 +669,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         emitter.close()
     if loader is not None:
         loader.close()
-    print('training done', flush=True)
-    if args.trace_file:
+    say('training done')
+    if args.trace_file and main_rank:
         timeline.save()
 
 

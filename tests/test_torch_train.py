@@ -457,8 +457,7 @@ def test_train_lm_lora_adapter_loads_in_both_packages(tmp_path):
 
 
 @pytest.mark.parametrize('argv,name', [
-    (['--zero1'], '--zero1 (ROADMAP A11)'),
-    (['--overlap'], '--overlap (ROADMAP A11)'),
+    (['--overlap'], 'ZeRO-1 moment layout; add --zero1'),
     (['--tensor', '2'], '--tensor'),
     (['--pipeline-stages', '2'], '--pipeline-stages'),
     (['--microbatches', '4'], '--microbatches'),
@@ -503,6 +502,10 @@ PORTED_FLAGS = {
     '--profile': (['--profile', '{tmp}/prof', '--profile-steps', '0:1'],
                   ['profile: steps 0..1 traced to']),
     '--trace-file': (['--trace-file', '{tmp}/t.json'], []),
+    # Refused until the multi-card slice; on one device it changes
+    # nothing, as the reference's at data = 1.
+    '--zero1': (['--zero1'], ['devices=1 Mesh(single-device)',
+                              'zero1=True overlap=False']),
 }
 
 

@@ -34,8 +34,9 @@ failure exits non-zero before the result lines:
                  speculative verify chunk B=8 S=5 (K=4), every row at its
                  own position, rows ending mid-page, on a page's last
                  slot and on its first; and at
-                 Qwen2-7B's heads (Hq=28, Hkv=4: G=7) decode B=8 and a
-                 chunk of 256}: each
+                 Qwen2-7B's heads (Hq=28, Hkv=4: G=7) and one --tensor
+                 2 shard's (Hq=16, Hkv=4) decode B=8 and a chunk of
+                 256}: each
                  call takes its route (split for bf16/int8 decode, chunk
                  for bf16/int8 chunks, scalar for f32) and its error is
                  |x - plain| / |plain| (Frobenius) in the worst unit (a
@@ -67,7 +68,9 @@ failure exits non-zero before the result lines:
                  distinct ones, rows whose id is N (NaN, the others
                  right), Qwen2-7B's widths (d 3584, q 3584, k/v 512:
                  decode B=8 and a chunk B=2 S=100) and widths of 4100 /
-                 1028 (no 16-byte copy); two calls bit-identical; one
+                 1028 (no 16-byte copy), one --tensor 2 shard's (q 2048,
+                 k/v 512: decode B=8, chunk of 256, timed at decode B=8
+                 r 16); two calls bit-identical; one
                  call captured in a CUDA graph replays right on new x
                  and ids; the perturbed control must fail; L2-cold
                  timings (bf16, r 16 and 64, decode B=8, B=32 over 9
@@ -88,7 +91,8 @@ failure exits non-zero before the result lines:
                  timings at M 8 and 256 of each Llama shape and of
                  DeepSeek's w_down (rows of their own in the kernels
                  line) vs the bound, the plain version and F.linear on
-                 bf16 weights
+                 bf16 weights; the same checks at one --tensor 2 shard's
+                 projections, timed at M 8 (wq, wo, w_down)
   serve_bf16,    build_runtime with serve_lm's flags, make_server on an
   serve_int8     ephemeral port, 8 concurrent greedy /generate requests
                  (300-700 prompt tokens, two sharing a 256-token
@@ -287,6 +291,28 @@ failure exits non-zero before the result lines:
                  parting from it after the evacuation is printed (B
                  recomputes the sub-page tail as a chunk where A decoded
                  it token by token: exact only in f32, held in tier-1)
+  serve_tp       serve_lm --tensor 2 / --stages 2 at Llama-3-8B's full
+                 width and depth over one card named twice
+                 (build_runtime(devices=['cuda:0', 'cuda:0']), the
+                 serving weights shared): the burst of serve_bf16 at
+                 --tensor 2 on bf16 and int8 pools, at --stages 2 (the
+                 decode ring), at --tensor 2 --weight-dtype int8 and at
+                 --tensor 2 with serve_lora's adapters and request mix;
+                 every answer prompt + 32, the split and chunk routes,
+                 QKV LoRA and int8_linear launched at one shard's shapes
+                 (Hq 16 / Hkv 4, q 2048 / kv 512, wq 2048 x 4096, wo
+                 4096 x 2048, w_down 4096 x 7168), no plain call, graph
+                 replays on the one card, every pool shard's storage
+                 unchanged; then f32 2-layer Llama-3-8B and
+                 DeepSeek-V2-Lite at full width under --tensor 2 give one
+                 device's greedy tokens exactly. The `_tp2` rows of the
+                 kernels line are those shapes, their cases and timings
+                 in `kernels`, `lora_kernels` and `int8_linear_kernels`;
+                 their launches are the --tensor 2 bursts' at that shape
+                 (paged: the --tensor 2 bursts only, --stages 2 runs
+                 whole heads and is printed apart; int8_linear: counted
+                 by weight shape). Distinct cards: tests/
+                 test_torch_grid_cards.py (-m card, 4 cards)
   serve_gpt2     gpt2-124m (full width and depth, seeded) through
                  build_runtime with serve_lm's flags (--max-total-len 1024
                  --prefill-chunk 256, 8 slots, the config's 128-page
@@ -481,6 +507,8 @@ PAGED_TIMED = (('decode_b1', 1, 1), ('decode_b8', 8, 1), ('decode_b32', 32, 1),
                ('chunk_offset768', 1, 256), ('verify_b8', 8, 5))
 HQ, HKV, D, PAGE = 32, 8, 128, 16
 QWEN2_7B_HEADS = (28, 4)       # models/registry.py qwen2-7b: G = 7
+# Llama-3-8B's heads on one shard of serve_lm --tensor 2: G stays 4.
+TP2_HEADS = (HQ // 2, HKV // 2)
 PAGED_ATTENTION_TPU = 'skypilot_tpu/ops/pallas_paged.py:224'
 QKV_LORA_TPU = 'skypilot_tpu/ops/pallas_paged.py:386'
 # Both the kernel and its plain version accumulate in f32 from the same
@@ -728,6 +756,9 @@ def paged_cases(pk):
         ('decode_g7', 8, 1, [999, 1023, 0, 16, 511, 776, 1, 1022], 64, 1,
          PAGE, qwen),
         ('chunk_g7', 1, 256, [555], 48, 16, PAGE, qwen),
+        ('decode_tp2', 8, 1, [999, 1023, 0, 16, 511, 776, 1, 1022], 64, 1,
+         PAGE, TP2_HEADS),
+        ('chunk_tp2', 1, 256, [555], 48, 16, PAGE, TP2_HEADS),
         ('verify_k4', 8, 5, VERIFY_ENDS, 64, 0, PAGE, llama)), \
         {'split_plan_b8': [n8, st8], 'split_plan_b1_ctx4096': [n1, st1]}
 
@@ -857,6 +888,31 @@ def phase_kernels(pk):
                 'input_sets': n_sets, 'route': route}
             del sets
             torch.cuda.empty_cache()
+    # The same at one --tensor 2 shard's heads (the serve_tp path).
+    for label, batch, seq in (('decode_b8', 8, 1),
+                              ('chunk_offset768', 1, 256)):
+        sets = paged_timing_sets('bf16', batch, seq, heads=TP2_HEADS)
+        routes0 = dict(pk.route_launches)
+        ms = time_ms([lambda c=c: call(pk, c) for c in sets],
+                     iters=max(60, 3 * len(sets)))
+        route = [r for r in pk.ROUTES if pk.route_launches[r] != routes0[r]]
+        plain_ms = time_ms([lambda c=c: plain(pk, c) for c in sets[:2]],
+                           iters=6, warmup=2)
+        lib = [paged_library_fn(c) for c in sets]
+        library_ms = time_ms(lib, iters=max(60, 3 * len(sets)))
+        del lib
+        b_ms, b_by = bound_ms(sets[0])
+        timings[f'bf16_{label}_tp2'] = {
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+            'bound_by': b_by, 'bytes': must_bytes(sets[0]),
+            'flops': must_flops(sets[0]), 'library_ms': library_ms,
+            'input_sets': len(sets), 'route': route, 'heads': TP2_HEADS}
+        del sets
+        torch.cuda.empty_cache()
+    tp2_worst = {
+        r: max(c['max_abs_err'] for c in cases if c['pool'] != 'f32'
+               and c['shape'] == f'{label}_tp2')
+        for r, label in (('split', 'decode'), ('chunk', 'chunk'))}
     emit('kernels', cases=cases, perturb_unit_rel_err=perturb,
          perturb_fails=True, split_plans=plans, tail_splits=tails,
          timings=timings, kernels=['paged_attention'])
@@ -869,13 +925,21 @@ def phase_kernels(pk):
                       'on gathered K/V'),
             ('paged_attention_verify', 'chunk', 'bf16_verify_b8', 'verify',
              'scaled_dot_product_attention with a boolean mask on '
+             'gathered K/V'),
+            ('paged_attention_tp2', 'split', 'bf16_decode_b8_tp2',
+             'tp2_split', 'scaled_dot_product_attention on gathered K/V'),
+            ('paged_attention_chunk_tp2', 'chunk',
+             'bf16_chunk_offset768_tp2', 'tp2_chunk',
+             'scaled_dot_product_attention with a boolean mask on '
              'gathered K/V')):
         t = timings[key]
+        err = (tp2_worst[err_key[4:]] if err_key.startswith('tp2')
+               else worst[err_key])
         rows.append({'name': name, 'route': 'cuda',
                      'source': 'skypilot_tpu_torch/csrc/paged_attention.cu',
                      'replaces': PAGED_ATTENTION_TPU,
                      'kernel_route': route, 'timed': key,
-                     'max_abs_err': worst[err_key], 'ms': t['ms'],
+                     'max_abs_err': err, 'ms': t['ms'],
                      'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
                      'bound_by': t['bound_by'],
                      'library_ms': t['library_ms'], 'library': library})
@@ -1065,6 +1129,8 @@ def gathered_bmm(c):
 
 
 QWEN2_7B_WIDTHS = (3584, 3584, 512)    # models/registry.py qwen2-7b
+# Llama-3-8B's q / k / v columns on one --tensor 2 shard.
+TP2_WIDTHS = (D_MODEL, D_Q // 2, D_KV // 2)
 # Widths no 16-byte copy fits (d % 8 = 4): the kernel's element-wise
 # copy and store paths.
 UNALIGNED_WIDTHS = (4100, 4100, 1028)
@@ -1104,7 +1170,9 @@ def lora_cases():
                 ('chunk_qwen2_7b', dtype, 16, 2, 100, [1, 1], 4,
                  QWEN2_7B_WIDTHS),
                 ('decode_unaligned_widths', dtype, 16, 8, 1, LORA_IDS_B8, 4,
-                 UNALIGNED_WIDTHS)]
+                 UNALIGNED_WIDTHS),
+                ('decode_tp2', dtype, 16, 8, 1, LORA_IDS_B8, 4, TP2_WIDTHS),
+                ('chunk_tp2', dtype, 16, 1, 256, [2], 4, TP2_WIDTHS)]
     return out
 
 
@@ -1197,18 +1265,39 @@ def phase_lora_kernels(lk):
                 'launch_floor_ms': launch_floor_ms(),
                 'bound_ms': b_ms, 'bound_by': b_by, 'bytes': n_bytes,
                 'device_launches_per_call': lk.DEVICE_LAUNCHES_PER_CALL}
+    c = lora_case(torch.bfloat16, 16, 8, 1, LORA_IDS_B8, seed=200,
+                  widths=TP2_WIDTHS)
+    args = (c['x'], *c['f'], c['ids'])
+    b_ms, b_by, n_bytes = lora_bound_ms(c)
+    timings['bf16_r16_decode_tp2'] = {
+        'ms': time_cold_ms(lambda: lk.fused_qkv_lora_delta(*args)),
+        'plain_ms': time_cold_ms(
+            lambda: lk.fused_qkv_lora_delta_reference(*args)),
+        'library_ms': time_cold_ms(lambda: gathered_bmm(c)),
+        'library': 'gathered torch.bmm per projection',
+        'launch_floor_ms': launch_floor_ms(), 'bound_ms': b_ms,
+        'bound_by': b_by, 'bytes': n_bytes, 'widths': TP2_WIDTHS}
     main = timings['bf16_r16_decode']
     emit('lora_kernels', cases=cases, perturb_err=perturb_err,
          perturb_fails=True, bit_identical=identical,
          graph_replay_max_abs_err=graph_err, timings=timings)
-    return {'name': 'qkv_lora', 'route': 'cuda',
-            'source': 'skypilot_tpu_torch/csrc/qkv_lora.cu',
-            'replaces': QKV_LORA_TPU, 'timed': 'bf16_r16_decode',
-            'max_abs_err': max(c['max_abs_err'] for c in cases),
-            'ms': main['ms'], 'plain_ms': main['plain_ms'],
-            'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
-            'library_ms': main['library_ms'],
-            'launch_floor_ms': main['launch_floor_ms']}
+    row = {'name': 'qkv_lora', 'route': 'cuda',
+           'source': 'skypilot_tpu_torch/csrc/qkv_lora.cu',
+           'replaces': QKV_LORA_TPU, 'timed': 'bf16_r16_decode',
+           'max_abs_err': max(c['max_abs_err'] for c in cases),
+           'ms': main['ms'], 'plain_ms': main['plain_ms'],
+           'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
+           'library_ms': main['library_ms'],
+           'launch_floor_ms': main['launch_floor_ms']}
+    tp2 = timings['bf16_r16_decode_tp2']
+    return [row, {**row, 'name': 'qkv_lora_tp2',
+                  'timed': 'bf16_r16_decode_tp2 (q 2048, k/v 512)',
+                  'max_abs_err': max(c['max_abs_err'] for c in cases
+                                     if c['shape'].endswith('_tp2')),
+                  'ms': tp2['ms'], 'plain_ms': tp2['plain_ms'],
+                  'bound_ms': tp2['bound_ms'], 'bound_by': tp2['bound_by'],
+                  'library_ms': tp2['library_ms'],
+                  'launch_floor_ms': tp2['launch_floor_ms']}]
 
 
 # -- flash attention kernels --------------------------------------------------
@@ -1403,7 +1492,15 @@ INT8_SHAPES = {
                  'w_gate_w_up': (18944, 3584), 'w_down': (3584, 18944)},
     'deepseek_v2_lite': {'wq': (3072, 2048), 'wo': (2048, 2048),
                          'w_gate_w_up': (10944, 2048),
-                         'w_down': (2048, 10944)}}
+                         'w_down': (2048, 10944)},
+    # One shard of serve_lm --tensor 2 --weight-dtype int8 at Llama-3-8B:
+    # column shards (wq, wk / wv, w_gate / w_up) and row shards (wo,
+    # w_down).
+    'llama3_8b_tp2': {'wq': (2048, 4096), 'wk_wv': (512, 4096),
+                      'w_gate_w_up': (7168, 4096), 'wo': (4096, 2048),
+                      'w_down': (4096, 7168)}}
+# The --tensor 2 shard rows of the kernels line.
+INT8_TP2_ROWS = ('wq', 'wo', 'w_down')
 INT8_BIASED = {('qwen2_7b', 'wq_wo'), ('qwen2_7b', 'wk_wv')}
 INT8_ROWS = (1, 8, 32, 40, 256, 2048)
 # |y - plain| / |plain| (Frobenius) of the worst output row: both sum the
@@ -1517,10 +1614,12 @@ def phase_int8_linear_kernels(il):
              for proj, shape in INT8_SHAPES['llama3_8b'].items()]
     timed.append(('deepseek_v2_lite', 'w_down',
                   INT8_SHAPES['deepseek_v2_lite']['w_down']))
+    timed += [('llama3_8b_tp2', proj, INT8_SHAPES['llama3_8b_tp2'][proj])
+              for proj in INT8_TP2_ROWS]
     for model_name, proj, (n, k) in timed:
         q, scale, _, g = int8_case(n, k, torch.bfloat16, False, seed=200)
         w_bf16 = il.dequantize(q, scale, torch.bfloat16)
-        for m in (8, 256):
+        for m in ((8,) if model_name == 'llama3_8b_tp2' else (8, 256)):
             x = torch.randn((m, k), generator=g, device='cuda').bfloat16()
             b_ms, b_by = int8_bound_ms(m, n, k, 2, il)
             key = (f'{proj}_m{m}' if model_name == 'llama3_8b'
@@ -1565,6 +1664,20 @@ def phase_int8_linear_kernels(il):
         rows.append({**rows[0], 'name': f'int8_linear_w_down_k{k}_m{m}',
                      'timed': f'bf16 M={m} at DeepSeek-V2-Lite w_down '
                               f'({n}, {k})',
+                     'max_abs_err': case['max_abs_err'], 'ms': t['ms'],
+                     'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+                     'bound_by': t['bound_by'],
+                     'library_ms': t['library_ms']})
+    # One --tensor 2 shard's projections at M = 8 (a decode round).
+    for proj in INT8_TP2_ROWS:
+        n, k = INT8_SHAPES['llama3_8b_tp2'][proj]
+        t = timings[f'llama3_8b_tp2_{proj}_m8']
+        case = next(c for c in cases if c['model'] == 'llama3_8b_tp2'
+                    and c['proj'] == proj and c['m'] == 8
+                    and c['dtype'] == 'bf16')
+        rows.append({**rows[0], 'name': f'int8_linear_tp2_{proj}',
+                     'timed': f'bf16 M=8 at a --tensor 2 shard of '
+                              f'Llama-3-8B {proj} ({n}, {k})',
                      'max_abs_err': case['max_abs_err'], 'ms': t['ms'],
                      'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
                      'bound_by': t['bound_by'],
@@ -3001,7 +3114,7 @@ def wait_engine_idle(eng, tries=200):
     iteration, so every earlier round has been observed and recorded."""
     for _ in range(tries):
         if eng.run_on_scheduler(
-                lambda: eng._inflight is None and not eng.active.any()):
+                lambda: not eng._in_flight() and not eng.active.any()):
             return
     raise AssertionError(f'engine not idle after {tries} iterations')
 
@@ -4654,7 +4767,7 @@ def dispatch_device_ms(engine):
     one replay the host enqueues at once, so the interval between the
     two events is the round's device time; the list is filled when the
     block exits (after a synchronize)."""
-    rnd = engine._round    # pylint: disable=protected-access
+    rnd = engine._rounds[0]    # pylint: disable=protected-access
     orig = rnd.dispatch
     events, out = [], []
 
@@ -5166,6 +5279,172 @@ def dense_runtime(model, extra=(), cuda_graphs=True):
     return rt, server, thread, server.server_address[1], setup_s
 
 
+# -- tensor x pipeline serving (serve_lm --tensor / --stages) -----------------
+# One card named twice: every shard's kernels launch at their sharded
+# shapes on the card, and the collectives' copies are same-card copies.
+TP_DEVICES = ['cuda:0', 'cuda:0']
+# A per-device pool budget small enough for the 8 requests on both
+# shards of the one card beside the weights.
+TP_POOL = ['--kv-pool-bytes', '1500000000']
+
+
+def tp_runtime(model, kv_dtype, extra=()):
+    """`serve_runtime` over TP_DEVICES: serve_lm's flags, the runtime
+    built with build_runtime(devices=...)."""
+    from skypilot_tpu_torch.inference.http_server import make_server
+    from skypilot_tpu_torch.inference.runtime import build_runtime
+    from skypilot_tpu_torch.recipes import serve_lm
+    args = serve_lm.parse_args([
+        '--model', 'llama3-8b', '--continuous-batching', '--num-slots', '8',
+        '--max-total-len', '1024', '--prefill-chunk', '256', '--kv-dtype',
+        kv_dtype, *TP_POOL, '--port', '0', *extra])
+    t0 = time.perf_counter()
+    rt = build_runtime(args, model=model, devices=TP_DEVICES)
+    setup_s = time.perf_counter() - t0
+    server = make_server(rt, 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return rt, server, thread, server.server_address[1], setup_s
+
+
+def tp_burst(label, model, kv_dtype, extra, kernels, models=None):
+    """One serving burst over the grid: its numbers, the kernel counts,
+    and whether the pool shards kept their storage."""
+    rt, server, thread, port, setup_s = tp_runtime(model, kv_dtype, extra)
+    try:
+        eng = rt.engine
+        ptrs = eng.cache.data_ptrs()
+        reductions = eng.model.grid.reductions
+        _, out = burst(rt, port, prompts(), models or [None] * 8, kernels)
+        out.update(setup_s=setup_s, pool_storage_unchanged=(
+            eng.cache.data_ptrs() == ptrs),
+            collectives=eng.model.grid.reductions - reductions,
+            stages=eng.stages, kv_shard_ways=eng.kv_shard_ways,
+            mesh_devices=eng.mesh_devices,
+            shard_heads=[eng.model.blocks[0][0].attn.num_heads,
+                         eng.model.blocks[0][0].attn.num_kv_heads],
+            pool_bytes_per_device=eng.kv_cache_bytes_per_device(),
+            pool_bytes=eng.kv_cache_bytes())
+    finally:
+        stop_runtime(rt, server, thread)
+    check(out['pool_storage_unchanged'], f'{label}: a pool shard moved')
+    check(out['cuda_graphs'] and out['graph_replays'] > 0,
+          f'{label}: the rounds did not replay CUDA graphs on one card')
+    routes = out['paged_route_launches']
+    check(routes['split'] > 0 and routes['chunk'] > 0
+          and routes['scalar'] == 0,
+          f'{label}: paged launches by route {routes}')
+    for k, (launches, plain_calls) in zip(kernels, out['counts']):
+        check(plain_calls == 0, f'{label}: {k.__name__} took its plain '
+                                f'version {plain_calls} times')
+    return out
+
+
+def f32_grid_parity(name, layers, ps, n_new):
+    """`name`'s full widths cut to `layers` layers, f32, seeded on the
+    card: greedy tokens of a --tensor 2 grid engine against the
+    single-device engine, the same weights (the shards view them)."""
+    from skypilot_tpu_torch.models import batching, convert, registry
+    from skypilot_tpu_torch.parallel import serving
+    from skypilot_tpu_torch.parallel.mesh import MeshConfig
+    cfg = dataclasses.replace(registry.model_config(name, 1024),
+                              num_layers=layers, dtype=torch.float32)
+    model = convert.init_params(cfg, seed=1, device=TP_DEVICES[0])
+
+    def run(m):
+        eng = batching.ContinuousBatchingEngine(m, num_slots=4,
+                                                max_total_len=1024)
+        try:
+            futs = [eng.submit(p, max_new_tokens=n_new) for p in ps]
+            return [f.result(timeout=600) for f in futs], eng
+        finally:
+            eng.stop()
+
+    one, _ = run(model)
+    grid = serving.build(model, MeshConfig(tensor=2), devices=TP_DEVICES)
+    two, eng = run(grid)
+    out = {'model': name, 'layers': layers, 'dtype': 'f32',
+           'prompts': len(ps), 'new_tokens': n_new,
+           'tokens_equal': two == one, 'paged': eng.paged,
+           'kv_shard_ways': eng.kv_shard_ways,
+           'shard_heads': grid.blocks[0][0].attn.num_heads}
+    del model, grid, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(out['tokens_equal'], f'f32 --tensor 2 tokens differ from one '
+                               f'device: {out}')
+    return out
+
+
+def phase_serve_tp(model, pk, lk, il, card):
+    """serve_lm --tensor 2 / --stages 2 at Llama-3-8B's full width and
+    depth over one card named twice, sharing `model`'s tensors: bursts
+    on bf16 and int8 pools, at --stages 2, with int8 weights and with
+    adapters (serve_lora's), every one through the kernels at their
+    sharded shapes with no plain call; then exact f32 greedy tokens of
+    2-layer Llama-3-8B and DeepSeek-V2-Lite under --tensor 2 against one
+    device. Returns the paged launches by route of the --tensor 2 runs
+    (one shard's heads; the --stages 2 run's whole heads are emitted
+    apart), the QKV LoRA launches and the int8_linear launches by weight
+    shape of the sharded runs, and their plain calls (0: each run's
+    gate)."""
+    t_phase = time.perf_counter()
+    runs, routes = {}, dict.fromkeys(pk.ROUTES, 0)
+    for label, kv_dtype, extra in (
+            ('tensor2_bf16', 'bf16', ['--tensor', '2']),
+            ('tensor2_int8kv', 'int8', ['--tensor', '2']),
+            ('stages2_bf16', 'bf16', ['--stages', '2'])):
+        out = tp_burst(label, model, kv_dtype, extra, (pk, lk))
+        check(out['counts'][1] == (0, 0), f'{label}: LoRA code ran')
+        runs[label] = out
+        if label.startswith('tensor2_'):
+            for r, n in out['paged_route_launches'].items():
+                routes[r] += n
+    lora = tp_burst('tensor2_lora', model, 'bf16',
+                    ['--tensor', '2', '--adapter-dir',
+                     os.path.join(WORK, 'adapters'), '--max-adapters', '3'],
+                    (pk, lk), models=SERVE_LORA_MODELS)
+    check(lora['counts'][1][0] > 0, 'tensor2_lora: no QKV LoRA launch')
+    runs['tensor2_lora'] = lora
+    for r, n in lora['paged_route_launches'].items():
+        routes[r] += n
+    qmodel = int8_model(model)
+    il.launches_by_shape.clear()
+    int8 = tp_burst('tensor2_int8_weights', qmodel, 'bf16',
+                    ['--tensor', '2', '--weight-dtype', 'int8'], (pk, il))
+    int8_by_shape = dict(il.launches_by_shape)
+    for proj in INT8_TP2_ROWS:
+        shape = INT8_SHAPES['llama3_8b_tp2'][proj]
+        check(int8_by_shape.get(shape, 0) > 0,
+              f'tensor2_int8_weights: no int8_linear launch at {proj} '
+              f'{shape}: {int8_by_shape}')
+    del qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(int8['counts'][1][0] > 0, 'tensor2_int8_weights: no int8_linear '
+                                    'launch')
+    runs['tensor2_int8_weights'] = int8
+    for r, n in int8['paged_route_launches'].items():
+        routes[r] += n
+    rng = np.random.default_rng(5)
+    parity = [
+        f32_grid_parity('llama3-8b', 2, [rng.integers(
+            1, 128256, int(n)).tolist() for n in (40, 300, 17)], 16),
+        f32_grid_parity('deepseek-v2-lite', 2, [rng.integers(
+            1, DEEPSEEK_VOCAB, int(n)).tolist() for n in (40, 200)], 16)]
+    plain_calls = sum(p for out in runs.values() for _, p in out['counts'])
+    emit('serve_tp', card=card, devices=TP_DEVICES, runs={
+        label: {k: v for k, v in out.items() if k != 'counts'}
+        for label, out in runs.items()}, f32_parity=parity,
+        paged_route_launches=routes,
+        stages2_paged_route_launches=runs['stages2_bf16'][
+            'paged_route_launches'],
+        int8_launches_by_shape={f'{n}x{k}': c for (n, k), c
+                                in sorted(int8_by_shape.items())},
+        plain_calls=plain_calls, phase_s=time.perf_counter() - t_phase)
+    return routes, lora['counts'][1][0], int8_by_shape, plain_calls
+
+
 def phase_serve_dense(model, pk, lk, card):
     """Llama-3-8B through the examples' serve line, no --kv-pool-bytes:
     the dense slot path. The serving burst (graph rounds == eager
@@ -5364,7 +5643,7 @@ def main() -> int:
 
     paged_rows = phase_kernels(pk)
     gpt2_rows = phase_gpt2_kernels(pk)
-    lora_kernel = phase_lora_kernels(lk)
+    lora_rows = phase_lora_kernels(lk)
     flash_rows = phase_flash_kernels(fk)
     int8_rows = phase_int8_linear_kernels(il)
 
@@ -5416,6 +5695,13 @@ def main() -> int:
     phase_kv_spill(model, pk, card)
     phase_disagg(model, pk, card)
     phase_migration(model, pk, card)
+    # Tensor x pipeline serving over one card named twice, counted from
+    # zero: the sharded rows of the kernels line.
+    zero_paged(pk)
+    pk.launches = pk.plain_calls = lk.launches = lk.plain_calls = 0
+    il.launches = il.plain_calls = 0
+    tp_routes, tp_lora_launches, tp_int8_by_shape, tp_plain = \
+        phase_serve_tp(model, pk, lk, il, card)
     del model
     torch.cuda.empty_cache()
     # GPT-2 and Mixtral through serve_lm, each counted from zero.
@@ -5451,14 +5737,36 @@ def main() -> int:
     for row in paged_rows:
         row['launches'] = (verify_launches
                            if row['name'] == 'paged_attention_verify'
+                           else tp_routes[row['kernel_route']]
+                           if row['name'].endswith('_tp2')
                            else routes[row['kernel_route']])
+        if row['name'].endswith('_tp2'):
+            row['launch_window'] = ('serve_tp --tensor 2 bursts (one '
+                                    'shard\'s heads)')
+            row['plain_calls'] = tp_plain
+
     for row in gpt2_rows:
         row['launches'] = gpt2_routes[row['kernel_route']]
-    lora_kernel['launches'] = lora_launches
+    lora_rows[0]['launches'] = lora_launches
+    lora_rows[1]['launches'] = tp_lora_launches
+    lora_rows[1]['launch_window'] = 'serve_tp tensor2_lora burst'
+    lora_rows[1]['plain_calls'] = tp_plain
     int8_rows[0]['launches'] = int8_launches
+    # The --tensor 2 shard rows: the serve_tp int8 burst's launches at
+    # each row's weight shape.
+    for row in int8_rows:
+        if row['name'].startswith('int8_linear_tp2_'):
+            proj = row['name'][len('int8_linear_tp2_'):]
+            shape = INT8_SHAPES['llama3_8b_tp2'][proj]
+            row['launches'] = tp_int8_by_shape.get(shape, 0)
+            row['launch_window'] = (f'serve_tp tensor2_int8_weights burst, '
+                                    f'weight {shape[0]}x{shape[1]}')
+            row['plain_calls'] = tp_plain
     # The DeepSeek rows: the int8 burst's decode calls (M <= 8 rows, the
     # smoke's slots) and its prefill chunks (M > 8).
     for row in int8_rows[1:]:
+        if row['name'].startswith('int8_linear_tp2_'):
+            continue
         decode = row['name'].endswith('_m8')
         row['launches'] = sum(n for m, n in deepseek_by_rows.items()
                               if (m <= 8) == decode)
@@ -5471,7 +5779,7 @@ def main() -> int:
                            + lora_counts[name] + mixtral_counts[name]
                            + guard_counts[name])
     print(card, flush=True)
-    print(json.dumps({'kernels': [*paged_rows, *gpt2_rows, lora_kernel,
+    print(json.dumps({'kernels': [*paged_rows, *gpt2_rows, *lora_rows,
                                   *flash_rows.values(), *int8_rows]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {

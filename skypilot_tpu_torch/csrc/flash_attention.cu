@@ -809,7 +809,7 @@ cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* o, void*
   p.n_m = (S + kFwdM - 1) / kFwdM;
   p.n_tiles = p.n_m * Hq * B;
   p.scale_log2 = scale * kLog2e;
-  static size_t configured = 48 * 1024;
+  static PerDevice<size_t> configured(48 * 1024);
   const size_t smem = 1024 + (size_t)(kFwdM + 2 * kFwdStages * kFwdN) * Dp * 2 +
                       (2 + 2 * kFwdStages) * sizeof(uint64_t);
   const cudaError_t err = allow_smem(flash_fwd_bf16<Dp>, smem, configured);
@@ -836,7 +836,7 @@ cudaError_t bwd_bf16(const void* q, const void* k, const void* v, const void* do
   p.n_qt = (S + kBwdM - 1) / kBwdM;
   p.scale_log2 = scale * kLog2e;
   p.scale = scale;
-  static size_t configured = 48 * 1024;
+  static PerDevice<size_t> configured(48 * 1024);
   const size_t smem = 1024 + (size_t)(2 * kBwdN + 2 * kBwdStages * kBwdM) * Dp * 2 +
                       (size_t)kBwdN * kBwdM * (2 + 2 + 4) + (size_t)kConsumers * kBwdM * (Dp / 2) * 4 +
                       2 * kBwdStages * kBwdM * sizeof(float) +
@@ -867,7 +867,7 @@ extern "C" int skypilot_flash_fwd(const void* q, const void* k, const void* v, v
   if (!valid_shape(B, S, Hq, Hkv, D, dtype)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    static size_t configured = 48 * 1024;
+    static PerDevice<size_t> configured(48 * 1024);
     const size_t smem = sizeof(float) * (2 * (size_t)kRowsF * (D + 1) + 2 * (size_t)kKeysF * D);
     cudaError_t err = allow_smem(flash_fwd_f32, smem, configured);
     if (err != cudaSuccess) return err;
@@ -900,7 +900,7 @@ extern "C" int skypilot_flash_bwd(const void* q, const void* k, const void* v, c
     return bwd_bf16<64>(q, k, v, dout, lse, di, dq, dk, dv, B, S, Hq, Hkv, D, lse_ld, scale, st);
   }
   if (lse_ld != S) return cudaErrorInvalidValue;
-  static size_t dkv_configured = 48 * 1024, dq_configured = 48 * 1024;
+  static PerDevice<size_t> dkv_configured(48 * 1024), dq_configured(48 * 1024);
   const size_t dkv_smem =
       sizeof(float) * (4 * (size_t)kRowsF * (D + 1) + 2 * (size_t)kKeysF * D + 2 * kKeysF);
   const size_t dq_smem = sizeof(float) * (3 * (size_t)kRowsF * (D + 1) + 2 * (size_t)kKeysF * D);

@@ -376,38 +376,65 @@ __device__ __forceinline__ uint32_t swizzled(int rows, int row, int chunk) {
 }
 
 // -- host ---------------------------------------------------------------------------
+// Kernel attributes and device properties belong to one device: what the
+// helpers below have set or read is kept for each device apart, the calling
+// thread's current one (the Python wrappers make it the tensors' device for
+// every launch).
+constexpr int kMaxDevices = 64;
+
+template <typename T>
+struct PerDevice {
+  T value[kMaxDevices];
+  explicit PerDevice(T init) {
+    for (T& v : value) v = init;
+  }
+  // The current device's slot; nullptr if it cannot be read.
+  T* current() {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) return nullptr;
+    return &value[dev];
+  }
+};
+
 // Above 48 KB a block's dynamic shared memory must be opted into, once per
-// kernel instantiation and size.
+// kernel instantiation, size and device.
 template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t& configured) {
-  if (bytes <= configured) return cudaSuccess;
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes, PerDevice<size_t>& configured) {
+  size_t* done = configured.current();
+  if (done == nullptr) return cudaErrorInvalidDevice;
+  if (bytes <= *done) return cudaSuccess;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) configured = bytes;
+  if (err == cudaSuccess) *done = bytes;
   return err;
 }
 
 // All of the SM's unified memory as shared memory, once per kernel
-// instantiation, so occupancy is set by the kernel's own use (the default
-// carveout can fit fewer blocks an SM than their shared memory allows).
+// instantiation and device, so occupancy is set by the kernel's own use (the
+// default carveout can fit fewer blocks an SM than their shared memory allows).
 template <typename Kernel>
-inline cudaError_t max_shared_carveout(Kernel kernel, bool& done) {
-  if (done) return cudaSuccess;
+inline cudaError_t max_shared_carveout(Kernel kernel, PerDevice<bool>& carved) {
+  bool* done = carved.current();
+  if (done == nullptr) return cudaErrorInvalidDevice;
+  if (*done) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess) done = true;
+  if (err == cudaSuccess) *done = true;
   return err;
 }
 
+// The current device's SM count (1 if it cannot be read).
 inline int sm_count() {
-  static int n = 0;
-  if (n == 0) {
+  static PerDevice<int> counts(0);
+  int* n = counts.current();
+  if (n == nullptr) return 1;
+  if (*n == 0) {
     int dev = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 1;
+        cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      *n = 1;
   }
-  return n;
+  return *n;
 }
 
 }  // namespace hopper

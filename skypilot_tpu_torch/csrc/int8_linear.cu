@@ -370,7 +370,7 @@ template <typename XT, int BT, int BN>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   using S = Shape<XT, BT, BN>;
   auto kernel = int8_linear_kernel<XT, BT, BN>;
-  static size_t configured = 0;
+  static PerDevice<size_t> configured(0);
   cudaError_t err = allow_smem(kernel, S::kSmem, configured);
   if (err != cudaSuccess) return err;
   const int tiles_n = (p.N + BN - 1) / BN, tiles_m = (p.M + BT - 1) / BT;

@@ -325,15 +325,9 @@ cudaError_t launch_scalar(const void* q, const void* k_pages, const void* v_page
   auto kernel = paged_attention_kernel<QT, KVT, kQuant>;
   const size_t smem = sizeof(float) * ((size_t)kRows * D + 2 * (size_t)kTile * (D + 1)) +
                       sizeof(int) * (size_t)pages_per_seq;
-  // Above 48 KB a block's dynamic shared memory must be opted into, per
-  // instantiation; it is raised to the largest size asked for so far.
-  static size_t configured = 0;
-  if (smem > configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    configured = smem;
-  }
+  static PerDevice<size_t> configured(0);
+  const cudaError_t err = allow_smem(kernel, smem, configured);
+  if (err != cudaSuccess) return err;
   const dim3 grid((S * (Hq / Hkv) + kRows - 1) / kRows, Hkv, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(k_pages),
@@ -983,7 +977,7 @@ paged_attention_chunk(const __grid_constant__ Params p) {
 
 template <typename KV, int Dp, int Rows>
 cudaError_t launch_split(const Params& p, cudaStream_t st) {
-  static size_t configured = 48 * 1024;
+  static PerDevice<size_t> configured(48 * 1024);
   const size_t pages = (size_t)(p.split_tokens >> p.ps_shift) + 2;
   const size_t smem = kSplitStages * split_stage_bytes<KV, Dp, Rows>() +
                       (PoolTraits<KV>::kQuant ? kSplitWarps * 2 * 8 * Dp * 2 : 0) +
@@ -991,7 +985,7 @@ cudaError_t launch_split(const Params& p, cudaStream_t st) {
   cudaError_t err = allow_smem(paged_attention_split<KV, Dp, Rows>, smem, configured);
   if (err != cudaSuccess) return err;
   // (The default carveout fitted 3 int8 blocks an SM.)
-  static bool carved = false;
+  static PerDevice<bool> carved(false);
   err = max_shared_carveout(paged_attention_split<KV, Dp, Rows>, carved);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.n_split, p.Hkv, p.B * p.groups);
@@ -1001,7 +995,7 @@ cudaError_t launch_split(const Params& p, cudaStream_t st) {
 
 template <typename KV, int Dp>
 cudaError_t launch_chunk(const Params& p, cudaStream_t st) {
-  static size_t configured = 48 * 1024;
+  static PerDevice<size_t> configured(48 * 1024);
   const size_t smem = 1024 + (size_t)kChunkM * Dp * 2 +
                       kChunkWGs * (kChunkStages * chunk_stage_bytes<KV, Dp>() +
                                    (PoolTraits<KV>::kQuant ? 2 * (size_t)kChunkN * Dp * 2 : 0)) +

@@ -603,8 +603,8 @@ cudaError_t launch(Params p, int tiles, cudaStream_t stream) {
   const size_t smem = p.off_misc + (kTileRows + 4) * 4 + (p.stages + 1) * 8;
   if (smem > (size_t)kMaxSmem || tiles > 65535 || col_tiles > 65535)
     return cudaErrorInvalidValue;
-  static size_t configured = 0;
-  static bool carved = false;
+  static PerDevice<size_t> configured(0);
+  static PerDevice<bool> carved(false);
   cudaError_t err = allow_smem(qkv_lora_kernel<XT, FT>, smem, configured);
   if (err == cudaSuccess) err = max_shared_carveout(qkv_lora_kernel<XT, FT>, carved);
   if (err != cudaSuccess) return err;

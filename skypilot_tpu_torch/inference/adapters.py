@@ -28,8 +28,15 @@ Every load runs the `adapters.load` fault point first (raise or drop
 fails that load as AdapterLoadError, 503 for that request only), and
 loads, evictions, load failures, requests and tokens per adapter feed
 the catalog's `skypilot_serving_adapter*` series, as the reference's
-do. Not ported yet: tensor-parallel replication (the registry takes no
-`mesh=`; the engine refuses one).
+do.
+
+On a serving grid (`mesh=`, the grid of a `parallel/serving.py`
+GridModel) the store is one stack per tensor rank, layer i's factors on
+its shard's device, split as its projection's weight
+(`serving.lora_factor_axes`): the QKV and gate / up deltas' B factors
+by output columns, `wo` / `w_down`'s A factors by input rows, the other
+factor whole. `model_lora()` is then {'scale', 'shards': [stack a
+rank]}, which the grid model's forward takes.
 """
 from __future__ import annotations
 
@@ -56,7 +63,8 @@ class AdapterRegistry:
     thread acquires/releases, HTTP threads read inventory/stats."""
 
     def __init__(self, adapter_dir: str, model, *,
-                 max_adapters: int = 8, max_rank: int = 0) -> None:
+                 max_adapters: int = 8, max_rank: int = 0,
+                 mesh=None) -> None:
         if not lora_lib.supports(model):
             raise ValueError(
                 f'{type(model).__name__} has no LoRA forward path; '
@@ -65,7 +73,12 @@ class AdapterRegistry:
         if max_adapters < 1:
             raise ValueError(
                 f'max_adapters must be >= 1, got {max_adapters}')
+        if mesh is not getattr(model, 'grid', None):
+            raise ValueError('mesh= is the grid of the model the adapters '
+                             'serve (a parallel/serving.py GridModel), and '
+                             'a grid model needs it')
         self.model = model
+        self.mesh = mesh
         self.cfg = model.config
         self.device = model.device
         self.max_adapters = int(max_adapters)
@@ -81,7 +94,8 @@ class AdapterRegistry:
         self._lru: 'collections.OrderedDict[str, None]' = \
             collections.OrderedDict()
         self._free: List[int] = list(range(self.max_adapters, 0, -1))
-        self._stack: Optional[Dict[str, Any]] = None  # built on 1st load
+        # One factor tree a tensor rank, built on the first load.
+        self._stack: Optional[List[Dict[str, Any]]] = None
         self._rank = int(max_rank)   # 0 = fixed by the scanned max
         self._targets: Tuple[str, ...] = ()
         self.loads = 0
@@ -173,19 +187,46 @@ class AdapterRegistry:
             raise AdapterLoadError(
                 'adapter store geometry unknown: no adapters scanned '
                 'and no --max-lora-rank given')
-        shapes = lora_lib.projection_shapes(self.cfg)
         n = self.max_adapters + 1
-        stack: Dict[str, Any] = {}
-        for i in range(self.cfg.num_layers):
-            stack[f'layer_{i}'] = {
-                t: {'a': torch.zeros((n, shapes[t][0], self._rank),
-                                     dtype=self.cfg.dtype,
-                                     device=self.device),
-                    'b': torch.zeros((n, self._rank, shapes[t][1]),
-                                     dtype=self.cfg.dtype,
-                                     device=self.device)}
-                for t in self._targets}
-        self._stack = stack
+        ranks = self.mesh.tensor if self.mesh is not None else 1
+        stacks = []
+        for rank in range(ranks):
+            stack: Dict[str, Any] = {}
+            for i in range(self.cfg.num_layers):
+                device = (self.model.layer_device(i, rank)
+                          if self.mesh is not None else self.device)
+                stack[f'layer_{i}'] = {}
+                for t in self._targets:
+                    a, b = self._factor_shards(t, rank, np.zeros(
+                        (n, *self._shapes[t][:1], self._rank)), np.zeros(
+                        (n, self._rank, self._shapes[t][1])))
+                    stack[f'layer_{i}'][t] = {
+                        'a': torch.zeros(a.shape, dtype=self.cfg.dtype,
+                                         device=device),
+                        'b': torch.zeros(b.shape, dtype=self.cfg.dtype,
+                                         device=device)}
+            stacks.append(stack)
+        self._stack = stacks
+
+    @property
+    def _shapes(self) -> Dict[str, Tuple[int, int]]:
+        return lora_lib.projection_shapes(self.cfg)
+
+    def _factor_shards(self, target: str, rank: int, a, b):
+        """Shard `rank`'s (a, b) of a target's factors [..., d_in, r] /
+        [..., r, d_out] (the whole factors off a grid)."""
+        if self.mesh is None:
+            return a, b
+        from skypilot_tpu_torch.parallel import serving
+        ways = self.mesh.tensor
+        a_axis, b_axis = serving.lora_factor_axes(
+            target, self.model.kv_shard_ways > 1)
+        # The stacked layout has a leading adapter axis.
+        lead = a.ndim - 2
+        return (serving.piece(a, None if a_axis is None else a_axis + lead,
+                              rank, ways),
+                serving.piece(b, None if b_axis is None else b_axis + lead,
+                              rank, ways))
 
     def model_lora(self) -> Optional[Dict[str, Any]]:
         """The `lora` argument of the model forward (scale 1: each
@@ -195,7 +236,9 @@ class AdapterRegistry:
         with self._lock:
             if self._stack is None:
                 return None
-            return {'scale': 1.0, 'layers': self._stack}
+            if self.mesh is not None:
+                return {'scale': 1.0, 'shards': self._stack}
+            return {'scale': 1.0, 'layers': self._stack[0]}
 
     def _load_locked(self, name: str, slot: int) -> None:
         """Read the artifact and write stack row `slot`. Any failure
@@ -246,11 +289,15 @@ class AdapterRegistry:
                         # cast to the store dtype: the engine applies
                         # scale 1 for every adapter in the stack.
                         b[:spec.rank, :] = fb * spec.scale
-                    layer = self._stack[lname][t]
-                    rows += [(layer['a'][slot], a), (layer['b'][slot], b)]
+                    for rank, stack in enumerate(self._stack):
+                        layer = stack[lname][t]
+                        pa, pb = self._factor_shards(t, rank, a, b)
+                        rows += [(layer['a'][slot], pa),
+                                 (layer['b'][slot], pb)]
             # Every shape was checked before the first write.
             for dst, src in rows:
-                dst.copy_(torch.from_numpy(src).to(dst.dtype))
+                dst.copy_(torch.from_numpy(
+                    np.ascontiguousarray(src)).to(dst.dtype))
         except AdapterLoadError:
             self.load_failures += 1
             self._m_load_failures.inc()

@@ -494,9 +494,11 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                 'prefill_chunks_run': eng.prefill_chunks_run,
                 'prefill_backlog_tokens': eng.prefill_backlog_tokens(),
                 'decode_stall_s': round(eng.decode_stall_s, 4),
-                # One device, one stage: no fill/drain bubble.
-                'pipeline_stages': 1,
-                'prefill_bubble_fraction': 0.0,
+                # Pipeline stages and the last prefill pass's
+                # fill/drain bubble over them.
+                'pipeline_stages': eng.stages,
+                'prefill_bubble_fraction': round(
+                    eng.prefill_bubble_fraction, 6),
                 # The kernel route and the analytic roofline inputs.
                 'attention_impl': eng.attention_impl(),
                 'attention_bytes_per_token':
@@ -522,9 +524,11 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                                          max(eng.total_pages, 1), 3),
                     'kv_dtype': eng.kv_dtype,
                     'pool_bytes': eng.kv_cache_bytes(),
-                    'pool_bytes_per_device': eng.kv_cache_bytes(),
-                    'shard_ways': 1,
+                    'pool_bytes_per_device': eng.kv_cache_bytes_per_device(),
+                    'shard_ways': eng.kv_shard_ways,
                 }
+                if eng.stages > 1:
+                    body['page_pool']['stages'] = eng.stage_pool_stats()
             pc = eng.prefix_cache
             if pc is not None:
                 body['prefix_cache'] = {

@@ -1,6 +1,7 @@
-"""Quantized serving storage on one device (the port's copy of
-skypilot_tpu/inference/quant.py): KV pool sizing by bytes, and int8
-projection weights.
+"""Quantized serving storage (the port's copy of
+skypilot_tpu/inference/quant.py): KV pool sizing by bytes on one device
+of a serving grid, and int8 projection weights and their
+tensor-parallel split.
 
 Weights. The big projection matrices (wq/wk/wv/wo, w_gate/w_up/w_down)
 are stored as int8 with one f32 scale per OUTPUT channel (symmetric
@@ -104,32 +105,69 @@ def dequantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
     return walk(params)
 
 
-def kv_page_bytes(cfg, kv_dtype: str) -> int:
-    """Device bytes ONE physical KV page costs across all layers: K + V
-    values, plus two f32 scale rows for int8 — the unit
-    `--kv-pool-bytes` divides by, so a byte budget maps to the same
-    memory for either storage format."""
+def kv_page_bytes(cfg, kv_dtype: str, shard_ways: int = 1,
+                  stages: int = 1) -> int:
+    """Device bytes ONE physical KV page costs across all layers ON ONE
+    DEVICE of a serving grid (K + V values, plus two f32 scale rows for
+    int8) — the unit `--kv-pool-bytes` divides by, so a byte budget maps
+    to the same memory for either storage format (reference
+    skypilot_tpu/inference/quant.py:151-191).
+
+    `shard_ways` is how many ways the pool's kv-heads axis splits over
+    the grid's `tensor` devices (parallel/serving.py kv_shard_ways): a
+    device stores 1/shard_ways of the value bytes but the whole scale
+    rows (one scale a token covers every head). `stages` splits the
+    layers: a device of a stage holds pages of that stage's layers
+    only, and the widest stage (ceil(num_layers / stages)) bounds it."""
     per_layer = 2 * kv_heads(cfg) * cfg.kv_page_size * cfg.head_dim
+    if kv_heads(cfg) % shard_ways:
+        raise ValueError(
+            f'shard_ways={shard_ways} does not divide num_kv_heads='
+            f'{kv_heads(cfg)} (the GQA remainder rule replicates '
+            f'instead — pass shard_ways=1)')
+    if stages < 1 or stages > cfg.num_layers:
+        raise ValueError(f'stages={stages} must be in [1, num_layers='
+                         f'{cfg.num_layers}]')
     if kv_dtype == 'int8':
-        value_bytes = per_layer
+        value_bytes = per_layer // shard_ways
         scale_bytes = 2 * cfg.kv_page_size * 4
     else:
-        value_bytes = per_layer * torch.empty((), dtype=cfg.dtype
-                                              ).element_size()
+        value_bytes = (per_layer // shard_ways *
+                       torch.empty((), dtype=cfg.dtype).element_size())
         scale_bytes = 0
-    return cfg.num_layers * (value_bytes + scale_bytes)
+    stage_layers = -(-cfg.num_layers // stages)
+    return stage_layers * (value_bytes + scale_bytes)
 
 
-def pool_pages_for_bytes(cfg, kv_dtype: str, pool_bytes: int) -> int:
-    """Physical pages a byte budget buys under `kv_dtype` (int8 fits
-    about twice the pages of bf16 in the same bytes)."""
-    pages = pool_bytes // kv_page_bytes(cfg, kv_dtype)
+def pool_pages_for_bytes(cfg, kv_dtype: str, pool_bytes: int,
+                         shard_ways: int = 1, stages: int = 1) -> int:
+    """Physical pages a PER-DEVICE byte budget buys under `kv_dtype`
+    (int8 fits about twice the pages of bf16 in the same bytes; a pool
+    split `shard_ways` ways over the kv heads and `stages` ways over the
+    layers fits about that many times more again)."""
+    page = kv_page_bytes(cfg, kv_dtype, shard_ways, stages)
+    pages = pool_bytes // page
     if pages < 2:
         raise ValueError(
             f'--kv-pool-bytes {pool_bytes} buys {pages} pages '
-            f'({kv_page_bytes(cfg, kv_dtype)} bytes/page across layers, '
+            f'({page} bytes/page across layers, '
             f'kv_dtype={kv_dtype}); need >= 2 (page 0 is the trash page)')
     return int(pages)
+
+
+def quantized_leaf_axis(leaf: str, weight_axis):
+    """The tensor-parallel split of an int8 projection's tensor, given
+    the axis its dense [out, in] weight splits on (None: replicated) —
+    the reference's `shard_quantized_for_serving` rule
+    (skypilot_tpu/inference/quant.py:211-256): `weight_q` takes the
+    weight's split, and `weight_scale` [out] splits with the output
+    channels it scales (a column shard) or is whole on every shard (a
+    row shard, whose outputs are partial sums of every channel)."""
+    if leaf == 'weight_q':
+        return weight_axis
+    if leaf == 'weight_scale':
+        return 0 if weight_axis == 0 else None
+    raise ValueError(f'{leaf!r} is not an int8 projection tensor')
 
 
 def weight_num_bytes(model) -> int:

@@ -48,11 +48,14 @@ from skypilot_tpu_torch.inference.adapters import AdapterRegistry
 from skypilot_tpu_torch.models import convert, registry
 from skypilot_tpu_torch.models import generate as gen
 from skypilot_tpu_torch.models.batching import ContinuousBatchingEngine
-from skypilot_tpu_torch.models.llama import LlamaConfig, kv_dtype_of
+from skypilot_tpu_torch.models.llama import (LlamaConfig, kv_dtype_of,
+                                             kv_heads)
 from skypilot_tpu_torch.models.gpt import GPTConfig
 from skypilot_tpu_torch.observability import catalog as obs_catalog
 from skypilot_tpu_torch.observability import slo as slo_lib
 from skypilot_tpu_torch.observability import tracing
+from skypilot_tpu_torch.parallel import serving
+from skypilot_tpu_torch.parallel.mesh import MeshConfig
 from skypilot_tpu_torch.robustness import faults
 
 
@@ -325,12 +328,14 @@ class InferenceRuntime:
         self.model_name = model_name
         self.vocab_size = cfg.vocab_size
         self.kv_dtype = kv_dtype_of(cfg)
-        # /stats `storage`: the reference's keys on one device (the mesh
-        # is one device, one stage).
+        # /stats `storage`: the reference's keys; the devices a grid
+        # model spans and its stages (tensor ways = mesh_devices /
+        # stages).
         self.weight_dtype = getattr(self.model, 'weight_dtype', 'bf16')
         self.weight_bytes = quant.weight_num_bytes(self.model)
-        self.mesh_devices = 1
-        self.stages = 1
+        grid = getattr(self.model, 'grid', None)
+        self.mesh_devices = grid.size if grid is not None else 1
+        self.stages = grid.stages if grid is not None else 1
         # Built by build_runtime under --slo (also wired into metrics).
         self.slo_tracker: Optional[slo_lib.SloTracker] = None
         self.max_total_len = (max_total_len if max_total_len is not None
@@ -715,11 +720,35 @@ class InferenceRuntime:
 
 
 #: serve_lm flags this port does not implement yet, with the value
-#: that means "not asked for": --tensor and --stages wait for ROADMAP A10
-#: (tensor x pipeline serving).
-_UNSUPPORTED_DEFAULTS = (
-    ('tensor', 1), ('stages', 1),
-)
+#: that means "not asked for" (none left).
+_UNSUPPORTED_DEFAULTS = ()
+
+
+def staged_refusal(args) -> Optional[str]:
+    """The reference's refusals of --stages
+    (skypilot_tpu/recipes/serve_lm.py:318-337), word for word, or None."""
+    if args.stages <= 1:
+        return None
+    if not args.continuous_batching:
+        return ('--stages requires --continuous-batching '
+                '(pipeline serving runs the paged slot '
+                'engine; the one-shot path has no microbatch '
+                'stream to fill the stage bubble)')
+    if args.weight_dtype == 'int8':
+        return ('--stages does not compose with '
+                '--weight-dtype int8 (the quantized wrapper '
+                'has no per-stage split; use int8 KV pages '
+                'via --kv-dtype int8 instead)')
+    if args.decode_chunk > 1:
+        return ('--stages does not compose with '
+                '--decode-chunk > 1 (the in-flight group '
+                'ring feeds one token per slot per round)')
+    if args.num_slots % args.stages != 0:
+        return (f'--num-slots {args.num_slots} must divide '
+                f'evenly into --stages {args.stages} slot '
+                f'groups (the decode ring assigns '
+                f'num_slots/stages slots per group)')
+    return None
 
 #: The reference's refusals around int8 projection weights
 #: (skypilot_tpu/inference/runtime.py:866-877), word for word.
@@ -927,8 +956,8 @@ def _source_model(args, model, device: torch.device):
     return model, tokenizer_dir
 
 
-def build_runtime(args, model=None,
-                  cuda_graphs: bool = True) -> InferenceRuntime:
+def build_runtime(args, model=None, cuda_graphs: bool = True,
+                  devices: Optional[List] = None) -> InferenceRuntime:
     """Construct the runtime from serve_lm CLI args: the fault plan of
     --fault-plan (installed first), the weights (`_source_model`), the
     KV pool sized by --kv-dtype / --kv-pool-bytes, the adapter registry
@@ -940,11 +969,25 @@ def build_runtime(args, model=None,
     have --model's widths, and may have fewer layers.
     `cuda_graphs=False` runs the decode rounds eagerly on the card
     (serve_lm never sets it; the chip_smoke.py and profile_decode.py
-    A/Bs do)."""
+    A/Bs do).
+    --tensor / --stages serve over a grid of --stages x --tensor devices
+    (parallel/serving.py): the first that many distinct CUDA cards, too
+    few exiting at startup, or `devices` (a list that may name one
+    device several times; serve_lm has no such flag). The weights are
+    made on the grid's device when it has one, else on the CPU, and
+    split onto it; the pool is sized per device."""
     bad = unsupported_flags(args)
     if bad:
         raise ValueError('not supported by the PyTorch port yet: '
                          + ', '.join(bad))
+    refusal = staged_refusal(args)
+    if refusal:
+        raise SystemExit(refusal)
+    grid = None
+    if args.tensor > 1 or args.stages > 1 or devices is not None:
+        grid = serving.make_grid(
+            MeshConfig(stage=args.stages, tensor=args.tensor),
+            cpu=args.cpu, devices=devices)
     if args.kv_dtype == 'int8' and not args.continuous_batching:
         raise SystemExit(INT8_NEEDS_CONTINUOUS)
     if args.weight_dtype == 'int8' and args.ckpt_dir:
@@ -961,7 +1004,14 @@ def build_runtime(args, model=None,
     refusal = family_refusal(args, source_config_type(args))
     if refusal:
         raise SystemExit(refusal)
-    device = resolve_device(cpu=args.cpu)
+    if grid is None:
+        device = resolve_device(cpu=args.cpu)
+    else:
+        # One device named throughout: the weights are made there and
+        # the shards view them; distinct devices take their shards from
+        # the CPU.
+        device = (grid.first if grid.distinct_devices() == 1
+                  else torch.device('cpu'))
     model, tokenizer_dir = _source_model(args, model, device)
     if args.weight_dtype == 'int8':
         if convert.weight_dtype_of(model.state_dict()) != 'int8':
@@ -970,27 +1020,41 @@ def build_runtime(args, model=None,
               '(dequant-on-read)', flush=True)
     cfg = model.config
     if hasattr(cfg, 'kv_total_pages'):
+        # --kv-pool-bytes is per device: a pool whose kv heads split
+        # over --tensor, and whose layers split over --stages, buys about
+        # that many times the pages at the same per-device bytes.
+        ways = serving.kv_shard_ways(kv_heads(cfg), args.tensor)
         pages = (quant.pool_pages_for_bytes(cfg, args.kv_dtype,
-                                            args.kv_pool_bytes)
+                                            args.kv_pool_bytes, ways,
+                                            args.stages)
                  if args.kv_pool_bytes else cfg.kv_total_pages)
         cfg = dataclasses.replace(cfg, **_pool_fields(cfg, args.kv_dtype,
                                                       pages))
+        split = (f', kv heads split {ways} ways' if ways > 1 else '') + (
+            f', over {args.stages} stages' if args.stages > 1 else '')
         print(f'kv cache: dtype={args.kv_dtype} pages={pages} '
-              f'({quant.kv_page_bytes(cfg, args.kv_dtype)} bytes/page '
-              f'across layers) on {device}', flush=True)
+              f'({quant.kv_page_bytes(cfg, args.kv_dtype, ways, args.stages)}'
+              f' bytes/page/device across layers{split})', flush=True)
     else:
         print(f'kv cache: {type(cfg).__name__} declares no page pool; '
               f'dense rows of max_seq_len={cfg.max_seq_len} on {device}',
               flush=True)
     # Serving never takes gradients, f32 masters included.
     model = convert.assemble(cfg, model.state_dict()).requires_grad_(False)
+    if grid is not None:
+        model = serving.GridModel(model, grid)
+        print(f'serving over {grid.size} devices ({args.stages} stages x '
+              f'{args.tensor}-way tensor): '
+              f'{[[str(d) for d in row] for row in grid.devices]}',
+              flush=True)
     # Multi-LoRA adapter registry: scanned at startup, hot-loaded on
     # demand; every engine of the runtime shares its store.
     adapters = None
     if args.adapter_dir:
         adapters = AdapterRegistry(args.adapter_dir, model,
                                    max_adapters=args.max_adapters,
-                                   max_rank=args.max_lora_rank)
+                                   max_rank=args.max_lora_rank,
+                                   mesh=getattr(model, 'grid', None))
         inv = adapters.inventory()
         print(f'adapter registry: {len(inv)} adapters in '
               f'{args.adapter_dir} (max {adapters.max_adapters} '

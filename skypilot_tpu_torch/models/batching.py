@@ -64,8 +64,21 @@ prefix cache, spill tier or KV chain on this path: prefix caching turns
 itself off, the spill flags and `import_chain` raise as the reference's
 do, and `attention_impl()` is 'dense'.
 
-Not ported yet (the constructor raises when asked for them): meshes and
-pipeline stages.
+Tensor x pipeline serving (the reference's `mesh=`): a model split over
+a grid of devices (`parallel/serving.py` GridModel) is served as is. The
+engine stays one scheduler, one page table and one prefix cache for
+every device; its pool is the grid's (`GridCache`: each shard's kv
+heads, each stage's layers), and KV chains gather every head from the
+shards on export and scatter them on import. With `stages` > 1 (the
+Llama family, paged, bf16 weights, num_slots a multiple of stages, no
+decode chunks, as the reference's) the pipelined loop becomes the
+reference's decode ring: the slots split into `stages` groups, each
+with its own round and graphs, and every iteration dispatches each
+group's next round before committing the previous ones, so the S
+rounds in flight occupy different stages. Successive prefill chunks
+pipeline over the stages the same way, by dispatching before they are
+fetched. The rounds replay CUDA graphs when the grid is one card
+named several times; over distinct cards they run eagerly.
 
 The reference donated its cache to each jitted call; here the pool is
 preallocated once (`PagedKVCache`) and updated in place.
@@ -278,12 +291,8 @@ class ContinuousBatchingEngine:
                  adapter_store=None,
                  kv_spill_bytes: int = 0,
                  kv_cold_dir: Optional[str] = None,
-                 mesh=None,
                  cuda_graphs: bool = True,
                  paged: Optional[bool] = None) -> None:
-        if mesh is not None:
-            raise ValueError('not supported by the PyTorch engine yet: '
-                             'mesh')
         cfg = model.config
         if max_total_len > cfg.max_seq_len:
             raise ValueError(f'max_total_len {max_total_len} > model '
@@ -359,6 +368,35 @@ class ContinuousBatchingEngine:
                 f'usable {(max(cfg_pool - 1, 0)) * cfg_page} tokens; '
                 f'page 0 is reserved).')
         self.paged = bool(paged)
+        # A grid model (parallel/serving.py): its devices, its stages,
+        # and the ways its pool's kv heads split (1: whole on every
+        # device, or one device).
+        self.grid = getattr(model, 'grid', None)
+        self.mesh_devices = self.grid.size if self.grid is not None else 1
+        self.stages = self.grid.stages if self.grid is not None else 1
+        self.kv_shard_ways = getattr(model, 'kv_shard_ways', 1)
+        if self.stages > 1:
+            # The reference engine's refusals (models/batching.py:491-514).
+            if not self.paged:
+                raise ValueError(
+                    'stages > 1 requires the paged KV cache: the '
+                    'per-stage pool split is a split of the page '
+                    'pool (declare kv_page_size/kv_total_pages)')
+            if decode_chunk > 1:
+                raise ValueError(
+                    'decode_chunk > 1 does not compose with stages '
+                    '(use pipeline_decode, the staged engine overlaps '
+                    'rounds across stages instead)')
+            if num_slots % self.stages:
+                raise ValueError(
+                    f'num_slots={num_slots} must divide evenly '
+                    f'into stages={self.stages} slot groups (the '
+                    f'S-deep decode ring partitions slots per stage)')
+            if getattr(model, 'weight_dtype', 'bf16') == 'int8':
+                raise ValueError(
+                    'int8 WEIGHTS do not compose with stages yet '
+                    '(int8 KV pages do): serve quantized weights '
+                    'tensor-only, or bf16 weights staged')
         self.kv_dtype = kv_dtype_of(cfg)
         if self.kv_dtype == 'int8' and not self.paged:
             raise ValueError(
@@ -410,26 +448,42 @@ class ContinuousBatchingEngine:
         # /debug/flight and written to a file on a reset or a death.
         self.flight = flight_lib.FlightRecorder(
             name=f'engine{self.engine_id}')
-        self.cache = (PagedKVCache(cfg, self.device) if self.paged
-                      else model.dense_cache(num_slots))
+        if not self.paged:
+            self.cache = model.dense_cache(num_slots)
+        elif self.grid is not None:
+            self.cache = model.paged_cache()
+        else:
+            self.cache = PagedKVCache(cfg, self.device)
         self._generator = torch.Generator(self.device).manual_seed(seed)
         self._reset_paging()
         # Single-token rounds (plain, pipelined, chunked) on static
         # buffers; captured into CUDA graphs on the card unless
         # `cuda_graphs` is False. The base variants are captured here,
         # so a capture that fails stops the engine before it serves;
-        # LoRA variants once the adapter stack exists.
-        self._round = decode_graph.DecodeRound(
-            model, self.cache, num_slots, self.pages_per_seq,
-            max_steps=self.decode_chunk, generator=self._generator,
-            use_graphs=cuda_graphs, attend_len=max_total_len)
-        self.cuda_graphs = self._round.use_graphs
+        # LoRA variants once the adapter stack exists. A staged
+        # pipelined engine has one round a slot group (the decode
+        # ring), every other engine one round over all slots.
+        self._groups = (self.stages if self.stages > 1 and
+                        self.pipeline_decode else 1)
+        self._rounds = [decode_graph.DecodeRound(
+            model, self.cache, num_slots // self._groups,
+            self.pages_per_seq, max_steps=self.decode_chunk,
+            generator=self._generator, use_graphs=cuda_graphs,
+            attend_len=max_total_len) for _ in range(self._groups)]
+        self.cuda_graphs = self._rounds[0].use_graphs
+        if cuda_graphs and self.device.type == 'cuda' and \
+                not self.cuda_graphs:
+            print(f'engine: decode rounds run eagerly: '
+                  f'{self._rounds[0].graph_blocker}', flush=True)
         if self.cuda_graphs and not self.spec_k:
             with torch.no_grad():
-                for selection in decode_graph.SELECTIONS:
-                    self._round.capture(selection, None)
-        # The pipelined loop's dispatched-but-uncommitted round.
-        self._inflight: Optional[Dict[str, object]] = None
+                for rnd in self._rounds:
+                    for selection in decode_graph.SELECTIONS:
+                        rnd.capture(selection, None)
+        # The pipelined loop's dispatched-but-uncommitted round of each
+        # slot group (one group unless the engine is staged).
+        self._group_inflight: List[Optional[Dict[str, object]]] = \
+            [None] * self._groups
 
         # Host-side slot bookkeeping. A slot is OCCUPIED when
         # `prefilling` (admitted, prompt suffix still being written) or
@@ -465,6 +519,10 @@ class ContinuousBatchingEngine:
         self.tokens_committed = 0
         self.preemptions = 0
         self.prefill_chunks_run = 0
+        # The closed-form fill/drain bubble of the last prefill pass over
+        # the stages: M chunks through S stages idle (S-1)/(M+S-1) of
+        # the stage slots (0 with one stage).
+        self.prefill_bubble_fraction = 0.0
         self.decode_stall_s = 0.0   # host blocked fetching tokens
         self.steady_decode_s = 0.0
         self.steady_decode_rounds = 0
@@ -638,8 +696,29 @@ class ContinuousBatchingEngine:
 
     def kv_cache_bytes(self) -> int:
         """Device bytes of the KV cache: the paged pool (scales
-        included), or the dense rows."""
+        included), or the dense rows; on a grid, the pool's logical
+        bytes (every kv head once, whole leaves once)."""
         return self.cache.num_bytes()
+
+    def kv_cache_bytes_per_device(self) -> int:
+        """Bytes of the KV cache resident on ONE device: a grid's
+        largest shard (one kv-heads shard of the widest stage, whole
+        leaves in full), the whole cache on one device — the figure
+        --kv-pool-bytes budgets."""
+        if self.grid is None:
+            return self.cache.num_bytes()
+        return self.cache.bytes_per_device()
+
+    def stage_pool_stats(self) -> List[Dict[str, object]]:
+        """Per-stage view of a staged pool for /stats: one allocator
+        drives every stage, so each holds the same page indices, for its
+        own [lo, hi) layers only. Empty when stages == 1."""
+        if self.stages <= 1:
+            return []
+        return [{'stage': s, 'layers': [lo, hi], 'pages': self.total_pages,
+                 'pool_bytes_per_device': max(
+                     shard.num_bytes() for shard in self.cache.shards[s])}
+                for s, (lo, hi) in enumerate(self.model.ranges)]
 
     def attention_impl(self) -> str:
         """The paged-attention implementation this engine's calls
@@ -663,7 +742,11 @@ class ContinuousBatchingEngine:
         `active`."""
         cfg = self.model.config
         if self._weight_bytes is None:
-            self._weight_bytes = quant.weight_num_bytes(self.model)
+            # A staged engine streams one stage's weights a token: the
+            # widest stage bounds the roofline.
+            self._weight_bytes = (max(self.model.stage_weight_bytes())
+                                  if self.stages > 1 else
+                                  quant.weight_num_bytes(self.model))
         lora_bytes = 0
         store = self.adapter_store
         if store is not None:
@@ -679,7 +762,7 @@ class ContinuousBatchingEngine:
             page_size, pages_per_seq = 1, self.max_total_len
             kv_values = self.cache.values_per_token
         return paged_kernel.bytes_per_token_model(
-            num_layers=cfg.num_layers,
+            num_layers=-(-cfg.num_layers // self.stages),
             kv_values_per_token=kv_values,
             num_q_heads=cfg.num_heads,
             head_dim=getattr(cfg, 'head_dim', 0),
@@ -703,7 +786,7 @@ class ContinuousBatchingEngine:
         m.num_slots.set(self.num_slots)
         m.prefill_backlog.set(self.prefill_backlog_tokens())
         m.kv_pool_bytes.set(self.kv_cache_bytes())
-        m.kv_pool_bytes_per_device.set(self.kv_cache_bytes())
+        m.kv_pool_bytes_per_device.set(self.kv_cache_bytes_per_device())
         if self.paged:
             free = int(self.allocator.free_pages)
             m.pages_free.set(free)
@@ -711,8 +794,8 @@ class ContinuousBatchingEngine:
         if self.kv_restore_lookups:
             m.kv_restore_hit_ratio.set(self.kv_restore_hits /
                                        self.kv_restore_lookups)
-        m.pipeline_stages.set(1)
-        m.prefill_bubble_fraction.set(0.0)
+        m.pipeline_stages.set(self.stages)
+        m.prefill_bubble_fraction.set(self.prefill_bubble_fraction)
         m.set_attention_info(self.attention_impl(), self.kv_dtype)
         m.attention_bytes_per_token.set(
             self.attention_bytes_per_token()['total_bytes_per_token'])
@@ -731,8 +814,9 @@ class ContinuousBatchingEngine:
             'decode_chunk': self.decode_chunk,
             'pipeline_decode': self.pipeline_decode,
             'cuda_graphs': self.cuda_graphs,
-            'graph_replays': self._round.replays,
-            'graph_captures': self._round.graphs_captured(),
+            'graph_replays': sum(r.replays for r in self._rounds),
+            'graph_captures': sum(r.graphs_captured()
+                                  for r in self._rounds),
             'prefill_chunks': self.prefill_chunks_run,
             'preemptions': self.preemptions,
             'requests_shed': self.requests_shed,
@@ -785,14 +869,15 @@ class ContinuousBatchingEngine:
                 fut.set_exception(e)
 
     def _cache_leaves(self) -> List:
-        """(path, pool tensor) for every cache leaf, under the
-        reference's keystr paths (`['layer_{i}']['attn']['k_pages']`,
-        GPT's `['h_{i}']...`, and k_scales / v_scales for int8), so
-        chains cross frameworks."""
+        """(path, (one page's row shape, dtype)) of every cache leaf, in
+        the cache's gather order, under the reference's keystr paths
+        (`['layer_{i}']['attn']['k_pages']`, GPT's `['h_{i}']...`, and
+        k_scales / v_scales for int8), so chains cross frameworks. A
+        grid's pool gives every kv head of a page (its shards' heads
+        gathered), so chains cross grids too."""
         prefix = self.model.CACHE_PREFIX
-        return [(f"['{prefix}{i}']['attn']['{name}']", t)
-                for i, layer in enumerate(self.cache.layers)
-                for name, t in layer.items()]
+        return [(f"['{prefix}{i}']['attn']['{name}']", (shape, dtype))
+                for i, name, shape, dtype in self.cache.page_leaf_specs()]
 
     def _gather_page_blobs(self, pages: List[int], pinned: bool = True
                            ) -> Dict[str, torch.Tensor]:
@@ -805,8 +890,7 @@ class ContinuousBatchingEngine:
         tier keeps). Scheduler thread only: the gathers queue on the
         rounds' stream behind every dispatched KV write."""
         idx = torch.tensor(pages, dtype=torch.long, device=self.device)
-        leaves = self._cache_leaves()
-        rows = [paged_ops.gather_page_rows(leaf, idx) for _, leaf in leaves]
+        rows = self.cache.gather_pages(idx)
         flat = torch.cat([r.reshape(-1).view(torch.uint8) for r in rows])
         cuda = self.device.type == 'cuda'
         host = torch.empty(flat.shape, dtype=torch.uint8,
@@ -815,7 +899,7 @@ class ContinuousBatchingEngine:
         if cuda:
             torch.cuda.current_stream(self.device).synchronize()
         out, off = {}, 0
-        for (path, _), r in zip(leaves, rows):
+        for (path, _), r in zip(self._cache_leaves(), rows):
             nbytes = r.numel() * r.element_size()
             out[path] = host[off:off + nbytes].view(r.dtype).view(r.shape)
             off += nbytes
@@ -827,8 +911,8 @@ class ContinuousBatchingEngine:
         (import / restore), in place. The chain pads to a power of two
         (the reference's compile ladder); pad rows go to trash page 0.
         Scheduler thread only."""
-        leaves = self._cache_leaves()
-        paths = sorted(path for path, _ in leaves)
+        specs = self._cache_leaves()
+        paths = sorted(path for path, _ in specs)
         if paths != sorted(blobs):
             raise ValueError(
                 f'KV chain leaves do not match this engine\'s cache '
@@ -842,26 +926,22 @@ class ContinuousBatchingEngine:
         idx[:n] = torch.tensor(pages, dtype=torch.long)
         idx = idx.to(self.device)
         staged = []
-        for path, leaf in leaves:
+        for path, (shape, dtype) in specs:
             arr = blobs[path]
-            if leaf.ndim == 4:
-                want = (n, leaf.shape[0], leaf.shape[2], leaf.shape[3])
-            else:
-                want = (n, leaf.shape[1])
-            if tuple(arr.shape) != want or arr.dtype != leaf.dtype:
+            want = (n,) + tuple(shape)
+            if tuple(arr.shape) != want or arr.dtype != dtype:
                 raise ValueError(
                     f'KV chain leaf {path} is '
                     f'{kv_transfer.dtype_name(arr.dtype)}{tuple(arr.shape)}'
                     f', pool expects '
-                    f'{kv_transfer.dtype_name(leaf.dtype)}{want}')
+                    f'{kv_transfer.dtype_name(dtype)}{want}')
             rows = arr.to(self.device)
             if m != n:
                 rows = torch.cat([rows, rows.new_zeros(
                     (m - n,) + tuple(rows.shape[1:]))])
-            staged.append((leaf, rows))
+            staged.append(rows)
         # Every leaf validated before the first write.
-        for leaf, rows in staged:
-            paged_ops.scatter_page_rows(leaf, idx, rows)
+        self.cache.scatter_pages(idx, staged)
 
     def _chain_meta(self, keys: List[bytes], salt: bytes
                     ) -> Dict[str, object]:
@@ -1212,7 +1292,7 @@ class ContinuousBatchingEngine:
         if prefilled:
             self._prefill_work()
             progressed = True
-        if self.active.any() or self._inflight is not None:
+        if self.active.any() or self._in_flight():
             t0 = time.perf_counter()
             committed = self.tokens_committed
             self._decode_step()
@@ -1267,7 +1347,7 @@ class ContinuousBatchingEngine:
 
         POOL INTACT: log, count, record a soft_error; every slot goes on
         serving and nothing is failed (a pipelined round in flight stays
-        in `_inflight`, so the next iteration commits it). Three soft
+        in `_group_inflight`, so the next iteration commits it). Three soft
         errors in a row escalate, so a deterministic host failure cannot
         spin the loop forever.
 
@@ -1296,7 +1376,7 @@ class ContinuousBatchingEngine:
         self.metrics.engine_restarts.inc()
         self._soft_errors = 0
         self._pool_at_risk = False
-        self._inflight = None
+        self._group_inflight = [None] * self._groups
         for slot in range(self.num_slots):
             self._release_adapter(slot)
             fut = self.futures[slot]
@@ -1650,6 +1730,7 @@ class ContinuousBatchingEngine:
         all of them) and join the decode loop."""
         budget = self.prefill_budget if self.prefill_chunk else None
         spent = 0
+        chunks0 = self.prefill_chunks_run
         done = []    # (slot, first-token device scalar)
         while self._prefill_order:
             slot = self._prefill_order[0]
@@ -1688,6 +1769,10 @@ class ContinuousBatchingEngine:
                 done.append((slot, self._sample_first(slot, last)))
         if budget:
             self.metrics.prefill_budget_utilization.set(spent / budget)
+        chunks = self.prefill_chunks_run - chunks0
+        if self.stages > 1 and chunks:
+            self.prefill_bubble_fraction = (self.stages - 1) / (
+                chunks + self.stages - 1)
         if not done:
             return
         # The one host fetch of the chunks' first tokens is where a
@@ -1940,22 +2025,34 @@ class ContinuousBatchingEngine:
             return None
         return self.adapter_store.model_lora()
 
-    def _dispatch(self, cont: np.ndarray,
-                  steps: int = 1) -> decode_graph.Pending:
-        """Stage the slots' host state and dispatch `steps` single-token
-        steps; `cont` lanes take the previous step's token at position
-        +1 on the device instead of the host's. Inactive lanes decode as
-        no-ops: their page-table rows are zero, so their writes land in
-        the trash page; prefilling lanes write at their frontier, which
-        the next chunk overwrites before attending."""
-        ids = np.where(self.active, self.slot_adapter, 0)
-        lanes = self.active
-        return self._round.dispatch(
-            tok=self.cur_token, pos=self.pos, cont=cont, ids=ids,
-            top_k=self.top_ks, temp=self.temps, top_p=self.top_ps,
-            table=self.page_table,
+    def _group_slice(self, g: int) -> slice:
+        """The lanes of slot group `g` (all of them with one group)."""
+        width = self.num_slots // self._groups
+        return slice(g * width, (g + 1) * width)
+
+    def _in_flight(self) -> bool:
+        return any(f is not None for f in self._group_inflight)
+
+    def _dispatch(self, cont: np.ndarray, steps: int = 1,
+                  g: int = 0) -> decode_graph.Pending:
+        """Stage slot group `g`'s host state and dispatch `steps`
+        single-token steps on its round; `cont` lanes take the previous
+        step's token at position +1 on the device instead of the host's.
+        Inactive lanes decode as no-ops: their page-table rows are zero,
+        so their writes land in the trash page; prefilling lanes write at
+        their frontier, which the next chunk overwrites before
+        attending."""
+        sl = self._group_slice(g)
+        lanes = self.active[sl]
+        ids = np.where(lanes, self.slot_adapter[sl], 0)
+        temps, top_ks, top_ps = self.temps[sl], self.top_ks[sl], \
+            self.top_ps[sl]
+        return self._rounds[g].dispatch(
+            tok=self.cur_token[sl], pos=self.pos[sl], cont=cont, ids=ids,
+            top_k=top_ks, temp=temps, top_p=top_ps,
+            table=self.page_table[sl],
             selection=decode_graph.selection_for(
-                self.temps[lanes], self.top_ks[lanes], self.top_ps[lanes]),
+                temps[lanes], top_ks[lanes], top_ps[lanes]),
             lora=self._round_lora(ids), steps=steps)
 
     def _decode_step(self) -> None:
@@ -1992,66 +2089,79 @@ class ContinuousBatchingEngine:
                 self._commit_token(slot, int(sampled[slot]))
 
     # -- pipelined decode ---------------------------------------------------
-    def _dispatch_round(self, inflight: Optional[Dict[str, object]]
-                        ) -> Optional[Dict[str, object]]:
-        """Dispatch the next round WITHOUT waiting for the in-flight one:
-        continuing lanes feed the in-flight round's device-resident
-        tokens back at position +1; lanes that joined since take their
-        host-side first token. A lane the pending commit will retire
-        gets a junk write one past its last position (write-before-read
-        keeps it harmless)."""
+    def _dispatch_round(self, inflight: Optional[Dict[str, object]],
+                        g: int = 0) -> Optional[Dict[str, object]]:
+        """Dispatch slot group `g`'s next round WITHOUT waiting for its
+        in-flight one: continuing lanes feed the in-flight round's
+        device-resident tokens back at position +1; lanes that joined
+        since take their host-side first token. A lane the pending
+        commit will retire gets a junk write one past its last position
+        (write-before-read keeps it harmless)."""
+        sl = self._group_slice(g)
+        if not self.active[sl].any():
+            return None
+        cont = self._continuing(inflight, g)
+        pos = (self.pos[sl].copy() if inflight is None else np.where(
+            cont, inflight['pos'] + 1, self.pos[sl]).astype(np.int32))
+        pending = self._dispatch(cont, g=g)
+        self.decode_calls += 1
+        self.metrics.decode_steps.inc()
+        return {'pending': pending, 'mask': self.active[sl].copy(),
+                'pos': pos, 'futs': list(self.futures[sl])}
+
+    def _continuing(self, inflight: Optional[Dict[str, object]],
+                    g: int = 0) -> np.ndarray:
+        """Lanes of group `g` whose request rode the in-flight round and
+        still holds the slot: they feed its tokens back on the device."""
+        sl = self._group_slice(g)
+        if inflight is None:
+            return np.zeros(sl.stop - sl.start, bool)
+        return np.array([bool(inflight['mask'][i]) and bool(self.active[s])
+                         and self.futures[s] is inflight['futs'][i]
+                         for i, s in enumerate(range(sl.start, sl.stop))])
+
+    def _commit_round(self, inflight: Dict[str, object],
+                      g: int = 0) -> None:
+        """Fetch and commit group `g`'s dispatched round. Lanes whose
+        request finished, was preempted or was replaced since dispatch
+        are discarded (their token belongs to nobody)."""
+        sampled = self._fetch_tokens(inflight['pending'])[0]
+        base = self._group_slice(g).start
+        for i in range(len(sampled)):
+            slot = base + i
+            if not inflight['mask'][i]:
+                continue
+            if not self.active[slot] or \
+                    self.futures[slot] is not inflight['futs'][i]:
+                continue
+            self._commit_token(slot, int(sampled[i]))
+
+    def _pipelined_decode_step(self) -> None:
+        """Dispatch round N+1 first, then fetch and commit round N while
+        N+1 runs: stop detection, streaming callbacks and future
+        resolution overlap device work. A staged engine does it for each
+        slot group in turn (the reference's S-deep decode ring,
+        models/batching.py:3108-3125): every group's next round is
+        dispatched before any is committed, so the S rounds in flight
+        occupy different stages. Greedy outputs are token for token the
+        unpipelined loop's; only the trailing round after a drain is
+        wasted."""
+        inflight = self._group_inflight
         # Continuing lanes write at pos+1 (their round N is uncommitted):
         # they grow one token further than lanes that joined since. (One
         # lookahead for all, as the reference grows, can preempt a lane
         # that rejoins at a page boundary before it commits anything,
         # again and again.)
-        self._grow_pages(lookahead=1 + self._continuing(inflight))
-        if not self.active.any():
-            return None
-        cont = self._continuing(inflight)
-        pos = (self.pos.copy() if inflight is None else np.where(
-            cont, inflight['pos'] + 1, self.pos).astype(np.int32))
-        pending = self._dispatch(cont)
-        self.decode_calls += 1
-        self.metrics.decode_steps.inc()
-        return {'pending': pending, 'mask': self.active.copy(),
-                'pos': pos, 'futs': list(self.futures)}
-
-    def _continuing(self, inflight: Optional[Dict[str, object]]
-                    ) -> np.ndarray:
-        """Lanes whose request rode the in-flight round and still holds
-        the slot: they feed its tokens back on the device."""
-        if inflight is None:
-            return np.zeros(self.num_slots, bool)
-        return np.array([bool(inflight['mask'][s]) and bool(self.active[s])
-                         and self.futures[s] is inflight['futs'][s]
-                         for s in range(self.num_slots)])
-
-    def _commit_round(self, inflight: Dict[str, object]) -> None:
-        """Fetch and commit a dispatched round. Lanes whose request
-        finished, was preempted or was replaced since dispatch are
-        discarded (their token belongs to nobody)."""
-        sampled = self._fetch_tokens(inflight['pending'])[0]
-        for slot in range(self.num_slots):
-            if not inflight['mask'][slot]:
-                continue
-            if not self.active[slot] or \
-                    self.futures[slot] is not inflight['futs'][slot]:
-                continue
-            self._commit_token(slot, int(sampled[slot]))
-
-    def _pipelined_decode_step(self) -> None:
-        """Dispatch round N+1 first, then fetch and commit round N while
-        N+1 runs: stop detection, streaming callbacks and future
-        resolution overlap device work. Greedy outputs are token for
-        token the unpipelined loop's; only the trailing round after a
-        drain is wasted."""
-        inflight = self._inflight
-        nxt = self._dispatch_round(inflight) if self.active.any() \
-            else None
-        if inflight is not None:
-            self._commit_round(inflight)
-        self._inflight = nxt
+        if self.active.any():
+            self._grow_pages(lookahead=1 + np.concatenate(
+                [self._continuing(inflight[g], g)
+                 for g in range(self._groups)]))
+        nxt = [self._dispatch_round(inflight[g], g)
+               for g in range(self._groups)]
+        for g in range(self._groups):
+            if inflight[g] is not None:
+                self._commit_round(inflight[g], g)
+        self._group_inflight = nxt
 
     # -- chunked and speculative decode -------------------------------------
     def _chunk_decode_step(self) -> None:

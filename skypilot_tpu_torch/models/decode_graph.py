@@ -34,9 +34,15 @@ replays. A capture that fails raises; nothing falls back to eager
 rounds.
 
 Kernel launch counts (ops/paged_kernel.py, ops/lora_kernel.py,
-ops/int8_linear.py) are Python increments that a replay does not run:
-each graph keeps the counts its capture made and adds them at every
-replay.
+ops/int8_linear.py) and a grid's count of all-reduces are Python
+increments that a replay does not run: each graph keeps the counts its
+capture made and adds them at every replay.
+
+A grid model (parallel/serving.py) whose shards all lie on one card is
+captured the same way, its shards' launches and collectives in one
+graph. Over distinct cards a round runs eagerly (`graph_blocker` says
+why): one graph holds one device's work, and a graph for each device
+segment between collectives is not built yet.
 """
 from __future__ import annotations
 
@@ -94,6 +100,8 @@ def _kernel_counts() -> Dict[Tuple, int]:
                    for k, n in paged_kernel.shape_launches.items()})
     counts.update({('int8_rows', m): n
                    for m, n in int8_linear.launches_by_rows.items()})
+    counts.update({('int8_shape', nk): n
+                   for nk, n in int8_linear.launches_by_shape.items()})
     return counts
 
 
@@ -116,6 +124,8 @@ def _add_kernel_counts(delta: Dict[Tuple, int], sign: int = 1) -> None:
             paged_kernel.route_launches[name] += d
         elif kind == 'int8_rows':
             int8_linear.launches_by_rows[name] += d
+        elif kind == 'int8_shape':
+            int8_linear.launches_by_shape[name] += d
         else:
             paged_kernel.shape_launches[name] += d
 
@@ -156,7 +166,13 @@ class DecodeRound:
         self.num_slots = num_slots
         self.max_steps = max_steps
         self.paged = pages_per_seq > 0
-        self.use_graphs = bool(use_graphs) and self.device.type == 'cuda'
+        grid = self.grid = getattr(model, 'grid', None)
+        #: Why the rounds run eagerly on the card, or None.
+        self.graph_blocker = (
+            f'the grid spans {grid.distinct_devices()} distinct devices'
+            if grid is not None and grid.distinct_devices() > 1 else None)
+        self.use_graphs = (bool(use_graphs) and self.device.type == 'cuda'
+                           and self.graph_blocker is None)
         b = num_slots
         self._offsets = {name: i * b for i, name in enumerate(_FIELDS)}
         self._step_at = len(_FIELDS) * b
@@ -241,7 +257,7 @@ class DecodeRound:
             graph, counts = self._graph(selection, lora)
             for _ in range(steps):
                 graph.replay()
-                _add_kernel_counts(counts)
+                self._add_counts(counts)
             self.replays += steps
         else:
             for _ in range(steps):
@@ -304,15 +320,28 @@ class DecodeRound:
         graph = torch.cuda.CUDAGraph()
         if sampled:
             graph.register_generator_state(self.generator)
-        before = _kernel_counts()
+        before = self._counts()
         with torch.cuda.graph(graph, pool=self._pool):
             self.step(selection, lora)
-        counts = _count_delta(_kernel_counts(), before)
-        _add_kernel_counts(counts, sign=-1)
+        counts = _count_delta(self._counts(), before)
+        self._add_counts(counts, sign=-1)
         for t, s in zip(statics, saved):
             t.copy_(s)
         self.generator.set_state(rng_state)
         return graph, counts
+
+    def _counts(self) -> Dict[Tuple, int]:
+        counts = _kernel_counts()
+        if self.grid is not None:
+            counts[('grid', 'reductions')] = self.grid.reductions
+        return counts
+
+    def _add_counts(self, delta: Dict[Tuple, int], sign: int = 1) -> None:
+        delta = dict(delta)
+        if self.grid is not None:
+            self.grid.reductions += sign * delta.pop(('grid', 'reductions'),
+                                                     0)
+        _add_kernel_counts(delta, sign)
 
     def graphs_captured(self) -> int:
         return len(self._graphs)

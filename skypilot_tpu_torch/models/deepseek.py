@@ -107,10 +107,12 @@ class DeepseekConfig:
 class LatentCache(SlotCache):
     """MLA's dense cache: per layer `latent_cache` [batch, max_seq_len,
     kv_lora_rank] and `rope_cache` [batch, max_seq_len, rope_head_dim]
-    in the compute dtype, zeroed (the reference's cache variables)."""
+    in the compute dtype, zeroed (the reference's cache variables).
+    `num_layers` overrides the config's for a pipeline stage's rows."""
 
     def __init__(self, config: DeepseekConfig, batch: int,
-                 device: Optional[torch.device] = None) -> None:
+                 device: Optional[torch.device] = None,
+                 num_layers: Optional[int] = None) -> None:
         cfg = config
         self.values_per_token = cfg.kv_lora_rank + cfg.rope_head_dim
 
@@ -121,12 +123,14 @@ class LatentCache(SlotCache):
         self.layers: List[dict] = [
             {'latent_cache': zeros(cfg.kv_lora_rank),
              'rope_cache': zeros(cfg.rope_head_dim)}
-            for _ in range(cfg.num_layers)]
+            for _ in range(cfg.num_layers if num_layers is None
+                           else num_layers)]
 
 
 class MLAttention(nn.Module):
     """Multi-head latent attention with the absorbed cache path (module
-    doc)."""
+    doc), called in two steps (the block's phases): `project`, then
+    `attend` and `wo`."""
 
     def __init__(self, config: DeepseekConfig, dense=Dense) -> None:
         super().__init__()
@@ -150,6 +154,9 @@ class MLAttention(nn.Module):
                         dtype=cfg.param_dtype or cfg.dtype),
             requires_grad=cfg.trainable)
         self.wo = dense(heads * cfg.v_head_dim, cfg.embed_dim, cfg)
+        # The heads this module computes: all of them, or a
+        # tensor-parallel shard's (parallel/serving.py sets them).
+        self.num_heads = heads
 
     def _queries(self, x: torch.Tensor):
         """(q_nope [B,S,H,d_nope], q_rope [B,S,H,d_rope]), RoPE not yet
@@ -160,7 +167,7 @@ class MLAttention(nn.Module):
             q = self.wq_b(self.q_norm(self.wq_a(x)))
         else:
             q = self.wq(x)
-        q = q.reshape(batch, seq, cfg.num_heads, cfg.qk_head_dim)
+        q = q.reshape(batch, seq, self.num_heads, cfg.qk_head_dim)
         return q[..., :cfg.nope_head_dim], q[..., cfg.nope_head_dim:]
 
     def _latents(self, x: torch.Tensor, positions: torch.Tensor):
@@ -173,14 +180,18 @@ class MLAttention(nn.Module):
                             cfg.rope_theta)[:, :, 0]
         return c_kv, k_rope
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                kv: Optional[dict] = None,
-                prefill: bool = False) -> torch.Tensor:
-        cfg = self.config
-        batch, seq, _ = x.shape
+    def project(self, x: torch.Tensor, positions: torch.Tensor):
+        """(q_nope, q_rope, c_kv, k_rope), RoPE applied."""
         q_nope, q_rope = self._queries(x)
-        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-        c_kv, k_rope = self._latents(x, positions)
+        q_rope = apply_rope(q_rope, positions, self.config.rope_theta)
+        return (q_nope, q_rope) + self._latents(x, positions)
+
+    def attend(self, state, positions: torch.Tensor,
+               kv: Optional[dict] = None,
+               prefill: bool = False) -> torch.Tensor:
+        cfg = self.config
+        q_nope, q_rope, c_kv, k_rope = state
+        batch, seq = q_nope.shape[:2]
         wkv_b = self.wkv_b.to(cfg.dtype)
         w_uk = wkv_b[..., :cfg.nope_head_dim]          # [d_c, H, d_n]
         w_uv = wkv_b[..., cfg.nope_head_dim:]          # [d_c, H, d_v]
@@ -197,12 +208,12 @@ class MLAttention(nn.Module):
             if prefill:
                 # The row starts empty: attend the chunk alone (S x S).
                 k_lat, k_rop = c_kv.float(), k_rope.float()
-                t = torch.arange(seq, device=x.device)
+                t = torch.arange(seq, device=c_kv.device)
                 mask = (t[None, :] <= t[:, None])[None, None]
             else:
                 k_lat = kv['latent_cache'].float()
                 k_rop = kv['rope_cache'].float()
-                t = torch.arange(k_lat.shape[1], device=x.device)
+                t = torch.arange(k_lat.shape[1], device=c_kv.device)
                 mask = (t[None, None, :]
                         <= positions.long()[:, :, None])[:, None]
             scores = (torch.einsum('bshc,btc->bhst', q_eff, k_lat)
@@ -219,10 +230,10 @@ class MLAttention(nn.Module):
             k_nope = torch.einsum('btc,chn->bthn', c_kv, w_uk)
             v = torch.einsum('btc,chv->bthv', c_kv, w_uv)
             k = torch.cat([k_nope, k_rope[:, :, None].expand(
-                batch, seq, cfg.num_heads, cfg.rope_head_dim)], dim=-1)
+                batch, seq, self.num_heads, cfg.rope_head_dim)], dim=-1)
             q = torch.cat([q_nope, q_rope], dim=-1)
             out = attention_ops.dot_product_attention(q, k, v, causal=True)
-        out = out.reshape(batch, seq, cfg.num_heads * cfg.v_head_dim)
+        out = out.reshape(batch, seq, self.num_heads * cfg.v_head_dim)
         return self.wo(out)
 
 
@@ -240,9 +251,23 @@ class Block(nn.Module):
         # reference reuses it.
         self.mlp = FeedForward(cfg, dense)
 
+    # The phases of a tensor-parallel grid (llama.Block's; MLA reads no
+    # page table).
+    def attn_qkv(self, x, positions):
+        return self.attn.project(self.attn_norm(x), positions)
+
+    def attn_out(self, state, positions, kv=None, page_indices=None,
+                 prefill=False, attend_len=None):
+        del page_indices, attend_len
+        return self.attn.attend(state, positions, kv, prefill)
+
+    def ffn(self, x):
+        return self.mlp(self.mlp_norm(x))
+
     def forward(self, x, positions, kv=None, prefill=False):
-        x = x + self.attn(self.attn_norm(x), positions, kv, prefill)
-        return x + self.mlp(self.mlp_norm(x))
+        x = x + self.attn_out(self.attn_qkv(x, positions), positions, kv,
+                              prefill=prefill)
+        return x + self.ffn(x)
 
 
 class Deepseek(nn.Module):

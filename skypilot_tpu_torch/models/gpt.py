@@ -123,6 +123,8 @@ class LayerNorm(nn.Module):
 
 
 class CausalSelfAttention(nn.Module):
+    """Multi-head attention, called in two steps (the block's phases):
+    `qkv` from the fused `c_attn`, then `attend` and `c_proj`."""
 
     def __init__(self, config: GPTConfig) -> None:
         super().__init__()
@@ -130,20 +132,30 @@ class CausalSelfAttention(nn.Module):
         e = config.embed_dim
         self.c_attn = Dense(e, 3 * e, config, bias=True)
         self.c_proj = Dense(e, e, config, bias=True)
+        # The heads this module computes: all of them, or a
+        # tensor-parallel shard's (parallel/serving.py sets them).
+        self.num_heads = config.num_heads
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                kv: Optional[dict] = None,
-                page_indices: Optional[torch.Tensor] = None,
-                prefill: bool = False,
-                attend_len: Optional[int] = None) -> torch.Tensor:
+    def qkv(self, x: torch.Tensor):
+        """(q, k, v) [B, S, H, D] of the fused `c_attn`."""
         cfg = self.config
         batch, seq, _ = x.shape
-        shape = (batch, seq, cfg.num_heads, cfg.head_dim)
-        q, k, v = (t.reshape(shape).contiguous() for t in
-                   self.c_attn(x).split(cfg.embed_dim, dim=-1))
+        shape = (batch, seq, self.num_heads, cfg.head_dim)
+        return tuple(t.reshape(shape).contiguous() for t in self.c_attn(
+            x).split(self.num_heads * cfg.head_dim, dim=-1))
+
+    def attend(self, qkv, positions: torch.Tensor,
+               kv: Optional[dict] = None,
+               page_indices: Optional[torch.Tensor] = None,
+               prefill: bool = False,
+               attend_len: Optional[int] = None) -> torch.Tensor:
+        cfg = self.config
+        q, k, v = qkv
+        batch, seq = q.shape[:2]
         out = cache_attention(q, k, v, positions, kv, page_indices, prefill,
                               attend_len, cfg.dtype)
-        return self.c_proj(out.reshape(batch, seq, cfg.embed_dim))
+        return self.c_proj(out.reshape(batch, seq,
+                                       self.num_heads * cfg.head_dim))
 
 
 class MLP(nn.Module):
@@ -170,11 +182,24 @@ class Block(nn.Module):
                               cfg.trainable)
         self.mlp = MLP(cfg)
 
+    # The phases of a tensor-parallel grid (llama.Block's).
+    def attn_qkv(self, x, positions):
+        del positions
+        return self.attn.qkv(self.ln_1(x))
+
+    def attn_out(self, qkv, positions, kv=None, page_indices=None,
+                 prefill=False, attend_len=None):
+        return self.attn.attend(qkv, positions, kv, page_indices, prefill,
+                                attend_len)
+
+    def ffn(self, x):
+        return self.mlp(self.ln_2(x))
+
     def forward(self, x, positions, kv=None, page_indices=None,
                 prefill=False, attend_len=None):
-        x = x + self.attn(self.ln_1(x), positions, kv, page_indices,
-                          prefill, attend_len)
-        return x + self.mlp(self.ln_2(x))
+        x = x + self.attn_out(self.attn_qkv(x, positions), positions, kv,
+                              page_indices, prefill, attend_len)
+        return x + self.ffn(x)
 
 
 class GPT(nn.Module):
@@ -237,13 +262,10 @@ class GPT(nn.Module):
             raise ValueError('pass the paged cache and page_indices '
                              'together (or neither, for no-cache mode)')
         dt = cfg.dtype
+        pos_embed = self.position_embed(positions, seq)
         if positions is None:
             positions = torch.arange(seq, dtype=torch.int32,
                                      device=tokens.device).expand(batch, seq)
-            pos_embed = self.wpe[:seq].to(dt)
-        else:
-            pos_embed = self.wpe[positions.clamp(
-                0, cfg.block_size - 1).long()].to(dt)
         x = self.wte[tokens].to(dt) + pos_embed
         remat = cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
@@ -253,6 +275,17 @@ class GPT(nn.Module):
             x = (checkpoint.checkpoint(block, *args, use_reentrant=False)
                  if remat else block(*args))
         return self.ln_f(x)
+
+    def position_embed(self, positions: Optional[torch.Tensor],
+                       seq: int) -> torch.Tensor:
+        """The `wpe` rows added to the token rows: [seq, embed] for
+        positions 0.., else [B, S, embed] at `positions` clamped to the
+        table."""
+        dt = self.config.dtype
+        if positions is None:
+            return self.wpe[:seq].to(dt)
+        return self.wpe[positions.clamp(
+            0, self.config.block_size - 1).long()].to(dt)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Logits of hidden states x [..., embed] through the tied head:

@@ -199,26 +199,53 @@ class LayerCache:
         return sum(t.numel() * t.element_size()
                    for layer in self.layers for t in layer.values())
 
+    # Whole physical pages of a paged pool, page-major (the KV chain's
+    # wire rows, `paged_attention.gather_page_rows`): what export,
+    # import, spill and migration move.
+    def page_leaf_specs(self) -> List[tuple]:
+        """(layer, leaf name, one page's row shape, dtype) of every
+        leaf, in the order `gather_pages` returns them."""
+        return [(i, name, (tuple(t.shape[:1]) + tuple(t.shape[2:])
+                           if t.ndim == 4 else tuple(t.shape[1:])), t.dtype)
+                for i, layer in enumerate(self.layers)
+                for name, t in layer.items()]
+
+    def gather_pages(self, idx: torch.Tensor) -> List[torch.Tensor]:
+        """Rows of physical pages `idx` of every leaf."""
+        return [paged_ops.gather_page_rows(t, idx)
+                for layer in self.layers for t in layer.values()]
+
+    def scatter_pages(self, idx: torch.Tensor,
+                      rows: List[torch.Tensor]) -> None:
+        """Write `gather_pages`-ordered rows into pages `idx`, in place."""
+        leaves = [t for layer in self.layers for t in layer.values()]
+        for leaf, r in zip(leaves, rows):
+            paged_ops.scatter_page_rows(leaf, idx, r)
+
 
 class PagedKVCache(LayerCache):
     """Per-layer page pools [Hkv, pages, page_size, D] (plus f32
     [pages, page_size] scale arrays for int8), preallocated on one
     device and updated in place by the model. Any family's config:
-    `kv_heads` and `kv_dtype_of` read the fields it has."""
+    `kv_heads` and `kv_dtype_of` read the fields it has. `heads` and
+    `num_layers` override the config's for a tensor-parallel shard's or
+    a pipeline stage's pool (parallel/serving.py)."""
 
-    def __init__(self, config, device: Optional[torch.device] = None
-                 ) -> None:
+    def __init__(self, config, device: Optional[torch.device] = None,
+                 heads: Optional[int] = None,
+                 num_layers: Optional[int] = None) -> None:
         kv_dtype = kv_dtype_of(config)
         if kv_dtype not in ('bf16', 'int8'):
             raise ValueError(f'unsupported kv_dtype {kv_dtype!r} '
                              f"(choices: 'bf16', 'int8')")
         self.quantized = kv_dtype == 'int8'
         dtype = torch.int8 if self.quantized else config.dtype
-        shape = (kv_heads(config), config.kv_total_pages,
+        shape = (heads or kv_heads(config), config.kv_total_pages,
                  config.kv_page_size, config.head_dim)
         sshape = (config.kv_total_pages, config.kv_page_size)
         self.layers: List[dict] = []
-        for _ in range(config.num_layers):
+        for _ in range(config.num_layers if num_layers is None
+                       else num_layers):
             layer = {'k_pages': torch.zeros(shape, dtype=dtype,
                                             device=device),
                      'v_pages': torch.zeros(shape, dtype=dtype,
@@ -252,44 +279,55 @@ class SlotCache(LayerCache):
 class DenseKVCache(SlotCache):
     """Per layer `cached_key` / `cached_value` [batch, max_seq_len, Hkv,
     D] in the compute dtype, zeroed (the reference's `cached_key`
-    variables)."""
+    variables). `heads` and `num_layers` as `PagedKVCache`'s."""
 
     def __init__(self, config, batch: int,
-                 device: Optional[torch.device] = None) -> None:
-        shape = (batch, config.max_seq_len, kv_heads(config),
-                 config.head_dim)
-        self.values_per_token = 2 * kv_heads(config) * config.head_dim
+                 device: Optional[torch.device] = None,
+                 heads: Optional[int] = None,
+                 num_layers: Optional[int] = None) -> None:
+        heads = heads or kv_heads(config)
+        shape = (batch, config.max_seq_len, heads, config.head_dim)
+        self.values_per_token = 2 * heads * config.head_dim
         self.layers: List[dict] = [
             {'cached_key': torch.zeros(shape, dtype=config.dtype,
                                        device=device),
              'cached_value': torch.zeros(shape, dtype=config.dtype,
                                          device=device)}
-            for _ in range(config.num_layers)]
+            for _ in range(config.num_layers if num_layers is None
+                           else num_layers)]
 
 
 def cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     positions: torch.Tensor, kv: Optional[dict],
                     page_indices: Optional[torch.Tensor], prefill: bool,
-                    attend_len: Optional[int], dtype: torch.dtype
-                    ) -> torch.Tensor:
+                    attend_len: Optional[int], dtype: torch.dtype,
+                    kv_amax: Optional[tuple] = None,
+                    kv_heads: Optional[tuple] = None) -> torch.Tensor:
     """Causal attention of q [B, S, H, D] over this call's k / v
     [B, S, Hkv, D] and the layer's cache `kv`, in the mode the cache
     selects (module doc): none, dense, a paged chunk (S > 1) or one
     paged decode token per row. K/V are written into the cache first.
     Returns [B, S, H, D] in `dtype`. Every family's attention block
-    (Llama, GPT, Mixtral) ends here."""
+    (Llama, GPT, Mixtral) ends here.
+
+    A tensor-parallel shard (parallel/serving.py) passes `kv_amax`, the
+    (k, v) per-token absmax over every shard's kv heads, which an int8
+    pool quantizes against, and under the GQA remainder rule `kv_heads`
+    (lo, hi): k / v and the replicated cache hold every kv head, all of
+    them are written, and this shard's q heads read heads [lo, hi)."""
     seq = q.shape[1]
     if kv is None:
+        k, v, _ = _read_heads(k, v, {}, kv_heads)
         return attention_ops.dot_product_attention(q, k, v, causal=True)
     if 'cached_key' in kv:
         if seq > 1:
             out = attention_ops.chunked_cache_attention(
                 q, k, v, kv['cached_key'], kv['cached_value'], positions,
-                chunk_only=prefill)
+                chunk_only=prefill, kv_heads=kv_heads)
         else:
             out = attention_ops.cached_decode_attention(
                 q, k, v, kv['cached_key'], kv['cached_value'],
-                positions[:, 0])
+                positions[:, 0], kv_heads=kv_heads)
         return out.to(dtype)
     if seq > 1:
         # A chunk of S tokens per row: write all of them, then either
@@ -298,10 +336,11 @@ def cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if 'k_scales' in kv:
             paged_ops.write_kv_chunk_quant(
                 kv['k_pages'], kv['v_pages'], kv['k_scales'],
-                kv['v_scales'], k, v, positions, page_indices)
+                kv['v_scales'], k, v, positions, page_indices, kv_amax)
         else:
             paged_ops.write_kv_chunk(kv['k_pages'], kv['v_pages'], k, v,
                                      positions, page_indices)
+        k, v, kv = _read_heads(k, v, kv, kv_heads)
         if prefill:
             return attention_ops.dot_product_attention(q, k, v,
                                                        causal=True)
@@ -313,16 +352,32 @@ def cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if 'k_scales' in kv:
         paged_ops.write_kv_quant(
             kv['k_pages'], kv['v_pages'], kv['k_scales'], kv['v_scales'],
-            k[:, 0], v[:, 0], positions[:, 0], page_indices)
+            k[:, 0], v[:, 0], positions[:, 0], page_indices,
+            None if kv_amax is None else (kv_amax[0][:, 0],
+                                          kv_amax[1][:, 0]))
     else:
         paged_ops.write_kv(kv['k_pages'], kv['v_pages'], k[:, 0], v[:, 0],
                            positions[:, 0], page_indices)
+    _, _, kv = _read_heads(k, v, kv, kv_heads)
     out = paged_ops.paged_decode_attention(
         q[:, 0], kv['k_pages'], kv['v_pages'],
         lengths=positions[:, 0] + 1, page_indices=page_indices,
         k_scales=kv.get('k_scales'), v_scales=kv.get('v_scales'),
         attend_len=attend_len)
     return out[:, None].to(dtype)
+
+
+def _read_heads(k: torch.Tensor, v: torch.Tensor, kv: dict,
+                kv_heads: Optional[tuple]):
+    """(k, v, pool) viewed on kv heads [lo, hi): the pool's value pages
+    on their head axis (contiguous views), the per-token scales whole;
+    the arguments themselves when `kv_heads` is None."""
+    if kv_heads is None:
+        return k, v, kv
+    lo, hi = kv_heads
+    pool = {name: (t[lo:hi] if name.endswith('_pages') else t)
+            for name, t in kv.items()}
+    return k[:, :, lo:hi], v[:, :, lo:hi], pool
 
 
 class RMSNorm(nn.Module):
@@ -404,6 +459,8 @@ DENSE_CLASSES = {'bf16': Dense, 'int8': Int8Dense}
 
 
 class Attention(nn.Module):
+    """Grouped-query attention, called in two steps (the block's
+    phases): `qkv`, then `attend` over the cache and `wo`."""
 
     def __init__(self, config: LlamaConfig, dense=Dense) -> None:
         super().__init__()
@@ -415,14 +472,17 @@ class Attention(nn.Module):
         self.wv = dense(cfg.embed_dim, cfg.num_kv_heads * hd, cfg,
                         cfg.qkv_bias)
         self.wo = dense(cfg.num_heads * hd, cfg.embed_dim, cfg)
+        # The heads this module computes: all of them, or a
+        # tensor-parallel shard's (parallel/serving.py sets them).
+        self.num_heads = cfg.num_heads
+        self.num_kv_heads = cfg.num_kv_heads
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                kv: Optional[dict] = None,
-                page_indices: Optional[torch.Tensor] = None,
-                prefill: bool = False, lora: Optional[dict] = None,
-                adapter_ids: Optional[torch.Tensor] = None,
-                lora_scale: float = 1.0,
-                attend_len: Optional[int] = None) -> torch.Tensor:
+    def qkv(self, x: torch.Tensor, positions: torch.Tensor,
+            lora: Optional[dict] = None,
+            adapter_ids: Optional[torch.Tensor] = None,
+            lora_scale: float = 1.0):
+        """(q [B,S,H,D], k, v [B,S,Hkv,D]): projections, LoRA deltas and
+        RoPE."""
         cfg = self.config
         batch, seq, _ = x.shape
         hd = cfg.head_dim
@@ -438,15 +498,28 @@ class Attention(nn.Module):
             q = _lora('wq', q, x, lora, adapter_ids, lora_scale)
             k = _lora('wk', k, x, lora, adapter_ids, lora_scale)
             v = _lora('wv', v, x, lora, adapter_ids, lora_scale)
-        q = q.reshape(batch, seq, cfg.num_heads, hd)
-        k = k.reshape(batch, seq, cfg.num_kv_heads, hd)
-        v = v.reshape(batch, seq, cfg.num_kv_heads, hd)
+        q = q.reshape(batch, seq, self.num_heads, hd)
+        k = k.reshape(batch, seq, self.num_kv_heads, hd)
+        v = v.reshape(batch, seq, self.num_kv_heads, hd)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+        return q, k, v
 
+    def attend(self, qkv, positions: torch.Tensor,
+               kv: Optional[dict] = None,
+               page_indices: Optional[torch.Tensor] = None,
+               prefill: bool = False, lora: Optional[dict] = None,
+               adapter_ids: Optional[torch.Tensor] = None,
+               lora_scale: float = 1.0, attend_len: Optional[int] = None,
+               kv_amax: Optional[tuple] = None,
+               kv_heads: Optional[tuple] = None) -> torch.Tensor:
+        """`cache_attention` over `qkv`, then `wo` (and its LoRA delta)."""
+        cfg = self.config
+        q, k, v = qkv
+        batch, seq = q.shape[:2]
         out = cache_attention(q, k, v, positions, kv, page_indices, prefill,
-                              attend_len, cfg.dtype)
-        out = out.reshape(batch, seq, cfg.num_heads * hd)
+                              attend_len, cfg.dtype, kv_amax, kv_heads)
+        out = out.reshape(batch, seq, self.num_heads * cfg.head_dim)
         return _lora('wo', self.wo(out), out, lora, adapter_ids, lora_scale)
 
 
@@ -482,14 +555,32 @@ class Block(nn.Module):
                                 cfg.trainable)
         self.mlp = FeedForward(cfg, dense)
 
+    # The block in three phases, the seams where a tensor-parallel
+    # grid (parallel/serving.py) sums its shards' partial outputs: every
+    # family's block has them.
+    def attn_qkv(self, x, positions, lora=None, adapter_ids=None,
+                 lora_scale=1.0):
+        return self.attn.qkv(self.attn_norm(x), positions, lora,
+                             adapter_ids, lora_scale)
+
+    def attn_out(self, qkv, positions, kv=None, page_indices=None,
+                 prefill=False, attend_len=None, lora=None,
+                 adapter_ids=None, lora_scale=1.0, kv_amax=None,
+                 kv_heads=None):
+        return self.attn.attend(qkv, positions, kv, page_indices, prefill,
+                                lora, adapter_ids, lora_scale, attend_len,
+                                kv_amax, kv_heads)
+
+    def ffn(self, x, lora=None, adapter_ids=None, lora_scale=1.0):
+        return self.mlp(self.mlp_norm(x), lora, adapter_ids, lora_scale)
+
     def forward(self, x, positions, kv=None, page_indices=None,
                 prefill=False, lora=None, adapter_ids=None, lora_scale=1.0,
                 attend_len=None):
-        x = x + self.attn(self.attn_norm(x), positions, kv, page_indices,
-                          prefill, lora, adapter_ids, lora_scale,
-                          attend_len)
-        return x + self.mlp(self.mlp_norm(x), lora, adapter_ids,
-                            lora_scale)
+        qkv = self.attn_qkv(x, positions, lora, adapter_ids, lora_scale)
+        x = x + self.attn_out(qkv, positions, kv, page_indices, prefill,
+                              attend_len, lora, adapter_ids, lora_scale)
+        return x + self.ffn(x, lora, adapter_ids, lora_scale)
 
 
 class Llama(nn.Module):

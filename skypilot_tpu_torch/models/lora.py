@@ -99,9 +99,10 @@ def supports(model) -> bool:
     """True when `model` threads the `lora` argument through its
     forward AND its config has the Llama-family projection geometry
     (`projection_shapes`). An int8 model is one: deltas apply to the
-    projections' outputs, whatever stores their weights."""
+    projections' outputs, whatever stores their weights. A serving
+    grid's model (parallel/serving.py) is one when its family is."""
     try:
-        sig = inspect.signature(type(model).forward)
+        sig = inspect.signature(getattr(model, 'family', type(model)).forward)
     except (TypeError, ValueError):
         return False
     if 'lora' not in sig.parameters:

@@ -218,10 +218,24 @@ class Block(nn.Module):
                                 cfg.trainable)
         self.moe = MoEFeedForward(cfg)
 
+    # The phases of a tensor-parallel grid (llama.Block's).
+    def attn_qkv(self, x, positions):
+        return self.attn.qkv(self.attn_norm(x), positions)
+
+    def attn_out(self, qkv, positions, kv=None, page_indices=None,
+                 prefill=False, attend_len=None, kv_amax=None,
+                 kv_heads=None):
+        return self.attn.attend(qkv, positions, kv, page_indices, prefill,
+                                attend_len=attend_len, kv_amax=kv_amax,
+                                kv_heads=kv_heads)
+
+    def ffn(self, x):
+        return self.moe(self.moe_norm(x))[0]
+
     def forward(self, x, positions, kv=None, page_indices=None,
                 prefill=False, attend_len=None, with_aux=False):
-        x = x + self.attn(self.attn_norm(x), positions, kv, page_indices,
-                          prefill, attend_len=attend_len)
+        x = x + self.attn_out(self.attn_qkv(x, positions), positions, kv,
+                              page_indices, prefill, attend_len)
         out, aux = self.moe(self.moe_norm(x), with_aux)
         return x + out, aux
 

@@ -30,6 +30,8 @@ carried over: the port selects its routes with arguments and
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from skypilot_tpu_torch.ops import flash_kernel
@@ -107,6 +109,15 @@ def _unequal_dims_attention(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _read_heads(tensors, kv_heads: Optional[Tuple[int, int]]):
+    """Views of [B, T, Hkv, D] tensors on kv heads [lo, hi), or the
+    tensors themselves when `kv_heads` is None."""
+    if kv_heads is None:
+        return tensors
+    lo, hi = kv_heads
+    return tuple(t[:, :, lo:hi] for t in tensors)
+
+
 def write_rows(cache: torch.Tensor, rows: torch.Tensor,
                 start: torch.Tensor) -> None:
     """cache[b, start[b]:start[b]+S] = rows[b], in place; the start is
@@ -142,17 +153,23 @@ def _cache_attention(q: torch.Tensor, cached_k: torch.Tensor,
 def chunked_cache_attention(q: torch.Tensor, k_new: torch.Tensor,
                             v_new: torch.Tensor, cached_k: torch.Tensor,
                             cached_v: torch.Tensor, positions: torch.Tensor,
-                            *, chunk_only: bool = False) -> torch.Tensor:
+                            *, chunk_only: bool = False,
+                            kv_heads: Optional[Tuple[int, int]] = None
+                            ) -> torch.Tensor:
     """A chunk of S queries per row at its own offset: write the chunk's
     K/V at positions[b, 0].. into the dense cache, then attend every
     cache entry up to each query's position. `chunk_only` (the cache
     holds nothing below the chunk) attends the chunk alone, through
     `dot_product_attention` (flash from 2048 tokens on the card).
     q/k_new/v_new: [B, S, H|Hkv, D]; cached_k/v: [B, T, Hkv, D];
-    positions: [B, S]. Returns out [B, S, H, D]."""
+    positions: [B, S]. Returns out [B, S, H, D]. `kv_heads` (lo, hi):
+    every kv head is written, and q attends kv heads [lo, hi) only (a
+    tensor-parallel shard's q heads over a replicated cache)."""
     start = positions[:, 0]
     write_rows(cached_k, k_new, start)
     write_rows(cached_v, v_new, start)
+    k_new, v_new, cached_k, cached_v = _read_heads(
+        (k_new, v_new, cached_k, cached_v), kv_heads)
     if chunk_only:
         return dot_product_attention(q, k_new, v_new, causal=True)
     return _cache_attention(q, cached_k, cached_v, positions)
@@ -161,10 +178,14 @@ def chunked_cache_attention(q: torch.Tensor, k_new: torch.Tensor,
 def cached_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
                             v_new: torch.Tensor, cached_k: torch.Tensor,
                             cached_v: torch.Tensor,
-                            pos: torch.Tensor) -> torch.Tensor:
+                            pos: torch.Tensor,
+                            kv_heads: Optional[Tuple[int, int]] = None
+                            ) -> torch.Tensor:
     """One token per row at its own position pos[b]: write its K/V,
     attend the cache masked to t <= pos[b]. q/k_new/v_new:
-    [B, 1, H|Hkv, D]; pos: [B]. Returns out [B, 1, H, D]."""
+    [B, 1, H|Hkv, D]; pos: [B]. Returns out [B, 1, H, D]. `kv_heads`
+    as `chunked_cache_attention`'s."""
     write_rows(cached_k, k_new, pos)
     write_rows(cached_v, v_new, pos)
+    cached_k, cached_v = _read_heads((cached_k, cached_v), kv_heads)
     return _cache_attention(q, cached_k, cached_v, pos[:, None])

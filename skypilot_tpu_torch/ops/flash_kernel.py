@@ -194,10 +194,11 @@ def flash_forward_kernel(q, k, v, *, scale: Optional[float] = None
     o = torch.empty_like(q)
     lse = torch.empty((batch, hq, seq), dtype=torch.float32, device=q.device)
     lib = _library()
-    err = lib.skypilot_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        batch, seq, hq, hkv, dim, code, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device_of(q):  # q's stream, q's kernel attributes
+        err = lib.skypilot_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), batch, seq, hq, hkv, dim, code, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _raise(lib, 'forward', err)
     fwd_launches += 1
     return o, lse
@@ -225,11 +226,12 @@ def flash_backward_kernel(q, k, v, do, lse, di, *,
         dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _library()
-    err = lib.skypilot_flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), batch, seq, hq, hkv, dim, code, lse_ld, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device_of(q):  # q's stream, q's kernel attributes
+        err = lib.skypilot_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), batch, seq, hq, hkv, dim, code, lse_ld,
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _raise(lib, 'backward', err)
     bwd_launches += 1
     return dq.to(q.dtype), dk, dv

@@ -29,9 +29,10 @@ environment switch, no fallback. `route_scope(impl)` overrides 'auto'
 for this kernel alone (the A/B of the dequantize route with the other
 kernels still on the card). `launches` counts kernel calls (one device
 launch each), `launches_by_rows` the same calls by their row count M,
-and `plain_calls` plain-version calls made through the wrapper. x is flattened to [M, in]; a non-contiguous x (or one whose
-data is not 16-byte aligned) is copied first, which a contiguous one
-never is.
+`launches_by_shape` by the weight's (out, in) shape, and `plain_calls`
+plain-version calls made through the wrapper. x is flattened to
+[M, in]; a non-contiguous x (or one whose data is not 16-byte aligned)
+is copied first, which a contiguous one never is.
 """
 from __future__ import annotations
 
@@ -52,6 +53,9 @@ launches = 0
 #: The same calls by their row count M (x's rows): decode rounds and
 #: prefill chunks apart.
 launches_by_rows = collections.Counter()
+#: The same calls by the weight's (out_features, in_features): a tensor
+#: shard's projections apart from the whole ones.
+launches_by_shape = collections.Counter()
 #: Calls of the plain version made through `int8_linear`.
 plain_calls = 0
 #: Device launches per kernel call.
@@ -185,16 +189,18 @@ def _launch(x, q, scale, bias, perturb):
     bt, bn, ks = plan(m, n, k, _sm_count(x.device.index or 0))
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.skypilot_int8_linear(
-        x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
-        bias.data_ptr() if bias is not None else None, y.data_ptr(),
-        m, n, k, bt, bn, ks, _CODES[x.dtype], float(perturb), stream)
+    with torch.cuda.device_of(x):  # x's stream, x's kernel attributes
+        err = lib.skypilot_int8_linear(
+            x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
+            bias.data_ptr() if bias is not None else None, y.data_ptr(),
+            m, n, k, bt, bn, ks, _CODES[x.dtype], float(perturb), stream)
     if err != 0:
         msg = lib.skypilot_int8_linear_error_string(err).decode()
         raise RuntimeError(f'int8 linear kernel failed to launch: CUDA '
                            f'error {err} ({msg})')
     launches += 1
     launches_by_rows[m] += 1
+    launches_by_shape[(n, k)] += 1
     return y.reshape(*lead, n)
 
 

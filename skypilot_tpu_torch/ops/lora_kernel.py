@@ -181,11 +181,13 @@ def _launch(x, factors, adapter_ids, perturb):
                         device=x.device) for d in d_outs]
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.skypilot_qkv_lora(
-        x.data_ptr(), *[f[k].data_ptr() for f in factors for k in ('a', 'b')],
-        adapter_ids.data_ptr(), *[o.data_ptr() for o in outs], batch, seq,
-        d_in, n, rank, *d_outs, grid_tiles(batch, seq, n), _CODES[x.dtype],
-        _CODES[f_dtype], float(perturb), stream)
+    with torch.cuda.device_of(x):  # x's stream, x's kernel attributes
+        err = lib.skypilot_qkv_lora(
+            x.data_ptr(),
+            *[f[k].data_ptr() for f in factors for k in ('a', 'b')],
+            adapter_ids.data_ptr(), *[o.data_ptr() for o in outs], batch,
+            seq, d_in, n, rank, *d_outs, grid_tiles(batch, seq, n),
+            _CODES[x.dtype], _CODES[f_dtype], float(perturb), stream)
     if err != 0:
         msg = lib.skypilot_qkv_lora_error_string(err).decode()
         raise RuntimeError(f'QKV LoRA kernel failed to launch: CUDA error '

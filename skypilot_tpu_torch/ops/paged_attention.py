@@ -28,14 +28,25 @@ import torch
 from skypilot_tpu_torch.ops import paged_kernel
 
 
-def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def kv_row_amax(x: torch.Tensor) -> torch.Tensor:
+    """Per-token absmax f32[...] of KV rows x [..., num_kv_heads,
+    head_dim]: what one int8 scale covers."""
+    return x.float().abs().amax(dim=(-2, -1))
+
+
+def quantize_kv_rows(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric absmax int8 quantization of per-token KV rows.
 
     x: [..., num_kv_heads, head_dim]. Returns (q int8 same shape,
     scale f32[...]); an all-zero token quantizes to scale 0 / values 0.
-    `torch.round` rounds half to even, as `jnp.round` does."""
+    `torch.round` rounds half to even, as `jnp.round` does. `amax`
+    (f32[...]) replaces the rows' own absmax: a tensor-parallel shard
+    holds some of a token's kv heads and quantizes them against the
+    absmax over all of them (parallel/serving.py)."""
     x32 = x.float()
-    amax = x32.abs().amax(dim=(-2, -1))
+    if amax is None:
+        amax = kv_row_amax(x32)
     scale = amax / 127.0
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round(x32 / safe[..., None, None]),
@@ -188,12 +199,16 @@ def write_kv_quant(k_pages: torch.Tensor, v_pages: torch.Tensor,
                    k_scales: torch.Tensor, v_scales: torch.Tensor,
                    k_new: torch.Tensor, v_new: torch.Tensor,
                    positions: torch.Tensor,
-                   page_indices: torch.Tensor) -> None:
+                   page_indices: torch.Tensor,
+                   amax: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> None:
     """`write_kv` for an int8 pool: quantize each token's K/V rows and
-    scatter values and per-slot scales, in place."""
+    scatter values and per-slot scales, in place. `amax` (k's, v's)
+    gives the rows' absmax from outside (`quantize_kv_rows`)."""
     physical, slot = _slots(positions, page_indices, k_pages.shape[2])
-    qk, sk = quantize_kv_rows(k_new)
-    qv, sv = quantize_kv_rows(v_new)
+    amax_k, amax_v = amax if amax is not None else (None, None)
+    qk, sk = quantize_kv_rows(k_new, amax_k)
+    qv, sv = quantize_kv_rows(v_new, amax_v)
     _scatter(k_pages, physical, slot, qk)
     _scatter(v_pages, physical, slot, qv)
     k_scales[physical, slot] = sk.reshape(-1)
@@ -204,11 +219,16 @@ def write_kv_chunk_quant(k_pages: torch.Tensor, v_pages: torch.Tensor,
                          k_scales: torch.Tensor, v_scales: torch.Tensor,
                          k_new: torch.Tensor, v_new: torch.Tensor,
                          positions: torch.Tensor,
-                         page_indices: torch.Tensor) -> None:
-    """`write_kv_chunk` for an int8 pool (one scale per token)."""
+                         page_indices: torch.Tensor,
+                         amax: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None
+                         ) -> None:
+    """`write_kv_chunk` for an int8 pool (one scale per token; `amax`
+    as `write_kv_quant`'s)."""
     physical, slot = _slots(positions, page_indices, k_pages.shape[2])
-    qk, sk = quantize_kv_rows(k_new)
-    qv, sv = quantize_kv_rows(v_new)
+    amax_k, amax_v = amax if amax is not None else (None, None)
+    qk, sk = quantize_kv_rows(k_new, amax_k)
+    qv, sv = quantize_kv_rows(v_new, amax_v)
     _scatter(k_pages, physical, slot, qk.reshape(-1, *qk.shape[2:]))
     _scatter(v_pages, physical, slot, qv.reshape(-1, *qv.shape[2:]))
     k_scales[physical, slot] = sk.reshape(-1)

@@ -359,17 +359,20 @@ def _launch(q, k_pages, v_pages, positions, page_indices, k_scales,
                                * (head_dim + 2), dtype=torch.float32,
                                device=q.device)
         counters = _counter_buffer(q.device, stream, pairs)
-    err = lib.skypilot_paged_attention(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scales.data_ptr() if quantized else None,
-        v_scales.data_ptr() if quantized else None,
-        positions.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
-        None if partials is None else partials.data_ptr(),
-        None if counters is None else counters.data_ptr(),
-        batch, seq, num_q_heads, num_kv_heads, head_dim, total_pages,
-        page_size, pages_per_seq, _Q_CODES[q.dtype],
-        _KV_CODES[k_pages.dtype], _ROUTE_CODES[route], n_split,
-        split_tokens, float(perturb), stream)
+    # The launch goes from q's device (its stream belongs to it, and the
+    # library keeps its kernel attributes per device).
+    with torch.cuda.device_of(q):
+        err = lib.skypilot_paged_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr() if quantized else None,
+            v_scales.data_ptr() if quantized else None,
+            positions.data_ptr(), page_indices.data_ptr(), out.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            batch, seq, num_q_heads, num_kv_heads, head_dim, total_pages,
+            page_size, pages_per_seq, _Q_CODES[q.dtype],
+            _KV_CODES[k_pages.dtype], _ROUTE_CODES[route], n_split,
+            split_tokens, float(perturb), stream)
     if err != 0:
         msg = lib.skypilot_cuda_error_string(err).decode()
         raise RuntimeError(f'paged attention kernel ({route} route) failed '

@@ -1,0 +1,719 @@
+"""Tensor x pipeline serving on a grid of devices (port of
+skypilot_tpu/parallel/serving.py and the staged half of
+skypilot_tpu/models/batching.py).
+
+The reference serves one model over `jax.devices()[:stages*tensor]` from
+ONE process: one engine, one scheduler, one prefix cache and one page
+table drive every device, and XLA inserts the collectives. The port
+keeps that shape, a single controller over a `Grid` of torch devices,
+`stages` rows of `tensor` devices each:
+
+  - `GridModel` holds each layer as `tensor` shard blocks on its stage's
+    row. Heads, the MLP's hidden axis and the vocabulary split over
+    `tensor` (the reference's DEFAULT_RULES: heads / mlp / vocab ->
+    tensor); norms, routers and MLA's latent projections are whole on
+    every shard. A block runs in the three phases every family's block
+    has (`attn_qkv`, `attn_out`, `ffn`): after `wo` and after the MLP
+    the shards' partial outputs are summed by `Grid.all_reduce`, after
+    the vocab-sharded embedding too, and the head's vocab slices are
+    gathered (`Grid.gather`). An int8 pool whose kv heads split takes
+    one more reduction, the max of each token's absmax over the shards,
+    so every shard quantizes against the scale the whole token gets.
+  - The stage handoff is the activation's copy onto the next stage's
+    row (the reference's `device_put`, models/batching.py:866-871); no
+    pool page crosses a stage.
+  - `GridCache` holds each shard's pool: paged value pages split their
+    kv-heads axis (axis 0), dense rows theirs (axis 2), and everything
+    else (int8 scale pages, MLA's latent rows) is whole on every shard
+    of the stage (reference `serving_cache_shardings`, :110-133). Under
+    the GQA remainder rule (`kv_shard_ways` 1 while q heads split) the
+    pool is whole on every shard, `wk` / `wv` are too, and shard t's q
+    heads [h0, h0 + Hq/T) read kv heads h0 // G.. of it.
+
+The collective is one helper for every family and every grid: each
+shard's partial is copied to the row's first device, summed there in
+shard order (deterministic), and the sum copied back. It runs the same
+code on the CPU, on one card named N times, and over N cards. It
+refuses any tensor that shares storage with a pool shard: the
+reference's guard (`pool_collective_lines`, an HLO scan for a
+collective over a pool-shaped operand) becomes that check, and pool
+shards are updated in place, so their storage never changes.
+
+A device may repeat only in an explicit `devices=` list (tests run
+`['cpu'] * N`, chip_smoke `['cuda:0'] * N`); by default a grid takes the
+first `stages * tensor` distinct devices and refuses to start with
+fewer. Over distinct cards each kernel wrapper launches from its
+tensors' card, and the kernel libraries keep their attributes per card
+(`csrc/hopper.cuh` `PerDevice`); tests/test_torch_grid_cards.py holds
+such grids to one card named several times.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from skypilot_tpu_torch.inference import quant
+from skypilot_tpu_torch.models.deepseek import Deepseek, LatentCache
+from skypilot_tpu_torch.models.gpt import GPT
+from skypilot_tpu_torch.models.llama import (DenseKVCache, LayerCache, Llama,
+                                             PagedKVCache, kv_heads)
+from skypilot_tpu_torch.models.mixtral import Mixtral
+from skypilot_tpu_torch.ops import paged_attention as paged_ops
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+
+
+def kv_shard_ways(num_kv_heads: int, tensor_size: int) -> int:
+    """How many ways the KV-heads axis shards over `tensor_size`
+    devices: all of them when the head count divides evenly, else the
+    pool is whole on every device (the GQA remainder rule, reference
+    :88-99); 0 kv heads (MLA) never shard."""
+    if tensor_size > 1 and num_kv_heads > 0 and \
+            num_kv_heads % tensor_size == 0:
+        return int(tensor_size)
+    return 1
+
+
+def stage_layer_ranges(num_layers: int,
+                       stages: int) -> List[Tuple[int, int]]:
+    """Contiguous [lo, hi) layer ranges per stage, earlier stages taking
+    the remainder layers (reference :136-156)."""
+    if stages < 1:
+        raise ValueError(f'stages must be >= 1, got {stages}')
+    if stages > num_layers:
+        raise ValueError(
+            f'cannot split {num_layers} layers over {stages} stages '
+            f'(at least one layer per stage)')
+    base, rem = divmod(num_layers, stages)
+    ranges: List[Tuple[int, int]] = []
+    lo = 0
+    for s in range(stages):
+        hi = lo + base + (1 if s < rem else 0)
+        ranges.append((lo, hi))
+        lo = hi
+    return ranges
+
+
+def grid_devices(stages: int, tensor: int, *, cpu: bool = False,
+                 devices: Optional[Sequence] = None
+                 ) -> List[List[torch.device]]:
+    """The [stages][tensor] devices of a grid: `devices` as given (the
+    one way to repeat a device), else the first stages * tensor distinct
+    devices (CUDA cards, or the one CPU with `cpu`); too few exits at
+    startup naming the count."""
+    want = stages * tensor
+    if devices is not None:
+        devs = [torch.device(d) for d in devices]
+        if len(devs) != want:
+            raise ValueError(
+                f'devices= lists {len(devs)} devices; --stages {stages} x '
+                f'--tensor {tensor} needs {want}')
+    else:
+        visible = ([torch.device('cpu')] if cpu else
+                   [torch.device('cuda', i)
+                    for i in range(torch.cuda.device_count())])
+        if len(visible) < want:
+            raise SystemExit(
+                f'--stages {stages} x --tensor {tensor} needs {want} '
+                f'distinct devices; {len(visible)} '
+                f'{"CPU device is" if cpu else "CUDA devices are"} '
+                f'visible (a device repeats only in an explicit devices= '
+                f'list)')
+        devs = visible[:want]
+    return [devs[s * tensor:(s + 1) * tensor] for s in range(stages)]
+
+
+class Grid:
+    """`stages` rows of `tensor` torch devices and the one collective
+    helper over a row (module doc)."""
+
+    def __init__(self, devices: List[List[torch.device]]) -> None:
+        if not devices or any(len(row) != len(devices[0])
+                              for row in devices):
+            raise ValueError(f'a grid is rows of equal length, got '
+                             f'{devices}')
+        self.devices = [[torch.device(d) for d in row] for row in devices]
+        self.stages = len(devices)
+        self.tensor = len(devices[0])
+        self._pool_storages: set = set()
+        #: Reductions made by `all_reduce` so far (a decode graph adds its
+        #: capture's count at each replay).
+        self.reductions = 0
+
+    @property
+    def size(self) -> int:
+        return self.stages * self.tensor
+
+    @property
+    def first(self) -> torch.device:
+        return self.devices[0][0]
+
+    def distinct_devices(self) -> int:
+        return len({str(d) for row in self.devices for d in row})
+
+    def register_pool(self, tensors) -> None:
+        """Mark pool shards: `all_reduce` refuses their storage."""
+        for t in tensors:
+            self._pool_storages.add(t.untyped_storage().data_ptr())
+
+    def all_reduce(self, parts: List[torch.Tensor],
+                   op: str = 'sum') -> List[torch.Tensor]:
+        """Sum (or max) one partial per shard of a row: each copied to
+        the first shard's device, combined there in shard order (a sum
+        in f32, cast back), the result copied back to every shard's
+        device."""
+        if op not in ('sum', 'max'):
+            raise ValueError(f'unknown reduction {op!r}')
+        for p in parts:
+            if p.untyped_storage().data_ptr() in self._pool_storages:
+                raise ValueError(
+                    f'all_reduce refuses a KV pool shard '
+                    f'{tuple(p.shape)}: pool pages never move between '
+                    f'devices')
+        if len(parts) == 1:
+            return list(parts)
+        self.reductions += 1
+        home = parts[0].device
+        if op == 'sum':
+            acc = parts[0].float()
+            for p in parts[1:]:
+                acc = acc + p.to(home).float()
+            acc = acc.to(parts[0].dtype)
+        else:
+            acc = parts[0]
+            for p in parts[1:]:
+                acc = torch.maximum(acc, p.to(home))
+        return [acc if p.device == home else acc.to(p.device)
+                for p in parts]
+
+    def gather(self, parts: List[torch.Tensor],
+               device: torch.device) -> torch.Tensor:
+        """The shards' slices of the last axis, concatenated in shard
+        order on `device` (the head's vocab slices)."""
+        if len(parts) == 1:
+            return parts[0].to(device)
+        return torch.cat([p.to(device) for p in parts], dim=-1)
+
+
+# -- the parameter split -----------------------------------------------------
+#: The split of each projection's [out, in] weight over `tensor` (block-
+#: relative module paths): 0 splits the output channels (heads, the MLP's
+#: hidden axis), 1 the input channels (the row-parallel `wo` / `w_down`,
+#: whose outputs are partial sums); 'kv' is 0 when the kv heads split and
+#: whole otherwise; 'qkv' splits each third of GPT's fused q|k|v columns
+#: by heads. The reference's rules (DEFAULT_RULES: heads / mlp / vocab ->
+#: tensor) on the port's layouts.
+_PROJECTION_AXES = {
+    'attn.wq': 0, 'attn.wq_b': 0, 'attn.wk': 'kv', 'attn.wv': 'kv',
+    'attn.wo': 1, 'mlp.w_gate': 0, 'mlp.w_up': 0, 'mlp.w_down': 1,
+    'attn.c_attn': 'qkv', 'attn.c_proj': 1, 'mlp.c_fc': 0,
+    'mlp.c_proj': 1,
+}
+#: Raw parameters of a block: MLA's wkv_b [d_c, H, d] by heads, Mixtral's
+#: experts [E, d, f] / [E, f, d] by the MLP's hidden axis.
+_PARAMETER_AXES = {'attn.wkv_b': 1, 'moe.w_gate': 2, 'moe.w_up': 2,
+                   'moe.w_down': 1}
+#: Per family: the blocks' attribute, the token table (vocab-sharded,
+#: and the head too where it is tied), the head, the final norm.
+_EDGES = {
+    Llama: ('layers', 'tok_embed', 'lm_head', 'final_norm'),
+    Mixtral: ('layers', 'tok_embed', 'lm_head', 'final_norm'),
+    Deepseek: ('layers', 'tok_embed', 'lm_head', 'final_norm'),
+    GPT: ('h', 'wte', 'wte', 'ln_f'),
+}
+
+
+def _family(model) -> type:
+    for cls in _EDGES:
+        if isinstance(model, cls):
+            return cls
+    raise ValueError(f'{type(model).__name__} has no tensor-parallel '
+                     f'split')
+
+
+def piece(t: torch.Tensor, axis, rank: int, ways: int) -> torch.Tensor:
+    """Shard `rank` of `ways` of `t` along `axis` (None: all of it;
+    'first': all of it on shard 0, zeros elsewhere, for a row-parallel
+    bias added once; 'qkv': each third of axis 0 by heads)."""
+    if axis is None or ways == 1:
+        return t
+    if axis == 'first':
+        return t if rank == 0 else torch.zeros_like(t)
+    if axis == 'qkv':
+        return torch.cat([piece(third, 0, rank, ways)
+                          for third in t.chunk(3, dim=0)], dim=0)
+    if t.shape[axis] % ways:
+        raise ValueError(f'cannot split axis {axis} of {tuple(t.shape)} '
+                         f'{ways} ways')
+    n = t.shape[axis] // ways
+    return t[(slice(None),) * axis + (slice(rank * n, (rank + 1) * n),)]
+
+
+def leaf_axis(name: str, kv_split: bool):
+    """The split of block tensor `name` (block-relative state-dict name)
+    over `tensor`: an axis, 'first', 'qkv' or None (whole)."""
+    if name in _PARAMETER_AXES:
+        return _PARAMETER_AXES[name]
+    module, _, leaf = name.rpartition('.')
+    axis = _PROJECTION_AXES.get(module)
+    if axis == 'kv':
+        axis = 0 if kv_split else None
+    if axis is None:
+        return None
+    if leaf in ('weight_q', 'weight_scale'):
+        return quant.quantized_leaf_axis(leaf, axis)
+    if leaf == 'bias':
+        return 'first' if axis == 1 else axis
+    return axis
+
+
+def lora_factor_axes(target: str, kv_split: bool):
+    """(a's axis, b's axis) of a LoRA target's factors a [d_in, r] and b
+    [r, d_out] over `tensor`: a column-parallel projection's delta
+    splits b's output columns with its heads / hidden units (a is whole:
+    every shard sees the whole input), a row-parallel one's splits a's
+    input rows (b is whole, the partial deltas sum with the outputs)."""
+    module = f'{"attn" if target in ("wq", "wk", "wv", "wo") else "mlp"}' \
+             f'.{target}'
+    axis = leaf_axis(f'{module}.weight', kv_split)
+    return (0 if axis == 1 else None), (1 if axis == 0 else None)
+
+
+def shard_block_state(block: nn.Module, rank: int, ways: int,
+                      kv_split: bool) -> Dict[str, torch.Tensor]:
+    """Shard `rank`'s tensors of one block (views where the split is
+    along the leading axis, on the block's device)."""
+    return {name: piece(t, leaf_axis(name, kv_split), rank, ways)
+            for name, t in block.state_dict().items()}
+
+
+def _assign(module: nn.Module, name: str, tensor: torch.Tensor) -> None:
+    """Put `tensor` at state-dict `name` of `module` as a frozen
+    parameter or a buffer, whatever its shape."""
+    *path, leaf = name.split('.')
+    for part in path:
+        module = getattr(module, part)
+    if leaf in module._buffers:   # pylint: disable=protected-access
+        module._buffers[leaf] = tensor   # pylint: disable=protected-access
+    else:
+        setattr(module, leaf, nn.Parameter(tensor, requires_grad=False))
+
+
+def remainder_read_heads(num_heads: int, num_kv: int, rank: int,
+                         ways: int) -> Optional[Tuple[int, int]]:
+    """Under the GQA remainder rule, the kv heads [lo, hi) that shard
+    `rank`'s q heads [h0, h0 + H/T) read (q head h reads kv head
+    h // G); None when the kv heads split with the q heads. Raises when
+    the shard's q heads do not map onto whole, equal kv groups."""
+    if kv_shard_ways(num_kv, ways) > 1 or ways == 1:
+        return None
+    group = num_heads // num_kv
+    n = num_heads // ways
+    h0 = rank * n
+    lo, hi = h0 // group, (h0 + n - 1) // group + 1
+    local_group = n // (hi - lo)
+    if n % (hi - lo) or any((h0 + j) // group - lo != j // local_group
+                            for j in range(n)):
+        raise ValueError(
+            f'{num_heads} q heads over {num_kv} kv heads do not split '
+            f'{ways} ways: shard {rank} holds q heads [{h0}, {h0 + n}), '
+            f'which span kv heads unevenly')
+    return lo, hi
+
+
+class GridModel(nn.Module):
+    """A port model split over a `Grid` (module doc), driven through the
+    families' serving interface: `config`, `device` (the grid's first
+    device, where tokens come in and logits go out), `hidden`, `logits`,
+    `dense_cache`, and `paged_cache` for the engine's pool. Built from a
+    whole model, whose tensors it shares where a shard is a leading-axis
+    slice on the same device."""
+
+    def __init__(self, model: nn.Module, grid: Grid) -> None:
+        super().__init__()
+        family = _family(model)
+        cfg = model.config
+        ways = grid.tensor
+        blocks_attr, table, head, norm = _EDGES[family]
+        if grid.stages > 1 and family is not Llama:
+            raise ValueError(
+                f'staged serving supports the Llama family; '
+                f'{family.__name__} has no stage split')
+        for field in ('num_heads', 'vocab_size'):
+            if getattr(cfg, field) % ways:
+                raise ValueError(f'{field}={getattr(cfg, field)} does not '
+                                 f'split over --tensor {ways}')
+        self.config = cfg
+        self.grid = grid
+        self.family = family
+        self.weight_dtype = getattr(model, 'weight_dtype', 'bf16')
+        self.CACHE_PREFIX = getattr(  # pylint: disable=invalid-name
+            model, 'CACHE_PREFIX', 'layer_')
+        self.ranges = stage_layer_ranges(cfg.num_layers, grid.stages)
+        self._stage_of = [s for s, (lo, hi) in enumerate(self.ranges)
+                          for _ in range(lo, hi)]
+        self._table, self._head, self._norm = table, head, norm
+        num_kv = kv_heads(cfg) if hasattr(cfg, 'kv_page_size') else 0
+        #: Ways the pool's kv heads split (1: whole on every shard).
+        self.kv_shard_ways = kv_shard_ways(num_kv, ways)
+        kv_split = self.kv_shard_ways > 1
+        self.read_heads = [
+            remainder_read_heads(cfg.num_heads, num_kv, t, ways)
+            if num_kv else None for t in range(ways)]
+        source = getattr(model, blocks_attr)
+        self.blocks = nn.ModuleList()
+        for i, block in enumerate(source):
+            devices = grid.devices[self._stage_of[i]]
+            shards = nn.ModuleList()
+            for t in range(ways):
+                with torch.device('meta'):
+                    shard = type(model)(dataclasses.replace(
+                        cfg, num_layers=1), weight_dtype=self.weight_dtype)
+                    shard = getattr(shard, blocks_attr)[0]
+                for name, part in shard_block_state(
+                        block, t, ways, kv_split).items():
+                    _assign(shard, name, part.to(devices[t]).contiguous())
+                attn = shard.attn
+                attn.num_heads = cfg.num_heads // ways
+                if hasattr(attn, 'num_kv_heads'):
+                    attn.num_kv_heads = (cfg.num_kv_heads // ways
+                                         if kv_split else cfg.num_kv_heads)
+                shards.append(shard)
+            self.blocks.append(shards)
+        # The edges: shard t's vocab slice of the token table on stage
+        # 0, its final norm and head slice on the last stage.
+        state = model.state_dict()
+        first, last = grid.devices[0], grid.devices[-1]
+        self.edges = nn.ModuleList()
+        for t in range(ways):
+            with torch.device('meta'):
+                edge = type(model)(dataclasses.replace(cfg, num_layers=0),
+                                   weight_dtype=self.weight_dtype)
+            for name, tensor in state.items():
+                if name.startswith(f'{blocks_attr}.'):
+                    continue
+                if name in (table, head):
+                    dev = first[t] if name == table else last[t]
+                    _assign(edge, name, piece(tensor, 0, t, ways).to(dev))
+                else:
+                    dev = last[t] if name.startswith(norm) else first[t]
+                    _assign(edge, name, tensor.to(dev))
+            self.edges.append(edge)
+        self._vocab_slice = cfg.vocab_size // ways
+
+    @property
+    def device(self) -> torch.device:
+        return self.grid.first
+
+    def layer_device(self, layer: int, rank: int) -> torch.device:
+        """The device of layer `layer`'s shard `rank`."""
+        return self.grid.devices[self._stage_of[layer]][rank]
+
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional['GridCache'] = None,
+                page_indices: Optional[torch.Tensor] = None,
+                prefill: bool = False, lora: Optional[dict] = None,
+                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """f32 logits [B, S, vocab] on `device`."""
+        return self.logits(self.hidden(tokens, positions, cache,
+                                       page_indices, prefill, lora,
+                                       adapter_ids))
+
+    # -- caches ---------------------------------------------------------------
+    def paged_cache(self) -> 'GridCache':
+        """The engine's page pool, one shard a grid device."""
+        cfg = self.config
+        heads = kv_heads(cfg) // self.kv_shard_ways
+        return GridCache(self, [[PagedKVCache(cfg, d, heads=heads,
+                                              num_layers=hi - lo)
+                                 for d in self.grid.devices[s]]
+                                for s, (lo, hi) in enumerate(self.ranges)])
+
+    def dense_cache(self, batch: int) -> 'GridCache':
+        """Dense rows of `batch` slots, one shard a grid device: kv heads
+        split as the pool's, MLA's latents whole on every shard."""
+        cfg = self.config
+
+        def shard(device, layers):
+            if self.family is Deepseek:
+                return LatentCache(cfg, batch, device, num_layers=layers)
+            return DenseKVCache(cfg, batch, device,
+                                heads=kv_heads(cfg) // self.kv_shard_ways,
+                                num_layers=layers)
+
+        return GridCache(self, [[shard(d, hi - lo)
+                                 for d in self.grid.devices[s]]
+                                for s, (lo, hi) in enumerate(self.ranges)])
+
+    # -- the forward --------------------------------------------------------
+    def hidden(self, tokens: torch.Tensor,
+               positions: Optional[torch.Tensor] = None,
+               cache: Optional['GridCache'] = None,
+               page_indices: Optional[torch.Tensor] = None,
+               prefill: bool = False, lora: Optional[dict] = None,
+               adapter_ids: Optional[torch.Tensor] = None,
+               attend_len: Optional[int] = None) -> torch.Tensor:
+        """Final-norm hidden states [B, S, embed] on the last stage's
+        first device: the families' `hidden`, shard by shard. `lora` is
+        a grid registry's `model_lora()` (inference/adapters.py):
+        {'scale', 'shards': one factor tree a tensor rank}."""
+        grid = self.grid
+        batch, seq = tokens.shape
+        if adapter_ids is not None and lora is None:
+            raise ValueError('adapter_ids select rows of stacked lora '
+                             'factors; pass lora too')
+        if lora is not None and 'shards' not in lora:
+            raise ValueError('a grid model takes the factors of an '
+                             'adapter registry built on its grid (mesh=)')
+        if positions is None:
+            positions = torch.arange(seq, dtype=torch.int32,
+                                     device=tokens.device).expand(batch, seq)
+        copies: Dict[Tuple[int, str], torch.Tensor] = {}
+
+        def on(t: Optional[torch.Tensor], device: torch.device):
+            if t is None:
+                return None
+            key = (id(t), str(device))
+            if key not in copies:
+                copies[key] = t.to(device)
+            return copies[key]
+
+        xs = self._embed(tokens, positions, on)
+        for s, (lo, hi) in enumerate(self.ranges):
+            devices = grid.devices[s]
+            xs = [x.to(d) for x, d in zip(xs, devices)]
+            pos = [on(positions, d) for d in devices]
+            table = [on(page_indices, d) for d in devices]
+            lora_kw = [{} for _ in devices]
+            if lora is not None:
+                for t, d in enumerate(devices):
+                    lora_kw[t] = {'adapter_ids': on(adapter_ids, d),
+                                  'lora_scale': float(lora['scale'])}
+            for i in range(lo, hi):
+                layers = [None] * len(devices)
+                if cache is not None:
+                    layers = [cache.shards[s][t].layers[i - lo]
+                              for t in range(len(devices))]
+                for t in range(len(devices)):
+                    if lora is not None:
+                        lora_kw[t]['lora'] = lora['shards'][t].get(
+                            f'layer_{i}')
+                xs = self._block(i, xs, pos, layers, table, prefill,
+                                 attend_len, lora_kw)
+        return getattr(self.edges[0], self._norm)(xs[0])
+
+    def _embed(self, tokens, positions, on) -> List[torch.Tensor]:
+        """The token rows (each shard's vocab slice, rows outside it
+        zero, summed) plus GPT's position rows, on the stage-0 row."""
+        devices = self.grid.devices[0]
+        dt = self.config.dtype
+        parts = []
+        for t, (edge, d) in enumerate(zip(self.edges, devices)):
+            rows = getattr(edge, self._table)
+            tok = on(tokens, d)
+            if self.grid.tensor == 1:
+                parts.append(rows[tok].to(dt))
+                continue
+            local = tok - t * self._vocab_slice
+            hit = (local >= 0) & (local < self._vocab_slice)
+            picked = rows[local.clamp(0, self._vocab_slice - 1)]
+            parts.append((picked * hit[..., None]).to(dt))
+        xs = self.grid.all_reduce(parts)
+        if self.family is GPT:
+            seq = tokens.shape[1]
+            xs = [x + edge.position_embed(on(positions, d), seq)
+                  for x, edge, d in zip(xs, self.edges, devices)]
+        return xs
+
+    def _block(self, i, xs, pos, layers, table, prefill, attend_len,
+               lora_kw) -> List[torch.Tensor]:
+        """Layer i on its stage's row: attention, then the MLP, each
+        shard's partial output summed."""
+        grid = self.grid
+        shards = self.blocks[i]
+        states = [b.attn_qkv(x, p, **kw)
+                  for b, x, p, kw in zip(shards, xs, pos, lora_kw)]
+        extra = [dict(kw) for kw in lora_kw]
+        if self.read_heads[0] is not None:
+            for t, e in enumerate(extra):
+                e['kv_heads'] = self.read_heads[t]
+        if self.kv_shard_ways > 1 and layers[0] is not None and \
+                'k_scales' in layers[0]:
+            # Each shard holds some of a token's kv heads: the int8 scale
+            # is the absmax over all of them.
+            k_amax = grid.all_reduce(
+                [paged_ops.kv_row_amax(st[1]) for st in states], op='max')
+            v_amax = grid.all_reduce(
+                [paged_ops.kv_row_amax(st[2]) for st in states], op='max')
+            for t, e in enumerate(extra):
+                e['kv_amax'] = (k_amax[t], v_amax[t])
+        parts = [b.attn_out(st, p, kv, tb, prefill, attend_len, **e)
+                 for b, st, p, kv, tb, e in zip(shards, states, pos, layers,
+                                                table, extra)]
+        xs = [x + a for x, a in zip(xs, grid.all_reduce(parts))]
+        parts = [b.ffn(x, **kw) for b, x, kw in zip(shards, xs, lora_kw)]
+        return [x + m for x, m in zip(xs, grid.all_reduce(parts))]
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits [..., vocab] on `device`: each shard's head slice
+        of the vocabulary, gathered in shard order."""
+        devices = self.grid.devices[-1]
+        parts = [edge.logits(x.to(d)) for edge, d in zip(self.edges,
+                                                          devices)]
+        return self.grid.gather(parts, self.device)
+
+    # -- accounting -----------------------------------------------------------
+    def stage_weight_bytes(self) -> List[int]:
+        """Weight bytes of each stage's row of devices."""
+        per = self.device_weight_bytes()
+        t = self.grid.tensor
+        return [sum(per[s * t:(s + 1) * t]) for s in range(self.grid.stages)]
+
+    def device_weight_bytes(self) -> List[int]:
+        """Weight bytes on each grid position, stage-major: its blocks'
+        shards, plus the token table on stage 0 and the final norm and
+        head on the last stage."""
+        def nbytes(tensors):
+            return sum(p.numel() * p.element_size() for p in tensors)
+
+        out = []
+        for s, (lo, hi) in enumerate(self.ranges):
+            for t in range(self.grid.tensor):
+                edge = self.edges[t].state_dict()
+                names = set()
+                if s == 0:
+                    names |= {k for k in edge if k != self._head
+                              and not k.startswith(self._norm)}
+                    names.add(self._table)
+                if s == self.grid.stages - 1:
+                    names |= {k for k in edge if k.startswith(self._norm)}
+                    names.add(self._head)
+                out.append(nbytes(p for i in range(lo, hi) for p in
+                                  self.blocks[i][t].state_dict().values())
+                           + nbytes(edge[k] for k in names))
+        return out
+
+
+class GridCache(LayerCache):
+    """A grid model's cache: `shards[s][t]`, the cache of stage s's
+    layers on its t-th device (module doc). Presents the engine the
+    whole pool: its bytes, a reset, per-slot row views on the dense
+    path, and the KV chain's page rows with every head (gathered from
+    the shards on export, scattered to them on import)."""
+
+    def __init__(self, model: GridModel, shards: List[List[LayerCache]]
+                 ) -> None:
+        self.model = model
+        self.shards = shards
+        self.ways = model.kv_shard_ways
+        cfg = model.config
+        first = shards[0][0]
+        if isinstance(first, DenseKVCache):
+            self.values_per_token = 2 * kv_heads(cfg) * cfg.head_dim
+        elif hasattr(first, 'values_per_token'):
+            self.values_per_token = first.values_per_token
+        model.grid.register_pool(self._leaves())
+
+    def _leaves(self) -> List[torch.Tensor]:
+        return [t for row in self.shards for shard in row
+                for layer in shard.layers for t in layer.values()]
+
+    def zero_(self) -> None:
+        for row in self.shards:
+            for shard in row:
+                shard.zero_()
+
+    def num_bytes(self) -> int:
+        """The pool's logical bytes: split leaves over all their shards,
+        whole leaves once."""
+        split = ('k_pages', 'v_pages', 'cached_key', 'cached_value')
+        return sum(t.numel() * t.element_size()
+                   for row in self.shards for rank, shard in enumerate(row)
+                   for layer in shard.layers for name, t in layer.items()
+                   if rank == 0 or (self.ways > 1 and name in split))
+
+    def bytes_per_device(self) -> int:
+        """The largest shard: what one grid device holds."""
+        return max(shard.num_bytes() for row in self.shards
+                   for shard in row)
+
+    def row(self, slot: int) -> 'GridCache':
+        """Row `slot` of every shard's dense rows (views)."""
+        view = object.__new__(GridCache)
+        view.__dict__.update(self.__dict__)
+        view.shards = [[shard.row(slot) for shard in row]
+                       for row in self.shards]
+        return view
+
+    def data_ptrs(self) -> List[int]:
+        """Storage of every pool shard (constant across rounds)."""
+        return [t.data_ptr() for t in self._leaves()]
+
+    # -- KV chain rows: every kv head, page-major --------------------------
+    def page_leaf_specs(self) -> List[tuple]:
+        out = []
+        lo = 0
+        for s, row in enumerate(self.shards):
+            for i, name, shape, dtype in row[0].page_leaf_specs():
+                if len(shape) == 3:
+                    shape = (shape[0] * self.ways,) + shape[1:]
+                out.append((lo + i, name, shape, dtype))
+            lo += len(row[0].layers)
+        return out
+
+    def gather_pages(self, idx: torch.Tensor) -> List[torch.Tensor]:
+        out = []
+        home = idx.device
+        for row in self.shards:
+            per_shard = [shard.gather_pages(idx.to(shard_device(shard)))
+                         for shard in row]
+            for k, rows in enumerate(per_shard[0]):
+                if rows.ndim == 4 and self.ways > 1:
+                    rows = torch.cat([p[k].to(home) for p in per_shard],
+                                     dim=1)
+                out.append(rows.to(home))
+        return out
+
+    def scatter_pages(self, idx: torch.Tensor,
+                      rows: List[torch.Tensor]) -> None:
+        k0 = 0
+        for row in self.shards:
+            n = sum(len(layer) for layer in row[0].layers)
+            mine = rows[k0:k0 + n]
+            k0 += n
+            for t, shard in enumerate(row):
+                dev = shard_device(shard)
+                part = [(r.chunk(self.ways, dim=1)[t]
+                         if r.ndim == 4 and self.ways > 1 else r).to(dev)
+                        for r in mine]
+                shard.scatter_pages(idx.to(dev), part)
+
+
+def shard_device(cache: LayerCache) -> torch.device:
+    return next(iter(cache.layers[0].values())).device
+
+
+def make_grid(config: mesh_lib.MeshConfig, *, cpu: bool = False,
+              devices: Optional[Sequence] = None) -> Grid:
+    """The serving grid of a (stage, tensor) `MeshConfig`, as the
+    reference's build_runtime makes `make_mesh(MeshConfig(stage=S,
+    tensor=T), devices=...)` (`grid_devices` picks the devices). Serving
+    splits no batch, sequence or experts: the other axes must be 1."""
+    others = {axis: n for axis, n in zip(config.axis_names, config.shape)
+              if axis not in ('stage', 'tensor') and n != 1}
+    if others:
+        raise ValueError(f'a serving grid has stage and tensor axes '
+                         f'only, got {others}')
+    return Grid(grid_devices(config.stage, config.tensor, cpu=cpu,
+                             devices=devices))
+
+
+def build(model: nn.Module, config: mesh_lib.MeshConfig, *,
+          cpu: bool = False, devices: Optional[Sequence] = None
+          ) -> GridModel:
+    """`model` split over the grid of `config` (`make_grid`)."""
+    return GridModel(model, make_grid(config, cpu=cpu, devices=devices))
+

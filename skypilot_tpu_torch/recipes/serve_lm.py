@@ -248,10 +248,19 @@ def build_parser() -> argparse.ArgumentParser:
                         'Composes with --tensor (scales shard '
                         'with their channel) and LoRA (deltas '
                         'ride the dequantized base)')
-    # The reference's flags for tensor x pipeline serving (ROADMAP A10):
-    # parsed so the command line stays the same, refused if used.
-    p.add_argument('--tensor', type=int, default=1)
-    p.add_argument('--stages', type=int, default=1)
+    # Tensor x pipeline serving (parallel/serving.py): the reference's
+    # flags, over the first --stages x --tensor distinct CUDA cards.
+    p.add_argument('--tensor', type=int, default=1,
+                   help='tensor-parallel serving over N devices: heads, '
+                        'MLP and vocab split over them, the KV pool\'s '
+                        'kv heads too (GQA remainder rule: whole on '
+                        'each when they do not divide)')
+    p.add_argument('--stages', type=int, default=1,
+                   help='pipeline-parallel serving over S stages of '
+                        'contiguous layers, each on its own row of '
+                        '--tensor devices (total S x --tensor); needs '
+                        '--continuous-batching and num_slots a multiple '
+                        'of S (the decode ring runs S slot groups)')
     return p
 
 
@@ -260,10 +269,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     cannot honor, on an --slo spec the reference refuses (its message),
     and on the reference's refusals of int8 KV pages, the spill tier and
     the prefill role in the one-shot mode (and of a remote cold tier),
-    and of int8 weights with --ckpt-dir."""
+    of int8 weights with --ckpt-dir, and of --stages where the reference
+    refuses it."""
     from skypilot_tpu_torch.inference.runtime import (INT8_NEEDS_CONTINUOUS,
                                                       INT8_WEIGHTS_NO_CKPT,
                                                       kv_chain_refusal,
+                                                      staged_refusal,
                                                       unsupported_flags)
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -282,7 +293,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         parser.error(INT8_NEEDS_CONTINUOUS)
     if args.weight_dtype == 'int8' and args.ckpt_dir:
         parser.error(INT8_WEIGHTS_NO_CKPT)
-    refusal = kv_chain_refusal(args)
+    refusal = kv_chain_refusal(args) or staged_refusal(args)
     if refusal:
         parser.error(refusal)
     return args

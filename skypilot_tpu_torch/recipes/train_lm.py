@@ -62,7 +62,8 @@ from typing import List, Optional
 # does not honor yet: (flag, attribute, default, ROADMAP item). A value
 # other than the default exits at startup naming the flag.
 _REFUSED = (
-    ('--tensor', 'tensor', 1, 'A10/A13'),
+    # Tensor-parallel training (serving's --tensor is A10, done).
+    ('--tensor', 'tensor', 1, 'A13'),
     # Expert parallelism: more than one card.
     ('--expert', 'expert', 1, 'A16'),
     ('--seq-parallel', 'seq_parallel', 1, 'A13'),

@@ -274,7 +274,9 @@ def test_registry_lru_rank_ceiling_hot_load(adapter_dir):
     finally:
         shutil.rmtree(os.path.join(root, 'ad2'))
         shutil.rmtree(os.path.join(root, 'too-big'))
-    with pytest.raises(TypeError):     # no tensor-parallel store yet
+    # mesh= is the grid of the model served (parallel/serving.py); any
+    # other refuses.
+    with pytest.raises(ValueError, match='mesh='):
         AdapterRegistry(root, port, mesh=object())
     assert classify_error(AdapterLoadError('x'))[0] == 503
     assert classify_error(AdapterNotFoundError('x'))[0] == 404

@@ -293,8 +293,12 @@ def _drive(engine):
             for p, n in zip(_prompts(), MAX_NEW)]
     with torch.no_grad():
         for _ in range(500):
+            # The reference engine's round in flight is `_inflight`, the
+            # port's is `_group_inflight[0]`.
+            inflight = getattr(engine, '_inflight', None) or \
+                getattr(engine, '_group_inflight', [None])[0]
             if all(f.done() for f in futs) and not engine.active.any() \
-                    and getattr(engine, '_inflight', None) is None:
+                    and inflight is None:
                 break
             engine._iterate()  # pylint: disable=protected-access
     return [f.result(timeout=1) for f in futs]
@@ -366,7 +370,7 @@ def test_round_function_eager_matches_plain_step():
         while not engine.active.all():
             engine._iterate()  # pylint: disable=protected-access
         want0 = _plain_step(engine)
-        rnd = engine._round  # pylint: disable=protected-access
+        rnd = engine._rounds[0]  # pylint: disable=protected-access
         pending = rnd.dispatch(
             tok=engine.cur_token, pos=engine.pos,
             cont=np.zeros(2, bool), ids=np.zeros(2, np.int32),

@@ -323,7 +323,7 @@ def test_error_inside_a_round_resets_at_once(tiny, tmp_path, monkeypatch):
     _, _, port, clean = tiny
     monkeypatch.setenv('STPU_FLIGHT_DIR', str(tmp_path))
     eng = pt_batching.ContinuousBatchingEngine(port, **ENGINE_KW)
-    real = eng._round.dispatch  # pylint: disable=protected-access
+    real = eng._rounds[0].dispatch  # pylint: disable=protected-access
     calls = {'n': 0}
 
     def flaky(**kw):
@@ -332,7 +332,7 @@ def test_error_inside_a_round_resets_at_once(tiny, tmp_path, monkeypatch):
             raise RuntimeError('device fault mid-round')
         return real(**kw)
 
-    eng._round.dispatch = flaky  # pylint: disable=protected-access
+    eng._rounds[0].dispatch = flaky  # pylint: disable=protected-access
     try:
         futs = [eng.submit(list(p), max_new_tokens=n)
                 for p, n in zip(PROMPTS, MAX_NEW)]

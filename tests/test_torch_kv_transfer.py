@@ -549,11 +549,11 @@ def test_scatter_writes_into_the_pools_own_storage(tiny_models):
         ref = src.submit(PROMPT, max_new_tokens=12).result(timeout=300)
         data = src.export_chain(PROMPT)
         before = _pool_ptrs(dst)
-        round_leaves = [id(t) for layer in dst._round.cache.layers
+        round_leaves = [id(t) for layer in dst._rounds[0].cache.layers
                         for t in layer.values()]
         dst.import_chain(data)
         assert _pool_ptrs(dst) == before
-        assert [id(t) for layer in dst._round.cache.layers
+        assert [id(t) for layer in dst._rounds[0].cache.layers
                 for t in layer.values()] == round_leaves
         assert dst.submit(PROMPT, max_new_tokens=12).result(
             timeout=300) == ref

@@ -160,7 +160,7 @@ def test_evacuation_during_an_inflight_pipelined_round(port_model,
     real = eng._evacuate_slot
 
     def spy(slot, reason):
-        inflight_at_evacuation.append(eng._inflight is not None)
+        inflight_at_evacuation.append(eng._group_inflight[0] is not None)
         return real(slot, reason)
 
     eng._evacuate_slot = spy

@@ -70,7 +70,6 @@
 // f32 inputs (parity runs) take scalar CUDA-core kernels, one thread per
 // row, with the same formulas: a forward, a dK/dV and a dQ kernel.
 
-#include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -117,26 +116,7 @@ __device__ __forceinline__ void warpgroup_sync(int w) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(2 + w), "n"(kWg) : "memory");
 }
 
-// -- TMA ------------------------------------------------------------------------
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
+// -- TMA reduce-add --------------------------------------------------------------
 // dst[box at the coordinates] += the box at `src` (f32, dropped past the
 // tensor's edges), tracked by the issuing thread's bulk groups.
 __device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, const void* src, int c0,
@@ -736,31 +716,6 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (row >= S) return;
   float* out = dq + (((size_t)b * S + row) * Hq + h) * D;
   for (int d = 0; d < D; ++d) out[d] = dq_s[r * ld + d];
-}
-
-// cuTensorMapEncodeTiled is a driver-API function; the runtime hands out its
-// address, so the library links no libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 // [B, S, H, D] (bf16, or f32 with `f32`) as a 4-D map {D, H, S, B}: a

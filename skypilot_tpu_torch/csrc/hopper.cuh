@@ -1,9 +1,9 @@
 // Device helpers shared by the port's Hopper (sm_90a) kernels: bf16
 // packing and unpacking, shared-memory addresses, mbarriers, 16-byte
-// cp.async, ldmatrix and mma.sync, thread-block cluster barriers and
-// distributed shared memory, the async-proxy fence and wgmma on
-// 128-byte-swizzled operands; and two host helpers (the dynamic
-// shared-memory opt-in, the SM count).
+// cp.async, TMA tile loads, ldmatrix and mma.sync, thread-block cluster
+// barriers and distributed shared memory, the async-proxy fence and wgmma
+// on 128-byte-swizzled operands; and the host helpers (the tensor-map
+// encoder, the dynamic shared-memory opt-in and carveout, the SM count).
 //
 // Operand layout that the wgmma descriptors below assume: a tile of
 // `Rows` rows x D columns (bf16) sits in shared memory as D/64 boxes of
@@ -13,6 +13,7 @@
 // the same addresses (`swizzled`).
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -138,6 +139,28 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
                : "memory");
+}
+
+// -- TMA ------------------------------------------------------------------------
+// One box of the tensor map at the coordinates (innermost first) into
+// shared memory at `dst`; its bytes complete on `bar` (see bar_expect).
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 // -- ldmatrix and mma.sync ----------------------------------------------------
@@ -376,6 +399,31 @@ __device__ __forceinline__ uint32_t swizzled(int rows, int row, int chunk) {
 }
 
 // -- host ---------------------------------------------------------------------------
+// cuTensorMapEncodeTiled is a driver-API function; the runtime hands out its
+// address, so no library links libcuda. nullptr if it cannot be found.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
 // Kernel attributes and device properties belong to one device: what the
 // helpers below have set or read is kept for each device apart, the calling
 // thread's current one (the Python wrappers make it the tensors' device for

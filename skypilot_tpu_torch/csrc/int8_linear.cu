@@ -16,22 +16,25 @@
 // with the sum in f32 (bf16 products are exact in f32, so the tensor cores
 // accumulating in f32 compute the reference's function up to the order of
 // the sum). XT is bf16 or f32; an all-zero channel (scale 0) gives exactly
-// the bias.
+// the bias. Every route splits K over the blocks of a thread-block cluster
+// where the output tiles alone cannot fill the card, and those blocks sum
+// their partials through distributed shared memory in a fixed order
+// (`cluster_sum_store`): no scratch in device memory and no atomics, so two
+// calls give bit-identical results, and nothing is allocated here, so a
+// call can be captured in a CUDA graph. ops/int8_linear.py `plan` picks the
+// route and the tiling from the shapes alone.
 //
-// What bounds it on an H100: bytes. At decode (M <= 64) the int8 weights
-// are nearly all of them (Llama-3-8B's wq: 16.8 MB of int8 against 64 KB of
-// x at M = 8: 5.0 us at 3.35 TB/s, against 0.07 us of bf16 tensor-core
-// work). So every weight byte is read once, by 16-byte cp.async copies
-// kept several stages deep, and the grid is cut so that every projection
-// at M = 8 runs at least ~132 blocks. A 2048-row prompt turns the same
-// kernel compute-bound (mma.sync, not wgmma: a later design's lever).
-//
-// Design. 128 threads (4 warps) a block; a block owns BN (64 or 32) output
+// Route 0, decode (bf16 x, M <= 64) and f32 x: the cp.async kernel.
+// What bounds it on an H100: bytes. At decode the int8 weights are nearly
+// all of them (Llama-3-8B's wq: 16.8 MB of int8 against 64 KB of x at M =
+// 8: 5.0 us at 3.35 TB/s, against 0.07 us of bf16 tensor-core work). So
+// every weight byte is read once, by 16-byte cp.async copies kept several
+// stages deep, and the grid is cut so that every projection at M = 8 runs
+// at least ~132 blocks.
+// 128 threads (4 warps) a block; a block owns BN (64 or 32) output
 // channels x BT (8, 16, 32 or 64) rows of x, and one of KS (1, 2, 4 or 8)
-// slices of K. The blocks of one (channel tile, row tile) form a thread-
-// block cluster of KS along x (ops/int8_linear.py `plan` picks BT, BN and
-// KS from the shapes and the SM count: more slices where the channel tiles
-// alone cannot fill the card, as wk / wv's 1024 channels cannot).
+// slices of K (more slices where the channel tiles alone cannot fill the
+// card, as wk / wv's 1024 channels cannot).
 //  1. Stages of 128 k: the int8 tile [BN, 128] and the x tile [BT, 128]
 //     arrive by 16-byte cp.async (zero-filled past N, M and K) into a ring
 //     of kStages slots, kStages - 1 in flight ahead of the one computed.
@@ -50,13 +53,49 @@
 //     registers on its way to the tensor cores.
 //     f32 (the parity configs): CUDA-core FMAs, BN channels x 128 / BN
 //     k-groups of threads, each thread all BT rows of one channel.
-//  3. The partial sums of a block go to shared memory; after a cluster
-//     barrier each block of the cluster sums its share of the tile's
-//     outputs over the KS blocks (and the warps' k halves) in a fixed
-//     order through distributed shared memory, adds the bias and stores.
-//     No scratch in device memory and no atomics: two calls give
-//     bit-identical results, and nothing is allocated here, so a call can
-//     be captured in a CUDA graph.
+//  3. The partial sums of a block go to shared memory and the cluster sums
+//     them.
+//
+// Route 1, prefill (bf16 x, M > 64): the wgmma kernel. What bounds it:
+// operations (DeepSeek-V2-Lite's w_down at M = 256: 11.5 GFLOP, 11.6 us at
+// 989 TFLOP/s, against 6.7 us for its 22.4 MB of int8). mma.sync cannot
+// reach the tensor cores' full rate, and route 0 converts every weight
+// tile once per 64 rows; wgmma can. Its A operand may come from
+// registers, so the products are computed transposed, D = W x^T: A = the
+// weights, converted straight into A fragments, B = x from shared memory
+// (as TMA writes it), D = the y tile as [channels, rows] in f32 registers.
+//  1. A block owns BN (64 or 128) channels x BM (64 or 128) rows of x and
+//     one K slice. One producer thread (a warp of its own) keeps a ring of
+//     stages full: per 64 k, a TMA load of the x tile (BM rows, 128-byte
+//     swizzle) and one of the int8 tile (BN rows x 64 bytes, 64-byte
+//     swizzle), both zero-filled past M, N and K, on one mbarrier.
+//  2. Each consumer warpgroup owns 64 channels. A lane's A fragment of a
+//     k16 step needs the bytes 2t, 2t + 1 and 2t + 8, 2t + 9 of its two
+//     channel rows: halves of the words at 4 (t / 2) and + 8, which the
+//     64-byte swizzle spreads over all 32 banks, so 16 4-byte loads a
+//     stage fetch a lane's 32 int8. Each is converted exactly as above
+//     (the scale is one f32 a channel, loaded once a block), then wgmma
+//     m64nBMk16 runs on the four k16 steps and the warpgroup waits for it
+//     before the registers are written again (ptxas serializes wgmma
+//     whose register inputs are written while one is in flight). The
+//     warpgroups of a block, and the three blocks an SM of the 64-channel
+//     tiles, overlap one another's conversions and products. A warpgroup
+//     hands a ring slot back once its products are done. Nothing goes
+//     through shared memory but TMA's tiles: no converted tile, no fence,
+//     no named barrier.
+//  3. One slice: the epilogue adds the bias and stores bf16 from the
+//     accumulators (a lane's two channels of each of its rows). K slices:
+//     the partials go over the ring, [row][channel], and the cluster sums
+//     them.
+// What the measurements on an H100 showed (PERF.md): converting into a
+// shared-memory tile for wgmma with both operands there was 3-28% slower
+// (its stage waited on the conversion, a proxy fence and two barriers, and
+// moved more shared-memory bytes), and clusters of 4 and 8 cost more than
+// smaller tiles do, so `plan` takes the fewest slices that fill the card.
+// The tensor maps are built on the host for each call and passed in the
+// __grid_constant__ parameters, so a call captured in a CUDA graph carries
+// them and allocates nothing.
+//
 // The TPU had no such kernel to translate: on it the dequantize is an
 // elementwise op that XLA fused into the matmul's operand fetch.
 
@@ -149,6 +188,64 @@ template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+// The epilogue of a tile whose K slices are the ks blocks of a cluster: each
+// block has left kParts partial tiles [kRows][BN + kRedPad] (f32) at shared
+// address `red`. After a cluster barrier each block takes its share of the
+// tile's outputs, in groups of 4 channels: the sum over the cluster's blocks
+// (rank order) of their parts (part order) through distributed shared
+// memory, plus the bias, stored as XT; rows past M are skipped. A fixed
+// order, no scratch and no atomics: two calls give bit-identical results.
+// Every thread of the block (kThreadsN) takes part.
+template <typename XT, int kRows, int BN, int kParts, int kThreadsN>
+__device__ __forceinline__ void cluster_sum_store(uint32_t red, int ks, uint32_t rank, int m0,
+                                                  int n0, int M, int N, const XT* bias, XT* y) {
+  constexpr int kRedRow = BN + kRedPad;
+  cluster_arrive();  // release: this block's partials are visible to the cluster
+  cluster_wait();
+  constexpr int kGroupsRow = BN / 4;
+  constexpr int kGroups = kRows * kGroupsRow;
+  const int gb = (int)((long long)kGroups * rank / ks);
+  const int ge = (int)((long long)kGroups * (rank + 1) / ks);
+  for (int gi = gb + (int)threadIdx.x; gi < ge; gi += kThreadsN) {
+    const int r = gi / kGroupsRow, c = (gi % kGroupsRow) * 4;
+    const int m = m0 + r, n = n0 + c;
+    if (m >= M) continue;
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int b = 0; b < ks; ++b) {
+#pragma unroll
+      for (int part = 0; part < kParts; ++part) {
+        const uint32_t a = red + ((part * kRows + r) * kRedRow + c) * 4;
+        const float4 v = ld_cluster_v4(cluster_map(a, b));
+        sum[0] += v.x; sum[1] += v.y; sum[2] += v.z; sum[3] += v.w;
+      }
+    }
+    XT out[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float bv = (bias != nullptr && n + e < N) ? to_f32(bias[n + e]) : 0.f;
+      out[e] = from_f32<XT>(sum[e] + bv);
+    }
+    XT* dst = y + (size_t)m * N + n;
+    if (n + 4 <= N && (N & 3) == 0) {
+      if constexpr (std::is_same<XT, bf16>::value) {
+        uint2 v;
+        v.x = (uint32_t)__bfloat16_as_ushort(out[0]) | ((uint32_t)__bfloat16_as_ushort(out[1]) << 16);
+        v.y = (uint32_t)__bfloat16_as_ushort(out[2]) | ((uint32_t)__bfloat16_as_ushort(out[3]) << 16);
+        *reinterpret_cast<uint2*>(dst) = v;
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(to_f32(out[0]), to_f32(out[1]),
+                                                      to_f32(out[2]), to_f32(out[3]));
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n + e < N) dst[e] = out[e];
+    }
+  }
+  cluster_arrive_relaxed();  // stay alive until the cluster has read our partials
+  cluster_wait();
+}
 
 // Stage `u` (k0 = u * kTileK) of the weight tile (channels n0 ..) and the x
 // tile (rows m0 ..) into ring slot `slot`. Weight layout: two 64-k halves,
@@ -314,56 +411,9 @@ __global__ void __launch_bounds__(kThreads) int8_linear_kernel(const Params p) {
 #pragma unroll
     for (int r = 0; r < BT; ++r) part[r * S::kRedRow + fc] = acc[r];
   }
-  cluster_arrive();  // release: this block's partials are visible to the cluster
-  cluster_wait();
-
-  // This block's share of the tile's outputs, in groups of 4 channels: the
-  // sum over the cluster's blocks (rank order) of their parts (part order).
-  constexpr int kGroupsRow = BN / 4;
-  constexpr int kGroups = BT * kGroupsRow;
-  const int gb = (int)((long long)kGroups * rank / p.ks);
-  const int ge = (int)((long long)kGroups * (rank + 1) / p.ks);
-  const uint32_t red_addr = smem_addr(red);
-  const XT* bias = static_cast<const XT*>(p.bias);
-  XT* y = static_cast<XT*>(p.y);
-  for (int gi = gb + tid; gi < ge; gi += kThreads) {
-    const int r = gi / kGroupsRow, c = (gi % kGroupsRow) * 4;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= p.M) continue;
-    float sum[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int b = 0; b < p.ks; ++b) {
-#pragma unroll
-      for (int part = 0; part < S::kParts; ++part) {
-        const uint32_t a = red_addr + ((part * BT + r) * S::kRedRow + c) * 4;
-        const float4 v = ld_cluster_v4(cluster_map(a, b));
-        sum[0] += v.x; sum[1] += v.y; sum[2] += v.z; sum[3] += v.w;
-      }
-    }
-    XT out[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float bv = (bias != nullptr && n + e < p.N) ? to_f32(bias[n + e]) : 0.f;
-      out[e] = from_f32<XT>(sum[e] + bv);
-    }
-    XT* dst = y + (size_t)m * p.N + n;
-    if (n + 4 <= p.N && (p.N & 3) == 0) {
-      if constexpr (S::kBf16) {
-        uint2 v;
-        v.x = (uint32_t)__bfloat16_as_ushort(out[0]) | ((uint32_t)__bfloat16_as_ushort(out[1]) << 16);
-        v.y = (uint32_t)__bfloat16_as_ushort(out[2]) | ((uint32_t)__bfloat16_as_ushort(out[3]) << 16);
-        *reinterpret_cast<uint2*>(dst) = v;
-      } else {
-        *reinterpret_cast<float4*>(dst) = make_float4(to_f32(out[0]), to_f32(out[1]),
-                                                      to_f32(out[2]), to_f32(out[3]));
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (n + e < p.N) dst[e] = out[e];
-    }
-  }
-  cluster_arrive_relaxed();  // stay alive until the cluster has read our partials
-  cluster_wait();
+  cluster_sum_store<XT, BT, BN, S::kParts, kThreads>(smem_addr(red), p.ks, rank, m0, n0, p.M,
+                                                     p.N, static_cast<const XT*>(p.bias),
+                                                     static_cast<XT*>(p.y));
 }
 
 template <typename XT, int BT, int BN>
@@ -412,22 +462,280 @@ cudaError_t dispatch(int bt, int bn, const Params& p, cudaStream_t stream) {
   }
 }
 
+// -- the wgmma route (bf16 x, prefill-sized M) ---------------------------------
+namespace wg {
+constexpr int kTileK = 64;   // k a stage holds: one 128-byte bf16 row of x
+constexpr int kMaxStages = 8;
+}  // namespace wg
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+
+struct WgParams {
+  CUtensorMap x;       // x [M, K] bf16: boxes of BM rows x 64 columns, 128-byte swizzle
+  CUtensorMap q;       // q [N, K] int8: boxes of BN rows x 64 bytes, 64-byte swizzle
+  const float* scale;  // [N]
+  const bf16* bias;    // [N], or null
+  bf16* y;             // [M, N]
+  int M, N, K;
+  int ks;              // blocks of a cluster: slices of K
+  int units;           // ceil(K / wg::kTileK)
+  float mult;          // 1 + perturb
+};
+
+// A block: BM rows of x, CW consumer warpgroups of 64 output channels each
+// (BN = 64 CW), and a producer warp; OCC blocks an SM (the shared memory a
+// block may take: the SM's 228 KB less 1 KB a block, shared).
+template <int BM, int CW, int OCC>
+struct WgShape {
+  static constexpr int kBudget = OCC == 1 ? kMaxSmem : (228 / OCC - 1) * 1024;
+  static constexpr int kBN = 64 * CW;
+  static constexpr int kConsumerThreads = 128 * CW;
+  static constexpr int kThreads = kConsumerThreads + 32;
+  static constexpr int kXBytes = BM * kRowBytes;          // x tile [BM][64], swizzled
+  static constexpr int kQBytes = kBN * wg::kTileK;        // int8 tile [BN][64], swizzled
+  static constexpr int kStageBytes = kXBytes + kQBytes;
+  static constexpr int kRedRow = kBN + kRedPad;
+  static constexpr int kRedBytes = BM * kRedRow * 4;      // partials, over the ring
+  static constexpr int kFixed = 2 * wg::kMaxStages * 8 + 1024;  // barriers, alignment
+  static constexpr int kStages = cmin(wg::kMaxStages, (kBudget - kFixed) / kStageBytes);
+  static constexpr int kSmem = kStages * kStageBytes + kFixed;
+  static_assert(kStages >= 3, "ring too shallow");
+  static_assert(kStages * kStageBytes >= kRedBytes, "the partials must fit over the ring");
+  static_assert(kStageBytes % 1024 == 0, "tiles start on the swizzles' period");
+};
+
+// Two int8 of the word w (bytes 2h, 2h + 1: selectors sel, sel + 1 of
+// 0x7650 | 2h), each times s and rounded to bf16 as the reference does, as
+// a bf16 pair. float(b) comes from the bits, not from I2F: with 0x80 xored
+// in, byte u = b + 128 is the low byte of the f32 2^23 + u, and
+// subtracting 2^23 + 128 leaves b exactly; the product is then the
+// reference's one f32 multiply.
+__device__ __forceinline__ uint32_t dequant2(uint32_t w, uint32_t sel, float s) {
+  w ^= 0x80808080u;
+  const float lo = (__uint_as_float(__byte_perm(w, 0x4B000000u, sel)) - 8388736.f) * s;
+  const float hi = (__uint_as_float(__byte_perm(w, 0x4B000000u, sel + 1)) - 8388736.f) * s;
+  return pack_f32(lo, hi);
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+template <int BM, int CW, int OCC>
+__global__ void __launch_bounds__(WgShape<BM, CW, OCC>::kThreads, OCC)
+    int8_linear_wgmma(const __grid_constant__ WgParams p) {
+  using S = WgShape<BM, CW, OCC>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_base(smem_raw);  // stage s: x tile, then int8 tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S::kStages * S::kStageBytes);
+  uint64_t* free_ = full + S::kStages;
+
+  const uint32_t rank = cluster_rank();
+  const int n0 = (blockIdx.x / p.ks) * S::kBN;
+  const int m0 = blockIdx.y * BM;
+  // This block's K slice: units [u0, u1) of wg::kTileK.
+  const int u0 = (int)((long long)p.units * rank / p.ks);
+  const int u1 = (int)((long long)p.units * (rank + 1) / p.ks);
+  const int nu = u1 - u0;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      bar_init(full + s, 1);
+      bar_init(free_ + s, S::kConsumerThreads / 32);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  // D = W x^T in the wgmma C layout: warpgroup cw, warp w, lane (g, t)
+  // holds channels c0 = 64 cw + 16 w + g and c1 = c0 + 8 (the A rows) of
+  // rows 8 j + 2 t (+ 1) of the x tile: acc[4 j + e] (c0), acc[4 j + 2 + e] (c1).
+  float acc[BM / 2];
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int c0 = (tid / 32) * 16 + g, c1 = c0 + 8;
+
+  if (tid >= S::kConsumerThreads) {
+    // Producer: one thread keeps the ring full.
+    if (tid == S::kConsumerThreads) {
+      for (int i = 0; i < nu; ++i) {
+        const int s = i % S::kStages;
+        bar_wait(free_ + s, ((i / S::kStages) & 1) ^ 1);
+        bar_expect(full + s, S::kStageBytes);
+        uint8_t* st = ring + s * S::kStageBytes;
+        const int k0 = (u0 + i) * wg::kTileK;
+        tma_load(st, &p.x, full + s, k0, m0);
+        tma_load(st + S::kXBytes, &p.q, full + s, k0, n0);
+      }
+    }
+    __syncwarp();
+  } else {
+    // The A fragment of k16 step s: channel c0 / c1, k 16 s + 2 t (+ 1) and
+    // 16 s + 2 t + 8 (+ 1): halves t % 2 of the words at bytes 16 s + 4 (t / 2)
+    // and + 8 of the channel's 64-byte row, whose 16-byte chunks the 64-byte
+    // swizzle moves to chunk ^ (row / 2 % 4) (the same for c0 and c1 = c0 + 8;
+    // a warp's 32 loads of a word then fall on 32 banks).
+    const int swz = (c0 / 2) % 4;
+    const uint32_t sel = 0x7650u | (2 * (t % 2));
+    const uint32_t off0 = c0 * wg::kTileK + 4 * (t / 2), off1 = off0 + 8 * wg::kTileK;
+    const float s0 = n0 + c0 < p.N ? __ldg(p.scale + n0 + c0) * p.mult : 0.f;
+    const float s1 = n0 + c1 < p.N ? __ldg(p.scale + n0 + c1) * p.mult : 0.f;
+    const uint32_t ring_a = smem_addr(ring);
+    for (int i = 0; i < nu; ++i) {
+      const int s = i % S::kStages;
+      const uint32_t xs = ring_a + s * S::kStageBytes, qs = xs + S::kXBytes;
+      bar_wait(full + s, (i / S::kStages) & 1);
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t chunk = qs + ((kk ^ swz) * 16);
+        a[kk][0] = dequant2(lds32(chunk + off0), sel, s0);
+        a[kk][1] = dequant2(lds32(chunk + off1), sel, s1);
+        a[kk][2] = dequant2(lds32(chunk + off0 + 8), sel, s0);
+        a[kk][3] = dequant2(lds32(chunk + off1 + 8), sel, s1);
+      }
+      reg_fence(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<BM, 0>(acc, a[kk][0], a[kk][1], a[kk][2], a[kk][3], desc_k<BM>(xs, 0, kk), 1);
+      wg_commit();
+      wg_wait();  // the A registers and the slot's x tile are free again
+      reg_fence(acc);
+      if (lane == 0) bar_arrive(free_ + s);
+    }
+  }
+
+  if (p.ks == 1) {
+    // One slice: y straight from the accumulators.
+    if (tid >= S::kConsumerThreads) return;
+    const int n = n0 + c0, n1 = n0 + c1;
+    const float b0 = p.bias != nullptr && n < p.N ? __bfloat162float(p.bias[n]) : 0.f;
+    const float b1 = p.bias != nullptr && n1 < p.N ? __bfloat162float(p.bias[n1]) : 0.f;
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + 8 * j + 2 * t + e;
+        if (m >= p.M) continue;
+        bf16* row = p.y + (size_t)m * p.N;
+        if (n < p.N) row[n] = __float2bfloat16_rn(acc[4 * j + e] + b0);
+        if (n1 < p.N) row[n1] = __float2bfloat16_rn(acc[4 * j + 2 + e] + b1);
+      }
+    return;
+  }
+  // K slices: the partials [row][channel] go over the ring (every load has
+  // landed and every wgmma has read it), then the cluster sums them.
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);
+  if (tid < S::kConsumerThreads) {
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 8 * j + 2 * t + e;
+        red[r * S::kRedRow + c0] = acc[4 * j + e];
+        red[r * S::kRedRow + c1] = acc[4 * j + 2 + e];
+      }
+  }
+  cluster_sum_store<bf16, BM, S::kBN, 1, S::kThreads>(smem_addr(red), p.ks, rank, m0, n0, p.M,
+                                                      p.N, p.bias, p.y);
+}
+
+// A 2-D [rows, cols] tensor map: boxes of box_rows rows x wg::kTileK
+// columns, zeros past the edges, swizzled as the kernel reads it.
+bool tile_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int elt, int rows,
+              int cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elt};
+  const cuuint32_t box[2] = {(cuuint32_t)wg::kTileK, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM, int CW, int OCC>
+cudaError_t launch_wgmma(WgParams& p, const void* x, const void* q, cudaStream_t stream) {
+  using S = WgShape<BM, CW, OCC>;
+  if (!tile_map(&p.x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.M, p.K, BM,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tile_map(&p.q, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, p.N, p.K, S::kBN,
+                CU_TENSOR_MAP_SWIZZLE_64B))
+    return cudaErrorNotSupported;
+  auto kernel = int8_linear_wgmma<BM, CW, OCC>;
+  static PerDevice<size_t> configured(0);
+  static PerDevice<bool> carved(false);
+  cudaError_t err = allow_smem(kernel, S::kSmem, configured);
+  if (err == cudaSuccess) err = max_shared_carveout(kernel, carved);
+  if (err != cudaSuccess) return err;
+  const int tiles_n = (p.N + S::kBN - 1) / S::kBN, tiles_m = (p.M + BM - 1) / BM;
+  if (tiles_m > 65535 || (long long)tiles_n * p.ks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles_n * p.ks, tiles_m, 1);
+  cfg.blockDim = dim3(S::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = S::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.ks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// (bt, bn) of ops/int8_linear.py `plan`'s wgmma tilings: 128 channels take
+// an SM alone, 64 share it three ways.
+cudaError_t dispatch_wgmma(int bt, int bn, WgParams& p, const void* x, const void* q,
+                           cudaStream_t stream) {
+  if (bt == 128 && bn == 128) return launch_wgmma<128, 2, 1>(p, x, q, stream);
+  if (bt == 128 && bn == 64) return launch_wgmma<128, 1, 3>(p, x, q, stream);
+  if (bt == 64 && bn == 64) return launch_wgmma<64, 1, 3>(p, x, q, stream);
+  return cudaErrorInvalidValue;
+}
+
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 }  // namespace
 
 // x [M, K] and y [M, N] in x_dtype (0 = float32, 1 = bfloat16), q int8
 // [N, K], scale f32 [N], bias [N] in x_dtype or null; all contiguous, on
-// one device, x and q 16-byte aligned, K a multiple of 16. (bt, bn, ks) is
-// the tiling of ops/int8_linear.py `plan`: rows and channels a block, and
-// the cluster's K slices. One launch on `stream`; returns its cudaError_t.
+// one device, x and q 16-byte aligned, K a multiple of 16. route and (bt,
+// bn, ks) are ops/int8_linear.py `plan`'s: route 0 the cp.async kernel
+// (bf16 mma.sync or f32 FMAs; bt in {8, 16, 32, 64}, bn in {32, 64}), route
+// 1 the wgmma kernel (bf16 only; bt 128 or 256, bn in {32, 64, 128}); ks the
+// cluster's K slices. One launch on `stream`; returns its cudaError_t.
 extern "C" int skypilot_int8_linear(const void* x, const void* q, const void* scale,
-                                    const void* bias, void* y, int M, int N, int K, int bt,
-                                    int bn, int ks, int x_dtype, float perturb, void* stream) {
+                                    const void* bias, void* y, int M, int N, int K, int route,
+                                    int bt, int bn, int ks, int x_dtype, float perturb,
+                                    void* stream) {
   if (M <= 0) return cudaSuccess;
   if (N <= 0 || K <= 0 || K % 16 != 0 || !(ks == 1 || ks == 2 || ks == 4 || ks == 8) ||
       !aligned16(x) || !aligned16(q))
     return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (x_dtype != 1) return cudaErrorInvalidValue;
+    WgParams p;
+    p.scale = static_cast<const float*>(scale);
+    p.bias = static_cast<const bf16*>(bias);
+    p.y = static_cast<bf16*>(y);
+    p.M = M; p.N = N; p.K = K;
+    p.ks = ks;
+    p.units = (K + wg::kTileK - 1) / wg::kTileK;
+    p.mult = 1.f + perturb;
+    return dispatch_wgmma(bt, bn, p, x, q, st);
+  }
+  if (route != 0) return cudaErrorInvalidValue;
   Params p;
   p.x = x;
   p.q = static_cast<const int8_t*>(q);
@@ -438,7 +746,6 @@ extern "C" int skypilot_int8_linear(const void* x, const void* q, const void* sc
   p.ks = ks;
   p.units = (K + kTileK - 1) / kTileK;
   p.mult = 1.f + perturb;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
     case 0: return dispatch<float>(bt, bn, p, st);
     case 1: return dispatch<bf16>(bt, bn, p, st);

@@ -102,6 +102,8 @@ def _kernel_counts() -> Dict[Tuple, int]:
                    for m, n in int8_linear.launches_by_rows.items()})
     counts.update({('int8_shape', nk): n
                    for nk, n in int8_linear.launches_by_shape.items()})
+    counts.update({('int8_route', r): n
+                   for r, n in int8_linear.launches_by_route.items()})
     return counts
 
 
@@ -126,6 +128,8 @@ def _add_kernel_counts(delta: Dict[Tuple, int], sign: int = 1) -> None:
             int8_linear.launches_by_rows[name] += d
         elif kind == 'int8_shape':
             int8_linear.launches_by_shape[name] += d
+        elif kind == 'int8_route':
+            int8_linear.launches_by_route[name] += d
         else:
             paged_kernel.shape_launches[name] += d
 

@@ -476,22 +476,69 @@ def test_perturbed_plain_control_fails_the_pin():
     assert err > 1e-3
 
 
-@pytest.mark.parametrize('m', [1, 8, 40, 256, 2048])
+# Every projection shape the int8 path launches: Llama-3-8B's, Qwen2-7B's,
+# DeepSeek-V2-Lite's and one --tensor 2 shard of Llama-3-8B's.
+PLAN_SHAPES = ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
+               (3584, 3584), (512, 3584), (18944, 3584), (3584, 18944),
+               (3072, 2048), (2048, 2048), (10944, 2048), (2048, 10944),
+               (2048, 4096), (512, 4096), (7168, 4096), (4096, 2048),
+               (4096, 7168))
+
+
+@pytest.mark.parametrize('m', [1, 8, 32, 40, 64, 128, 256, 2048])
 def test_plan_cuts_the_grid(m):
-    """Row tiles hold M; slices are whole stages and a cluster size the
-    card allows; at decode every Llama-3-8B projection runs at least
-    ~132 blocks on 132 SMs."""
-    for n, k in ((4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
-                 (3584, 3584), (512, 3584), (18944, 3584), (3584, 18944)):
-        bt, bn, ks = il.plan(m, n, k, 132)
-        assert bt in il.ROW_TILES and (bt >= m or bt == 64)
-        assert bn in (32, 64) and ks in (1, 2, 4, 8)
-        assert -(-k // il.TILE_K) >= ks
-        blocks = -(-n // bn) * -(-m // bt) * ks
-        if m <= 8 and n in (4096, 1024, 14336):
-            assert blocks >= 128 * 1.5 or blocks >= 132, (n, k, blocks)
+    """The route is a function of dtype and M alone: 'mma' up to
+    WGMMA_MIN_ROWS bf16 rows, 'wgmma' past it, 'f32' for f32. Row tiles
+    hold M; slices are whole stages of the route, at least two a slice
+    when K is split, and a cluster size the card allows; at decode every
+    Llama-3-8B projection runs at least ~132 blocks on 132 SMs, and at
+    M = 256 every shape of the int8 path at least 132."""
+    assert il.WGMMA_MIN_ROWS == 64
+    for dtype in (torch.bfloat16, torch.float32):
+        for n, k in PLAN_SHAPES:
+            route, bt, bn, ks = il.plan(m, n, k, 132, dtype)
+            assert route == ('f32' if dtype == torch.float32 else
+                             'mma' if m <= 64 else 'wgmma'), (m, route)
+            assert ks in (1, 2, 4, 8)
+            units = -(-k // il.TILE_K[route])
+            assert units >= ks and (ks == 1 or units >= 2 * ks)
+            if route == 'wgmma':
+                assert (bt, bn) in il.WGMMA_TILES and il.TILE_K[route] == 64
+                assert bn < 128 or ks == 1
+            else:
+                assert bt in il.ROW_TILES and (bt >= m or bt == 64)
+                assert bn in (32, 64) and il.TILE_K[route] == 128
+            blocks = -(-n // bn) * -(-m // bt) * ks
+            if m <= 8 and n in (4096, 1024, 14336) and k in (4096, 14336):
+                assert blocks >= 128 * 1.5 or blocks >= 132, (n, k, blocks)
+            if m == 256 and route == 'wgmma':
+                assert blocks >= 132, (n, k, bt, bn, ks)
     assert il.bytes_bound(8, 4096, 4096, 2) == \
         4096 * 4096 + 4 * 4096 + 2 * 8 * 4096 * 2
+
+
+def test_plan_pins_the_prefill_tiles():
+    """The wgmma tiling at the shapes PERF.md times at M = 256."""
+    assert il.plan(256, 2048, 10944, 132) == ('wgmma', 128, 64, 4)
+    assert il.plan(256, 4096, 4096, 132) == ('wgmma', 128, 64, 2)
+    assert il.plan(256, 14336, 4096, 132) == ('wgmma', 128, 128, 1)
+    assert il.plan(256, 1024, 4096, 132) == ('wgmma', 128, 64, 8)
+    assert il.plan(256, 512, 3584, 132) == ('wgmma', 64, 64, 8)
+    assert il.plan(2048, 14336, 4096, 132) == ('wgmma', 128, 128, 1)
+    assert il.plan(8, 4096, 4096, 132) == ('mma', 8, 64, 4)
+
+
+def test_plan_for_a_route():
+    """`plan(..., route=)` gives one route's tiling at any M of its dtype
+    and refuses a route that does not take the dtype, or no route."""
+    assert il.plan(8, 4096, 4096, 132, route='wgmma') == \
+        ('wgmma', 128, 64, 4)
+    assert il.plan(2048, 4096, 4096, 132, route='mma') == \
+        ('mma', 64, 64, 1)
+    for route, dtype in (('f32', torch.bfloat16), ('wgmma', torch.float32),
+                         ('mma', torch.float32), ('tma', torch.bfloat16)):
+        with pytest.raises(ValueError):
+            il.plan(8, 64, 64, 132, dtype, route=route)
 
 
 # -- bytes, /stats, refusals, the flag --------------------------------------

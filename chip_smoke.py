@@ -13,7 +13,9 @@ the one-shot engine; KV page chains: export / import, the host and cold
 spill tiers, disaggregated prefill / decode roles and live migration;
 training through the trainer API, the sharded trainer (FSDP over a
 1-rank NCCL job, `--zero1` / `--overlap`), `train_lm --lora` and
-`train_lm` on GPT-2, Mixtral and DeepSeek, and train_lm's recovery
+`train_lm` on GPT-2, Mixtral and DeepSeek, where two cards are visible
+`train_lm --expert 2` and `--seq-parallel 2` as 2-rank NCCL jobs (the
+other phases use card 0 alone), and train_lm's recovery
 contract: --guard, --init-from-hf, the native token reader,
 --ckpt-interval, --profile) through the
 entry points a user calls, at the full width of Llama-3-8B with seeded
@@ -409,6 +411,25 @@ failure exits non-zero before the result lines:
                  batch cut from 8): losses, grad norms and MFU finite, no
                  flash launch (MLA's unequal dims take the plain route);
                  step time and peak memory
+  train_expert   `train_lm --model mixtral-8x7b --seq 2048 --global-batch
+                 1 --remat --steps 3 --expert 2`, train_mixtral's shape,
+                 as a 2-rank NCCL job (train_lm's own worker on cards 0
+                 and 1, each cutting the depth to 2 layers): each rank
+                 launches flash forward 2 x 2 x 3 (remat) and backward
+                 2 x 3, no plain flash call, no ring step; losses, grad
+                 norms and MFU finite; step 1's loss within 1e-4 and grad
+                 norm within 1e-3 (relative) of train_mixtral's (the same
+                 seeded weights and batch on one card). Runs where 2 or
+                 more cards are visible; on one card it prints that it did
+                 not run and the card count
+  train_context  `train_lm --model llama3-8b --seq 8192 --global-batch 1
+                 --remat --steps 3 --seq-parallel 2` at full width cut to
+                 4 layers, a 2-rank NCCL job as train_expert's: ring
+                 attention (ops/ring_attention.py) in place of flash, so
+                 no flash launch; each rank's ring steps 2 x 4 x 3 x 2
+                 forward (remat) and 4 x 3 x 2 backward; step 1's loss and
+                 grad norm within 1e-3 of the same command on one card
+                 (flash); where train_expert runs
   train_guard    train_lm's recovery contract, each train_lm run a child
                  process after this one has freed its models (its own
                  card memory is reported first, `train_guard_parent`)
@@ -458,10 +479,10 @@ launches in the base-serving window (serve_bf16 + serve_int8, counted
 from zero, graph replays included; no scalar-route launch may occur
 there), its verify row those of decode_modes' (e) run, the GPT-2 rows
 (decode: split, chunk) those of serve_gpt2's window;
-the flash kernels' launch counts are those of the four training phases
-(train_full, train_lora, train_mixtral, and train_guard's trainer-API
-steps, its --init-from-hf run and its chaos run and relaunch), each
-counted from zero; int8_linear's those of serve_int8_weights. Then, as the last
+the flash kernels' launch counts are those of the training phases
+(train_full, train_fsdp, train_lora, train_mixtral, train_expert's ranks
+where it runs, and train_guard's trainer-API steps, its --init-from-hf
+run and its chaos run and relaunch), each counted from zero; int8_linear's those of serve_int8_weights. Then, as the last
 three lines: the card (`nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`), the kernels JSON line, and {"ok": true,
 "device": {...}}. Exits non-zero, printing no
@@ -1958,11 +1979,13 @@ def phase_train_fsdp(fk, card, full):
 
 
 def run_train_lm(argv):
-    """`train_lm.main(argv)` in this process; its stdout, echoed."""
+    """`train_lm.main(argv)` in this process, one rank on card 0 however
+    many cards are visible (train_lm would start one worker a card);
+    its stdout, echoed."""
     from skypilot_tpu_torch.recipes import train_lm
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        train_lm.main(argv)
+        train_lm.main(argv, workers=1)
     print(buf.getvalue(), end='', flush=True)
     return buf.getvalue()
 
@@ -2072,6 +2095,10 @@ class Child:
         env = dict(os.environ)
         env[METADATA_URL_ENV] = LOCAL_METADATA
         env.pop('STPU_FAULT_PLAN', None)
+        # One card, however many are visible: train_lm would start one
+        # worker a card.
+        env['CUDA_VISIBLE_DEVICES'] = os.environ.get(
+            'CUDA_VISIBLE_DEVICES', '0').split(',')[0]
         if plan is not None:
             env['STPU_FAULT_PLAN'] = json.dumps(plan)
         self.counts_path = os.path.join(root, f'{name}.counts.json')
@@ -5095,7 +5122,7 @@ def phase_train_mixtral(fk, card):
          tokens_per_s=[r['tokens_per_sec'] for r in records],
          mfu=[r['mfu'] for r in records], peak_mem_gb=peak,
          launches=counts, seconds=seconds)
-    return counts
+    return counts, records[0]
 
 
 def family_parity(pk):
@@ -5707,6 +5734,166 @@ def phase_train_deepseek(fk, card):
          launches=counts, seconds=seconds)
 
 
+# -- multi-card training (2-rank NCCL jobs) ----------------------------------
+PARALLEL_CARDS = 2
+CONTEXT_TRAIN_LAYERS = 4
+PARALLEL_STEPS = 3
+# Step 1 of the 2-rank jobs against the one-card run, relative. Each
+# limit lies between the sound job's offset and that of the same job
+# with its path broken on purpose, both measured at these shapes by
+# tests/test_torch_parallel_cards.py on NVIDIA H100 80GB HBM3, 700.00 W.
+# --expert 2 against train_mixtral: loss 2.56e-5 and norm 2.28e-4 off,
+# all of it the order in which the experts' combines are summed before
+# the bf16 cast (a one-card run that sums them in the job's order is
+# within 2e-7); the combine not summed over the expert group reads
+# 1.9e-3 / 0.55, the experts' input gradient not summed 0 / 0.52.
+# --seq-parallel 2 against the one-card command: loss 3.51e-5 and norm
+# under 1e-5 off (the ring's f32 order against flash); a ring that skips
+# a rotation reads 2.2e-3 / 0.040.
+EXPERT_LOSS_TOL = 1e-4
+EXPERT_NORM_TOL = 1e-3
+CONTEXT_TOL = 1e-4
+
+
+def parallel_worker(job, argv, name, layers, out):
+    """One rank of a train_lm job (train_lm's own worker) with `name`'s
+    depth cut to `layers`; writes the process's flash launches, plain
+    calls and ring steps to `out`/rank<r>.json."""
+    from skypilot_tpu_torch.ops import flash_kernel as fk
+    from skypilot_tpu_torch.ops import ring_attention as ra
+    from skypilot_tpu_torch.recipes import train_lm
+    with depth_cut(name, layers):
+        train_lm._run_worker(job, train_lm.parse_args(argv))
+    with open(os.path.join(out, f'rank{job.rank}.json'), 'w') as f:
+        json.dump({'flash_fwd': fk.fwd_launches, 'flash_bwd': fk.bwd_launches,
+                   'plain_calls': fk.plain_calls,
+                   'ring': [ra.fwd_steps, ra.bwd_steps]}, f)
+
+
+def parallel_job(label, argv, name, layers, card):
+    """`train_lm argv --metrics-file ...` as a PARALLEL_CARDS-rank NCCL
+    job on cards 0.. (None, after a line saying so, when fewer cards
+    are visible): (each rank's counts, rank 0's metric records,
+    seconds)."""
+    from skypilot_tpu_torch.observability.step_metrics import read_jsonl
+    from skypilot_tpu_torch.parallel import distributed
+    visible = torch.cuda.device_count()
+    if visible < PARALLEL_CARDS:
+        print(f'{label}: not run: {visible} CUDA card visible; the phase '
+              f'is a {PARALLEL_CARDS}-rank NCCL job, one rank a card',
+              flush=True)
+        emit(label, card=card, ran=False, cards=visible,
+             needs=PARALLEL_CARDS)
+        return None
+    root = os.path.join(WORK, label)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    metrics = os.path.join(root, 'metrics.jsonl')
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    code = distributed.launch(
+        parallel_worker, ([*argv, '--metrics-file', metrics], name, layers,
+                          root),
+        distributed.jobs(cpu=False, workers=PARALLEL_CARDS),
+        deadline_s=600)
+    seconds = time.perf_counter() - t0
+    check(code == 0, f'{label}: the {PARALLEL_CARDS}-rank job exited {code}')
+    ranks = []
+    for rank in range(PARALLEL_CARDS):
+        with open(os.path.join(root, f'rank{rank}.json')) as f:
+            ranks.append(json.load(f))
+    records = read_jsonl(metrics)
+    check(len(records) == PARALLEL_STEPS and all(
+        np.isfinite(r['loss']) and np.isfinite(r['grad_norm'])
+        and r['mfu'] is not None for r in records),
+          f'{label}: metric records {records}')
+    return ranks, records, seconds
+
+
+def phase_train_expert(card, mixtral_step1):
+    """train_mixtral's command with --expert 2 as a 2-rank NCCL job,
+    step 1 held to train_mixtral's (`mixtral_step1`, its first metric
+    record); its flash launches summed over the ranks (None on one
+    card)."""
+    layers, steps = MIXTRAL_TRAIN_LAYERS, PARALLEL_STEPS
+    argv = ['--model', 'mixtral-8x7b', '--seq', '2048', '--global-batch',
+            '1', '--remat', '--steps', str(steps), '--log-every', '1',
+            '--expert', str(PARALLEL_CARDS)]
+    out = parallel_job('train_expert', argv, 'mixtral-8x7b', layers, card)
+    if out is None:
+        return None
+    ranks, records, seconds = out
+    for counts in ranks:
+        check(counts['flash_fwd'] == 2 * layers * steps
+              and counts['flash_bwd'] == layers * steps
+              and counts['plain_calls'] == 0 and counts['ring'] == [0, 0],
+              f'train_expert launches {ranks}')
+    first, want = records[0], mixtral_step1
+    loss_err = abs(first['loss'] - want['loss']) / abs(want['loss'])
+    norm_err = abs(first['grad_norm'] - want['grad_norm']) / abs(
+        want['grad_norm'])
+    check(loss_err <= EXPERT_LOSS_TOL and norm_err <= EXPERT_NORM_TOL,
+          f'train_expert step 1 {first["loss"]} / {first["grad_norm"]} vs '
+          f'train_mixtral {want["loss"]} / {want["grad_norm"]}')
+    emit('train_expert', card=card, ran=True, argv=argv,
+         reduced={'num_layers': [32, layers]}, ranks=PARALLEL_CARDS,
+         losses=[r['loss'] for r in records],
+         grad_norms=[r['grad_norm'] for r in records],
+         step1_loss_rel_err=loss_err, step1_norm_rel_err=norm_err,
+         loss_tol=EXPERT_LOSS_TOL, norm_tol=EXPERT_NORM_TOL,
+         step_time_s=[r['step_time_s'] for r in records],
+         tokens_per_s=[r['tokens_per_sec'] for r in records],
+         mfu=[r['mfu'] for r in records], launches=ranks, seconds=seconds)
+    return {name: sum(r[name] for r in ranks)
+            for name in ('flash_fwd', 'flash_bwd')}
+
+
+def phase_train_context(fk, card):
+    """Llama-3-8B width, 4 layers, seq 8192 with --seq-parallel 2 as a
+    2-rank NCCL job (ring attention), held to the same command on one
+    card (flash)."""
+    layers, steps = CONTEXT_TRAIN_LAYERS, PARALLEL_STEPS
+    argv = ['--model', 'llama3-8b', '--seq', '8192', '--global-batch', '1',
+            '--remat', '--steps', str(steps), '--log-every', '1']
+    out = parallel_job('train_context', [*argv, '--seq-parallel',
+                                         str(PARALLEL_CARDS)],
+                       'llama3-8b', layers, card)
+    if out is None:
+        return
+    ranks, records, seconds = out
+    ways = PARALLEL_CARDS
+    for counts in ranks:
+        check(counts['flash_fwd'] == counts['flash_bwd'] == 0
+              and counts['ring'] == [2 * layers * steps * ways,
+                                     layers * steps * ways],
+              f'train_context launches / ring steps {ranks}')
+    with depth_cut('llama3-8b', layers):
+        _, one, one_counts, one_peak, _ = train_family(
+            'train_context_one_card', argv, fk, card)
+    check(one_counts == {'flash_fwd': 2 * layers * steps,
+                         'flash_bwd': layers * steps},
+          f'train_context one-card flash launches {one_counts}')
+    errs = [abs(records[0][k] - one[0][k]) / abs(one[0][k])
+            for k in ('loss', 'grad_norm')]
+    check(max(errs) <= CONTEXT_TOL,
+          f'train_context step 1 {records[0]} vs one card {one[0]}')
+    emit('train_context', card=card, ran=True,
+         argv=[*argv, '--seq-parallel', str(ways)],
+         reduced={'num_layers': [32, layers]}, ranks=ways,
+         losses=[r['loss'] for r in records],
+         grad_norms=[r['grad_norm'] for r in records],
+         one_card_losses=[r['loss'] for r in one],
+         one_card_grad_norms=[r['grad_norm'] for r in one],
+         step1_loss_rel_err=errs[0], step1_norm_rel_err=errs[1],
+         tol=CONTEXT_TOL,
+         step_time_s=[r['step_time_s'] for r in records],
+         one_card_step_time_s=[r['step_time_s'] for r in one],
+         tokens_per_s=[r['tokens_per_sec'] for r in records],
+         mfu=[r['mfu'] for r in records], one_card_peak_mem_gb=one_peak,
+         ring_steps=[r['ring'] for r in ranks], seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available', file=sys.stderr)
@@ -5830,7 +6017,11 @@ def main() -> int:
     lora_counts = phase_train_lora(fk, lk, card)
     torch.cuda.empty_cache()
     phase_train_gpt2(fk, card)
-    mixtral_counts = phase_train_mixtral(fk, card)
+    mixtral_counts, mixtral_step1 = phase_train_mixtral(fk, card)
+    # Multi-card training: 2-rank NCCL jobs where 2 cards are visible.
+    expert_counts = phase_train_expert(card, mixtral_step1) or \
+        dict.fromkeys(mixtral_counts, 0)
+    phase_train_context(fk, card)
     phase_train_deepseek(fk, card)
     guard_counts = phase_train_guard(fk, card)
 
@@ -5870,7 +6061,7 @@ def main() -> int:
     for name, row in flash_rows.items():
         row['launches'] = (full_counts[name] + fsdp_counts[name]
                            + lora_counts[name] + mixtral_counts[name]
-                           + guard_counts[name])
+                           + expert_counts[name] + guard_counts[name])
     print(card, flush=True)
     print(json.dumps({'kernels': [*paged_rows, *gpt2_rows, *lora_rows,
                                   *flash_rows.values(), *int8_rows]}),

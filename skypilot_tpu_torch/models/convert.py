@@ -377,6 +377,14 @@ def _mixtral_tree(model: Mixtral) -> Dict[str, Any]:
         'final_norm': {'scale': _np32(model.final_norm.scale)}}
     for i, block in enumerate(model.layers):
         moe = block.moe
+        lo, hi = moe.experts
+        if (lo, hi) != (0, model.config.num_experts):
+            # The reference's tree holds whole stacks; a sharded model's
+            # whole leaves come from its layout (FSDPLayout.full).
+            raise ValueError(
+                f'layer {i} holds experts [{lo}, {hi}) of '
+                f'{model.config.num_experts} (--expert): convert whole '
+                f'stacks, gathered as checkpoints gather them')
         tree[f'layer_{i}'] = {
             'attn_norm': {'scale': _np32(block.attn_norm.scale)},
             'moe_norm': {'scale': _np32(block.moe_norm.scale)},

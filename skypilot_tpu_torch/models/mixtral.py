@@ -20,8 +20,14 @@ included:
     experts in `dtype` on stacked [E, in, out] weights, the combine in
     f32;
   - the Switch load-balancing loss E * sum(assign_frac * prob_frac) / K.
-Nothing in it has a data-dependent shape or reads a device value on the
-host, so a decode round stays capturable in a CUDA graph. Dropping
+Under the sharded trainer's `expert` axis (`shard_experts`, train_lm
+--expert) a rank holds E / expert of each stack and computes its own
+experts' inputs and outputs; the batch is replicated over `expert`, so
+the combine is a sum over the expert group, not an all-to-all (the
+reference's compiled step holds none). Under its `seq` axis (an active
+ring, parallel/context.py) the capacity and queue slots are the whole
+sequence's. Nothing in it has a data-dependent shape or reads a device
+value on the host, so a decode round stays capturable in a CUDA graph. Dropping
 follows the padded chunk length: chunked prefill, speculative verify
 chunks and prefix hits give other tokens than whole-prompt prefill, in
 the reference as well; a decode round (S = 1, capacity 2 >= top_k)
@@ -50,6 +56,7 @@ import dataclasses
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 import torch.nn.functional as F
 from torch.utils import checkpoint
@@ -60,6 +67,7 @@ from skypilot_tpu_torch.models.llama import (DENSE_CLASSES, Attention,
                                              PagedKVCache, RMSNorm,
                                              RopeScaling)
 from skypilot_tpu_torch.ops import fused_xent
+from skypilot_tpu_torch.parallel import context as cp_context
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,31 +148,68 @@ class MoEFeedForward(nn.Module):
         self.w_gate = param(e, d, f)
         self.w_up = param(e, d, f)
         self.w_down = param(e, f, d)
-        #: The process group a sharded trainer splits the batch over
-        #: (parallel/fsdp.py); None on one device.
+        #: The process group of the ranks holding other tokens of the
+        #: batch (parallel/fsdp.py: data, fsdp and seq); None when this
+        #: rank holds them all.
         self.batch_group = None
+        #: Under expert parallelism (`shard_experts`): the expert group
+        #: and this rank's experts [lo, hi); None on one rank.
+        self.expert_group = None
+        self.experts = (0, e)
+
+    def shard_experts(self, group, index: int, count: int
+                      ) -> Tuple[str, ...]:
+        """Keep experts [index * E / count, (index + 1) * E / count) of
+        each stack (rank `index` of `count` on the expert `group`), as
+        the reference's 'expert' -> 'expert' rule shards them; returns
+        the names of the parameters sliced."""
+        num_exp = self.config.num_experts
+        if num_exp % count:
+            raise ValueError(f'{num_exp} experts do not split over '
+                             f'expert = {count} ranks')
+        lo, hi = index * num_exp // count, (index + 1) * num_exp // count
+        names = ('w_gate', 'w_up', 'w_down')
+        for name in names:
+            whole = getattr(self, name)
+            setattr(self, name, nn.Parameter(
+                whole.detach()[lo:hi].clone(),
+                requires_grad=whole.requires_grad))
+        self.expert_group, self.experts = group, (lo, hi)
+        return names
 
     def route(self, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                          torch.Tensor]:
         """(dispatch, combine [B, S, E, C] f32, the one-hot picks
         [B, S, K, E], the router probabilities [B, S, E]) of x
-        [B, S, embed]."""
+        [B, S, embed]. Under an active ring (parallel/context.py) x is
+        this rank's block of the sequence and the capacity and each
+        assignment's queue slot are the whole sequence's: the queues
+        start after the assignments of the ring's earlier blocks. Under
+        expert parallelism the routing weights enter the combine
+        through `copy_to_experts` (their gradient is the expert group's
+        sum)."""
         cfg = self.config
         batch, seq, _ = x.shape
         num_exp, top_k = cfg.num_experts, cfg.experts_per_token
+        ring = cp_context.active_seq_group()
         probs = torch.softmax(F.linear(x.float(), self.router), dim=-1)
         top_w, top_idx = torch.sort(probs, dim=-1, descending=True,
                                     stable=True)
         top_w, top_idx = top_w[..., :top_k], top_idx[..., :top_k]
         top_w = top_w / top_w.sum(dim=-1, keepdim=True)
-        capacity = max(int(cfg.capacity_factor * seq * top_k / num_exp),
+        if self.expert_group is not None:
+            top_w = copy_to_experts(top_w, self.expert_group)
+        total = seq * (ring.size if ring is not None else 1)
+        capacity = max(int(cfg.capacity_factor * total * top_k / num_exp),
                        top_k)
         picks = (top_idx[..., None] == torch.arange(
             num_exp, device=x.device)).float()                 # [B,S,K,E]
         flat = picks.reshape(batch, seq * top_k, num_exp)
-        queue = (torch.cumsum(flat, dim=1) - flat).reshape(
-            batch, seq, top_k, num_exp)
+        queue = torch.cumsum(flat, dim=1) - flat
+        if ring is not None:
+            queue = queue + _earlier_blocks(flat.sum(dim=1), ring)[:, None]
+        queue = queue.reshape(batch, seq, top_k, num_exp)
         kept = picks * (queue < capacity).float()
         slot = (queue * picks).sum(dim=-1).long()              # [B,S,K]
         slot_onehot = (slot[..., None] == torch.arange(
@@ -176,27 +221,31 @@ class MoEFeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor, with_aux: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """(out [B, S, embed] in `dtype`, the layer's aux loss or None)."""
+        """(out [B, S, embed] in `dtype`, the layer's aux loss or None).
+        Under expert parallelism the batch is the same on every rank of
+        the expert group (the reference's 'batch' -> ('data', 'fsdp')
+        rule replicates it over 'expert'), so each rank runs its own
+        experts on its own copy of the dispatched tokens and the
+        combine is a sum over the group (`reduce_from_experts`), with x
+        entering the experts through `copy_to_experts`."""
         cfg = self.config
-        dt = cfg.dtype
         dispatch, combine, picks, probs = self.route(x)
-        expert_in = torch.einsum('bsec,bsd->ebcd', dispatch,
-                                 x.float()).to(dt)
-        h = F.silu(torch.einsum('ebcd,edf->ebcf', expert_in,
-                                self.w_gate.to(dt))) * \
-            torch.einsum('ebcd,edf->ebcf', expert_in, self.w_up.to(dt))
-        expert_out = torch.einsum('ebcf,efd->ebcd', h, self.w_down.to(dt))
-        out = torch.einsum('bsec,ebcd->bsd', combine,
-                           expert_out.float()).to(dt)
+        x32 = x.float()
+        group = self.expert_group
+        if group is not None:
+            x32 = copy_to_experts(x32, group)
+        out = self.expert_sum(dispatch, combine, x32, *self.experts)
+        if group is not None:
+            out = reduce_from_experts(out, group)
+        out = out.to(cfg.dtype)
         if not with_aux:
             return out, None
         assign_frac = picks.sum(dim=2).mean(dim=(0, 1))        # [E]
         if self.batch_group is not None:
             # The whole batch's fractions, as the reference computes them
-            # over its sharded batch. The router probabilities stay this
-            # rank's: the ranks' mean aux is then the batch's aux, and
-            # its gradient the batch's.
-            import torch.distributed as dist
+            # over its sharded batch (and sequence). The router
+            # probabilities stay this rank's: the ranks' mean aux is then
+            # the batch's aux, and its gradient the batch's.
             assign_frac = assign_frac.clone()
             dist.all_reduce(assign_frac, group=self.batch_group)
             assign_frac = assign_frac / dist.get_world_size(self.batch_group)
@@ -204,6 +253,72 @@ class MoEFeedForward(nn.Module):
         aux = (cfg.num_experts * (assign_frac * prob_frac).sum()
                / cfg.experts_per_token)
         return out, aux
+
+    def expert_sum(self, dispatch: torch.Tensor, combine: torch.Tensor,
+                   x32: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        """The combine of experts [lo, hi) alone, [B, S, embed] f32:
+        their inputs gathered from x32 by `dispatch`, the SwiGLU
+        experts in `dtype` on rows [lo, hi) of the stacks (this rank's
+        stacks start at expert `self.experts[0]`), summed with the
+        `combine` weights in f32."""
+        dt = self.config.dtype
+        base = self.experts[0]
+        w_gate, w_up, w_down = (w[lo - base:hi - base].to(dt) for w in (
+            self.w_gate, self.w_up, self.w_down))
+        expert_in = torch.einsum('bsec,bsd->ebcd', dispatch[:, :, lo:hi],
+                                 x32).to(dt)
+        h = F.silu(torch.einsum('ebcd,edf->ebcf', expert_in, w_gate)) * \
+            torch.einsum('ebcd,edf->ebcf', expert_in, w_up)
+        expert_out = torch.einsum('ebcf,efd->ebcd', h, w_down)
+        return torch.einsum('bsec,ebcd->bsd', combine[:, :, lo:hi],
+                            expert_out.float())
+
+
+def _earlier_blocks(counts: torch.Tensor, ring) -> torch.Tensor:
+    """The sum of `counts` [B, E] (this block's assignments to each
+    expert, a row) over the ring's blocks before this rank's."""
+    parts = [torch.empty_like(counts) for _ in range(ring.size)]
+    dist.all_gather(parts, counts.contiguous(), group=ring.group)
+    return sum(parts[:ring.index], torch.zeros_like(counts))
+
+
+class _CopyToExperts(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the expert
+    group (each rank's experts see the tokens on their own copy)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromExperts(torch.autograd.Function):
+    """The sum over the expert group forward; identity backward (every
+    rank holds the summed output and its whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_experts(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToExperts.apply(x, group)
+
+
+def reduce_from_experts(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromExperts.apply(x, group)
 
 
 class Block(nn.Module):

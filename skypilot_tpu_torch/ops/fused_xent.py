@@ -126,19 +126,20 @@ class BlockwiseXent(torch.autograd.Function):
         return dx.to(x2.dtype), dw.to(w.dtype), None, None
 
 
-def fused_next_token_loss(hidden: torch.Tensor, weight: torch.Tensor,
-                          tokens: torch.Tensor, *,
-                          vocab_in_rows: Optional[bool] = None,
-                          block_size: Optional[int] = None,
-                          compute_dtype: Optional[torch.dtype] = None
-                          ) -> torch.Tensor:
-    """Causal-LM loss straight from final hidden states [B, S, H]:
-    mean over tokens[:, 1:] of (logsumexp - target logit) of
-    hidden[:, :-1] @ head, blockwise over the vocab. `weight` is [V, H]
-    when `vocab_in_rows` (the port's `lm_head`), else [H, V]; None
-    infers it from the shape when unambiguous. `compute_dtype` (None =
+def fused_token_losses(hidden: torch.Tensor, weight: torch.Tensor,
+                       targets: torch.Tensor, *,
+                       vocab_in_rows: Optional[bool] = None,
+                       block_size: Optional[int] = None,
+                       compute_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """Per-token (logsumexp - target logit) [B * T], f32, of hidden
+    [B, T, H] @ head against targets [B, T], blockwise over the vocab,
+    with no shift (a seq rank's block predicts the tokens after it, the
+    next block's first among them). `weight` is [V, H] when
+    `vocab_in_rows` (the port's `lm_head`), else [H, V]; None infers it
+    from the shape when unambiguous. `compute_dtype` (None =
     hidden.dtype) is the operand dtype of the products; accumulation
-    and the loss are f32."""
+    and the losses are f32."""
     h_dim = hidden.shape[-1]
     if vocab_in_rows is None:
         rows, cols = weight.shape[-1] == h_dim, weight.shape[0] == h_dim
@@ -151,15 +152,28 @@ def fused_next_token_loss(hidden: torch.Tensor, weight: torch.Tensor,
     vocab = w.shape[0]
     cd = compute_dtype or hidden.dtype
     w = w.to(cd)
-    targets = tokens[:, 1:].long()
+    targets = targets.long()
     block = int(block_size) if block_size else pick_block(vocab)
     if block >= vocab:
         # One chunk: the dense math under plain autograd, as the
         # reference does (logits in the compute dtype, then f32).
-        logits = (hidden.to(cd) @ w.T)[:, :-1].float()
+        logits = (hidden.to(cd) @ w.T).float()
         lse = torch.logsumexp(logits, dim=-1)
         tgt = logits.gather(-1, targets[..., None])[..., 0]
-        return (lse - tgt).mean()
-    x2 = hidden[:, :-1].to(cd).reshape(-1, h_dim)
-    losses = BlockwiseXent.apply(x2, w, targets.reshape(-1), block)
-    return losses.mean()
+        return (lse - tgt).reshape(-1)
+    x2 = hidden.to(cd).reshape(-1, h_dim)
+    return BlockwiseXent.apply(x2, w, targets.reshape(-1), block)
+
+
+def fused_next_token_loss(hidden: torch.Tensor, weight: torch.Tensor,
+                          tokens: torch.Tensor, *,
+                          vocab_in_rows: Optional[bool] = None,
+                          block_size: Optional[int] = None,
+                          compute_dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """Causal-LM loss straight from final hidden states [B, S, H]:
+    mean over tokens[:, 1:] of `fused_token_losses` of hidden[:, :-1]
+    (the same arguments)."""
+    return fused_token_losses(
+        hidden[:, :-1], weight, tokens[:, 1:], vocab_in_rows=vocab_in_rows,
+        block_size=block_size, compute_dtype=compute_dtype).mean()

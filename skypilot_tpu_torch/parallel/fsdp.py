@@ -19,7 +19,12 @@ the table is gathered before the lookup, so the port shards those on
 dim 0 (FSDP2's default, uneven sizes padded); so too an embed dim the
 fsdp size does not divide. LoRA factors are not module parameters:
 every rank holds them whole. Over `data` the parameters are
-replicated, as HSDP does.
+replicated, as HSDP does. Over `expert` Mixtral's expert stacks
+(`w_gate`, `w_up`, `w_down`) are sliced on dim 0 before FSDP2 shards
+them (`MoEFeedForward.shard_experts`: rank e keeps experts
+[e*E/X, (e+1)*E/X), and names the leaves it sliced); every other leaf
+is whole on each expert rank.
+Over `seq` every leaf is replicated.
 
 Gradients: FSDP2 reduce-scatters (and averages) each unit's gradients
 over `fsdp` as backward leaves the unit; frozen LoRA bases take none.
@@ -27,17 +32,27 @@ The data axis is reduced here, leaf by leaf: summed over `data` and
 divided (replicated moments), or with `zero1` reduce-scattered onto the
 leaf's moment shard (the reference's `_zero1_opt_sharding` rule: the
 first dim the combined fsdp x data factor divides; scalars and odd
-vectors stay whole). LoRA factors are summed over every rank. With
-`overlap` the data-axis collective of each leaf is issued, async, from
-its post-accumulate-grad hook (FSDP2 runs those after the leaf's
-reduce-scatter), while backward goes on; the collectives and their
-inputs are the same, so no number changes.
+vectors stay whole). Before that, each seq rank's gradient (its block
+of the sequence's part) is summed over `seq`. Over `expert`: the batch
+is the same on every expert rank, an expert slice's gradient is its
+rank's alone, and a replicated leaf's comes out whole on each (the
+MoE's copy_to_experts), equal up to the rounding of a backward that is
+not deterministic (the card's flash dQ); so the replicated leaves'
+gradients are averaged over `expert`, which keeps the copies
+bit-identical. LoRA factors are summed over every rank (the expert
+copies counted once). With `overlap` the data-axis collective of each
+leaf is issued, async, from its post-accumulate-grad hook (FSDP2 runs
+those after the leaf's reduce-scatter), while backward goes on; the
+collectives and their inputs are the same, so no number changes.
 
 The optimizer (`ClippedAdamW`, optax's semantics) updates each rank's
 piece: the fsdp shard, cut to the moment shard under zero1, after which
 the updated pieces are all-gathered over `data`. The clip's global norm
-is the sum of squares of every piece, each counted on one rank only,
-all-reduced over the job (`global_sq`): optax.global_norm's value.
+is the sum of squares of every piece, each counted on one rank only
+(expert slices on their expert rank, replicated leaves on expert and
+seq rank 0), all-reduced over the job (`global_sq`): optax.global_norm's
+value. A checkpoint gathers an expert leaf over `fsdp`, then over
+`expert`, one leaf at a time.
 """
 from __future__ import annotations
 
@@ -109,12 +124,19 @@ def chunk_bounds(n: int, parts: int, index: int) -> Tuple[int, int]:
 @dataclasses.dataclass
 class Leaf:
     """One trainable leaf: its whole shape, the dim FSDP2 shards (None:
-    every rank holds it whole) and the dim its moments shard over
-    `data` under zero1 (None: whole over data)."""
+    every rank holds it whole), the dim its moments shard over `data`
+    under zero1 (None: whole over data), and the number of expert ranks
+    its dim 0 is sliced over (1: every expert rank holds all of it)."""
     name: str
     shape: Tuple[int, ...]
     fsdp_dim: Optional[int]
     zero1_dim: Optional[int]
+    experts: int = 1
+
+    @property
+    def part_shape(self) -> Tuple[int, ...]:
+        """The shape of this expert rank's slice (FSDP2's whole)."""
+        return (self.shape[0] // self.experts, *self.shape[1:])
 
 
 class _LossUnit(nn.Module):
@@ -138,23 +160,39 @@ class FSDPLayout:
         from torch.distributed.fsdp import fully_shard
         from torch.distributed.tensor import Shard
         sizes = mesh_lib.mesh_shape(mesh)
-        if any(sizes[a] > 1 for a in ('stage', 'tensor', 'expert', 'seq')):
-            raise ValueError(f'the sharded trainer shards over data and '
-                             f'fsdp only, not {mesh_lib.mesh_summary(mesh)}')
+        if any(sizes[a] > 1 for a in ('stage', 'tensor')):
+            raise ValueError(f'the sharded trainer shards over data, fsdp, '
+                             f'expert and seq, not '
+                             f'{mesh_lib.mesh_summary(mesh)}')
         self.data, self.fsdp = sizes['data'], sizes['fsdp']
+        self.expert, self.seq = sizes['expert'], sizes['seq']
         coord = dict(zip(mesh_lib.AXIS_NAMES, mesh.get_coordinate()))
         self.data_index, self.fsdp_index = coord['data'], coord['fsdp']
+        self.expert_index, self.seq_index = coord['expert'], coord['seq']
         self.fsdp_mesh = mesh['fsdp']
         self.data_group = mesh['data'].get_group()
         self.fsdp_group = self.fsdp_mesh.get_group()
+        self.expert_group = mesh['expert'].get_group()
+        self.seq_group = mesh['seq'].get_group()
         self.zero1 = zero1 and self.data > 1
         self.overlap = overlap and self.zero1
-        if self.data * self.fsdp > 1:
-            # Batch statistics a model takes over the whole batch
-            # (Mixtral's router aux loss) are taken over every rank.
-            for module in model.modules():
-                if hasattr(module, 'batch_group'):
-                    module.batch_group = dist.group.WORLD
+        #: The collectives `reduce_grads` issued in this layout's life,
+        #: by kind ('seq', 'expert', 'data', 'all', 'scatter').
+        self.reductions: Dict[str, int] = {}
+        # Batch statistics a model takes over the whole batch (Mixtral's
+        # router aux loss) are taken over the ranks that hold other
+        # tokens of it: data, fsdp and seq, never expert.
+        batch_group = mesh_lib.axis_group(mesh, ('data', 'fsdp', 'seq'))
+        #: The names of the leaves sliced over `expert` (by the modules
+        #: that slice them).
+        self.expert_leaves = set()
+        for prefix, module in model.named_modules():
+            if hasattr(module, 'batch_group'):
+                module.batch_group = batch_group
+            if self.expert > 1 and hasattr(module, 'shard_experts'):
+                self.expert_leaves.update(
+                    f'{prefix}.{name}' for name in module.shard_experts(
+                        self.expert_group, self.expert_index, self.expert))
         embed = model.config.embed_dim
         names = {id(p): n for n, p in model.named_parameters()}
 
@@ -183,8 +221,10 @@ class FSDPLayout:
         for name, t in zip(names, leaves):
             fsdp_dim = (t.placements[0].dim if hasattr(t, 'placements')
                         else None)
-            self.leaves.append(Leaf(name, tuple(t.shape), fsdp_dim,
-                                    self._zero1_dim(t.shape, fsdp_dim)))
+            experts = self.expert if name in self.expert_leaves else 1
+            self.leaves.append(Leaf(
+                name, (t.shape[0] * experts, *t.shape[1:]), fsdp_dim,
+                self._zero1_dim(t.shape, fsdp_dim), experts))
         for h in self._hooks:
             h.remove()
         self._hooks = []
@@ -225,22 +265,41 @@ class FSDPLayout:
                     enumerate(leaves)]
 
     # -- gradients ------------------------------------------------------------
+    def _count(self, kind: str) -> None:
+        self.reductions[kind] = self.reductions.get(kind, 0) + 1
+
     def _issue(self, i: int, t: torch.Tensor) -> None:
         """Start leaf i's data-axis (or, replicated, job-wide) reduction
-        of its gradient; `reduce_grads` waits for it."""
+        of its gradient; `reduce_grads` waits for it. Before it, the
+        seq ranks' partial gradients are summed and a leaf every expert
+        rank holds is averaged over them (both synchronous: they
+        precede the data-axis op)."""
         grad = t.grad
         t.grad = None
         leaf = self.leaves[i]
         local = (self.local(grad) if grad is not None
                  else torch.zeros_like(self.local(t)))
         if leaf.fsdp_dim is None:
-            # Replicated: every rank's gradient is partial.
+            # Replicated: every rank's gradient is partial (or, over
+            # expert, a copy: the divisor counts them).
             work = dist.all_reduce(local, async_op=True)
+            self._count('all')
             self._pending[i] = (work, local, 'all')
             return
+        if self.seq > 1:
+            # Each seq rank's gradient covers its block of the sequence.
+            dist.all_reduce(local, group=self.seq_group)
+            self._count('seq')
+        if self.expert > 1 and leaf.experts == 1:
+            dist.all_reduce(local, group=self.expert_group)
+            local.div_(self.expert)
+            self._count('expert')
         if leaf.zero1_dim is None:
-            work = dist.all_reduce(local, group=self.data_group,
-                                   async_op=True) if self.data > 1 else None
+            work = None
+            if self.data > 1:
+                work = dist.all_reduce(local, group=self.data_group,
+                                       async_op=True)
+                self._count('data')
             self._pending[i] = (work, local, 'data')
             return
         src = local.movedim(leaf.zero1_dim, 0).contiguous()
@@ -248,6 +307,7 @@ class FSDPLayout:
                           dtype=src.dtype, device=src.device)
         work = _reduce_scatter(out, src, group=self.data_group,
                                async_op=True)
+        self._count('scatter')
         self._pending[i] = (work, (out, src), 'scatter')
 
     def reduce_grads(self, leaves: List[torch.Tensor]
@@ -258,7 +318,9 @@ class FSDPLayout:
             for i, t in enumerate(leaves):
                 self._issue(i, t)
         out = []
-        world = self.data * self.fsdp
+        # The seq ranks' parts are summed, the expert ranks' copies
+        # counted once.
+        world = self.data * self.fsdp * self.expert
         for i, leaf in enumerate(self.leaves):
             work, value, kind = self._pending.pop(i)
             if work is not None:
@@ -277,10 +339,14 @@ class FSDPLayout:
         on the one rank that owns it, all-reduced over the job."""
         total = 0
         for leaf, g in zip(self.leaves, grads):
+            if self.seq_index:
+                break               # every leaf a copy of seq rank 0's
             if leaf.fsdp_dim is None and self.fsdp_index:
                 continue            # a copy of fsdp rank 0's
             if leaf.zero1_dim is None and self.data_index:
                 continue            # a copy of data rank 0's
+            if leaf.experts == 1 and self.expert_index:
+                continue            # a copy of expert rank 0's
             total = total + g.float().square().sum()
         if not torch.is_tensor(total):
             total = torch.zeros((), dtype=torch.float32,
@@ -289,10 +355,12 @@ class FSDPLayout:
         return total
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
-        """The job-wide mean of a per-rank scalar (the local loss)."""
+        """The job-wide mean of a per-rank scalar (the local loss): the
+        mean over the batch's ranks of the sum over the seq ranks' parts
+        (the expert ranks' copies counted once)."""
         x = x.detach().clone()
         dist.all_reduce(x)
-        return x.div_(self.data * self.fsdp)
+        return x.div_(self.data * self.fsdp * self.expert)
 
     @torch.no_grad()
     def gather_updates(self, leaves: List[torch.Tensor]) -> None:
@@ -315,14 +383,16 @@ class FSDPLayout:
         x = local
         if moment and leaf.zero1_dim is not None:
             x = _gather_dim(x, leaf.zero1_dim, self.data, self.data_group)
-        if leaf.fsdp_dim is None:
-            return x.contiguous()
-        dim, n = leaf.fsdp_dim, leaf.shape[leaf.fsdp_dim]
-        short = -(-n // self.fsdp) - x.shape[dim]
-        if short:            # an uneven dim-0 shard, padded as FSDP2 pads
-            x = torch.cat([x, x.new_zeros((short, *x.shape[1:]))])
-        return _gather_dim(x, dim, self.fsdp, self.fsdp_group).narrow(
-            dim, 0, n).contiguous()
+        if leaf.fsdp_dim is not None:
+            dim, n = leaf.fsdp_dim, leaf.part_shape[leaf.fsdp_dim]
+            short = -(-n // self.fsdp) - x.shape[dim]
+            if short:        # an uneven dim-0 shard, padded as FSDP2 pads
+                x = torch.cat([x, x.new_zeros((short, *x.shape[1:]))])
+            x = _gather_dim(x, dim, self.fsdp, self.fsdp_group).narrow(
+                dim, 0, n)
+        if leaf.experts > 1:     # the expert ranks' slices, in order
+            x = _gather_dim(x, 0, leaf.experts, self.expert_group)
+        return x.contiguous()
 
     @torch.no_grad()
     def load(self, i: int, local: torch.Tensor, whole: torch.Tensor,
@@ -331,9 +401,12 @@ class FSDPLayout:
         (a moment piece when `moment`)."""
         leaf = self.leaves[i]
         x = whole
+        if leaf.experts > 1:
+            part = leaf.part_shape[0]
+            x = x.narrow(0, self.expert_index * part, part)
         if leaf.fsdp_dim is not None:
-            start, size = chunk_bounds(leaf.shape[leaf.fsdp_dim], self.fsdp,
-                                       self.fsdp_index)
+            start, size = chunk_bounds(leaf.part_shape[leaf.fsdp_dim],
+                                       self.fsdp, self.fsdp_index)
             x = x.narrow(leaf.fsdp_dim, start, size)
         if moment:
             x = self.piece(i, x)

@@ -13,10 +13,15 @@ cross the data-center network.
 
 `DEFAULT_RULES` is the reference's table. The sharded trainer
 (parallel/train.py, parallel/fsdp.py) reads it where FSDP2 can follow
-it: each parameter's `embed` dim goes to `fsdp`. `batch_rows` is the
-port's `batch_sharding`: the reference shards a batch's rows over
-`('data', 'fsdp')`, so the rank at (data=i, fsdp=j) owns block
-i * fsdp + j of the global batch.
+it: each parameter's `embed` dim goes to `fsdp`, each expert stack's
+leading dim to `expert`. `batch_rows` is the port's `batch_sharding`:
+the reference shards a batch's rows over `('data', 'fsdp')`, so the
+rank at (data=i, fsdp=j) owns block i * fsdp + j of the global batch,
+and the rows are the same on every rank of the `expert` and `seq` axes.
+`seq_block` is the rule 'seq' -> 'seq': the rank at seq=r holds
+positions [r * Sl, (r + 1) * Sl) of each row. `axis_group` gives the
+process group of the ranks that differ on a set of axes (the batch's
+ranks, for Mixtral's aux fractions).
 
 The slice count comes from the gang contract: `TPU_NUM_SLICES` when the
 launcher set it (backends/task_codegen.py sets it for multislice
@@ -189,6 +194,47 @@ def batch_rows(mesh, batch: int,
     block = coord['data'] * sizes['fsdp'] + coord['fsdp']
     rows = batch // blocks
     return slice(block * rows, (block + 1) * rows)
+
+
+def seq_block(mesh, seq: int,
+              coordinate: Optional[Sequence[int]] = None) -> slice:
+    """The positions of a length-`seq` sequence this rank holds under
+    context parallelism (the reference's 'seq' -> 'seq' rule): block
+    `seq_index` of `seq_size` equal blocks, `[r * Sl, (r + 1) * Sl)`.
+    `coordinate` as `batch_rows`'."""
+    sizes = mesh_shape(mesh)
+    if coordinate is None:
+        coordinate = mesh.get_coordinate()
+    index = dict(zip(AXIS_NAMES, coordinate))['seq']
+    if seq % sizes['seq']:
+        raise ValueError(f'sequence length {seq} does not split over '
+                         f'seq = {sizes["seq"]} ranks')
+    block = seq // sizes['seq']
+    return slice(index * block, (index + 1) * block)
+
+
+def axis_group(mesh, axes: Sequence[str]):
+    """The process group of the ranks whose mesh coordinates differ from
+    this rank's on `axes` only (e.g. ('data', 'fsdp', 'seq'): the ranks
+    that hold other tokens of the batch), or None when that is this rank
+    alone. Every rank calls it at the same point (it creates one group
+    for each such set of ranks); the groups are kept on the mesh."""
+    import torch.distributed as dist
+    key = tuple(a for a in AXIS_NAMES if a in axes)
+    cache = mesh.__dict__.setdefault('_axis_groups', {})
+    if key not in cache:
+        grid = np.asarray(mesh.mesh.tolist())
+        inner = [AXIS_NAMES.index(a) for a in key]
+        outer = [i for i in range(grid.ndim) if i not in inner]
+        rows = grid.transpose(outer + inner).reshape(
+            -1, math.prod(grid.shape[i] for i in inner))
+        if rows.shape[1] == 1:
+            cache[key] = None
+        elif rows.shape[0] == 1:
+            cache[key] = dist.group.WORLD
+        else:
+            cache[key], _ = dist.new_subgroups_by_enumeration(rows.tolist())
+    return cache[key]
 
 
 def rules_with_overrides(

@@ -4,10 +4,16 @@
 The reference jits its step over a mesh; the port runs eagerly, on one
 card, or with `mesh=` (parallel/mesh.py `make_mesh`) on one rank of a
 job: FSDP over the mesh's `fsdp` axis, the parameters replicated over
-`data`, `zero1` and `overlap` as the reference defines them (the layout
-and its collectives: parallel/fsdp.py). `ShardedTrainer` keeps the
-reference's API (`init`, `make_train_step`, `make_eval_step`,
-`fused_xent` auto, `collect_grad_norm`, `lora=`, `guard=`). Parameters
+`data`, `zero1` and `overlap` as the reference defines them, Mixtral's
+experts split over `expert` (the layout and its collectives:
+parallel/fsdp.py), and over `seq` the step runs under
+`context_parallel(mesh)` (the reference's `:325`, `:413`, `:491`):
+each seq rank reads whole rows, embeds its block of them at its global
+positions and attends through the ring (ops/ring_attention.py); its
+loss is its block's share of the rows' (`_block_loss`).
+`ShardedTrainer` keeps the reference's API (`init`, `make_train_step`,
+`make_eval_step`, `fused_xent` auto, `collect_grad_norm`, `lora=`,
+`guard=`). Parameters
 are the model's own f32 master tensors (`LlamaConfig.param_dtype`), and
 the optimizer updates them and its moments IN PLACE: JAX returns new
 arrays, the port saves a copy of every parameter and moment that way.
@@ -51,6 +57,8 @@ import torch
 
 from skypilot_tpu_torch.models import lora as lora_lib
 from skypilot_tpu_torch.ops import fused_xent
+from skypilot_tpu_torch.parallel import context as cp_context
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 
 @dataclasses.dataclass
@@ -90,14 +98,20 @@ def _layer_key(item):
     return int(item[0].split('_')[1])
 
 
+def token_losses(logits: torch.Tensor, targets: torch.Tensor
+                 ) -> torch.Tensor:
+    """(logsumexp - target logit) in f32 of each position of logits
+    [B, T, V] against targets [B, T]."""
+    logits = logits.float()
+    target_logit = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - target_logit
+
+
 def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor
                     ) -> torch.Tensor:
     """Causal LM loss: predict tokens[:, 1:] from logits[:, :-1], mean
     of (logsumexp - target logit) in f32."""
-    logits = logits[:, :-1].float()
-    targets = tokens[:, 1:].long()
-    target_logit = logits.gather(-1, targets[..., None])[..., 0]
-    return (torch.logsumexp(logits, dim=-1) - target_logit).mean()
+    return token_losses(logits[:, :-1], tokens[:, 1:]).mean()
 
 
 def _f32(x) -> np.float32:
@@ -257,8 +271,10 @@ class ShardedTrainer:
 
     `mesh` (a DeviceMesh from parallel/mesh.py `make_mesh`, every rank
     of the job building its trainer alike) shards the model over the
-    mesh's `fsdp` axis in place (parallel/fsdp.py); `zero1` shards the
-    Adam moments over `data` too, and `overlap` issues that
+    mesh's `fsdp` axis in place, Mixtral's experts over `expert`
+    (parallel/fsdp.py), and splits each row over `seq` (the loss then
+    must be the next-token CE, with a router aux loss or not); `zero1`
+    shards the Adam moments over `data` too, and `overlap` issues that
     reduce-scatter leaf by leaf during backward (it needs `zero1`, as in
     the reference). At `data` = 1 both change nothing.
     """
@@ -294,6 +310,11 @@ class ShardedTrainer:
             raise ValueError('fused_xent=True but the loss_fn is not '
                              'next_token_loss (nor flagged fused_ok)')
         self.fused_xent = supported if fused_xent is None else fused_xent
+        if mesh is not None and not supported and \
+                mesh_lib.mesh_shape(mesh)['seq'] > 1:
+            raise ValueError('a seq-sharded mesh takes the next-token loss '
+                             '(with a router aux loss, flagged fused_ok); '
+                             'this loss_fn needs whole logits')
         self.mesh = mesh
         self.layout = None
         if mesh is not None:
@@ -344,6 +365,9 @@ class ShardedTrainer:
         if self.lora is not None:
             extra['lora'] = lora_lib.as_model_lora(params['lora'],
                                                    self.lora.scale)
+        ring = cp_context.active_seq_group()
+        if ring is not None:
+            return self._block_loss(tokens, ring, extra)
         if self.fused_xent:
             out = self.model(tokens, return_hidden=True, **extra)
             aux = None
@@ -355,6 +379,42 @@ class ShardedTrainer:
                 out, head, tokens, vocab_in_rows=vocab_in_rows)
             return loss if aux is None else loss + aux
         return self.loss_fn(self.model(tokens, **extra), tokens)
+
+    def _block_loss(self, tokens: torch.Tensor, ring,
+                    extra: Dict[str, Any]) -> torch.Tensor:
+        """This seq rank's part of the loss of whole rows `tokens`
+        [B, S]: its block [r*Sl, (r+1)*Sl) runs at its global positions
+        and predicts the tokens after it (the last block has one target
+        fewer); the sum of its token losses is divided by the global
+        count B * (S - 1), so the seq ranks' parts sum to
+        `next_token_loss` of the rows. A router aux loss (computed with
+        the whole sequence's fractions and this block's probabilities)
+        is divided by the ring's size, so its parts sum to the rows'."""
+        batch, seq = tokens.shape
+        if seq % ring.size:
+            raise ValueError(f'sequence length {seq} does not split over '
+                             f'seq = {ring.size} ranks')
+        width = seq // ring.size
+        lo = ring.index * width
+        block = tokens[:, lo:lo + width]
+        targets = tokens[:, lo + 1:lo + width + 1]
+        positions = torch.arange(lo, lo + width, dtype=torch.int32,
+                                 device=tokens.device).expand(batch, width)
+        out = self.model(block, positions=positions,
+                         return_hidden=self.fused_xent, **extra)
+        aux = None
+        if isinstance(out, tuple):
+            out, aux = out
+        out = out[:, :targets.shape[1]]
+        if self.fused_xent:
+            head, vocab_in_rows = fused_xent.find_lm_head(
+                dict(self.model.named_parameters()))
+            losses = fused_xent.fused_token_losses(
+                out, head, targets, vocab_in_rows=vocab_in_rows)
+        else:
+            losses = token_losses(out, targets)
+        loss = losses.sum() / (batch * (seq - 1))
+        return loss if aux is None else loss + aux / ring.size
 
     def _compute_loss(self, params: Dict[str, Any],
                       tokens: torch.Tensor) -> torch.Tensor:
@@ -434,12 +494,14 @@ class ShardedTrainer:
                            else loss)
 
         def step(state: TrainState, tokens: torch.Tensor):
-            return run(state, tokens, None, None, False)
+            with cp_context.context_parallel(self.mesh):
+                return run(state, tokens, None, None, False)
 
         def guarded(state: TrainState, tokens: torch.Tensor,
                     max_grad_norm: float = math.inf,
                     loss_scale: float = 1.0):
-            return run(state, tokens, max_grad_norm, loss_scale, True)
+            with cp_context.context_parallel(self.mesh):
+                return run(state, tokens, max_grad_norm, loss_scale, True)
 
         return guarded if self.guard else step
 
@@ -448,7 +510,8 @@ class ShardedTrainer:
         @torch.no_grad()
         def evaluate(state: TrainState, tokens: torch.Tensor
                      ) -> torch.Tensor:
-            loss = self._compute_loss(state.params, tokens)
+            with cp_context.context_parallel(self.mesh):
+                loss = self._compute_loss(state.params, tokens)
             return loss if self.layout is None else self.layout.mean(loss)
 
         return evaluate

@@ -12,16 +12,20 @@ gang-exec env (`JAX_NUM_PROCESSES` > 1, `JAX_PROCESS_ID`,
 `JAX_COORDINATOR_ADDRESS`; parallel/distributed.py) and on a host with
 more than one card, every card runs a worker, rank p * k + i of
 `JAX_NUM_PROCESSES` x k (k cards a host, 1 with --cpu), NCCL on the
-card and gloo with --cpu. The mesh is `MeshConfig.auto(world)`: FSDP
-over every rank by default (parallel/mesh.py), with `--zero1` and
-`--overlap` as the reference defines them (parallel/fsdp.py). Each rank
-takes its rows of the global batch as the reference's devices take
-theirs; rank 0 alone logs, writes `--metrics-file`, `--profile`,
-`--trace-file` and the adapter artifact, and writes checkpoints (every
-rank gathers them). A peer that never arrives ends the run with exit 1
-naming the coordinator (after `distributed.TIMEOUT_S`, 300 s). The
-flags for tensor, sequence and expert parallelism and pipelines exit at
-startup naming themselves and their ROADMAP item.
+card and gloo with --cpu. The mesh is `MeshConfig.auto(world,
+expert=--expert, seq=--seq-parallel)`: FSDP over every rank not on
+another axis (parallel/mesh.py), with `--zero1` and `--overlap` as the
+reference defines them (parallel/fsdp.py). `--expert E` splits
+Mixtral's expert stacks over E ranks and `--seq-parallel K` the
+sequence over K ranks, attention a ring (ops/ring_attention.py); both
+repeat the batch, whose rows split over data x fsdp as the reference's
+devices take theirs. A world that those do not divide exits with the
+reference's words. Rank 0 alone logs, writes `--metrics-file`,
+`--profile`, `--trace-file` and the adapter artifact, and writes
+checkpoints (every rank gathers them). A peer that never arrives ends
+the run with exit 1 naming the coordinator (after
+`distributed.TIMEOUT_S`, 300 s). The flags for tensor parallelism and
+pipelines exit at startup naming themselves and their ROADMAP item.
 
 The Llama family, GPT-2 (`tiny`, `gpt2-124m`, the reference's default),
 Mixtral (`mixtral-tiny`, `mixtral-8x7b`, whose loss adds the router aux
@@ -63,10 +67,7 @@ from typing import List, Optional
 # other than the default exits at startup naming the flag.
 _REFUSED = (
     # Tensor-parallel training (serving's --tensor is A10, done).
-    ('--tensor', 'tensor', 1, 'A13'),
-    # Expert parallelism: more than one card.
-    ('--expert', 'expert', 1, 'A16'),
-    ('--seq-parallel', 'seq_parallel', 1, 'A13'),
+    ('--tensor', 'tensor', 1, 'A17'),
     ('--pipeline-stages', 'pipeline_stages', 1, 'A13'),
     ('--pipeline-schedule', 'pipeline_schedule', 'gpipe', 'A13'),
     ('--virtual-stages', 'virtual_stages', 0, 'A13'),
@@ -174,9 +175,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help='with --zero1, issue the grad reduce-scatter leaf by '
                         'leaf during backward')
     # The reference's flags for features this port does not have yet.
-    p.add_argument('--tensor', type=int, default=1)
     p.add_argument('--expert', type=int, default=1)
-    p.add_argument('--seq-parallel', type=int, default=1)
+    p.add_argument('--seq-parallel', type=int, default=1,
+                   help='context-parallel mesh axis size '
+                        '(ring attention)')
+    p.add_argument('--tensor', type=int, default=1)
     p.add_argument('--pipeline-stages', type=int, default=1)
     p.add_argument('--pipeline-schedule', default='gpipe',
                    choices=['gpipe', '1f1b', 'interleaved'])
@@ -311,7 +314,12 @@ def _train(args: argparse.Namespace, job) -> None:
     if args.trace_file and main_rank:
         timeline.enable(args.trace_file)
     n_dev = 1 if job is None else job.world
-    mesh_cfg = mesh_lib.MeshConfig.auto(n_dev)
+    try:
+        mesh_cfg = mesh_lib.MeshConfig.auto(n_dev, expert=args.expert,
+                                            seq=args.seq_parallel)
+    except ValueError as e:     # the reference's words
+        print(f'train_lm: {e}', file=sys.stderr, flush=True)
+        sys.exit(2)
     mesh = None if job is None else mesh_lib.make_mesh(mesh_cfg)
     if main_rank:
         print(f'devices={n_dev} {mesh_lib.mesh_summary(mesh or mesh_cfg)}',

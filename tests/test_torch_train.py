@@ -461,7 +461,7 @@ def test_train_lm_lora_adapter_loads_in_both_packages(tmp_path):
     (['--tensor', '2'], '--tensor'),
     (['--pipeline-stages', '2'], '--pipeline-stages'),
     (['--microbatches', '4'], '--microbatches'),
-    (['--expert', '2'], '--expert (ROADMAP A16)'),
+    (['--pipeline-schedule', '1f1b'], '--pipeline-schedule (ROADMAP A13)'),
     (['--model', 'mixtral-tiny', '--lora', '4'],
      'Mixtral has no LoRA forward path'),
     (['--model', 'deepseek-v2-lite', '--lora', '4'],

@@ -5,7 +5,9 @@ the CPU and writes what it saw to `<out>/rank<r>.pt` for the test to
 read. Imports torch and the port only (no JAX), so a spawn stays
 cheap.
 """
+import contextlib
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -313,5 +315,467 @@ def zero1_job(job, out, ckpt_in, ckpt_dir):
                 for n in params)
             and all(np.array_equal(a, b) for a, b in zip(mu, zero1_state[1])))
         _save(out, job, result)
+    finally:
+        distributed.leave()
+
+
+# -- test_torch_ring.py, test_torch_context.py, test_torch_expert.py ---------
+RING_SHAPE = (2, 32, 2, 8)      # B, S, H, D over a 4-rank ring
+
+
+def ring_inputs():
+    g = torch.Generator().manual_seed(0)
+    return [torch.randn(RING_SHAPE, generator=g) for _ in range(4)]
+
+
+def ring_job(job, out):
+    """MeshConfig(seq=4): ring attention of this rank's blocks, causal
+    and not, its grads for a seeded upstream gradient, the perturbed
+    ring's output, and the dispatch's ring route with GQA k/v."""
+    from skypilot_tpu_torch.ops import attention as attention_ops
+    from skypilot_tpu_torch.ops import ring_attention as ra
+    from skypilot_tpu_torch.parallel import context, distributed
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    torch.set_num_threads(1)
+    distributed.join(job)
+    try:
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(seq=job.world))
+        ring = context.seq_group_of(mesh)
+        q, k, v, do = ring_inputs()
+        blk = mesh_lib.seq_block(mesh, q.shape[1])
+        result = {'block': (blk.start, blk.stop), 'ring': ring.ranks,
+                  'index': ring.index}
+        for causal in (True, False):
+            parts = [x[:, blk].clone().requires_grad_(True)
+                     for x in (q, k, v)]
+            steps = ra.fwd_steps, ra.bwd_steps
+            o = ra.ring_attention(*parts, ring, causal=causal)
+            o.backward(do[:, blk])
+            result[causal] = {
+                'out': o.detach().numpy(),
+                'grads': [p.grad.numpy() for p in parts],
+                'steps': (ra.fwd_steps - steps[0], ra.bwd_steps - steps[1]),
+                'perturbed': ra.ring_attention(
+                    *[p.detach() for p in parts], ring, causal=causal,
+                    skip_rotation=1).numpy()}
+        # The dispatch under context_parallel: GQA k/v (1 kv head of 2)
+        # repeated before the ring.
+        with context.context_parallel(mesh):
+            result['gqa'] = attention_ops.dot_product_attention(
+                q[:, blk], k[:, blk, :1], v[:, blk, :1]).numpy()
+        _save(out, job, result)
+    finally:
+        distributed.leave()
+
+
+def seq_run(name, mesh, rows, remat=False, **kw):
+    trainer = make_trainer(build(name, remat), mesh, collect_grad_norm=True,
+                           **kw)
+    state, losses, norms, _ = run_steps(trainer, trainer.init(), rows)
+    return trainer, state, {'losses': losses, 'norms': norms,
+                            'params': whole_params(state)}
+
+
+def context_job(job, out):
+    """World 4 on MeshConfig.auto(4, seq=2) (fsdp=2 x seq=2): llama-tiny,
+    its remat, and deepseek-tiny (the warnings it gave), and this
+    rank's sequence block; world 2 is `context2_job`."""
+    import warnings
+    from skypilot_tpu_torch.parallel import distributed
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    torch.set_num_threads(1)
+    distributed.join(job)
+    try:
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig.auto(job.world, seq=2))
+        rows = mesh_lib.batch_rows(mesh, BATCH)
+        blk = mesh_lib.seq_block(mesh, SEQ)
+        result = {'summary': mesh_lib.mesh_summary(mesh),
+                  'rows': (rows.start, rows.stop),
+                  'block': (blk.start, blk.stop)}
+        _, _, result['llama'] = seq_run('llama-tiny', mesh, rows)
+        _, _, result['remat'] = seq_run('llama-tiny', mesh, rows, remat=True)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter('always')
+            _, _, result['deepseek'] = seq_run('deepseek-tiny', mesh, rows)
+        result['deepseek']['warnings'] = sorted({str(w.message)
+                                                 for w in seen})
+        _save(out, job, result)
+    finally:
+        distributed.leave()
+
+
+def context2_job(job, out):
+    """World 2 on MeshConfig.auto(2, seq=2): GPT-2 `tiny` (the
+    reference's context-parallel GPT test) and its eval loss."""
+    from skypilot_tpu_torch.parallel import distributed
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    torch.set_num_threads(1)
+    distributed.join(job)
+    try:
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig.auto(job.world, seq=2))
+        rows = mesh_lib.batch_rows(mesh, BATCH)
+        trainer, state, result = seq_run('tiny', mesh, rows)
+        result['eval'] = float(trainer.make_eval_step()(
+            state, torch.from_numpy(tokens_for(0, 512))))
+        _save(out, job, {'gpt': result})
+    finally:
+        distributed.leave()
+
+
+def expert_leaf_grads(trainer, skew=0.0):
+    """Spy on the layout's reduce_grads: the local gradient of every leaf
+    the expert ranks all hold, as backward left it, each step. With
+    `skew`, expert rank 1 scales those gradients by 1 + skew first: the
+    copies diverge, as a backward that is not deterministic to the last
+    bit (the card's flash dQ) makes them diverge."""
+    layout, seen = trainer.layout, []
+    orig = layout.reduce_grads
+
+    def spy(leaves):
+        grads = {}
+        for leaf, t in zip(layout.leaves, leaves):
+            if leaf.experts == 1:
+                g = layout.local(t.grad)
+                if skew and layout.expert_index == 1:
+                    g.mul_(1 + skew)
+                grads[leaf.name] = g.detach().clone().numpy()
+        seen.append(grads)
+        return orig(leaves)
+
+    layout.reduce_grads = spy
+    return seen
+
+
+def expert_run(mesh, rows, skew=0.0, poison=None):
+    """mixtral-tiny over `mesh`: the curve, whole params, each leaf's
+    local share, the replicated leaves' raw grads (skewed on expert rank
+    1 by `skew`) and final local values (compared across expert
+    ranks)."""
+    from skypilot_tpu_torch.parallel.train import trainable_items
+    trainer = make_trainer(build('mixtral-tiny'), mesh,
+                           collect_grad_norm=True, guard=poison is not None)
+    state = trainer.init()
+    fractions = {name: trainer.layout.local(t).numel() / int(np.prod(
+        leaf.shape)) for (name, t), leaf in zip(
+            trainable_items(state.params), trainer.layout.leaves)}
+    grads = expert_leaf_grads(trainer, skew)
+    state, losses, norms, bads = run_steps(trainer, state, rows, poison)
+    layout = trainer.layout
+    return trainer, state, {
+        'losses': losses, 'norms': norms, 'bads': bads,
+        'params': whole_params(state), 'fractions': fractions,
+        'grads': grads, 'reductions': dict(layout.reductions),
+        'replicated': {leaf.name: layout.local(t).detach().numpy().copy()
+                       for leaf, (_, t) in zip(
+                           layout.leaves, trainable_items(state.params))
+                       if leaf.experts == 1}}
+
+
+def expert2_job(job, out, ckpt_dir):
+    """World 2 on MeshConfig.auto(2, expert=2): mixtral-tiny, saved to
+    `ckpt_dir` (the save's whole-leaf peak watched), and llama-tiny (no
+    expert leaf: both ranks do the same work)."""
+    from skypilot_tpu_torch.parallel import distributed
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel.checkpoints import CheckpointManager
+    torch.set_num_threads(1)
+    distributed.join(job)
+    try:
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig.auto(job.world,
+                                                           expert=2))
+        rows = mesh_lib.batch_rows(mesh, BATCH)
+        trainer, state, result = expert_run(mesh, rows)
+        result['summary'] = mesh_lib.mesh_summary(mesh)
+        result['mu'] = whole_moments(state)
+        mgr = CheckpointManager(ckpt_dir)
+        result['saved'], peak, calls = watched_save(mgr, state)
+        result['save_whole_leaves'] = {'peak': peak, 'calls': calls,
+                                       'leaves': len(trainer.layout.leaves)}
+        _, _, llama = seq_run('llama-tiny', mesh, rows)
+        _save(out, job, {'expert2': result, 'llama': llama})
+    finally:
+        distributed.leave()
+
+
+SKEW = 1e-3
+
+
+def expert4_job(job, out):
+    """World 4: mixtral-tiny on MeshConfig.auto(4, expert=2) (fsdp=2 x
+    expert=2), as is and with expert rank 1's replicated gradients
+    skewed by SKEW; on auto(4, expert=2, seq=2); and guarded there with
+    step POISON_STEP poisoned on rank 3 only."""
+    from skypilot_tpu_torch.parallel import distributed
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    torch.set_num_threads(1)
+    distributed.join(job)
+    try:
+        result = {}
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig.auto(job.world,
+                                                           expert=2))
+        rows = mesh_lib.batch_rows(mesh, BATCH)
+        _, _, result['fsdp_expert'] = expert_run(mesh, rows)
+        _, _, result['skewed'] = expert_run(mesh, rows, skew=SKEW)
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig.auto(
+            job.world, expert=2, seq=2))
+        rows = mesh_lib.batch_rows(mesh, BATCH)
+        result['summary'] = mesh_lib.mesh_summary(mesh)
+        _, _, result['expert_seq'] = expert_run(mesh, rows)
+
+        def poison(i):
+            return float('nan') if (i == POISON_STEP and job.rank == 3) \
+                else 1.0
+
+        _, _, result['guard'] = expert_run(mesh, rows, poison=poison)
+        _save(out, job, result)
+    finally:
+        distributed.leave()
+
+
+# -- test_torch_parallel_cards.py (NCCL over distinct cards) -----------------
+def card_spec(model, layers, seq, steps, expert=1, seq_parallel=1, batch=1):
+    return {'model': model, 'layers': layers, 'seq': seq, 'steps': steps,
+            'expert': expert, 'seq_parallel': seq_parallel, 'batch': batch}
+
+
+def card_model(spec, device):
+    """The seeded bf16 training model of `spec` (full width, its depth
+    cut to spec['layers'], --remat) on `device`."""
+    from skypilot_tpu_torch.models import convert, registry
+    cfg = dataclasses.replace(
+        registry.train_config(spec['model'], spec['seq'], True),
+        num_layers=spec['layers'])
+    return convert.init_params(cfg, seed=0, device=device)
+
+
+def card_device(job):
+    """The job's card ('cpu' for a gloo job: a rehearsal on the CPU)."""
+    return f'cuda:{job.local_rank}' if job.backend == 'nccl' else 'cpu'
+
+
+def peak_gb(device, reset=False):
+    if device == 'cpu':
+        return 0.0
+    if reset:
+        torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.max_memory_allocated(device) / 1e9
+
+
+def card_trainer(model, mesh=None):
+    """train_lm's trainer for `model` (its optimizer, the default lr)."""
+    from skypilot_tpu_torch.parallel import train
+    return train.ShardedTrainer(
+        model, tx=train.default_optimizer(warmup_steps=10, total_steps=20),
+        loss_fn=loss_fn_for(model), collect_grad_norm=True, mesh=mesh)
+
+
+def card_tokens(spec, vocab):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, (spec['batch'], spec['seq']))
+            for _ in range(spec['steps'])]
+
+
+class _Reductions:
+    """Counts torch.distributed.all_reduce calls (the MoE's combine and
+    copies, the aux fractions, the layout's seq / expert / data sums)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.count, self._orig = 0, dist.all_reduce
+
+        def counted(*a, **kw):
+            self.count += 1
+            return self._orig(*a, **kw)
+
+        dist.all_reduce = counted
+
+    def close(self):
+        import torch.distributed as dist
+        dist.all_reduce = self._orig
+
+
+@contextlib.contextmanager
+def experts_in_parts(parts):
+    """One process's MoE computing its experts in `parts` equal ranges,
+    each range as an expert rank of `--expert parts` computes its own
+    (`MoEFeedForward.expert_sum`), the ranges' combines summed in f32
+    before the cast, as that job's all-reduce sums them."""
+    from skypilot_tpu_torch.models.mixtral import MoEFeedForward
+    whole = MoEFeedForward.expert_sum
+
+    def in_parts(self, dispatch, combine, x32, lo, hi):
+        width = (hi - lo) // parts
+        out = None
+        for i in range(parts):
+            part = whole(self, dispatch, combine, x32, lo + i * width,
+                         lo + (i + 1) * width)
+            out = part if out is None else out + part
+        return out
+
+    MoEFeedForward.expert_sum = in_parts
+    try:
+        yield
+    finally:
+        MoEFeedForward.expert_sum = whole
+
+
+def card_one_job(job, out, spec, repeats, witness=()):
+    """One card, no job: the trainer's step-1 loss and grad norm, both
+    again `repeats` times on the same weights and batch (their spread
+    bounds the sharded runs'), the step-1 loss and norm with the experts
+    computed in each count of `witness` parts (experts_in_parts), the
+    step time and peak memory."""
+    import time
+    from skypilot_tpu_torch.parallel import train
+    from skypilot_tpu_torch.observability.step_metrics import matmul_params
+    device = card_device(job)
+    if device != 'cpu':
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    peak_gb(device, reset=True)
+    model = card_model(spec, device)
+    n_matmul = matmul_params(model.named_parameters())
+    trainer = card_trainer(model)
+    state = trainer.init()
+    tokens = [torch.from_numpy(t).to(device)
+              for t in card_tokens(spec, model.config.vocab_size)]
+
+    def loss_and_norm():
+        loss = trainer._compute_loss(state.params, tokens[0])
+        grads = torch.autograd.grad(loss, train.trainable_leaves(
+            state.params))
+        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        return loss.item(), norm.item()
+
+    first = [loss_and_norm() for _ in range(repeats)]
+    parts = {}
+    for n in witness:
+        with experts_in_parts(n):
+            parts[n] = loss_and_norm()
+    step = trainer.make_train_step()
+    losses, norms, times = [], [], []
+    for t in tokens:
+        t0 = time.perf_counter()
+        state, (loss, gnorm) = step(state, t)
+        losses.append(loss.item())
+        norms.append(gnorm.item())
+        times.append(time.perf_counter() - t0)
+    _save(out, job, {
+        'step1': first, 'witness': parts, 'losses': losses, 'norms': norms,
+        'times': times,
+        'matmul_params': n_matmul, 'peak_gb': peak_gb(device)})
+
+
+@contextlib.contextmanager
+def patched(owner, name, value):
+    orig = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def card_faults(spec):
+    """{name: a context in which the job's path is broken on purpose}:
+    the controls its step-1 check must reject. Experts: the combine not
+    summed over the expert group, and the gradient of x and the routing
+    weights not summed over it; seq: the ring keeping its own block
+    after its first step."""
+    from skypilot_tpu_torch.models import mixtral
+    from skypilot_tpu_torch.ops import ring_attention as ra
+    faults = {}
+    if spec['expert'] > 1:
+        faults['combine_not_summed'] = lambda: patched(
+            mixtral, 'reduce_from_experts', lambda x, group: x)
+        faults['grads_not_summed'] = lambda: patched(
+            mixtral, 'copy_to_experts', lambda x, group: x)
+    if spec['seq_parallel'] > 1:
+        ring = ra.ring_attention
+        faults['rotation_skipped'] = lambda: patched(
+            ra, 'ring_attention', functools.partial(ring, skip_rotation=0))
+    return faults
+
+
+def step1_reading(trainer, state, tokens):
+    """The job-wide loss and grad norm of a step on `state`, without its
+    update (the sharded step up to the optimizer)."""
+    from skypilot_tpu_torch.parallel import context
+    from skypilot_tpu_torch.parallel.train import trainable_leaves
+    layout = trainer.layout
+    with context.context_parallel(trainer.mesh):
+        leaves = trainable_leaves(state.params)
+        loss = trainer._compute_loss(state.params, tokens)
+        loss.backward()
+        norm = torch.sqrt(layout.global_sq(layout.reduce_grads(leaves)))
+        loss = layout.mean(loss)
+    return loss.item(), norm.item()
+
+
+def card_train_job(job, out, spec):
+    """One rank of a NCCL job on MeshConfig.auto(world, expert, seq):
+    first the step-1 loss and norm of each of `card_faults` (no update),
+    then spec['steps'] steps of the sharded trainer; the curve, step
+    times, peak memory, the flash launches and plain calls, the ring
+    steps and the ring's device ms a step, the all-reduces a step, and a
+    digest of the leaves every expert rank holds."""
+    import time
+    from skypilot_tpu_torch.ops import flash_kernel as fk
+    from skypilot_tpu_torch.ops import ring_attention as ra
+    from skypilot_tpu_torch.parallel import distributed
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel.train import trainable_items
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.join(job)
+    try:
+        device = card_device(job)
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig.auto(
+            job.world, expert=spec['expert'], seq=spec['seq_parallel']))
+        rows = mesh_lib.batch_rows(mesh, spec['batch'])
+        peak_gb(device, reset=True)
+        model = card_model(spec, device)
+        trainer = card_trainer(model, mesh)
+        state = trainer.init()
+        tokens = [torch.from_numpy(t[rows]).to(device)
+                  for t in card_tokens(spec, model.config.vocab_size)]
+        controls = {}
+        for name, fault in card_faults(spec).items():
+            with fault():
+                controls[name] = step1_reading(trainer, state, tokens[0])
+        trainer.layout.reductions.clear()
+        step = trainer.make_train_step()
+        fk.fwd_launches = fk.bwd_launches = fk.plain_calls = 0
+        ra.fwd_steps = ra.bwd_steps = 0
+        reductions = _Reductions()
+        losses, norms, times, ring_ms = [], [], [], []
+        try:
+            for t in tokens:
+                t0 = time.perf_counter()
+                with ra.timing() as events:
+                    state, (loss, gnorm) = step(state, t)
+                    losses.append(loss.item())
+                times.append(time.perf_counter() - t0)
+                norms.append(gnorm.item())
+                if events:
+                    torch.cuda.synchronize(device)
+                ring_ms.append(sum(a.elapsed_time(b) for a, b in events))
+        finally:
+            reductions.close()
+        layout = trainer.layout
+        digest = {leaf.name: float(layout.local(t).double().sum())
+                  for leaf, (_, t) in zip(layout.leaves,
+                                          trainable_items(state.params))
+                  if leaf.experts == 1}
+        _save(out, job, {
+            'summary': mesh_lib.mesh_summary(mesh),
+            'coordinate': list(mesh.get_coordinate()),
+            'controls': controls,
+            'losses': losses, 'norms': norms, 'times': times,
+            'ring_ms': ring_ms, 'peak_gb': peak_gb(device),
+            'flash': (fk.fwd_launches, fk.bwd_launches, fk.plain_calls),
+            'ring_steps': (ra.fwd_steps, ra.bwd_steps),
+            'all_reduces': reductions.count,
+            'layout_reductions': dict(layout.reductions),
+            'replicated_digest': digest})
     finally:
         distributed.leave()

@@ -12,7 +12,10 @@ SSE streams, text and chat endpoints, logprobs, `--hf` checkpoints and
 the one-shot engine; KV page chains: export / import, the host and cold
 spill tiers, disaggregated prefill / decode roles and live migration;
 training through the trainer API, the sharded trainer (FSDP over a
-1-rank NCCL job, `--zero1` / `--overlap`), `train_lm --lora` and
+1-rank NCCL job, `--zero1` / `--overlap`), the pipeline trainer
+(gpipe, 1f1b and interleaved on one card named twice; where two cards
+are visible `train_lm --pipeline-stages 2` as a 2-rank NCCL job),
+`train_lm --lora` and
 `train_lm` on GPT-2, Mixtral and DeepSeek, where two cards are visible
 `train_lm --expert 2` and `--seq-parallel 2` as 2-rank NCCL jobs (the
 other phases use card 0 alone), and train_lm's recovery
@@ -386,9 +389,41 @@ failure exits non-zero before the result lines:
                  then again with zero1=True, overlap=True: at data = 1
                  the layout turns both off (checked), so this run takes
                  the plain path again and measures no zero1: the same
-                 gates. Step ms, tokens/s, MFU, peak
+                 gates. The checkpoint round runs on train_full's config
+                 cut to CKPT_CUT (1 layer, a 32768-token vocab: ~5.8 GB
+                 of state; the 4-layer state's 23 GB took 119 s), one
+                 sharded step into it; the restored state saved again is
+                 the same file byte for byte. Step ms, tokens/s, MFU, peak
                  memory and the checkpoint's save / restore s beside
                  train_full's
+  train_pipeline the pipeline trainer API (parallel/pipeline.py) in
+                 process on devices ['cuda:0', 'cuda:0'] (S = 2) at
+                 train_full's shape (Llama-3-8B width, 4 layers, B=8,
+                 S=2048), M = 8 microbatches of one row, for gpipe, 1f1b
+                 and interleaved (v = 2, one layer a chunk): step 1
+                 (loss, grad norm) against the witness, the one-card
+                 trainer fed the rows one microbatch at a time with the
+                 pipeline's vocab-split head and loss (`split_vocab_loss`,
+                 2 shards), grads summed in f32, within a bound set in
+                 this run: PIPE_SPREAD times the witness's spread over 5
+                 readings, at least FSDP_TOL; two controls (microbatch 1's
+                 backward skipped, a forward hand-off delivering the
+                 previous microbatch's activation) must fall outside it;
+                 64 flash_fwd and 32 flash_bwd launches a step, no plain
+                 call; then 3 steps: step s, tokens/s, MFU and peak GB
+                 beside train_full's, the schedule's ticks and bubble
+                 fraction, hand-offs and collectives a step (one card
+                 named twice runs the stages one after the other: these
+                 measure the runner's overhead, not a pipeline's overlap),
+                 the offset from train_full's whole-batch step 1 beside.
+                 Where 2 cards are visible: `train_lm --pipeline-stages 2
+                 --pipeline-schedule 1f1b --microbatches 8` at that shape
+                 as a 2-rank NCCL job (train_expert's launcher), its step
+                 1 within the bound of the in-process 1f1b reading of its
+                 own batch, each rank's flash launches for its 2 layers;
+                 on one card it prints that it did not run. Distinct
+                 cards: tests/test_torch_parallel_cards.py `pipe2`,
+                 `pipe2x2` (-m card, 4 cards)
   train_lora     `train_lm --model llama3-8b --lora 16 --seq 2048
                  --remat` at full depth: 4 steps with checkpoints every
                  2, a relaunch to 6 resumes from step 4; forward launches
@@ -480,8 +515,10 @@ from zero, graph replays included; no scalar-route launch may occur
 there), its verify row those of decode_modes' (e) run, the GPT-2 rows
 (decode: split, chunk) those of serve_gpt2's window;
 the flash kernels' launch counts are those of the training phases
-(train_full, train_fsdp, train_lora, train_mixtral, train_expert's ranks
-where it runs, and train_guard's trainer-API steps, its --init-from-hf
+(train_full, train_fsdp, train_pipeline's steps of each style and its
+2-card job's ranks where it runs, train_lora, train_mixtral,
+train_expert's ranks where it runs, and train_guard's trainer-API
+steps, its --init-from-hf
 run and its chaos run and relaunch), each counted from zero; int8_linear's those of serve_int8_weights. Then, as the last
 three lines: the card (`nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`), the kernels JSON line, and {"ok": true,
@@ -490,6 +527,7 @@ result, without CUDA or outside a checkout of the repository.
 """
 import contextlib
 import dataclasses
+import filecmp
 import functools
 import gc
 import io
@@ -569,6 +607,9 @@ FSDP_CURVE_TOL = 1e-4
 FSDP_NORM_REPEATS = 4
 FSDP_NORM_SPREAD = 2.0
 FSDP_NORM_CONTROL = 1e-4
+# train_fsdp's checkpoint round runs on train_full's config cut to this
+# (the round checks the collective save and restore, not the width).
+CKPT_CUT = {'num_layers': 1, 'vocab_size': 32768}
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
                     'chip_smoke')
 
@@ -1914,15 +1955,23 @@ def phase_train_fsdp(fk, card, full):
         check(not close(losses, [norms[0] * (1 + FSDP_NORM_CONTROL)]),
               f'a step-1 grad norm scaled by 1 + {FSDP_NORM_CONTROL} passed '
               f'the bound {full["step1_norm_tol"]}')
-        # The checkpoint, restored into the one-card trainer.
+        del model, trainer, state
+        torch.cuda.empty_cache()
+        # The checkpoint round on a smaller state (CKPT_CUT: one layer, a
+        # 32768-token vocab; the 4-layer state's 23 GB round cost 119 s
+        # of the run's limit), one sharded step into it: the collective
+        # save restores into the one-card trainer bit for bit, and saved
+        # again from there is the same file byte for byte.
+        ck_cfg = dataclasses.replace(cfg, **CKPT_CUT)
+        ck_toks = [torch.from_numpy(np.random.default_rng(0).integers(
+            0, ck_cfg.vocab_size, (batch, seq))).cuda()]
+        model, trainer, state, *_ = sharded_run(fk, ck_cfg, ck_toks, mesh)
         shutil.rmtree(ckpt, ignore_errors=True)
         t0 = time.perf_counter()
         CheckpointManager(ckpt).save(state.step, state, force=True)
         save_s = time.perf_counter() - t0
-        del trainer
-        torch.cuda.empty_cache()
         one = train.ShardedTrainer(
-            convert.init_params(cfg, seed=1, device='cuda'),
+            convert.init_params(ck_cfg, seed=1, device='cuda'),
             tx=train.default_optimizer(warmup_steps=10, total_steps=20))
         t0 = time.perf_counter()
         restored = CheckpointManager(ckpt).restore(one.init())
@@ -1939,7 +1988,17 @@ def phase_train_fsdp(fk, card, full):
                     layout.full(i, state.opt_state[key][i], moment=True),
                     restored.opt_state[key][i])
         check(same, 'the sharded checkpoint did not restore bit for bit')
-        del model, state, one, restored, layout
+        again = ckpt + '_again'
+        shutil.rmtree(again, ignore_errors=True)
+        CheckpointManager(again).save(restored.step, restored, force=True)
+        check(filecmp.cmp(os.path.join(ckpt, str(state.step), 'state.pt'),
+                          os.path.join(again, str(state.step), 'state.pt'),
+                          shallow=False),
+              'the restored checkpoint saved again is another file')
+        shutil.rmtree(again, ignore_errors=True)
+        ckpt_gb = sum(t.numel() for t in train.trainable_leaves(
+            restored.params)) * 12 / 1e9
+        del model, trainer, state, one, restored, layout
         torch.cuda.empty_cache()
         _, z_trainer, _, z_losses, z_norms, _, z_counts, z_plain = \
             sharded_run(fk, cfg, toks, mesh, zero1=True, overlap=True)
@@ -1972,10 +2031,296 @@ def phase_train_fsdp(fk, card, full):
          step_times_s=times, step_s=step_s,
          tokens_per_s=tps,
          mfu=6.0 * full['matmul_params'] * tps / BF16_FLOPS,
-         peak_mem_gb=peak, ckpt_save_s=save_s, ckpt_restore_s=restore_s,
+         peak_mem_gb=peak, ckpt_cut=CKPT_CUT, ckpt_gb=ckpt_gb,
+         ckpt_save_s=save_s, ckpt_restore_s=restore_s,
          launches=counts, zero1_overlap_launches=z_counts,
          train_full=full)
     return {name: counts[name] + z_counts[name] for name in counts}
+
+
+# -- pipeline training ----------------------------------------------------------
+# train_pipeline: the pipeline runner in process on one card named twice
+# (parallel/pipeline.py), Llama-3-8B width at PIPE_LAYERS layers, train_full's
+# B=8 S=2048 batches, PIPE_MICROBATCHES microbatches of one row, each style.
+PIPE_LAYERS = 4
+PIPE_BATCH, PIPE_SEQ = 8, 2048
+PIPE_MICROBATCHES = 8
+PIPE_STEPS = 3
+PIPE_DEVICES = ['cuda:0', 'cuda:0']
+PIPE_STYLES = (('gpipe', 1), ('1f1b', 1), ('interleaved', 2))
+# The step-1 bound: PIPE_SPREAD times the witness's spread over
+# 1 + PIPE_REPEATS readings (the flash backward's dQ sums are not
+# bit-deterministic), never under FSDP_TOL; both controls must fall
+# outside it.
+PIPE_REPEATS = 4
+PIPE_SPREAD = 2.0
+PIPE_FAULTS = ('backward_skipped', 'stale_handoff')
+
+
+def pipe_config():
+    from skypilot_tpu_torch.models import registry
+    return dataclasses.replace(registry.train_config('llama3-8b', PIPE_SEQ),
+                               num_layers=PIPE_LAYERS)
+
+
+@contextlib.contextmanager
+def pipe_fault(pp, name):
+    """The runner broken on purpose: 'backward_skipped' drops microbatch
+    1's backward (its chunks pass zeros on and add no grads; every style
+    runs a chunk's backwards in microbatch order, so it is each chunk's
+    second); 'stale_handoff' makes each forward hand-off deliver the
+    previous microbatch's activation from the same stage. Also used by
+    tests/torch_dist_workers.py's card jobs."""
+    if name == 'backward_skipped':
+        orig, calls = pp._chunk_backward, {}
+
+        def skipped(stage, virtual, x, g, aux_ct, acc):
+            n = calls[stage.index, virtual] = calls.get(
+                (stage.index, virtual), -1) + 1
+            if n == 1:
+                return torch.zeros_like(g)
+            return orig(stage, virtual, x, g, aux_ct, acc)
+
+        pp._chunk_backward = skipped
+        try:
+            yield
+        finally:
+            del pp._chunk_backward
+        return
+    group, last = pp.group, {}
+    orig = group.handoff
+
+    def stale(messages, like):
+        out = []
+        for src, dst, key, t in messages:
+            if key[0] == 'f' and t is not None:
+                prev, last[src] = last.get(src), t
+                t = t if prev is None else prev
+            out.append((src, dst, key, t))
+        return orig(out, like)
+
+    group.handoff = stale
+    try:
+        yield
+    finally:
+        del group.handoff
+
+
+def pipe_reading(pp, tokens):
+    """A pipelined step 1 without its update: (loss, grad norm)."""
+    loss, grads = pp.loss_and_grad(tokens)
+    norm = torch.sqrt(pp.global_sq(grads)[pp.stages[0].index])
+    return loss.item(), norm.item()
+
+
+def pipe_witness(cfg, tokens, shards, readings):
+    """The one-card trainer fed `tokens`' rows one microbatch at a time
+    (the pipeline's `microbatch_rows`), its loss the pipeline's
+    vocab-split head over `shards` shards in f32 (`split_vocab_loss`),
+    grads summed in f32 and losses averaged: the pipelined step's
+    arithmetic less the hand-offs. `readings` (loss, norm) pairs on the
+    same weights and batch."""
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.parallel import pipeline, train
+    model = convert.init_params(cfg, seed=0, device='cuda')
+    trainer = train.ShardedTrainer(model, collect_grad_norm=True)
+    trainer._loss = lambda params, tok: pipeline.split_vocab_loss(
+        model(tok, return_hidden=True), model.lm_head, tok, shards, cfg)
+    params = dict(model.named_parameters())
+    leaves = list(params.values())
+    rows = pipeline.microbatch_rows(tokens.shape[0], PIPE_MICROBATCHES)
+    out = []
+    for _ in range(readings):
+        sums, total = None, 0.0
+        for r in rows:
+            loss = trainer._compute_loss(params, tokens[r])
+            grads = torch.autograd.grad(loss, leaves)
+            sums = ([g.float() for g in grads] if sums is None else
+                    [a.add_(g.float()) for a, g in zip(sums, grads)])
+            total = total + loss.detach()
+        norm = torch.sqrt(sum((a / len(rows)).square().sum() for a in sums))
+        out.append(((total / len(rows)).item(), norm.item()))
+        del sums
+    del model, trainer, params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_pipeline(fk, card, full):
+    """The pipeline trainer API in process on one card named twice, each
+    style: step 1 against the witness within a bound set in this run
+    (both controls outside it), flash launches, steady steps; where 2
+    cards are visible, `train_lm --pipeline-stages 2` as a 2-rank NCCL
+    job held to the in-process 1f1b reading of its batch. Returns the
+    flash launches of the main path's steps."""
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.parallel import pipeline, train
+    t_phase = time.perf_counter()
+    cfg = pipe_config()
+    layers, M, S = PIPE_LAYERS, PIPE_MICROBATCHES, len(PIPE_DEVICES)
+    batch, seq = PIPE_BATCH, PIPE_SEQ
+    rng = np.random.default_rng(0)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+            .cuda() for _ in range(PIPE_STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    witness = pipe_witness(cfg, toks[0], S, 1 + PIPE_REPEATS)
+    witness_s = time.perf_counter() - t0
+    ref = witness[0]
+    spread = [(max(w[k] for w in witness) - min(w[k] for w in witness))
+              / abs(ref[k]) for k in (0, 1)]
+    bounds = [max(FSDP_TOL, PIPE_SPREAD * sp) for sp in spread]
+
+    def offsets(reading, against=ref):
+        return [abs(reading[k] - against[k]) / abs(against[k])
+                for k in (0, 1)]
+
+    def within(reading):
+        return all(o <= b for o, b in zip(offsets(reading), bounds))
+
+    two_cards = torch.cuda.device_count() >= PARALLEL_CARDS
+    lm_tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq), dtype=np.int32).astype(
+            np.int64)).cuda()
+    styles, totals, lm_reading = {}, dict.fromkeys(
+        ('flash_fwd', 'flash_bwd'), 0), None
+    for style, v in PIPE_STYLES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pp = pipeline.PipelinedLM(
+            convert.init_params(cfg, seed=0, device='cuda'),
+            devices=PIPE_DEVICES, num_microbatches=M, schedule=style,
+            virtual_stages=v)
+        tx = train.default_optimizer(warmup_steps=10, total_steps=20)
+        state = pp.init(tx)
+        zero_flash(fk)
+        sound = pipe_reading(pp, toks[0])
+        reading_counts = flash_counts(fk)
+        check(reading_counts == {'flash_fwd': 2 * layers * M,
+                                 'flash_bwd': layers * M}
+              and fk.plain_calls == 0,
+              f'train_pipeline {style} step-1 launches {reading_counts}, '
+              f'{fk.plain_calls} plain')
+        controls = {}
+        for name in PIPE_FAULTS:
+            with pipe_fault(pp, name):
+                controls[name] = pipe_reading(pp, toks[0])
+        check(within(sound),
+              f'train_pipeline {style}: step 1 {sound} vs witness {ref} '
+              f'(offsets {offsets(sound)}, bounds {bounds})')
+        check(all(not within(c) for c in controls.values()),
+              f'train_pipeline {style}: a control passed the bounds '
+              f'{bounds}: {controls}')
+        if style == '1f1b' and two_cards:
+            lm_reading = pipe_reading(pp, lm_tokens)
+        step = pp.make_train_step(tx, collect_grad_norm=True)
+        group = pp.group
+        handoffs0, collectives0 = group.handoffs, group.collectives
+        zero_flash(fk)
+        losses, norms, times = [], [], []
+        for tokens in toks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, (loss, gnorm) = step(state, tokens)
+            losses.append(loss.item())
+            norms.append(gnorm.item())
+            times.append(time.perf_counter() - t0)
+        counts = flash_counts(fk)
+        check(counts == {'flash_fwd': 2 * layers * M * PIPE_STEPS,
+                         'flash_bwd': layers * M * PIPE_STEPS}
+              and fk.plain_calls == 0,
+              f'train_pipeline {style} launches {counts}, '
+              f'{fk.plain_calls} plain')
+        check(all(np.isfinite(losses + norms)) and within(
+            (losses[0], norms[0])),
+              f'train_pipeline {style} steps {losses} / {norms}')
+        for k in totals:
+            totals[k] += counts[k]
+        step_s = float(np.mean(times[1:]))
+        tps = batch * seq / step_s
+        sched = pp.schedule
+        styles[style] = {
+            'virtual_stages': v, 'ticks': sched.num_ticks,
+            'bubble_fraction': sched.bubble_fraction,
+            'describe': sched.describe(),
+            'step1': list(sound), 'step1_rel_err': offsets(sound),
+            'controls': {k: list(c) for k, c in controls.items()},
+            'controls_rel_err': {k: offsets(c) for k, c in
+                                 controls.items()},
+            'vs_train_full_whole_batch': offsets(
+                sound, (full['losses'][0], full['grad_norms'][0])),
+            'losses': losses, 'grad_norms': norms, 'step_times_s': times,
+            'step_s': step_s, 'tokens_per_s': tps,
+            'mfu': 6.0 * full['matmul_params'] * tps / BF16_FLOPS,
+            'peak_mem_gb': torch.cuda.max_memory_allocated() / 1e9,
+            'handoffs_a_step': (group.handoffs - handoffs0) / PIPE_STEPS,
+            'collectives_a_step': (group.collectives - collectives0)
+            / PIPE_STEPS,
+            'launches': counts}
+        del pp, state, step, tx
+    gc.collect()
+    torch.cuda.empty_cache()
+    job = phase_train_pipeline_cards(card, lm_reading, bounds)
+    emit('train_pipeline', card=card, devices=PIPE_DEVICES, layers=layers,
+         reduced={'num_layers': [32, layers]}, batch=batch, seq=seq,
+         microbatches=M, witness=witness, witness_s=witness_s,
+         witness_spread=spread, bounds=bounds, spread_factor=PIPE_SPREAD,
+         styles=styles,
+         train_full={'step1': [full['losses'][0], full['grad_norms'][0]],
+                     'step_s': full['step_s'],
+                     'tokens_per_s': full['tokens_per_s'],
+                     'mfu': full['mfu'], 'peak_mem_gb': full['peak_mem_gb']},
+         note=('one card named twice: the stages run one after the other, '
+               'so step s, tokens/s and MFU measure the runner\'s overhead '
+               '(each chunk recomputed in its backward, the hand-offs, the '
+               'vocab-split head), not the overlap of a pipeline'),
+         two_card_job=job, seconds=time.perf_counter() - t_phase)
+    if job is not None:
+        for k in totals:
+            totals[k] += job['launches'][k]
+    return totals
+
+
+def phase_train_pipeline_cards(card, lm_reading, bounds):
+    """`train_lm --pipeline-stages 2 --pipeline-schedule 1f1b` at
+    train_pipeline's shape as a 2-rank NCCL job (None on one card): its
+    step 1 within `bounds` of the in-process 1f1b reading of the same
+    batch (`lm_reading`)."""
+    layers, steps, M = PIPE_LAYERS, PARALLEL_STEPS, PIPE_MICROBATCHES
+    argv = ['--model', 'llama3-8b', '--seq', '2048', '--global-batch', '8',
+            '--pipeline-stages', str(PARALLEL_CARDS), '--pipeline-schedule',
+            '1f1b', '--microbatches', str(M), '--steps', str(steps),
+            '--log-every', '1']
+    out = parallel_job('train_pipeline_2card', argv, 'llama3-8b', layers,
+                       card)
+    if out is None:
+        return None
+    ranks, records, seconds = out
+    per_rank = layers // PARALLEL_CARDS
+    for counts in ranks:
+        check(counts['flash_fwd'] == 2 * per_rank * M * steps
+              and counts['flash_bwd'] == per_rank * M * steps
+              and counts['plain_calls'] == 0,
+              f'train_pipeline_2card launches {ranks}')
+    first = (records[0]['loss'], records[0]['grad_norm'])
+    errs = [abs(first[k] - lm_reading[k]) / abs(lm_reading[k])
+            for k in (0, 1)]
+    check(all(e <= b for e, b in zip(errs, bounds)),
+          f'train_pipeline_2card step 1 {first} vs in process {lm_reading} '
+          f'(bounds {bounds})')
+    return {'argv': argv, 'ranks': PARALLEL_CARDS,
+            'losses': [r['loss'] for r in records],
+            'grad_norms': [r['grad_norm'] for r in records],
+            'in_process_step1': list(lm_reading), 'step1_rel_err': errs,
+            'step_time_s': [r['step_time_s'] for r in records],
+            'tokens_per_s': [r['tokens_per_sec'] for r in records],
+            'bubble_frac': [r['bubble_frac'] for r in records],
+            'launches': {k: sum(r[k] for r in ranks)
+                         for k in ('flash_fwd', 'flash_bwd')},
+            'seconds': seconds}
 
 
 def run_train_lm(argv):
@@ -6014,6 +6359,7 @@ def main() -> int:
     full_counts, full = phase_train_full(fk, pk, card)
     torch.cuda.empty_cache()
     fsdp_counts = phase_train_fsdp(fk, card, full)
+    pipe_counts = phase_train_pipeline(fk, card, full)
     lora_counts = phase_train_lora(fk, lk, card)
     torch.cuda.empty_cache()
     phase_train_gpt2(fk, card)
@@ -6060,6 +6406,7 @@ def main() -> int:
             row['launch_window'] = 'serve_int8_weights, ' + key
     for name, row in flash_rows.items():
         row['launches'] = (full_counts[name] + fsdp_counts[name]
+                           + pipe_counts[name]
                            + lora_counts[name] + mixtral_counts[name]
                            + expert_counts[name] + guard_counts[name])
     print(card, flush=True)

@@ -111,6 +111,7 @@ from skypilot_tpu_torch.observability import flight as flight_lib
 from skypilot_tpu_torch.observability import tracing
 from skypilot_tpu_torch.ops import paged_attention as paged_ops
 from skypilot_tpu_torch.ops import paged_kernel
+from skypilot_tpu_torch.parallel import pipeline_schedule
 from skypilot_tpu_torch.robustness import faults
 
 #: Prompt-lookup drafting for --speculative: the n-gram matched, and how
@@ -1771,8 +1772,12 @@ class ContinuousBatchingEngine:
             self.metrics.prefill_budget_utilization.set(spent / budget)
         chunks = self.prefill_chunks_run - chunks0
         if self.stages > 1 and chunks:
-            self.prefill_bubble_fraction = (self.stages - 1) / (
-                chunks + self.stages - 1)
+            # The fill/drain bubble of this pass's chunks as microbatches
+            # over the stage chain, read from the schedule module as the
+            # reference reads it.
+            self.prefill_bubble_fraction = \
+                pipeline_schedule.make_inference_schedule(
+                    self.stages, chunks).bubble_fraction
         if not done:
             return
         # The one host fetch of the chunks' first tokens is where a

@@ -76,13 +76,14 @@ class StepMetrics:
         return round(achieved / (self.peak_flops * self.n_devices), 4)
 
     def log(self, step: int, *, step_time_s: float, tokens: int,
-            loss: float, grad_norm: Optional[float] = None
-            ) -> Dict[str, Any]:
+            loss: float, grad_norm: Optional[float] = None,
+            bubble_frac: Optional[float] = None) -> Dict[str, Any]:
         """Write one record covering a window that ended at `step`:
         `step_time_s` is the mean per-step wall time over the window,
-        `tokens` the tokens one step consumes. The reference's
-        `bubble_frac` (pipelines) and `collective_wait_s` (meshes) keys
-        stay in the record, null on one card."""
+        `tokens` the tokens one step consumes, `bubble_frac` the
+        pipeline schedule's bubble fraction (null without a pipeline).
+        The reference's `collective_wait_s` key stays in the record,
+        null."""
         tokens_per_sec = tokens / step_time_s if step_time_s > 0 else 0.0
         record: Dict[str, Any] = {
             'step': int(step),
@@ -92,7 +93,7 @@ class StepMetrics:
             'loss': float(loss),
             'grad_norm': None if grad_norm is None else float(grad_norm),
             'mfu': self.mfu(tokens_per_sec),
-            'bubble_frac': None,
+            'bubble_frac': bubble_frac,
             'collective_wait_s': None,
         }
         self._f.write(json.dumps(record) + '\n')

@@ -22,6 +22,11 @@ the oldest steps and their manifests. The `checkpoint.save` and
 `checkpoint.restore` fault points fire before a save and a restore, as
 the reference's do. Remote (gs://, s3://) directories are refused.
 
+A pipelined state (parallel/pipeline.py, its own layout) saves and
+restores the same way, collectively: each leaf is gathered from the
+stage that holds it (table shards joined, padding dropped) and rank 0
+writes the one-card file; a restore hands each stage its pieces.
+
 Over a job (a state with a parallel/fsdp.py layout) saving and
 restoring are collective: every rank calls them at the same step. A
 save gathers one whole leaf at a time on every rank (rank 0 moves each
@@ -156,10 +161,12 @@ class CheckpointManager:
         then its mu, then its nu); rank 0 copies each to the host at
         once and the others drop it, so a card holds its shards and at
         most one whole leaf."""
+        layout = state.layout
+        if getattr(layout, 'pipelined', False):
+            return self._pipeline_payload(state)
         lora = 'lora' in state.params
         params = state.params['lora'] if lora else state.params
         opt = state.opt_state
-        layout = state.layout
         if layout is None:
             params, mu, nu = (_to_cpu(params), _to_cpu(opt['mu']),
                               _to_cpu(opt['nu']))
@@ -183,6 +190,25 @@ class CheckpointManager:
             'params': params,
             'opt_state': {'count': int(opt['count']), 'mu': mu, 'nu': nu},
         }
+
+    def _pipeline_payload(self, state: TrainState
+                          ) -> Optional[Dict[str, Any]]:
+        """A pipelined state's step (parallel/pipeline.py): every leaf
+        gathered whole from its stage, a parameter and then its
+        moments, in the model's order; rank 0 gets the payload a
+        one-card run of the same state writes."""
+        layout = state.layout
+        params, mu, nu = {}, [], []
+        for i, name in enumerate(layout.names):
+            params[name] = layout.gather_leaf(state, i, 'param')
+            mu.append(layout.gather_leaf(state, i, 'mu'))
+            nu.append(layout.gather_leaf(state, i, 'nu'))
+        if not self._main:
+            return None
+        return {'step': int(state.step), 'lora': False,
+                'base_source': self.base_source, 'params': params,
+                'opt_state': {'count': layout.count(state), 'mu': mu,
+                              'nu': nu}}
 
     def _write(self, step: int, payload: Dict[str, Any]) -> None:
         tmp = os.path.join(self.ckpt_dir, f'.tmp-{step}-{os.getpid()}')
@@ -219,6 +245,8 @@ class CheckpointManager:
         logged and skipped for the next-newest that verifies. Raises
         CheckpointNotFoundError when there is nothing to restore and
         CheckpointCorruptionError when every candidate is corrupt."""
+        if getattr(state_template.layout, 'pipelined', False):
+            return self._restore_pipelined(state_template, step)
         if state_template.layout is not None:
             return self._restore_sharded(state_template, step)
         candidate = self._verified_step(step)
@@ -259,6 +287,39 @@ class CheckpointManager:
                 layout.load(i, local, _broadcast_leaf(
                     whole, layout.leaves[i].shape, local), moment=moment)
         opt['count'].fill_(count)
+        state.step = at
+        self.last_restored_step = candidate
+        return state
+
+    def _restore_pipelined(self, state: TrainState,
+                           step: Optional[int]) -> TrainState:
+        """Rank 0 reads and checks the step; each whole leaf is
+        broadcast and every stage keeps its piece of it."""
+        layout = state.layout
+        loaded: Dict[str, Any] = {}
+
+        def read():
+            candidate = self._verified_step(step)
+            payload = self._read(candidate)
+            got = payload['params']
+            if payload['lora'] or list(got) != layout.names or any(
+                    tuple(got[n].shape) != layout.shapes[n] for n in got):
+                raise ValueError(f'checkpoint step {candidate}: structure '
+                                 f'does not match the pipelined model')
+            loaded['payload'] = payload
+            return (candidate, int(payload['step']),
+                    int(payload['opt_state']['count']))
+
+        candidate, at, count = self._on_main(read)
+        payload = loaded.get('payload')
+        for i, name in enumerate(layout.names):
+            for what in ('param', 'mu', 'nu'):
+                whole = None
+                if payload is not None:
+                    whole = (payload['params'][name] if what == 'param'
+                             else payload['opt_state'][what][i])
+                layout.load_leaf(state, i, what, whole)
+        layout.set_count(state, count)
         state.step = at
         self.last_restored_step = candidate
         return state

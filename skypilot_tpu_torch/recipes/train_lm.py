@@ -24,8 +24,20 @@ reference's words. Rank 0 alone logs, writes `--metrics-file`,
 `--profile`, `--trace-file` and the adapter artifact, and writes
 checkpoints (every rank gathers them). A peer that never arrives ends
 the run with exit 1 naming the coordinator (after
-`distributed.TIMEOUT_S`, 300 s). The flags for tensor parallelism and
-pipelines exit at startup naming themselves and their ROADMAP item.
+`distributed.TIMEOUT_S`, 300 s). `--tensor` exits at startup naming
+itself and its ROADMAP item (A17).
+
+`--pipeline-stages S` (with `--pipeline-schedule gpipe|1f1b|interleaved`,
+`--virtual-stages`, `--microbatches`; parallel/pipeline.py) lays the
+ranks on MeshConfig(data=world / S, stage=S): one stage a rank, the
+reference's checks and log lines (the batch rounded to a multiple of
+microbatches x data, the schedule's `describe()`, the bubble fraction in
+the step records and the `skypilot_train_pipeline_bubble_fraction`
+gauge). Every rank draws the global batch and the pipeline takes its
+data rank's rows of each microbatch. GPT, Llama and Mixtral, as the
+reference's recipe allows; `--lora`, `--seq-parallel` and `--expert`
+(experts within stages, ROADMAP A13) are refused with it. The same
+loop, --guard and checkpoints run over it.
 
 The Llama family, GPT-2 (`tiny`, `gpt2-124m`, the reference's default),
 Mixtral (`mixtral-tiny`, `mixtral-8x7b`, whose loss adds the router aux
@@ -68,10 +80,6 @@ from typing import List, Optional
 _REFUSED = (
     # Tensor-parallel training (serving's --tensor is A10, done).
     ('--tensor', 'tensor', 1, 'A17'),
-    ('--pipeline-stages', 'pipeline_stages', 1, 'A13'),
-    ('--pipeline-schedule', 'pipeline_schedule', 'gpipe', 'A13'),
-    ('--virtual-stages', 'virtual_stages', 0, 'A13'),
-    ('--microbatches', 'microbatches', 0, 'A13'),
 )
 
 
@@ -180,11 +188,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help='context-parallel mesh axis size '
                         '(ring attention)')
     p.add_argument('--tensor', type=int, default=1)
-    p.add_argument('--pipeline-stages', type=int, default=1)
+    p.add_argument('--pipeline-stages', type=int, default=1,
+                   help='pipeline parallelism over a stage mesh axis '
+                        '(parallel/pipeline.py; GPT/Llama/Mixtral): one '
+                        'stage a rank, the rest of the ranks data '
+                        'parallel; uneven num_layers pads with identity '
+                        'slots')
     p.add_argument('--pipeline-schedule', default='gpipe',
-                   choices=['gpipe', '1f1b', 'interleaved'])
-    p.add_argument('--virtual-stages', type=int, default=0)
-    p.add_argument('--microbatches', type=int, default=0)
+                   choices=['gpipe', '1f1b', 'interleaved'],
+                   help='pipeline schedule (parallel/pipeline_schedule.py):'
+                        ' gpipe = all forwards then all backwards '
+                        '(activation memory O(microbatches)); 1f1b = '
+                        'one-forward-one-backward, live activations '
+                        'O(stages); interleaved = 1f1b over '
+                        '--virtual-stages layer chunks a device, the '
+                        'bubble fraction divided by v')
+    p.add_argument('--virtual-stages', type=int, default=0,
+                   help='layer chunks a device for --pipeline-schedule '
+                        'interleaved (0 = auto: 2 for interleaved, 1 '
+                        'otherwise)')
+    p.add_argument('--microbatches', type=int, default=0,
+                   help='pipeline microbatches (0 = 4 x stages)')
     return p
 
 
@@ -198,12 +222,32 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if bad:
         parser.error('not supported by the PyTorch port yet: '
                      + ', '.join(bad))
-    if args.overlap and not args.zero1:
-        # The reference's refusal (its pipeline case is refused above).
+    # The reference's pipeline checks, in its order and words.
+    staged = args.pipeline_stages > 1
+    if args.microbatches and not staged:
+        parser.error('--microbatches only applies with --pipeline-stages '
+                     '> 1')
+    if args.overlap and not args.zero1 and not staged:
         parser.error('--overlap buckets the grad reduce-scatter onto the '
                      'ZeRO-1 moment layout; add --zero1 (under '
                      '--pipeline-stages it only sets the XLA '
                      'latency-hiding flags)')
+    if args.virtual_stages and args.pipeline_schedule != 'interleaved':
+        parser.error('--virtual-stages only applies with '
+                     '--pipeline-schedule interleaved')
+    if args.pipeline_schedule != 'gpipe' and not staged:
+        parser.error('--pipeline-schedule needs --pipeline-stages > 1')
+    if args.lora and staged:
+        parser.error('--lora needs the sharded trainer (the GPipe path '
+                     'splits params per stage); drop one')
+    if staged and args.seq_parallel != 1:
+        parser.error('--pipeline-stages does not compose with '
+                     '--seq-parallel; drop one')
+    if staged and args.expert != 1:
+        # The reference shards experts within each stage.
+        parser.error('not supported by the PyTorch port yet: --expert '
+                     'with --pipeline-stages: experts within pipeline '
+                     'stages (ROADMAP A13)')
     if args.ckpt_dir and args.ckpt_dir.startswith(('gs://', 's3://')):
         parser.error(f'--ckpt-dir {args.ckpt_dir}: remote checkpoint dirs '
                      f'are not ported yet (ROADMAP A11)')
@@ -314,9 +358,17 @@ def _train(args: argparse.Namespace, job) -> None:
     if args.trace_file and main_rank:
         timeline.enable(args.trace_file)
     n_dev = 1 if job is None else job.world
+    stages = args.pipeline_stages
     try:
-        mesh_cfg = mesh_lib.MeshConfig.auto(n_dev, expert=args.expert,
-                                            seq=args.seq_parallel)
+        if stages > 1:
+            inner = stages * args.tensor * args.expert
+            if n_dev % inner:
+                raise ValueError(f'{n_dev} devices not divisible by stages '
+                                 f'x tensor x expert = {inner}')
+            mesh_cfg = mesh_lib.MeshConfig(data=n_dev // inner, stage=stages)
+        else:
+            mesh_cfg = mesh_lib.MeshConfig.auto(n_dev, expert=args.expert,
+                                                seq=args.seq_parallel)
     except ValueError as e:     # the reference's words
         print(f'train_lm: {e}', file=sys.stderr, flush=True)
         sys.exit(2)
@@ -349,7 +401,20 @@ def _train(args: argparse.Namespace, job) -> None:
     vocab_size = cfg.vocab_size
     batch = args.global_batch or 8 * n_dev
     rows = slice(None)
-    if mesh is not None:
+    if stages > 1:
+        from skypilot_tpu_torch.models.deepseek import Deepseek
+        if isinstance(model, Deepseek):
+            # The reference's recipe refuses it (its PipelinedLM runs it).
+            print('train_lm: --pipeline-stages supports the GPT, Llama, and '
+                  'Mixtral families (v1)', file=sys.stderr, flush=True)
+            sys.exit(2)
+        microbatches = args.microbatches or 4 * stages
+        denom = microbatches * mesh_cfg.data
+        if batch % denom:
+            batch = max(denom, (batch // denom) * denom)
+            say(f'pipeline: rounding global batch to {batch} '
+                f'({microbatches} microbatches x data={mesh_cfg.data})')
+    elif mesh is not None:
         try:
             rows = mesh_lib.batch_rows(mesh, batch)
         except ValueError as e:
@@ -366,20 +431,54 @@ def _train(args: argparse.Namespace, job) -> None:
             targets=lora_lib.targets_from_name(args.lora_targets))
     tx = default_optimizer(learning_rate=args.lr, warmup_steps=10,
                            total_steps=max(args.steps, 20))
-    from skypilot_tpu_torch.models.mixtral import (Mixtral,
-                                                   moe_next_token_loss)
-    trainer = ShardedTrainer(
-        model, tx=tx,
-        loss_fn=moe_next_token_loss if isinstance(model, Mixtral) else None,
-        fused_xent=False if args.no_fused_xent else None,
-        collect_grad_norm=args.metrics_file is not None, lora=lora_spec,
-        guard=args.guard, mesh=mesh, zero1=args.zero1,
-        overlap=args.overlap)
-    say(f'fused_xent={trainer.fused_xent} zero1={args.zero1} '
-        f'overlap={args.overlap} lora={args.lora or "off"}')
-    with timeline.Event('train/init'):
-        state = trainer.init(seed=7)
-    step_fn = trainer.make_train_step()
+    collect = args.metrics_file is not None    # (loss, grad_norm) a step
+    bubble_frac = None
+    if stages > 1:
+        from skypilot_tpu_torch.parallel.pipeline import PipelinedLM
+        if args.no_fused_xent or args.zero1:
+            say('pipeline trainer: --no-fused-xent/--zero1 ignored (the '
+                'pipeline path computes its head per-stage and keeps '
+                'per-stage opt state)')
+        if args.overlap:
+            say('pipeline trainer: --overlap sets no flags here (the '
+                'reference sets XLA latency-hiding flags; the port has none '
+                'to set)')
+        virtual = args.virtual_stages or (
+            2 if args.pipeline_schedule == 'interleaved' else 1)
+        try:
+            pp = PipelinedLM(model, mesh, num_microbatches=microbatches,
+                             schedule=args.pipeline_schedule,
+                             virtual_stages=virtual)
+        except ValueError as e:
+            print(f'train_lm: --pipeline-schedule: {e}', file=sys.stderr,
+                  flush=True)
+            sys.exit(2)
+        say(f'pipeline schedule: {pp.schedule.describe()}')
+        with timeline.Event('train/init'):
+            state = pp.init(tx)
+        del model
+        step_fn = pp.make_train_step(tx, guard=args.guard,
+                                     collect_grad_norm=collect)
+        bubble_frac = pp.schedule.bubble_fraction
+        from skypilot_tpu_torch.observability import catalog
+        catalog.gauge('skypilot_train_pipeline_bubble_fraction').set(
+            bubble_frac)
+    else:
+        from skypilot_tpu_torch.models.mixtral import (Mixtral,
+                                                       moe_next_token_loss)
+        trainer = ShardedTrainer(
+            model, tx=tx,
+            loss_fn=(moe_next_token_loss if isinstance(model, Mixtral)
+                     else None),
+            fused_xent=False if args.no_fused_xent else None,
+            collect_grad_norm=collect, lora=lora_spec,
+            guard=args.guard, mesh=mesh, zero1=args.zero1,
+            overlap=args.overlap)
+        say(f'fused_xent={trainer.fused_xent} zero1={args.zero1} '
+            f'overlap={args.overlap} lora={args.lora or "off"}')
+        with timeline.Event('train/init'):
+            state = trainer.init(seed=7)
+        step_fn = trainer.make_train_step()
 
     # Checkpoint resume (preemption recovery path; collective over a
     # job). Interval mode gates the cadence here (it is fixed once the
@@ -562,7 +661,7 @@ def _train(args: argparse.Namespace, job) -> None:
         if sup is not None:
             loss, gnorm, bad_flag = aux
             verdict_in_flight = HostScalars(loss, gnorm, bad_flag)
-        elif trainer.collect_grad_norm:
+        elif collect:
             loss, gnorm = aux
         else:
             loss, gnorm = aux, None
@@ -645,7 +744,8 @@ def _train(args: argparse.Namespace, job) -> None:
                                 step_time_s=dt / max(window_steps, 1),
                                 tokens=batch * args.seq, loss=loss_val,
                                 grad_norm=(float(gnorm) if gnorm is not None
-                                           else None))
+                                           else None),
+                                bubble_frac=bubble_frac)
             t0 = time.perf_counter()
             window_tokens = window_steps = 0
         step += 1

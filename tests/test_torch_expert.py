@@ -254,12 +254,24 @@ def test_train_lm_expert_runs_as_two_workers(tmp_path, capfd, monkeypatch):
                                rtol=TOL)
 
 
+# The pipeline flags parse since A13 (tests/test_torch_pipeline_gang.py):
+# these cases, ids kept, exit with the reference's pipeline checks, and
+# experts within pipeline stages stay refused naming A13.
 @pytest.mark.parametrize('argv,item', [
     (['--tensor', '2'], '--tensor (ROADMAP A17)'),
-    (['--pipeline-stages', '2'], '--pipeline-stages (ROADMAP A13)'),
-    (['--pipeline-schedule', '1f1b'], '--pipeline-schedule (ROADMAP A13)'),
-    (['--virtual-stages', '2'], '--virtual-stages (ROADMAP A13)'),
-    (['--microbatches', '4'], '--microbatches (ROADMAP A13)'),
+    pytest.param(['--pipeline-stages', '2', '--expert', '2'],
+                 'experts within pipeline stages (ROADMAP A13)',
+                 id='argv1---pipeline-stages (ROADMAP A13)'),
+    pytest.param(['--pipeline-schedule', '1f1b'],
+                 '--pipeline-schedule needs --pipeline-stages > 1',
+                 id='argv2---pipeline-schedule (ROADMAP A13)'),
+    pytest.param(['--virtual-stages', '2'],
+                 '--virtual-stages only applies with --pipeline-schedule '
+                 'interleaved',
+                 id='argv3---virtual-stages (ROADMAP A13)'),
+    pytest.param(['--microbatches', '4'],
+                 '--microbatches only applies with --pipeline-stages > 1',
+                 id='argv4---microbatches (ROADMAP A13)'),
 ])
 def test_the_other_parallel_flags_are_still_refused(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:

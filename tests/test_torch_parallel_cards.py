@@ -39,6 +39,23 @@ suite's conftest sets up JAX, which a card host need not have):
   - every rank reports the same curve; the leaves every expert rank
     holds end bit-identical across them.
 
+  - pipeline jobs (`pipe2`: stage 2, 2 ranks; `pipe2x2`: stage 2 x
+    data 2, 4 ranks; parallel/pipeline.py over the mesh's stage and
+    data axes): Llama-3-8B width, 4 layers, B=8, seq 2048, 1f1b,
+    microbatches of one row (8 at data 1, 4 a data rank at data 2:
+    the same rows, `microbatch_rows`); each job's step-1 loss and grad
+    norm are held to the in-process pipeline on cuda:0 named twice (a
+    process of its own), within NORM_SPREAD times that run's spread over
+    REPEATS more readings (at least FSDP_TOL), and the job's step 1 with
+    the runner broken on purpose (chip_smoke's PIPE_FAULTS: a
+    microbatch's backward skipped, a forward hand-off delivering the
+    previous microbatch's activation) must fall outside; every rank
+    launches flash_fwd
+    2 x its layers x its microbatches and flash_bwd half that a step,
+    no plain call; every rank reports the same curve. The line records
+    step s, tokens/s a card, peak GB a card, and the P2P hand-offs and
+    collectives a step.
+
 Each test prints one line, `parallel_cards <name> <json>`, with its
 measurements (step times, tokens/s per card, MFU, peak GB against one
 card's, all-reduces and ring ms a step); the card's name and power
@@ -220,3 +237,71 @@ def test_seq_job_on_nccl(ways, one_llama, tmp_path):
         assert rank['flash'] == (0, 0, 0)
         assert rank['ring_steps'] == (2 * layers * steps * ways,
                                       layers * steps * ways)
+
+
+PIPE = W.card_spec('llama3-8b', layers=4, seq=2048, steps=3, batch=8)
+
+
+@pytest.fixture(scope='module')
+def one_pipe(built, tmp_path_factory):
+    """The in-process pipeline on one card named twice, in a process of
+    its own: its step-1 readings' spread sets the bounds."""
+    one, = launch(W.card_pipe_job, 1, tmp_path_factory.mktemp('one_pipe'),
+                  PIPE, REPEATS)
+    ref = one['step1'][0]
+    one['bounds'] = [max(FSDP_TOL, NORM_SPREAD * spread(
+        [r[k] for r in one['step1']], ref[k])) for k in (0, 1)]
+    return one
+
+
+@pytest.mark.parametrize('world', [2, 4], ids=['pipe2', 'pipe2x2'])
+def test_pipeline_job_on_nccl(world, one_pipe, tmp_path):
+    need_cards(world)
+    ranks = launch(W.card_pipe_job, world, tmp_path, PIPE, 0)
+    one, bounds = one_pipe, one_pipe['bounds']
+    ref = one['step1'][0]
+    first = ranks[0]
+    for rank in ranks[1:]:
+        assert rank['losses'] == first['losses']
+        assert rank['norms'] == first['norms']
+        assert rank['step1'] == first['step1']
+    sound = offsets(first['step1'][0], ref)
+    controls = {k: offsets(v, ref) for k, v in first['controls'].items()}
+    data = world // 2
+    layers = PIPE['layers'] // 2
+    micro = PIPE['batch'] // data
+    steps = PIPE['steps']
+    tokens = PIPE['batch'] * PIPE['seq']
+    step_s = float(np.mean(first['times'][1:]))
+    one_step = float(np.mean(one['times'][1:]))
+    record = {
+        'world': world, 'mesh': f'Mesh(data={data}, stage=2)'
+        if data > 1 else 'Mesh(stage=2)', 'spec': PIPE,
+        'microbatches_a_data_rank': micro,
+        'losses': first['losses'], 'norms': first['norms'],
+        'in_process_step1': list(ref), 'in_process_step1_readings':
+        one['step1'], 'bounds': bounds, 'step1_rel_err': list(sound),
+        'controls_rel_err': controls,
+        'step_times_s': first['times'], 'step_s': step_s,
+        'in_process_step_s': one_step,
+        'tokens_per_s_per_card': tokens / step_s / world,
+        'in_process_tokens_per_s': tokens / one_step,
+        'mfu': 6.0 * one['matmul_params'] * tokens / step_s / world
+        / BF16_FLOPS,
+        'peak_gb': [r['peak_gb'] for r in ranks],
+        'in_process_peak_gb': one['peak_gb'],
+        'handoffs_a_step': first['handoffs_a_step'],
+        'collectives_a_step': [r['collectives_a_step'] for r in ranks],
+        'ticks': first['ticks'], 'bubble_fraction': first['bubble_fraction'],
+        'flash': [r['flash'] for r in ranks]}
+    print(f'parallel_cards pipe{"2x2" if data > 1 else "2"} '
+          f'{json.dumps(record)}', flush=True)
+    assert all(np.isfinite(first['losses'] + first['norms'])), record
+    assert all(e <= b for e, b in zip(sound, bounds)), record
+    assert controls and all(any(e > b for e, b in zip(errs, bounds))
+                            for errs in controls.values()), record
+    assert sorted((r['data'], r['stage']) for r in ranks) == sorted(
+        (d, s) for d in range(data) for s in range(2))
+    for rank in ranks:
+        assert rank['flash'] == (2 * layers * micro * steps,
+                                 layers * micro * steps, 0), record

@@ -459,9 +459,13 @@ def test_train_lm_lora_adapter_loads_in_both_packages(tmp_path):
 @pytest.mark.parametrize('argv,name', [
     (['--overlap'], 'ZeRO-1 moment layout; add --zero1'),
     (['--tensor', '2'], '--tensor'),
-    (['--pipeline-stages', '2'], '--pipeline-stages'),
+    # The pipeline flags parse since A13; these exit with the
+    # reference's pipeline checks (the ids are kept).
+    (['--pipeline-stages', '2', '--seq-parallel', '2'], '--pipeline-stages'),
     (['--microbatches', '4'], '--microbatches'),
-    (['--pipeline-schedule', '1f1b'], '--pipeline-schedule (ROADMAP A13)'),
+    pytest.param(['--pipeline-schedule', '1f1b'],
+                 '--pipeline-schedule needs --pipeline-stages > 1',
+                 id='argv4---pipeline-schedule (ROADMAP A13)'),
     (['--model', 'mixtral-tiny', '--lora', '4'],
      'Mixtral has no LoRA forward path'),
     (['--model', 'deepseek-v2-lite', '--lora', '4'],

@@ -779,3 +779,134 @@ def card_train_job(job, out, spec):
             'replicated_digest': digest})
     finally:
         distributed.leave()
+
+
+# -- test_torch_pipeline_gang.py ----------------------------------------------
+def pipe_job(job, out, spec, ckpt_dir):
+    """One rank of a gloo pipeline job on MeshConfig(data, stage=world /
+    data) (`spec`: model, config fields, schedule, virtual stages,
+    microbatches, data, seq, batch, lr, tokens): this rank's stage's
+    grads, the loss, one AdamW step's loss, norm and parameters, the
+    hand-offs and collectives the step made; the state is then saved to
+    `ckpt_dir` (every rank calls the save)."""
+    from skypilot_tpu_torch.parallel import distributed
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import train
+    from skypilot_tpu_torch.parallel.checkpoints import CheckpointManager
+    from skypilot_tpu_torch.parallel.pipeline import PipelinedLM
+    torch.set_num_threads(1)
+    distributed.join(job)
+    try:
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(
+            data=spec['data'], stage=job.world // spec['data']))
+        cfg = dataclasses.replace(f32_config(spec['model']),
+                                  **spec['fields'])
+        from skypilot_tpu_torch.models import convert
+        model = convert.init_params(cfg, seed=0, device='cpu')
+        pp = PipelinedLM(model, mesh, num_microbatches=spec['M'],
+                         schedule=spec['style'],
+                         virtual_stages=spec['v'])
+        tx = train.default_optimizer(learning_rate=spec['lr'])
+        state = pp.init(tx)
+        tokens = torch.from_numpy(spec['tokens'])
+        stage = pp.group.local[0]
+        loss, grads = pp.loss_and_grad(tokens)
+        counts = (pp.group.handoffs, pp.group.collectives)
+        state, (loss1, gnorm) = pp.make_train_step(
+            tx, collect_grad_norm=True)(state, tokens)
+        CheckpointManager(ckpt_dir).save(1, state, force=True)
+        _save(out, job, {
+            'stage': stage, 'data': pp.group.data_index,
+            'loss': loss.item(), 'loss1': loss1.item(),
+            'gnorm': gnorm.item(),
+            'grads': {n: g.clone() for n, g in grads[stage].items()},
+            'params': {n: p.detach().clone()
+                       for n, p in state.params[stage].items()},
+            'handoffs': counts[0], 'collectives': counts[1]})
+    finally:
+        distributed.leave()
+
+
+# -- test_torch_parallel_cards.py: pipelines ---------------------------------
+def card_pipe_job(job, out, spec, repeats):
+    """The pipeline at `spec`'s shape, 1f1b, microbatches of one row: on
+    one process (world 1) in process on [cuda:0, cuda:0], the step-1
+    reading 1 + `repeats` times; over a NCCL job of `world` ranks on
+    MeshConfig(data=world / 2, stage=2), the reading once and under each
+    of chip_smoke's PIPE_FAULTS. Then spec['steps'] steps: the curve,
+    step times, peak memory, flash launches and plain calls, hand-offs
+    and collectives a step."""
+    import time
+    from skypilot_tpu_torch.models import convert, registry
+    from skypilot_tpu_torch.ops import flash_kernel as fk
+    from skypilot_tpu_torch.parallel import distributed, train
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel.pipeline import PipelinedLM
+    from chip_smoke import PIPE_FAULTS, pipe_fault
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = card_device(job)
+    if job.world > 1:
+        distributed.join(job)
+    elif device != 'cpu':
+        torch.cuda.set_device(device)
+    try:
+        data = max(1, job.world // 2)
+        peak_gb(device, reset=True)
+        cfg = dataclasses.replace(
+            registry.train_config(spec['model'], spec['seq']),
+            num_layers=spec['layers'])
+        model = convert.init_params(cfg, seed=0, device=device)
+        micro = spec['batch'] // data
+        where = ({'devices': [device, device]} if job.world == 1 else
+                 {'mesh': mesh_lib.make_mesh(mesh_lib.MeshConfig(
+                     data=data, stage=2))})
+        pp = PipelinedLM(model, num_microbatches=micro, schedule='1f1b',
+                         **where)
+        tx = train.default_optimizer(warmup_steps=10, total_steps=20)
+        state = pp.init(tx)
+        tokens = [torch.from_numpy(t).to(device)
+                  for t in card_tokens(spec, cfg.vocab_size)]
+
+        def reading():
+            loss, grads = pp.loss_and_grad(tokens[0])
+            norm = torch.sqrt(pp.global_sq(grads)[pp.stages[0].index])
+            return loss.item(), norm.item()
+
+        step1 = [reading() for _ in range(1 + (repeats if job.world == 1
+                                               else 0))]
+        controls = {}
+        if job.world > 1:
+            for name in PIPE_FAULTS:
+                with pipe_fault(pp, name):
+                    controls[name] = reading()
+        step = pp.make_train_step(tx, collect_grad_norm=True)
+        group = pp.group
+        h0, c0 = group.handoffs, group.collectives
+        fk.fwd_launches = fk.bwd_launches = fk.plain_calls = 0
+        losses, norms, times = [], [], []
+        for t in tokens:
+            if device != 'cpu':
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            state, (loss, gnorm) = step(state, t)
+            losses.append(loss.item())
+            norms.append(gnorm.item())
+            times.append(time.perf_counter() - t0)
+        from skypilot_tpu_torch.observability.step_metrics import \
+            matmul_params
+        _save(out, job, {
+            'stage': group.local[0] if job.world > 1 else None,
+            'data': group.data_index, 'step1': step1,
+            'controls': controls, 'losses': losses, 'norms': norms,
+            'times': times, 'peak_gb': peak_gb(device),
+            'flash': (fk.fwd_launches, fk.bwd_launches, fk.plain_calls),
+            'handoffs_a_step': (group.handoffs - h0) / len(tokens),
+            'collectives_a_step': (group.collectives - c0) / len(tokens),
+            'ticks': pp.schedule.num_ticks,
+            'bubble_fraction': pp.schedule.bubble_fraction,
+            'matmul_params': matmul_params(
+                (n, torch.empty(s, device='meta'))
+                for n, s in pp.shapes.items())})
+    finally:
+        if job.world > 1:
+            distributed.leave()

@@ -424,6 +424,32 @@ failure exits non-zero before the result lines:
                  on one card it prints that it did not run. Distinct
                  cards: tests/test_torch_parallel_cards.py `pipe2`,
                  `pipe2x2` (-m card, 4 cards)
+  train_tensor   the sharded trainer over tensor shards in process
+                 (ShardedTrainer(devices=['cuda:0', 'cuda:0']),
+                 parallel/tensor.py: heads, the MLP and the vocab split
+                 over 2 shards of one card) at train_full's shape and
+                 batches: the witness (the shards' step-1 reading) 5 times,
+                 its spread setting the bound (TENSOR_SPREAD x spread, at
+                 least FSDP_TOL); two controls (copy-to-group's backward
+                 sum skipped, the vocab-parallel max dropped) must fall
+                 outside it and outside train_full's; then 3 steps: step
+                 1 within the bound and within train_fsdp's bounds of
+                 train_full's whole-model step 1 (loss FSDP_TOL, norm
+                 twice train_full's spread),
+                 flash_fwd and flash_bwd 2 x 4 a step at the shard's heads
+                 (16 q, 4 kv, D 128), no plain call; step s, tokens/s,
+                 MFU, peak GB, the shards' sums a step; then the 1f1b
+                 pipeline over a [2][2] grid of the card
+                 (--pipeline-stages 2 --tensor 2): its step-1 reading 5
+                 times, the first within TENSOR_SPREAD x their spread (at
+                 least FSDP_TOL) of train_pipeline's 1f1b reading, two
+                 controls (copy-to-group's backward sum skipped, a
+                 region's forward sum skipped) outside it, 128 / 64
+                 flash launches at the shard's heads. Where 2 cards are
+                 visible: `train_lm --tensor 2` at that shape as a 2-rank
+                 NCCL job, its step 1 within the bound of the in-process
+                 reading of its batch; on one card it prints that it did
+                 not run
   train_lora     `train_lm --model llama3-8b --lora 16 --seq 2048
                  --remat` at full depth: 4 steps with checkpoints every
                  2, a relaunch to 6 resumes from step 4; forward launches
@@ -499,15 +525,16 @@ failure exits non-zero before the result lines:
                  checkpoint; (c) a 300 s stall in the third batch fetch
                  under --watchdog-deadline 5: exit 84 within 15 s of the
                  last step, the dump naming next_tokens;
-                 (a) --model llama3-8b --lora 16 --seq 2048 --remat --guard
-                 at full depth, 24 steps, NaN at the 5th-7th steps and a
-                 notice after 55 one-second polls (both scoped to the
-                 first launch): three skips, a rollback to step 4, then
-                 exit 83 with a checkpoint at the notice's step; the same
-                 command resumes there and finishes, finite losses after
-                 the streak; flash launches = 32 x steps run (rolled-back
-                 step included) x 2 (remat) forward, 32 x steps run
-                 backward, no plain call
+                 (a) --remat --guard on the same checkpoint, 24 steps,
+                 every batch fetch 1 s late (the pace that puts the
+                 notice between the rollback and the last step), NaN at
+                 the 5th-7th steps and a notice after 36 one-second polls
+                 (both scoped to the first launch): three skips, a
+                 rollback to step 4, then exit 83 with a checkpoint at
+                 the notice's step; the same command resumes there and
+                 finishes, finite losses after the streak; flash launches
+                 = 2 x steps run (rolled-back step included) x 2 (remat)
+                 forward, 2 x steps run backward, no plain call
 
 The paged kernel's split and chunk rows in the kernels line count their
 launches in the base-serving window (serve_bf16 + serve_int8, counted
@@ -515,12 +542,15 @@ from zero, graph replays included; no scalar-route launch may occur
 there), its verify row those of decode_modes' (e) run, the GPT-2 rows
 (decode: split, chunk) those of serve_gpt2's window;
 the flash kernels' launch counts are those of the training phases
-(train_full, train_fsdp, train_pipeline's steps of each style and its
-2-card job's ranks where it runs, train_lora, train_mixtral,
+(the `_tp2` rows, at one --tensor 2 shard's heads, train_tensor's steps,
+its pipeline reading and its 2-card job's ranks where it runs; the
+others train_full, train_fsdp, train_pipeline's steps of each style and
+its 2-card job's ranks where it runs, train_lora, train_mixtral,
 train_expert's ranks where it runs, and train_guard's trainer-API
 steps, its --init-from-hf
-run and its chaos run and relaunch), each counted from zero; int8_linear's those of serve_int8_weights. Then, as the last
-three lines: the card (`nvidia-smi --query-gpu=name,power.limit
+run and its chaos run and relaunch), each counted from zero; int8_linear's those of serve_int8_weights. Then the
+`clock` line (by phase name, the wall seconds from the line before to
+each emitted line, and the run's total) and, as the last three lines: the card (`nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`), the kernels JSON line, and {"ok": true,
 "device": {...}}. Exits non-zero, printing no
 result, without CUDA or outside a checkout of the repository.
@@ -614,7 +644,17 @@ WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
                     'chip_smoke')
 
 
+#: Wall seconds by emitted phase name: the time from the previous emit
+#: (or the start) to this one, printed by the `clock` line at the end.
+START = time.perf_counter()
+CLOCK = {'last': START, 'seconds': {}}
+
+
 def emit(phase, **fields):
+    now = time.perf_counter()
+    CLOCK['seconds'][phase] = (CLOCK['seconds'].get(phase, 0.0) + now
+                               - CLOCK['last'])
+    CLOCK['last'] = now
     print(json.dumps({'phase': phase, **fields}), flush=True)
 
 
@@ -1374,11 +1414,11 @@ def phase_lora_kernels(lk):
 
 
 # -- flash attention kernels --------------------------------------------------
-def flash_inputs(dtype, batch, seq, hq, hkv, seed):
+def flash_inputs(dtype, batch, seq, hq, hkv, seed, dim=D):
     g = torch.Generator('cuda').manual_seed(seed)
 
     def mk(heads):
-        return torch.randn((batch, seq, heads, D), generator=g,
+        return torch.randn((batch, seq, heads, dim), generator=g,
                            device='cuda').to(dtype)
 
     return mk(hq), mk(hkv), mk(hkv), mk(hq)
@@ -1391,7 +1431,7 @@ def flash_errors(fk, case, perturb=0.0):
     the backward is fed the plain forward's o and lse, so each kernel is
     held alone."""
     q, k, v, do = case
-    scale = (1.0 + perturb) / math.sqrt(D)
+    scale = (1.0 + perturb) / math.sqrt(q.shape[-1])
     o, _ = fk.flash_forward_kernel(q, k, v, scale=scale)
     ro, rlse = fk.flash_forward_reference(q, k, v)
     di = fk.attention_di(ro, do)
@@ -1459,8 +1499,10 @@ def flash_bound_ms(batch, seq, hq, hkv, elt):
     return out
 
 
-FLASH_CASES = (   # (dtype, batch, seq, hq, hkv)
+FLASH_CASES = (   # (dtype, batch, seq, hq, hkv[, head_dim, default D])
     ('bf16', 8, 2048, 32, 8),     # train_lm --seq 2048, Llama-3-8B
+    ('bf16', 8, 2048, 16, 4),     # one shard of its --tensor 2
+    ('bf16', 8, 1024, 6, 6, 64),  # one shard of GPT-2's --tensor 2
     ('bf16', 1, 2300, 32, 8),     # a serve_long whole-prompt prefill
     ('bf16', 1, 2048, 32, 8),
     ('bf16', 1, 2048, 28, 4),     # Qwen2-7B's heads: 7 q heads a kv head
@@ -1472,12 +1514,19 @@ FLASH_CASES = (   # (dtype, batch, seq, hq, hkv)
 def phase_flash_kernels(fk):
     cases = []
     worst = {name: 0.0 for name in FLASH_REPLACES}
-    for kind, batch, seq, hq, hkv in FLASH_CASES:
+    tp2_worst = {}
+    for kind, batch, seq, hq, hkv, *dim in FLASH_CASES:
+        dim = dim[0] if dim else D
         dtype = torch.bfloat16 if kind == 'bf16' else torch.float32
         errs, per_grad, first, finite = flash_errors(
-            fk, flash_inputs(dtype, batch, seq, hq, hkv, seed=len(cases)))
+            fk, flash_inputs(dtype, batch, seq, hq, hkv, seed=len(cases),
+                             dim=dim))
+        if (kind, batch, seq, hq, hkv, dim) == ('bf16', 8, 2048,
+                                                *TP2_HEADS, D):
+            tp2_worst = {n: e for n, (e, _, _) in errs.items()}
         case = {'dtype': kind, 'batch': batch, 'seq': seq, 'hq': hq,
-                'hkv': hkv, 'tol': FLASH_TOL[kind], 'finite': finite,
+                'hkv': hkv, 'head_dim': dim, 'tol': FLASH_TOL[kind],
+                'finite': finite,
                 'first_row_err': first,
                 **{n: {'max_abs_err': e, 'tile_rel_err': t, 'rel_err': r}
                    for n, (e, t, r) in errs.items()},
@@ -1528,29 +1577,77 @@ def phase_flash_kernels(fk):
     timings = {n: {'ms': ms[n], 'bound_ms': bounds[n][0],
                    'bound_by': bounds[n][1], 'bytes': bounds[n][2]}
                for n in FLASH_REPLACES}
+    del q, k, v, do, o, lse, di, qt, kt, vt, dot, out
+    torch.cuda.empty_cache()
+    # The same at one --tensor 2 shard's heads (train_tensor's shape).
+    tp2 = flash_timings(fk, batch, seq, *TP2_HEADS)
     emit('flash_kernels', cases=cases, perturb_tile_rel_err=perturb,
          perturb_fails=True, determinism=determinism,
          shape={'batch': batch, 'seq': seq, 'hq': HQ, 'hkv': HKV, 'd': D,
                 'dtype': 'bf16'},
          timings=timings, plain_fwd_ms=plain['flash_fwd'],
          plain_bwd_ms=plain['flash_bwd'], sdpa_fwd_ms=sdpa['flash_fwd'],
-         sdpa_bwd_ms=sdpa['flash_bwd'])
-    rows = {}
+         sdpa_bwd_ms=sdpa['flash_bwd'],
+         tp2={'shape': {'batch': batch, 'seq': seq, 'hq': TP2_HEADS[0],
+                        'hkv': TP2_HEADS[1], 'd': D, 'dtype': 'bf16'},
+              **tp2})
+    rows, tp2_rows = {}, {}
     for n in FLASH_REPLACES:
-        fwd = n == 'flash_fwd'
-        rows[n] = {
-            'name': n, 'route': 'cuda',
-            'source': 'skypilot_tpu_torch/csrc/flash_attention.cu',
-            'replaces': FLASH_REPLACES[n], 'max_abs_err': worst[n],
-            'ms': ms[n], 'plain_ms': plain[n],
-            'bound_ms': bounds[n][0], 'bound_by': bounds[n][1],
-            'library_ms': sdpa[n],
-            'library': ('scaled_dot_product_attention' if fwd else
-                        'scaled_dot_product_attention backward (dQ, dK '
-                        'and dV together)'),
-            'plain': ('flash_forward_reference' if fwd else
-                      'flash_backward_reference (dQ, dK and dV together)')}
-    return rows
+        rows[n] = flash_row(n, worst[n], ms[n], plain[n], bounds[n],
+                            sdpa[n])
+        tp2_rows[n] = dict(flash_row(
+            n, tp2_worst[n], tp2['ms'][n], tp2['plain'][n],
+            tp2['bounds'][n], tp2['sdpa'][n]), name=f'{n}_tp2',
+            shape=[batch, seq, *TP2_HEADS, D])
+    return rows, tp2_rows
+
+
+def flash_row(n, err, ms, plain_ms, bound, library_ms):
+    fwd = n == 'flash_fwd'
+    return {
+        'name': n, 'route': 'cuda',
+        'source': 'skypilot_tpu_torch/csrc/flash_attention.cu',
+        'replaces': FLASH_REPLACES[n], 'max_abs_err': err,
+        'ms': ms, 'plain_ms': plain_ms,
+        'bound_ms': bound[0], 'bound_by': bound[1],
+        'library_ms': library_ms,
+        'library': ('scaled_dot_product_attention' if fwd else
+                    'scaled_dot_product_attention backward (dQ, dK '
+                    'and dV together)'),
+        'plain': ('flash_forward_reference' if fwd else
+                  'flash_backward_reference (dQ, dK and dV together)')}
+
+
+def flash_timings(fk, batch, seq, hq, hkv):
+    """Both kernels, their plain versions and SDPA timed at one bf16
+    shape: {'ms', 'plain', 'sdpa', 'bounds'}, each {kernel: value}."""
+    import torch.nn.functional as F
+    q, k, v, do = flash_inputs(torch.bfloat16, batch, seq, hq, hkv, seed=8)
+    o, lse = fk.flash_forward_kernel(q, k, v)
+    di = fk.attention_di(o, do)
+    ms = {'flash_fwd': time_cold_ms(lambda: fk.flash_forward_kernel(q, k, v),
+                                    iters=20),
+          'flash_bwd': time_cold_ms(
+              lambda: fk.flash_backward_kernel(q, k, v, do, lse, di),
+              iters=20)}
+    plain = {'flash_fwd': time_cold_ms(
+        lambda: fk.flash_forward_reference(q, k, v), iters=3, warmup=1),
+             'flash_bwd': time_cold_ms(
+        lambda: fk.flash_backward_reference(q, k, v, do, lse, di),
+        iters=3, warmup=1)}
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = {'flash_fwd': time_cold_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)}
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    sdpa['flash_bwd'] = time_cold_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters=20)
+    bounds = flash_bound_ms(batch, seq, hq, hkv, 2)
+    del q, k, v, do, o, lse, di, qt, kt, vt, dot, out
+    torch.cuda.empty_cache()
+    return {'ms': ms, 'plain': plain, 'sdpa': sdpa, 'bounds': bounds}
 
 
 # -- the int8 linear kernel ---------------------------------------------------
@@ -2281,7 +2378,7 @@ def phase_train_pipeline(fk, card, full):
     if job is not None:
         for k in totals:
             totals[k] += job['launches'][k]
-    return totals
+    return totals, styles['1f1b']['step1']
 
 
 def phase_train_pipeline_cards(card, lm_reading, bounds):
@@ -2318,6 +2415,276 @@ def phase_train_pipeline_cards(card, lm_reading, bounds):
             'step_time_s': [r['step_time_s'] for r in records],
             'tokens_per_s': [r['tokens_per_sec'] for r in records],
             'bubble_frac': [r['bubble_frac'] for r in records],
+            'launches': {k: sum(r[k] for r in ranks)
+                         for k in ('flash_fwd', 'flash_bwd')},
+            'seconds': seconds}
+
+
+# -- tensor-parallel training ---------------------------------------------------
+# train_tensor: the sharded trainer over TENSOR_DEVICES in process
+# (ShardedTrainer(devices=...), parallel/tensor.py), one card named twice,
+# at train_full's shape and batches; step 1 against train_full's
+# whole-model step 1 within train_fsdp's bounds (the loss within
+# FSDP_TOL, the norm within twice train_full's step-1 spread) and against
+# the shards' own reading (1 + TENSOR_REPEATS times) within TENSOR_SPREAD
+# times its spread, at least FSDP_TOL; then the pipeline over a 2 x 2
+# grid of the card (--pipeline-stages 2 --tensor 2) against
+# train_pipeline's 1f1b reading within TENSOR_SPREAD times the grid's
+# own spread (1 + TENSOR_REPEATS readings), at least FSDP_TOL. Controls
+# (parallel/tensor.py `tensor_fault`) must fall outside both.
+TENSOR_DEVICES = ['cuda:0', 'cuda:0']
+TENSOR_PIPE_DEVICES = [['cuda:0', 'cuda:0'], ['cuda:0', 'cuda:0']]
+TENSOR_STEPS = 3
+TENSOR_REPEATS = 4
+TENSOR_SPREAD = 2.0
+TENSOR_FAULTS = ('copy_skipped', 'max_dropped')
+# Within pipeline stages the vocab tables are whole over `tensor` (split
+# over `stage`): no vocab-parallel max to drop.
+TENSOR_STAGE_FAULTS = ('copy_skipped', 'reduce_skipped')
+
+
+@contextlib.contextmanager
+def flash_shapes(fk):
+    """The (hq, hkv, head_dim) of every flash launch in the body."""
+    orig, seen = fk._check, set()
+
+    def spy(*args, **kw):
+        out = orig(*args, **kw)
+        seen.add(tuple(out[2:5]))
+        return out
+
+    fk._check = spy
+    try:
+        yield seen
+    finally:
+        fk._check = orig
+
+
+def tensor_reading(trainer, state, tokens):
+    """A tensor-sharded step 1 without its update: (loss, grad norm)."""
+    from skypilot_tpu_torch.parallel import train
+    loss = trainer._compute_loss(state.params, tokens)
+    grads = torch.autograd.grad(loss, train.trainable_leaves(state.params))
+    norm = torch.sqrt(trainer.layout.global_sq(grads))
+    return loss.item(), norm.item()
+
+
+def phase_train_tensor(fk, card, full, pipe_step1):
+    """Tensor-parallel training on one card named twice: the sharded
+    trainer (T = 2) at train_full's shape, step 1 against its witness and
+    train_full, two controls, 3 steps; the pipeline over a 2 x 2 grid,
+    step 1 against train_pipeline's 1f1b reading (`pipe_step1`); where 2
+    cards are visible `train_lm --tensor 2` as a 2-rank NCCL job.
+    Returns the flash launches of the main path's steps and readings."""
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.parallel import pipeline, train
+    from skypilot_tpu_torch.parallel.tensor import tensor_fault
+    t_phase = time.perf_counter()
+    cfg = pipe_config()
+    layers, ways = PIPE_LAYERS, len(TENSOR_DEVICES)
+    batch, seq, M = PIPE_BATCH, PIPE_SEQ, PIPE_MICROBATCHES
+    rng = np.random.default_rng(0)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
+            .cuda() for _ in range(TENSOR_STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train.ShardedTrainer(
+        convert.init_params(cfg, seed=0, device='cuda'),
+        tx=train.default_optimizer(warmup_steps=10, total_steps=20),
+        collect_grad_norm=True, devices=TENSOR_DEVICES)
+    state = trainer.init()
+    group = trainer.tensor[0]
+    shard_heads = (cfg.num_heads // ways, cfg.num_kv_heads // ways,
+                   cfg.head_dim)
+    zero_flash(fk)
+    with flash_shapes(fk) as shapes:
+        witness = [tensor_reading(trainer, state, toks[0])
+                   for _ in range(1 + TENSOR_REPEATS)]
+    reading_counts = flash_counts(fk)
+    check(reading_counts == dict.fromkeys(
+        ('flash_fwd', 'flash_bwd'), layers * ways * (1 + TENSOR_REPEATS))
+          and fk.plain_calls == 0 and shapes == {shard_heads},
+          f'train_tensor readings launched {reading_counts}, '
+          f'{fk.plain_calls} plain, at heads {shapes}')
+    ref = witness[0]
+    spread = [(max(w[k] for w in witness) - min(w[k] for w in witness))
+              / abs(ref[k]) for k in (0, 1)]
+    bounds = [max(FSDP_TOL, TENSOR_SPREAD * sp) for sp in spread]
+
+    def offsets(reading, against=ref):
+        return [abs(reading[k] - against[k]) / abs(against[k])
+                for k in (0, 1)]
+
+    def within(reading, limits=bounds, against=ref):
+        return all(o <= b for o, b in zip(offsets(reading, against), limits))
+
+    controls = {}
+    for name in TENSOR_FAULTS:
+        with tensor_fault(name):
+            controls[name] = tensor_reading(trainer, state, toks[0])
+    check(all(not within(c) for c in controls.values()),
+          f'train_tensor: a control passed the bounds {bounds}: {controls}')
+    lm_reading = None
+    if torch.cuda.device_count() >= PARALLEL_CARDS:
+        lm_reading = tensor_reading(trainer, state, torch.from_numpy(
+            np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (batch, seq), dtype=np.int32).astype(
+                    np.int64)).cuda())
+    step = trainer.make_train_step()
+    zero_flash(fk)
+    reductions0, copies0 = group.reductions, group.copies
+    losses, norms, times = [], [], []
+    with flash_shapes(fk) as shapes:
+        for tokens in toks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, (loss, gnorm) = step(state, tokens)
+            losses.append(loss.item())
+            norms.append(gnorm.item())
+            times.append(time.perf_counter() - t0)
+    counts = flash_counts(fk)
+    check(counts == dict.fromkeys(('flash_fwd', 'flash_bwd'),
+                                  layers * ways * TENSOR_STEPS)
+          and fk.plain_calls == 0 and shapes == {shard_heads},
+          f'train_tensor launched {counts}, {fk.plain_calls} plain, at '
+          f'heads {shapes}')
+    step1 = (losses[0], norms[0])
+    full1 = (full['losses'][0], full['grad_norms'][0])
+    # train_full's bound, as train_fsdp's: the loss within FSDP_TOL, the
+    # norm within twice train_full's own step-1 spread (at least
+    # FSDP_TOL); both controls must fall outside it too.
+    full_bounds = [FSDP_TOL, full['step1_norm_tol']]
+    check(all(np.isfinite(losses + norms)) and within(step1),
+          f'train_tensor: step 1 {step1} vs witness {ref} (offsets '
+          f'{offsets(step1)}, bounds {bounds})')
+    check(within(step1, full_bounds, full1),
+          f'train_tensor: step 1 {step1} vs train_full {full1} (offsets '
+          f'{offsets(step1, full1)}, bounds {full_bounds})')
+    check(all(not within(c, full_bounds, full1) for c in controls.values()),
+          f'train_tensor: a control passed train_full\'s bounds '
+          f'{full_bounds}: {controls}')
+    step_s = float(np.mean(times[1:]))
+    tps = batch * seq / step_s
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reductions = (group.reductions - reductions0) / TENSOR_STEPS
+    copies = (group.copies - copies0) / TENSOR_STEPS
+    totals = dict(counts)
+    del trainer, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # --pipeline-stages 2 --tensor 2 on the card named four times.
+    torch.cuda.reset_peak_memory_stats()
+    pp = pipeline.PipelinedLM(
+        convert.init_params(cfg, seed=0, device='cuda'),
+        devices=TENSOR_PIPE_DEVICES, num_microbatches=M, schedule='1f1b')
+    pp.init(train.default_optimizer(warmup_steps=10, total_steps=20))
+    zero_flash(fk)
+    with flash_shapes(fk) as shapes:
+        pipe_reading_ = pipe_reading(pp, toks[0])
+    pipe_counts = flash_counts(fk)
+    check(pipe_counts == {'flash_fwd': 2 * layers * M * ways,
+                          'flash_bwd': layers * M * ways}
+          and fk.plain_calls == 0 and shapes == {shard_heads},
+          f'train_tensor pipeline launched {pipe_counts}, '
+          f'{fk.plain_calls} plain, at heads {shapes}')
+    # The grid against the 1f1b pipeline on whole heads: within
+    # TENSOR_SPREAD times the grid's own spread, at least FSDP_TOL; its
+    # controls outside that.
+    pipe_witness_ = [pipe_reading_] + [pipe_reading(pp, toks[0])
+                                       for _ in range(TENSOR_REPEATS)]
+    pipe_spread = [(max(w[k] for w in pipe_witness_)
+                    - min(w[k] for w in pipe_witness_)) / abs(
+                        pipe_reading_[k]) for k in (0, 1)]
+    pipe_bounds = [max(FSDP_TOL, TENSOR_SPREAD * sp) for sp in pipe_spread]
+    pipe_controls = {}
+    for name in TENSOR_STAGE_FAULTS:
+        with tensor_fault(name):
+            pipe_controls[name] = pipe_reading(pp, toks[0])
+    check(within(pipe_reading_, pipe_bounds, pipe_step1),
+          f'train_tensor pipeline step 1 {pipe_reading_} vs the 1f1b '
+          f'pipeline {pipe_step1} (offsets '
+          f'{offsets(pipe_reading_, pipe_step1)}, bounds {pipe_bounds})')
+    check(all(not within(c, pipe_bounds, pipe_step1)
+              for c in pipe_controls.values()),
+          f'train_tensor pipeline: a control passed the bounds '
+          f'{pipe_bounds}: {pipe_controls}')
+    pipe_peak = torch.cuda.max_memory_allocated() / 1e9
+    for k in totals:
+        totals[k] += pipe_counts[k]
+    del pp
+    gc.collect()
+    torch.cuda.empty_cache()
+    job = phase_train_tensor_cards(card, lm_reading, bounds)
+    emit('train_tensor', card=card, devices=TENSOR_DEVICES, layers=layers,
+         reduced={'num_layers': [32, layers]}, batch=batch, seq=seq,
+         shard_heads=list(shard_heads), witness=witness,
+         witness_spread=spread, bounds=bounds, spread_factor=TENSOR_SPREAD,
+         step1=list(step1), step1_rel_err=offsets(step1),
+         controls={k: list(c) for k, c in controls.items()},
+         controls_rel_err={k: offsets(c) for k, c in controls.items()},
+         vs_train_full=offsets(step1, full1), train_full_bounds=full_bounds,
+         controls_vs_train_full={k: offsets(c, full1)
+                                 for k, c in controls.items()},
+         losses=losses, grad_norms=norms, step_times_s=times,
+         step_s=step_s, tokens_per_s=tps,
+         mfu=6.0 * full['matmul_params'] * tps / BF16_FLOPS,
+         peak_mem_gb=peak, reductions_a_step=reductions,
+         copies_a_step=copies, launches=counts,
+         reading_launches=reading_counts,
+         pipeline={'devices': TENSOR_PIPE_DEVICES, 'microbatches': M,
+                   'schedule': '1f1b', 'step1': list(pipe_reading_),
+                   'readings': pipe_witness_, 'spread': pipe_spread,
+                   'bounds': pipe_bounds,
+                   'vs_pipeline_1f1b': offsets(pipe_reading_, pipe_step1),
+                   'controls_vs_pipeline_1f1b': {
+                       k: offsets(c, pipe_step1)
+                       for k, c in pipe_controls.items()},
+                   'launches': pipe_counts, 'peak_mem_gb': pipe_peak},
+         train_full={'step1': list(full1), 'step_s': full['step_s'],
+                     'tokens_per_s': full['tokens_per_s'],
+                     'mfu': full['mfu'], 'peak_mem_gb': full['peak_mem_gb']},
+         note=('one card named twice: the shards run one after the other, '
+               'so step s, tokens/s and MFU measure the sharded code\'s '
+               'overhead (half-width products, the sums of the shards\' '
+               'parts, the vocab-split head), not two cards\' speed'),
+         two_card_job=job, seconds=time.perf_counter() - t_phase)
+    if job is not None:
+        for k in totals:
+            totals[k] += job['launches'][k]
+    return totals
+
+
+def phase_train_tensor_cards(card, lm_reading, bounds):
+    """`train_lm --tensor 2` at train_tensor's shape as a 2-rank NCCL
+    job (None on one card): its step 1 within `bounds` of the in-process
+    reading of its batch (`lm_reading`)."""
+    layers, steps = PIPE_LAYERS, PARALLEL_STEPS
+    argv = ['--model', 'llama3-8b', '--seq', str(PIPE_SEQ),
+            '--global-batch', str(PIPE_BATCH), '--tensor',
+            str(PARALLEL_CARDS), '--steps', str(steps), '--log-every', '1']
+    out = parallel_job('train_tensor_2card', argv, 'llama3-8b', layers,
+                       card)
+    if out is None:
+        return None
+    ranks, records, seconds = out
+    for counts in ranks:
+        check(counts['flash_fwd'] == layers * steps
+              and counts['flash_bwd'] == layers * steps
+              and counts['plain_calls'] == 0,
+              f'train_tensor_2card launches {ranks}')
+    first = (records[0]['loss'], records[0]['grad_norm'])
+    errs = [abs(first[k] - lm_reading[k]) / abs(lm_reading[k])
+            for k in (0, 1)]
+    check(all(e <= b for e, b in zip(errs, bounds)),
+          f'train_tensor_2card step 1 {first} vs in process {lm_reading} '
+          f'(bounds {bounds})')
+    return {'argv': argv, 'ranks': PARALLEL_CARDS,
+            'losses': [r['loss'] for r in records],
+            'grad_norms': [r['grad_norm'] for r in records],
+            'in_process_step1': list(lm_reading), 'step1_rel_err': errs,
+            'step_time_s': [r['step_time_s'] for r in records],
+            'tokens_per_s': [r['tokens_per_sec'] for r in records],
             'launches': {k: sum(r[k] for r in ranks)
                          for k in ('flash_fwd', 'flash_bwd')},
             'seconds': seconds}
@@ -2424,6 +2791,17 @@ COUNTING_CHILD = (
     'atexit.register(dump)\n'
     'runpy.run_module("skypilot_tpu_torch.recipes.train_lm", '
     'run_name="__main__", alter_sys=True)\n')
+
+
+# train_guard_chaos: the steps of the run, the delay of every batch fetch
+# and the one-second polls before the injected notice. With p = CHAOS_PACE_S
+# + a 2-layer step (1.43 s on an H100) and T1 the first step (12.2 s, its
+# warm-up), the rollback comes at about T1 + 6p s and the last step at
+# about T1 + (CHAOS_STEPS + 2)p s after the poller starts: the notice at
+# CHAOS_NOTICE_POLLS s falls between them for any T1 from 4 to 24 s.
+CHAOS_STEPS = 24
+CHAOS_PACE_S = 1.0
+CHAOS_NOTICE_POLLS = 36
 
 
 class Child:
@@ -2846,29 +3224,33 @@ def watchdog_run(hf, card):
          last_step_to_exit_s=stalled_s)
 
 
-def chaos_run(card):
-    """(a) `train_lm --model llama3-8b --lora 16 --seq 2048 --remat
-    --guard` at full depth under a plan with NaN at the 5th-7th steps and
-    a notice, both scoped to the first launch (resume 0), the notice late
-    enough to fall after the rollback: three
-    skips, a rollback to step 4, exit 83 with a fresh checkpoint; the
-    same command relaunched resumes there and finishes."""
+def chaos_run(hf, card):
+    """(a) `train_lm --init-from-hf <2-layer Llama-3-8B width> --lora 16
+    --seq 2048 --remat --guard` under a plan with NaN at the 5th-7th
+    steps and a notice, both scoped to the first launch (resume 0), and
+    every batch fetch CHAOS_PACE_S late, so that the notice, fired by
+    the one-second poller, falls after the rollback and before the last
+    step: three skips, a rollback to step 4, exit 83 with a fresh
+    checkpoint; the same command relaunched resumes there and
+    finishes."""
     from skypilot_tpu_torch.observability.step_metrics import read_jsonl
     root = os.path.join(WORK, 'train_guard', 'chaos')
     shutil.rmtree(root, ignore_errors=True)
     ckpt, metrics = os.path.join(root, 'ckpt'), os.path.join(root,
                                                              'steps.jsonl')
-    steps, layers = 24, 32
+    steps, layers = CHAOS_STEPS, 2
     plan = {'seed': 2026, 'rules': [
         {'point': 'train.step', 'action': 'drop', 'at': [5, 6, 7],
          'scope': {'resume': '0'}},
+        {'point': 'train.data_next', 'action': 'delay',
+         'delay_s': CHAOS_PACE_S},
         {'point': 'train.preempt_notice', 'action': 'drop',
-         'scope': {'resume': '0'}, 'after': 55}]}
-    argv = ['--model', 'llama3-8b', '--lora', '16', '--seq', '2048',
-            '--remat', '--guard', '--guard-warmup', '1', '--rollback-after',
-            '3', '--preempt-poll', '1', '--ckpt-dir', ckpt, '--ckpt-every',
-            '4', '--log-every', '1', '--metrics-file', metrics, '--steps',
-            str(steps)]
+         'scope': {'resume': '0'}, 'after': CHAOS_NOTICE_POLLS}]}
+    argv = ['--init-from-hf', hf, '--lora', '16', '--seq', '2048',
+            '--global-batch', '8', '--remat', '--guard', '--guard-warmup',
+            '1', '--rollback-after', '3', '--preempt-poll', '1',
+            '--ckpt-dir', ckpt, '--ckpt-every', '4', '--log-every', '1',
+            '--metrics-file', metrics, '--steps', str(steps)]
     first = Child('chaos', argv, plan=plan, counts=True)
     t_back, _ = first.first('train-guard: rolled back to last checkpoint '
                             '(step 4)')
@@ -2914,12 +3296,15 @@ def chaos_run(card):
                    and math.isfinite(r['loss'])]
     emit('train_guard_chaos', card=card, layers=layers, lora_rank=16,
          batch=8, seq=2048, remat=True, steps=steps,
+         reduced={'num_layers': [32, layers]},
+         batch_fetch_delay_s=CHAOS_PACE_S,
+         notice_after_polls=CHAOS_NOTICE_POLLS,
          rollback_s=t_back, notice_s=t_notice, notice_step=at,
          logged_first=logged, logged_relaunch=relogged,
          notice_to_exit_s=first.seconds - t_notice,
          relaunch_to_first_step_s=t_first_step,
-         guarded_step_s=plain_steps,
-         guarded_step_s_median=float(np.median(plain_steps)),
+         paced_step_s=plain_steps,
+         paced_step_s_median=float(np.median(plain_steps)),
          first_run_s=first.seconds, relaunch_s=second.seconds,
          launches=counts)
     return counts
@@ -2929,8 +3314,8 @@ def phase_train_guard(fk, card):
     """The recovery contract of train_lm on the card: (d) the guarded
     step at the trainer API; a 2-layer Llama-3-8B-width HF checkpoint and
     token shards, then (e)+(f), (b) and (c) as train_lm processes on
-    them; (a) the full-depth chaos run and its relaunch. Returns the
-    flash launches of the phase's main-path steps."""
+    them; (a) the chaos run and its relaunch on the same checkpoint.
+    Returns the flash launches of the phase's main-path steps."""
     from skypilot_tpu_torch.models import convert, registry
     gc.collect()
     torch.cuda.empty_cache()
@@ -2953,9 +3338,9 @@ def phase_train_guard(fk, card):
         hf_counts = hf_and_native_run(fk, hf, data, card)
         sigterm_run(hf, card)
         watchdog_run(hf, card)
+        chaos_counts = chaos_run(hf, card)
     finally:
         shutil.rmtree(hf, ignore_errors=True)
-    chaos_counts = chaos_run(card)
     return {k: counts[k] + hf_counts[k] + chaos_counts[k] for k in counts}
 
 
@@ -6271,7 +6656,7 @@ def main() -> int:
     paged_rows = phase_kernels(pk)
     gpt2_rows = phase_gpt2_kernels(pk)
     lora_rows = phase_lora_kernels(lk)
-    flash_rows = phase_flash_kernels(fk)
+    flash_rows, flash_tp2_rows = phase_flash_kernels(fk)
     int8_rows = phase_int8_linear_kernels(il)
 
     # The main paths, each driven with the counts zeroed just before and
@@ -6359,7 +6744,8 @@ def main() -> int:
     full_counts, full = phase_train_full(fk, pk, card)
     torch.cuda.empty_cache()
     fsdp_counts = phase_train_fsdp(fk, card, full)
-    pipe_counts = phase_train_pipeline(fk, card, full)
+    pipe_counts, pipe_step1 = phase_train_pipeline(fk, card, full)
+    tensor_counts = phase_train_tensor(fk, card, full, pipe_step1)
     lora_counts = phase_train_lora(fk, lk, card)
     torch.cuda.empty_cache()
     phase_train_gpt2(fk, card)
@@ -6409,9 +6795,17 @@ def main() -> int:
                            + pipe_counts[name]
                            + lora_counts[name] + mixtral_counts[name]
                            + expert_counts[name] + guard_counts[name])
+    # The shard-head rows: train_tensor's steps, readings, its pipeline
+    # reading and its 2-card job's ranks where it runs.
+    for name, row in flash_tp2_rows.items():
+        row['launches'] = tensor_counts[name]
+        row['launch_window'] = 'train_tensor (--tensor 2 shards\' heads)'
+    emit('clock', seconds=dict(CLOCK['seconds']),
+         total_s=time.perf_counter() - START)
     print(card, flush=True)
     print(json.dumps({'kernels': [*paged_rows, *gpt2_rows, *lora_rows,
-                                  *flash_rows.values(), *int8_rows]}),
+                                  *flash_rows.values(),
+                                  *flash_tp2_rows.values(), *int8_rows]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -6424,5 +6818,8 @@ if __name__ == '__main__':
         code = main()
     except Exception:  # pylint: disable=broad-except
         traceback.print_exc()
+        # Where the time went up to the failure.
+        emit('clock', seconds=dict(CLOCK['seconds']),
+             total_s=time.perf_counter() - START, failed=True)
         code = 1
     sys.exit(code)

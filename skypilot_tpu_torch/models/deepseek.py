@@ -161,12 +161,21 @@ class MLAttention(nn.Module):
     def _queries(self, x: torch.Tensor):
         """(q_nope [B,S,H,d_nope], q_rope [B,S,H,d_rope]), RoPE not yet
         applied."""
+        return self.head_queries(self.query_input(x))
+
+    def query_input(self, x: torch.Tensor) -> torch.Tensor:
+        """What the heads' query projection reads: x, or the normed
+        low-rank query latent when `q_lora_rank` > 0 (whole on every
+        tensor shard)."""
+        if self.config.q_lora_rank:
+            return self.q_norm(self.wq_a(x))
+        return x
+
+    def head_queries(self, q_in: torch.Tensor):
+        """(q_nope, q_rope) of this module's heads from `query_input`."""
         cfg = self.config
-        batch, seq, _ = x.shape
-        if cfg.q_lora_rank:
-            q = self.wq_b(self.q_norm(self.wq_a(x)))
-        else:
-            q = self.wq(x)
+        batch, seq, _ = q_in.shape
+        q = (self.wq_b if cfg.q_lora_rank else self.wq)(q_in)
         q = q.reshape(batch, seq, self.num_heads, cfg.qk_head_dim)
         return q[..., :cfg.nope_head_dim], q[..., cfg.nope_head_dim:]
 
@@ -264,10 +273,37 @@ class Block(nn.Module):
     def ffn(self, x):
         return self.mlp(self.mlp_norm(x))
 
-    def forward(self, x, positions, kv=None, prefill=False):
+    def forward(self, x, positions, kv=None, prefill=False, tensor=None):
+        if tensor is not None:      # this rank's shard (parallel/tensor.py)
+            return self.tensor_forward({tensor.index: self}, tensor, x,
+                                       {tensor.index: positions})
         x = x + self.attn_out(self.attn_qkv(x, positions), positions, kv,
                               prefill=prefill)
         return x + self.ffn(x)
+
+    @staticmethod
+    def tensor_forward(blocks, group, x, positions):
+        """The block over tensor shards (parallel/tensor.py; llama's
+        `Block.tensor_forward`): the latent projections whole (as
+        serving keeps them), the query heads, `wkv_b`'s heads and wo's
+        rows on each shard, the partial outputs summed; training's
+        unequal-dims attention runs on the shard's heads."""
+        home = blocks[group.local[0]]
+        attn = home.attn
+        h = home.attn_norm(x)
+        pos0 = positions[group.local[0]]
+        c_kv, k_rope = attn._latents(h, pos0)
+        qs = group.copy(attn.query_input(h))
+        cs, rs = group.copy(c_kv), group.copy(k_rope)
+        parts = {}
+        for t, b in blocks.items():
+            q_nope, q_rope = b.attn.head_queries(qs[t])
+            q_rope = apply_rope(q_rope, positions[t], b.attn.config.rope_theta)
+            parts[t] = b.attn.attend((q_nope, q_rope, cs[t], rs[t]),
+                                     positions[t])
+        x = x + group.reduce(parts)
+        hs = group.copy(home.mlp_norm(x))
+        return x + group.reduce({t: b.mlp(hs[t]) for t, b in blocks.items()})
 
 
 class Deepseek(nn.Module):

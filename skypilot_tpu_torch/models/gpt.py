@@ -196,10 +196,31 @@ class Block(nn.Module):
         return self.mlp(self.ln_2(x))
 
     def forward(self, x, positions, kv=None, page_indices=None,
-                prefill=False, attend_len=None):
+                prefill=False, attend_len=None, tensor=None):
+        if tensor is not None:      # this rank's shard (parallel/tensor.py)
+            return self.tensor_forward({tensor.index: self}, tensor, x,
+                                       {tensor.index: positions})
         x = x + self.attn_out(self.attn_qkv(x, positions), positions, kv,
                               page_indices, prefill, attend_len)
         return x + self.ffn(x)
+
+    @staticmethod
+    def tensor_forward(blocks, group, x, positions):
+        """The block over tensor shards (parallel/tensor.py; llama's
+        `Block.tensor_forward`): each shard's heads (its slice of every
+        third of c_attn) and its slice of the MLP's hidden axis; the
+        row-parallel c_proj biases are added once, after the sums."""
+        from skypilot_tpu_torch.parallel.tensor import row_bias
+        home = blocks[group.local[0]]
+        dt = home.attn.config.dtype
+        hs = group.copy(home.ln_1(x))
+        x = x + (group.reduce({t: b.attn.attend(b.attn.qkv(hs[t]),
+                                                positions[t])
+                               for t, b in blocks.items()})
+                 + row_bias(home.attn.c_proj, dt))
+        hs = group.copy(home.ln_2(x))
+        return x + (group.reduce({t: b.mlp(hs[t]) for t, b in blocks.items()})
+                    + row_bias(home.mlp.c_proj, dt))
 
 
 class GPT(nn.Module):

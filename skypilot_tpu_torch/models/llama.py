@@ -317,7 +317,9 @@ def cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     them are written, and this shard's q heads read heads [lo, hi)."""
     seq = q.shape[1]
     if kv is None:
-        k, v, _ = _read_heads(k, v, {}, kv_heads)
+        if kv_heads is not None:    # a tensor shard's heads, contiguous
+            k, v, _ = _read_heads(k, v, {}, kv_heads)
+            k, v = k.contiguous(), v.contiguous()
         return attention_ops.dot_product_attention(q, k, v, causal=True)
     if 'cached_key' in kv:
         if seq > 1:
@@ -409,17 +411,22 @@ def _lora(name: str, y: torch.Tensor, x: torch.Tensor,
 class Dense(nn.Linear):
     """nn.Linear whose weight and bias are cast to the compute dtype
     where they are used: a no-op for serving's storage, the Flax
-    `Dense(dtype=...)` cast for training's f32 masters."""
+    `Dense(dtype=...)` cast for training's f32 masters. A tensor shard
+    of a row-parallel projection (`partial_sum`, parallel/tensor.py)
+    leaves its bias out: the block adds it once, after the sum."""
 
     def __init__(self, d_in: int, d_out: int, config: LlamaConfig,
                  bias: bool = False) -> None:
         super().__init__(d_in, d_out, bias=bias,
                          dtype=config.param_dtype or config.dtype)
         self.compute_dtype = config.dtype
+        self.partial_sum = False
         self.requires_grad_(config.trainable)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weight, bias = self.weight, self.bias
+        if self.partial_sum:
+            bias = None
         if weight.dtype != self.compute_dtype:   # f32 masters only
             weight = weight.to(self.compute_dtype)
             bias = bias.to(self.compute_dtype) if bias is not None else None
@@ -473,9 +480,21 @@ class Attention(nn.Module):
                         cfg.qkv_bias)
         self.wo = dense(cfg.num_heads * hd, cfg.embed_dim, cfg)
         # The heads this module computes: all of them, or a
-        # tensor-parallel shard's (parallel/serving.py sets them).
+        # tensor-parallel shard's (parallel/tensor.py sets them), and
+        # under the GQA remainder rule the kv heads [lo, hi) its q heads
+        # read.
         self.num_heads = cfg.num_heads
         self.num_kv_heads = cfg.num_kv_heads
+        self.read_heads = None
+
+    def shard_tensor(self, index: int, ways: int, kv_split: bool,
+                     read_heads=None):
+        """Keep tensor shard `index` of `ways`: wq (and wk / wv when
+        the kv heads split) column-parallel over heads, wo row-parallel
+        (parallel/tensor.py's table); returns the leaves' splits."""
+        from skypilot_tpu_torch.parallel import tensor
+        return tensor.shard_block(self, index, ways, kv_split, read_heads,
+                                  prefix='attn')
 
     def qkv(self, x: torch.Tensor, positions: torch.Tensor,
             lora: Optional[dict] = None,
@@ -517,6 +536,8 @@ class Attention(nn.Module):
         cfg = self.config
         q, k, v = qkv
         batch, seq = q.shape[:2]
+        if kv_heads is None:
+            kv_heads = self.read_heads
         out = cache_attention(q, k, v, positions, kv, page_indices, prefill,
                               attend_len, cfg.dtype, kv_amax, kv_heads)
         out = out.reshape(batch, seq, self.num_heads * cfg.head_dim)
@@ -531,6 +552,12 @@ class FeedForward(nn.Module):
         self.w_gate = dense(cfg.embed_dim, cfg.mlp_dim, cfg)
         self.w_up = dense(cfg.embed_dim, cfg.mlp_dim, cfg)
         self.w_down = dense(cfg.mlp_dim, cfg.embed_dim, cfg)
+
+    def shard_tensor(self, index: int, ways: int):
+        """Keep tensor shard `index` of `ways`: w_gate / w_up
+        column-parallel over the hidden axis, w_down row-parallel."""
+        from skypilot_tpu_torch.parallel import tensor
+        return tensor.shard_block(self, index, ways, True, prefix='mlp')
 
     def forward(self, x: torch.Tensor, lora: Optional[dict] = None,
                 adapter_ids: Optional[torch.Tensor] = None,
@@ -576,11 +603,47 @@ class Block(nn.Module):
 
     def forward(self, x, positions, kv=None, page_indices=None,
                 prefill=False, lora=None, adapter_ids=None, lora_scale=1.0,
-                attend_len=None):
+                attend_len=None, tensor=None):
+        if tensor is not None:      # this rank's shard (parallel/tensor.py)
+            return self.tensor_forward(
+                {tensor.index: self}, tensor, x, {tensor.index: positions},
+                None if lora is None else {tensor.index: lora}, lora_scale)
         qkv = self.attn_qkv(x, positions, lora, adapter_ids, lora_scale)
         x = x + self.attn_out(qkv, positions, kv, page_indices, prefill,
                               attend_len, lora, adapter_ids, lora_scale)
         return x + self.ffn(x, lora, adapter_ids, lora_scale)
+
+    @staticmethod
+    def tensor_forward(blocks, group, x, positions, lora=None,
+                       lora_scale=1.0):
+        """The block over tensor shards (parallel/tensor.py): `blocks`
+        {shard: its Block}, `positions` {shard: positions}, `lora`
+        {shard: the layer's factor slices} or None; x the whole
+        residual stream."""
+        lora = lora or {}
+        x = attention_step(blocks, group, x, positions, 'attn_norm', lora,
+                           lora_scale)
+        home = blocks[group.local[0]]
+        hs = group.copy(home.mlp_norm(x))
+        return x + group.reduce({t: b.mlp(hs[t], lora.get(t), None,
+                                          lora_scale)
+                                 for t, b in blocks.items()})
+
+
+def attention_step(blocks, group, x, positions, norm: str, lora=None,
+                   lora_scale=1.0):
+    """x plus the attention of a GQA block over tensor shards: the
+    norm whole, q / k / v and the heads on each shard, wo's partial
+    outputs summed (Llama's and Mixtral's first half)."""
+    lora = lora or {}
+    home = blocks[group.local[0]]
+    hs = group.copy(getattr(home, norm)(x))
+    parts = {}
+    for t, b in blocks.items():
+        qkv = b.attn.qkv(hs[t], positions[t], lora.get(t), None, lora_scale)
+        parts[t] = b.attn.attend(qkv, positions[t], lora=lora.get(t),
+                                 lora_scale=lora_scale)
+    return x + group.reduce(parts)
 
 
 class Llama(nn.Module):

@@ -170,6 +170,28 @@ def init_lora_params(cfg, spec: LoraSpec, seed: int = 0,
     return params
 
 
+def shard_lora_params(lora_params, index: int, ways: int, kv_split: bool
+                      ) -> Dict[str, Any]:
+    """Slice one adapter's training factors to tensor shard `index` of
+    `ways` in place (parallel/tensor.py `lora_factor_axes`: a
+    column-parallel delta splits b's columns, a row-parallel one a's
+    rows); returns {'lora.layer_i.target.a|b': its split}, 'sum' for a
+    whole factor (read inside a sharded region: its gradient is the
+    sum of the shards')."""
+    from skypilot_tpu_torch.parallel import tensor
+    axes = {}
+    for name, layer in lora_params.items():
+        for target, factors in layer.items():
+            for key, axis in zip(('a', 'b'), tensor.lora_factor_axes(
+                    target, kv_split)):
+                axes[f'lora.{name}.{target}.{key}'] = (
+                    'sum' if axis is None else axis)
+                if axis is not None:
+                    factors[key] = tensor.piece(factors[key], axis, index,
+                                                ways).clone()
+    return axes
+
+
 def as_model_lora(lora_params, scale) -> Dict[str, Any]:
     """Wrap raw per-layer factors into what the model forward takes:
     {'scale': float, 'layers': {...}}."""

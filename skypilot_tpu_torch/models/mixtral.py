@@ -65,9 +65,10 @@ from skypilot_tpu_torch.models.llama import (DENSE_CLASSES, Attention,
                                              Dense, DenseKVCache,
                                              LlamaConfig,
                                              PagedKVCache, RMSNorm,
-                                             RopeScaling)
+                                             RopeScaling, attention_step)
 from skypilot_tpu_torch.ops import fused_xent
 from skypilot_tpu_torch.parallel import context as cp_context
+from skypilot_tpu_torch.parallel import tensor as tensor_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +178,13 @@ class MoEFeedForward(nn.Module):
         self.expert_group, self.experts = group, (lo, hi)
         return names
 
+    def shard_tensor(self, index: int, ways: int):
+        """Keep tensor shard `index` of `ways` of each expert's hidden
+        axis (the 'mlp' -> 'tensor' rule: w_gate / w_up columns, w_down
+        rows; the router stays whole); composes with `shard_experts` in
+        either order. Returns the leaves' splits."""
+        return tensor_lib.shard_block(self, index, ways, True, prefix='moe')
+
     def route(self, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                          torch.Tensor]:
@@ -226,20 +234,28 @@ class MoEFeedForward(nn.Module):
         the expert group (the reference's 'batch' -> ('data', 'fsdp')
         rule replicates it over 'expert'), so each rank runs its own
         experts on its own copy of the dispatched tokens and the
-        combine is a sum over the group (`reduce_from_experts`), with x
-        entering the experts through `copy_to_experts`."""
-        cfg = self.config
+        combine is a sum over the group (`experts_out`)."""
         dispatch, combine, picks, probs = self.route(x)
-        x32 = x.float()
+        out = self.experts_out(dispatch, combine, x.float())
+        return (out.to(self.config.dtype),
+                self.aux_loss(picks, probs) if with_aux else None)
+
+    def experts_out(self, dispatch: torch.Tensor, combine: torch.Tensor,
+                    x32: torch.Tensor) -> torch.Tensor:
+        """This rank's experts' combine [B, S, embed] f32, summed over
+        the expert group, x32 entering them through `copy_to_experts`."""
         group = self.expert_group
         if group is not None:
             x32 = copy_to_experts(x32, group)
         out = self.expert_sum(dispatch, combine, x32, *self.experts)
         if group is not None:
             out = reduce_from_experts(out, group)
-        out = out.to(cfg.dtype)
-        if not with_aux:
-            return out, None
+        return out
+
+    def aux_loss(self, picks: torch.Tensor, probs: torch.Tensor
+                 ) -> torch.Tensor:
+        """The Switch load-balancing loss of this layer's routing."""
+        cfg = self.config
         assign_frac = picks.sum(dim=2).mean(dim=(0, 1))        # [E]
         if self.batch_group is not None:
             # The whole batch's fractions, as the reference computes them
@@ -250,9 +266,8 @@ class MoEFeedForward(nn.Module):
             dist.all_reduce(assign_frac, group=self.batch_group)
             assign_frac = assign_frac / dist.get_world_size(self.batch_group)
         prob_frac = probs.mean(dim=(0, 1))                     # [E]
-        aux = (cfg.num_experts * (assign_frac * prob_frac).sum()
-               / cfg.experts_per_token)
-        return out, aux
+        return (cfg.num_experts * (assign_frac * prob_frac).sum()
+                / cfg.experts_per_token)
 
     def expert_sum(self, dispatch: torch.Tensor, combine: torch.Tensor,
                    x32: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
@@ -282,43 +297,14 @@ def _earlier_blocks(counts: torch.Tensor, ring) -> torch.Tensor:
     return sum(parts[:ring.index], torch.zeros_like(counts))
 
 
-class _CopyToExperts(torch.autograd.Function):
-    """Identity forward; the backward sums the gradient over the expert
-    group (each rank's experts see the tokens on their own copy)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.contiguous()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
-class _ReduceFromExperts(torch.autograd.Function):
-    """The sum over the expert group forward; identity backward (every
-    rank holds the summed output and its whole gradient)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
 def copy_to_experts(x: torch.Tensor, group) -> torch.Tensor:
-    return _CopyToExperts.apply(x, group)
+    """Identity forward; the backward sums over the expert group."""
+    return tensor_lib.copy_to_group(x, group)
 
 
 def reduce_from_experts(x: torch.Tensor, group) -> torch.Tensor:
-    return _ReduceFromExperts.apply(x, group)
+    """The sum over the expert group; identity backward."""
+    return tensor_lib.reduce_from_group(x, group)
 
 
 class Block(nn.Module):
@@ -348,11 +334,32 @@ class Block(nn.Module):
         return self.moe(self.moe_norm(x))[0]
 
     def forward(self, x, positions, kv=None, page_indices=None,
-                prefill=False, attend_len=None, with_aux=False):
+                prefill=False, attend_len=None, with_aux=False, tensor=None):
+        if tensor is not None:      # this rank's shard (parallel/tensor.py)
+            return self.tensor_forward({tensor.index: self}, tensor, x,
+                                       {tensor.index: positions}, with_aux)
         x = x + self.attn_out(self.attn_qkv(x, positions), positions, kv,
                               page_indices, prefill, attend_len)
         out, aux = self.moe(self.moe_norm(x), with_aux)
         return x + out, aux
+
+    @staticmethod
+    def tensor_forward(blocks, group, x, positions, with_aux=False):
+        """The block over tensor shards (parallel/tensor.py; llama's
+        `Block.tensor_forward`): the routing whole, each shard's slice
+        of every expert's hidden axis (and, over `expert`, its own
+        experts), the combine summed over both groups. Returns (x, the
+        layer's aux or None)."""
+        x = attention_step(blocks, group, x, positions, 'attn_norm')
+        home = blocks[group.local[0]]
+        h = home.moe_norm(x)
+        dispatch, combine, picks, probs = home.moe.route(h)
+        hs, cs = group.copy(h.float()), group.copy(combine)
+        ds = tensor_lib.to_shards(group, dispatch)
+        out = group.reduce({t: b.moe.experts_out(ds[t], cs[t], hs[t])
+                            for t, b in blocks.items()})
+        return (x + out.to(home.moe.config.dtype),
+                home.moe.aux_loss(picks, probs) if with_aux else None)
 
 
 class Mixtral(nn.Module):

@@ -11,6 +11,15 @@ residuals are the hidden states, the head and the normalizer. This is
 XLA-level code in the reference (a `lax.scan` under `jax.custom_vjp`),
 not a Pallas kernel, so plain torch ops carry it here.
 
+The head split by vocab rows (a tensor group's slices, or the one-device
+witness of a pipeline's stage-split head) takes `split_vocab_token_losses`
+(`SplitVocabXent`): each slice runs its chunk loop, the row maxima are
+taken over the group first, and the summed exponentials and target
+logits are summed over it in f32, so a pipeline's head and a tensor
+shard's share one arithmetic (`shard_logits`, `owned_targets`,
+`shard_backward`); the slices' f32 parts of the input gradient are
+summed before the one cast to the compute dtype.
+
 Numerics: chunk products take operands in the compute dtype (the
 caller's `cfg.dtype`) and accumulate into f32 results (`mm_f32`), and
 the streaming logsumexp is f32, as in the reference. A vocab that fits
@@ -177,3 +186,139 @@ def fused_next_token_loss(hidden: torch.Tensor, weight: torch.Tensor,
     return fused_token_losses(
         hidden[:, :-1], weight, tokens[:, 1:], vocab_in_rows=vocab_in_rows,
         block_size=block_size, compute_dtype=compute_dtype).mean()
+
+
+# -- the vocab-split head ---------------------------------------------------------
+def shard_logits(x2: torch.Tensor, table: torch.Tensor, offset: int,
+                 vocab: int, round_to: Optional[torch.dtype]
+                 ) -> torch.Tensor:
+    """f32 logits [N, rows] of rows x2 [N, E] against a slice of the
+    head [rows, E] whose row j is vocab id offset + j: `x2.dtype`
+    operands, an f32 product (rounded to `round_to` when given, as the
+    family's head rounds), columns past the vocab (padding) -inf."""
+    logits = mm_f32(x2, table.to(x2.dtype).T)
+    if round_to is not None:
+        logits = logits.to(round_to).float()
+    valid = max(0, min(table.shape[0], vocab - offset))
+    if valid < table.shape[0]:
+        logits[:, valid:] = float('-inf')
+    return logits
+
+
+def owned_targets(targets: torch.Tensor, offset: int, rows: int):
+    """(local ids clamped into the slice, which targets it owns)."""
+    local = targets - offset
+    owned = (local >= 0) & (local < rows)
+    return local.clamp(0, rows - 1), owned
+
+
+def shard_backward(logits: torch.Tensor, lse: torch.Tensor,
+                   local: torch.Tensor, owned: torch.Tensor,
+                   coef: torch.Tensor, x2: torch.Tensor,
+                   table: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d x2 [N, E] f32, d table [rows, E] f32) of coef * the slice's
+    part of (lse - target logit): (softmax - onehot) * coef, in x2's
+    dtype, through the head's two products."""
+    p = torch.exp(logits - lse[:, None])
+    # The one-hot of the owned targets, with no host sync.
+    p.scatter_add_(1, local[:, None], -owned.to(p.dtype)[:, None])
+    d_logits = (p * coef).to(x2.dtype)
+    return (mm_f32(d_logits, table.to(x2.dtype)),
+            mm_f32(d_logits.T, x2))
+
+
+def _global_max(group, maxes):
+    """The row maxima over every slice of the vocab (the combine's
+    first step)."""
+    return group.all_reduce(maxes, 'max')
+
+
+class SplitVocabXent(torch.autograd.Function):
+    """Per-token (logsumexp - target logit) [N], f32, of x2 [N, E]
+    (the compute dtype) against a head split by vocab rows over a
+    tensor group (parallel/tensor.py `LocalTensor` / `RankTensor`, or a
+    pipeline's stage group): slice t's rows are vocab ids
+    [t * rows, (t + 1) * rows), in chunks of `block` rows (None: one).
+    Each slice takes its row maxima, the group their max; each then sums
+    exp(logit - max) and its owned target logits, and the group sums
+    those in f32. The backward recomputes each chunk's softmax from the
+    log-sum-exp; the slices' f32 parts of dx are summed first and cast
+    once (x2 is whole on every slice), each slice's head gradient is
+    f32 in the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2, targets, spec, *tables):
+        group, vocab, block = spec[:3]
+        round_to = spec[3]
+        work, maxes = {}, {}
+        for t, w in zip(group.local, tables):
+            xt = x2 if w.device == x2.device else x2.to(w.device)
+            tt = targets.to(w.device)
+            offset, rows = t * w.shape[0], w.shape[0]
+            blk = rows if block is None else min(block, rows)
+            m = None
+            for start, end in _chunks(rows, blk):
+                cm = shard_logits(xt, w[start:end], offset + start, vocab,
+                                  round_to).amax(dim=1)
+                m = cm if m is None else torch.maximum(m, cm)
+            work[t], maxes[t] = (xt, tt, offset, blk), m
+        m = _global_max(group, maxes)
+        parts = {}
+        for t, w in zip(group.local, tables):
+            xt, tt, offset, blk = work[t]
+            se = tl = 0
+            for start, end in _chunks(w.shape[0], blk):
+                logits = shard_logits(xt, w[start:end], offset + start, vocab,
+                                      round_to)
+                local, owned = owned_targets(tt, offset + start, end - start)
+                se = se + torch.exp(logits - m[t][:, None]).sum(dim=1)
+                tl = tl + torch.where(
+                    owned, logits.gather(1, local[:, None])[:, 0],
+                    torch.zeros((), device=logits.device))
+            parts[t] = torch.stack([se, tl])
+        sums = group.all_reduce(parts)
+        lse = {t: m[t] + torch.log(sums[t][0]) for t in group.local}
+        home = group.local[0]
+        ctx.spec, ctx.work, ctx.lse = spec, work, lse
+        ctx.save_for_backward(x2, *tables)
+        return (lse[home] - sums[home][1]).to(x2.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, *tables = ctx.saved_tensors
+        group, vocab, _, round_to = ctx.spec
+        dxs, dws = {}, []
+        for t, w in zip(group.local, tables):
+            xt, tt, offset, blk = ctx.work[t]
+            coef = g.to(w.device).float()[:, None]
+            dx = torch.zeros(xt.shape, dtype=torch.float32, device=w.device)
+            dw = []
+            for start, end in _chunks(w.shape[0], blk):
+                w_c = w[start:end]
+                logits = shard_logits(xt, w_c, offset + start, vocab,
+                                      round_to)
+                local, owned = owned_targets(tt, offset + start, end - start)
+                d_x, d_w = shard_backward(logits, ctx.lse[t], local, owned,
+                                          coef, xt, w_c)
+                dx += d_x
+                dw.append(d_w)
+            dxs[t] = dx
+            dws.append(torch.cat(dw).to(w.dtype))
+        dx = group.sum_home(dxs).to(x2.device)
+        return (dx.to(x2.dtype), None, None) + tuple(dws)
+
+
+def split_vocab_token_losses(x2: torch.Tensor, targets: torch.Tensor,
+                             tables, group, vocab: int,
+                             block: Optional[int] = None,
+                             round_to: Optional[torch.dtype] = None
+                             ) -> torch.Tensor:
+    """`SplitVocabXent` of rows x2 [N, E] against `targets` [N] through
+    `tables` {slice: its rows of the head} (the group's local slices);
+    `block` 'auto' picks `pick_block` of a slice's rows."""
+    tables = [tables[t] for t in group.local]
+    if block == 'auto':
+        block = pick_block(tables[0].shape[0])
+    return SplitVocabXent.apply(x2, targets.long(),
+                                (group, vocab, block, round_to), *tables)

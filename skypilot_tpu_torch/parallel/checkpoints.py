@@ -24,8 +24,9 @@ the reference's do. Remote (gs://, s3://) directories are refused.
 
 A pipelined state (parallel/pipeline.py, its own layout) saves and
 restores the same way, collectively: each leaf is gathered from the
-stage that holds it (table shards joined, padding dropped) and rank 0
-writes the one-card file; a restore hands each stage its pieces.
+stage that holds it (table shards joined, padding dropped; a block
+leaf's tensor and expert slices joined first) and rank 0 writes the
+one-card file; a restore hands each stage its pieces.
 
 Over a job (a state with a parallel/fsdp.py layout) saving and
 restoring are collective: every rank calls them at the same step. A
@@ -35,8 +36,9 @@ its shards), rank 0 alone writes the directory above and the others
 wait for it; a step written at any world size is, byte for byte, the
 file a one-card run of the same state writes. A restore is read by
 rank 0, which broadcasts each whole leaf;
-each rank keeps its part (its FSDP shard, and its moment pieces under
-zero1), so a run resumes at another world size and with `--zero1`
+each rank keeps its part (its tensor and expert slice, its FSDP shard
+of that, and its moment pieces under zero1), so a run resumes at
+another world size, under another `--tensor`, and with `--zero1`
 toggled. Rank 0 alone lists, verifies and prunes the directory and its
 answers (and errors) reach every rank.
 

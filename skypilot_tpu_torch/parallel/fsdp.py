@@ -23,7 +23,13 @@ replicated, as HSDP does. Over `expert` Mixtral's expert stacks
 (`w_gate`, `w_up`, `w_down`) are sliced on dim 0 before FSDP2 shards
 them (`MoEFeedForward.shard_experts`: rank e keeps experts
 [e*E/X, (e+1)*E/X), and names the leaves it sliced); every other leaf
-is whole on each expert rank.
+is whole on each expert rank. Over `tensor` each block's heads, MLP
+hidden axis (Mixtral's expert stacks' too) and the token table and head
+(by vocab rows, padded to a multiple of the size) are sliced before
+FSDP2 shards them (parallel/tensor.py `shard_model`: rank t keeps its
+slice, and names the leaves it sliced and how); every other leaf is
+whole on each tensor rank, and the loss runs the rank's shard through
+parallel/tensor.py's collectives.
 Over `seq` every leaf is replicated.
 
 Gradients: FSDP2 reduce-scatters (and averages) each unit's gradients
@@ -39,8 +45,15 @@ rank's alone, and a replicated leaf's comes out whole on each (the
 MoE's copy_to_experts), equal up to the rounding of a backward that is
 not deterministic (the card's flash dQ); so the replicated leaves'
 gradients are averaged over `expert`, which keeps the copies
-bit-identical. LoRA factors are summed over every rank (the expert
-copies counted once). With `overlap` the data-axis collective of each
+bit-identical. Over `tensor` the batch is the same on every rank and a
+tensor slice's gradient is its rank's alone; a whole leaf's comes out
+whole on each rank (the norms, the router, MLA's latent projections and
+a row-parallel bias run outside the sharded regions) and is averaged
+over `tensor`, as over `expert`, while a whole leaf read inside a region
+(wk / wv under the GQA remainder rule) carries its rank's part and is
+summed. LoRA factors are summed over every rank (the expert copies
+counted once); a factor sliced over `tensor` over every rank of its
+slice. With `overlap` the data-axis collective of each
 leaf is issued, async, from its post-accumulate-grad hook (FSDP2 runs
 those after the leaf's reduce-scatter), while backward goes on; the
 collectives and their inputs are the same, so no number changes.
@@ -50,9 +63,12 @@ piece: the fsdp shard, cut to the moment shard under zero1, after which
 the updated pieces are all-gathered over `data`. The clip's global norm
 is the sum of squares of every piece, each counted on one rank only
 (expert slices on their expert rank, replicated leaves on expert and
-seq rank 0), all-reduced over the job (`global_sq`): optax.global_norm's
-value. A checkpoint gathers an expert leaf over `fsdp`, then over
-`expert`, one leaf at a time.
+seq rank 0, whole leaves on tensor rank 0, tensor slices on every tensor
+rank), all-reduced over the job (`global_sq`): optax.global_norm's
+value. A checkpoint gathers a leaf over `fsdp`, then over `expert`, then
+over `tensor` (a vocab table unpadded), one leaf at a time, and a
+restore cuts each rank's slice from the whole leaf, so a file moves
+between any two meshes.
 """
 from __future__ import annotations
 
@@ -125,18 +141,20 @@ def chunk_bounds(n: int, parts: int, index: int) -> Tuple[int, int]:
 class Leaf:
     """One trainable leaf: its whole shape, the dim FSDP2 shards (None:
     every rank holds it whole), the dim its moments shard over `data`
-    under zero1 (None: whole over data), and the number of expert ranks
-    its dim 0 is sliced over (1: every expert rank holds all of it)."""
+    under zero1 (None: whole over data), the number of expert ranks its
+    dim 0 is sliced over (1: every expert rank holds all of it), its
+    split over `tensor` (parallel/tensor.py: a dim, 'qkv' or 'vocab';
+    None: whole) and, for a whole leaf, whether each tensor rank's
+    gradient is a part to sum ('sum') rather than a copy to average."""
     name: str
     shape: Tuple[int, ...]
     fsdp_dim: Optional[int]
     zero1_dim: Optional[int]
     experts: int = 1
-
-    @property
-    def part_shape(self) -> Tuple[int, ...]:
-        """The shape of this expert rank's slice (FSDP2's whole)."""
-        return (self.shape[0] // self.experts, *self.shape[1:])
+    tensor_axis: Any = None
+    tensor_sum: bool = False
+    #: This rank's slice's shape (FSDP2's whole).
+    part_shape: Tuple[int, ...] = ()
 
 
 class _LossUnit(nn.Module):
@@ -159,21 +177,44 @@ class FSDPLayout:
                  zero1: bool = False, overlap: bool = False) -> None:
         from torch.distributed.fsdp import fully_shard
         from torch.distributed.tensor import Shard
+        from skypilot_tpu_torch.parallel import tensor as tensor_lib
         sizes = mesh_lib.mesh_shape(mesh)
-        if any(sizes[a] > 1 for a in ('stage', 'tensor')):
+        if sizes['stage'] > 1:
             raise ValueError(f'the sharded trainer shards over data, fsdp, '
-                             f'expert and seq, not '
+                             f'tensor, expert and seq, not '
                              f'{mesh_lib.mesh_summary(mesh)}')
         self.data, self.fsdp = sizes['data'], sizes['fsdp']
         self.expert, self.seq = sizes['expert'], sizes['seq']
+        self.tensor = sizes['tensor']
         coord = dict(zip(mesh_lib.AXIS_NAMES, mesh.get_coordinate()))
         self.data_index, self.fsdp_index = coord['data'], coord['fsdp']
         self.expert_index, self.seq_index = coord['expert'], coord['seq']
+        self.tensor_index = coord['tensor']
         self.fsdp_mesh = mesh['fsdp']
         self.data_group = mesh['data'].get_group()
         self.fsdp_group = self.fsdp_mesh.get_group()
         self.expert_group = mesh['expert'].get_group()
         self.seq_group = mesh['seq'].get_group()
+        self.tensor_group = mesh['tensor'].get_group()
+        #: The tensor group seam (parallel/tensor.py) the loss runs the
+        #: model's shard through; None without a `tensor` axis.
+        self.tensor_seam = None
+        #: {leaf name: its split over `tensor`} (parallel/tensor.py).
+        self.tensor_axes: Dict[str, Any] = {}
+        self.vocab = model.config.vocab_size
+        if self.tensor > 1:
+            self.tensor_seam = tensor_lib.RankTensor(
+                self.tensor_group, self.tensor_index, self.tensor)
+            self.tensor_axes = tensor_lib.shard_model(
+                model, self.tensor_index, self.tensor)
+        self.kv_split = tensor_lib.kv_shard_ways(
+            int(getattr(model.config, 'num_kv_heads', 0) or 0),
+            self.tensor) > 1
+        # A LoRA factor sliced over `tensor` is reduced over the other
+        # axes alone.
+        self.untensor_group = (mesh_lib.axis_group(
+            mesh, ('data', 'fsdp', 'expert', 'seq')) if self.tensor > 1
+            else None)
         self.zero1 = zero1 and self.data > 1
         self.overlap = overlap and self.zero1
         #: The collectives `reduce_grads` issued in this layout's life,
@@ -214,6 +255,26 @@ class FSDPLayout:
         self._hooks: List[Any] = []
 
     # -- leaves ---------------------------------------------------------------
+    def shard_lora(self, lora_params) -> None:
+        """Slice fresh LoRA factors (whole) to this rank's tensor shard
+        in place (models/lora.py `shard_lora_params`)."""
+        if self.tensor > 1:
+            from skypilot_tpu_torch.models import lora as lora_lib
+            self.tensor_axes.update(lora_lib.shard_lora_params(
+                lora_params, self.tensor_index, self.tensor, self.kv_split))
+
+    def _whole_shape(self, name: str, shape, experts: int):
+        shape = list(shape)
+        shape[0] *= experts
+        axis = self.tensor_axes.get(name)
+        if axis == 'vocab':
+            shape[0] = self.vocab
+        elif axis == 'qkv':
+            shape[0] *= self.tensor
+        elif axis not in (None, 'sum'):
+            shape[axis] *= self.tensor
+        return tuple(shape)
+
     def bind(self, leaves: List[torch.Tensor], names: List[str]) -> None:
         """Record the trainable leaves (in the optimizer's order) and,
         with overlap, hook each one's data-axis collective."""
@@ -222,9 +283,12 @@ class FSDPLayout:
             fsdp_dim = (t.placements[0].dim if hasattr(t, 'placements')
                         else None)
             experts = self.expert if name in self.expert_leaves else 1
+            axis = self.tensor_axes.get(name)
             self.leaves.append(Leaf(
-                name, (t.shape[0] * experts, *t.shape[1:]), fsdp_dim,
-                self._zero1_dim(t.shape, fsdp_dim), experts))
+                name, self._whole_shape(name, t.shape, experts), fsdp_dim,
+                self._zero1_dim(t.shape, fsdp_dim), experts,
+                None if axis == 'sum' else axis, axis == 'sum',
+                tuple(t.shape)))
         for h in self._hooks:
             h.remove()
         self._hooks = []
@@ -280,9 +344,13 @@ class FSDPLayout:
         local = (self.local(grad) if grad is not None
                  else torch.zeros_like(self.local(t)))
         if leaf.fsdp_dim is None:
-            # Replicated: every rank's gradient is partial (or, over
-            # expert, a copy: the divisor counts them).
-            work = dist.all_reduce(local, async_op=True)
+            # Replicated (LoRA factors): every rank's gradient is partial
+            # (or, over expert, a copy: the divisor counts them); a
+            # factor sliced over tensor is its tensor rank's alone.
+            group = (dist.group.WORLD if leaf.tensor_axis is None
+                     else self.untensor_group)
+            work = (None if group is None else
+                    dist.all_reduce(local, group=group, async_op=True))
             self._count('all')
             self._pending[i] = (work, local, 'all')
             return
@@ -294,6 +362,14 @@ class FSDPLayout:
             dist.all_reduce(local, group=self.expert_group)
             local.div_(self.expert)
             self._count('expert')
+        if self.tensor > 1 and leaf.tensor_axis is None:
+            # A whole leaf: each tensor rank's gradient is a copy of the
+            # whole one (averaged, so the copies stay bit-identical) or,
+            # read inside a sharded region, its rank's part (summed).
+            dist.all_reduce(local, group=self.tensor_group)
+            if not leaf.tensor_sum:
+                local.div_(self.tensor)
+            self._count('tensor')
         if leaf.zero1_dim is None:
             work = None
             if self.data > 1:
@@ -347,6 +423,8 @@ class FSDPLayout:
                 continue            # a copy of data rank 0's
             if leaf.experts == 1 and self.expert_index:
                 continue            # a copy of expert rank 0's
+            if leaf.tensor_axis is None and self.tensor_index:
+                continue            # a copy of tensor rank 0's
             total = total + g.float().square().sum()
         if not torch.is_tensor(total):
             total = torch.zeros((), dtype=torch.float32,
@@ -357,10 +435,10 @@ class FSDPLayout:
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """The job-wide mean of a per-rank scalar (the local loss): the
         mean over the batch's ranks of the sum over the seq ranks' parts
-        (the expert ranks' copies counted once)."""
+        (the expert and tensor ranks' copies counted once)."""
         x = x.detach().clone()
         dist.all_reduce(x)
-        return x.div_(self.data * self.fsdp * self.expert)
+        return x.div_(self.data * self.fsdp * self.expert * self.tensor)
 
     @torch.no_grad()
     def gather_updates(self, leaves: List[torch.Tensor]) -> None:
@@ -392,6 +470,15 @@ class FSDPLayout:
                 dim, 0, n)
         if leaf.experts > 1:     # the expert ranks' slices, in order
             x = _gather_dim(x, 0, leaf.experts, self.expert_group)
+        axis = leaf.tensor_axis
+        if axis is not None:     # the tensor ranks' slices, in order
+            x = _gather_dim(x, 0 if axis in ('vocab', 'qkv') else axis,
+                            self.tensor, self.tensor_group)
+            if axis == 'vocab':
+                x = x.narrow(0, 0, leaf.shape[0])
+            elif axis == 'qkv':  # [t][q|k|v][n] -> [q|k|v][t][n]
+                x = x.reshape(self.tensor, 3, -1, *x.shape[1:]).transpose(
+                    0, 1).reshape(leaf.shape)
         return x.contiguous()
 
     @torch.no_grad()
@@ -399,8 +486,14 @@ class FSDPLayout:
              moment: bool = False) -> None:
         """Copy this rank's part of leaf i's `whole` value into `local`
         (a moment piece when `moment`)."""
+        from skypilot_tpu_torch.parallel import tensor as tensor_lib
         leaf = self.leaves[i]
         x = whole
+        if leaf.tensor_axis == 'vocab':
+            x = tensor_lib.vocab_piece(x, self.tensor_index, self.tensor)
+        elif leaf.tensor_axis is not None:
+            x = tensor_lib.piece(x, leaf.tensor_axis, self.tensor_index,
+                                 self.tensor)
         if leaf.experts > 1:
             part = leaf.part_shape[0]
             x = x.narrow(0, self.expert_index * part, part)

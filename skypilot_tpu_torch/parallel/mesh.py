@@ -17,11 +17,15 @@ it: each parameter's `embed` dim goes to `fsdp`, each expert stack's
 leading dim to `expert`. `batch_rows` is the port's `batch_sharding`:
 the reference shards a batch's rows over `('data', 'fsdp')`, so the
 rank at (data=i, fsdp=j) owns block i * fsdp + j of the global batch,
-and the rows are the same on every rank of the `expert` and `seq` axes.
+and the rows are the same on every rank of the `tensor`, `expert` and
+`seq` axes. The `tensor` axis's process group (`mesh['tensor']`) is
+parallel/tensor.py's `RankTensor`: heads, the MLP and the vocab split
+over it ('heads' / 'mlp' / 'vocab' -> 'tensor').
 `seq_block` is the rule 'seq' -> 'seq': the rank at seq=r holds
 positions [r * Sl, (r + 1) * Sl) of each row. `axis_group` gives the
 process group of the ranks that differ on a set of axes (the batch's
-ranks, for Mixtral's aux fractions).
+ranks, for Mixtral's aux fractions: data x fsdp x seq, never tensor or
+expert).
 
 The slice count comes from the gang contract: `TPU_NUM_SLICES` when the
 launcher set it (backends/task_codegen.py sets it for multislice

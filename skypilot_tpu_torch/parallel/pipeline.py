@@ -45,14 +45,28 @@ to every stage, each adding it into its shard's rows (GPT's `wpe` on
 stage 0 alone); replicated leaves sum their grads over the stages;
 over `data` every grad is averaged.
 
+Within each stage the blocks shard over `tensor` and `expert` (the
+reference's v2: GSPMD shards the stacked blocks' inner dims by the
+logical rules): each layer's block is split by parallel/tensor.py's
+table and runs its `tensor_forward` over the stage's tensor group, and
+Mixtral's expert stacks are sliced over the stage's expert group; the
+vocab tables stay split over `stage` alone and whole over `tensor`, as
+the reference's `_rest_specs` lay them. A whole leaf's gradient is then
+averaged over the stage's tensor and expert ranks (a part read inside a
+sharded region summed), and the grad norm counts each slice once.
+
 The stage group is the one seam between the two forms the runner
 takes, and nothing of the arithmetic forks on it:
   - in process (`devices=`): S stages on a list of devices, where a
-    device may repeat; hand-offs are `Tensor.to`, sums run over the
-    stages in stage order (as parallel/serving.py `Grid` sums);
-  - over ranks (`mesh=`, parallel/mesh.py `make_mesh` with `stage` and
-    `data` axes): one stage a rank; sums are collectives on the
-    `stage` group, hand-offs paired `dist.batch_isend_irecv`.
+    device may repeat, or on the rows of a [S][T] device grid, each
+    stage's blocks over its row's `LocalTensor`; hand-offs are
+    `Tensor.to`, sums run over the stages in stage order (as
+    parallel/serving.py `Grid` sums);
+  - over ranks (`mesh=`, parallel/mesh.py `make_mesh` with `stage`,
+    `data`, `tensor` and `expert` axes): one stage a rank; sums are
+    collectives on the `stage` group, hand-offs paired
+    `dist.batch_isend_irecv`, the blocks' collectives on the
+    `tensor` and `expert` groups.
 Every rank knows the tables, so a collective or a hand-off runs only
 on the ticks whose entries say a stage needs it, on every rank alike
 (the reference's masked collective on every tick was a constraint of
@@ -149,101 +163,32 @@ def microbatch_rows(batch: int, microbatches: int, data: int = 1,
 
 
 # -- the vocab-split head -------------------------------------------------------
-def _shard_logits(x2: torch.Tensor, table: torch.Tensor, offset: int,
-                  vocab: int, round_to: Optional[torch.dtype]
-                  ) -> torch.Tensor:
-    """f32 logits [N, vshard] of rows x2 [N, E] against a table shard
-    [vshard, E] whose row j is vocab id offset + j: `x2.dtype`
-    operands, an f32 product (rounded to `round_to` when given, as the
-    family's head rounds), padded columns -inf."""
-    logits = fused_xent.mm_f32(x2, table.to(x2.dtype).T)
-    if round_to is not None:
-        logits = logits.to(round_to).float()
-    valid = max(0, min(table.shape[0], vocab - offset))
-    if valid < table.shape[0]:
-        logits[:, valid:] = float('-inf')
-    return logits
-
-
-def _owned(targets: torch.Tensor, offset: int, vshard: int):
-    """(local ids clamped into the shard, which targets it owns)."""
-    local = targets - offset
-    owned = (local >= 0) & (local < vshard)
-    return local.clamp(0, vshard - 1), owned
-
-
-def _shard_backward(logits: torch.Tensor, lse: torch.Tensor,
-                    local: torch.Tensor, owned: torch.Tensor,
-                    coef: torch.Tensor, x2: torch.Tensor,
-                    table: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(d x2 [N, E] f32, d table [vshard, E] f32) of coef * sum of the
-    shard's part of (lse - target logit): (softmax - onehot) * coef, in
-    x2's dtype, through the head's two products."""
-    p = torch.exp(logits - lse[:, None])
-    # The one-hot of the owned targets, with no host sync.
-    p.scatter_add_(1, local[:, None], -owned.to(p.dtype)[:, None])
-    d_logits = (p * coef).to(x2.dtype)
-    return (fused_xent.mm_f32(d_logits, table.to(x2.dtype)),
-            fused_xent.mm_f32(d_logits.T, x2))
-
-
-class _SplitVocabLoss(torch.autograd.Function):
-    """The pipeline's vocab-split loss on one device: the head `table`
-    [V, E] padded and split into `shards` as the stages hold it, and
-    the same per-shard arithmetic (`_shard_logits`, the global max,
-    the summed exponentials, `_shard_backward`)."""
-
-    @staticmethod
-    def forward(ctx, x2, table, targets, shards: int, vocab: int,
-                round_to):
-        vshard = -(-table.shape[0] // shards)
-        padded = torch.zeros((vshard * shards, table.shape[1]),
-                             dtype=table.dtype, device=table.device)
-        padded[:table.shape[0]] = table
-        parts = []
-        for s in range(shards):
-            w = padded[s * vshard:(s + 1) * vshard]
-            logits = _shard_logits(x2, w, s * vshard, vocab, round_to)
-            local, owned = _owned(targets, s * vshard, vshard)
-            tl = torch.where(owned, logits.gather(1, local[:, None])[:, 0],
-                             torch.zeros((), device=x2.device))
-            parts.append((w, logits, local, owned, tl))
-        m = parts[0][1].max(dim=1).values
-        for part in parts[1:]:
-            m = torch.maximum(m, part[1].max(dim=1).values)
-        se = sum(torch.exp(p[1] - m[:, None]).sum(dim=1) for p in parts)
-        tl = sum(p[4] for p in parts)
-        lse = m + torch.log(se)
-        ctx.parts, ctx.lse, ctx.shapes = parts, lse, table.shape
-        ctx.save_for_backward(x2)
-        return (lse - tl).mean()
-
-    @staticmethod
-    def backward(ctx, g):
-        x2, = ctx.saved_tensors
-        coef = g.float() / x2.shape[0]
-        dx = torch.zeros(x2.shape, dtype=torch.float32, device=x2.device)
-        dws = []
-        for w, logits, local, owned, _ in ctx.parts:
-            d_x, d_w = _shard_backward(logits, ctx.lse, local, owned, coef,
-                                       x2, w)
-            dx += d_x
-            dws.append(d_w)
-        dtable = torch.cat(dws)[:ctx.shapes[0]]
-        return dx.to(x2.dtype), dtable, None, None, None, None
+# The arithmetic of a vocab slice's logits, targets and backward is
+# ops/fused_xent.py's (`shard_logits`, `owned_targets`,
+# `shard_backward`), shared with the tensor-parallel loss.
+_shard_logits = fused_xent.shard_logits
+_owned = fused_xent.owned_targets
+_shard_backward = fused_xent.shard_backward
 
 
 def split_vocab_loss(hidden: torch.Tensor, table: torch.Tensor,
                      tokens: torch.Tensor, shards: int, cfg) -> torch.Tensor:
     """The next-token loss of final-norm hidden states [B, S, E] through
-    the head `table` [V, E] split into `shards` vocab shards, with the
-    pipeline's per-shard arithmetic: the one-device witness a pipelined
-    step is held to (its loss and head gradients less the hand-offs)."""
+    the head `table` [V, E] padded and split into `shards` vocab shards
+    on its device, with the pipeline's per-shard arithmetic
+    (fused_xent.SplitVocabXent, one chunk a shard): the one-device
+    witness a pipelined step is held to (its loss and head gradients
+    less the hand-offs)."""
+    from skypilot_tpu_torch.parallel.tensor import LocalTensor
     x2 = hidden[:, :-1].reshape(-1, hidden.shape[-1]).to(cfg.dtype)
-    targets = tokens[:, 1:].reshape(-1).long()
-    return _SplitVocabLoss.apply(x2, table, targets, shards, cfg.vocab_size,
-                                 _logits_round(cfg))
+    targets = tokens[:, 1:].reshape(-1)
+    rows = -(-table.shape[0] // shards)
+    padded = torch.nn.functional.pad(
+        table, (0, 0, 0, rows * shards - table.shape[0]))
+    group = LocalTensor([table.device] * shards)
+    return fused_xent.split_vocab_token_losses(
+        x2, targets, dict(enumerate(padded.split(rows))), group,
+        cfg.vocab_size, round_to=_logits_round(cfg)).mean()
 
 
 def _logits_round(cfg) -> Optional[torch.dtype]:
@@ -258,15 +203,39 @@ def _logits_round(cfg) -> Optional[torch.dtype]:
 # -- the stage group --------------------------------------------------------------
 class LocalStages:
     """The stage group in process: stage s on `devices[s]` (a device may
-    repeat). Sums run over the stages in stage order, in f32."""
+    repeat), or on row s of a device grid [S][T]: the stage's blocks
+    then shard over its row's T devices (parallel/tensor.py
+    `LocalTensor`; the stage's whole parts run on the row's first
+    device). Sums run over the stages in stage order, in f32."""
 
     def __init__(self, devices) -> None:
-        self.devices = [torch.device(d) for d in devices]
+        from skypilot_tpu_torch.parallel.tensor import LocalTensor
+        rows = [list(d) if isinstance(d, (list, tuple)) else [d]
+                for d in devices]
+        if any(len(r) != len(rows[0]) for r in rows):
+            raise ValueError(f'a device grid is rows of equal length, '
+                             f'got {devices}')
+        self.devices = [torch.device(r[0]) for r in rows]
         self.size = len(self.devices)
         self.local = tuple(range(self.size))
         self.data_size, self.data_index = 1, 0
+        #: Each stage's tensor group (None: the stage is whole).
+        self.tensors = [LocalTensor(r) if len(r) > 1 else None
+                        for r in rows]
+        self.expert_size, self.expert_index, self.expert_group = 1, 0, None
         #: Hand-offs and collectives made (the runner's cost counters).
         self.handoffs = self.collectives = 0
+
+    def tensor_of(self, stage: int):
+        return self.tensors[stage]
+
+    def sync_whole(self, grads, names, axes) -> None:
+        """Whole leaves are shared by a stage's shards here: nothing to
+        sync."""
+        del grads, names, axes
+
+    def sq_total(self, sq):
+        return sq
 
     def device(self, stage: int) -> torch.device:
         return self.devices[stage]
@@ -322,27 +291,41 @@ class LocalStages:
 
 class RankStages:
     """The stage group over ranks: this rank's stage on the `stage` axis
-    of a parallel/mesh.py DeviceMesh (every other axis but `data` is
-    1), its own card or the CPU under gloo. Sums are collectives on the
-    axis's group; hand-offs are paired `dist.batch_isend_irecv`."""
+    of a parallel/mesh.py DeviceMesh, its own card or the CPU under
+    gloo; within the stage its blocks shard over the mesh's `tensor`
+    and `expert` groups (the reference's v2: tensor and expert compose
+    within stages), and `fsdp` and `seq` are 1. Sums are collectives on
+    the axis's group; hand-offs are paired `dist.batch_isend_irecv`."""
 
     def __init__(self, mesh) -> None:
         import torch.distributed as dist
         from skypilot_tpu_torch.parallel import mesh as mesh_lib
+        from skypilot_tpu_torch.parallel.tensor import RankTensor
         sizes = mesh_lib.mesh_shape(mesh)
         others = {a: n for a, n in sizes.items()
-                  if a not in ('stage', 'data') and n > 1}
+                  if a in ('fsdp', 'seq') and n > 1}
         if others:
-            raise ValueError(f'the pipeline runs on a data x stage mesh; '
-                             f'got {mesh_lib.mesh_summary(mesh)}')
+            raise ValueError(f'the pipeline runs on a data x stage x '
+                             f'tensor x expert mesh; got '
+                             f'{mesh_lib.mesh_summary(mesh)}')
         sub = mesh['stage']
         self.group = sub.get_group()
         self.size = sub.size()
         self.ranks = tuple(sub.mesh.tolist())
         self.local = (sub.get_local_rank(),)
-        grid = mesh.mesh.reshape(sizes['data'], sizes['stage'])
-        #: The rank holding stage s on data row 0 (what a save reads).
-        self.main_row = tuple(grid[0].tolist())
+        grid = mesh.mesh.reshape(sizes['data'], sizes['stage'],
+                                 sizes['tensor'] * sizes['expert'])
+        #: The rank holding stage s on data row 0, tensor and expert
+        #: rank 0 (what a save reads).
+        self.main_row = tuple(grid[0, :, 0].tolist())
+        tensor = sizes['tensor']
+        self.tensor = (RankTensor(mesh['tensor'].get_group(),
+                                  mesh['tensor'].get_local_rank(), tensor)
+                       if tensor > 1 else None)
+        self.expert_size = sizes['expert']
+        self.expert_index = mesh['expert'].get_local_rank()
+        self.expert_group = (mesh['expert'].get_group()
+                             if self.expert_size > 1 else None)
         self.data_size = sizes['data']
         self.data_index = mesh['data'].get_local_rank()
         self.data_group = (mesh['data'].get_group() if self.data_size > 1
@@ -403,6 +386,47 @@ class RankStages:
             dist.all_reduce(t, group=self.data_group)
         return t
 
+    def tensor_of(self, stage: int):
+        del stage
+        return self.tensor
+
+    def sync_whole(self, grads: Dict[str, torch.Tensor], names,
+                   axes: Dict[str, object]) -> None:
+        """Each whole leaf's gradient over this stage's tensor and expert
+        ranks: a copy averaged (so the copies stay bit-identical), or a
+        part read inside a sharded region ('sum') summed; one flat
+        buffer a kind."""
+        import torch.distributed as dist
+        for group, size, over in (
+                (self.tensor.group if self.tensor else None,
+                 self.tensor.size if self.tensor else 1, 'tensor'),
+                (self.expert_group, self.expert_size, 'expert')):
+            if group is None:
+                continue
+            for kind in ('mean', 'sum'):
+                picked = [n for n in names
+                          if _sync_kind(axes.get(n), over) == kind]
+                if not picked:
+                    continue
+                flat = torch.cat([grads[n].reshape(-1) for n in picked])
+                dist.all_reduce(flat, group=group)
+                if kind == 'mean':
+                    flat.div_(size)
+                at = 0
+                for n in picked:
+                    t = grads[n]
+                    grads[n] = flat[at:at + t.numel()].view_as(t)
+                    at += t.numel()
+
+    def sq_total(self, sq: torch.Tensor) -> torch.Tensor:
+        """A stage-summed square sum, summed over tensor and expert."""
+        import torch.distributed as dist
+        for group in (self.tensor.group if self.tensor else None,
+                      self.expert_group):
+            if group is not None:
+                dist.all_reduce(sq, group=group)
+        return sq
+
     def is_main(self) -> bool:
         return self.rank == 0
 
@@ -423,28 +447,51 @@ class RankStages:
         return buf
 
 
+def _sync_kind(split, over: str) -> Optional[str]:
+    """How a leaf's gradient syncs over `over` ('tensor' or 'expert'),
+    from its split (its tensor split, whether its experts are sliced):
+    'mean' for a whole copy, 'sum' for a part read inside a sharded
+    region, None for a slice."""
+    taxis, expert = split or (None, False)
+    if over == 'tensor':
+        return {None: 'mean', 'sum': 'sum'}.get(taxis)
+    return None if expert else 'mean'
+
+
 def _op(name: str):
     import torch.distributed as dist
     return dist.ReduceOp.SUM if name == 'sum' else dist.ReduceOp.MAX
 
 
 class _Stage:
-    """One stage's pieces on its device: its blocks by global layer,
-    its final norm, its table shards and replicated extras, and every
-    parameter by the model's name (`params`, in a fixed order)."""
+    """One stage's pieces on its device: its blocks by global layer (and
+    under tensor parallelism each layer's shards, {shard: block}, shard
+    0's the block itself), its final norm, its table shards and
+    replicated extras, and every parameter by the model's name
+    (`params`, in a fixed order; another shard's slice of a leaf as
+    `name@t`)."""
 
     def __init__(self, index: int, device: torch.device,
                  blocks: Dict[int, nn.Module], norm: nn.Module,
                  tables: Dict[str, torch.Tensor],
                  extra: Dict[str, torch.Tensor], names: Dict[int, str],
-                 norm_name: str) -> None:
+                 norm_name: str, shards: Dict[int, Dict[int, nn.Module]],
+                 tensor) -> None:
         self.index, self.device = index, device
         self.blocks, self.norm = blocks, norm
+        self.shards, self.tensor = shards, tensor
         self.tables, self.extra = tables, extra
         self.params: Dict[str, torch.Tensor] = {}
+        self.layer_params: Dict[int, List[Tuple[str, torch.Tensor]]] = {}
         for i in sorted(blocks):
-            for n, p in blocks[i].named_parameters():
-                self.params[f'{names[i]}.{n}'] = p
+            own = []
+            for j, (t, block) in enumerate(shards[i].items()):
+                seen = {id(p) for _, p in own}
+                own += [(f'{names[i]}.{n}' + (f'@{t}' if j else ''), p)
+                        for n, p in block.named_parameters()
+                        if id(p) not in seen]
+            self.layer_params[i] = own
+            self.params.update(own)
         self.params.update(tables)
         for n, p in norm.named_parameters():
             self.params[f'{norm_name}.{n}'] = p
@@ -459,8 +506,9 @@ class PipelinedLM:
         state = pp.init(tx)                  # the model's weights, split
         step = pp.make_train_step(tx)        # (state, tokens) -> ...
 
-    or `mesh=` (a data x stage DeviceMesh of a job) instead of
-    `devices=`, one stage a rank. `tokens` are the global batch
+    or `mesh=` (a data x stage x tensor x expert DeviceMesh of a job)
+    instead of `devices=`, one stage a rank; `devices=` may be a [S][T]
+    grid, T tensor shards a stage. `tokens` are the global batch
     [B, seq] on every rank. `schedule` is 'gpipe', '1f1b' or
     'interleaved' (`virtual_stages` layer chunks a device)."""
 
@@ -507,6 +555,15 @@ class PipelinedLM:
         self.padded_vocab = self.vshard * S
         self.aux_scale = (cfg.router_aux_loss_weight / cfg.num_layers
                           if self.family.returns_aux else 0.0)
+        from skypilot_tpu_torch.parallel import tensor as tensor_lib
+        tensor = self.group.tensor_of(self.group.local[0])
+        #: Tensor shards within a stage (1: the stages are whole).
+        self.tensor_ways = ways = tensor.size if tensor is not None else 1
+        self.kv_split, axes = tensor_lib.model_axes(model, ways)
+        block0 = f'{self.family.blocks}.0.'
+        #: {block-relative leaf name: its tensor split}.
+        self.block_axes = {n[len(block0):]: a for n, a in axes.items()
+                           if n.startswith(block0)} if ways > 1 else {}
         named = list(model.named_parameters())
         #: The model's parameter names and shapes, in its order (the
         #: order a one-card checkpoint holds them in).
@@ -590,18 +647,18 @@ class PipelinedLM:
         self.stages = []
         for s in self.group.local:
             dev = self.group.device(s)
+            tensor = self.group.tensor_of(s)
             own = {n: t.detach().to(dev, copy=True)
                    for n, t in pieces[s].items()}
-            blocks, names = {}, {}
+            blocks, names, shards = {}, {}, {}
             for k in range(self.virtual_stages):
                 for i in self.layers_of(k * self.num_stages + s):
                     prefix = f'{fam.blocks}.{i}.'
-                    with torch.device('meta'):
-                        block = fam.make_block(cfg)
-                    block.load_state_dict(
-                        {n[len(prefix):]: t for n, t in own.items()
-                         if n.startswith(prefix)}, assign=True)
-                    blocks[i], names[i] = block, f'{fam.blocks}.{i}'
+                    state = {n[len(prefix):]: t for n, t in own.items()
+                             if n.startswith(prefix)}
+                    shards[i] = self._block_shards(state, tensor)
+                    blocks[i] = next(iter(shards[i].values()))
+                    names[i] = f'{fam.blocks}.{i}'
             with torch.device('meta'):
                 norm = fam.make_norm(cfg)
             prefix = f'{fam.norm}.'
@@ -611,7 +668,61 @@ class PipelinedLM:
             self.stages.append(_Stage(
                 s, dev, blocks, norm,
                 {n: leaf(n) for n in fam.tables},
-                {n: leaf(n) for n in fam.extra}, names, fam.norm))
+                {n: leaf(n) for n in fam.extra}, names, fam.norm, shards,
+                tensor))
+
+    def read_heads(self, shard: int, ways: int):
+        """The kv heads shard `shard`'s q heads read under the GQA
+        remainder rule (parallel/tensor.py), or None."""
+        from skypilot_tpu_torch.parallel.tensor import remainder_read_heads
+        num_kv = int(getattr(self.cfg, 'num_kv_heads', 0) or 0)
+        return (remainder_read_heads(self.cfg.num_heads, num_kv, shard, ways)
+                if num_kv else None)
+
+    def _block_shards(self, state: Dict[str, torch.Tensor], tensor
+                      ) -> Dict[int, nn.Module]:
+        """One layer's block from its whole `state` (on the stage's
+        device): {0: it} when the stage is whole, else its tensor
+        shards (parallel/tensor.py: sliced in place over ranks; in
+        process shard t > 0 on its device, sharing shard 0's whole
+        leaves), and over `expert` its experts' slice."""
+        from skypilot_tpu_torch.parallel import tensor as tensor_lib
+        fam, cfg = self.family, self.cfg
+
+        def build(t: int, ways: int) -> nn.Module:
+            with torch.device('meta'):
+                block = fam.make_block(cfg)
+            if ways > 1:
+                tensor_lib.shard_block(block, t, ways, self.kv_split,
+                                       self.read_heads(t, ways))
+                parts = {n: tensor_lib.piece(x, self.block_axes.get(n), t,
+                                             ways).clone()
+                         if self.block_axes.get(n) not in (None, 'sum')
+                         else x for n, x in state.items()}
+            else:
+                parts = state
+            block.load_state_dict(parts, assign=True)
+            return block
+
+        g = self.group
+        ways = tensor.size if tensor is not None else 1
+        local = tensor.local if tensor is not None else (0,)
+        out = {}
+        for t in local:
+            block = build(t, ways)
+            if tensor is not None and tensor.device(t) is not None:
+                block.to(tensor.device(t))
+            if g.expert_size > 1 and hasattr(block, 'moe'):
+                block.moe.shard_experts(g.expert_group, g.expert_index,
+                                        g.expert_size)
+            out[t] = block
+        home = out[local[0]]
+        for t in local[1:]:
+            # In process: a shard shares shard 0's whole leaves.
+            for n, p in home.named_parameters():
+                if self.block_axes.get(n) in (None, 'sum'):
+                    tensor_lib.replace_param(out[t], n, p)
+        return out
 
     # -- training -------------------------------------------------------------
     def init(self, tx: Optional[ClippedAdamW] = None,
@@ -648,13 +759,24 @@ class PipelinedLM:
                                  device=x.device).expand(x.shape[0],
                                                          x.shape[1])
         aux = None
+        tensor = stage.tensor
+        kw = {'with_aux': True} if self.family.returns_aux else {}
         for i in self.layers_of(virtual):
             block = stage.blocks[i]
+            if tensor is None:
+                out = block(x, positions, **kw)
+            elif len(tensor.local) == 1:
+                out = block(x, positions, tensor=tensor, **kw)
+            else:
+                from skypilot_tpu_torch.parallel.tensor import to_shards
+                out = type(block).tensor_forward(
+                    stage.shards[i], tensor, x,
+                    to_shards(tensor, positions), **kw)
             if self.family.returns_aux:
-                x, a = block(x, positions, with_aux=True)
+                x, a = out
                 aux = a if aux is None else aux + a
             else:
-                x = block(x, positions)
+                x = out
         return x, aux
 
     def _chunk_backward(self, stage: _Stage, virtual: int,
@@ -667,9 +789,8 @@ class PipelinedLM:
         x = x_saved.detach().requires_grad_()
         with torch.enable_grad():
             y, aux = self._chunk(stage, virtual, x)
-        names = [f'{self.family.blocks}.{i}.{n}'
-                 for i in self.layers_of(virtual)
-                 for n, _ in stage.blocks[i].named_parameters()]
+        names = [n for i in self.layers_of(virtual)
+                 for n, _ in stage.layer_params[i]]
         params = [stage.params[n] for n in names]
         outs, cots = [y], [g]
         if aux is not None:
@@ -884,6 +1005,8 @@ class PipelinedLM:
             for n, t in grads.items():
                 grads[n] = flat[at:at + t.numel()].view_as(t)
                 at += t.numel()
+            g.sync_whole(grads, list(grads), {n: self._split(n)
+                                              for n in grads})
         summed = g.all_reduce({s: torch.cat([acc[s][n].reshape(-1)
                                              for n in rest])
                                for s in acc})
@@ -910,14 +1033,40 @@ class PipelinedLM:
         losses, _ = self._run(tokens, None, False)
         return losses[self.stages[0].index]
 
+    def _split(self, name: str):
+        """(its tensor split, whether its experts are sliced) of stage
+        leaf `name` (a block leaf's from `block_axes`; tables, norms and
+        extras are whole)."""
+        if self._kind(name)[0] != 'block':
+            return None, False
+        rel = name.split('@')[0].split('.', 2)[2]
+        return (self.block_axes.get(rel), self.group.expert_size > 1
+                and rel in ('moe.w_gate', 'moe.w_up', 'moe.w_down'))
+
+    def _counted(self, name: str) -> bool:
+        """Whether this rank's copy of a leaf counts in the grad norm: a
+        tensor or expert slice on every rank, a whole leaf on tensor and
+        expert rank 0."""
+        tensor = self.group.tensor_of(self.group.local[0])
+        taxis, expert = self._split(name)
+        if tensor is not None and tensor.index and \
+                taxis in (None, 'sum'):
+            return False
+        return not (self.group.expert_index and not expert)
+
     def global_sq(self, grads) -> Dict[int, torch.Tensor]:
         """{stage: the sum of squares of every grad of the pipeline},
-        each replicated leaf counted once (stage 0's)."""
+        each replicated leaf counted once (stage 0's; tensor and expert
+        rank 0's)."""
         parts = {}
         for s, gs in grads.items():
-            parts[s] = sum(t.float().square().sum() for n, t in gs.items()
-                           if s == 0 or self._kind(n)[0] != 'rest')
-        return self.group.all_reduce(parts)
+            parts[s] = sum(
+                (t.float().square().sum() for n, t in gs.items()
+                 if (s == 0 or self._kind(n)[0] != 'rest')
+                 and self._counted(n)),
+                torch.zeros((), device=self.stages[0].device))
+        return {s: self.group.sq_total(sq)
+                for s, sq in self.group.all_reduce(parts).items()}
 
     def make_train_step(self, tx: Optional[ClippedAdamW] = None,
                         guard: bool = False,
@@ -975,11 +1124,56 @@ class PipelinedLM:
         """This process's copy of leaf `name` of `stage` ('param', 'mu' or
         'nu'), or None when the stage is not here."""
         params = state.params.get(stage)
-        if params is None:
+        if params is None or name not in params:
             return None
         if what == 'param':
             return params[name]
         return state.opt_state[stage][what][list(params).index(name)]
+
+    def _part_shape(self, name: str) -> Tuple[int, ...]:
+        """The shape of a block leaf's slice on one rank (tensor split,
+        experts sliced)."""
+        shape = list(self.shapes[name])
+        taxis, expert = self._split(name)
+        if expert:
+            shape[0] //= self.group.expert_size
+        if taxis not in (None, 'sum'):
+            shape[0 if taxis == 'qkv' else taxis] //= self.tensor_ways
+        return tuple(shape)
+
+    def _joined(self, state: TrainState, stage: int, name: str,
+                what: str) -> Optional[torch.Tensor]:
+        """Leaf `name` of `stage` whole on this process: its tensor and
+        expert slices joined (over the stage's tensor and expert groups,
+        which every rank calls; in process from the shards' `name@t`),
+        or None when the stage is not here."""
+        from skypilot_tpu_torch.parallel import tensor as tensor_lib
+        from skypilot_tpu_torch.parallel.fsdp import _gather_dim
+        taxis, expert = self._split(name)
+        g = self.group
+        tensor = g.tensor_of(g.local[0])
+        x = self._leaf(state, stage, name, what)
+        sliced = taxis not in (None, 'sum') and tensor is not None
+        if not (sliced or expert):
+            return x
+        if isinstance(g, LocalStages):
+            if x is None:
+                return None
+            return tensor_lib.join_pieces(
+                [x] + [self._leaf(state, stage, f'{name}@{t}', what)
+                       for t in tensor.local[1:]], taxis, self.shapes[name])
+        if x is None:
+            x = torch.zeros(self._part_shape(name), dtype=torch.float32,
+                            device=self.stages[0].device)
+        if expert:
+            x = _gather_dim(x.contiguous(), 0, g.expert_size, g.expert_group)
+        if sliced:
+            parts = [torch.empty_like(x) for _ in range(tensor.size)]
+            import torch.distributed as dist
+            dist.all_gather(parts, x.contiguous(), group=tensor.group)
+            x = tensor_lib.join_pieces(parts, taxis, self.shapes[name])
+        return x if self._leaf(state, stage, name, what) is not None \
+            else None
 
     def _piece_like(self, name: str) -> torch.Tensor:
         shape = self.shapes[name]
@@ -988,6 +1182,7 @@ class PipelinedLM:
         return torch.empty(shape, dtype=torch.float32,
                            device=self.stages[0].device)
 
+    @torch.no_grad()
     def gather_leaf(self, state: TrainState, i: int, what: str
                     ) -> Optional[torch.Tensor]:
         """Leaf i of the model ('param', 'mu' or 'nu') whole on the host
@@ -995,7 +1190,7 @@ class PipelinedLM:
         joined and unpadded. Collective over the job."""
         name = self.names[i]
         like = self._piece_like(name)
-        parts = [self.group.to_main(s, self._leaf(state, s, name, what),
+        parts = [self.group.to_main(s, self._joined(state, s, name, what),
                                     like) for s in self._holders(name)]
         if not self.group.is_main():
             return None
@@ -1015,15 +1210,30 @@ class PipelinedLM:
         kind, owner = self._kind(name)
         if kind == 'table':
             whole = self._pad(whole.to(like.device))
+        from skypilot_tpu_torch.parallel import tensor as tensor_lib
+        taxis, expert = self._split(name)
+        g = self.group
         for st in self.stages:
             if kind == 'block' and owner != st.index:
                 continue
-            local = self._leaf(state, st.index, name, what)
             src = whole
             if kind == 'table':
                 src = whole[st.index * self.vshard:
                             (st.index + 1) * self.vshard]
-            local.copy_(src)
+            tensor = st.tensor
+            for j, t in enumerate(tensor.local if tensor is not None
+                                  else (0,)):
+                local = self._leaf(state, st.index,
+                                   f'{name}@{t}' if j else name, what)
+                if local is None:
+                    continue        # a whole leaf shard 0 holds for all
+                part = src
+                if tensor is not None and taxis not in (None, 'sum'):
+                    part = tensor_lib.piece(part, taxis, t, tensor.size)
+                if expert:
+                    n = part.shape[0] // g.expert_size
+                    part = part.narrow(0, g.expert_index * n, n)
+                local.copy_(part)
 
     def count(self, state: TrainState) -> int:
         return int(state.opt_state[self.stages[0].index]['count'])

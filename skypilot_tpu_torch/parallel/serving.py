@@ -55,25 +55,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from skypilot_tpu_torch.inference import quant
 from skypilot_tpu_torch.models.deepseek import Deepseek, LatentCache
 from skypilot_tpu_torch.models.gpt import GPT
 from skypilot_tpu_torch.models.llama import (DenseKVCache, LayerCache, Llama,
                                              PagedKVCache, kv_heads)
-from skypilot_tpu_torch.models.mixtral import Mixtral
 from skypilot_tpu_torch.ops import paged_attention as paged_ops
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
-
-
-def kv_shard_ways(num_kv_heads: int, tensor_size: int) -> int:
-    """How many ways the KV-heads axis shards over `tensor_size`
-    devices: all of them when the head count divides evenly, else the
-    pool is whole on every device (the GQA remainder rule, reference
-    :88-99); 0 kv heads (MLA) never shard."""
-    if tensor_size > 1 and num_kv_heads > 0 and \
-            num_kv_heads % tensor_size == 0:
-        return int(tensor_size)
-    return 1
+from skypilot_tpu_torch.parallel.tensor import (  # noqa: F401 (re-exported)
+    edges, family, kv_shard_ways, leaf_axis, lora_factor_axes, piece,
+    remainder_read_heads, replace_param)
 
 
 def stage_layer_ranges(num_layers: int,
@@ -198,129 +188,16 @@ class Grid:
 
 
 # -- the parameter split -----------------------------------------------------
-#: The split of each projection's [out, in] weight over `tensor` (block-
-#: relative module paths): 0 splits the output channels (heads, the MLP's
-#: hidden axis), 1 the input channels (the row-parallel `wo` / `w_down`,
-#: whose outputs are partial sums); 'kv' is 0 when the kv heads split and
-#: whole otherwise; 'qkv' splits each third of GPT's fused q|k|v columns
-#: by heads. The reference's rules (DEFAULT_RULES: heads / mlp / vocab ->
-#: tensor) on the port's layouts.
-_PROJECTION_AXES = {
-    'attn.wq': 0, 'attn.wq_b': 0, 'attn.wk': 'kv', 'attn.wv': 'kv',
-    'attn.wo': 1, 'mlp.w_gate': 0, 'mlp.w_up': 0, 'mlp.w_down': 1,
-    'attn.c_attn': 'qkv', 'attn.c_proj': 1, 'mlp.c_fc': 0,
-    'mlp.c_proj': 1,
-}
-#: Raw parameters of a block: MLA's wkv_b [d_c, H, d] by heads, Mixtral's
-#: experts [E, d, f] / [E, f, d] by the MLP's hidden axis.
-_PARAMETER_AXES = {'attn.wkv_b': 1, 'moe.w_gate': 2, 'moe.w_up': 2,
-                   'moe.w_down': 1}
-#: Per family: the blocks' attribute, the token table (vocab-sharded,
-#: and the head too where it is tied), the head, the final norm.
-_EDGES = {
-    Llama: ('layers', 'tok_embed', 'lm_head', 'final_norm'),
-    Mixtral: ('layers', 'tok_embed', 'lm_head', 'final_norm'),
-    Deepseek: ('layers', 'tok_embed', 'lm_head', 'final_norm'),
-    GPT: ('h', 'wte', 'wte', 'ln_f'),
-}
-
-
-def _family(model) -> type:
-    for cls in _EDGES:
-        if isinstance(model, cls):
-            return cls
-    raise ValueError(f'{type(model).__name__} has no tensor-parallel '
-                     f'split')
-
-
-def piece(t: torch.Tensor, axis, rank: int, ways: int) -> torch.Tensor:
-    """Shard `rank` of `ways` of `t` along `axis` (None: all of it;
-    'first': all of it on shard 0, zeros elsewhere, for a row-parallel
-    bias added once; 'qkv': each third of axis 0 by heads)."""
-    if axis is None or ways == 1:
-        return t
-    if axis == 'first':
-        return t if rank == 0 else torch.zeros_like(t)
-    if axis == 'qkv':
-        return torch.cat([piece(third, 0, rank, ways)
-                          for third in t.chunk(3, dim=0)], dim=0)
-    if t.shape[axis] % ways:
-        raise ValueError(f'cannot split axis {axis} of {tuple(t.shape)} '
-                         f'{ways} ways')
-    n = t.shape[axis] // ways
-    return t[(slice(None),) * axis + (slice(rank * n, (rank + 1) * n),)]
-
-
-def leaf_axis(name: str, kv_split: bool):
-    """The split of block tensor `name` (block-relative state-dict name)
-    over `tensor`: an axis, 'first', 'qkv' or None (whole)."""
-    if name in _PARAMETER_AXES:
-        return _PARAMETER_AXES[name]
-    module, _, leaf = name.rpartition('.')
-    axis = _PROJECTION_AXES.get(module)
-    if axis == 'kv':
-        axis = 0 if kv_split else None
-    if axis is None:
-        return None
-    if leaf in ('weight_q', 'weight_scale'):
-        return quant.quantized_leaf_axis(leaf, axis)
-    if leaf == 'bias':
-        return 'first' if axis == 1 else axis
-    return axis
-
-
-def lora_factor_axes(target: str, kv_split: bool):
-    """(a's axis, b's axis) of a LoRA target's factors a [d_in, r] and b
-    [r, d_out] over `tensor`: a column-parallel projection's delta
-    splits b's output columns with its heads / hidden units (a is whole:
-    every shard sees the whole input), a row-parallel one's splits a's
-    input rows (b is whole, the partial deltas sum with the outputs)."""
-    module = f'{"attn" if target in ("wq", "wk", "wv", "wo") else "mlp"}' \
-             f'.{target}'
-    axis = leaf_axis(f'{module}.weight', kv_split)
-    return (0 if axis == 1 else None), (1 if axis == 0 else None)
-
-
+# The split of every block tensor over `tensor` and each family's edges
+# (blocks, token table, head, final norm) are parallel/tensor.py's
+# (`leaf_axis`, `piece`, `lora_factor_axes`, `remainder_read_heads`,
+# `edges`), which the trainers share.
 def shard_block_state(block: nn.Module, rank: int, ways: int,
                       kv_split: bool) -> Dict[str, torch.Tensor]:
     """Shard `rank`'s tensors of one block (views where the split is
     along the leading axis, on the block's device)."""
     return {name: piece(t, leaf_axis(name, kv_split), rank, ways)
             for name, t in block.state_dict().items()}
-
-
-def _assign(module: nn.Module, name: str, tensor: torch.Tensor) -> None:
-    """Put `tensor` at state-dict `name` of `module` as a frozen
-    parameter or a buffer, whatever its shape."""
-    *path, leaf = name.split('.')
-    for part in path:
-        module = getattr(module, part)
-    if leaf in module._buffers:   # pylint: disable=protected-access
-        module._buffers[leaf] = tensor   # pylint: disable=protected-access
-    else:
-        setattr(module, leaf, nn.Parameter(tensor, requires_grad=False))
-
-
-def remainder_read_heads(num_heads: int, num_kv: int, rank: int,
-                         ways: int) -> Optional[Tuple[int, int]]:
-    """Under the GQA remainder rule, the kv heads [lo, hi) that shard
-    `rank`'s q heads [h0, h0 + H/T) read (q head h reads kv head
-    h // G); None when the kv heads split with the q heads. Raises when
-    the shard's q heads do not map onto whole, equal kv groups."""
-    if kv_shard_ways(num_kv, ways) > 1 or ways == 1:
-        return None
-    group = num_heads // num_kv
-    n = num_heads // ways
-    h0 = rank * n
-    lo, hi = h0 // group, (h0 + n - 1) // group + 1
-    local_group = n // (hi - lo)
-    if n % (hi - lo) or any((h0 + j) // group - lo != j // local_group
-                            for j in range(n)):
-        raise ValueError(
-            f'{num_heads} q heads over {num_kv} kv heads do not split '
-            f'{ways} ways: shard {rank} holds q heads [{h0}, {h0 + n}), '
-            f'which span kv heads unevenly')
-    return lo, hi
 
 
 class GridModel(nn.Module):
@@ -333,21 +210,20 @@ class GridModel(nn.Module):
 
     def __init__(self, model: nn.Module, grid: Grid) -> None:
         super().__init__()
-        family = _family(model)
         cfg = model.config
         ways = grid.tensor
-        blocks_attr, table, head, norm = _EDGES[family]
-        if grid.stages > 1 and family is not Llama:
+        blocks_attr, table, head, norm = edges(model)
+        if grid.stages > 1 and family(model) is not Llama:
             raise ValueError(
                 f'staged serving supports the Llama family; '
-                f'{family.__name__} has no stage split')
+                f'{family(model).__name__} has no stage split')
         for field in ('num_heads', 'vocab_size'):
             if getattr(cfg, field) % ways:
                 raise ValueError(f'{field}={getattr(cfg, field)} does not '
                                  f'split over --tensor {ways}')
         self.config = cfg
         self.grid = grid
-        self.family = family
+        self.family = family(model)
         self.weight_dtype = getattr(model, 'weight_dtype', 'bf16')
         self.CACHE_PREFIX = getattr(  # pylint: disable=invalid-name
             model, 'CACHE_PREFIX', 'layer_')
@@ -374,7 +250,9 @@ class GridModel(nn.Module):
                     shard = getattr(shard, blocks_attr)[0]
                 for name, part in shard_block_state(
                         block, t, ways, kv_split).items():
-                    _assign(shard, name, part.to(devices[t]).contiguous())
+                    replace_param(shard, name,
+                                  part.to(devices[t]).contiguous(),
+                                  requires_grad=False)
                 attn = shard.attn
                 attn.num_heads = cfg.num_heads // ways
                 if hasattr(attn, 'num_kv_heads'):
@@ -396,10 +274,13 @@ class GridModel(nn.Module):
                     continue
                 if name in (table, head):
                     dev = first[t] if name == table else last[t]
-                    _assign(edge, name, piece(tensor, 0, t, ways).to(dev))
+                    replace_param(edge, name,
+                                  piece(tensor, 0, t, ways).to(dev),
+                                  requires_grad=False)
                 else:
                     dev = last[t] if name.startswith(norm) else first[t]
-                    _assign(edge, name, tensor.to(dev))
+                    replace_param(edge, name, tensor.to(dev),
+                                  requires_grad=False)
             self.edges.append(edge)
         self._vocab_slice = cfg.vocab_size // ways
 

@@ -5,8 +5,11 @@ The reference jits its step over a mesh; the port runs eagerly, on one
 card, or with `mesh=` (parallel/mesh.py `make_mesh`) on one rank of a
 job: FSDP over the mesh's `fsdp` axis, the parameters replicated over
 `data`, `zero1` and `overlap` as the reference defines them, Mixtral's
-experts split over `expert` (the layout and its collectives:
-parallel/fsdp.py), and over `seq` the step runs under
+experts split over `expert`, heads, the MLP and the vocab over `tensor`
+(the layout and its collectives: parallel/fsdp.py; the sharded forward
+and vocab-split loss: parallel/tensor.py, ops/fused_xent.py), or with
+`devices=` over tensor shards in this process (parallel/tensor.py
+`LocalLayout`), and over `seq` the step runs under
 `context_parallel(mesh)` (the reference's `:325`, `:413`, `:491`):
 each seq rank reads whole rows, embeds its block of them at its global
 positions and attends through the ring (ops/ring_attention.py); its
@@ -92,6 +95,19 @@ def trainable_items(params: Dict[str, Any]) -> List[Tuple[str, Any]]:
 
 def trainable_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
     return [t for _, t in trainable_items(params)]
+
+
+def whole_lora(state: TrainState) -> Dict[str, Any]:
+    """A LoRA state's factors {'layer_i': {target: {'a', 'b'}}}, whole
+    (over a job every rank calls it: a tensor-sharded factor is gathered
+    from its slices)."""
+    if state.layout is None or not hasattr(state.layout, 'full'):
+        return state.params['lora']
+    whole = {id(t): state.layout.full(i, state.layout.local(t))
+             for i, (_, t) in enumerate(trainable_items(state.params))}
+    return {name: {target: {k: whole[id(t)] for k, t in factors.items()}
+                   for target, factors in layer.items()}
+            for name, layer in state.params['lora'].items()}
 
 
 def _layer_key(item):
@@ -271,9 +287,12 @@ class ShardedTrainer:
 
     `mesh` (a DeviceMesh from parallel/mesh.py `make_mesh`, every rank
     of the job building its trainer alike) shards the model over the
-    mesh's `fsdp` axis in place, Mixtral's experts over `expert`
-    (parallel/fsdp.py), and splits each row over `seq` (the loss then
-    must be the next-token CE, with a router aux loss or not); `zero1`
+    mesh's `fsdp` axis in place, Mixtral's experts over `expert`,
+    heads / MLP / vocab over `tensor` (parallel/fsdp.py), and splits
+    each row over `seq` (the loss then must be the next-token CE, with
+    a router aux loss or not; so too over `tensor`, whose head is split
+    by vocab). `devices` (a list of T devices, which may repeat) splits
+    the model over T tensor shards in this process instead; `zero1`
     shards the Adam moments over `data` too, and `overlap` issues that
     reduce-scatter leaf by leaf during backward (it needs `zero1`, as in
     the reference). At `data` = 1 both change nothing.
@@ -285,7 +304,7 @@ class ShardedTrainer:
                  collect_grad_norm: bool = False,
                  lora: Optional[lora_lib.LoraSpec] = None,
                  guard: bool = False, mesh=None, zero1: bool = False,
-                 overlap: bool = False) -> None:
+                 overlap: bool = False, devices=None) -> None:
         if not model.config.trainable:
             raise ValueError('the trainer needs f32 master parameters: '
                              'build the model with param_dtype='
@@ -317,6 +336,19 @@ class ShardedTrainer:
                              'this loss_fn needs whole logits')
         self.mesh = mesh
         self.layout = None
+        #: (the tensor group seam, {shard: model}) under tensor
+        #: parallelism (parallel/tensor.py), else None.
+        self.tensor = None
+        if mesh is not None and devices is not None:
+            raise ValueError('pass mesh= (a job) or devices= (tensor '
+                             'shards in process), not both')
+        tensor_ways = (len(devices) if devices is not None else
+                       mesh_lib.mesh_shape(mesh)['tensor'] if mesh is not None
+                       else 1)
+        if tensor_ways > 1 and not supported:
+            raise ValueError('a tensor-sharded model takes the next-token '
+                             'loss (with a router aux loss, flagged '
+                             'fused_ok): its head is split by vocab')
         if mesh is not None:
             from skypilot_tpu_torch.parallel.fsdp import FSDPLayout
             if lora is not None:
@@ -326,6 +358,16 @@ class ShardedTrainer:
                     p.requires_grad_(False)
             self.layout = FSDPLayout(model, mesh, self._loss, zero1=zero1,
                                      overlap=overlap)
+            if self.layout.tensor_seam is not None:
+                self.tensor = (self.layout.tensor_seam,
+                               {self.layout.tensor_index: model})
+        elif devices is not None:
+            from skypilot_tpu_torch.parallel.tensor import LocalLayout
+            if lora is not None:
+                raise ValueError('LoRA under tensor shards in process is '
+                                 'not supported; use a job (mesh=)')
+            self.layout = LocalLayout(model, devices, self._loss)
+            self.tensor = (self.layout.group, self.layout.shards)
 
     # -- init ---------------------------------------------------------------
     def init(self, lora_params: Optional[Dict[str, Any]] = None,
@@ -334,7 +376,9 @@ class ShardedTrainer:
         built already, so no example batch is needed), with zero
         moments. LoRA: fresh factors (a ~ N(0, 0.02) from `seed`, b = 0)
         unless `lora_params` are given; the base is frozen."""
-        params: Dict[str, Any] = dict(self.model.named_parameters())
+        params: Dict[str, Any] = (
+            self.layout.params() if hasattr(self.layout, 'params')
+            else dict(self.model.named_parameters()))
         if self.lora is not None:
             for p in params.values():
                 p.requires_grad_(False)
@@ -342,6 +386,8 @@ class ShardedTrainer:
                 lora_params = lora_lib.init_lora_params(
                     self.model.config, self.lora, seed=seed,
                     device=self.model.device)
+                if self.layout is not None:
+                    self.layout.shard_lora(lora_params)
             for layer in lora_params.values():
                 for factors in layer.values():
                     for t in factors.values():
@@ -366,6 +412,8 @@ class ShardedTrainer:
             extra['lora'] = lora_lib.as_model_lora(params['lora'],
                                                    self.lora.scale)
         ring = cp_context.active_seq_group()
+        if self.tensor is not None:
+            return self._tensor_loss(params, tokens, ring)
         if ring is not None:
             return self._block_loss(tokens, ring, extra)
         if self.fused_xent:
@@ -415,6 +463,53 @@ class ShardedTrainer:
             losses = token_losses(out, targets)
         loss = losses.sum() / (batch * (seq - 1))
         return loss if aux is None else loss + aux / ring.size
+
+    def _tensor_loss(self, params: Dict[str, Any], tokens: torch.Tensor,
+                     ring) -> torch.Tensor:
+        """The loss of rows `tokens` over tensor shards (parallel/tensor.py
+        `hidden`, the vocab-split head of ops/fused_xent.py): the mean
+        next-token loss, or under an active ring this seq rank's block's
+        share of it (`_block_loss`), plus a router aux loss."""
+        from skypilot_tpu_torch.parallel import tensor as tensor_lib
+        group, shards = self.tensor
+        cfg = self.model.config
+        batch, seq = tokens.shape
+        positions, block, targets = None, tokens, tokens[:, 1:]
+        if ring is not None:
+            if seq % ring.size:
+                raise ValueError(f'sequence length {seq} does not split '
+                                 f'over seq = {ring.size} ranks')
+            width = seq // ring.size
+            lo = ring.index * width
+            block = tokens[:, lo:lo + width]
+            targets = tokens[:, lo + 1:lo + width + 1]
+            positions = torch.arange(lo, lo + width, dtype=torch.int32,
+                                     device=tokens.device).expand(batch,
+                                                                  width)
+        lora = None
+        if self.lora is not None:
+            lora = {group.index: params['lora']}
+        moe = hasattr(cfg, 'router_aux_loss_weight')
+        out = tensor_lib.hidden(
+            shards, group, block, positions, lora,
+            self.lora.scale if self.lora is not None else 1.0,
+            with_aux=moe)
+        hidden, aux = out if moe else (out, None)
+        hidden = hidden[:, :targets.shape[1]]
+        _, _, head, _ = tensor_lib.edges(self.model)
+        losses = fused_xent.split_vocab_token_losses(
+            hidden.reshape(-1, hidden.shape[-1]).to(cfg.dtype),
+            targets.reshape(-1), {t: getattr(m, head)
+                                  for t, m in shards.items()},
+            group, cfg.vocab_size, block='auto')
+        if ring is None:
+            loss = losses.mean()
+        else:
+            loss = losses.sum() / (batch * (seq - 1))
+        if aux is not None:
+            aux = cfg.router_aux_loss_weight * aux / cfg.num_layers
+            loss = loss + (aux if ring is None else aux / ring.size)
+        return loss
 
     def _compute_loss(self, params: Dict[str, Any],
                       tokens: torch.Tensor) -> torch.Tensor:

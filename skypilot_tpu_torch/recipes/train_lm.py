@@ -13,31 +13,32 @@ gang-exec env (`JAX_NUM_PROCESSES` > 1, `JAX_PROCESS_ID`,
 more than one card, every card runs a worker, rank p * k + i of
 `JAX_NUM_PROCESSES` x k (k cards a host, 1 with --cpu), NCCL on the
 card and gloo with --cpu. The mesh is `MeshConfig.auto(world,
-expert=--expert, seq=--seq-parallel)`: FSDP over every rank not on
-another axis (parallel/mesh.py), with `--zero1` and `--overlap` as the
-reference defines them (parallel/fsdp.py). `--expert E` splits
-Mixtral's expert stacks over E ranks and `--seq-parallel K` the
-sequence over K ranks, attention a ring (ops/ring_attention.py); both
-repeat the batch, whose rows split over data x fsdp as the reference's
-devices take theirs. A world that those do not divide exits with the
-reference's words. Rank 0 alone logs, writes `--metrics-file`,
-`--profile`, `--trace-file` and the adapter artifact, and writes
-checkpoints (every rank gathers them). A peer that never arrives ends
-the run with exit 1 naming the coordinator (after
-`distributed.TIMEOUT_S`, 300 s). `--tensor` exits at startup naming
-itself and its ROADMAP item (A17).
+tensor=--tensor, expert=--expert, seq=--seq-parallel)`: FSDP over every
+rank not on another axis (parallel/mesh.py), with `--zero1` and
+`--overlap` as the reference defines them (parallel/fsdp.py).
+`--tensor T` splits heads, the MLP's hidden axis and the vocab over T
+ranks (parallel/tensor.py), `--expert E` Mixtral's expert stacks over E
+ranks and `--seq-parallel K` the sequence over K ranks, attention a ring
+(ops/ring_attention.py); all three repeat the batch, whose rows split
+over data x fsdp as the reference's devices take theirs. A world that
+those do not divide exits with the reference's words. Rank 0 alone
+logs, writes `--metrics-file`, `--profile`, `--trace-file` and the
+adapter artifact, and writes checkpoints (every rank gathers them). A
+peer that never arrives ends the run with exit 1 naming the coordinator
+(after `distributed.TIMEOUT_S`, 300 s).
 
 `--pipeline-stages S` (with `--pipeline-schedule gpipe|1f1b|interleaved`,
 `--virtual-stages`, `--microbatches`; parallel/pipeline.py) lays the
-ranks on MeshConfig(data=world / S, stage=S): one stage a rank, the
-reference's checks and log lines (the batch rounded to a multiple of
-microbatches x data, the schedule's `describe()`, the bubble fraction in
-the step records and the `skypilot_train_pipeline_bubble_fraction`
-gauge). Every rank draws the global batch and the pipeline takes its
-data rank's rows of each microbatch. GPT, Llama and Mixtral, as the
-reference's recipe allows; `--lora`, `--seq-parallel` and `--expert`
-(experts within stages, ROADMAP A13) are refused with it. The same
-loop, --guard and checkpoints run over it.
+ranks on MeshConfig(data=world / (S * T * E), stage=S, tensor=T,
+expert=E): one stage a rank, each stage's blocks sharded over its
+`tensor` and `expert` ranks, the reference's checks and log lines (the
+batch rounded to a multiple of microbatches x data, the schedule's
+`describe()`, the bubble fraction in the step records and the
+`skypilot_train_pipeline_bubble_fraction` gauge). Every rank draws the
+global batch and the pipeline takes its data rank's rows of each
+microbatch. GPT, Llama and Mixtral, as the reference's recipe allows;
+`--lora` and `--seq-parallel` are refused with it, in the reference's
+words. The same loop, --guard and checkpoints run over it.
 
 The Llama family, GPT-2 (`tiny`, `gpt2-124m`, the reference's default),
 Mixtral (`mixtral-tiny`, `mixtral-8x7b`, whose loss adds the router aux
@@ -73,15 +74,6 @@ import os
 import sys
 import time
 from typing import List, Optional
-
-# Flags the port parses (so a launcher's command line stays the same) but
-# does not honor yet: (flag, attribute, default, ROADMAP item). A value
-# other than the default exits at startup naming the flag.
-_REFUSED = (
-    # Tensor-parallel training (serving's --tensor is A10, done).
-    ('--tensor', 'tensor', 1, 'A17'),
-)
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -182,12 +174,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--overlap', action='store_true',
                    help='with --zero1, issue the grad reduce-scatter leaf by '
                         'leaf during backward')
-    # The reference's flags for features this port does not have yet.
     p.add_argument('--expert', type=int, default=1)
     p.add_argument('--seq-parallel', type=int, default=1,
                    help='context-parallel mesh axis size '
                         '(ring attention)')
-    p.add_argument('--tensor', type=int, default=1)
+    p.add_argument('--tensor', type=int, default=1,
+                   help='tensor-parallel mesh axis size: heads, the MLP '
+                        'hidden axis and the vocab split over it '
+                        '(parallel/tensor.py); within each stage under '
+                        '--pipeline-stages')
     p.add_argument('--pipeline-stages', type=int, default=1,
                    help='pipeline parallelism over a stage mesh axis '
                         '(parallel/pipeline.py; GPT/Llama/Mixtral): one '
@@ -217,11 +212,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     and checkpoint location this port cannot honor."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    bad = [f'{flag} (ROADMAP {item})' for flag, attr, default, item
-           in _REFUSED if getattr(args, attr) != default]
-    if bad:
-        parser.error('not supported by the PyTorch port yet: '
-                     + ', '.join(bad))
     # The reference's pipeline checks, in its order and words.
     staged = args.pipeline_stages > 1
     if args.microbatches and not staged:
@@ -243,11 +233,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if staged and args.seq_parallel != 1:
         parser.error('--pipeline-stages does not compose with '
                      '--seq-parallel; drop one')
-    if staged and args.expert != 1:
-        # The reference shards experts within each stage.
-        parser.error('not supported by the PyTorch port yet: --expert '
-                     'with --pipeline-stages: experts within pipeline '
-                     'stages (ROADMAP A13)')
     if args.ckpt_dir and args.ckpt_dir.startswith(('gs://', 's3://')):
         parser.error(f'--ckpt-dir {args.ckpt_dir}: remote checkpoint dirs '
                      f'are not ported yet (ROADMAP A11)')
@@ -325,10 +310,21 @@ def _run_worker(job, args: argparse.Namespace) -> None:
     except distributed.JoinError as e:
         print(f'train_lm: {e}', file=sys.stderr, flush=True)
         sys.exit(1)
+    exiting = False
     try:
         _train(args, job)
+    except SystemExit:
+        exiting = True
+        raise
     finally:
-        distributed.leave()
+        try:
+            distributed.leave()
+        except Exception:  # pylint: disable=broad-except
+            # The run's own exit code stands when leaving fails because
+            # a peer that exited first (rank 0 holds the job's store) is
+            # gone.
+            if not exiting:
+                raise
 
 
 def _train(args: argparse.Namespace, job) -> None:
@@ -365,9 +361,14 @@ def _train(args: argparse.Namespace, job) -> None:
             if n_dev % inner:
                 raise ValueError(f'{n_dev} devices not divisible by stages '
                                  f'x tensor x expert = {inner}')
-            mesh_cfg = mesh_lib.MeshConfig(data=n_dev // inner, stage=stages)
+            # Tensor and expert shard within each stage (the
+            # reference's v2).
+            mesh_cfg = mesh_lib.MeshConfig(data=n_dev // inner, stage=stages,
+                                           tensor=args.tensor,
+                                           expert=args.expert)
         else:
-            mesh_cfg = mesh_lib.MeshConfig.auto(n_dev, expert=args.expert,
+            mesh_cfg = mesh_lib.MeshConfig.auto(n_dev, tensor=args.tensor,
+                                                expert=args.expert,
                                                 seq=args.seq_parallel)
     except ValueError as e:     # the reference's words
         print(f'train_lm: {e}', file=sys.stderr, flush=True)
@@ -761,6 +762,12 @@ def _train(args: argparse.Namespace, job) -> None:
             mgr.save(args.steps, state, force=True)
             mgr.wait_until_finished()
             mgr.close()
+    lora_whole = None
+    if lora_spec is not None:
+        # Whole factors (a tensor-sharded job gathers its slices; every
+        # rank takes part).
+        from skypilot_tpu_torch.parallel.train import whole_lora
+        lora_whole = whole_lora(state)
     if lora_spec is not None and main_rank:
         # The produce half of the fine-tune-and-serve loop: the trained
         # factors become an artifact serve_lm --adapter-dir loads.
@@ -768,7 +775,7 @@ def _train(args: argparse.Namespace, job) -> None:
             os.path.join(args.ckpt_dir, 'adapter') if args.ckpt_dir
             else 'adapter_out')
         lora_lib.save_adapter(
-            out_dir, convert.lora_params_to_numpy(state.params['lora']),
+            out_dir, convert.lora_params_to_numpy(lora_whole),
             lora_spec, base_model=args.init_from_hf or args.model,
             step=state.step)
         print(f'adapter artifact -> {out_dir} (rank={lora_spec.rank} '

@@ -28,7 +28,9 @@ and against the port's own one-process trainer, f32:
   - the reference's tree converts to the port's model and back with
     whole stacks, bit for bit; a model holding a slice is refused;
   - `train_lm --cpu --expert 2` runs as two workers and gives the
-    one-process curve; the five flags still refused name their items.
+    one-process curve; `--tensor 2` and `--expert 2 --pipeline-stages 2`
+    (once refused naming A17 and A13) run; the three pipeline flags the
+    reference refuses alone still exit with its words.
 """
 import dataclasses
 import json
@@ -255,12 +257,13 @@ def test_train_lm_expert_runs_as_two_workers(tmp_path, capfd, monkeypatch):
 
 
 # The pipeline flags parse since A13 (tests/test_torch_pipeline_gang.py):
-# these cases, ids kept, exit with the reference's pipeline checks, and
-# experts within pipeline stages stay refused naming A13.
+# these cases, ids kept, exit with the reference's pipeline checks;
+# --tensor (A17) and experts within pipeline stages (A13's rest), once
+# refused, now run (None: the case runs the flags and trains a step).
 @pytest.mark.parametrize('argv,item', [
-    (['--tensor', '2'], '--tensor (ROADMAP A17)'),
-    pytest.param(['--pipeline-stages', '2', '--expert', '2'],
-                 'experts within pipeline stages (ROADMAP A13)',
+    pytest.param(['--tensor', '2'], None,
+                 id='argv0---tensor (ROADMAP A17)'),
+    pytest.param(['--pipeline-stages', '2', '--expert', '2'], None,
                  id='argv1---pipeline-stages (ROADMAP A13)'),
     pytest.param(['--pipeline-schedule', '1f1b'],
                  '--pipeline-schedule needs --pipeline-stages > 1',
@@ -273,13 +276,23 @@ def test_train_lm_expert_runs_as_two_workers(tmp_path, capfd, monkeypatch):
                  '--microbatches only applies with --pipeline-stages > 1',
                  id='argv4---microbatches (ROADMAP A13)'),
 ])
-def test_the_other_parallel_flags_are_still_refused(argv, item, capsys):
+def test_the_other_parallel_flags_are_still_refused(argv, item, capfd,
+                                                    monkeypatch):
+    for flag in (['--expert', '2'], ['--seq-parallel', '2']):
+        assert train_lm.parse_args(['--cpu'] + flag)
+    if item is None:
+        # Runs: four workers with stages, two with --tensor alone.
+        monkeypatch.setenv('OMP_NUM_THREADS', '1')
+        train_lm.main(['--cpu', '--model', 'mixtral-tiny', '--steps', '1',
+                       '--seq', '32', '--global-batch', '8', '--log-every',
+                       '1', *argv], workers=4 if '--expert' in argv else 2)
+        out = capfd.readouterr().out
+        assert 'step 1/1 loss=' in out and 'training done' in out
+        return
     with pytest.raises(SystemExit) as exc:
         train_lm.parse_args(['--cpu'] + argv)
     assert exc.value.code == 2
-    assert item in capsys.readouterr().err
-    for flag in (['--expert', '2'], ['--seq-parallel', '2']):
-        assert train_lm.parse_args(['--cpu'] + flag)
+    assert item in capfd.readouterr().err
 
 
 def test_convert_carries_whole_expert_stacks_both_ways():

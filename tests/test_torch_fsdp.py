@@ -113,24 +113,32 @@ def one_rank(name, remat=False, lora=None, guard=False, poison=None):
     return (trainer,) + W.run_steps(trainer, state, poison=poison)
 
 
-def reference_run(name, config, devices, **kw):
+def reference_run(name, config, devices, lora=None, **kw):
     """The reference's ShardedTrainer (`kw`: zero1, overlap) on `config`
     over `devices` XLA host devices, from the port's seeded init of
-    `name`: per-step losses and optax.global_norm, final params, which
-    leaves shard over fsdp, and the share of each Adam mu leaf one
-    device holds."""
+    `name` (with `lora` (rank, alpha), a LoRA run from the port's
+    seeded factors): per-step losses and optax.global_norm, final
+    params, which leaves shard over fsdp, and the share of each Adam mu
+    leaf one device holds."""
+    from skypilot_tpu.models import lora as jax_lora
     model, _, loss_fn = _build_model(name, W.SEQ, remat=False)
     cfg = dataclasses.replace(model.config, dtype=jnp.float32)
     model = type(model)(cfg)
     mesh = jax_mesh.make_mesh(config, devices=jax.devices()[:devices])
+    spec = (None if lora is None else
+            jax_lora.LoraSpec(rank=lora[0], alpha=lora[1]))
     trainer = jax_train.ShardedTrainer(
         model, mesh, tx=jax_train.default_optimizer(
             learning_rate=W.LR, warmup_steps=10, total_steps=20),
-        collect_grad_norm=True,
+        collect_grad_norm=True, lora=spec,
         **({} if loss_fn is None else {'loss_fn': loss_fn}), **kw)
     example = jnp.zeros((W.BATCH, W.SEQ), jnp.int32)
     state = trainer.init(jax.random.PRNGKey(0), example)
     init = convert.train_params_to_jax(W.build(name))
+    if lora is not None:
+        port = W.make_trainer(W.build(name), lora=lora).init()
+        init = {'base': init,
+                'lora': convert.lora_params_to_numpy(port.params['lora'])}
     state = state.replace(params=jax.tree.map(
         lambda tpl, w: jax.device_put(jnp.asarray(w, tpl.dtype),
                                       tpl.sharding), state.params, init))

@@ -1,5 +1,6 @@
-"""`train_lm --expert` and `--seq-parallel` on NCCL over distinct CUDA
-cards: the sharded trainer's expert and seq axes (parallel/fsdp.py,
+"""`train_lm --expert`, `--seq-parallel`, `--pipeline-stages` and
+`--tensor` on NCCL over distinct CUDA cards: the sharded trainer's
+expert, seq and tensor axes (parallel/fsdp.py,
 models/mixtral.py's expert group, ops/ring_attention.py) as one job of
 ranks, one a card. Marked `card`: each test skips unless the host has
 the cards it needs. On a host with 4 cards (`--noconftest`: the
@@ -55,6 +56,26 @@ suite's conftest sets up JAX, which a card host need not have):
     no plain call; every rank reports the same curve. The line records
     step s, tokens/s a card, peak GB a card, and the P2P hand-offs and
     collectives a step.
+
+  - tensor jobs (`tensor2`: 2 ranks; `fsdp2_tensor2`, `stage2_tensor2`:
+    4; parallel/tensor.py over the mesh's `tensor` axis, with FSDP or
+    within pipeline stages) at train_full's shape (Llama-3-8B width, 4
+    layers, B=8, seq 2048; the pipeline 1f1b, a microbatch a row), and
+    `stage2_expert2` (Mixtral-8x7B width, 2 layers, B=2, seq 2048:
+    experts within stages): each job's step-1 loss and grad norm are
+    held to the same mesh in process on one card (a process of its own:
+    `ShardedTrainer(devices=['cuda:0'] * 2)`, its rows in the fsdp
+    ranks' two blocks for `fsdp2_tensor2`; the pipeline over a
+    [2][2] grid of the card; experts summed in the job's two parts)
+    within NORM_SPREAD times that run's spread over REPEATS more
+    readings (at least FSDP_TOL), and the job's step 1 with its path
+    broken on purpose (chip_smoke's TENSOR_FAULTS: copy-to-group's
+    backward sum skipped, the vocab-parallel max dropped; within stages,
+    whose vocab tables are whole over `tensor`, TENSOR_STAGE_FAULTS:
+    the backward sum skipped, the forward sum of the shards' partial
+    outputs skipped; experts, card_faults') must fall outside; flash launches a step at the
+    shard's heads (16 q, 4 kv), no plain call; every rank reports the
+    same curve.
 
 Each test prints one line, `parallel_cards <name> <json>`, with its
 measurements (step times, tokens/s per card, MFU, peak GB against one
@@ -305,3 +326,102 @@ def test_pipeline_job_on_nccl(world, one_pipe, tmp_path):
     for rank in ranks:
         assert rank['flash'] == (2 * layers * micro * steps,
                                  layers * micro * steps, 0), record
+
+
+# -- tensor parallelism, and experts within pipeline stages ---------------------
+TENSOR = W.card_spec('llama3-8b', layers=4, seq=2048, steps=3, batch=8)
+EXPERT_PIPE = W.card_spec('mixtral-8x7b', layers=2, seq=2048, steps=3,
+                          batch=2)
+#: name: (spec, MeshConfig fields, the in-process witness's key).
+TENSOR_JOBS = {
+    'tensor2': (TENSOR, {'tensor': 2}, 'tensor2'),
+    'fsdp2_tensor2': (TENSOR, {'fsdp': 2, 'tensor': 2}, 'tensor2_halves'),
+    'stage2_tensor2': (TENSOR, {'stage': 2, 'tensor': 2}, 'stage2_tensor2'),
+    'stage2_expert2': (EXPERT_PIPE, {'stage': 2, 'expert': 2},
+                       'stage2_expert2'),
+}
+#: key: (spec, the mesh it stands for, row blocks).
+TENSOR_WITNESSES = {
+    'tensor2': (TENSOR, {'tensor': 2}, 1),
+    'tensor2_halves': (TENSOR, {'tensor': 2}, 2),
+    'stage2_tensor2': (TENSOR, {'stage': 2, 'tensor': 2}, 1),
+    'stage2_expert2': (EXPERT_PIPE, {'stage': 2, 'expert': 2}, 1),
+}
+
+
+@pytest.fixture(scope='module')
+def tensor_witness(built, tmp_path_factory):
+    """{key: the in-process run on one card (a process of its own), with
+    its bounds}: NORM_SPREAD times the spread of REPEATS more readings,
+    at least FSDP_TOL."""
+    out = {}
+
+    def get(key):
+        if key not in out:
+            spec, fields, parts = TENSOR_WITNESSES[key]
+            one, = launch(W.card_tensor_job, 1,
+                          tmp_path_factory.mktemp(f'one_{key}'), spec,
+                          fields, REPEATS, parts)
+            ref = one['step1'][0]
+            one['bounds'] = [max(FSDP_TOL, NORM_SPREAD * spread(
+                [r[k] for r in one['step1']], ref[k])) for k in (0, 1)]
+            out[key] = one
+        return out[key]
+
+    return get
+
+
+@pytest.mark.parametrize('name', sorted(TENSOR_JOBS))
+def test_tensor_job_on_nccl(name, tensor_witness, tmp_path):
+    spec, fields, key = TENSOR_JOBS[name]
+    world = int(np.prod(list(fields.values())))
+    need_cards(world)
+    one = tensor_witness(key)
+    ranks = launch(W.card_tensor_job, world, tmp_path, spec, fields, 0)
+    bounds, ref = one['bounds'], one['step1'][0]
+    first = ranks[0]
+    for rank in ranks[1:]:
+        assert rank['losses'] == first['losses'], name
+        assert rank['norms'] == first['norms'], name
+    sound = offsets(first['step1'][0], ref)
+    controls = {k: offsets(v, ref) for k, v in first['controls'].items()}
+    tokens = spec['batch'] * spec['seq']
+    step_s = float(np.mean(first['times'][1:]))
+    one_step = float(np.mean(one['times'][1:]))
+    record = {
+        'world': world, 'mesh': first['summary'], 'spec': spec,
+        'losses': first['losses'], 'norms': first['norms'],
+        'in_process': key, 'in_process_step1': list(ref),
+        'in_process_step1_readings': one['step1'], 'bounds': bounds,
+        'step1_rel_err': list(sound), 'controls_rel_err': controls,
+        'step_times_s': first['times'], 'step_s': step_s,
+        'in_process_step_s': one_step,
+        'tokens_per_s_per_card': tokens / step_s / world,
+        'in_process_tokens_per_s': tokens / one_step,
+        'mfu': 6.0 * one['matmul_params'] * tokens / step_s / world
+        / BF16_FLOPS,
+        'peak_gb': [r['peak_gb'] for r in ranks],
+        'in_process_peak_gb': one['peak_gb'],
+        'shard_sums_a_step': first['shard_sums_a_step'],
+        'all_reduces_a_step': [r['all_reduces_a_step'] for r in ranks],
+        'flash': [r['flash'] for r in ranks],
+        'flash_heads': first['flash_heads']}
+    print(f'parallel_cards {name} {json.dumps(record)}', flush=True)
+    assert all(np.isfinite(first['losses'] + first['norms'])), record
+    assert all(e <= b for e, b in zip(sound, bounds)), record
+    assert controls and all(any(e > b for e, b in zip(errs, bounds))
+                            for errs in controls.values()), record
+    layers, steps = spec['layers'], spec['steps']
+    stage, tensor = fields.get('stage', 1), fields.get('tensor', 1)
+    per_rank = layers // stage
+    for rank in ranks:
+        if stage > 1:
+            micro = spec['batch']
+            assert rank['flash'] == (2 * per_rank * micro * steps,
+                                     per_rank * micro * steps, 0), record
+        else:
+            assert rank['flash'] == (per_rank * steps, per_rank * steps,
+                                     0), record
+    heads = (32 // tensor, 8 // tensor, 128) if spec is TENSOR else (
+        32, 8, 128)
+    assert [list(h) for h in first['flash_heads']] == [list(heads)], record

@@ -19,6 +19,9 @@ reference's own `split_params`):
     PARAM_TOL = 2 LR (the most one step moves a parameter) for all:
     Adam's first update is lr * g / (|g| + eps), which jumps between
     -lr and lr where a grad is as small as the f32 noise of its sum;
+  - each case again with its stages' blocks over 2 tensor shards in
+    process (a [2][2] device grid): the plain pipeline's loss, grads,
+    step and gathered parameters within TOL (the parameters as above);
   - `split_vocab_loss` (the witness's vocab-split head) equals the
     model's own next-token loss and its grads;
   - a guarded step with a NaN loss scale keeps every parameter and
@@ -143,8 +146,11 @@ def reference_run(name, fields, style, v, M, data=1):
 
 @pytest.fixture(scope='module')
 def reference():
-    return {key: reference_run(name, fields, style, v, M)
-            for key, name, fields, style, v, M in CASES}
+    # The six compiles overlap in threads (XLA compiles outside the GIL).
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(3) as pool:
+        runs = pool.map(lambda case: reference_run(*case[1:]), CASES)
+        return {case[0]: run for case, run in zip(CASES, runs)}
 
 
 def port_run(name, fields, style, v, M):
@@ -188,6 +194,59 @@ def test_matches_reference_pipeline(case, reference):
         sure = np.abs(ref['grads'][n]) >= GRAD_FLOOR
         np.testing.assert_allclose(got['params'][n][sure], p[sure],
                                    rtol=TOL, atol=TOL, err_msg=n)
+
+
+def joined(pp, grads):
+    """{model name: numpy} of a tensor grid's per-stage values, each
+    block leaf's shard slices (`name@t`) joined."""
+    from skypilot_tpu_torch.parallel.tensor import join_pieces
+    out = {}
+    for s, values in grads.items():
+        for n, g in values.items():
+            if '@' in n:
+                continue
+            pieces = [g] + [values[f'{n}@{t}'] for t in range(1, 2)
+                            if f'{n}@{t}' in values]
+            if len(pieces) > 1:
+                g = join_pieces(pieces, pp._split(n)[0], pp.shapes[n])
+            out.setdefault(n, []).append(g)
+    return {n: (torch.cat(v)[:pp.shapes[n][0]] if len(v) > 1 else v[0])
+            .detach().numpy() for n, v in out.items()}
+
+
+@pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
+def test_tensor_grid_is_the_plain_pipeline(case):
+    """Each stage's blocks over 2 tensor shards in process (a [2][2]
+    device grid): the plain pipeline's loss, every gradient, the step-1
+    loss and norm, and the parameters after the step (gathered whole
+    as a checkpoint gathers them) within TOL."""
+    key, name, fields, style, v, M = case
+    want = port_run(name, fields, style, v, M)
+    model = build(name, **fields)
+    pp = pt_pipe.PipelinedLM(model, devices=[['cpu', 'cpu']] * 2,
+                             num_microbatches=M, schedule=style,
+                             virtual_stages=v)
+    tx = pt_train.default_optimizer(learning_rate=LR)
+    state = pp.init(tx)
+    tokens = torch.from_numpy(tokens_for(model.config.vocab_size))
+    loss, grads = pp.loss_and_grad(tokens)
+    assert any('@1' in n for n in grads[0])       # the stage's slices
+    np.testing.assert_allclose(loss.item(), want['loss'], rtol=TOL, atol=TOL)
+    got = joined(pp, grads)
+    assert set(got) == set(want['grads'])
+    for n, g in want['grads'].items():
+        np.testing.assert_allclose(got[n], g, rtol=TOL, atol=TOL, err_msg=n)
+    state, (loss1, gnorm) = pp.make_train_step(
+        tx, collect_grad_norm=True)(state, tokens)
+    np.testing.assert_allclose([loss1.item(), gnorm.item()],
+                               [want['loss1'], want['gnorm']], rtol=TOL,
+                               atol=TOL)
+    for i, n in enumerate(pp.names):
+        p, w = pp.gather_leaf(state, i, 'param').numpy(), want['params'][n]
+        np.testing.assert_allclose(p, w, rtol=0, atol=PARAM_TOL, err_msg=n)
+        sure = np.abs(want['grads'][n]) >= GRAD_FLOOR
+        np.testing.assert_allclose(p[sure], w[sure], rtol=TOL, atol=TOL,
+                                   err_msg=n)
 
 
 @pytest.mark.parametrize('name', ['tiny', 'llama-tiny', 'mixtral-tiny'])
@@ -418,3 +477,43 @@ def test_replicated_copies_stay_equal_under_clipping(devices):
             'tiny', vocab_size=501).state_dict()[name]), name
         for c in copies[1:]:
             assert torch.equal(c, copies[0]), name
+
+
+def test_within_stage_layout_is_the_references():
+    """The reference's v2 layout on MeshConfig(stage=2, tensor=2,
+    data=2) (its `param_shardings`, tests/unit_tests/test_pipeline.py's
+    tensor-within-stages mesh): each block leaf the reference puts on
+    `tensor` is the leaf the port's stages split over their tensor
+    shards, on the same dim (the port's [out, in] projections are the
+    reference's [in, out] kernels transposed), and the vocab tables
+    split over `stage` alone in both."""
+    jmodel, _, _ = _build_model('llama-tiny', SEQ, False)
+    jmodel = type(jmodel)(dataclasses.replace(jmodel.config,
+                                              dtype=jnp.float32))
+    mesh = jax_mesh.make_mesh(jax_mesh.MeshConfig(stage=2, tensor=2, data=2),
+                              devices=jax.devices()[:8])
+    ref = jax_pipe.PipelinedLM(jmodel, mesh, num_microbatches=4)
+    port = build('llama-tiny')
+    tree = jax.tree.map(jnp.asarray, convert.train_params_to_jax(port))
+    stacked, rest = ref.split_params(tree)
+    s_stacked, s_rest = ref.param_shardings(stacked, rest)
+    pp = pt_pipe.PipelinedLM(port, devices=[['cpu', 'cpu']] * 2,
+                             num_microbatches=4)
+    ref_dims = {}
+    for path, sharding in jax.tree_util.tree_leaves_with_path(s_stacked):
+        keys = [p.key for p in path]
+        spec = list(sharding.spec)[1:]          # past the stacked dim
+        assert sharding.spec[0] == 'stage', keys
+        dims = [d for d, e in enumerate(spec)
+                if e == 'tensor' or (isinstance(e, tuple) and 'tensor' in e)]
+        name = '.'.join(keys[:-1] + ['weight' if keys[-1] == 'kernel'
+                                     else keys[-1]])
+        if keys[-1] == 'kernel' and dims:       # [in, out] -> [out, in]
+            dims = [1 - dims[0]]
+        ref_dims[name] = dims[0] if dims else None
+    got = {n: a for n, a in pp.block_axes.items() if a != 'sum'}
+    assert ref_dims == {n: got.get(n) for n in ref_dims}, (ref_dims, got)
+    for table in ('tok_embed', 'lm_head'):
+        spec = str(s_rest[table].spec)
+        assert 'stage' in spec and 'tensor' not in spec, spec
+        assert pp._split(table) == (None, False)

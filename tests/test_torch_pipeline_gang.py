@@ -21,9 +21,11 @@ on a data x stage DeviceMesh, gloo, CPU, f32) and `train_lm
     run stopped at step 2 and resumed from --ckpt-dir gives the
     uninterrupted curve; under --guard a step poisoned by the fault plan
     is skipped and the run finishes;
-  - every pipeline refusal and message of the reference's recipe, the
-    port's own for --expert with stages (ROADMAP A13) and --tensor
-    (A17), and `_REFUSED` no longer lists the pipeline flags.
+  - every pipeline refusal and message of the reference's recipe; the
+    two the port made alone (--expert with stages, ROADMAP A13, and
+    --tensor, A17) now parse, and `train_lm --pipeline-stages 2
+    --tensor 2` (tiny) and `--expert 2` (mixtral-tiny) run as four
+    workers and print the reference's mesh line.
 """
 import filecmp
 import json
@@ -45,6 +47,7 @@ from test_torch_pipeline import (GRAD_FLOOR, LR, PARAM_TOL, TOL,  # noqa: E402
 from skypilot_tpu_torch.parallel import checkpoints as pt_ckpt  # noqa: E402
 from skypilot_tpu_torch.parallel import distributed  # noqa: E402
 from skypilot_tpu_torch.parallel import pipeline as pt_pipe  # noqa: E402
+from skypilot_tpu_torch.parallel import train as pt_train  # noqa: E402
 from skypilot_tpu_torch.recipes import train_lm  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -282,13 +285,22 @@ def test_train_lm_guard_skips_a_poisoned_step(tmp_path):
      'stage); drop one'),
     (['--pipeline-stages', '2', '--seq-parallel', '2'],
      '--pipeline-stages does not compose with --seq-parallel; drop one'),
-    (['--pipeline-stages', '2', '--expert', '2'],
-     'experts within pipeline stages (ROADMAP A13)'),
-    (['--tensor', '2'], '--tensor (ROADMAP A17)'),
+    # Refused until experts within stages (A13) and --tensor (A17)
+    # landed: now each runs (`test_within_stage_runs`), ids kept.
+    pytest.param(['--pipeline-stages', '2', '--expert', '2'], None,
+                 id='argv5-experts within pipeline stages (ROADMAP A13)'),
+    pytest.param(['--tensor', '2'], None,
+                 id='argv6---tensor (ROADMAP A17)'),
     (['--overlap'], '--overlap buckets the grad reduce-scatter onto the '
                     'ZeRO-1 moment layout; add --zero1'),
 ])
 def test_parse_refusals(argv, message, capsys):
+    if message is None:
+        args = train_lm.parse_args(['--cpu', *argv])
+        assert (args.pipeline_stages, args.tensor, args.expert) == tuple(
+            int(dict(zip(argv[::2], argv[1::2])).get(flag, 1)) for flag in
+            ('--pipeline-stages', '--tensor', '--expert'))
+        return
     with pytest.raises(SystemExit) as e:
         train_lm.parse_args(['--cpu', *argv])
     assert e.value.code == 2
@@ -296,12 +308,41 @@ def test_parse_refusals(argv, message, capsys):
 
 
 def test_pipeline_flags_parse():
-    assert [flag for flag, *_ in train_lm._REFUSED] == ['--tensor']
+    assert not hasattr(train_lm, '_REFUSED')     # nothing left refused
     args = train_lm.parse_args(['--cpu', '--pipeline-stages', '2',
                                 '--overlap', '--pipeline-schedule',
                                 'interleaved', '--virtual-stages', '2',
-                                '--microbatches', '4'])
-    assert (args.pipeline_stages, args.virtual_stages) == (2, 2)
+                                '--microbatches', '4', '--tensor', '2',
+                                '--expert', '2'])
+    assert (args.pipeline_stages, args.virtual_stages, args.tensor,
+            args.expert) == (2, 2, 2, 2)
+
+
+# The reference's CLI test (tests/unit_tests/test_pipeline.py:168-187)
+# and its expert counterpart: tensor / experts within stages, four
+# workers.
+@pytest.mark.parametrize('model,flag,batch,seq', [
+    ('tiny', '--tensor', 32, 64), ('mixtral-tiny', '--expert', 8, 32)])
+def test_within_stage_runs(model, flag, batch, seq, capfd, monkeypatch):
+    monkeypatch.setenv('OMP_NUM_THREADS', '1')     # the spawned workers'
+    train_lm.main(['--cpu', '--model', model, '--pipeline-stages', '2',
+                   flag, '2', '--seq', str(seq), '--global-batch',
+                   str(batch), '--log-every', '2', '--steps', '2'],
+                  workers=4)
+    out = capfd.readouterr().out
+    assert f'stage=2, {flag[2:]}=2' in out
+    assert 'step 2/2 loss=' in out and 'training done' in out
+
+
+def test_devices_not_divisible_by_stages_tensor_expert(capsys):
+    """One process does not hold stages x tensor = 4: the reference's
+    words, exit 2 before training."""
+    with pytest.raises(SystemExit) as e:
+        train_lm.main(['--cpu', '--model', 'tiny', '--pipeline-stages', '2',
+                       '--tensor', '2', '--steps', '1', '--seq', '16'])
+    assert e.value.code == 2
+    assert ('1 devices not divisible by stages x tensor x expert = 4'
+            in capsys.readouterr().err)
 
 
 def test_devices_not_divisible_by_stages(capsys):
@@ -331,3 +372,127 @@ def test_refusals_on_a_job(argv, message):
     outs = [p.communicate(timeout=180) for p in procs]
     assert [p.returncode for p in procs] == [2, 2]
     assert message in outs[0][1]
+
+
+# -- tensor and experts within stages ------------------------------------------
+#: key: (model, MeshConfig fields, schedule, virtual stages), the job's
+#: world the product of the fields.
+GRID = {
+    'stage2_tensor2_data2': ('llama-tiny', {'stage': 2, 'tensor': 2,
+                                            'data': 2}, '1f1b', 1),
+    'stage2_expert2': ('mixtral-tiny', {'stage': 2, 'expert': 2}, '1f1b', 1),
+    'stage2_tensor2': ('tiny', {'stage': 2, 'tensor': 2}, 'interleaved', 2),
+}
+GRID_LOSS_RTOL, GRID_NORM_RTOL, GRID_NORM_ATOL = 2e-5, 3e-4, 3e-5
+
+
+def grid_job(world, out):
+    specs = [(key, name, fields, style, v) for key, (name, fields, style, v)
+             in GRID.items() if int(np.prod(list(fields.values()))) == world]
+    jobs = distributed.jobs(cpu=True, workers=world, timeout_s=60)
+    code = distributed.launch(W.pipe_grid_job, (str(out), specs,
+                                                str(out / 'ckpt')), jobs,
+                              deadline_s=JOB_DEADLINE_S)
+    assert code == 0, f'pipe_grid_job exited {code}'
+    return [torch.load(out / f'rank{r}.pt', weights_only=False)
+            for r in range(world)], out / 'ckpt'
+
+
+@pytest.fixture(scope='module')
+def grid(tmp_path_factory):
+    """{key: rank 0's result}, and the 8-rank job's checkpoint."""
+    ranks8, ckpt = grid_job(8, tmp_path_factory.mktemp('grid8'))
+    ranks4, _ = grid_job(4, tmp_path_factory.mktemp('grid4'))
+    out = {**ranks8[0], **ranks4[0]}
+    return out, ckpt, ranks8
+
+
+def grid_close(got, losses, norms, params):
+    np.testing.assert_allclose(got['losses'], losses, rtol=GRID_LOSS_RTOL)
+    np.testing.assert_allclose(got['norms'], norms, rtol=GRID_NORM_RTOL,
+                               atol=GRID_NORM_ATOL)
+    for n, p in params.items():
+        np.testing.assert_allclose(np.asarray(got['params'][n]),
+                                   np.asarray(p), rtol=0, atol=PARAM_TOL,
+                                   err_msg=n)
+
+
+def test_tensor_within_stages_is_the_sequential_model(grid):
+    """stage 2 x tensor 2 x data 2 (the reference's
+    test_pipeline_tp_within_stages mesh): the one-device trainer's
+    curve and parameters on the same batches."""
+    got = grid[0]['stage2_tensor2_data2']
+    assert got['summary'] == 'Mesh(data=2, stage=2, tensor=2)'
+    trainer = W.make_trainer(W.build('llama-tiny'), collect_grad_norm=True)
+    state = trainer.init()
+    losses, norms = [], []
+    step = trainer.make_train_step()
+    for i in range(W.PIPE_STEPS):
+        state, (loss, gnorm) = step(state, torch.from_numpy(
+            W.tokens_for(i, 512)))
+        losses.append(float(loss))
+        norms.append(float(gnorm))
+    grid_close(got, losses, norms, W.whole_params(state))
+    # Each rank holds half of each sliced leaf of its stage's blocks.
+    local = got['local']
+    assert local['layers.0.attn.wq.weight'] == (64, 128)
+    assert local['layers.0.attn.wo.weight'] == (128, 64)
+    assert local['layers.0.attn_norm.scale'] == (128,)
+
+
+@pytest.mark.parametrize('key,devices', [
+    ('stage2_expert2', ['cpu', 'cpu']),
+    ('stage2_tensor2', [['cpu', 'cpu'], ['cpu', 'cpu']])])
+def test_within_stages_is_the_in_process_pipeline(grid, key, devices):
+    """Experts within stages against the in-process pipeline (Mixtral's
+    loss is the mean of per-microbatch losses, as the reference's), and
+    tensor within stages over ranks against the in-process grid."""
+    name, _, style, v = GRID[key]
+    pp = pt_pipe.PipelinedLM(W.build(name), devices=devices,
+                             num_microbatches=W.PIPE_MB, schedule=style,
+                             virtual_stages=v)
+    tx = pt_train.default_optimizer(learning_rate=W.LR, warmup_steps=10,
+                                    total_steps=20)
+    _, losses, norms, params = W.pipe_grid_run(pp, tx, pp.init(tx),
+                                               W.PIPE_STEPS)
+    grid_close(grid[0][key], losses, norms, params)
+
+
+def test_within_stage_checkpoint_is_the_one_card_file(grid):
+    """The 8-rank job's save restores into the one-card trainer with
+    the job's gathered parameters, bit for bit."""
+    got, ckpt = grid[0]['stage2_tensor2_data2'], grid[1]
+    trainer = W.make_trainer(W.build('llama-tiny'))
+    state = pt_ckpt.CheckpointManager(str(ckpt)).restore(trainer.init())
+    assert state.step == W.PIPE_STEPS
+    for n, p in W.whole_params(state).items():
+        assert np.array_equal(p, got['params'][n].numpy()), n
+
+
+def test_train_lm_init_from_hf_under_stages(tmp_path):
+    """`--init-from-hf` through the pipeline's split: after one step
+    (the warmup's lr is 0 at count 0) the two ranks' checkpoint holds
+    the HF checkpoint's weights as f32 masters, bit for bit."""
+    import transformers
+    from skypilot_tpu_torch.models import hf_import
+    hf = tmp_path / 'hf'
+    torch.manual_seed(0)
+    transformers.LlamaForCausalLM(transformers.LlamaConfig(
+        vocab_size=512, hidden_size=128, intermediate_size=384,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=256)).save_pretrained(
+            str(hf), safe_serialization=True)
+    (_, out0, _), _ = gang_run(
+        ['--cpu', '--init-from-hf', str(hf), '--seq', '16',
+         '--global-batch', '4', '--pipeline-stages', '2', '--microbatches',
+         '2', '--steps', '1', '--log-every', '1', '--ckpt-dir',
+         str(tmp_path / 'ck')])
+    assert 'initializing from HF checkpoint' in out0
+    assert 'devices=2 Mesh(stage=2)' in out0 and 'training done' in out0
+    _, model = hf_import.load_hf_checkpoint(
+        str(hf), max_seq_len=128, param_dtype=torch.float32)
+    saved = pt_ckpt.CheckpointManager(str(tmp_path / 'ck')).restore_params()
+    want = dict(model.named_parameters())
+    assert list(saved) == list(want)
+    for n, p in want.items():
+        assert torch.equal(saved[n], p.detach()), n

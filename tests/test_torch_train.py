@@ -458,7 +458,11 @@ def test_train_lm_lora_adapter_loads_in_both_packages(tmp_path):
 
 @pytest.mark.parametrize('argv,name', [
     (['--overlap'], 'ZeRO-1 moment layout; add --zero1'),
-    (['--tensor', '2'], '--tensor'),
+    # --tensor parses since A17: one process cannot hold two tensor
+    # ranks, and exits with the reference's words (the id is kept).
+    pytest.param(['--tensor', '2'],
+                 '1 devices not divisible by slices*tensor*expert*seq=2',
+                 id='argv1---tensor'),
     # The pipeline flags parse since A13; these exit with the
     # reference's pipeline checks (the ids are kept).
     (['--pipeline-stages', '2', '--seq-parallel', '2'], '--pipeline-stages'),
@@ -475,6 +479,9 @@ def test_train_lm_lora_adapter_loads_in_both_packages(tmp_path):
 def test_refused_flags_and_models_exit_naming_themselves(argv, name,
                                                          capsys):
     with pytest.raises(SystemExit) as exc:
+        if argv == ['--tensor', '2']:
+            train_lm.main(['--cpu', '--model', 'llama-tiny', '--steps', '1',
+                           '--seq', '16'] + argv)
         train_lm.parse_args(['--cpu'] + argv)
     assert exc.value.code != 0
     assert name in capsys.readouterr().err

@@ -77,6 +77,10 @@ def run_steps(trainer, state, rows=slice(None), poison=None):
 def whole_params(state):
     """{name: whole f32 numpy} of a sharded or unsharded state."""
     from skypilot_tpu_torch.parallel.train import trainable_items
+    if hasattr(state.layout, 'whole'):      # tensor shards in process
+        return {n: t.detach().float().numpy().copy() for n, t in
+                state.layout.whole(dict(trainable_items(
+                    state.params))).items()}
     out = {}
     for i, (name, t) in enumerate(trainable_items(state.params)):
         if state.layout is not None:
@@ -86,6 +90,11 @@ def whole_params(state):
 
 
 def whole_moments(state):
+    from skypilot_tpu_torch.parallel.train import trainable_items
+    if hasattr(state.layout, 'whole'):      # tensor shards in process
+        names = [n for n, _ in trainable_items(state.params)]
+        return [m.numpy().copy() for m in state.layout.whole(
+            dict(zip(names, state.opt_state['mu']))).values()]
     if state.layout is None:
         return [m.numpy().copy() for m in state.opt_state['mu']]
     return [state.layout.full(i, m, moment=True).numpy().copy()
@@ -532,6 +541,67 @@ def expert4_job(job, out):
         distributed.leave()
 
 
+# -- test_torch_tensor_train.py ---------------------------------------------
+def tensor_run(mesh, name, rows, restore=None, fault=None, poison=None,
+               **kw):
+    """`name` over `mesh` (or `devices=` in kw): the curve, the whole
+    params and moments after STEPS steps (or, with `restore`, the whole
+    state restored from that directory, no step), the layout's
+    reductions."""
+    from skypilot_tpu_torch.parallel.checkpoints import CheckpointManager
+    from skypilot_tpu_torch.parallel.tensor import tensor_fault
+    fields = kw.pop('fields', {})
+    trainer = make_trainer(build(name, **fields), mesh,
+                           collect_grad_norm=True, guard=poison is not None,
+                           **kw)
+    state = trainer.init()
+    if restore is not None:
+        state = CheckpointManager(restore).restore(state)
+        return trainer, state, {'params': whole_params(state),
+                                'mu': whole_moments(state),
+                                'step': state.step}
+    with tensor_fault(fault):
+        state, losses, norms, bads = run_steps(trainer, state, rows, poison)
+    return trainer, state, {
+        'losses': losses, 'norms': norms, 'bads': bads,
+        'params': whole_params(state), 'mu': whole_moments(state),
+        'reductions': dict(getattr(trainer.layout, 'reductions', {}))}
+
+
+def tensor_job(job, out, specs, saves):
+    """Tensor-parallel runs on this job's ranks, one a
+    (`key`, model, MeshConfig fields, trainer kwargs) of `specs`
+    (kwargs may name a `fault`, a `restore` directory, a `poison`
+    rank and `fields` of the model's config); `saves` {key: directory}
+    saves that run's state there."""
+    from skypilot_tpu_torch.parallel import distributed
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel.checkpoints import CheckpointManager
+    torch.set_num_threads(1)
+    distributed.join(job)
+    try:
+        result = {}
+        for key, name, fields, kw in specs:
+            kw = dict(kw)
+            mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(**fields))
+            rows = mesh_lib.batch_rows(mesh, BATCH)
+            poison_rank = kw.pop('poison', None)
+            poison = None
+            if poison_rank is not None:
+                def poison(i, rank=poison_rank):
+                    return float('nan') if (i == POISON_STEP and
+                                            job.rank == rank) else 1.0
+            _, state, result[key] = tensor_run(mesh, name, rows,
+                                               poison=poison, **kw)
+            result[key]['summary'] = mesh_lib.mesh_summary(mesh)
+            if key in saves:
+                CheckpointManager(saves[key]).save(state.step, state,
+                                                   force=True)
+        _save(out, job, result)
+    finally:
+        distributed.leave()
+
+
 # -- test_torch_parallel_cards.py (NCCL over distinct cards) -----------------
 def card_spec(model, layers, seq, steps, expert=1, seq_parallel=1, batch=1):
     return {'model': model, 'layers': layers, 'seq': seq, 'steps': steps,
@@ -781,6 +851,141 @@ def card_train_job(job, out, spec):
         distributed.leave()
 
 
+# -- test_torch_parallel_cards.py: tensor, and experts within stages ----------
+def card_tensor_job(job, out, spec, fields, repeats, parts=1):
+    """Tensor parallelism (and experts within pipeline stages) at
+    `spec`'s shape. Over a NCCL job of `world` ranks on
+    MeshConfig(**fields) (the sharded trainer, or with a `stage` axis the
+    1f1b pipeline, a microbatch a row): the step-1 reading once and under
+    each control (chip_smoke's TENSOR_FAULTS; experts within stages,
+    card_faults'), then spec['steps'] steps. On one process (world 1):
+    the same mesh in process on the card (ShardedTrainer(devices=) over
+    `tensor` shards, the pipeline over a [stage][tensor] grid, experts
+    summed in `expert` parts, experts_in_parts), the step-1 reading
+    1 + `repeats` times, its rows in `parts` blocks (the job's fsdp
+    ranks' rows: the blocks' losses averaged, their f32 grads too).
+    The curve, step times, peak GB, flash launches (and the shard heads
+    they ran at), the shards' sums and all-reduces a step."""
+    import time
+    from chip_smoke import (TENSOR_FAULTS, TENSOR_STAGE_FAULTS,
+                            flash_shapes, pipe_reading)
+    from skypilot_tpu_torch.parallel.tensor import tensor_fault
+    from skypilot_tpu_torch.models import convert, registry
+    from skypilot_tpu_torch.observability.step_metrics import matmul_params
+    from skypilot_tpu_torch.ops import flash_kernel as fk
+    from skypilot_tpu_torch.parallel import distributed, train
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel.pipeline import PipelinedLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = card_device(job)
+    if job.world > 1:
+        distributed.join(job)
+    elif device != 'cpu':
+        torch.cuda.set_device(device)
+    try:
+        tensor, stage = fields.get('tensor', 1), fields.get('stage', 1)
+        expert = fields.get('expert', 1)
+        peak_gb(device, reset=True)
+        cfg = dataclasses.replace(
+            registry.train_config(spec['model'], spec['seq']),
+            num_layers=spec['layers'])
+        model = convert.init_params(cfg, seed=0, device=device)
+        n_matmul = matmul_params(model.named_parameters())
+        tx = train.default_optimizer(warmup_steps=10, total_steps=20)
+        mesh = (mesh_lib.make_mesh(mesh_lib.MeshConfig(**fields))
+                if job.world > 1 else None)
+        tokens = [torch.from_numpy(t).to(device)
+                  for t in card_tokens(spec, cfg.vocab_size)]
+        in_parts = contextlib.nullcontext()
+        if stage > 1:
+            row = [device] * tensor
+            where = ({'mesh': mesh} if mesh is not None else
+                     {'devices': [row if tensor > 1 else device] * stage})
+            runner = PipelinedLM(model, num_microbatches=spec['batch'],
+                                 schedule='1f1b', **where)
+            state = runner.init(tx)
+            group = runner.group.tensor_of(runner.group.local[0])
+
+            def reading():
+                return pipe_reading(runner, tokens[0])
+
+            if mesh is None and expert > 1:
+                in_parts = experts_in_parts(expert)
+            step = runner.make_train_step(tx, collect_grad_norm=True)
+        else:
+            where = ({'mesh': mesh} if mesh is not None else
+                     {'devices': [device] * tensor})
+            runner = train.ShardedTrainer(model, tx=tx,
+                                          loss_fn=loss_fn_for(model),
+                                          collect_grad_norm=True, **where)
+            state = runner.init()
+            group = runner.tensor[0]
+            rows = (mesh_lib.batch_rows(mesh, spec['batch'])
+                    if mesh is not None else slice(None))
+            tokens = [t[rows] for t in tokens]
+
+            def reading():
+                if mesh is not None:
+                    return step1_reading(runner, state, tokens[0])
+                leaves = train.trainable_leaves(state.params)
+                losses, sums = [], None
+                for block in tokens[0].chunk(parts):
+                    loss = runner._compute_loss(state.params, block)
+                    grads = torch.autograd.grad(loss, leaves)
+                    losses.append(loss.detach())
+                    sums = ([g.float() for g in grads] if sums is None else
+                            [a.add_(g.float()) for a, g in zip(sums, grads)])
+                sq = runner.layout.global_sq([a / parts for a in sums])
+                return ((sum(losses) / parts).item(),
+                        torch.sqrt(sq).item())
+
+            step = runner.make_train_step()
+        with in_parts:
+            step1 = [reading() for _ in range(
+                1 + (repeats if job.world == 1 else 0))]
+        controls = {}
+        if job.world > 1:
+            names = TENSOR_STAGE_FAULTS if stage > 1 else TENSOR_FAULTS
+            faults = ({n: functools.partial(tensor_fault, n)
+                       for n in names} if tensor > 1 else
+                      card_faults({'expert': expert, 'seq_parallel': 1}))
+            for name, fault in faults.items():
+                with fault():
+                    controls[name] = reading()
+        sums0 = (group.reductions, group.copies) if group else (0, 0)
+        fk.fwd_launches = fk.bwd_launches = fk.plain_calls = 0
+        reductions = _Reductions()
+        losses, norms, times = [], [], []
+        try:
+            with flash_shapes(fk) as heads:
+                for t in tokens:
+                    if device != 'cpu':
+                        torch.cuda.synchronize(device)
+                    t0 = time.perf_counter()
+                    state, (loss, gnorm) = step(state, t)
+                    losses.append(loss.item())
+                    norms.append(gnorm.item())
+                    times.append(time.perf_counter() - t0)
+        finally:
+            reductions.close()
+        steps = len(tokens)
+        _save(out, job, {
+            'summary': (mesh_lib.mesh_summary(mesh) if mesh is not None
+                        else None),
+            'step1': step1, 'controls': controls, 'losses': losses,
+            'norms': norms, 'times': times, 'peak_gb': peak_gb(device),
+            'flash': (fk.fwd_launches, fk.bwd_launches, fk.plain_calls),
+            'flash_heads': sorted(heads),
+            'shard_sums_a_step': (
+                ((group.reductions - sums0[0]) / steps,
+                 (group.copies - sums0[1]) / steps) if group else None),
+            'all_reduces_a_step': reductions.count / steps,
+            'matmul_params': n_matmul})
+    finally:
+        if job.world > 1:
+            distributed.leave()
+
+
 # -- test_torch_pipeline_gang.py ----------------------------------------------
 def pipe_job(job, out, spec, ckpt_dir):
     """One rank of a gloo pipeline job on MeshConfig(data, stage=world /
@@ -825,6 +1030,66 @@ def pipe_job(job, out, spec, ckpt_dir):
             'handoffs': counts[0], 'collectives': counts[1]})
     finally:
         distributed.leave()
+
+
+def pipe_grid_run(pp, tx, state, steps):
+    """`steps` AdamW steps of a pipeline on the shared token stream:
+    the losses, grad norms and the whole parameters after them
+    (gathered on rank 0, None elsewhere)."""
+    from skypilot_tpu_torch.parallel import train  # noqa: F401
+    step = pp.make_train_step(tx, collect_grad_norm=True)
+    losses, norms = [], []
+    for i in range(steps):
+        tokens = torch.from_numpy(tokens_for(i, pp.cfg.vocab_size))
+        state, (loss, gnorm) = step(state, tokens)
+        losses.append(float(loss))
+        norms.append(float(gnorm))
+    params = {n: pp.gather_leaf(state, i, 'param')
+              for i, n in enumerate(pp.names)}
+    return state, losses, norms, params
+
+
+def pipe_grid_job(job, out, specs, ckpt_dir):
+    """Pipelines with tensor and expert ranks within each stage, one a
+    (`key`, model, MeshConfig fields, schedule, virtual stages)
+    of `specs`: PIPE_STEPS steps of PIPE_MB rows of microbatches a
+    data rank's batch (PIPE_MB / data microbatches), the losses,
+    norms and whole parameters, the hand-offs; the first spec's state
+    is saved to `ckpt_dir`."""
+    from skypilot_tpu_torch.parallel import distributed
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import train
+    from skypilot_tpu_torch.parallel.checkpoints import CheckpointManager
+    from skypilot_tpu_torch.parallel.pipeline import PipelinedLM
+    torch.set_num_threads(1)
+    distributed.join(job)
+    try:
+        result = {}
+        for n, (key, name, fields, style, v) in enumerate(specs):
+            mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(**fields))
+            pp = PipelinedLM(build(name), mesh,
+                             num_microbatches=PIPE_MB // fields.get('data', 1),
+                             schedule=style, virtual_stages=v)
+            tx = train.default_optimizer(learning_rate=LR, warmup_steps=10,
+                                         total_steps=20)
+            state = pp.init(tx)
+            state, losses, norms, params = pipe_grid_run(pp, tx, state,
+                                                         PIPE_STEPS)
+            if n == 0 and ckpt_dir:
+                CheckpointManager(ckpt_dir).save(state.step, state,
+                                                 force=True)
+            result[key] = {'losses': losses, 'norms': norms,
+                           'params': params,
+                           'summary': mesh_lib.mesh_summary(mesh),
+                           'local': {k: tuple(p.shape) for k, p in
+                                     state.params[pp.group.local[0]]
+                                     .items()}}
+        _save(out, job, result)
+    finally:
+        distributed.leave()
+
+
+PIPE_MB, PIPE_STEPS = 4, 3
 
 
 # -- test_torch_parallel_cards.py: pipelines ---------------------------------

@@ -98,6 +98,24 @@ failure exits non-zero before the result lines:
                  line) vs the bound, the plain version and F.linear on
                  bf16 weights; the same checks at one --tensor 2 shard's
                  projections, timed at M 8 (wq, wo, w_down)
+  grid_collective_kernels
+                 the serving grid's collective (ops/grid_collective.py,
+                 csrc/grid_collective.cu; no TPU kernel: it stands for
+                 XLA's all-reduce over ICI) on cuda:0 named 2 and 4
+                 times, one launch acting for every rank: sum (f32 in
+                 shard order, cast back) of a decode partial (8 x 4096),
+                 a prefill chunk's (256 x 4096) and a ragged 3 x 5 in
+                 bf16 and f32, the int8 pool's absmax (max of [8, 1]
+                 f32, and bf16), the head's gather (8 x 64128 f32 slices,
+                 bf16, int32) and the tokens' broadcast (no launch on one
+                 card) bit for bit against the plain helper; one launch a
+                 call; the perturbed control (one shard one ulp up) fails;
+                 one call captured in a CUDA graph replays right on new
+                 parts; the decode and chunk sums' device ms (a CUDA graph
+                 of 50 launches, warm L2, as a round finds its partials)
+                 vs the bound (every part read, the sum written, over
+                 HBM), the plain helper and torch.add of the two parts
+                 (the same bits at T = 2, and held so)
   serve_bf16,    build_runtime with serve_lm's flags, make_server on an
   serve_int8     ephemeral port, 8 concurrent greedy /generate requests
                  (300-700 prompt tokens, two sharing a 256-token
@@ -316,8 +334,18 @@ failure exits non-zero before the result lines:
                  their launches are the --tensor 2 bursts' at that shape
                  (paged: the --tensor 2 bursts only, --stages 2 runs
                  whole heads and is printed apart; int8_linear: counted
-                 by weight shape). Distinct cards: tests/
+                 by weight shape). Every collective of the --tensor 2
+                 bursts goes through the grid collective's kernel (its
+                 sum rows' launches: the decode and chunk partials'), no
+                 plain call. Distinct cards: tests/
                  test_torch_grid_cards.py (-m card, 4 cards)
+  serve_tp_2card where two cards are visible: the --tensor 2 engine over
+                 cuda:0 and cuda:1 (each decode round one CUDA graph a
+                 card, the sums over NVLink) against the same engine on
+                 cuda:0 named twice, both driven on this thread: the 8
+                 prompts' greedy tokens equal, the collective launched on
+                 both cards with no plain call, both grids' steady round
+                 ms; on one card it prints that it did not run
   serve_gpt2     gpt2-124m (full width and depth, seeded) through
                  build_runtime with serve_lm's flags (--max-total-len 1024
                  --prefill-chunk 256, 8 slots, the config's 128-page
@@ -548,7 +576,9 @@ others train_full, train_fsdp, train_pipeline's steps of each style and
 its 2-card job's ranks where it runs, train_lora, train_mixtral,
 train_expert's ranks where it runs, and train_guard's trainer-API
 steps, its --init-from-hf
-run and its chaos run and relaunch), each counted from zero; int8_linear's those of serve_int8_weights. Then the
+run and its chaos run and relaunch), each counted from zero; int8_linear's those of serve_int8_weights; the grid
+collective's decode and chunk rows those of serve_tp's bursts at the
+partial's size (sums of 8 x 4096 and 256 x 4096 bf16). Then the
 `clock` line (by phase name, the wall seconds from the line before to
 each emitted line, and the run's total) and, as the last three lines: the card (`nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`), the kernels JSON line, and {"ok": true,
@@ -1892,6 +1922,154 @@ def phase_int8_linear_kernels(il):
     return rows
 
 
+# -- the grid collective (csrc/grid_collective.cu) ----------------------------
+GRID_COLLECTIVE_REPLACES = (
+    'no Pallas kernel; stands for the all-reduce over ICI that GSPMD '
+    'inserts in the reference\'s serving grid, '
+    'skypilot_tpu/parallel/serving.py:1')
+GRID_CASES = (   # (op, dtype, per-rank shape)
+    ('sum', torch.bfloat16, (8, 1, 4096)), ('sum', torch.bfloat16,
+                                            (1, 256, 4096)),
+    ('sum', torch.float32, (8, 1, 4096)), ('sum', torch.bfloat16, (3, 5)),
+    ('sum', torch.float32, (3, 5)), ('max', torch.float32, (8, 1)),
+    ('max', torch.bfloat16, (8, 4096)), ('gather', torch.float32,
+                                         (8, 64128)),
+    ('gather', torch.bfloat16, (8, 4096)), ('gather', torch.int32, (8, 3)),
+    ('broadcast', torch.int32, (8,)))
+GRID_TIMED = (('decode', (8, 1, 4096)), ('chunk', (1, 256, 4096)))
+
+
+def grid_parts(shape, dtype, ways, seed):
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    if dtype == torch.int32:
+        return [torch.randint(0, 128256, shape, generator=g, device='cuda',
+                              dtype=torch.int32) for _ in range(ways)]
+    return [(torch.randn(shape, generator=g, device='cuda')
+             * 10.0 ** torch.empty(shape, device='cuda').uniform_(
+                 -3, 3, generator=g)).to(dtype) for _ in range(ways)]
+
+
+def grid_call(gcol, team, op, parts):
+    """The kernel's call and the plain helper's for one op."""
+    dev = torch.device('cuda:0')
+    if op in ('sum', 'max'):
+        return (gcol.all_reduce(parts, team, op),
+                gcol.all_reduce_reference(parts, op))
+    if op == 'gather':
+        return [gcol.gather(parts, team)], [gcol.gather_reference(parts,
+                                                                  dev)]
+    return (gcol.broadcast(parts[0], team),
+            gcol.broadcast_reference(parts[0], [dev] * len(parts)))
+
+
+def graph_ms(fn, n=50):
+    """Device ms of one `fn()` from a CUDA graph of n calls on this card."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def phase_grid_collective_kernels(gcol):
+    """The grid collective on cuda:0 named 2 and 4 times against its plain
+    helper (module doc); its rows of the kernels line (the decode and
+    chunk sums at T = 2, launches filled in by main)."""
+    cases, controls = [], []
+    for ways in (2, 4):
+        team = gcol.Team(['cuda:0'] * ways)
+        for i, (op, dtype, shape) in enumerate(GRID_CASES):
+            parts = grid_parts(shape, dtype, ways, seed=i)
+            before = gcol.launches
+            got, want = grid_call(gcol, team, op, parts)
+            torch.cuda.synchronize()
+            launched = gcol.launches - before
+            exact = all(torch.equal(a, b) for a, b in zip(got, want))
+            cases.append({'ways': ways, 'op': op, 'dtype': str(dtype),
+                          'shape': list(shape), 'exact': exact,
+                          'launches': launched})
+            check(exact, f'grid collective {op} {dtype} {shape} x{ways}: '
+                         f'kernel differs from the plain helper')
+            check(launched == (0 if op == 'broadcast' else 1),
+                  f'grid collective {op} x{ways}: {launched} launches')
+            if op == 'sum' and math.prod(shape) >= 4096:
+                # The last shard one ulp up: the kernel's sum of it must
+                # fail the check against the plain sum of the parts.
+                moved = parts[:-1] + [gcol.next_up(parts[-1])]
+                bad, _ = grid_call(gcol, team, op, moved)
+                caught = not torch.equal(bad[0], want[0])
+                controls.append({'ways': ways, 'dtype': str(dtype),
+                                 'shape': list(shape), 'caught': caught})
+                check(caught, f'perturbed grid sum {dtype} {shape} x{ways} '
+                              f'was not caught')
+    # One call captured in a CUDA graph replays right on new parts.
+    team = gcol.Team(['cuda:0', 'cuda:0'])
+    parts = grid_parts((8, 1, 4096), torch.bfloat16, 2, seed=99)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gcol.all_reduce(parts, team)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gcol.all_reduce(parts, team)
+    for p, q in zip(parts, grid_parts((8, 1, 4096), torch.bfloat16, 2,
+                                      seed=100)):
+        p.copy_(q)
+    graph.replay()
+    torch.cuda.synchronize()
+    replay_exact = torch.equal(out[0],
+                               gcol.all_reduce_reference(parts)[0])
+    check(replay_exact, 'grid collective: the graph replay differs')
+    timings, rows = {}, []
+    for label, shape in GRID_TIMED:
+        parts = grid_parts(shape, torch.bfloat16, 2, seed=7)
+        nbytes = parts[0].numel() * 2
+        ms = graph_ms(lambda: gcol.all_reduce(parts, team))
+        plain_ms = time_ms([lambda: gcol.all_reduce_reference(parts)])
+        # At T = 2 one PyTorch call computes the same bits: a bf16 add
+        # does its math in f32 and rounds once.
+        library_ms = graph_ms(lambda: torch.add(parts[0], parts[1]))
+        check(torch.equal(torch.add(parts[0], parts[1]),
+                          gcol.all_reduce(parts, team)[0]),
+              f'grid collective {label}: torch.add differs from the sum')
+        b_ms = 1e3 * 3 * nbytes / HBM_BYTES_PER_S
+        timings[label] = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+                          'library_ms': library_ms, 'bytes': 3 * nbytes}
+        rows.append({
+            'name': f'grid_collective_sum_{label}', 'route': 'cuda',
+            'source': 'skypilot_tpu_torch/csrc/grid_collective.cu',
+            'replaces': GRID_COLLECTIVE_REPLACES,
+            'timed': (f'bf16 sum of 2 parts of {list(shape)} on cuda:0 '
+                      f'named twice (one launch), warm L2'),
+            'size_key': ('sum', nbytes), 'max_abs_err': 0.0,
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+            'bound_by': 'bytes', 'library_ms': library_ms,
+            'library': ('torch.add(parts[0], parts[1]) in a graph, warm L2 '
+                        '(the same bits at T = 2; over distinct cards '
+                        'profile_grid.py times torch.cuda.nccl.all_reduce)'),
+            'plain': 'all_reduce_reference (Tensor.to, f32 sum in shard '
+                     'order, cast back)'})
+    emit('grid_collective_kernels', cases=len(cases),
+         all_exact=all(c['exact'] for c in cases), controls=controls,
+         graph_replay_exact=replay_exact, timings=timings,
+         launch_rule='one launch a call on one card; broadcast none')
+    return rows
+
+
 def zero_paged(pk):
     pk.route_launches.update(dict.fromkeys(pk.ROUTES, 0))
 
@@ -2147,8 +2325,9 @@ PIPE_DEVICES = ['cuda:0', 'cuda:0']
 PIPE_STYLES = (('gpipe', 1), ('1f1b', 1), ('interleaved', 2))
 # The step-1 bound: PIPE_SPREAD times the witness's spread over
 # 1 + PIPE_REPEATS readings (the flash backward's dQ sums are not
-# bit-deterministic), never under FSDP_TOL; both controls must fall
-# outside it.
+# bit-deterministic), never under FSDP_TOL. Each style's step 1 is read
+# 1 + PIPE_REPEATS times as well, and the medians of the two are held to
+# that bound; both controls must fall outside it.
 PIPE_REPEATS = 4
 PIPE_SPREAD = 2.0
 PIPE_FAULTS = ('backward_skipped', 'stale_handoff')
@@ -2210,6 +2389,11 @@ def pipe_reading(pp, tokens):
     return loss.item(), norm.item()
 
 
+def median_reading(readings):
+    """The componentwise median of (loss, grad norm) readings."""
+    return tuple(float(np.median([r[k] for r in readings])) for k in (0, 1))
+
+
 def pipe_witness(cfg, tokens, shards, readings):
     """The one-card trainer fed `tokens`' rows one microbatch at a time
     (the pipeline's `microbatch_rows`), its loss the pipeline's
@@ -2246,9 +2430,9 @@ def pipe_witness(cfg, tokens, shards, readings):
 
 def phase_train_pipeline(fk, card, full):
     """The pipeline trainer API in process on one card named twice, each
-    style: step 1 against the witness within a bound set in this run
-    (both controls outside it), flash launches, steady steps; where 2
-    cards are visible, `train_lm --pipeline-stages 2` as a 2-rank NCCL
+    style: the median of its step-1 readings against the witness's
+    within a bound set in this run (both controls outside it), flash
+    launches, steady steps; where 2 cards are visible, `train_lm --pipeline-stages 2` as a 2-rank NCCL
     job held to the in-process 1f1b reading of its batch. Returns the
     flash launches of the main path's steps."""
     from skypilot_tpu_torch.models import convert
@@ -2265,7 +2449,7 @@ def phase_train_pipeline(fk, card, full):
     t0 = time.perf_counter()
     witness = pipe_witness(cfg, toks[0], S, 1 + PIPE_REPEATS)
     witness_s = time.perf_counter() - t0
-    ref = witness[0]
+    ref = median_reading(witness)
     spread = [(max(w[k] for w in witness) - min(w[k] for w in witness))
               / abs(ref[k]) for k in (0, 1)]
     bounds = [max(FSDP_TOL, PIPE_SPREAD * sp) for sp in spread]
@@ -2294,19 +2478,22 @@ def phase_train_pipeline(fk, card, full):
         tx = train.default_optimizer(warmup_steps=10, total_steps=20)
         state = pp.init(tx)
         zero_flash(fk)
-        sound = pipe_reading(pp, toks[0])
+        readings = [pipe_reading(pp, toks[0])]
         reading_counts = flash_counts(fk)
         check(reading_counts == {'flash_fwd': 2 * layers * M,
                                  'flash_bwd': layers * M}
               and fk.plain_calls == 0,
               f'train_pipeline {style} step-1 launches {reading_counts}, '
               f'{fk.plain_calls} plain')
+        readings += [pipe_reading(pp, toks[0]) for _ in range(PIPE_REPEATS)]
+        sound = median_reading(readings)
         controls = {}
         for name in PIPE_FAULTS:
             with pipe_fault(pp, name):
                 controls[name] = pipe_reading(pp, toks[0])
         check(within(sound),
-              f'train_pipeline {style}: step 1 {sound} vs witness {ref} '
+              f'train_pipeline {style}: step 1 {sound} (median of '
+              f'{readings}) vs witness {ref} (median of {witness}) '
               f'(offsets {offsets(sound)}, bounds {bounds})')
         check(all(not within(c) for c in controls.values()),
               f'train_pipeline {style}: a control passed the bounds '
@@ -2343,7 +2530,8 @@ def phase_train_pipeline(fk, card, full):
             'virtual_stages': v, 'ticks': sched.num_ticks,
             'bubble_fraction': sched.bubble_fraction,
             'describe': sched.describe(),
-            'step1': list(sound), 'step1_rel_err': offsets(sound),
+            'step1': list(sound), 'step1_readings': readings,
+            'step1_rel_err': offsets(sound),
             'controls': {k: list(c) for k, c in controls.items()},
             'controls_rel_err': {k: offsets(c) for k, c in
                                  controls.items()},
@@ -2426,11 +2614,12 @@ def phase_train_pipeline_cards(card, lm_reading, bounds):
 # at train_full's shape and batches; step 1 against train_full's
 # whole-model step 1 within train_fsdp's bounds (the loss within
 # FSDP_TOL, the norm within twice train_full's step-1 spread) and against
-# the shards' own reading (1 + TENSOR_REPEATS times) within TENSOR_SPREAD
-# times its spread, at least FSDP_TOL; then the pipeline over a 2 x 2
-# grid of the card (--pipeline-stages 2 --tensor 2) against
-# train_pipeline's 1f1b reading within TENSOR_SPREAD times the grid's
-# own spread (1 + TENSOR_REPEATS readings), at least FSDP_TOL. Controls
+# the median of the shards' own reading (1 + TENSOR_REPEATS times) within
+# TENSOR_SPREAD times its spread, at least FSDP_TOL; then the median of
+# the pipeline over a 2 x 2 grid of the card (--pipeline-stages 2
+# --tensor 2) against train_pipeline's 1f1b median within TENSOR_SPREAD
+# times the grid's own spread (1 + TENSOR_REPEATS readings), at least
+# FSDP_TOL. Controls
 # (parallel/tensor.py `tensor_fault`) must fall outside both.
 TENSOR_DEVICES = ['cuda:0', 'cuda:0']
 TENSOR_PIPE_DEVICES = [['cuda:0', 'cuda:0'], ['cuda:0', 'cuda:0']]
@@ -2507,7 +2696,7 @@ def phase_train_tensor(fk, card, full, pipe_step1):
           and fk.plain_calls == 0 and shapes == {shard_heads},
           f'train_tensor readings launched {reading_counts}, '
           f'{fk.plain_calls} plain, at heads {shapes}')
-    ref = witness[0]
+    ref = median_reading(witness)
     spread = [(max(w[k] for w in witness) - min(w[k] for w in witness))
               / abs(ref[k]) for k in (0, 1)]
     bounds = [max(FSDP_TOL, TENSOR_SPREAD * sp) for sp in spread]
@@ -2593,18 +2782,19 @@ def phase_train_tensor(fk, card, full, pipe_step1):
     # controls outside that.
     pipe_witness_ = [pipe_reading_] + [pipe_reading(pp, toks[0])
                                        for _ in range(TENSOR_REPEATS)]
+    pipe_center = median_reading(pipe_witness_)
     pipe_spread = [(max(w[k] for w in pipe_witness_)
                     - min(w[k] for w in pipe_witness_)) / abs(
-                        pipe_reading_[k]) for k in (0, 1)]
+                        pipe_center[k]) for k in (0, 1)]
     pipe_bounds = [max(FSDP_TOL, TENSOR_SPREAD * sp) for sp in pipe_spread]
     pipe_controls = {}
     for name in TENSOR_STAGE_FAULTS:
         with tensor_fault(name):
             pipe_controls[name] = pipe_reading(pp, toks[0])
-    check(within(pipe_reading_, pipe_bounds, pipe_step1),
-          f'train_tensor pipeline step 1 {pipe_reading_} vs the 1f1b '
-          f'pipeline {pipe_step1} (offsets '
-          f'{offsets(pipe_reading_, pipe_step1)}, bounds {pipe_bounds})')
+    check(within(pipe_center, pipe_bounds, pipe_step1),
+          f'train_tensor pipeline step 1 {pipe_center} (median of '
+          f'{pipe_witness_}) vs the 1f1b pipeline {pipe_step1} (offsets '
+          f'{offsets(pipe_center, pipe_step1)}, bounds {pipe_bounds})')
     check(all(not within(c, pipe_bounds, pipe_step1)
               for c in pipe_controls.values()),
           f'train_tensor pipeline: a control passed the bounds '
@@ -2633,10 +2823,10 @@ def phase_train_tensor(fk, card, full, pipe_step1):
          copies_a_step=copies, launches=counts,
          reading_launches=reading_counts,
          pipeline={'devices': TENSOR_PIPE_DEVICES, 'microbatches': M,
-                   'schedule': '1f1b', 'step1': list(pipe_reading_),
+                   'schedule': '1f1b', 'step1': list(pipe_center),
                    'readings': pipe_witness_, 'spread': pipe_spread,
                    'bounds': pipe_bounds,
-                   'vs_pipeline_1f1b': offsets(pipe_reading_, pipe_step1),
+                   'vs_pipeline_1f1b': offsets(pipe_center, pipe_step1),
                    'controls_vs_pipeline_1f1b': {
                        k: offsets(c, pipe_step1)
                        for k, c in pipe_controls.items()},
@@ -6162,6 +6352,7 @@ def tp_burst(label, model, kv_dtype, extra, kernels, models=None):
         ptrs = eng.cache.data_ptrs()
         reductions = eng.model.grid.reductions
         _, out = burst(rt, port, prompts(), models or [None] * 8, kernels)
+        out['collective_route'] = eng.model.grid.collective_route()
         out.update(setup_s=setup_s, pool_storage_unchanged=(
             eng.cache.data_ptrs() == ptrs),
             collectives=eng.model.grid.reductions - reductions,
@@ -6234,14 +6425,19 @@ def phase_serve_tp(model, pk, lk, il, card):
     apart), the QKV LoRA launches and the int8_linear launches by
     `route_key` of the sharded runs, and their plain calls (0: each
     run's gate)."""
+    from skypilot_tpu_torch.ops import grid_collective as gcol
     t_phase = time.perf_counter()
     runs, routes = {}, dict.fromkeys(pk.ROUTES, 0)
+    gcol.launches_by_size.clear()
     for label, kv_dtype, extra in (
             ('tensor2_bf16', 'bf16', ['--tensor', '2']),
             ('tensor2_int8kv', 'int8', ['--tensor', '2']),
             ('stages2_bf16', 'bf16', ['--stages', '2'])):
-        out = tp_burst(label, model, kv_dtype, extra, (pk, lk))
+        out = tp_burst(label, model, kv_dtype, extra, (pk, lk, gcol))
         check(out['counts'][1] == (0, 0), f'{label}: LoRA code ran')
+        # --stages 2 on one card has nothing to sum and no card to cross.
+        check((out['counts'][2][0] > 0) == label.startswith('tensor2_'),
+              f'{label}: grid collective launches {out["counts"][2]}')
         runs[label] = out
         if label.startswith('tensor2_'):
             for r, n in out['paged_route_launches'].items():
@@ -6249,8 +6445,10 @@ def phase_serve_tp(model, pk, lk, il, card):
     lora = tp_burst('tensor2_lora', model, 'bf16',
                     ['--tensor', '2', '--adapter-dir',
                      os.path.join(WORK, 'adapters'), '--max-adapters', '3'],
-                    (pk, lk), models=SERVE_LORA_MODELS)
+                    (pk, lk, gcol), models=SERVE_LORA_MODELS)
     check(lora['counts'][1][0] > 0, 'tensor2_lora: no QKV LoRA launch')
+    check(lora['counts'][2][0] > 0, 'tensor2_lora: no grid collective '
+                                    'launch')
     runs['tensor2_lora'] = lora
     for r, n in lora['paged_route_launches'].items():
         routes[r] += n
@@ -6258,7 +6456,8 @@ def phase_serve_tp(model, pk, lk, il, card):
     il.launches_by_shape.clear()
     il.launches_by_route.clear()
     int8 = tp_burst('tensor2_int8_weights', qmodel, 'bf16',
-                    ['--tensor', '2', '--weight-dtype', 'int8'], (pk, il))
+                    ['--tensor', '2', '--weight-dtype', 'int8'],
+                    (pk, il, gcol))
     int8_by_shape = dict(il.launches_by_shape)
     int8_by_route = route_shape_delta(il, {})
     check(all(any(key.startswith(f'{r} ') for key in int8_by_route)
@@ -6274,6 +6473,8 @@ def phase_serve_tp(model, pk, lk, il, card):
     torch.cuda.empty_cache()
     check(int8['counts'][1][0] > 0, 'tensor2_int8_weights: no int8_linear '
                                     'launch')
+    check(int8['counts'][2][0] > 0, 'tensor2_int8_weights: no grid '
+                                    'collective launch')
     runs['tensor2_int8_weights'] = int8
     for r, n in int8['paged_route_launches'].items():
         routes[r] += n
@@ -6293,8 +6494,94 @@ def phase_serve_tp(model, pk, lk, il, card):
         int8_launches_by_shape={f'{n}x{k}': c for (n, k), c
                                 in sorted(int8_by_shape.items())},
         int8_launches_by_route=int8_by_route,
+        collective_launches={f'{op} {n}': c for (op, n), c
+                             in sorted(gcol.launches_by_size.items())},
         plain_calls=plain_calls, phase_s=time.perf_counter() - t_phase)
-    return routes, lora['counts'][1][0], int8_by_route, plain_calls
+    return (routes, lora['counts'][1][0], int8_by_route, plain_calls,
+            dict(gcol.launches_by_size))
+
+
+def drive_engine(eng, ps, n_new):
+    """Greedy tokens of `ps`, the engine iterated on this thread (its
+    scheduler stopped), so two engines schedule them alike; and its
+    steady round ms."""
+    # pylint: disable=protected-access
+    eng.stop()
+    futs = [eng.submit(list(p), max_new_tokens=n_new) for p in ps]
+    s0 = eng.stats()
+    with torch.no_grad():
+        for _ in range(20000):
+            if all(f.done() for f in futs) and not eng.active.any() \
+                    and not eng._in_flight():
+                break
+            eng._iterate()
+    s1 = eng.stats()
+    rounds = s1['steady_decode_rounds'] - s0['steady_decode_rounds']
+    ms = (1e3 * (s1['steady_decode_s'] - s0['steady_decode_s']) / rounds
+          if rounds else None)
+    return [f.result(timeout=1) for f in futs], ms, s1
+
+
+def phase_serve_tp_2card(model, gcol, card):
+    """Where two cards are visible: the --tensor 2 engine over cuda:0 and
+    cuda:1 against the same engine on cuda:0 named twice (TP_DEVICES),
+    both driven on this thread: the same greedy tokens, the collective
+    on both cards with no plain call, and both grids' steady round ms."""
+    from skypilot_tpu_torch.models import batching
+    from skypilot_tpu_torch.parallel import serving
+    from skypilot_tpu_torch.parallel.mesh import MeshConfig
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit('serve_tp_2card', card=card, ran=False,
+             reason=f'{count} card visible: the 2-card grid needs 2')
+        return None
+    from skypilot_tpu_torch.models import convert
+    t_phase = time.perf_counter()
+    ps = prompts()
+    out = {}
+    # A pool that holds all 8 slots at full length (the weights shared).
+    cfg = model.config
+    pages = model.config.kv_total_pages
+    pages = max(pages, 8 * (1024 // cfg.kv_page_size) + 1)
+    pooled = convert.assemble(dataclasses.replace(cfg, kv_total_pages=pages),
+                              model.state_dict())
+    for label, devices in (('one_card_x2', TP_DEVICES),
+                           ('cards2', ['cuda:0', 'cuda:1'])):
+        grid = serving.build(pooled, MeshConfig(tensor=2), devices=devices)
+        eng = batching.ContinuousBatchingEngine(
+            grid, num_slots=8, max_total_len=1024, prefill_chunk=256)
+        by_device = dict(gcol.launches_by_device)
+        plain = gcol.plain_calls
+        try:
+            tokens, ms, stats = drive_engine(eng, ps, 32)
+        finally:
+            eng.stop()
+        out[label] = {
+            'tokens': tokens, 'decode_round_ms': ms,
+            'cuda_graphs': stats['cuda_graphs'],
+            'graph_replays': stats['graph_replays'],
+            'collective_route': grid.grid.collective_route(),
+            'collective_launches_by_device': {
+                d: n - by_device.get(d, 0)
+                for d, n in gcol.launches_by_device.items()
+                if n != by_device.get(d, 0)},
+            'collective_plain_calls': gcol.plain_calls - plain}
+        del grid, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    two, one = out['cards2'], out['one_card_x2']
+    equal = two.pop('tokens') == one.pop('tokens')
+    emit('serve_tp_2card', card=card, ran=True, tokens_equal=equal,
+         **out, phase_s=time.perf_counter() - t_phase)
+    check(equal, 'serve_tp_2card: tokens over two cards differ from one '
+                 'card named twice')
+    check(two['cuda_graphs'] and two['graph_replays'] > 0,
+          'serve_tp_2card: the rounds did not replay graphs')
+    check(sorted(two['collective_launches_by_device']) == ['cuda:0',
+                                                           'cuda:1']
+          and two['collective_plain_calls'] == 0,
+          f'serve_tp_2card: collective {two}')
+    return out
 
 
 def phase_serve_dense(model, pk, lk, card):
@@ -6633,6 +6920,7 @@ def main() -> int:
     from skypilot_tpu_torch.models import convert, registry
     from skypilot_tpu_torch.ops import _build
     from skypilot_tpu_torch.ops import flash_kernel as fk
+    from skypilot_tpu_torch.ops import grid_collective as gcol
     from skypilot_tpu_torch.ops import int8_linear as il
     from skypilot_tpu_torch.ops import lora_kernel as lk
     from skypilot_tpu_torch.ops import paged_kernel as pk
@@ -6658,6 +6946,7 @@ def main() -> int:
     lora_rows = phase_lora_kernels(lk)
     flash_rows, flash_tp2_rows = phase_flash_kernels(fk)
     int8_rows = phase_int8_linear_kernels(il)
+    grid_rows = phase_grid_collective_kernels(gcol)
 
     # The main paths, each driven with the counts zeroed just before and
     # read just after: base serving (bf16 and int8 pools), then
@@ -6717,8 +7006,10 @@ def main() -> int:
     zero_paged(pk)
     pk.launches = pk.plain_calls = lk.launches = lk.plain_calls = 0
     il.launches = il.plain_calls = 0
-    tp_routes, tp_lora_launches, tp_int8_by_route, tp_plain = \
+    gcol.launches = gcol.plain_calls = 0
+    tp_routes, tp_lora_launches, tp_int8_by_route, tp_plain, tp_sizes = \
         phase_serve_tp(model, pk, lk, il, card)
+    phase_serve_tp_2card(model, gcol, card)
     del model
     torch.cuda.empty_cache()
     # GPT-2 and Mixtral through serve_lm, each counted from zero.
@@ -6790,6 +7081,10 @@ def main() -> int:
         else:
             row['launches'] = int8_by_route.get(key, 0)
             row['launch_window'] = 'serve_int8_weights, ' + key
+    for row in grid_rows:
+        row['launches'] = tp_sizes.get(row.pop('size_key'), 0)
+        row['launch_window'] = 'serve_tp --tensor 2 bursts (bf16 sums)'
+        row['plain_calls'] = tp_plain
     for name, row in flash_rows.items():
         row['launches'] = (full_counts[name] + fsdp_counts[name]
                            + pipe_counts[name]
@@ -6805,7 +7100,8 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps({'kernels': [*paged_rows, *gpt2_rows, *lora_rows,
                                   *flash_rows.values(),
-                                  *flash_tp2_rows.values(), *int8_rows]}),
+                                  *flash_tp2_rows.values(), *int8_rows,
+                                  *grid_rows]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

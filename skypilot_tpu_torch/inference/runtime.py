@@ -975,7 +975,10 @@ def build_runtime(args, model=None, cuda_graphs: bool = True,
     few exiting at startup, or `devices` (a list that may name one
     device several times; serve_lm has no such flag). The weights are
     made on the grid's device when it has one, else on the CPU, and
-    split onto it; the pool is sized per device."""
+    split onto it; the pool is sized per device. Over distinct cards the
+    grid's collective is set up here (peer access between every pair of
+    cards, its exchange buffers): a pair without peer access stops the
+    server at startup with the reason."""
     bad = unsupported_flags(args)
     if bad:
         raise ValueError('not supported by the PyTorch port yet: '
@@ -1045,8 +1048,8 @@ def build_runtime(args, model=None, cuda_graphs: bool = True,
         model = serving.GridModel(model, grid)
         print(f'serving over {grid.size} devices ({args.stages} stages x '
               f'{args.tensor}-way tensor): '
-              f'{[[str(d) for d in row] for row in grid.devices]}',
-              flush=True)
+              f'{[[str(d) for d in row] for row in grid.devices]}; '
+              f'collectives: {grid.collective_route()}', flush=True)
     # Multi-LoRA adapter registry: scanned at startup, hot-loaded on
     # demand; every engine of the runtime shares its store.
     adapters = None

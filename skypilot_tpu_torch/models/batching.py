@@ -77,8 +77,9 @@ with its own round and graphs, and every iteration dispatches each
 group's next round before committing the previous ones, so the S
 rounds in flight occupy different stages. Successive prefill chunks
 pipeline over the stages the same way, by dispatching before they are
-fetched. The rounds replay CUDA graphs when the grid is one card
-named several times; over distinct cards they run eagerly.
+fetched. The rounds replay CUDA graphs, one a distinct card of the
+grid (models/decode_graph.py), on one card named several times and over
+distinct cards alike.
 
 The reference donated its cache to each jitted call; here the pool is
 preallocated once (`PagedKVCache`) and updated in place.
@@ -472,10 +473,6 @@ class ContinuousBatchingEngine:
             generator=self._generator, use_graphs=cuda_graphs,
             attend_len=max_total_len) for _ in range(self._groups)]
         self.cuda_graphs = self._rounds[0].use_graphs
-        if cuda_graphs and self.device.type == 'cuda' and \
-                not self.cuda_graphs:
-            print(f'engine: decode rounds run eagerly: '
-                  f'{self._rounds[0].graph_blocker}', flush=True)
         if self.cuda_graphs and not self.spec_k:
             with torch.no_grad():
                 for rnd in self._rounds:

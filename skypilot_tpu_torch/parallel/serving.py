@@ -30,14 +30,32 @@ keeps that shape, a single controller over a `Grid` of torch devices,
     pool is whole on every shard, `wk` / `wv` are too, and shard t's q
     heads [h0, h0 + Hq/T) read kv heads h0 // G.. of it.
 
-The collective is one helper for every family and every grid: each
-shard's partial is copied to the row's first device, summed there in
-shard order (deterministic), and the sum copied back. It runs the same
-code on the CPU, on one card named N times, and over N cards. It
-refuses any tensor that shares storage with a pool shard: the
-reference's guard (`pool_collective_lines`, an HLO scan for a
-collective over a pool-shaped operand) becomes that check, and pool
-shards are updated in place, so their storage never changes.
+The collectives are `Grid`'s, one route for every family and every
+grid: `all_reduce` (a sum in f32 in shard order, cast back; or the int8
+pool's max), `gather` (the head's vocab slices, in shard order),
+`broadcast` (the sampled tokens to every stage-0 shard) and `handoff`
+(the activation onto the next stage's row). On the card they are the
+hand-written kernel of ops/grid_collective.py: one launch a card an op,
+the cards trading their parts over NVLink through exchange buffers set
+up once per grid at startup (peer access enabled between every pair; a
+pair without it stops the grid with the reason), or one launch for
+every shard on one card named N times. On the CPU they are the plain
+helpers (`Tensor.to` copies to the row's first device, combined there),
+which the kernel is held to bit for bit. The all-reduce refuses any
+tensor that shares storage with a pool shard: the reference's guard
+(`pool_collective_lines`, an HLO scan for a collective over a
+pool-shaped operand) becomes that check, and pool shards are updated in
+place, so their storage never changes.
+
+A decode round (models/decode_graph.py) hands `GridModel.round_logits`
+its inputs as `Placed`: one copy a grid place, staged there by the host
+before the round. So a round makes no cross-card `Tensor.to` copy; every
+byte that crosses cards goes through the collective, and each card's
+share of the round is captured into a CUDA graph of its own. Eager calls
+(prefill and verify chunks, a scoring pass, the KV chain's page rows)
+copy their inputs across cards with `Tensor.to`, under `Grid.lock` like
+every forward, so no such copy lands between another thread's launches
+of one collective on two cards.
 
 A device may repeat only in an explicit `devices=` list (tests run
 `['cpu'] * N`, chip_smoke `['cuda:0'] * N`); by default a grid takes the
@@ -50,6 +68,7 @@ such grids to one card named several times.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -59,6 +78,7 @@ from skypilot_tpu_torch.models.deepseek import Deepseek, LatentCache
 from skypilot_tpu_torch.models.gpt import GPT
 from skypilot_tpu_torch.models.llama import (DenseKVCache, LayerCache, Llama,
                                              PagedKVCache, kv_heads)
+from skypilot_tpu_torch.ops import grid_collective as collective
 from skypilot_tpu_torch.ops import paged_attention as paged_ops
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.parallel.tensor import (  # noqa: F401 (re-exported)
@@ -116,8 +136,10 @@ def grid_devices(stages: int, tensor: int, *, cpu: bool = False,
 
 
 class Grid:
-    """`stages` rows of `tensor` torch devices and the one collective
-    helper over a row (module doc)."""
+    """`stages` rows of `tensor` torch devices and the collectives over
+    them (module doc). On CUDA devices every team the grid's rounds use
+    (each row, each stage hand-off, the head's slices to the first
+    device) is set up here, at startup."""
 
     def __init__(self, devices: List[List[torch.device]]) -> None:
         if not devices or any(len(row) != len(devices[0])
@@ -131,6 +153,24 @@ class Grid:
         #: Reductions made by `all_reduce` so far (a decode graph adds its
         #: capture's count at each replay).
         self.reductions = 0
+        #: Held while one op is launched on every card of its team, for a
+        #: whole forward of the grid model (its collectives and the eager
+        #: calls' cross-card copies), for a decode round's capture and for
+        #: its replays: each card then sees the work of two threads (the
+        #: scheduler's rounds, a scoring pass) in one order, as the
+        #: kernel's epochs need, and no thread puts a cross-card wait
+        #: between another thread's launches on two cards, which a
+        #: collective spinning on the first card would never see end.
+        self.lock = threading.RLock()
+        self._teams: Dict[Tuple[str, ...], collective.Team] = {}
+        if self.first.type == 'cuda':
+            for row in self.devices:
+                self.team(row)
+            for s in range(1, self.stages):
+                for t in range(self.tensor):
+                    self.team([self.devices[s - 1][t], self.devices[s][t]])
+            if self.stages > 1:
+                self.team([self.devices[-1][0], self.first])
 
     @property
     def size(self) -> int:
@@ -143,6 +183,36 @@ class Grid:
     def distinct_devices(self) -> int:
         return len({str(d) for row in self.devices for d in row})
 
+    def cards(self) -> List[torch.device]:
+        """The grid's distinct devices, stage-major, the first first."""
+        return list(dict.fromkeys(d for row in self.devices for d in row))
+
+    def team(self, devices: Sequence[torch.device]) -> collective.Team:
+        """The collective team of `devices` (made at startup for the
+        grid's own teams; another is made at its first use, never inside
+        a graph capture)."""
+        key = tuple(str(torch.device(d)) for d in devices)
+        team = self._teams.get(key)
+        if team is None:
+            if torch.cuda.is_available() and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f'no collective team over {key} was '
+                                   f'set up before the capture')
+            team = self._teams[key] = collective.Team(devices)
+        return team
+
+    def collective_route(self) -> str:
+        """How the grid's collectives run (serve_lm prints it)."""
+        if self.first.type != 'cuda':
+            return 'plain helpers on the CPU'
+        cards = self.cards()
+        if len(cards) == 1:
+            return (f'the collective kernel, one launch on {cards[0]} for '
+                    f'all {self.size} shards')
+        return (f'the collective kernel over NVLink between {len(cards)} '
+                f'cards ({", ".join(str(d) for d in cards)}), peer access '
+                f'enabled')
+
     def register_pool(self, tensors) -> None:
         """Mark pool shards: `all_reduce` refuses their storage."""
         for t in tensors:
@@ -150,10 +220,8 @@ class Grid:
 
     def all_reduce(self, parts: List[torch.Tensor],
                    op: str = 'sum') -> List[torch.Tensor]:
-        """Sum (or max) one partial per shard of a row: each copied to
-        the first shard's device, combined there in shard order (a sum
-        in f32, cast back), the result copied back to every shard's
-        device."""
+        """Sum (or max) one partial per shard of a row, in shard order (a
+        sum in f32, cast back); the result on every shard's device."""
         if op not in ('sum', 'max'):
             raise ValueError(f'unknown reduction {op!r}')
         for p in parts:
@@ -164,27 +232,66 @@ class Grid:
                     f'devices')
         if len(parts) == 1:
             return list(parts)
-        self.reductions += 1
-        home = parts[0].device
-        if op == 'sum':
-            acc = parts[0].float()
-            for p in parts[1:]:
-                acc = acc + p.to(home).float()
-            acc = acc.to(parts[0].dtype)
-        else:
-            acc = parts[0]
-            for p in parts[1:]:
-                acc = torch.maximum(acc, p.to(home))
-        return [acc if p.device == home else acc.to(p.device)
-                for p in parts]
+        with self.lock:
+            self.reductions += 1
+            return collective.all_reduce(parts, self._team_of(parts), op)
 
     def gather(self, parts: List[torch.Tensor],
                device: torch.device) -> torch.Tensor:
         """The shards' slices of the last axis, concatenated in shard
-        order on `device` (the head's vocab slices)."""
-        if len(parts) == 1:
-            return parts[0].to(device)
-        return torch.cat([p.to(device) for p in parts], dim=-1)
+        order on `device` (the head's vocab slices): gathered on the
+        first shard's device, then handed to `device` if it is another."""
+        if self.first.type != 'cuda':
+            return collective.gather(parts, None, device)
+        home = parts[0].device
+        with self.lock:
+            out = (parts[0] if len(parts) == 1 else
+                   collective.gather(parts, self._team_of(parts), home))
+            if torch.device(device) == home:
+                return out
+            return collective.broadcast(out, self.team([home, device]))[1]
+
+    def broadcast(self, src: torch.Tensor, stage: int = 0
+                  ) -> List[torch.Tensor]:
+        """`src` (on stage `stage`'s first device) on each of that row's
+        devices."""
+        row = self.devices[stage]
+        if len(row) == 1:
+            return [src]
+        with self.lock:
+            return collective.broadcast(src, self._team_of(row), row)
+
+    def handoff(self, xs: List[torch.Tensor],
+                stage: int) -> List[torch.Tensor]:
+        """Stage `stage - 1`'s per-shard activations onto stage `stage`'s
+        row, shard t to shard t (the reference's `device_put` between
+        stages)."""
+        out = []
+        with self.lock:
+            for t, x in enumerate(xs):
+                pair = [self.devices[stage - 1][t], self.devices[stage][t]]
+                out.append(collective.broadcast(x, self._team_of(pair),
+                                                pair)[1])
+        return out
+
+    def _team_of(self, parts) -> Optional[collective.Team]:
+        devices = [p if isinstance(p, torch.device) else p.device
+                   for p in parts]
+        if devices[0].type != 'cuda':
+            return None
+        return self.team(devices)
+
+
+class Placed:
+    """One tensor a grid place (stage, rank), each on its place's device,
+    all holding the same values: a decode round's inputs, staged on every
+    card before the round (module doc)."""
+
+    def __init__(self, copies: Dict[Tuple[int, int], torch.Tensor]) -> None:
+        self.copies = copies
+
+    def at(self, stage: int, rank: int) -> torch.Tensor:
+        return self.copies[(stage, rank)]
 
 
 # -- the parameter split -----------------------------------------------------
@@ -341,8 +448,36 @@ class GridModel(nn.Module):
         first device: the families' `hidden`, shard by shard. `lora` is
         a grid registry's `model_lora()` (inference/adapters.py):
         {'scale', 'shards': one factor tree a tensor rank}."""
+        with self.grid.lock:
+            xs = self._rows(tokens, positions, cache, page_indices, prefill,
+                            lora, adapter_ids, attend_len)
+            return getattr(self.edges[0], self._norm)(xs[0])
+
+    def round_logits(self, tokens: 'Placed', positions: 'Placed',
+                     cache: Optional['GridCache'] = None,
+                     page_indices: Optional['Placed'] = None,
+                     lora: Optional[dict] = None,
+                     adapter_ids: Optional['Placed'] = None,
+                     attend_len: Optional[int] = None) -> torch.Tensor:
+        """A decode round's f32 logits [B, vocab] on `device`, from inputs
+        placed on every grid device beforehand (`Placed`): each shard
+        takes the final norm of its own copy of the residual stream and
+        its head slice, and the slices are gathered. No `Tensor.to`
+        crosses cards; the collectives do."""
+        with self.grid.lock:
+            xs = self._rows(tokens, positions, cache, page_indices, False,
+                            lora, adapter_ids, attend_len)
+            parts = [edge.logits(getattr(edge, self._norm)(x)[:, 0])
+                     for edge, x in zip(self.edges, xs)]
+            return self.grid.gather(parts, self.device)
+
+    def _rows(self, tokens, positions, cache, page_indices, prefill, lora,
+              adapter_ids, attend_len) -> List[torch.Tensor]:
+        """The residual stream of every shard of the last stage after the
+        last layer (each shard holds the same values)."""
         grid = self.grid
-        batch, seq = tokens.shape
+        first = tokens.at(0, 0) if isinstance(tokens, Placed) else tokens
+        batch, seq = first.shape
         if adapter_ids is not None and lora is None:
             raise ValueError('adapter_ids select rows of stacked lora '
                              'factors; pass lora too')
@@ -351,12 +486,15 @@ class GridModel(nn.Module):
                              'adapter registry built on its grid (mesh=)')
         if positions is None:
             positions = torch.arange(seq, dtype=torch.int32,
-                                     device=tokens.device).expand(batch, seq)
+                                     device=first.device).expand(batch, seq)
         copies: Dict[Tuple[int, str], torch.Tensor] = {}
 
-        def on(t: Optional[torch.Tensor], device: torch.device):
-            if t is None:
-                return None
+        def on(t, s: int, r: int):
+            """`t` on place (s, r): its placed copy, or one `Tensor.to`
+            (eager calls: prefill chunks, verify chunks)."""
+            if t is None or isinstance(t, Placed):
+                return None if t is None else t.at(s, r)
+            device = grid.devices[s][r]
             key = (id(t), str(device))
             if key not in copies:
                 copies[key] = t.to(device)
@@ -365,13 +503,14 @@ class GridModel(nn.Module):
         xs = self._embed(tokens, positions, on)
         for s, (lo, hi) in enumerate(self.ranges):
             devices = grid.devices[s]
-            xs = [x.to(d) for x, d in zip(xs, devices)]
-            pos = [on(positions, d) for d in devices]
-            table = [on(page_indices, d) for d in devices]
+            if s > 0:
+                xs = grid.handoff(xs, s)
+            pos = [on(positions, s, t) for t in range(len(devices))]
+            table = [on(page_indices, s, t) for t in range(len(devices))]
             lora_kw = [{} for _ in devices]
             if lora is not None:
-                for t, d in enumerate(devices):
-                    lora_kw[t] = {'adapter_ids': on(adapter_ids, d),
+                for t in range(len(devices)):
+                    lora_kw[t] = {'adapter_ids': on(adapter_ids, s, t),
                                   'lora_scale': float(lora['scale'])}
             for i in range(lo, hi):
                 layers = [None] * len(devices)
@@ -384,7 +523,7 @@ class GridModel(nn.Module):
                             f'layer_{i}')
                 xs = self._block(i, xs, pos, layers, table, prefill,
                                  attend_len, lora_kw)
-        return getattr(self.edges[0], self._norm)(xs[0])
+        return xs
 
     def _embed(self, tokens, positions, on) -> List[torch.Tensor]:
         """The token rows (each shard's vocab slice, rows outside it
@@ -392,9 +531,9 @@ class GridModel(nn.Module):
         devices = self.grid.devices[0]
         dt = self.config.dtype
         parts = []
-        for t, (edge, d) in enumerate(zip(self.edges, devices)):
+        for t, edge in enumerate(self.edges):
             rows = getattr(edge, self._table)
-            tok = on(tokens, d)
+            tok = on(tokens, 0, t)
             if self.grid.tensor == 1:
                 parts.append(rows[tok].to(dt))
                 continue
@@ -404,9 +543,9 @@ class GridModel(nn.Module):
             parts.append((picked * hit[..., None]).to(dt))
         xs = self.grid.all_reduce(parts)
         if self.family is GPT:
-            seq = tokens.shape[1]
-            xs = [x + edge.position_embed(on(positions, d), seq)
-                  for x, edge, d in zip(xs, self.edges, devices)]
+            seq = parts[0].shape[1]
+            xs = [x + edge.position_embed(on(positions, 0, t), seq)
+                  for t, (x, edge) in enumerate(zip(xs, self.edges))]
         return xs
 
     def _block(self, i, xs, pos, layers, table, prefill, attend_len,
@@ -439,12 +578,13 @@ class GridModel(nn.Module):
         return [x + m for x, m in zip(xs, grid.all_reduce(parts))]
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """f32 logits [..., vocab] on `device`: each shard's head slice
-        of the vocabulary, gathered in shard order."""
-        devices = self.grid.devices[-1]
-        parts = [edge.logits(x.to(d)) for edge, d in zip(self.edges,
-                                                          devices)]
-        return self.grid.gather(parts, self.device)
+        """f32 logits [..., vocab] on `device`: `x` (on the last stage's
+        first device) handed to every shard of the last stage, each
+        shard's head slice of the vocabulary, gathered in shard order."""
+        with self.grid.lock:
+            xs = self.grid.broadcast(x, self.grid.stages - 1)
+            parts = [edge.logits(x) for edge, x in zip(self.edges, xs)]
+            return self.grid.gather(parts, self.device)
 
     # -- accounting -----------------------------------------------------------
     def stage_weight_bytes(self) -> List[int]:
@@ -546,6 +686,10 @@ class GridCache(LayerCache):
         return out
 
     def gather_pages(self, idx: torch.Tensor) -> List[torch.Tensor]:
+        with self.model.grid.lock:   # cross-card copies (Grid.lock)
+            return self._gather_pages(idx)
+
+    def _gather_pages(self, idx: torch.Tensor) -> List[torch.Tensor]:
         out = []
         home = idx.device
         for row in self.shards:
@@ -560,6 +704,11 @@ class GridCache(LayerCache):
 
     def scatter_pages(self, idx: torch.Tensor,
                       rows: List[torch.Tensor]) -> None:
+        with self.model.grid.lock:   # cross-card copies (Grid.lock)
+            self._scatter_pages(idx, rows)
+
+    def _scatter_pages(self, idx: torch.Tensor,
+                       rows: List[torch.Tensor]) -> None:
         k0 = 0
         for row in self.shards:
             n = sum(len(layer) for layer in row[0].layers)

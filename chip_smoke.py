@@ -210,7 +210,9 @@ failure exits non-zero before the result lines:
                  pool of random history) captured into a CUDA graph and
                  replayed on new inputs: logits bit-identical to the same
                  round run eagerly
-  decode_modes   serve_bf16's weights through serve_lm's flags, 8 slots,
+  decode_modes   serve_bf16's weights cut to their first DECODE_MODES_LAYERS
+                 (8) layers (the same tensors), through serve_lm's flags,
+                 8 slots,
                  the 8 prompts, 32 greedy tokens: (a) --no-pipeline-decode
                  with graphs off, (b) pipelined with graphs off, (c) the
                  default (pipelined, graphs), (d) --decode-chunk 4 on the
@@ -346,6 +348,36 @@ failure exits non-zero before the result lines:
                  prompts' greedy tokens equal, the collective launched on
                  both cards with no plain call, both grids' steady round
                  ms; on one card it prints that it did not run
+  serve_fleet    (the smoke's model freed first) `python -m
+                 skypilot_tpu_torch.recipes.serve_fleet` as a user runs
+                 it over serve_lm replicas of Llama-3-8B (full width and
+                 depth, seeded; --max-total-len 1024, 8 slots, a 4 GB
+                 pool each; --replicas 1 --max-replicas 2, prefix
+                 affinity, --state-dir): waves of 16 concurrent cold
+                 prompts scale it from 1 to 2; 3 groups of 3 prompts
+                 sharing a 512-token prefix and 2 cold ones, one at a
+                 time through the LB: each group on one replica, prefix
+                 hits >= 3 x 2 x 32 pages in /fleet/status; each again
+                 through the LB (warm) and straight to the replica that
+                 served it: the same tokens; every replica's /stats:
+                 device cuda, paged launches on the split and chunk
+                 routes, no scalar launch, no plain call, no unavailable
+                 reason; load falls and the autoscaler drains back to
+                 1 with every request of the drain answered, the victim
+                 journaled DRAINING before its /readyz said draining
+                 (SIGTERM) and SHUTDOWN after; SIGKILL the fleet,
+                 restart it on the state dir: the survivor adopted (same
+                 id, pid and instance UUID), answering its warm answers
+                 bit for bit; the LB's own cost: 200 GET /v1/models and
+                 40 one-token /generate pairs, through the LB and
+                 straight to the adopted replica, interleaved, each
+                 pair's answers equal; SIGTERM: rc 0 and none of the
+                 fleet's serve_lm processes (marked by an env var the
+                 fleet's replicas inherit; no other process is read or
+                 signalled) left. Prints each replica's spawn-to-ready
+                 seconds (the journal's), the adoption's, the LB's cost
+                 (median and quartiles of the pairs' differences) and
+                 the replicas' launches by route
   serve_gpt2     gpt2-124m (full width and depth, seeded) through
                  build_runtime with serve_lm's flags (--max-total-len 1024
                  --prefill-chunk 256, 8 slots, the config's 128-page
@@ -418,7 +450,7 @@ failure exits non-zero before the result lines:
                  the layout turns both off (checked), so this run takes
                  the plain path again and measures no zero1: the same
                  gates. The checkpoint round runs on train_full's config
-                 cut to CKPT_CUT (1 layer, a 32768-token vocab: ~5.8 GB
+                 cut to CKPT_CUT (1 layer, a 4096-token vocab: ~3 GB
                  of state; the 4-layer state's 23 GB took 119 s), one
                  sharded step into it; the restored state saved again is
                  the same file byte for byte. Step ms, tokens/s, MFU, peak
@@ -567,7 +599,8 @@ failure exits non-zero before the result lines:
 The paged kernel's split and chunk rows in the kernels line count their
 launches in the base-serving window (serve_bf16 + serve_int8, counted
 from zero, graph replays included; no scalar-route launch may occur
-there), its verify row those of decode_modes' (e) run, the GPT-2 rows
+there; `fleet_launches`: the serve_fleet replicas' own, from their
+/stats), its verify row those of decode_modes' (e) run, the GPT-2 rows
 (decode: split, chunk) those of serve_gpt2's window;
 the flash kernels' launch counts are those of the training phases
 (the `_tp2` rows, at one --tensor 2 shard's heads, train_tensor's steps,
@@ -603,6 +636,7 @@ import time
 import traceback
 import urllib.error
 import urllib.request
+import uuid
 
 import numpy as np
 import torch
@@ -668,8 +702,11 @@ FSDP_NORM_REPEATS = 4
 FSDP_NORM_SPREAD = 2.0
 FSDP_NORM_CONTROL = 1e-4
 # train_fsdp's checkpoint round runs on train_full's config cut to this
-# (the round checks the collective save and restore, not the width).
-CKPT_CUT = {'num_layers': 1, 'vocab_size': 32768}
+# (the round checks the collective save and restore, not the width): one
+# layer at Llama-3-8B's width and a 4096-token vocabulary, a ~3 GB state
+# (at 32768 tokens its 5.8 GB took ~45 s to save, restore and save
+# again).
+CKPT_CUT = {'num_layers': 1, 'vocab_size': 4096}
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
                     'chip_smoke')
 
@@ -2233,7 +2270,7 @@ def phase_train_fsdp(fk, card, full):
         del model, trainer, state
         torch.cuda.empty_cache()
         # The checkpoint round on a smaller state (CKPT_CUT: one layer, a
-        # 32768-token vocab; the 4-layer state's 23 GB round cost 119 s
+        # 4096-token vocab; the 4-layer state's 23 GB round cost 119 s
         # of the run's limit), one sharded step into it: the collective
         # save restores into the one-card trainer bit for bit, and saved
         # again from there is the same file byte for byte.
@@ -4449,6 +4486,22 @@ SAMPLED_MODES = (('single_graphs', (), True),
                  ('single_eager', (), False),
                  ('chunk_eager', ('--decode-chunk', '4'), False))
 SAMPLED_REQUEST = {'max_new_tokens': 32, 'temperature': 0.9, 'top_k': 50}
+# The modes run on the first 8 layers of the serving model: each mode's
+# contract (its tokens equal (a)'s, its launches layers x steps) holds at
+# any depth, and 11 engines at 32 layers took ~57 s of the smoke's clock
+# (at 8 layers ~22 s, at 4 ~20 s: the rest is the engines' fixed cost).
+DECODE_MODES_LAYERS = 8
+
+
+def layer_cut(model, layers, max_seq_len):
+    """The first `layers` layers of `model` (the same tensors, no copy)
+    under llama3-8b's config at `max_seq_len`."""
+    from skypilot_tpu_torch.models import convert, registry
+    cfg = dataclasses.replace(registry.model_config('llama3-8b', max_seq_len),
+                              num_layers=layers)
+    state = {k: v for k, v in model.state_dict().items()
+             if not k.startswith('layers.') or int(k.split('.')[1]) < layers}
+    return convert.assemble(cfg, state)
 LORA_MODELS = ['attn8', 'attn16', None, 'mlp16', None, 'attn8', 'mlp16',
                'attn16']
 
@@ -4465,12 +4518,11 @@ def phase_decode_modes(model, pk, lk, card):
     burst (a LoRA graph, at the first adapter round) with graphs on, and
     decode calls without. Returns the (e) run's verify-chunk launches
     (chunk route, S = 5)."""
-    from skypilot_tpu_torch.models import convert, registry
     root = os.path.join(WORK, 'adapters')     # serve_lora's adapters
-    layers = model.config.num_layers
+    layers = DECODE_MODES_LAYERS
+    model = layer_cut(model, layers, model.config.max_seq_len)
     # The same weight tensors under the 4096-token config.
-    long_model = convert.assemble(registry.model_config('llama3-8b', 4096),
-                                  model.state_dict())
+    long_model = layer_cut(model, layers, 4096)
     runs, tokens = {}, {}
     verify_launches = 0
     for label, kv, flags, graphs, lora in DECODE_MODES:
@@ -4519,7 +4571,8 @@ def phase_decode_modes(model, pk, lk, card):
                           'd_4096')}
     del long_model
     sampled = sampled_first_request(model, tokens['a_bf16'][0])
-    emit('decode_modes', card=card, runs=runs, token_identical=same,
+    emit('decode_modes', card=card, layers=layers, runs=runs,
+         token_identical=same,
          verify_launches=verify_launches, sampled=sampled)
     check(all(same.values()), f'decode modes disagree with the eager '
                               f'unpipelined baseline: {same}')
@@ -5749,6 +5802,487 @@ def phase_migration(model, pk, card):
          imported_pages=stats_b['handoff']['kv_imported_pages'],
          stream_wall_after_evacuate_s=time.perf_counter() - t_evac,
          **counts)
+
+
+# -- the serving fleet ----------------------------------------------------------
+# serve_fleet: the port's fleet (recipes/serve_fleet.py) as a user starts it,
+# over serve_lm replicas of Llama-3-8B at full width and depth (seeded
+# weights), each on this card with its own 4 GB pool. A burst scales it from
+# 1 to 2 replicas (queue depth over --target-queue-per-replica, or backlog
+# over the low --target-backlog-per-replica); prefix groups and cold prompts
+# are then held through the LB; load falls and the autoscaler drains back to
+# 1 after FLEET_DOWNSCALE_S; the fleet is SIGKILLed and restarted on the same
+# --state-dir and must adopt its replica.
+FLEET_REPLICA_FLAGS = ['--model', 'llama3-8b', '--max-total-len', '1024',
+                       '--num-slots', '8', '--prefill-chunk', '256',
+                       '--kv-pool-bytes', '4000000000']
+FLEET_SCRAPE_S = 0.5
+FLEET_DOWNSCALE_S = 22
+FLEET_PREFIX = 512           # a group's shared prefix: 32 pages of 16
+FLEET_GROUPS, FLEET_GROUP_SIZE, FLEET_COLD = 3, 3, 2
+FLEET_NEW = 16
+FLEET_BURST = 16             # concurrent requests a wave: 8 over the slots
+FLEET_VOCAB = 128256
+FLEET_BOOT_S = 300           # a replica's spawn to ready, at most
+# Interleaved pairs (through the LB, then directly, the order flipped every
+# pair) that time the LB's own cost a request: a GET the replica answers
+# from memory, and a one-token /generate of a 16-token prompt.
+FLEET_LB_PAIRS_GET, FLEET_LB_PAIRS_GEN = 200, 40
+
+
+def fleet_prompts(seed):
+    """(group or None, tokens): FLEET_GROUPS groups of FLEET_GROUP_SIZE
+    prompts sharing a FLEET_PREFIX-token prefix, then FLEET_COLD cold
+    prompts; 600-900 tokens each."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for g in range(FLEET_GROUPS):
+        prefix = rng.integers(1, FLEET_VOCAB, FLEET_PREFIX).tolist()
+        for _ in range(FLEET_GROUP_SIZE):
+            n = int(rng.integers(600, 901)) - FLEET_PREFIX
+            out.append((g, prefix + rng.integers(1, FLEET_VOCAB, n).tolist()))
+    for _ in range(FLEET_COLD):
+        out.append((None, rng.integers(1, FLEET_VOCAB,
+                                       int(rng.integers(600, 901))).tolist()))
+    return out
+
+
+def get_url(url, timeout=10):
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def timed_get(url, timeout=10):
+    """(seconds, JSON answer) of GET url."""
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return time.perf_counter() - t0, json.loads(resp.read())
+
+
+def post_url(url, body, timeout=600):
+    """(seconds, JSON answer) of POST url."""
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={'Content-Type': 'application/json'})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return time.perf_counter() - t0, json.loads(resp.read())
+
+
+def journal_events(state_dir):
+    """The fleet journal's events, in order (a torn last line skipped)."""
+    out = []
+    path = os.path.join(state_dir, 'fleet.journal')
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                try:
+                    out.append(json.loads(line))
+                except ValueError:
+                    pass
+    return out
+
+
+#: Set in the fleet's environment, which its replicas inherit: the mark
+#: of this run's own serve_lm processes. Nothing else on the host (another
+#: checkout's tests or smoke, a user's server) carries its value.
+FLEET_MARK_ENV = 'STPU_SMOKE_FLEET_MARK'
+
+
+def fleet_pids(mark):
+    """Live serve_lm processes whose environment carries `mark` (zombies
+    have no cmdline; another user's environ is unreadable, so not ours)."""
+    want = f'{FLEET_MARK_ENV}={mark}'.encode()
+    pids = []
+    for name in os.listdir('/proc'):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f'/proc/{name}/cmdline', 'rb') as f:
+                cmd = f.read().split(b'\0')
+            if b'skypilot_tpu_torch.recipes.serve_lm' not in cmd:
+                continue
+            with open(f'/proc/{name}/environ', 'rb') as f:
+                env = f.read().split(b'\0')
+        except OSError:
+            continue
+        if want in env:
+            pids.append(int(name))
+    return pids
+
+
+class Fleet:
+    """One `python -m skypilot_tpu_torch.recipes.serve_fleet` process, its
+    output in WORK/fleet/<name>.log."""
+
+    def __init__(self, name, lb_port, state_dir, mark):
+        from skypilot_tpu_torch.robustness.train_guard import METADATA_URL_ENV
+        root = os.path.join(WORK, 'fleet')
+        os.makedirs(root, exist_ok=True)
+        env = dict(os.environ)
+        env[FLEET_MARK_ENV] = mark
+        env[METADATA_URL_ENV] = LOCAL_METADATA
+        env.pop('STPU_FAULT_PLAN', None)
+        env['PYTHONPATH'] = ROOT + os.pathsep + env.get('PYTHONPATH', '')
+        env['CUDA_VISIBLE_DEVICES'] = os.environ.get(
+            'CUDA_VISIBLE_DEVICES', '0').split(',')[0]
+        self.url = f'http://127.0.0.1:{lb_port}'
+        self.log_path = os.path.join(root, f'{name}.log')
+        self.log = open(self.log_path, 'w')
+        self.t0 = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, '-m', 'skypilot_tpu_torch.recipes.serve_fleet',
+             *FLEET_REPLICA_FLAGS, '--replicas', '1', '--max-replicas', '2',
+             '--lb-policy', 'prefix_affinity', '--lb-port', str(lb_port),
+             '--state-dir', state_dir,
+             '--scrape-interval', str(FLEET_SCRAPE_S),
+             '--upscale-delay', '0',
+             '--downscale-delay', str(FLEET_DOWNSCALE_S),
+             '--target-backlog-per-replica', '1024', '--drain-grace', '120'],
+            cwd=ROOT, env=env, stdout=self.log, stderr=subprocess.STDOUT)
+
+    def status(self):
+        try:
+            return get_url(self.url + '/fleet/status')
+        except (OSError, ValueError):
+            return None
+
+    def wait(self, cond, what, timeout):
+        """The first /fleet/status for which cond(status) holds."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self.proc.poll() is not None:
+                raise AssertionError(
+                    f'serve_fleet exited rc {self.proc.returncode} waiting '
+                    f'for {what}: {self.tail()}')
+            st = self.status()
+            if st is not None and cond(st):
+                return st
+            time.sleep(0.1)
+        raise AssertionError(f'serve_fleet: no {what} in {timeout} s: '
+                             f'{self.tail()}')
+
+    def tail(self, n=20):
+        if not self.log.closed:
+            self.log.flush()
+        with open(self.log_path) as f:
+            return ''.join(f.readlines()[-n:])
+
+    def stop(self, sig=signal.SIGTERM, timeout=180):
+        if self.proc.poll() is None:
+            self.proc.send_signal(sig)
+            try:
+                self.proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        self.log.close()
+        return self.proc.returncode
+
+
+def ready_views(st):
+    return [r for r in st['replicas'] if r['state'] == 'READY' and r['ready']]
+
+
+def fleet_generate(url, tokens, routed=None):
+    """(seconds, tokens) of one greedy /generate through `url`, checked;
+    with `routed` (a status reader) also the endpoint the LB sent it to."""
+    before = routed() if routed else None
+    secs, out = post_url(url + '/generate', {'tokens': [tokens],
+                                             'max_new_tokens': FLEET_NEW})
+    row = out['tokens'][0]
+    check(len(row) == len(tokens) + FLEET_NEW and row[:len(tokens)] == tokens
+          and all(0 <= t < FLEET_VOCAB for t in row), 'a bad fleet answer')
+    if routed is None:
+        return secs, row
+    after = routed()
+    went = [e for e in after if after[e] != before.get(e, 0)]
+    check(len(went) == 1, f'one request, routed to {went}')
+    return secs, row, went[0]
+
+
+def phase_serve_fleet(card):
+    """The fleet as a user runs it: scale 1 -> 2 on a burst, prefix groups
+    on one replica each, answers through the LB equal to the serving
+    replica's, every replica on the card through the paged kernel, drain
+    back to 1 with every request answered, SIGKILL and adoption, SIGTERM
+    and none of its own serve_lm processes left."""
+    from skypilot_tpu_torch.serve.replica_plane import replica_manager as rm
+    from skypilot_tpu_torch.utils import net
+    mark = uuid.uuid4().hex       # this phase's replicas, and only they
+    state_dir = os.path.join(WORK, 'fleet', 'state')
+    shutil.rmtree(state_dir, ignore_errors=True)
+    lb_port = net.free_port()     # below the ephemeral range: the
+    fleets = []                   # restarted fleet binds it again
+    try:
+        fleet = Fleet('first', lb_port, state_dir, mark)
+        fleets.append(fleet)
+        fleet.wait(lambda st: len(ready_views(st)) == 1, 'first replica',
+                   FLEET_BOOT_S)
+        routed = lambda: fleet.status()['lb']['routed_per_replica']
+
+        # The burst: waves of FLEET_BURST concurrent cold prompts until the
+        # autoscaler's second replica is ready.
+        burst_ok, waves, wave_s = 0, 0, []
+        rng = np.random.default_rng(60)
+        scaled_at = None
+        t_burst = time.monotonic()
+        while True:
+            ps = [rng.integers(1, FLEET_VOCAB, int(rng.integers(600, 901)))
+                  .tolist() for _ in range(FLEET_BURST)]
+            t0 = time.perf_counter()
+            results = concurrently(
+                lambda i: fleet_generate(fleet.url, ps[i]), FLEET_BURST)
+            wave_s.append(time.perf_counter() - t0)
+            burst_ok += len(results)
+            waves += 1
+            st = fleet.status()
+            if scaled_at is None and len(st['replicas']) == 2:
+                scaled_at = waves
+            if len(ready_views(st)) == 2:
+                break
+            check(time.monotonic() - t_burst < FLEET_BOOT_S
+                  and (scaled_at is not None or waves < 20),
+                  f'no second replica after {waves} waves: {st}')
+        t_two = time.perf_counter()
+
+        # Prefix groups and cold prompts through the LB, one at a time:
+        # each group on one replica, the groups' pages hit.
+        ps = fleet_prompts(61)
+        hits0 = {r['endpoint']: r['prefix_hits'] for r in st['replicas']}
+        served, cold_answers = [], []
+        for _, p in ps:
+            _, row, went = fleet_generate(fleet.url, p, routed)
+            served.append(went)
+            cold_answers.append(row)
+        groups = {g: {s for (gi, _), s in zip(ps, served) if gi == g}
+                  for g in range(FLEET_GROUPS)}
+        check(all(len(s) == 1 for s in groups.values()),
+              f'a prefix group split over replicas: {groups}')
+        time.sleep(3 * FLEET_SCRAPE_S)
+        st = fleet.status()
+        hits = sum(r['prefix_hits'] - hits0.get(r['endpoint'], 0)
+                   for r in st['replicas'])
+        want_hits = FLEET_GROUPS * (FLEET_GROUP_SIZE - 1) * FLEET_PREFIX // 16
+        check(hits >= want_hits, f'prefix hits {hits} < {want_hits}')
+        # Warm through the LB, then the serving replica asked directly: the
+        # same bits (both find the prompt's full pages cached).
+        warm, lb_s, direct_s = [], [], []
+        for (_, p), s in zip(ps, served):
+            secs, row, went = fleet_generate(fleet.url, p, routed)
+            check(went == s, f'the warm pass went to {went}, not {s}')
+            d_secs, d_row = fleet_generate(f'http://{s}', p)
+            check(row == d_row, f'through the LB vs {s} directly: parts at '
+                                f'{first_part(row, d_row)}')
+            warm.append(row)
+            lb_s.append(secs)
+            direct_s.append(d_secs)
+        section_s = time.perf_counter() - t_two
+        st = fleet.status()
+        check(len(ready_views(st)) == 2,
+              f'the scale-down came before the answers were held '
+              f'({section_s:.1f} s after the second replica): {st}')
+        stats = {r['endpoint']: get_url(f'http://{r["endpoint"]}/stats')
+                 for r in st['replicas']}
+        for ep, s in stats.items():
+            pa = s['paged_attention']
+            check(s['device'].startswith('cuda') and pa['kernel_launches'] > 0
+                  and pa['plain_calls'] == 0 and pa['routes']['split'] > 0
+                  and pa['routes']['chunk'] > 0
+                  and pa['routes']['scalar'] == 0
+                  and s['storage']['attention_kernel_unavailable_reason']
+                  is None, f'replica {ep}: {s["device"]}, {pa}, '
+                  f'{s["storage"]}')
+
+        # Load falls: the autoscaler drains one replica after
+        # FLEET_DOWNSCALE_S. Requests keep coming, one at a time, short;
+        # every one is answered. The victim answers /readyz 503 (draining)
+        # while alive, after the fleet has journaled it DRAINING.
+        events = journal_events(state_dir)
+        pid_of = {e['replica_id']: e['pid'] for e in events
+                  if e['event'] == 'spawn'}
+        uuid_of = {e['replica_id']: e['instance_uuid'] for e in events
+                   if e['event'] == 'spawn'}
+        ids = {r['endpoint']: r['replica_id'] for r in st['replicas']}
+        stop = threading.Event()
+        drain_answers = []
+        drain_errors = []
+
+        def drain_traffic():
+            r = np.random.default_rng(62)
+            while not stop.is_set():
+                try:
+                    drain_answers.append(fleet_generate(
+                        fleet.url, r.integers(1, FLEET_VOCAB, 64).tolist()))
+                except Exception as e:  # pylint: disable=broad-except
+                    drain_errors.append(repr(e))
+
+        traffic = threading.Thread(target=drain_traffic, daemon=True)
+        traffic.start()
+        seen = {}
+        t_drain0 = time.monotonic()
+        victim = None
+        try:
+            while time.monotonic() - t_drain0 < FLEET_DOWNSCALE_S + 120:
+                st = fleet.status() or {'replicas': []}
+                now = time.time()
+                if victim is None and st['replicas']:
+                    # Out of the routing set: DRAINING, SHUTDOWN, or
+                    # already forgotten.
+                    out = [r['endpoint'] for r in st['replicas']
+                           if r['state'] in ('DRAINING', 'SHUTDOWN')]
+                    out += sorted(set(ids) - {r['endpoint']
+                                              for r in st['replicas']})
+                    if out:
+                        victim = out[0]
+                        seen['status_draining'] = now
+                if victim is not None:
+                    try:
+                        with urllib.request.urlopen(
+                                f'http://{victim}/readyz', timeout=2) as _:
+                            pass
+                    except urllib.error.HTTPError as e:
+                        body = json.loads(e.read() or b'{}')
+                        if e.code == 503 and 'draining' in body.get(
+                                'reasons', []):
+                            seen.setdefault('readyz_draining', now)
+                    except OSError:
+                        pass
+                    if not rm.pid_alive(pid_of[ids[victim]]):
+                        seen['exited'] = now
+                        break
+                time.sleep(0.05)
+        finally:
+            stop.set()
+            traffic.join(timeout=600)
+        check(victim is not None and 'exited' in seen,
+              f'no drain to 1 replica: {seen}, {fleet.status()}')
+        check(not drain_errors and drain_answers,
+              f'{len(drain_errors)} requests failed during the drain '
+              f'({len(drain_answers)} answered): {drain_errors[:3]}')
+        st = fleet.wait(lambda s: len(s['replicas']) == 1
+                        and len(ready_views(s)) == 1, 'one replica', 60)
+        # The fleet took the victim out of routing (journaled DRAINING)
+        # before it was signalled (its /readyz says draining from SIGTERM
+        # on), and journaled its exit after.
+        vid = ids[victim]
+        states = [(e['state'], e['ts']) for e in journal_events(state_dir)
+                  if e['event'] == 'state' and e['replica_id'] == vid]
+        names = [s for s, _ in states]
+        check('DRAINING' in names and 'SHUTDOWN' in names
+              and names.index('DRAINING') < names.index('SHUTDOWN')
+              and 'readyz_draining' in seen
+              and dict(states)['DRAINING'] <= seen['readyz_draining'],
+              f'replica {vid}: journal {states}, seen {seen}')
+        survivor = st['replicas'][0]
+        sid = survivor['replica_id']
+        survivor_stats = get_url(f'http://{survivor["endpoint"]}/stats')
+        # A probe the survivor has answered warm, whatever routed where.
+        probe = fleet_prompts(63)[0][1]
+        fleet_generate(f'http://{survivor["endpoint"]}', probe)
+        _, probe_row = fleet_generate(f'http://{survivor["endpoint"]}',
+                                      probe)
+
+        # Crash-only restart: SIGKILL the fleet, start it again on the same
+        # state dir. The survivor must be adopted (same pid, same instance
+        # UUID), not respawned, and answer as before.
+        fleet.stop(signal.SIGKILL)
+        check(rm.pid_alive(pid_of[sid]), 'the survivor died with the fleet')
+        fleet = Fleet('restart', lb_port, state_dir, mark)
+        fleets.append(fleet)
+        st = fleet.wait(lambda s: len(ready_views(s)) == 1,
+                        'the adopted replica', 120)
+        adoption_s = time.time() - fleet.t0
+        again = st['replicas'][0]
+        again_stats = get_url(f'http://{again["endpoint"]}/stats')
+        check(len(st['replicas']) == 1 and again['adopted']
+              and again['replica_id'] == sid
+              and again_stats['pid'] == pid_of[sid] == survivor_stats['pid']
+              and again_stats['instance_uuid'] == uuid_of[sid]
+              == survivor_stats['instance_uuid'],
+              f'not adopted: {st}, pid {again_stats["pid"]} vs '
+              f'{pid_of[sid]}')
+        _, got = fleet_generate(fleet.url, probe)
+        check(got == probe_row, f'the adopted replica parts from its probe '
+                                f'answer at {first_part(got, probe_row)}')
+        adopted_answers = 1
+        for (_, p), s, row in zip(ps, served, warm):
+            if s != survivor['endpoint']:
+                continue
+            _, got = fleet_generate(fleet.url, p)
+            check(got == row, f'the adopted replica parts from its answer '
+                              f'at {first_part(got, row)}')
+            adopted_answers += 1
+        # The LB's own cost a request: the adopted replica alone behind
+        # it, the same request through the LB and directly, interleaved so
+        # that drift falls on both sides; each pair's answers equal.
+        direct = f'http://{again["endpoint"]}'
+        short = probe[:16]
+        lb_cost = {}
+        for what, pairs, call in (
+                ('get_v1_models', FLEET_LB_PAIRS_GET,
+                 lambda u: timed_get(u + '/v1/models')),
+                ('generate_1_token', FLEET_LB_PAIRS_GEN,
+                 lambda u: post_url(u + '/generate', {
+                     'tokens': [short], 'max_new_tokens': 1}))):
+            diffs = []
+            for i in range(pairs):
+                order = (fleet.url, direct) if i % 2 else (direct, fleet.url)
+                got = {u: call(u) for u in order}
+                check(got[fleet.url][1] == got[direct][1],
+                      f'{what}: the LB answered {got[fleet.url][1]}, the '
+                      f'replica {got[direct][1]}')
+                diffs.append(got[fleet.url][0] - got[direct][0])
+            q25, q50, q75 = 1e3 * np.percentile(diffs, [25, 50, 75])
+            lb_cost[what] = {'pairs': pairs, 'median_ms': float(q50),
+                             'p25_ms': float(q25), 'p75_ms': float(q75)}
+        rc = fleet.stop()
+        if rc != 0:
+            raise AssertionError(f'serve_fleet exited {rc} on SIGTERM: '
+                                 f'{fleet.tail()}')
+        deadline = time.monotonic() + 60
+        while fleet_pids(mark) and time.monotonic() < deadline:
+            time.sleep(0.2)
+        left = fleet_pids(mark)
+        check(not left, f'serve_lm outlived the fleet: {left}')
+    finally:
+        for f in fleets:
+            if f.proc.poll() is None:
+                f.proc.kill()
+                f.proc.wait(timeout=30)
+        for pid in fleet_pids(mark):     # never a process of another run
+            os.kill(pid, signal.SIGKILL)
+    ready_s = {}
+    for e in journal_events(state_dir):
+        if e['event'] == 'spawn' and e['replica_id'] not in ready_s:
+            ready_s[e['replica_id']] = [e['ts'], None]
+        elif (e['event'] == 'state' and e['state'] == 'READY'
+              and ready_s.get(e['replica_id'], [0, 1])[1] is None):
+            ready_s[e['replica_id']][1] = e['ts']
+    spawn_to_ready = {rid: b - a for rid, (a, b) in ready_s.items()
+                      if b is not None}
+    launches = {ep: s['paged_attention'] for ep, s in stats.items()}
+    emit('serve_fleet', card=card, model=FLEET_REPLICA_FLAGS[1],
+         replica_flags=FLEET_REPLICA_FLAGS, replicas='1..2',
+         spawn_to_ready_s=spawn_to_ready, adoption_s=adoption_s,
+         burst_waves=waves, burst_requests=burst_ok,
+         scaled_at_wave=scaled_at, wave_s=wave_s,
+         groups=FLEET_GROUPS, group_size=FLEET_GROUP_SIZE,
+         prefix_tokens=FLEET_PREFIX, prefix_hits=hits,
+         prefix_hits_wanted=want_hits, section_s=section_s,
+         lb_warm_s=lb_s, direct_warm_s=direct_s,
+         lb_overhead_ms=lb_cost,
+         answers_equal_direct=True,
+         cold_vs_warm_first_part=[first_part(a, b) for a, b in
+                                  zip(cold_answers, warm)],
+         drain_requests=len(drain_answers),
+         drain_seen={k: v - seen['status_draining'] for k, v in seen.items()},
+         victim=vid, survivor=sid, adopted_answers=adopted_answers,
+         replica_kernels=launches)
+    routes = {'split': 0, 'chunk': 0}
+    for pa in launches.values():
+        for r in routes:
+            routes[r] += pa['routes'][r]
+    return routes
 
 
 # -- GPT-2 and Mixtral ----------------------------------------------------------
@@ -7012,6 +7546,10 @@ def main() -> int:
     phase_serve_tp_2card(model, gcol, card)
     del model
     torch.cuda.empty_cache()
+    # The serving fleet: serve_fleet over serve_lm replicas, each a process
+    # of its own on this card (the smoke's model freed first); their
+    # counts come from each replica's /stats, every process new.
+    fleet_routes = phase_serve_fleet(card)
     # GPT-2 and Mixtral through serve_lm, each counted from zero.
     zero_paged(pk)
     pk.launches = pk.plain_calls = 0
@@ -7058,6 +7596,9 @@ def main() -> int:
             row['launch_window'] = ('serve_tp --tensor 2 bursts (one '
                                     'shard\'s heads)')
             row['plain_calls'] = tp_plain
+        elif row['name'] in ('paged_attention', 'paged_attention_chunk'):
+            # The same kernel at the same heads in the fleet's replicas.
+            row['fleet_launches'] = fleet_routes[row['kernel_route']]
 
     for row in gpt2_rows:
         row['launches'] = gpt2_routes[row['kernel_route']]

@@ -1,8 +1,9 @@
 """Error types of the port: its own copies of the ones that
 `skypilot_tpu/robustness/errors.py` defines for the continuous-batching
 engine, the adapter registry and live KV-chain migration (the HTTP
-layer maps each to a status) and for checkpoint restore
-(parallel/checkpoints.py)."""
+layer maps each to a status), for checkpoint restore
+(parallel/checkpoints.py) and, from `skypilot_tpu/exceptions.py`, the
+service-spec refusal of the serving fleet."""
 
 
 class DeadlineExceededError(Exception):
@@ -67,3 +68,9 @@ class CheckpointCorruptionError(Exception):
     write, truncated upload, bit rot). Raised per step during restore;
     the manager falls back to the newest step that does verify, and
     raises this only when every candidate is corrupt."""
+
+
+class InvalidTaskYAMLError(Exception):
+    """A service spec the serving fleet refuses (the reference's
+    `skypilot_tpu.exceptions.InvalidTaskYAMLError`, raised by
+    `serve/service_spec.py` with the same messages)."""

@@ -1,6 +1,6 @@
 """Routing-affinity keys and the decode-peer ring (ports of
-skypilot_tpu/inference/affinity.py:39-82 and of the consistent-hash
-ring of skypilot_tpu/serve/load_balancing_policies.py:137-270).
+skypilot_tpu/inference/affinity.py and of the consistent-hash ring of
+skypilot_tpu/serve/load_balancing_policies.py:137-270).
 
 The prefix cache keys KV pages by a chain hash: key_i = sha256 of ALL
 prompt tokens through full page i, optionally salted with the adapter
@@ -10,19 +10,27 @@ land on the replica that holds its pages. A prefill replica picks its
 handoff peer, and an evacuating replica its migration peer, through
 the same ring over the same endpoint strings, so a session's follow-ups
 (routed by the load balancer) find the replica that imported its pages.
-Only the ring is ported here; the rest of the balancing policy stays in
-the replica plane.
+The ring here serves the replicas; the load balancer's own policy
+(serve/load_balancing_policies.py) keeps its ring, with the same
+positions. Text endpoints have no token ids at the load balancer, so
+their key hashes the prompt's leading characters.
 """
 from __future__ import annotations
 
 import bisect
 import hashlib
-from typing import Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 
 #: The engine's default KV page size (models/batching.py).
 DEFAULT_PAGE_SIZE = 16
+
+#: Leading characters hashed for text-prompt affinity. Long enough to
+#: span a realistic system prompt's distinctive part, short enough
+#: that per-user suffixes (appended after the template) don't split
+#: the group.
+TEXT_PREFIX_CHARS = 256
 
 
 def adapter_salt(model: Optional[str]) -> bytes:
@@ -59,6 +67,60 @@ def token_affinity_key(tokens: List[int],
     if not keys:
         return None
     return keys[0].hex()
+
+
+def text_affinity_key(text: str, salt: bytes = b'') -> Optional[str]:
+    if not text:
+        return None
+    return hashlib.sha256(
+        salt + text[:TEXT_PREFIX_CHARS].encode('utf-8',
+                                               'replace')).hexdigest()
+
+
+def request_affinity_key(path: str, body: Dict[str, Any],
+                         page_size: int = DEFAULT_PAGE_SIZE
+                         ) -> Optional[str]:
+    """Extract the routing key from a generation request body, by
+    endpoint shape. The body's `model` field (adapter selection)
+    salts the key, so a tenant's requests pin to the replica holding
+    both its KV pages AND its hot-loaded adapter — and never share an
+    affinity group with another tenant's identical prompt. Returns
+    None for anything unrecognized — the LB then routes by load,
+    never errors."""
+    try:
+        salt = adapter_salt(body.get('model'))
+        if path in ('/generate', '/v1/generate'):
+            tokens = body.get('tokens') or []
+            if tokens and isinstance(tokens[0], list):
+                tokens = tokens[0]
+            return token_affinity_key([int(t) for t in tokens],
+                                      page_size, salt=salt)
+        if path in ('/generate_text', '/v1/generate_text'):
+            prompts = body.get('prompts', '')
+            if isinstance(prompts, list):
+                prompts = prompts[0] if prompts else ''
+            return text_affinity_key(str(prompts), salt=salt)
+        if path == '/v1/completions':
+            prompt = body.get('prompt', '')
+            if isinstance(prompt, list):
+                prompt = prompt[0] if prompt else ''
+            return text_affinity_key(str(prompt), salt=salt)
+        if path == '/v1/chat/completions':
+            messages = body.get('messages') or []
+            # The system message IS the shared prefix; chats without
+            # one key on their first message (session affinity).
+            for message in messages:
+                if message.get('role') == 'system':
+                    return text_affinity_key(
+                        str(message.get('content', '')), salt=salt)
+            if messages:
+                return text_affinity_key(
+                    str(messages[0].get('content', '')), salt=salt)
+    except (TypeError, ValueError, KeyError, IndexError):
+        # Malformed bodies are the replica's 400 to give, not the
+        # LB's 500: route keyless.
+        return None
+    return None
 
 
 def _hash64(data: str) -> int:

@@ -446,7 +446,8 @@ def make_server(rt: InferenceRuntime, port: int) -> ThreadingHTTPServer:
                 'zone': rt.zone,
                 'paged_attention': {
                     'kernel_launches': paged_kernel.launches,
-                    'plain_calls': paged_kernel.plain_calls},
+                    'plain_calls': paged_kernel.plain_calls,
+                    'routes': dict(paged_kernel.route_launches)},
                 'qkv_lora': {'kernel_launches': lora_kernel.launches,
                              'plain_calls': lora_kernel.plain_calls},
             }

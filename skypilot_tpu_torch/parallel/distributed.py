@@ -30,10 +30,11 @@ import dataclasses
 import datetime
 import multiprocessing
 import os
-import socket
 import sys
 import time
 from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+from skypilot_tpu_torch.utils import net
 
 NUM_PROCESSES_ENV = 'JAX_NUM_PROCESSES'
 PROCESS_ID_ENV = 'JAX_PROCESS_ID'
@@ -82,19 +83,13 @@ def gang() -> Tuple[int, int, Optional[str]]:
             os.environ[COORDINATOR_ENV])
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(('127.0.0.1', 0))
-        return s.getsockname()[1]
-
-
 def jobs(cpu: bool, workers: int,
          timeout_s: Optional[float] = None) -> List[Job]:
     """The jobs of this host's `workers` workers under the gang env
     (`timeout_s` default: TIMEOUT_S)."""
     num, pid, coord = gang()
     if coord is None:
-        coord = f'127.0.0.1:{free_port()}'
+        coord = f'127.0.0.1:{net.free_port()}'
     return [Job(rank=pid * workers + i, world=num * workers, local_rank=i,
                 process_id=pid, num_processes=num, coordinator=coord,
                 backend='gloo' if cpu else 'nccl',

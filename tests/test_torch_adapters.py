@@ -53,6 +53,7 @@ from skypilot_tpu_torch.models import lora as pt_lora
 from skypilot_tpu_torch.models import registry
 from skypilot_tpu_torch.ops import lora_kernel as lk
 from skypilot_tpu_torch.recipes import serve_lm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SPEC = jax_lora.LoraSpec(rank=4, alpha=8.0)
 ENGINE_KW = dict(num_slots=3, max_total_len=64, prefill_chunk=16)

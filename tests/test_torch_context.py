@@ -30,6 +30,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
@@ -59,15 +60,6 @@ def reference():
     """llama-tiny on MeshConfig.auto(4, seq=2) over four devices: the
     reference's ring attention under its GSPMD step."""
     return reference_run('llama-tiny', jax_mesh.MeshConfig.auto(4, seq=2), 4)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    import torch
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_llama_seq2_matches_the_reference(world4, reference):
@@ -141,9 +133,7 @@ ARGV = ['--cpu', '--model', 'llama-tiny', '--steps', '2', '--seq', '32',
         '--global-batch', '2', '--log-every', '1']
 
 
-def test_train_lm_seq_parallel_runs_as_two_workers(tmp_path, capfd,
-                                                   monkeypatch):
-    monkeypatch.setenv('OMP_NUM_THREADS', '1')     # the spawned workers'
+def test_train_lm_seq_parallel_runs_as_two_workers(tmp_path, capfd):
     train_lm.main([*ARGV, '--metrics-file', str(tmp_path / 'one.jsonl')])
     train_lm.main([*ARGV, '--seq-parallel', '2', '--metrics-file',
                    str(tmp_path / 'two.jsonl')], workers=2)

@@ -42,6 +42,7 @@ from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import decode_graph
 from skypilot_tpu_torch.models import llama as pt_llama
 from skypilot_tpu_torch.ops import paged_kernel as pk
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ENGINE_KW = dict(num_slots=2, max_total_len=64, prefill_chunk=16)
 MAX_NEW = (6, 14, 10)

@@ -64,6 +64,7 @@ from skypilot_tpu_torch.ops import attention as pt_attention
 from skypilot_tpu_torch.ops import flash_kernel
 from skypilot_tpu_torch.parallel import train as pt_train
 from skypilot_tpu_torch.recipes import serve_lm, train_lm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 LR = 1e-2

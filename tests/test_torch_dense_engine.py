@@ -53,6 +53,7 @@ from skypilot_tpu_torch.models import batching as pt_batching
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.ops import lora_kernel as lk
 from skypilot_tpu_torch.recipes import serve_lm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MAX_TOTAL = 48
 MAX_NEW = (6, 12, 9)

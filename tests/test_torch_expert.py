@@ -43,6 +43,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
@@ -84,14 +85,6 @@ def runs(world2, world4):
     for key in ('fsdp_expert', 'expert_seq', 'skewed', 'guard'):
         out[key] = [r[key] for r in world4]
     return out
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize('key', sorted(MESHES))
@@ -241,8 +234,7 @@ def metrics_losses(path):
             for line in Path(path).read_text().splitlines()]
 
 
-def test_train_lm_expert_runs_as_two_workers(tmp_path, capfd, monkeypatch):
-    monkeypatch.setenv('OMP_NUM_THREADS', '1')     # the spawned workers'
+def test_train_lm_expert_runs_as_two_workers(tmp_path, capfd):
     argv = ['--cpu', '--model', 'mixtral-tiny', '--steps', '2', '--seq',
             '32', '--global-batch', '2', '--log-every', '1']
     train_lm.main([*argv, '--metrics-file', str(tmp_path / 'one.jsonl')])

@@ -35,6 +35,7 @@ from skypilot_tpu_torch.models import batching as pt_batching
 from skypilot_tpu_torch.robustness import faults
 
 from test_torch_decode_modes import _models
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 ENGINE_KW = dict(num_slots=2, max_total_len=64, prefill_chunk=16)

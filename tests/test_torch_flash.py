@@ -25,6 +25,7 @@ from jax.experimental.pallas import tpu as pltpu
 from skypilot_tpu.ops import attention as jax_attention
 from skypilot_tpu_torch.ops import attention as pt_attention
 from skypilot_tpu_torch.ops import flash_kernel as fk
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4

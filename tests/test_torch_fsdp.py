@@ -51,6 +51,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 

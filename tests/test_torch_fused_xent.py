@@ -18,6 +18,7 @@ import torch
 
 from skypilot_tpu.ops import fused_xent as jax_xent
 from skypilot_tpu_torch.ops import fused_xent as pt_xent
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 

@@ -32,6 +32,8 @@ import pytest
 
 from skypilot_tpu_torch.parallel import distributed
 from skypilot_tpu_torch.recipes import train_lm
+from skypilot_tpu_torch.utils import net
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 ARGV = ['--cpu', '--model', 'llama-tiny', '--steps', '2', '--seq', '64',
@@ -93,7 +95,7 @@ def one_process(tmp_path_factory):
 
 def test_two_gang_processes_train_one_model(tmp_path, one_process):
     ckpt, metrics = tmp_path / 'D', tmp_path / 'm.jsonl'
-    port = distributed.free_port()
+    port = net.free_port()
     argv = [*ARGV, '--ckpt-dir', str(ckpt), '--ckpt-every', '1',
             '--metrics-file', str(metrics)]
     (rc0, out0, err0), (rc1, out1, err1) = finish(
@@ -111,7 +113,7 @@ def test_two_gang_processes_train_one_model(tmp_path, one_process):
 
 
 def test_a_missing_peer_ends_the_run_naming_the_coordinator():
-    port = distributed.free_port()
+    port = net.free_port()
     t0 = time.monotonic()
     (rc, out, err), = finish([start(0, port, ARGV, timeout_s=5)],
                              timeout=120)
@@ -143,7 +145,7 @@ def test_launcher_runs_two_local_workers(tmp_path, one_process, capfd,
 
 def test_a_notice_on_one_rank_stops_both_at_one_step(tmp_path):
     ckpt = tmp_path / 'D'
-    port = distributed.free_port()
+    port = net.free_port()
     argv = ['--cpu', '--model', 'llama-tiny', '--steps', '100000', '--seq',
             '32', '--global-batch', '2', '--log-every', '1', '--guard',
             '--guard-warmup', '1', '--ckpt-dir', str(ckpt), '--ckpt-every',
@@ -186,7 +188,7 @@ def test_data_rows_are_the_reference_devices_rows(tmp_path):
         rng.integers(0, 512, 4000).astype(np.uint16).tofile(
             data / f'shard{i}.bin')
     metrics = tmp_path / 'm.jsonl'
-    port = distributed.free_port()
+    port = net.free_port()
     argv = ['--cpu', '--model', 'llama-tiny', '--steps', '2', '--seq', '32',
             '--global-batch', '4', '--log-every', '1', '--data', str(data),
             '--metrics-file', str(metrics)]

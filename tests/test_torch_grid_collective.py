@@ -36,6 +36,7 @@ from skypilot_tpu_torch.parallel import serving
 
 from test_torch_tp_serving import (ENGINE_KW, PROMPTS, grid_model,  # noqa
                                    llama, run)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def parent_all_reduce(parts, op='sum'):

@@ -41,6 +41,7 @@ from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import hf_import
 from skypilot_tpu_torch.models import llama as pt_llama
 from skypilot_tpu_torch.recipes import serve_lm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 SMALL = dict(vocab_size=128, hidden_size=64, intermediate_size=160,

@@ -22,6 +22,7 @@ from skypilot_tpu.recipes.train_lm import _build_model
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import llama as pt_llama
 from skypilot_tpu_torch.models import registry
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def port_config(jax_cfg, **kw) -> pt_llama.LlamaConfig:

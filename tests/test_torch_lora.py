@@ -39,6 +39,7 @@ from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import llama as pt_llama
 from skypilot_tpu_torch.models import lora as pt_lora
 from skypilot_tpu_torch.ops import lora_kernel as lk
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SPEC = pt_lora.LoraSpec(rank=4, alpha=8.0, targets=pt_lora.ALL_TARGETS)
 JAX_SPEC = jax_lora.LoraSpec(rank=4, alpha=8.0, targets=jax_lora.ALL_TARGETS)

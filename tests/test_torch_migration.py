@@ -42,6 +42,7 @@ from skypilot_tpu_torch.models import batching as pt_batching
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import llama as pt_llama
 from skypilot_tpu_torch.robustness import faults
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SYS_PROMPT = list(range(2, 34))    # 32 tokens = 4 full 8-token pages
 PROMPT = SYS_PROMPT + [40]

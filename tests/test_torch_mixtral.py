@@ -59,6 +59,7 @@ from skypilot_tpu_torch.models import mixtral as pt_mixtral
 from skypilot_tpu_torch.models.llama import DenseKVCache, PagedKVCache
 from skypilot_tpu_torch.parallel import train as pt_train
 from skypilot_tpu_torch.recipes import serve_lm, train_lm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 AUX_TOL = 1e-6

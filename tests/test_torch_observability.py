@@ -60,6 +60,7 @@ from skypilot_tpu_torch.parallel import checkpoints
 from skypilot_tpu_torch.robustness import faults, train_guard
 
 from test_torch_adapters import PROMPT, _models, adapter_dir  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ENGINE_KW = dict(num_slots=3, max_total_len=64, prefill_chunk=16)
 

@@ -44,6 +44,7 @@ from skypilot_tpu_torch.models import generate as pt_generate
 from skypilot_tpu_torch.models import llama as pt_llama
 from skypilot_tpu_torch.models import registry
 from skypilot_tpu_torch.recipes import serve_lm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOTAL = 48
 VOCAB = 512

@@ -49,6 +49,7 @@ from skypilot_tpu_torch.inference.adapters import AdapterRegistry
 from skypilot_tpu_torch.models import batching as pt_batching
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import llama as pt_llama
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 VOCAB = 512
 ENGINE_KW = dict(num_slots=3, max_total_len=96, prefill_chunk=16)

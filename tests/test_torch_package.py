@@ -39,6 +39,7 @@ from skypilot_tpu_torch.inference import quant
 from skypilot_tpu_torch.models import registry
 from skypilot_tpu_torch.ops import paged_kernel as pk
 from skypilot_tpu_torch.recipes import serve_lm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ('jax', 'flax', 'optax', 'orbax', 'ml_dtypes', 'requests',

@@ -31,6 +31,7 @@ from skypilot_tpu.ops import paged_attention as jax_pa
 from skypilot_tpu.ops import pallas_paged as jax_pp
 from skypilot_tpu_torch.ops import paged_attention as pa
 from skypilot_tpu_torch.ops import paged_kernel as pk
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PAGE, PSEQ, TOTAL, D = 8, 4, 32, 16
 ATOL = 1e-5

@@ -50,6 +50,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
@@ -76,14 +77,6 @@ CASES = (
     ('mixtral', 'mixtral-tiny', {}, 'gpipe', 1, 2),
     ('deepseek', 'deepseek-tiny', {}, 'interleaved', 2, 2),
 )
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def build(name, **fields):

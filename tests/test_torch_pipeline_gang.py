@@ -37,6 +37,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
@@ -46,6 +47,7 @@ from test_torch_pipeline import (GRAD_FLOOR, LR, PARAM_TOL, TOL,  # noqa: E402
 
 from skypilot_tpu_torch.parallel import checkpoints as pt_ckpt  # noqa: E402
 from skypilot_tpu_torch.parallel import distributed  # noqa: E402
+from skypilot_tpu_torch.utils import net  # noqa: E402
 from skypilot_tpu_torch.parallel import pipeline as pt_pipe  # noqa: E402
 from skypilot_tpu_torch.parallel import train as pt_train  # noqa: E402
 from skypilot_tpu_torch.recipes import train_lm  # noqa: E402
@@ -53,14 +55,6 @@ from skypilot_tpu_torch.recipes import train_lm  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 MODEL, FIELDS, STYLE, M = 'tiny', {'vocab_size': 501}, '1f1b', 4
 JOB_DEADLINE_S = 300
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def run_job(world, data, out):
@@ -176,7 +170,7 @@ def gang_env(rank, port, **extra):
 
 def gang_run(argv, **env):
     """train_lm as two gang processes; [(rc, stdout, stderr)] by rank."""
-    port = distributed.free_port()
+    port = net.free_port()
     procs = [subprocess.Popen(
         [sys.executable, '-m', 'skypilot_tpu_torch.recipes.train_lm',
          *argv], cwd=ROOT, env=gang_env(rank, port, **env),
@@ -323,8 +317,7 @@ def test_pipeline_flags_parse():
 # workers.
 @pytest.mark.parametrize('model,flag,batch,seq', [
     ('tiny', '--tensor', 32, 64), ('mixtral-tiny', '--expert', 8, 32)])
-def test_within_stage_runs(model, flag, batch, seq, capfd, monkeypatch):
-    monkeypatch.setenv('OMP_NUM_THREADS', '1')     # the spawned workers'
+def test_within_stage_runs(model, flag, batch, seq, capfd):
     train_lm.main(['--cpu', '--model', model, '--pipeline-stages', '2',
                    flag, '2', '--seq', str(seq), '--global-batch',
                    str(batch), '--log-every', '2', '--steps', '2'],
@@ -362,7 +355,7 @@ def test_devices_not_divisible_by_stages(capsys):
      '--pipeline-schedule: interleaved cycles microbatch groups'),
 ])
 def test_refusals_on_a_job(argv, message):
-    port = distributed.free_port()
+    port = net.free_port()
     procs = [subprocess.Popen(
         [sys.executable, '-m', 'skypilot_tpu_torch.recipes.train_lm',
          '--cpu', '--pipeline-stages', '2', '--steps', '1', '--seq', '16',

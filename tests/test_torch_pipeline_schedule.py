@@ -23,6 +23,7 @@ import torch
 
 from skypilot_tpu.parallel import pipeline_schedule as ref
 from skypilot_tpu_torch.parallel import pipeline_schedule as port
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GRID = [(S, M, style, v) for S, M, style, v in itertools.product(
     (2, 3, 4), (1, 2, 4, 8), ref.STYLES, (1, 2, 3))

@@ -45,6 +45,7 @@ from skypilot_tpu_torch.models.llama import LlamaConfig
 from skypilot_tpu_torch.parallel import serving
 from skypilot_tpu_torch.parallel.mesh import MeshConfig
 from skypilot_tpu_torch.recipes import serve_lm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PROMPTS = ([5, 9, 2, 17], [30, 31, 32], [5, 9, 2, 17, 40])
 ENGINE_KW = dict(num_slots=4, max_total_len=48)

@@ -68,6 +68,7 @@ from skypilot_tpu_torch.models import lora as lora_lib
 from skypilot_tpu_torch.observability import catalog as obs_catalog
 from skypilot_tpu_torch.ops import int8_linear as il
 from skypilot_tpu_torch.recipes import serve_lm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 #: The reference's documented tolerance: mean per-token log-prob of a

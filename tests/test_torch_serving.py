@@ -40,6 +40,7 @@ from skypilot_tpu_torch.models import batching as pt_batching
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import llama as pt_llama
 from skypilot_tpu_torch.observability import catalog as obs_catalog
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ENGINE_KW = dict(num_slots=2, max_total_len=96, prefill_chunk=16)
 MAX_NEW = (4, 12, 8)    # the first request finishes first

@@ -42,6 +42,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
@@ -103,14 +104,6 @@ def references():
 def specs_for(world):
     return [(key, name, fields, kw) for key, (name, fields, w, kw)
             in RUNS.items() if w == world]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')
@@ -301,8 +294,7 @@ def metrics_losses(path):
             for line in Path(path).read_text().splitlines()]
 
 
-def test_train_lm_tensor_runs_as_two_workers(tmp_path, capfd, monkeypatch):
-    monkeypatch.setenv('OMP_NUM_THREADS', '1')     # the spawned workers'
+def test_train_lm_tensor_runs_as_two_workers(tmp_path, capfd):
     argv = ['--cpu', '--model', 'llama-tiny', '--steps', '2', '--seq',
             '32', '--global-batch', '2', '--log-every', '1']
     train_lm.main([*argv, '--metrics-file', str(tmp_path / 'one.jsonl')])

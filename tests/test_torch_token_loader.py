@@ -22,6 +22,7 @@ import pytest
 
 from skypilot_tpu.data.token_loader import TokenLoader as JaxTokenLoader
 from skypilot_tpu_torch.data import token_loader
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

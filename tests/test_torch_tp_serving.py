@@ -60,6 +60,7 @@ from skypilot_tpu_torch.models.llama import LlamaConfig
 from skypilot_tpu_torch.parallel import serving
 from skypilot_tpu_torch.parallel.mesh import MeshConfig
 from skypilot_tpu_torch.recipes import serve_lm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PROMPTS = ([5, 9, 2, 17], [30, 31, 32], [5, 9, 2, 17, 40])
 SPEC_PROMPTS = ([5, 9, 2, 5, 9, 2, 5, 9], [30, 31, 30, 31, 30])

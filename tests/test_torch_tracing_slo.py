@@ -45,6 +45,7 @@ from skypilot_tpu_torch.observability import slo
 from skypilot_tpu_torch.observability import tracing
 
 from test_torch_kv_transfer import PROMPT, build
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(autouse=True)

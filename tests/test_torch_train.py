@@ -71,6 +71,7 @@ from skypilot_tpu_torch.parallel import checkpoints as pt_ckpt
 from skypilot_tpu_torch.parallel import ckpt_integrity
 from skypilot_tpu_torch.parallel import train as pt_train
 from skypilot_tpu_torch.recipes import train_lm
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-5

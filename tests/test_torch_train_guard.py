@@ -71,6 +71,7 @@ from skypilot_tpu_torch.parallel import train as pt_train
 from skypilot_tpu_torch.recipes import train_lm
 from skypilot_tpu_torch.robustness import faults, train_guard
 from skypilot_tpu_torch.utils import timeline
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CHAOS_PLAN = ROOT / 'examples' / 'fault_plans' / 'train_guard_chaos.json'
